@@ -1,0 +1,31 @@
+"""skrample-tpu-torch: the PyTorch/CUDA port of skrample-tpu.
+
+The same layer map as the JAX package, module for module, importing
+``torch`` and ``numpy`` and never ``jax``:
+
+  common      — value types + polymorphic scalar math (a copy of the JAX
+                package's host layer, kept bit-exact)
+  scheduling  — float64 host-side schedule stack
+  sampling    — predictor algebra and the structured solvers
+  ops         — the device engine: coefficient-table compiler, the fused
+                step (K1), the step loop, fused adaLN (K3) and fused-qkv
+                attention (K2), each kernel hand-written in ``csrc/``
+  models      — the DiT as an ``nn.Module``
+  serving     — the dynamic-batching engine; ``server`` its HTTP front-end
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+from . import common, scheduling
+from .common import DeltaPoint, MergeStrategy, Point, Step
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DeltaPoint",
+    "MergeStrategy",
+    "Point",
+    "Step",
+    "common",
+    "scheduling",
+]

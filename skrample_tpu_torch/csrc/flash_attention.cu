@@ -1,0 +1,320 @@
+// K2: attention straight off the fused qkv projection,
+// out[b, n, h*d:(h+1)*d] = softmax(q_h k_h^T / sqrt(d)) v_h, unmasked.
+//
+// Replaces: skrample_tpu/ops/flash_attention.py, flash_attention_qkv_forward
+// (kernel bodies _softmax_kernel, which runs at the serving slice's shape
+// because one TPU tile holds a whole 1024-wide score row, and _flash_kernel
+// for longer rows).  Like the TPU kernel it reads q, k and v IN PLACE from
+// the packed (B, N, 3*H*d) qkv tensor, at feature offsets h*d, H*d + h*d and
+// 2*H*d + h*d, and writes the packed (B, N, H*d) layout the output
+// projection wants: no split copies, no head transposes.
+//
+// What bounds it on the H100: operations.  4*B*H*N^2*d flops against
+// (3 + 1)*B*N*H*d*2 bytes: at B 4, H 4, N 1024, d 128 that is 8.6 GFLOP
+// (8.7 us at 989 TFLOP/s bf16) against 16.8 MB (5.0 us at 3.35 TB/s).
+//
+// What the design does about it (a FlashAttention-2-style forward, not a
+// port of the TPU's full-row tile, which would need 4 MB of scores per
+// (b, h) where a Hopper block has 227 KB of shared memory):
+// * one block per (64-row query tile, head, batch item), 4 warps, each warp
+//   owning 16 query rows; the score matrix never leaves registers;
+// * tensor cores through mma.sync m16n8k16 with f32 accumulators; operands
+//   come from shared memory by ldmatrix (transposed for V), P is re-packed
+//   from the score accumulators into A fragments without touching memory;
+// * K/V tiles of 64 keys are double-buffered with cp.async, so the next
+//   tile streams in while the current one is multiplied; rows are padded
+//   by 16 bytes so every ldmatrix is free of bank conflicts;
+// * online softmax in registers in the log2 domain (exp2 of s*scale*log2e,
+//   the TPU kernel's trick), with the division by the row sum done once at
+//   the end on the (16, d) output instead of on the (16, N) probabilities.
+// wgmma and TMA, which Hopper's full rate needs, are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockQ = 64;  // query rows per block
+constexpr int kBlockK = 64;  // keys per K/V tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;  // elements of row padding (16 bytes)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16> {
+    // d += a * b: a 16x16 (row), b 16x8 (col), d 16x8 f32
+    __device__ static void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+    __device__ static uint32_t pack(float lo, float hi) {
+        __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+        return *reinterpret_cast<uint32_t*>(&v);
+    }
+};
+
+template <>
+struct Mma<__half> {
+    __device__ static void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+            "{%0, %1, %2, %3};\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+    __device__ static uint32_t pack(float lo, float hi) {
+        __half2 v = __floats2half2_rn(lo, hi);
+        return *reinterpret_cast<uint32_t*>(&v);
+    }
+};
+
+template <int D>
+struct Layout {
+    static constexpr int kStride = D + kPad;         // smem row stride in elements
+    static constexpr int kTile = kBlockQ * kStride;  // elements per 64-row tile
+    // Q tile, then two stages of (K tile, V tile)
+    template <typename T>
+    static constexpr int bytes() {
+        return 5 * kTile * (int)sizeof(T);
+    }
+};
+
+// Copy rows [row0, row0 + 64) of one head's d-wide slice into a padded tile.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, long long row_stride, int tid) {
+    constexpr int kPerRow = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
+    constexpr int kChunks = kBlockQ * kPerRow;
+    static_assert(kChunks % kThreads == 0, "tile chunks must split evenly over the block");
+#pragma unroll
+    for (int i = 0; i < kChunks / kThreads; ++i) {
+        const int c = tid + i * kThreads;
+        const int r = c / kPerRow;
+        const int col = (c % kPerRow) * (16 / (int)sizeof(T));
+        cp_async16(dst + r * Layout<D>::kStride + col, src + (long long)(row0 + r) * row_stride + col);
+    }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H, float scale_log2) {
+    constexpr int kStride = Layout<D>::kStride;
+    constexpr int kTile = Layout<D>::kTile;
+    constexpr int kSteps = D / 16;     // k-steps of the score product
+    constexpr int kOutTiles = D / 8;   // n-tiles of the output
+    constexpr int kKeyTiles = kBlockK / 8;
+
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* s_q = reinterpret_cast<T*>(smem_raw);
+
+    const int qtile = blockIdx.x;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int tid = threadIdx.x;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int gid = lane / 4;  // row within the mma fragment
+    const int tig = lane % 4;  // column pair within the mma fragment
+
+    const int width = H * D;
+    const long long row_stride = 3LL * width;
+    const T* base = qkv + (long long)b * N * row_stride;
+    const T* g_q = base + h * D;
+    const T* g_k = base + width + h * D;
+    const T* g_v = base + 2 * width + h * D;
+    const int q0 = qtile * kBlockQ;
+
+    load_tile<T, D>(s_q, g_q, q0, row_stride, tid);
+    load_tile<T, D>(s_q + kTile, g_k, 0, row_stride, tid);
+    load_tile<T, D>(s_q + 2 * kTile, g_v, 0, row_stride, tid);
+    cp_async_commit();
+
+    uint32_t q_frag[kSteps][4];
+    float o[kOutTiles][4];
+#pragma unroll
+    for (int t = 0; t < kOutTiles; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
+    const float neg_inf = __int_as_float(0xff800000);
+    float m_run[2] = {neg_inf, neg_inf};  // running max (log2 units), rows gid and gid + 8
+    float l_run[2] = {0.f, 0.f};          // this thread's share of the running row sums
+
+    const int n_tiles = N / kBlockK;
+    for (int j = 0; j < n_tiles; ++j) {
+        const int stage = j & 1;
+        T* s_k = s_q + (1 + 2 * stage) * kTile;
+        T* s_v = s_k + kTile;
+        if (j + 1 < n_tiles) {
+            T* next_k = s_q + (1 + 2 * (stage ^ 1)) * kTile;
+            load_tile<T, D>(next_k, g_k, (j + 1) * kBlockK, row_stride, tid);
+            load_tile<T, D>(next_k + kTile, g_v, (j + 1) * kBlockK, row_stride, tid);
+            cp_async_commit();
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+
+        if (j == 0) {
+            // this warp's 16 query rows as A fragments, kept in registers
+#pragma unroll
+            for (int kk = 0; kk < kSteps; ++kk) {
+                ldmatrix_x4(q_frag[kk], s_q + (warp * 16 + (lane % 16)) * kStride + kk * 16 + (lane / 16) * 8);
+            }
+        }
+
+        // scores S = Q K^T for 16 rows x 64 keys
+        float s[kKeyTiles][4];
+#pragma unroll
+        for (int t = 0; t < kKeyTiles; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+            for (int t = 0; t < kKeyTiles; t += 2) {
+                // matrices: (keys t, d lo), (keys t, d hi), (keys t+1, d lo), (keys t+1, d hi)
+                const int mi = lane / 8;
+                uint32_t kf[4];
+                ldmatrix_x4(kf, s_k + (t * 8 + (mi / 2) * 8 + (lane % 8)) * kStride + kk * 16 + (mi % 2) * 8);
+                Mma<T>::run(s[t], q_frag[kk], kf[0], kf[1]);
+                Mma<T>::run(s[t + 1], q_frag[kk], kf[2], kf[3]);
+            }
+        }
+
+        // online softmax over this tile (log2 domain)
+        float tile_max[2] = {neg_inf, neg_inf};
+#pragma unroll
+        for (int t = 0; t < kKeyTiles; ++t) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[t][e] *= scale_log2;
+            tile_max[0] = fmaxf(tile_max[0], fmaxf(s[t][0], s[t][1]));
+            tile_max[1] = fmaxf(tile_max[1], fmaxf(s[t][2], s[t][3]));
+        }
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 1));
+            tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 2));
+            const float m_new = fmaxf(m_run[i], tile_max[i]);
+            alpha[i] = exp2f(m_run[i] - m_new);
+            m_run[i] = m_new;
+        }
+        float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int t = 0; t < kKeyTiles; ++t) {
+            s[t][0] = exp2f(s[t][0] - m_run[0]);
+            s[t][1] = exp2f(s[t][1] - m_run[0]);
+            s[t][2] = exp2f(s[t][2] - m_run[1]);
+            s[t][3] = exp2f(s[t][3] - m_run[1]);
+            row_sum[0] += s[t][0] + s[t][1];
+            row_sum[1] += s[t][2] + s[t][3];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + row_sum[i];
+#pragma unroll
+        for (int t = 0; t < kOutTiles; ++t) {
+            o[t][0] *= alpha[0];
+            o[t][1] *= alpha[0];
+            o[t][2] *= alpha[1];
+            o[t][3] *= alpha[1];
+        }
+
+        // O += P V, P re-packed from the score accumulators
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk) {
+            uint32_t p_frag[4];
+            p_frag[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
+            p_frag[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
+            p_frag[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+            p_frag[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+            for (int t = 0; t < kOutTiles; t += 2) {
+                // transposed matrices: (keys lo, d t), (keys hi, d t), (keys lo, d t+1), (keys hi, d t+1)
+                const int mi = lane / 8;
+                uint32_t vf[4];
+                ldmatrix_x4_trans(vf, s_v + (kk * 16 + (mi % 2) * 8 + (lane % 8)) * kStride + t * 8 + (mi / 2) * 8);
+                Mma<T>::run(o[t], p_frag, vf[0], vf[1]);
+                Mma<T>::run(o[t + 1], p_frag, vf[2], vf[3]);
+            }
+        }
+        __syncthreads();  // this stage is refilled by the next iteration's prefetch
+    }
+
+    // lazy normalisation and store: rows gid and gid + 8 of this warp's 16
+    float l_row[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        float l = l_run[i];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        l_row[i] = l;
+    }
+    T* g_o = out + ((long long)b * N + q0 + warp * 16) * width + h * D;
+#pragma unroll
+    for (int t = 0; t < kOutTiles; ++t) {
+        const int col = t * 8 + tig * 2;
+        *reinterpret_cast<uint32_t*>(g_o + (long long)gid * width + col) =
+            Mma<T>::pack(o[t][0] / l_row[0], o[t][1] / l_row[0]);
+        *reinterpret_cast<uint32_t*>(g_o + (long long)(gid + 8) * width + col) =
+            Mma<T>::pack(o[t][2] / l_row[1], o[t][3] / l_row[1]);
+    }
+}
+
+template <typename T, int D>
+int launch(const void* qkv, void* out, int B, int N, int H, float scale_log2, cudaStream_t stream) {
+    constexpr int smem = Layout<D>::template bytes<T>();
+    static bool configured = false;
+    if (!configured) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(flash_qkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        configured = true;
+    }
+    const dim3 grid(N / kBlockQ, H, B);
+    flash_qkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out), N, H,
+                                                              scale_log2);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// qkv: (B, N, 3*H*d) contiguous; out: (B, N, H*d) contiguous; dtype 1 = bf16, 2 = fp16.
+extern "C" int skt_flash_attention_qkv(const void* qkv, void* out, int B, int N, int H, int d, int dtype,
+                                       float scale_log2, cudaStream_t stream) {
+    if (B < 1 || H < 1 || N < kBlockQ || N % kBlockQ || N % kBlockK) return (int)cudaErrorInvalidValue;
+    if (d != 128) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return launch<__nv_bfloat16, 128>(qkv, out, B, N, H, scale_log2, stream);
+    if (dtype == 2) return launch<__half, 128>(qkv, out, B, N, H, scale_log2, stream);
+    return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,298 @@
+"""A compact diffusion transformer (DiT) as a PyTorch module.
+
+The same network as the JAX package's ``models/dit.py``, parameter for
+parameter: master weights in float32, cast to ``compute_dtype`` at every
+matmul with the bias added in float32 before the cast, float32 layer norms
+through the fused adaLN op, and attention straight off the fused qkv
+projection.  :meth:`DiT.load_jax_params` carries a JAX parameter tree
+across, so both packages run the same weights.
+
+The sequence-parallel attentions (``"ring"``, ``"ulysses"``), pipelined
+apply, int8 serving trees and rematerialisation belong to later slices of
+the port and raise :class:`NotImplementedError` here.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Callable
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops._cuda import resolve_device
+from ..ops.adaln import adaln_modulate
+from ..ops.flash_attention import flash_attention_qkv
+
+_LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    patch: int = 2
+    channels: int = 4
+    dim: int = 384
+    depth: int = 6
+    heads: int = 6
+    mlp_ratio: int = 4
+    compute_dtype: torch.dtype = torch.bfloat16
+    attention: str = "full"
+    """``"full"`` (plain attention; the (N, N) scores hit device memory) or
+    ``"flash"`` (kernel K2 straight off the fused qkv projection, for
+    head_dim 128).  ``"ring"`` and ``"ulysses"`` are later slices."""
+    remat: bool | str = False
+    "Rematerialisation is a training feature; a later slice."
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w + b`` with ``w`` cast to ``dtype``, the bias added in float32,
+    the sum cast to ``dtype`` (the JAX package's ``_dense``).  The in-place
+    add of the float32 bias computes in float32 and rounds once to
+    ``dtype``, in one pass.  In a 16-bit dtype the product itself rounds to
+    that dtype before the bias add: PyTorch has no portable 16-bit matmul
+    with a float32 result."""
+    return F.linear(x, layer.weight.to(dtype)).add_(layer.bias)
+
+
+def _timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    "Sinusoidal features of the (continuous) timestep, ``[cos, sin]``."
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dim: int) -> torch.Tensor:
+    "Plain (B, H, N, d) attention with float32 scores, as the JAX DiT's ``'full'`` path."
+    attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    attn = torch.softmax(attn / math.sqrt(head_dim), dim=-1).to(q.dtype)
+    return torch.matmul(attn.float(), v.float()).to(q.dtype)
+
+
+class DiTBlock(nn.Module):
+    "One transformer block: adaLN-zero attention + MLP residuals."
+
+    def __init__(self, config: DiTConfig) -> None:
+        super().__init__()
+        c = config
+        self.config = c
+        self.qkv = nn.Linear(c.dim, 3 * c.dim, device="meta")
+        self.proj = nn.Linear(c.dim, c.dim, device="meta")
+        self.mlp_in = nn.Linear(c.dim, c.mlp_ratio * c.dim, device="meta")
+        self.mlp_out = nn.Linear(c.mlp_ratio * c.dim, c.dim, device="meta")
+        self.ada = nn.Linear(c.dim, 6 * c.dim, device="meta")
+
+    def forward(self, tokens: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        c = self.config
+        dtype = c.compute_dtype
+        B, N, _ = tokens.shape
+        mods = _dense(self.ada, temb, dtype)
+        # the JAX package's order: (shift, gate, scale) for attention, then MLP
+        s_attn, g_attn, sc_attn, s_mlp, g_mlp, sc_mlp = mods.chunk(6, dim=-1)
+
+        h = adaln_modulate(tokens, s_attn, sc_attn)
+        qkv = _dense(self.qkv, h, dtype)
+        if c.attention == "flash":
+            out = flash_attention_qkv(qkv, c.heads)
+        else:
+            q, k, v = (
+                part.reshape(B, N, c.heads, c.head_dim).transpose(1, 2) for part in qkv.chunk(3, dim=-1)
+            )
+            out = _full_attention(q, k, v, c.head_dim).transpose(1, 2).reshape(B, N, c.dim)
+        tokens = tokens + g_attn[:, None] * _dense(self.proj, out, dtype)
+
+        h = adaln_modulate(tokens, s_mlp, sc_mlp)
+        h = _dense(self.mlp_out, F.gelu(_dense(self.mlp_in, h, dtype), approximate="tanh"), dtype)
+        return tokens + g_mlp[:, None] * h
+
+
+class DiT(nn.Module):
+    """``DiT(config)(x, t)``: (B, C, H, W) latents and a (B,) or scalar
+    timestep -> a prediction of the latents' shape and dtype.
+
+    Built on ``device`` (CUDA unless the caller asks for the CPU) with the
+    JAX package's initialisation drawn from ``generator`` (a CPU generator;
+    seed 0 when omitted): normal weights scaled by ``1/sqrt(d_in)``, zero
+    biases, and zero ``ada``/``final_mod``/``final_out`` (adaLN-zero, so a
+    fresh model outputs exactly 0)."""
+
+    def __init__(
+        self,
+        config: DiTConfig = DiTConfig(),
+        mesh: Any = None,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        if config.attention in ("ring", "ulysses") or mesh is not None:
+            raise NotImplementedError(f"sequence-parallel attention ({config.attention!r}, mesh=) {_LATER}")
+        if config.attention not in ("full", "flash"):
+            raise ValueError(f"unknown attention kind {config.attention!r}")
+        if config.attention == "flash" and config.head_dim % 128:
+            raise NotImplementedError(f"attention='flash' at head_dim {config.head_dim} (transposed kernel) {_LATER}")
+        if config.remat:
+            raise NotImplementedError(f"remat {_LATER}")
+        self.config = c = config
+        device = resolve_device(device)
+        patch_dim = c.channels * c.patch * c.patch
+        self.patch_in = nn.Linear(patch_dim, c.dim, device="meta")
+        self.t_mlp1 = nn.Linear(256, c.dim, device="meta")
+        self.t_mlp2 = nn.Linear(c.dim, c.dim, device="meta")
+        self.final_mod = nn.Linear(c.dim, 2 * c.dim, device="meta")
+        self.final_out = nn.Linear(c.dim, patch_dim, device="meta")
+        self.blocks = nn.ModuleList(DiTBlock(c) for _ in range(c.depth))
+        self.to_empty(device=device)
+        self.reset_parameters(generator)
+
+    def _layers(self) -> list[tuple[str, nn.Linear]]:
+        "(name, layer) in the JAX tree's order, block layers as ``blocks.i.name``."
+        named = [(name, getattr(self, name)) for name in ("patch_in", "t_mlp1", "t_mlp2", "final_mod", "final_out")]
+        for i, block in enumerate(self.blocks):
+            named += [(f"blocks.{i}.{name}", getattr(block, name)) for name in _BLOCK_LAYERS]
+        return named
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        "The JAX package's initialisation (see the class docstring)."
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for name, layer in self._layers():
+            zero = name.split(".")[-1] in _ZERO_INIT
+            w = torch.randn(layer.in_features, layer.out_features, generator=generator) / math.sqrt(layer.in_features)
+            layer.weight.copy_(torch.zeros_like(w.T) if zero else w.T)
+            layer.bias.zero_()
+
+    @torch.no_grad()
+    def load_jax_params(self, tree: dict) -> DiT:
+        """Fill the module from the JAX package's parameter tree.
+
+        ``tree`` is laid out as ``skrample_tpu.models.dit.DiT.init`` returns
+        it, as numpy (or any array convertible with ``np.asarray``):
+        ``{"patch_in": {"w": (d_in, d_out), "b": (d_out,)}, ..., "blocks":
+        [{"qkv": ..., "proj": ..., "mlp_in": ..., "mlp_out": ..., "ada": ...}]}``.
+        A JAX ``w`` is ``(d_in, d_out)``; ``nn.Linear`` holds its transpose.
+        Every key must be consumed and every shape must match."""
+        expected = {"patch_in", "t_mlp1", "t_mlp2", "final_mod", "final_out", "blocks"}
+        if set(tree) != expected:
+            raise ValueError(f"DiT param tree keys {sorted(tree)} != {sorted(expected)}")
+        if len(tree["blocks"]) != len(self.blocks):
+            raise ValueError(f"param tree has {len(tree['blocks'])} blocks, model depth is {len(self.blocks)}")
+        for name, layer in self._layers():
+            entry: Any = tree
+            for part in name.split("."):
+                entry = entry[int(part)] if part.isdigit() else entry[part]
+            if "w_q" in entry:
+                raise NotImplementedError(f"int8 serving trees {_LATER}")
+            if set(entry) != {"w", "b"}:
+                raise ValueError(f"{name}: expected keys w, b; got {sorted(entry)}")
+            w = np.array(entry["w"], dtype=np.float32)  # a copy: jax hands out read-only buffers
+            b = np.array(entry["b"], dtype=np.float32)
+            if w.shape != (layer.in_features, layer.out_features) or b.shape != (layer.out_features,):
+                fits = f"{layer.in_features}->{layer.out_features}"
+                raise ValueError(f"{name}: w {w.shape} / b {b.shape} do not fit a {fits} layer")
+            layer.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+            layer.bias.copy_(torch.from_numpy(b))
+        return self
+
+    def patchify(self, x: torch.Tensor) -> torch.Tensor:
+        "(B, C, H, W) -> (B, N, patch_dim)"
+        c = self.config
+        B, C, H, W = x.shape
+        x = x.reshape(B, C, H // c.patch, c.patch, W // c.patch, c.patch)
+        x = x.permute(0, 2, 4, 1, 3, 5)
+        return x.reshape(B, (H // c.patch) * (W // c.patch), C * c.patch * c.patch)
+
+    def unpatchify(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        c = self.config
+        B = x.shape[0]
+        x = x.reshape(B, H // c.patch, W // c.patch, c.channels, c.patch, c.patch)
+        x = x.permute(0, 3, 1, 4, 2, 5)
+        return x.reshape(B, c.channels, H, W)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor | float) -> torch.Tensor:
+        "(B, C, H, W), (B,) or scalar timestep -> prediction of the same shape and dtype."
+        c = self.config
+        dtype = c.compute_dtype
+        B, _C, H, W = x.shape
+        t = torch.as_tensor(t, device=x.device)
+        if t.ndim == 0:
+            t = t.expand(B)
+
+        tokens = _dense(self.patch_in, self.patchify(x).to(dtype), dtype)
+        temb = _timestep_embedding(t, 256)
+        temb = _dense(self.t_mlp2, F.silu(_dense(self.t_mlp1, temb.to(dtype), dtype)), dtype)
+        temb = F.silu(temb)
+
+        for block in self.blocks:
+            tokens = block(tokens, temb)
+
+        shift, scale = _dense(self.final_mod, temb, dtype).chunk(2, dim=-1)
+        tokens = adaln_modulate(tokens, shift, scale)
+        out = _dense(self.final_out, tokens, dtype)
+        return self.unpatchify(out, H, W).to(x.dtype)
+
+    apply = forward
+
+    def apply_pipelined(self, *args: Any, **kwargs: Any) -> torch.Tensor:
+        raise NotImplementedError(f"pipeline-parallel apply {_LATER}")
+
+    def quantize_params(self, *args: Any, **kwargs: Any) -> dict:
+        raise NotImplementedError(f"int8 serving trees {_LATER}")
+
+    def param_spec(self, *args: Any, **kwargs: Any) -> dict:
+        raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
+
+    def as_sampleable(self) -> Callable[[torch.Tensor, Any, Any, Any], torch.Tensor]:
+        "Adapter to the sampling closure signature (x, t, sigma, alpha) -> pred."
+
+        def model_fn(x: torch.Tensor, t: Any, s: Any, a: Any) -> torch.Tensor:
+            return self(x, t)
+
+        return model_fn
+
+
+_BLOCK_LAYERS = ("qkv", "proj", "mlp_in", "mlp_out", "ada")
+_ZERO_INIT = frozenset({"ada", "final_mod", "final_out"})
+
+
+def random_param_tree(config: DiTConfig, seed: int) -> dict:
+    """A JAX-layout parameter tree with EVERY weight and bias drawn at random
+    from a numpy seed (normal weights scaled by ``1/sqrt(d_in)``, normal
+    biases scaled by 0.1).  The adaLN-zero initialisation makes a fresh model
+    output exactly 0, so parity checks between the packages and between a
+    kernel and its plain version draw all weights from this instead."""
+    rng = np.random.default_rng(seed)
+    c = config
+    patch_dim = c.channels * c.patch * c.patch
+
+    def dense(d_in: int, d_out: int) -> dict:
+        w = rng.standard_normal((d_in, d_out), dtype=np.float32) / np.float32(math.sqrt(d_in))
+        return {"w": w, "b": rng.standard_normal(d_out, dtype=np.float32) * np.float32(0.1)}
+
+    tree: dict = {
+        "patch_in": dense(patch_dim, c.dim),
+        "t_mlp1": dense(256, c.dim),
+        "t_mlp2": dense(c.dim, c.dim),
+        "final_mod": dense(c.dim, 2 * c.dim),
+        "final_out": dense(c.dim, patch_dim),
+        "blocks": [],
+    }
+    for _ in range(c.depth):
+        tree["blocks"].append(
+            {
+                "qkv": dense(c.dim, 3 * c.dim),
+                "proj": dense(c.dim, c.dim),
+                "mlp_in": dense(c.dim, c.mlp_ratio * c.dim),
+                "mlp_out": dense(c.mlp_ratio * c.dim, c.dim),
+                "ada": dense(c.dim, 6 * c.dim),
+            }
+        )
+    return tree

@@ -1,0 +1,268 @@
+"""Dynamic-batching serving runtime.
+
+Requests (seeds) arrive on a queue; a worker thread packs them into the
+smallest padded batch BUCKET, runs the denoise loop over the batch, and
+resolves each request's future with ITS SLICE of the batch output.  CUDA
+work is asynchronous: the worker enqueues a batch and moves on, and a
+caller waits only when it reads its own result back.
+
+**Batch-composition invariance.**  Every request's initial latent (and,
+for stochastic samplers, its per-step noise) comes from its own
+``torch.Generator(device).manual_seed(seed)``, drawn per request and
+stacked, never batch-wide: a request's latent does not depend on which
+strangers or padding it was packed with (up to the matmul reduction order
+the library picks for each batch size).  Padding items use a fixed seed.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections.abc import Callable
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from . import scheduling
+from .ops import CompiledDenoiser, compile_sampler
+from .ops._cuda import resolve_device
+from .sampling import models, structured
+
+_PAD_SEED = 0
+
+
+@dataclass
+class ServingStats:
+    requests: int = 0
+    batches: int = 0
+    padded_items: int = 0
+    "Dummy items dispatched to fill buckets (wasted model FLOPs)."
+    bucket_counts: dict[int, int] = field(default_factory=dict)
+
+    @property
+    def padding_fraction(self) -> float:
+        dispatched = sum(b * n for b, n in self.bucket_counts.items())
+        return self.padded_items / dispatched if dispatched else 0.0
+
+
+class ServingEngine:
+    """Queue -> bucketed batches -> denoise dispatches.
+
+    ``model_fn`` is the usual ``(x, t, sigma, alpha) -> prediction`` closure
+    accepting any leading batch size; ``item_shape`` is ONE request's latent
+    shape, without the batch axis.  Runs on ``device`` (CUDA unless the
+    caller asks for the CPU).
+
+    ``submit(seed)`` returns a future of the request's latent; ``generate``
+    is the blocking convenience.  Use as a context manager (or call
+    ``close()``) to join the worker."""
+
+    def __init__(
+        self,
+        model_fn: Callable,
+        item_shape: tuple[int, ...],
+        sampler: structured.StructuredSampler | None = None,
+        schedule: scheduling.SkrampleSchedule | None = None,
+        model_transform: models.DiffusionModel | None = None,
+        steps: int = 25,
+        dtype: torch.dtype = torch.float32,
+        buckets: tuple[int, ...] = (1, 2, 4, 8),
+        max_delay_ms: float = 2.0,
+        postprocess: Callable | None = None,
+        conditioned: bool = False,
+        mesh: Any | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        """``postprocess`` (optional): a batch -> batch function applied to
+        every denoised batch before request slices are handed out (e.g. a
+        VAE decode to serve pixels instead of latents).
+
+        ``conditioned=True`` declares a 5-argument ``model_fn``
+        ``(x, t, sigma, alpha, context)`` and unlocks per-request
+        ``submit(..., context=...)``: each leaf of the contexts is stacked
+        across the batch.  Requests without a context group separately.
+
+        ``mesh`` (data-parallel serving) belongs to a later slice."""
+        if mesh is not None:
+            raise NotImplementedError("multi-device serving (mesh=) comes with a later slice of the port")
+        self.device = resolve_device(device)
+        self.model_fn = model_fn
+        self.item_shape = tuple(item_shape)
+        self.steps = steps
+        self.dtype = dtype
+        self.buckets = tuple(sorted(buckets))
+        self.max_delay_s = max_delay_ms / 1e3
+        self.conditioned = conditioned
+        self.stats = ServingStats()
+
+        self._postprocess = postprocess
+        self._sampler = sampler if sampler is not None else structured.DPM(order=2)
+        self._schedule = schedule if schedule is not None else scheduling.FlowShift(scheduling.Linear())
+        self._transform = model_transform if model_transform is not None else models.FlowModel()
+        self._denoisers: dict[int, CompiledDenoiser] = {}
+        self._denoiser_for(0)  # compile the txt2img tables eagerly
+        self._queue: queue.Queue = queue.Queue()
+        self._closed = False
+        self._worker = threading.Thread(target=self._loop, name="skrample-serving", daemon=True)
+        self._worker.start()
+
+    # -- request side --------------------------------------------------
+
+    def submit(
+        self,
+        seed: int,
+        initial: torch.Tensor | None = None,
+        strength: float = 1.0,
+        context: Any = None,
+    ) -> Future:
+        """Enqueue one request; the future resolves to its (item_shape) latent.
+
+        txt2img by default; pass ``initial`` (an item_shape latent) plus
+        ``strength`` in (0, 1] for img2img: the trajectory starts at
+        ``round(steps * (1 - strength))`` with ``initial`` noised to that
+        point.  ``context`` (conditioned engines only): this request's
+        conditioning, a tensor or a tuple/list/dict of tensors, without the
+        batch axis."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        if context is not None and not self.conditioned:
+            raise ValueError("context= needs ServingEngine(conditioned=True) and a 5-arg model_fn")
+        if not isinstance(seed, int) or isinstance(seed, bool):
+            raise TypeError(f"seed must be an int, got {type(seed).__name__}")
+        start = 0 if initial is None else min(round(self.steps * (1 - strength)), self.steps - 1)
+        fut: Future = Future()
+        self._queue.put((seed, initial, start, context, fut))
+        return fut
+
+    def generate(
+        self,
+        seed: int,
+        initial: torch.Tensor | None = None,
+        strength: float = 1.0,
+        context: Any = None,
+    ) -> torch.Tensor:
+        return self.submit(seed, initial, strength, context).result()
+
+    def close(self) -> None:
+        if not self._closed:
+            self._closed = True
+            self._queue.put(None)
+            self._worker.join()
+
+    def __enter__(self) -> ServingEngine:
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self.close()
+
+    # -- worker side -----------------------------------------------------
+
+    def _denoiser_for(self, start: int) -> CompiledDenoiser:
+        d = self._denoisers.get(start)
+        if d is None:
+            compiled = compile_sampler(self._sampler, self._schedule, self._transform, self.steps, start=start)
+            d = self._denoisers[start] = CompiledDenoiser.build(compiled, dtype=self.dtype, device=self.device)
+        return d
+
+    def prepare(self, seed: int, initial: torch.Tensor | None = None, start: int = 0) -> tuple[Any, Any]:
+        """One request's ``(x0, noises)`` from its own generator: x0 first,
+        then (stochastic samplers only) the ``(steps, *item_shape)`` noise
+        buffer.  img2img noises ``initial`` to the entry point with the same
+        draw (the ``GenerationPipeline.generate`` recipe)."""
+        gen = torch.Generator(self.device).manual_seed(seed)
+        draw = torch.randn(self.item_shape, generator=gen, dtype=self.dtype, device=self.device)
+        if initial is None:
+            x0 = draw
+        else:
+            entry = self._schedule.ipoint(start / self.steps)
+            denom = self._schedule.point_1.add_noise(0.0, 1.0)
+            x0 = entry.add_noise(torch.as_tensor(initial, device=self.device).to(self.dtype), draw) / denom
+        noises = None
+        if self._denoiser_for(start).requires_noise:
+            noises = torch.randn((self.steps, *self.item_shape), generator=gen, dtype=self.dtype, device=self.device)
+        return x0, noises
+
+    def _collect(self) -> list | None:
+        "Block for one request, then sweep up to the largest bucket within the delay."
+        first = self._queue.get()
+        if first is None:
+            return None
+        batch = [first]
+        while len(batch) < self.buckets[-1]:
+            try:
+                item = self._queue.get(timeout=self.max_delay_s)
+            except queue.Empty:
+                break
+            if item is None:
+                self._queue.put(None)  # re-post the sentinel for the outer loop
+                break
+            batch.append(item)
+        return batch
+
+    def _loop(self) -> None:
+        while True:
+            batch = self._collect()
+            if batch is None:
+                return
+            # group by (entry point, mode, conditioned): each start index has
+            # its own tables, txt2img/img2img seed differently, and context
+            # presence changes the model call
+            groups: dict[tuple[int, bool, bool], list] = {}
+            for item in batch:
+                _seed, initial, start, context, fut = item
+                if not fut.set_running_or_notify_cancel():
+                    continue
+                groups.setdefault((start, initial is None, context is None), []).append(item)
+            for (start, *_), group in groups.items():
+                try:
+                    with torch.inference_mode():
+                        self._dispatch(group, start)
+                except Exception as err:  # shape/launch errors: fail the group, keep serving
+                    for *_, fut in group:
+                        if not fut.done():
+                            fut.set_exception(err)
+
+    def _dispatch(self, batch: list, start: int) -> None:
+        n = len(batch)
+        bucket = next(b for b in self.buckets if b >= n) if n <= self.buckets[-1] else self.buckets[-1]
+        items = [(seed, initial) for seed, initial, *_ in batch]
+        items += [(_PAD_SEED, items[0][1])] * (bucket - n)  # pad with deterministic dummies
+        prepared = [self.prepare(seed, initial, start) for seed, initial in items]
+        x0 = torch.stack([x for x, _ in prepared])
+        denoiser = self._denoiser_for(start)
+        noises = None
+        if denoiser.requires_noise:
+            noises = torch.stack([z for _, z in prepared], dim=1)  # (steps, B, *item)
+
+        model_fn = self.model_fn
+        if batch[0][3] is not None:
+            contexts = [context for *_, context, _ in batch]
+            contexts += [contexts[0]] * (bucket - n)
+            ctx = _stack_tree(contexts, self.dtype, self.device)
+            model_fn = lambda x, t, s, a: self.model_fn(x, t, s, a, ctx)  # noqa: E731
+        elif self.conditioned:
+            model_fn = lambda x, t, s, a: self.model_fn(x, t, s, a, None)  # noqa: E731
+
+        out = denoiser.run(model_fn, x0, noises=noises, start=start)
+        if self._postprocess is not None:
+            out = self._postprocess(out)
+
+        # stats first: a caller woken by its future may read them at once
+        self.stats.requests += n
+        self.stats.batches += 1
+        self.stats.padded_items += bucket - n
+        self.stats.bucket_counts[bucket] = self.stats.bucket_counts.get(bucket, 0) + 1
+        for i, (*_, fut) in enumerate(batch):
+            fut.set_result(out[i])
+
+
+def _stack_tree(trees: list, dtype: torch.dtype, device: torch.device) -> Any:
+    "Stack matching leaves of per-request context trees (tensor, tuple/list or dict) along a new batch axis."
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_tree([t[k] for t in trees], dtype, device) for k in first}
+    if isinstance(first, tuple | list):
+        return type(first)(_stack_tree(list(leaves), dtype, device) for leaves in zip(*trees, strict=True))
+    return torch.stack([torch.as_tensor(t, device=device) for t in trees]).to(dtype)
