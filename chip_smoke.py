@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; one CUDA device, nvcc
 
@@ -8,14 +8,23 @@ Phases, each failing the run with a non-zero exit:
 1. device: the card's name, count, power limit; build the hand-written
    kernels from ``skrample_tpu_torch/csrc`` (printing ``-Xptxas -v``);
 2. kernels: each kernel against its plain PyTorch version on the card at the
-   serving slice's shapes, with CUDA-event times of the kernel, the plain
-   version and, where one PyTorch call computes the same function, that call;
-3. the slice: a ``ServingEngine`` over a DiT-512/8 (heads 4, bf16, random
-   weights from a numpy seed), 25-step DPM++2M / FlowShift(Linear), buckets
-   (1, 2, 4), answering 6 requests (4 together, then 2); the launch counters
-   must show every kernel on that path; outputs must be finite, invariant to
-   packing, and agree with the same request run through the plain versions;
-   then request latency and images per second.
+   shapes its path gives it (K1-K3 serving, K4-K6 training), with card times
+   of the kernel, the plain version and, where one PyTorch call computes the
+   same function, that call;
+3. the serving slice: a ``ServingEngine`` over a DiT-512/8 (heads 4, bf16,
+   random weights from a numpy seed), 25-step DPM++2M / FlowShift(Linear),
+   buckets (1, 2, 4), answering 6 requests (4 together, then 2); the launch
+   counters must show every kernel on that path; outputs must be finite,
+   invariant to packing, and agree with the same request run through the
+   plain versions; then request latency and images per second;
+4. the training slice: the same DiT trained by ``training.train_step``
+   (flow matching, AdamW, EMA) on batches of 4 latents of 4x64x64, 3 warm-up
+   steps and 20 timed ones; exact launch counts per step; finite loss and
+   grads, parameters and EMA moved; one step's loss and every gradient
+   against the same step through the plain versions; an ``.npz`` round trip
+   of the trained parameters; the median step time, the peak memory, and
+   the card's time by kernel group over 3 traced steps (which must show
+   both K5 kernels once per block and step).
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -25,9 +34,13 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -42,6 +55,8 @@ PEAK_F32_FLOPS = 67e12
 STEPS = 25
 DEPTH = 8
 SEEDS = (11, 12, 13, 14, 15, 16)
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -257,6 +272,8 @@ def kernels_phase() -> dict[str, dict]:
             args = (x, shift, scale)
             timed(rows["adaln_forward"], "ms", lambda args=args: adaln.adaln_forward(*args))
             timed(rows["adaln_forward"], "plain_ms", lambda args=args: adaln.adaln_reference(*args))
+
+    rows.update(training_kernels(gen))
     for row in rows.values():
         library = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
         print(
@@ -268,22 +285,149 @@ def kernels_phase() -> dict[str, dict]:
     return rows
 
 
-def _counters() -> dict[str, int]:
+def training_kernels(gen) -> dict[str, dict]:
+    "K4-K6 against their plain versions at the training slice's shapes; times and bounds."
+    import torch
+
+    from skrample_tpu_torch.ops import adaln, flash_attention
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict] = {}
+    B, N, H, d, D = 4, 1024, 4, 128, 512
+    aten = torch.ops.aten
+
+    # ---- K4: the logsumexp forward, bf16 qkv (4, 1024, 1536) ----
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, H)
+    ref_o, ref_lse = flash_attention._qkv_reference_lse(qkv, H)
+    q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+    lib_fwd = aten._scaled_dot_product_flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err, lse_err = max_err(o, ref_o), max_err(lse, ref_lse)
+    same_as_k2 = torch.equal(o, flash_attention.flash_attention_qkv_forward(qkv, H))
+    o_tol, lse_tol = 5e-3, 1e-3
+    print(
+        f"K4 flash_attention_qkv_forward_lse bf16 {tuple(qkv.shape)}: o max_abs_err {err:.3e} (tolerance "
+        f"{o_tol:.0e}, as K2), lse max_abs_err {lse_err:.3e} (tolerance {lse_tol:.0e}: f32 statistics in another "
+        f"order, hardware exp2); identical to K2's output: {same_as_k2}; "
+        f"library lse vs plain {max_err(lib_fwd[1], ref_lse[..., 0]):.3e}"
+    )
+    ok = bool(torch.isfinite(o).all()) and err <= o_tol and lse_err <= lse_tol
+    expect(ok, f"K4 disagrees with the plain attention: o {err} > {o_tol} or lse {lse_err} > {lse_tol}")
+    b_ms, b_by = bound_ms((qkv.numel() + o.numel()) * 2 + lse.numel() * 4, 4 * B * H * N * N * d, PEAK_BF16_FLOPS)
+    row = rows["flash_attention_qkv_forward_lse"] = {
+        "name": "flash_attention_qkv_forward_lse",
+        "route": "cuda",
+        "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "skrample_tpu/ops/flash_attention.py:419",
+        "max_abs_err": max(err, lse_err),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+    timed(row, "ms", lambda: flash_attention.flash_attention_qkv_forward_lse(qkv, H))
+    timed(row, "plain_ms", lambda: flash_attention._qkv_reference_lse(qkv, H))
+    timed(row, "library_ms", lambda: aten._scaled_dot_product_flash_attention(q, k, v))
+
+    # ---- K5: the backward, from K4's o and lse and a bf16 output gradient ----
+    g = torch.randn((B, N, H * d), generator=gen, device=dev).to(torch.bfloat16)
+    got = flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, H)
+    ref = flash_attention._qkv_backward_reference(qkv, o, lse, g, H)
+    lib_args = (
+        g.view(B, N, H, d).transpose(1, 2), q, k, v, lib_fwd[0], lib_fwd[1], *lib_fwd[2:6], 0.0, False, *lib_fwd[6:8]
+    )
+    lib_grads = aten._scaled_dot_product_flash_attention_backward(*lib_args)
+    torch.cuda.synchronize()
+    rel_tol = 2e-2
+    errs = []
+    # dq comes from one kernel, dk and dv from the other: each third is checked on its own
+    for label, part, want, lib_part in zip(("dq", "dk", "dv"), got.chunk(3, -1), ref.chunk(3, -1), lib_grads):
+        scale = want.float().abs().max().item()
+        e = max_err(part, want)
+        errs.append(e)
+        lib_e = max_err(lib_part.transpose(1, 2).reshape(B, N, H * d), want)
+        print(
+            f"K5 flash_attention_qkv_backward {label}: max_abs_err {e:.3e} (tolerance {rel_tol:.0e} x max|ref| "
+            f"{scale:.3e}: 16-bit outputs, P and dS round to bf16 from f32 sums in another order); library vs plain "
+            f"{lib_e:.3e}"
+        )
+        ok = bool(torch.isfinite(part).all()) and scale > 0 and e <= rel_tol * scale
+        expect(ok, f"K5 {label} disagrees with the plain backward: {e} > {rel_tol} x {scale}")
+    # the function's least work is 10 B H N^2 d; the dq/dkv split does 14 (S and dP twice)
+    n_bytes = (qkv.numel() + o.numel() + g.numel() + got.numel()) * 2 + lse.numel() * 4
+    b_ms, b_by = bound_ms(n_bytes, 10 * B * H * N * N * d, PEAK_BF16_FLOPS)
+    row = rows["flash_attention_qkv_backward"] = {
+        "name": "flash_attention_qkv_backward",
+        "route": "cuda",
+        "source": "skrample_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "skrample_tpu/ops/flash_attention.py:524",
+        "max_abs_err": max(errs),
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+    timed(row, "ms", lambda: flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, H))
+    timed(row, "plain_ms", lambda: flash_attention._qkv_backward_reference(qkv, o, lse, g, H))
+    timed(row, "library_ms", lambda: aten._scaled_dot_product_flash_attention_backward(*lib_args))
+
+    # ---- K6: the adaLN backward, (4, 1024, 512), scale a column chunk of the modulation matrix ----
+    for dtype, dx_rel in ((torch.bfloat16, 2**-7), (torch.float32, 1e-4)):
+        x = (torch.randn((B, N, D), generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        gx = torch.randn((B, N, D), generator=gen, device=dev).to(dtype)
+        mods = torch.randn((B, 6 * D), generator=gen, device=dev).to(dtype)
+        scale = mods[:, 2 * D : 3 * D]
+        got = adaln.adaln_backward(x, gx, scale)
+        ref = adaln.adaln_backward_reference(x, gx, scale)
+        again = adaln.adaln_backward(x, gx, scale)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = []
+        for label, mine, want, rel in zip(("dx", "dshift", "dscale"), got, ref, (dx_rel, 1e-4, 1e-4)):
+            e = max_err(mine, want)
+            tol = rel * want.float().abs().max().item()
+            errs.append(e)
+            print(f"K6 adaln_backward {dtype} {tuple(x.shape)} {label}: max_abs_err {e:.3e} (tolerance {tol:.3e})")
+            expect(bool(torch.isfinite(mine).all()) and e <= tol, f"K6 {dtype} {label} disagrees: {e} > {tol}")
+        print(f"K6 adaln_backward {dtype}: a second run gives the same bits: {same}")
+        expect(same, "K6 is not deterministic")
+        if dtype == torch.bfloat16:
+            n_bytes = 3 * x.numel() * 2 + B * D * 2 + 2 * B * D * 4
+            b_ms, b_by = bound_ms(n_bytes, 20 * x.numel(), PEAK_F32_FLOPS)
+            row = rows["adaln_backward"] = {
+                "name": "adaln_backward",
+                "route": "cuda",
+                "source": "skrample_tpu_torch/csrc/adaln.cu",
+                "replaces": "skrample_tpu/ops/adaln.py:121",
+                "max_abs_err": max(errs),
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": None,
+            }
+            args = (x, gx, scale)
+            timed(row, "ms", lambda args=args: adaln.adaln_backward(*args))
+            timed(row, "plain_ms", lambda args=args: adaln.adaln_backward_reference(*args))
+    return rows
+
+
+def _wrappers() -> dict:
+    "Every kernel wrapper, by the name its row carries."
     from skrample_tpu_torch.ops import adaln, flash_attention, fused
 
     return {
-        "fused_step_cuda": fused.fused_step_cuda.launches,
-        "flash_attention_qkv_forward": flash_attention.flash_attention_qkv_forward.launches,
-        "adaln_forward": adaln.adaln_forward.launches,
+        "fused_step_cuda": fused.fused_step_cuda,
+        "flash_attention_qkv_forward": flash_attention.flash_attention_qkv_forward,
+        "adaln_forward": adaln.adaln_forward,
+        "flash_attention_qkv_forward_lse": flash_attention.flash_attention_qkv_forward_lse,
+        "flash_attention_qkv_backward": flash_attention.flash_attention_qkv_backward,
+        "adaln_backward": adaln.adaln_backward,
     }
 
 
-def _reset_counters() -> None:
-    from skrample_tpu_torch.ops import adaln, flash_attention, fused
+def _counters() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
-    fused.fused_step_cuda.launches = 0
-    flash_attention.flash_attention_qkv_forward.launches = 0
-    adaln.adaln_forward.launches = 0
+
+def _reset_counters() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _relative(a, b) -> float:
@@ -308,6 +452,9 @@ def slice_phase(card: str) -> dict[str, int]:
         "fused_step_cuda": STEPS,
         "flash_attention_qkv_forward": DEPTH * STEPS,
         "adaln_forward": (2 * DEPTH + 1) * STEPS,
+        "flash_attention_qkv_forward_lse": 0,
+        "flash_attention_qkv_backward": 0,
+        "adaln_backward": 0,
     }
     item_shape = (4, 64, 64)
 
@@ -390,6 +537,182 @@ def slice_phase(card: str) -> dict[str, int]:
     return launches
 
 
+def _relative_fro(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+TRAIN_GROUPS = (
+    ("K3 adaln", ("adaln_kernel",)),
+    ("K4 flash_qkv_lse", ("flash_qkv_kernel",)),
+    ("K5 dq kernel", ("flash_bwd_dq_kernel",)),
+    ("K5 dkv kernel", ("flash_bwd_dkv_kernel",)),
+    ("K6 adaln_bwd", ("adaln_bwd_kernel", "adaln_bwd_reduce_kernel")),
+    ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
+    ("AdamW + EMA", ("multi_tensor_apply",)),
+)
+
+
+def _train_group(kernel: str) -> str:
+    lowered = kernel.lower()
+    for label, needles in TRAIN_GROUPS:
+        if any(n in lowered for n in needles):
+            return label
+    return "other"
+
+
+def training_phase(card: str) -> dict[str, int]:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skrample_tpu_torch import training
+    from skrample_tpu_torch.models.checkpoint import load_params, save_params
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.ema import ema_init
+    from skrample_tpu_torch.ops import adaln, flash_attention
+
+    dev = torch.device("cuda")
+    config = DiTConfig(
+        dim=512, depth=DEPTH, heads=4, patch=2, channels=4, compute_dtype=torch.bfloat16, attention="flash"
+    )
+    tree = random_param_tree(config, seed=0)
+    model = DiT(config, device=dev).load_jax_params(tree)
+    opt = training.make_optimizer(model)
+    ema = ema_init(model)
+    data = training.synthetic_dataset(64, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [training.draw_batch(data, 4, gen) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    per_step = {
+        "fused_step_cuda": 0,
+        "flash_attention_qkv_forward": 0,
+        "adaln_forward": 2 * DEPTH + 1,
+        "flash_attention_qkv_forward_lse": DEPTH,
+        "flash_attention_qkv_backward": DEPTH,
+        "adaln_backward": 2 * DEPTH + 1,
+    }
+
+    for step in range(TRAIN_WARMUP):
+        training.train_step(model, opt, ema, *batches[step], step=step)
+    torch.cuda.synchronize()
+    params_before = [p.detach().clone() for p in model.parameters()]
+    ema_before = [e.clone() for e in ema.values()]
+
+    # ---- the main path: 20 steps, counters from 0 ----
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    times, losses = [], []
+    for step in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(training.train_step(model, opt, ema, *batches[step], step=step))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train: launches {launches} over {TRAIN_STEPS} steps (per step expected {per_step})")
+    for name, count in launches.items():
+        want = per_step[name] * TRAIN_STEPS
+        expect(count == want, f"train: {name} launched {count} times, expected {want}")
+    losses = torch.stack(losses).tolist()
+    print(f"train: loss {losses[0]:.4f} -> {losses[-1]:.4f} over the timed steps")
+    expect(all(map(math.isfinite, losses)), f"train: non-finite loss {losses}")
+    expect(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()), "train: non-finite gradient")
+    moved = sum(not torch.equal(a, p) for a, p in zip(params_before, model.parameters()))
+    ema_moved = sum(not torch.equal(a, e) for a, e in zip(ema_before, ema.values()))
+    n_params = len(params_before)
+    print(f"train: {moved} of {n_params} parameter tensors moved, {ema_moved} of {n_params} EMA tensors moved")
+    expect(moved == n_params and ema_moved == n_params, "train: parameters or EMA did not move")
+    print(
+        f"train: step time median {statistics.median(times) * 1e3:.2f} ms (min {min(times) * 1e3:.2f}, max "
+        f"{max(times) * 1e3:.2f}; {TRAIN_STEPS} steps, batch 4 of 4x64x64, DiT-512/8 bf16; {card})"
+    )
+    print(f"train: peak device memory {peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated; {card})")
+
+    # ---- where a step's card time goes: 3 more steps under torch.profiler ----
+    traced = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for i in range(traced):
+            step = TRAIN_WARMUP + TRAIN_STEPS + i
+            training.train_step(model, opt, ema, *batches[i], step=step)
+        torch.cuda.synchronize()
+    card_ms: dict[str, float] = {}
+    card_launches: dict[str, int] = {}
+    others: dict[str, float] = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0.0)
+        # a user annotation on the card's timeline (AdamW's "Optimizer.step") spans kernels counted already
+        if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0 and not evt.is_user_annotation:
+            label = _train_group(evt.key)
+            card_ms[label] = card_ms.get(label, 0.0) + dev_us / 1e3 / traced
+            card_launches[label] = card_launches.get(label, 0) + evt.count
+            if label == "other":
+                others[evt.key[:100]] = others.get(evt.key[:100], 0.0) + dev_us / 1e3 / traced
+    busy = sum(card_ms.values())
+    median = statistics.median(times) * 1e3
+    for label in sorted(card_ms, key=card_ms.get, reverse=True):
+        per_step_launches = card_launches[label] / traced
+        print(f"train profile: {label:>16} {card_ms[label]:8.3f} ms/step on the card, {per_step_launches:g} launches/step")
+    print(
+        f"train profile: card busy {busy:.3f} ms of the {median:.2f} ms median step: "
+        f"idle {100 * (1 - busy / median):.1f}%; "
+        f"{sum(card_launches.values()) / traced:g} kernel launches per step ({card})"
+    )
+    for name in sorted(others, key=others.get, reverse=True)[:6]:
+        print(f"train profile: other, largest: {others[name]:.3f} ms/step  {name}")
+    # one K5 call launches both of its kernels: the trace must show each once per block and step
+    for label in ("K5 dq kernel", "K5 dkv kernel"):
+        got = card_launches.get(label, 0)
+        want = DEPTH * traced
+        expect(got == want, f"train profile: {label} ran {got} times in {traced} steps, expected {want}")
+
+    # ---- one step through the kernels against the same step through the plain versions ----
+    x0, noise, sigma = batches[0]
+    plain_versions = (
+        (flash_attention, "flash_attention_qkv_forward_lse", flash_attention._qkv_reference_lse),
+        (flash_attention, "flash_attention_qkv_backward", flash_attention._qkv_backward_reference),
+        (adaln, "adaln_forward", adaln.adaln_reference),
+        (adaln, "adaln_backward", adaln.adaln_backward_reference),
+    )
+    grads, step_losses = [], []
+    for plain in (False, True):
+        fresh = DiT(config, device=dev).load_jax_params(tree)
+        _reset_counters()
+        with contextlib.ExitStack() as patches:
+            for module, name, fn in plain_versions if plain else ():
+                patches.enter_context(mock.patch.object(module, name, fn))
+            loss = training.flow_matching_loss(fresh, x0, noise, sigma)
+            loss.backward()
+        torch.cuda.synchronize()
+        counts = _counters()
+        want = dict.fromkeys(per_step, 0) if plain else per_step
+        expect(counts == want, f"train: the {'plain' if plain else 'kernel'} step launched {counts}, expected {want}")
+        step_losses.append(loss.item())
+        grads.append([p.grad for p in fresh.parameters()])
+    loss_rel = abs(step_losses[0] - step_losses[1]) / abs(step_losses[1])
+    grad_rel = [_relative_fro(a, b) for a, b in zip(*grads)]
+    names = [name for name, _ in model.named_parameters()]
+    worst = max(range(len(grad_rel)), key=grad_rel.__getitem__)
+    print(
+        f"train: kernels vs plain versions, one step: loss {step_losses[0]:.6f} vs {step_losses[1]:.6f}, relative "
+        f"{loss_rel:.3e} (tolerance 1e-2); grads relative Frobenius max {grad_rel[worst]:.3e} ({names[worst]}), "
+        f"median {statistics.median(grad_rel):.3e} over {len(grad_rel)} tensors (tolerance 5e-2, bf16)"
+    )
+    expect(loss_rel <= 1e-2, f"train: kernel loss differs from plain by {loss_rel}")
+    expect(all(bool(torch.isfinite(a).all()) for a in grads[0]), "train: non-finite kernel-path gradient")
+    expect(max(grad_rel) <= 5e-2, f"train: kernel gradient {names[worst]} differs from plain by {grad_rel[worst]}")
+
+    # ---- the trained parameters through an .npz into a fresh DiT: the same forward, bit for bit ----
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dit.npz"
+        save_params(path, model.param_tree())
+        restored = DiT(config, device=dev).load_jax_params(load_params(path))
+    with torch.no_grad():
+        x = torch.randn((2, 4, 64, 64), generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+        t = torch.tensor([500.0, 20.0], device=dev)
+        same = torch.equal(model(x, t), restored(x, t))
+    print(f"train: .npz round trip of the trained parameters, forward bit-identical: {same}")
+    expect(same, "train: the restored model's forward differs")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -407,13 +730,15 @@ def main() -> int:
     try:
         device = device_phase()
         rows = kernels_phase()
-        launches = slice_phase(device["card"])
+        serving = slice_phase(device["card"])
+        train = training_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
-    for name, count in launches.items():
-        rows[name]["launches"] = count
+    # each row's launches: its count in the serving path's run plus in the training path's run
+    for name, row in rows.items():
+        row["launches"] = serving[name] + train[name]
     keys = (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -8,10 +8,14 @@ The same layer map as the JAX package, module for module, importing
   scheduling  — float64 host-side schedule stack
   sampling    — predictor algebra and the structured solvers
   ops         — the device engine: coefficient-table compiler, the fused
-                step (K1), the step loop, fused adaLN (K3) and fused-qkv
-                attention (K2), each kernel hand-written in ``csrc/``
-  models      — the DiT as an ``nn.Module``
+                step (K1), the step loop, fused adaLN (K3, backward K6) and
+                fused-qkv attention (K2; K4 and K5 for training), each
+                kernel hand-written in ``csrc/``
+  models      — the DiT as an ``nn.Module``, its EMA shadow, ``.npz``
+                parameter checkpoints
   serving     — the dynamic-batching engine; ``server`` its HTTP front-end
+  training    — flow-matching training of the DiT
+                (``python -m skrample_tpu_torch.training``)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,10 +1,17 @@
 // K2: attention straight off the fused qkv projection,
 // out[b, n, h*d:(h+1)*d] = softmax(q_h k_h^T / sqrt(d)) v_h, unmasked.
+// K4: the same body with kLse set, which also writes each row's logsumexp
+// lse[b, h, n] = m*ln2 + log(l) (natural-log units, f32) from the online-
+// softmax state, for the backward (csrc/flash_attention_bwd.cu).
 //
 // Replaces: skrample_tpu/ops/flash_attention.py, flash_attention_qkv_forward
 // (kernel bodies _softmax_kernel, which runs at the serving slice's shape
 // because one TPU tile holds a whole 1024-wide score row, and _flash_kernel
-// for longer rows).  Like the TPU kernel it reads q, k and v IN PLACE from
+// for longer rows) and, as K4, flash_attention_qkv_forward_lse
+// (_softmax_lse_kernel / _flash_lse_kernel).  K4 adds B*H*N*4 bytes of
+// output to K2's traffic and no operations: it is bound like K2.
+//
+// Like the TPU kernel it reads q, k and v IN PLACE from
 // the packed (B, N, 3*H*d) qkv tensor, at feature offsets h*d, H*d + h*d and
 // 2*H*d + h*d, and writes the packed (B, N, H*d) layout the output
 // projection wants: no split copies, no head transposes.
@@ -34,78 +41,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_mma.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;  // query rows per block
 constexpr int kBlockK = 64;  // keys per K/V tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // elements of row padding (16 bytes)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p)));
-}
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-    // d += a * b: a 16x16 (row), b 16x8 (col), d 16x8 f32
-    __device__ static void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-    }
-    __device__ static uint32_t pack(float lo, float hi) {
-        __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-        return *reinterpret_cast<uint32_t*>(&v);
-    }
-};
-
-template <>
-struct Mma<__half> {
-    __device__ static void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-    }
-    __device__ static uint32_t pack(float lo, float hi) {
-        __half2 v = __floats2half2_rn(lo, hi);
-        return *reinterpret_cast<uint32_t*>(&v);
-    }
-};
 
 template <int D>
 struct Layout {
-    static constexpr int kStride = D + kPad;         // smem row stride in elements
+    static constexpr int kStride = padded_stride(D);  // smem row stride in elements
     static constexpr int kTile = kBlockQ * kStride;  // elements per 64-row tile
     // Q tile, then two stages of (K tile, V tile)
     template <typename T>
@@ -114,24 +61,15 @@ struct Layout {
     }
 };
 
-// Copy rows [row0, row0 + 64) of one head's d-wide slice into a padded tile.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, long long row_stride, int tid) {
-    constexpr int kPerRow = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
-    constexpr int kChunks = kBlockQ * kPerRow;
-    static_assert(kChunks % kThreads == 0, "tile chunks must split evenly over the block");
-#pragma unroll
-    for (int i = 0; i < kChunks / kThreads; ++i) {
-        const int c = tid + i * kThreads;
-        const int r = c / kPerRow;
-        const int col = (c % kPerRow) * (16 / (int)sizeof(T));
-        cp_async16(dst + r * Layout<D>::kStride + col, src + (long long)(row0 + r) * row_stride + col);
-    }
+    load_rows<T, D, kBlockQ, kThreads>(dst, src, row0, row_stride, tid);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-    flash_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int H, float scale_log2) {
+    flash_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ lse, int N, int H,
+                     float scale_log2) {
     constexpr int kStride = Layout<D>::kStride;
     constexpr int kTile = Layout<D>::kTile;
     constexpr int kSteps = D / 16;     // k-steps of the score product
@@ -254,10 +192,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int kk = 0; kk < kBlockK / 16; ++kk) {
             uint32_t p_frag[4];
-            p_frag[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-            p_frag[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-            p_frag[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-            p_frag[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+            pack_a<T>(p_frag, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
             for (int t = 0; t < kOutTiles; t += 2) {
                 // transposed matrices: (keys lo, d t), (keys hi, d t), (keys lo, d t+1), (keys hi, d t+1)
@@ -280,6 +215,12 @@ __global__ void __launch_bounds__(kThreads)
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         l_row[i] = l;
     }
+    if (kLse && tig == 0) {
+        // m_run is the same in the four lanes of a row; back to natural-log units
+        float* lse_row = lse + ((long long)b * H + h) * N + q0 + warp * 16 + gid;
+        lse_row[0] = m_run[0] * 0.69314718055994531f + logf(l_row[0]);
+        lse_row[8] = m_run[1] * 0.69314718055994531f + logf(l_row[1]);
+    }
     T* g_o = out + ((long long)b * N + q0 + warp * 16) * width + h * D;
 #pragma unroll
     for (int t = 0; t < kOutTiles; ++t) {
@@ -291,19 +232,19 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-template <typename T, int D>
-int launch(const void* qkv, void* out, int B, int N, int H, float scale_log2, cudaStream_t stream) {
+template <typename T, int D, bool kLse>
+int launch(const void* qkv, void* out, float* lse, int B, int N, int H, float scale_log2, cudaStream_t stream) {
     constexpr int smem = Layout<D>::template bytes<T>();
     static bool configured = false;
     if (!configured) {
         const cudaError_t err =
-            cudaFuncSetAttribute(flash_qkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            cudaFuncSetAttribute(flash_qkv_kernel<T, D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return (int)err;
         configured = true;
     }
     const dim3 grid(N / kBlockQ, H, B);
-    flash_qkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out), N, H,
-                                                              scale_log2);
+    flash_qkv_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out),
+                                                                    lse, N, H, scale_log2);
     return (int)cudaGetLastError();
 }
 
@@ -314,7 +255,18 @@ extern "C" int skt_flash_attention_qkv(const void* qkv, void* out, int B, int N,
                                        float scale_log2, cudaStream_t stream) {
     if (B < 1 || H < 1 || N < kBlockQ || N % kBlockQ || N % kBlockK) return (int)cudaErrorInvalidValue;
     if (d != 128) return (int)cudaErrorInvalidValue;
-    if (dtype == 1) return launch<__nv_bfloat16, 128>(qkv, out, B, N, H, scale_log2, stream);
-    if (dtype == 2) return launch<__half, 128>(qkv, out, B, N, H, scale_log2, stream);
+    if (dtype == 1) return launch<__nv_bfloat16, 128, false>(qkv, out, nullptr, B, N, H, scale_log2, stream);
+    if (dtype == 2) return launch<__half, 128, false>(qkv, out, nullptr, B, N, H, scale_log2, stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+// K4: as skt_flash_attention_qkv, and lse: (B, H, N) f32 contiguous.
+extern "C" int skt_flash_attention_qkv_lse(const void* qkv, void* out, void* lse, int B, int N, int H, int d,
+                                           int dtype, float scale_log2, cudaStream_t stream) {
+    if (B < 1 || H < 1 || N < kBlockQ || N % kBlockQ || N % kBlockK) return (int)cudaErrorInvalidValue;
+    if (d != 128) return (int)cudaErrorInvalidValue;
+    float* l = static_cast<float*>(lse);
+    if (dtype == 1) return launch<__nv_bfloat16, 128, true>(qkv, out, l, B, N, H, scale_log2, stream);
+    if (dtype == 2) return launch<__half, 128, true>(qkv, out, l, B, N, H, scale_log2, stream);
     return (int)cudaErrorInvalidValue;
 }

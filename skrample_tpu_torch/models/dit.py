@@ -5,15 +5,20 @@ parameter: master weights in float32, cast to ``compute_dtype`` at every
 matmul with the bias added in float32 before the cast, float32 layer norms
 through the fused adaLN op, and attention straight off the fused qkv
 projection.  :meth:`DiT.load_jax_params` carries a JAX parameter tree
-across, so both packages run the same weights.
+across, so both packages run the same weights, and :meth:`DiT.param_tree`
+carries them back.  The forward is differentiable end to end: the fused
+adaLN and the fused-qkv attention are autograd Functions whose backwards
+are kernels too, and ``remat`` recomputes each block's activations in the
+backward as the JAX package's does.
 
 The sequence-parallel attentions (``"ring"``, ``"ulysses"``), pipelined
-apply, int8 serving trees and rematerialisation belong to later slices of
-the port and raise :class:`NotImplementedError` here.
+apply and int8 serving trees belong to later slices of the port and raise
+:class:`NotImplementedError` here.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from collections.abc import Callable
 from dataclasses import dataclass
@@ -23,6 +28,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
@@ -43,23 +54,47 @@ class DiTConfig:
     attention: str = "full"
     """``"full"`` (plain attention; the (N, N) scores hit device memory) or
     ``"flash"`` (kernel K2 straight off the fused qkv projection, for
-    head_dim 128).  ``"ring"`` and ``"ulysses"`` are later slices."""
+    head_dim 128; K4 and K5 where a gradient is wanted).  ``"ring"`` and
+    ``"ulysses"`` are later slices."""
     remat: bool | str = False
-    "Rematerialisation is a training feature; a later slice."
+    """Recompute each transformer block's activations in the backward
+    (per-block non-reentrant :func:`torch.utils.checkpoint.checkpoint`):
+    ``True`` recomputes the whole block, ``"dots"`` keeps the dense layers'
+    matmul outputs and recomputes the rest, as the JAX package's
+    ``dots_with_no_batch_dims_saveable`` policy does; ``False`` stores
+    every activation."""
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.heads
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, in_place: bool = True) -> torch.Tensor:
     """``x @ w + b`` with ``w`` cast to ``dtype``, the bias added in float32,
     the sum cast to ``dtype`` (the JAX package's ``_dense``).  The in-place
     add of the float32 bias computes in float32 and rounds once to
-    ``dtype``, in one pass.  In a 16-bit dtype the product itself rounds to
-    that dtype before the bias add: PyTorch has no portable 16-bit matmul
-    with a float32 result."""
-    return F.linear(x, layer.weight.to(dtype)).add_(layer.bias)
+    ``dtype``, in one pass; autograd allows it because the matmul's backward
+    does not read its own output.  In a 16-bit dtype the product itself
+    rounds to that dtype before the bias add: PyTorch has no portable 16-bit
+    matmul with a float32 result.
+
+    ``in_place=False`` gives the same values without writing into the
+    matmul's output, which ``remat="dots"`` keeps for the backward."""
+    y = F.linear(x, layer.weight.to(dtype))
+    return y.add_(layer.bias) if in_place else (y + layer.bias).to(dtype)
+
+
+_DENSE_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dense_outputs(ctx: Any, op: Any, *args: Any, **kwargs: Any) -> CheckpointPolicy:
+    """The ``"dots"`` policy: keep the output of every matmul without batch
+    dimensions (the dense layers; ``F.linear`` reaches ``aten.mm``), recompute
+    everything else, batched attention products included."""
+    return CheckpointPolicy.MUST_SAVE if op in _DENSE_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _save_dense_outputs)
 
 
 def _timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -92,14 +127,15 @@ class DiTBlock(nn.Module):
 
     def forward(self, tokens: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         c = self.config
-        dtype = c.compute_dtype
         B, N, _ = tokens.shape
-        mods = _dense(self.ada, temb, dtype)
+        # "dots" remat keeps the matmul outputs, so the bias must not be added into them
+        dense = functools.partial(_dense, dtype=c.compute_dtype, in_place=c.remat != "dots")
+        mods = dense(self.ada, temb)
         # the JAX package's order: (shift, gate, scale) for attention, then MLP
         s_attn, g_attn, sc_attn, s_mlp, g_mlp, sc_mlp = mods.chunk(6, dim=-1)
 
         h = adaln_modulate(tokens, s_attn, sc_attn)
-        qkv = _dense(self.qkv, h, dtype)
+        qkv = dense(self.qkv, h)
         if c.attention == "flash":
             out = flash_attention_qkv(qkv, c.heads)
         else:
@@ -107,10 +143,10 @@ class DiTBlock(nn.Module):
                 part.reshape(B, N, c.heads, c.head_dim).transpose(1, 2) for part in qkv.chunk(3, dim=-1)
             )
             out = _full_attention(q, k, v, c.head_dim).transpose(1, 2).reshape(B, N, c.dim)
-        tokens = tokens + g_attn[:, None] * _dense(self.proj, out, dtype)
+        tokens = tokens + g_attn[:, None] * dense(self.proj, out)
 
         h = adaln_modulate(tokens, s_mlp, sc_mlp)
-        h = _dense(self.mlp_out, F.gelu(_dense(self.mlp_in, h, dtype), approximate="tanh"), dtype)
+        h = dense(self.mlp_out, F.gelu(dense(self.mlp_in, h), approximate="tanh"))
         return tokens + g_mlp[:, None] * h
 
 
@@ -138,8 +174,8 @@ class DiT(nn.Module):
             raise ValueError(f"unknown attention kind {config.attention!r}")
         if config.attention == "flash" and config.head_dim % 128:
             raise NotImplementedError(f"attention='flash' at head_dim {config.head_dim} (transposed kernel) {_LATER}")
-        if config.remat:
-            raise NotImplementedError(f"remat {_LATER}")
+        if config.remat not in (False, True, "dots"):
+            raise ValueError(f"remat must be bool or 'dots', got {config.remat!r}")
         self.config = c = config
         device = resolve_device(device)
         patch_dim = c.channels * c.patch * c.patch
@@ -169,6 +205,23 @@ class DiT(nn.Module):
             w = torch.randn(layer.in_features, layer.out_features, generator=generator) / math.sqrt(layer.in_features)
             layer.weight.copy_(torch.zeros_like(w.T) if zero else w.T)
             layer.bias.zero_()
+
+    def param_tree(self) -> dict:
+        """The module's parameters as the JAX package's tree of float32 numpy
+        arrays (``w`` ``(d_in, d_out)``, the transpose of ``nn.Linear``'s):
+        the inverse of :meth:`load_jax_params`, for saving in the JAX
+        package's format and for comparing with it."""
+        tree: dict = {"blocks": [{} for _ in self.blocks]}
+        for name, layer in self._layers():
+            node = tree
+            *path, leaf = name.split(".")
+            for part in path:
+                node = node[int(part)] if part.isdigit() else node[part]
+            node[leaf] = {
+                "w": np.ascontiguousarray(layer.weight.detach().float().cpu().numpy().T),
+                "b": layer.bias.detach().float().cpu().numpy().copy(),
+            }
+        return tree
 
     @torch.no_grad()
     def load_jax_params(self, tree: dict) -> DiT:
@@ -232,7 +285,11 @@ class DiT(nn.Module):
         temb = F.silu(temb)
 
         for block in self.blocks:
-            tokens = block(tokens, temb)
+            if c.remat and torch.is_grad_enabled():
+                context = _DOTS_CONTEXT if c.remat == "dots" else noop_context_fn
+                tokens = checkpoint(block, tokens, temb, use_reentrant=False, context_fn=context)
+            else:
+                tokens = block(tokens, temb)
 
         shift, scale = _dense(self.final_mod, temb, dtype).chunk(2, dim=-1)
         tokens = adaln_modulate(tokens, shift, scale)

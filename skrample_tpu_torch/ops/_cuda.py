@@ -30,7 +30,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_step.cu", "flash_attention.cu", "adaln.cu")
+SOURCES = ("fused_step.cu", "flash_attention.cu", "flash_attention_bwd.cu", "adaln.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
@@ -46,9 +46,15 @@ _F = ctypes.c_float
 _SIGNATURES: dict[str, list] = {
     "skt_fused_step": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
     "skt_flash_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, _F, _P],  # qkv, out, B, N, H, d, dtype, scale, stream
+    "skt_flash_attention_qkv_lse": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],  # qkv, out, lse, then as above
+    # qkv, dout, lse, delta, dqkv, B, N, H, d, dtype, scale, stream
+    "skt_flash_attention_qkv_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, shift, scale, out, B, N, D, shift row stride, scale row stride, dtype, eps, stream
     "skt_adaln": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F, _P],
     "skt_adaln_supports": [_I],  # D -> 1 when the kernel is instantiated for that width
+    # x, g, scale, dx, partials, dshift, dscale, B, N, D, scale row stride, dtype, eps, stream
+    "skt_adaln_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _F, _P],
+    "skt_adaln_backward_rows": [],  # token rows per block of the backward (sizes its partials)
     "skt_error_string": [_I],
 }
 

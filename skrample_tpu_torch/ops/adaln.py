@@ -5,13 +5,15 @@ times per forward at depth 8).  :func:`adaln_reference` is the plain
 PyTorch composition (the CPU path and the kernel's oracle);
 :func:`adaln_forward` launches the hand-written kernel K3
 (``csrc/adaln.cu``): statistics, normalisation and modulation in one read
-and one write of the token stream.
+and one write of the token stream.  :func:`adaln_backward` launches its
+backward, K6 (same file), beside its plain version
+:func:`adaln_backward_reference`; :func:`adaln_modulate` ties the two into a
+:class:`torch.autograd.Function`, as the JAX package's ``custom_vjp`` does.
 
 Semantics match the JAX package's ``adaln_reference``: layernorm over the
 last axis in float32 with eps 1e-6 inside the rsqrt and the population
 variance, no learned affine, then ``y * (1 + scale[:, None]) +
-shift[:, None]``, cast back to the input dtype.  No gradient yet: the
-training path (and its backward kernel) is later work.
+shift[:, None]``, cast back to the input dtype.
 """
 
 from __future__ import annotations
@@ -85,13 +87,116 @@ def adaln_forward(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> 
 adaln_forward.launches = 0
 
 
-def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Fused ``modulate(layernorm(x), shift, scale)``.
+def adaln_backward_reference(
+    x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward: ``(dx, dshift, dscale)``, dx in x's dtype, the sums
+    over tokens in float32.  The TPU kernel's arithmetic: row statistics
+    recomputed in float32, ``dxhat = g * (1 + scale)``, ``dx = (dxhat -
+    mean(dxhat) - xhat * mean(dxhat * xhat)) * inv_std``."""
+    x32 = x.float()
+    g32 = g.float()
+    centered = x32 - x32.mean(-1, keepdim=True)
+    inv_std = torch.rsqrt((centered * centered).mean(-1, keepdim=True) + _EPS)
+    xhat = centered * inv_std
+    dxhat = g32 * (1.0 + scale.float()[:, None])
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = ((dxhat - m1 - xhat * m2) * inv_std).to(x.dtype)
+    return dx, g32.sum(1), (g32 * xhat).sum(1)
 
-    The JAX package's dispatch rule, exactly: the kernel where ``D`` is a
+
+def adaln_backward(
+    x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K6: ``(dx, dshift, dscale)`` from the output gradient ``g``;
+    dx ``(B, N, D)`` in x's dtype, dshift and dscale ``(B, D)`` float32.
+
+    On CPU tensors this is :func:`adaln_backward_reference`.  On CUDA
+    tensors it launches the kernels or raises, on what K3 takes, with ``g``
+    of x's shape and dtype and contiguous.  The sums over tokens are
+    reduced per block of rows into a float32 scratch and then added in block
+    order by a second small kernel: no atomics, the same bits on every run."""
+    if x.device.type == "cpu":
+        return adaln_backward_reference(x, g, scale)
+    name = "adaln_backward"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.ndim != 3:
+        raise ValueError(f"{name}: x must be (B, N, D), got {tuple(x.shape)}")
+    B, N, D = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: dtype {x.dtype} unsupported (float32 or bfloat16)")
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"{name}: g must be {tuple(x.shape)} {x.dtype} on {x.device}, got {tuple(g.shape)} {g.dtype}")
+    if scale.shape != (B, D) or scale.dtype != x.dtype or scale.device != x.device:
+        raise ValueError(f"{name}: scale must be ({B}, {D}) {x.dtype} on {x.device}, got {tuple(scale.shape)}")
+    if not x.is_contiguous() or not g.is_contiguous() or scale.stride(1) != 1:
+        raise ValueError(f"{name}: x and g must be contiguous, scale of unit stride along D")
+    lib = _cuda.library()
+    if not lib.skt_adaln_supports(D):
+        raise ValueError(f"{name}: no kernel instance for D={D}")
+    dx = torch.empty_like(x)
+    if any(t.data_ptr() % 16 for t in (x, g, scale, dx)) or scale.stride(0) % 8:
+        raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    rows = lib.skt_adaln_backward_rows()
+    partials = torch.empty((B, -(-N // rows), 2, D), dtype=torch.float32, device=x.device)
+    dshift = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    dscale = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = lib.skt_adaln_backward(
+            x.data_ptr(),
+            g.data_ptr(),
+            scale.data_ptr(),
+            dx.data_ptr(),
+            partials.data_ptr(),
+            dshift.data_ptr(),
+            dscale.data_ptr(),
+            B,
+            N,
+            D,
+            scale.stride(0),
+            _cuda.DTYPE_CODES[x.dtype],
+            _EPS,
+            _cuda.stream(),
+        )
+    _cuda.check(code, name)
+    adaln_backward.launches += 1
+    return dx, dshift, dscale
+
+
+adaln_backward.launches = 0
+
+
+class _AdaLN(torch.autograd.Function):
+    """K3 forward saving ``(x, scale)``, K6 backward: the JAX package's
+    ``_adaln_vjp``.  The kernels are looked up in this module when they run,
+    so a caller may swap them for their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, scale)
+        ctx.shift_dtype = shift.dtype
+        return adaln_forward(x, shift, scale)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        x, scale = ctx.saved_tensors
+        dx, dshift, dscale = adaln_backward(x, g.contiguous(), scale)
+        return dx, dshift.to(ctx.shift_dtype), dscale.to(scale.dtype)
+
+
+def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Fused ``modulate(layernorm(x), shift, scale)`` with its gradient.
+
+    The JAX package's dispatch rule, exactly: the kernels where ``D`` is a
     multiple of 128 and ``N`` divides by one of 256, 128, 64, 32, 16 or 8;
-    the plain composition otherwise."""
+    the plain composition otherwise.  Where a gradient is wanted the
+    forward is K3 and the backward K6; where none is, the forward is K3 and
+    nothing is saved."""
     _B, N, D = x.shape
     if D % _LANE or all(N % b for b in (256, 128, 64, 32, 16, 8)):
         return adaln_reference(x, shift, scale)
+    if torch.is_grad_enabled() and (x.requires_grad or shift.requires_grad or scale.requires_grad):
+        return _AdaLN.apply(x, shift, scale)
     return adaln_forward(x, shift, scale)

@@ -1,13 +1,18 @@
-"""Attention straight off the fused qkv projection.
+"""Attention straight off the fused qkv projection, with its gradient.
 
 :func:`flash_attention_qkv_forward` launches the hand-written kernel K2
 (``csrc/flash_attention.cu``): it reads each head's q, k and v in place from
 the packed ``(B, N, 3*H*d)`` output of the qkv matmul and writes the packed
-``(B, N, H*d)`` layout, with the score matrix never leaving registers.  The
-plain versions beside it (:func:`attention_reference`,
-:func:`_packed_reference`, :func:`_qkv_reference`) are the CPU path and the
-kernel's oracle.  Forward only: the training path (the logsumexp forward
-and the backward kernels) is later work.
+``(B, N, H*d)`` layout, with the score matrix never leaving registers.
+:func:`flash_attention_qkv_forward_lse` (K4, the same kernel body) also
+writes each row's logsumexp, and :func:`flash_attention_qkv_backward` (K5,
+``csrc/flash_attention_bwd.cu``) recomputes the probabilities from it to
+give the gradient in the packed qkv layout.  :func:`flash_attention_qkv`
+ties them into a :class:`torch.autograd.Function`, as the JAX package's
+``custom_vjp`` does.  The plain versions beside each kernel
+(:func:`attention_reference`, :func:`_packed_reference`,
+:func:`_qkv_reference`, :func:`_qkv_reference_lse`,
+:func:`_qkv_backward_reference`) are the CPU path and the kernels' oracles.
 """
 
 from __future__ import annotations
@@ -53,6 +58,76 @@ def _qkv_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     return _packed_reference(q, k, v, heads)
 
 
+def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    "(B, N, H*d) -> (B, H, N, d) float32"
+    B, N, D = x.shape
+    return x.reshape(B, N, heads, D // heads).transpose(1, 2).float()
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    "(B, H, N, d) -> (B, N, H*d)"
+    B, H, N, d = x.shape
+    return x.transpose(1, 2).reshape(B, N, H * d)
+
+
+def _qkv_reference_lse(qkv: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain attention on the fused qkv layout that also returns the row
+    logsumexp ``(B, H, N, 1)`` float32 in natural-log units: K4's oracle.
+
+    Scores, statistics and the value product in float32; the probabilities
+    round to the value dtype first, as in :func:`attention_reference`."""
+    q, k, v = (_heads(part, heads) for part in torch.chunk(qkv, 3, dim=-1))
+    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse).to(qkv.dtype).float()
+    return _merge(torch.matmul(p, v)).to(qkv.dtype), lse
+
+
+def _qkv_backward_reference(
+    qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """Plain flash backward on the fused qkv layout: K5's oracle.
+
+    The TPU kernels' arithmetic on whole matrices: float32 products of the
+    inputs, ``P = exp(s - lse)``, ``delta = rowsum(g * o)``, and P and dS
+    rounded to the input dtype before the products they feed."""
+    dtype = qkv.dtype
+    q, k, v = (_heads(part, heads) for part in torch.chunk(qkv, 3, dim=-1))
+    do = _heads(g, heads)
+    delta = (do * _heads(o, heads)).sum(-1, keepdim=True)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse)
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do)
+    ds = (p * (torch.matmul(do, v.transpose(-1, -2)) - delta)).to(dtype).float()
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1).to(dtype)
+
+
+def _check_qkv(qkv: torch.Tensor, heads: int, name: str) -> tuple[int, int, int]:
+    "What K2, K4 and K5 take: raise on anything else; returns (B, N, head dim)."
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv.device}")
+    if qkv.ndim != 3:
+        raise ValueError(f"{name}: qkv must be (B, N, 3*H*d), got {tuple(qkv.shape)}")
+    B, N, D3 = qkv.shape
+    if qkv.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(
+            f"{name}: dtype {qkv.dtype} unsupported on CUDA (bfloat16 or float16; "
+            "run the model in a 16-bit compute dtype or use attention='full')"
+        )
+    if D3 % (3 * heads):
+        raise ValueError(f"{name}: packed width {D3} does not split into 3 x {heads} heads")
+    d = D3 // 3 // heads
+    if d != 128:
+        raise ValueError(f"{name}: head dim {d} unsupported (the kernel is built for 128)")
+    if N % _BLOCK:
+        raise ValueError(f"{name}: token count {N} must be a multiple of {_BLOCK}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must be contiguous and 16-byte aligned")
+    return B, N, d
+
+
 def flash_attention_qkv_forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """Kernel K2: ``(B, N, 3*H*d) -> (B, N, H*d)``, unmasked softmax attention.
 
@@ -62,26 +137,8 @@ def flash_attention_qkv_forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     64."""
     if qkv.device.type == "cpu":
         return _qkv_reference(qkv, heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"flash_attention_qkv_forward: unsupported device {qkv.device}")
-    if qkv.ndim != 3:
-        raise ValueError(f"flash_attention_qkv_forward: qkv must be (B, N, 3*H*d), got {tuple(qkv.shape)}")
-    B, N, D3 = qkv.shape
-    if qkv.dtype not in (torch.bfloat16, torch.float16):
-        raise ValueError(
-            f"flash_attention_qkv_forward: dtype {qkv.dtype} unsupported on CUDA (bfloat16 or float16; "
-            "run the model in a 16-bit compute dtype or use attention='full')"
-        )
-    if D3 % (3 * heads):
-        raise ValueError(f"flash_attention_qkv_forward: packed width {D3} does not split into 3 x {heads} heads")
-    d = D3 // 3 // heads
-    if d != 128:
-        raise ValueError(f"flash_attention_qkv_forward: head dim {d} unsupported (the kernel is built for 128)")
-    if N % _BLOCK:
-        raise ValueError(f"flash_attention_qkv_forward: token count {N} must be a multiple of {_BLOCK}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("flash_attention_qkv_forward: qkv must be contiguous and 16-byte aligned")
-    out = torch.empty((B, N, D3 // 3), dtype=qkv.dtype, device=qkv.device)
+    B, N, d = _check_qkv(qkv, heads, "flash_attention_qkv_forward")
+    out = torch.empty((B, N, heads * d), dtype=qkv.dtype, device=qkv.device)
     lib = _cuda.library()
     with torch.cuda.device(qkv.device):
         code = lib.skt_flash_attention_qkv(
@@ -103,13 +160,120 @@ def flash_attention_qkv_forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 flash_attention_qkv_forward.launches = 0
 
 
-def flash_attention_qkv(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """Fused-qkv attention ``(B, N, 3*H*d) -> (B, N, H*d)``.
+def flash_attention_qkv_forward_lse(qkv: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K4: K2 that also returns the row logsumexp, ``(o, lse)`` with
+    ``lse`` ``(B, H, N, 1)`` float32 in natural-log units (the JAX layout).
 
-    The JAX package's dispatch rule: the kernel where the packed width
+    On CPU tensors this is :func:`_qkv_reference_lse`; on CUDA tensors it
+    launches the kernel or raises, on the same inputs as K2."""
+    if qkv.device.type == "cpu":
+        return _qkv_reference_lse(qkv, heads)
+    B, N, d = _check_qkv(qkv, heads, "flash_attention_qkv_forward_lse")
+    out = torch.empty((B, N, heads * d), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, heads, N, 1), dtype=torch.float32, device=qkv.device)
+    lib = _cuda.library()
+    with torch.cuda.device(qkv.device):
+        code = lib.skt_flash_attention_qkv_lse(
+            qkv.data_ptr(),
+            out.data_ptr(),
+            lse.data_ptr(),
+            B,
+            N,
+            heads,
+            d,
+            _cuda.DTYPE_CODES[qkv.dtype],
+            (1.0 / math.sqrt(d)) * _LOG2E,
+            _cuda.stream(),
+        )
+    _cuda.check(code, "flash_attention_qkv_forward_lse")
+    flash_attention_qkv_forward_lse.launches += 1
+    return out, lse
+
+
+flash_attention_qkv_forward_lse.launches = 0
+
+
+def flash_attention_qkv_backward(
+    qkv: torch.Tensor, o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """Kernel K5: ``dqkv`` ``(B, N, 3*H*d)`` from the forward's input, output
+    and logsumexp and the output gradient ``g``.
+
+    On CPU tensors this is :func:`_qkv_backward_reference`.  On CUDA tensors
+    it launches the kernels or raises: qkv as for K2, ``o`` and ``g``
+    ``(B, N, H*d)`` of qkv's dtype and contiguous, ``lse`` ``(B, H, N, 1)``
+    float32 contiguous.  ``delta = rowsum(g * o)`` is a float32 PyTorch pass
+    here, as the JAX package computes it outside its kernels; one call
+    launches both kernels (dq, then dk and dv), which write the three thirds
+    of one packed output."""
+    if qkv.device.type == "cpu":
+        return _qkv_backward_reference(qkv, o, lse, g, heads)
+    name = "flash_attention_qkv_backward"
+    B, N, d = _check_qkv(qkv, heads, name)
+    for label, t in (("o", o), ("g", g)):
+        if t.shape != (B, N, heads * d) or t.dtype != qkv.dtype or t.device != qkv.device:
+            raise ValueError(f"{name}: {label} must be ({B}, {N}, {heads * d}) {qkv.dtype}, got {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must be contiguous and 16-byte aligned")
+    if lse.shape != (B, heads, N, 1) or lse.dtype != torch.float32 or lse.device != qkv.device:
+        raise ValueError(f"{name}: lse must be ({B}, {heads}, {N}, 1) float32, got {tuple(lse.shape)} {lse.dtype}")
+    if not lse.is_contiguous() or lse.data_ptr() % 16:
+        raise ValueError(f"{name}: lse must be contiguous and 16-byte aligned")
+    delta = (g.view(B, N, heads, d).float() * o.view(B, N, heads, d).float()).sum(-1).transpose(1, 2).contiguous()
+    dqkv = torch.empty_like(qkv)
+    lib = _cuda.library()
+    with torch.cuda.device(qkv.device):
+        code = lib.skt_flash_attention_qkv_backward(
+            qkv.data_ptr(),
+            g.data_ptr(),
+            lse.data_ptr(),
+            delta.data_ptr(),
+            dqkv.data_ptr(),
+            B,
+            N,
+            heads,
+            d,
+            _cuda.DTYPE_CODES[qkv.dtype],
+            1.0 / math.sqrt(d),
+            _cuda.stream(),
+        )
+    _cuda.check(code, name)
+    flash_attention_qkv_backward.launches += 1
+    return dqkv
+
+
+flash_attention_qkv_backward.launches = 0
+
+
+class _FlashQKV(torch.autograd.Function):
+    """K4 forward saving ``(qkv, o, lse)``, K5 backward: the JAX package's
+    ``_flash_qkv_vjp``.  The kernels are looked up in this module when they
+    run, so a caller may swap them for their plain versions."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
+        o, lse = flash_attention_qkv_forward_lse(qkv, heads)
+        ctx.save_for_backward(qkv, o, lse)
+        ctx.heads = heads
+        return o
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor, None]:
+        qkv, o, lse = ctx.saved_tensors
+        return flash_attention_qkv_backward(qkv, o, lse, g.contiguous(), ctx.heads), None
+
+
+def flash_attention_qkv(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Fused-qkv attention ``(B, N, 3*H*d) -> (B, N, H*d)`` with its gradient.
+
+    The JAX package's dispatch rule: the kernels where the packed width
     splits into ``heads`` heads of a multiple of 128 and ``N`` is a multiple
-    of 128; split + plain attention otherwise."""
+    of 128; split + plain attention otherwise.  Where a gradient is wanted
+    the forward is K4 and the backward K5; where none is (grad mode off, or
+    qkv not requiring grad), the forward is K2 and nothing is saved."""
     _B, N, D3 = qkv.shape
     if D3 % (3 * heads) or (D3 // 3 // heads) % _LANE or N % _LANE:
         return _qkv_reference(qkv, heads)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FlashQKV.apply(qkv, heads)
     return flash_attention_qkv_forward(qkv, heads)

@@ -136,18 +136,20 @@ def test_load_jax_params_accepts_a_jax_tree() -> None:
 
 
 @pytest.mark.parametrize(
-    "kwargs",
+    ("kwargs", "error", "match"),
     [
-        {"attention": "ring"},
-        {"attention": "ulysses"},
-        {"remat": True},
-        {"attention": "flash", "heads": 4},  # head_dim 64: the transposed kernel, a later slice
+        ({"attention": "ring"}, NotImplementedError, "later slice"),
+        ({"attention": "ulysses"}, NotImplementedError, "later slice"),
+        # remat True and "dots" are ported (tests/test_torch_training.py); other policies raise as in JAX
+        ({"remat": "offload"}, ValueError, "remat must be bool or 'dots'"),
+        ({"attention": "flash", "heads": 4}, NotImplementedError, "later slice"),  # head_dim 64: the transposed kernel
     ],
     ids=["ring", "ulysses", "remat", "flash-d64"],
 )
-def test_later_slices_raise(kwargs: dict) -> None:
+def test_later_slices_raise(kwargs: dict, error: type, match: str) -> None:
+    "Configurations the port does not run raise at construction: later slices, and what the JAX package refuses too."
     config = DiTConfig(**{**SMALL, **kwargs})
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(error, match=match):
         DiT(config, device="cpu")
 
 

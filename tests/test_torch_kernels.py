@@ -159,3 +159,218 @@ def test_dit_forward_through_the_kernels(cuda: torch.device) -> None:
             want = model(x, t)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+
+
+# ---- the training slice's kernels: K4, K5, K6 ------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_qkv_attention_lse_kernel_matches_plain(cuda: torch.device, dtype: torch.dtype) -> None:
+    """K4 vs its plain version: o atol 5e-3 as K2 (and bit-identical to K2: the same body);
+    lse atol 1e-3 (f32 statistics summed in another order, the hardware's exp2)."""
+    gen = torch.Generator(cuda).manual_seed(5)
+    qkv = torch.randn((2, 512, 3 * 4 * 128), generator=gen, device=cuda).to(dtype)
+    before = flash_attention.flash_attention_qkv_forward_lse.launches
+    o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, 4)
+    assert flash_attention.flash_attention_qkv_forward_lse.launches == before + 1
+    ro, rlse = flash_attention._qkv_reference_lse(qkv, 4)
+    assert lse.shape == (2, 4, 512, 1) and lse.dtype == torch.float32
+    assert (o.float() - ro.float()).abs().max().item() <= 5e-3
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    assert torch.equal(o, flash_attention.flash_attention_qkv_forward(qkv, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_qkv_attention_backward_kernel_matches_plain(cuda: torch.device, dtype: torch.dtype) -> None:
+    """K5 vs its plain version on the same (qkv, o, lse, g), each third (dq from one kernel,
+    dk and dv from the other) within 2e-2 of its largest value: the outputs round to 16 bits,
+    and P and dS round to 16 bits from f32 values summed in another order."""
+    gen = torch.Generator(cuda).manual_seed(6)
+    qkv = torch.randn((2, 512, 3 * 4 * 128), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((2, 512, 4 * 128), generator=gen, device=cuda).to(dtype)
+    o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, 4)
+    before = flash_attention.flash_attention_qkv_backward.launches
+    got = flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, 4)
+    assert flash_attention.flash_attention_qkv_backward.launches == before + 1
+    ref = flash_attention._qkv_backward_reference(qkv, o, lse, g, 4)
+    for part, want in zip(got.chunk(3, dim=-1), ref.chunk(3, dim=-1)):
+        scale = want.float().abs().max().item()
+        assert scale > 0 and torch.isfinite(part).all()
+        assert (part.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adaln_backward_kernel_matches_plain(cuda: torch.device, dtype: torch.dtype) -> None:
+    """K6 vs its plain version, scale as a column chunk: dx within 1e-4 (f32) or one bf16 ulp
+    (2**-7) of its largest value, the f32 sums over tokens within 1e-4 of theirs; and the same
+    bits on a second run (no atomics)."""
+    gen = torch.Generator(cuda).manual_seed(7)
+    x = (torch.randn((2, 250, 768), generator=gen, device=cuda) * 2 + 0.3).to(dtype)  # 250: a ragged last block
+    g = torch.randn((2, 250, 768), generator=gen, device=cuda).to(dtype)
+    mods = torch.randn((2, 3 * 768), generator=gen, device=cuda).to(dtype)
+    scale = mods[:, 1536:]
+    before = adaln.adaln_backward.launches
+    got = adaln.adaln_backward(x, g, scale)
+    assert adaln.adaln_backward.launches == before + 1
+    ref = adaln.adaln_backward_reference(x, g, scale)
+    for i, (mine, want) in enumerate(zip(got, ref)):
+        rel = (1e-4 if dtype == torch.float32 else 2**-7) if i == 0 else 1e-4
+        assert mine.dtype == want.dtype
+        assert (mine.float() - want.float()).abs().max().item() <= rel * want.float().abs().max().item()
+    for a, b in zip(got, adaln.adaln_backward(x, g, scale)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_training_kernels_refuse_what_they_cannot_take(cuda: torch.device) -> None:
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_attention.flash_attention_qkv_forward_lse(torch.zeros(1, 96, 768, device=cuda, dtype=bf16), 2)
+    qkv = torch.zeros(1, 128, 768, device=cuda, dtype=bf16)
+    o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, 2)
+    with pytest.raises(ValueError, match="g must be"):
+        flash_attention.flash_attention_qkv_backward(qkv, o, lse, o[:, :64], 2)
+    with pytest.raises(ValueError, match="lse must be"):
+        flash_attention.flash_attention_qkv_backward(qkv, o, lse.to(bf16), o, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_qkv_backward(qkv, o, lse, o.transpose(1, 2).contiguous().transpose(1, 2), 2)
+    x = torch.zeros(1, 8, 128 * 7, device=cuda)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        adaln.adaln_backward(x, x, x[:, 0])
+    x = torch.zeros(1, 8, 128, device=cuda)
+    with pytest.raises(ValueError, match="g must be"):
+        adaln.adaln_backward(x, x.to(bf16), x[:, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        adaln.adaln_backward(x, x.transpose(1, 2).contiguous().transpose(1, 2), x[:, 0])
+
+
+def _relative_fro(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.gpu
+def test_autograd_functions_on_the_card(cuda: torch.device) -> None:
+    """flash_attention_qkv and adaln_modulate with a gradient launch K4 + K5 and K3 + K6
+    (never K2), and their gradients agree with the same Functions run through the plain
+    versions to 2e-2 relative Frobenius norm (bf16)."""
+    from unittest import mock
+
+    gen = torch.Generator(cuda).manual_seed(8)
+    qkv = torch.randn((2, 256, 3 * 2 * 128), generator=gen, device=cuda).to(torch.bfloat16)
+    x = torch.randn((2, 256, 256), generator=gen, device=cuda).to(torch.bfloat16)
+    mods = torch.randn((2, 3 * 256), generator=gen, device=cuda).to(torch.bfloat16)
+    g_attn = torch.randn((2, 256, 256), generator=gen, device=cuda).to(torch.bfloat16)
+
+    def grads() -> list[torch.Tensor]:
+        q = qkv.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        m = mods.clone().requires_grad_(True)
+        (flash_attention.flash_attention_qkv(q, 2).float() * g_attn.float()).sum().backward()
+        (adaln.adaln_modulate(xx, m[:, :256], m[:, 512:]).float() ** 2).sum().backward()
+        return [q.grad, xx.grad, m.grad]
+
+    counts = (
+        flash_attention.flash_attention_qkv_forward.launches,
+        flash_attention.flash_attention_qkv_forward_lse.launches,
+        flash_attention.flash_attention_qkv_backward.launches,
+        adaln.adaln_forward.launches,
+        adaln.adaln_backward.launches,
+    )
+    got = grads()
+    assert flash_attention.flash_attention_qkv_forward.launches == counts[0]
+    assert flash_attention.flash_attention_qkv_forward_lse.launches == counts[1] + 1
+    assert flash_attention.flash_attention_qkv_backward.launches == counts[2] + 1
+    assert adaln.adaln_forward.launches == counts[3] + 1
+    assert adaln.adaln_backward.launches == counts[4] + 1
+    with (
+        mock.patch.object(flash_attention, "flash_attention_qkv_forward_lse", flash_attention._qkv_reference_lse),
+        mock.patch.object(flash_attention, "flash_attention_qkv_backward", flash_attention._qkv_backward_reference),
+        mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+        mock.patch.object(adaln, "adaln_backward", adaln.adaln_backward_reference),
+    ):
+        want = grads()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and _relative_fro(a, b) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_dit_train_step_through_the_kernels(cuda: torch.device) -> None:
+    """One bf16 training step of a small DiT launches K4 and K5 once per block, K3 and K6
+    2*depth+1 times and K2 never; its loss agrees with the plain versions' to 1e-2 and every
+    gradient to 5e-2 relative Frobenius norm (bf16 rounding at other points, over two blocks)."""
+    from unittest import mock
+
+    from skrample_tpu_torch import training
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.ema import ema_init
+
+    config = DiTConfig(dim=256, depth=2, heads=2, compute_dtype=torch.bfloat16, attention="flash")
+    tree = random_param_tree(config, 1)
+    gen = torch.Generator(cuda).manual_seed(9)
+    x0, noise, sigma = training.draw_batch(training.synthetic_dataset(32, cuda), 2, gen)
+
+    def step(model: DiT) -> torch.Tensor:
+        loss = training.flow_matching_loss(model, x0, noise, sigma)
+        loss.backward()
+        return loss.detach()
+
+    kernel_model = DiT(config, device=cuda).load_jax_params(tree)
+    k2 = flash_attention.flash_attention_qkv_forward.launches
+    k4 = flash_attention.flash_attention_qkv_forward_lse.launches
+    k5 = flash_attention.flash_attention_qkv_backward.launches
+    k3, k6 = adaln.adaln_forward.launches, adaln.adaln_backward.launches
+    loss = step(kernel_model)
+    assert flash_attention.flash_attention_qkv_forward.launches == k2
+    assert flash_attention.flash_attention_qkv_forward_lse.launches - k4 == config.depth
+    assert flash_attention.flash_attention_qkv_backward.launches - k5 == config.depth
+    assert adaln.adaln_forward.launches - k3 == 2 * config.depth + 1
+    assert adaln.adaln_backward.launches - k6 == 2 * config.depth + 1
+
+    plain_model = DiT(config, device=cuda).load_jax_params(tree)
+    with (
+        mock.patch.object(flash_attention, "flash_attention_qkv_forward_lse", flash_attention._qkv_reference_lse),
+        mock.patch.object(flash_attention, "flash_attention_qkv_backward", flash_attention._qkv_backward_reference),
+        mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+        mock.patch.object(adaln, "adaln_backward", adaln.adaln_backward_reference),
+    ):
+        want = step(plain_model)
+    assert torch.isfinite(loss) and abs(loss.item() - want.item()) <= 1e-2 * abs(want.item())
+    for p, q in zip(kernel_model.parameters(), plain_model.parameters()):
+        assert torch.isfinite(p.grad).all() and _relative_fro(p.grad, q.grad) <= 5e-2
+
+    opt = training.make_optimizer(kernel_model)
+    ema = ema_init(kernel_model)
+    before = [p.detach().clone() for p in kernel_model.parameters()]
+    training.train_step(kernel_model, opt, ema, x0, noise, sigma, step=0)
+    assert any(not torch.equal(a, p) for a, p in zip(before, kernel_model.parameters()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [True, "dots"])
+def test_dit_remat_through_the_kernels(cuda: torch.device, remat: bool | str) -> None:
+    """Per-block recompute on the card re-runs K4 in the backward (twice per block and step)
+    and gives the gradients of no remat to 1e-4 relative Frobenius norm: the recomputed
+    bf16 values are the same bits, only the f32 accumulation of shared gradients may differ.
+    Under "dots" the blocks add their biases out of place, so those biases' gradients are
+    summed in f32 where no remat rounds the sum to bf16 (ROADMAP C4): 2**-8 for them."""
+    from skrample_tpu_torch import training
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+
+    tree = random_param_tree(DiTConfig(dim=256, depth=2, heads=2), 2)
+    gen = torch.Generator(cuda).manual_seed(10)
+    x0, noise, sigma = training.draw_batch(training.synthetic_dataset(32, cuda), 2, gen)
+    grads = []
+    for mode in (False, remat):
+        config = DiTConfig(dim=256, depth=2, heads=2, compute_dtype=torch.bfloat16, attention="flash", remat=mode)
+        model = DiT(config, device=cuda).load_jax_params(tree)
+        before = flash_attention.flash_attention_qkv_forward_lse.launches
+        training.flow_matching_loss(model, x0, noise, sigma).backward()
+        launched = flash_attention.flash_attention_qkv_forward_lse.launches - before
+        assert launched == config.depth * (2 if mode else 1)
+        grads.append({name: p.grad for name, p in model.named_parameters()})
+    for name, want in grads[0].items():
+        in_block_bias = name.startswith("blocks.") and name.endswith(".bias")
+        assert _relative_fro(grads[1][name], want) <= (2**-8 if remat == "dots" and in_block_bias else 1e-4), name

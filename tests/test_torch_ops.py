@@ -96,15 +96,19 @@ def test_library_build_fails_loudly_without_nvcc(tmp_path, monkeypatch) -> None:
 
 
 def test_build_digest_tracks_the_sources(tmp_path, monkeypatch) -> None:
-    "The library's name hashes every source and the flags, so an edited kernel never loads a stale build."
+    "The library's name hashes every source and header and the flags: an edited kernel never loads a stale build."
     digest = _cuda._digest()
     assert digest == _cuda._digest() and len(digest) == 16
-    for src in _cuda.SOURCES:
-        (tmp_path / src).write_bytes((_cuda.CSRC / src).read_bytes())
+    sources = [src for src in _cuda.CSRC.iterdir() if src.suffix in (".cu", ".cuh")]
+    assert {src.name for src in sources} >= set(_cuda.SOURCES)
+    for src in sources:
+        (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_cuda, "CSRC", tmp_path)
     assert _cuda._digest() == digest
-    (tmp_path / "adaln.cu").write_bytes((tmp_path / "adaln.cu").read_bytes() + b"\n// edited\n")
-    assert _cuda._digest() != digest
+    for name in ("adaln.cu", "tile_mma.cuh"):
+        (tmp_path / name).write_bytes((tmp_path / name).read_bytes() + b"\n// edited\n")
+        assert _cuda._digest() != digest
+        digest = _cuda._digest()
 
 
 # ---- the sampler loop ----------------------------------------------------------
