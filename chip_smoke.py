@@ -8,7 +8,8 @@ Phases, each failing the run with a non-zero exit:
 1. device: the card's name, count, power limit; build the hand-written
    kernels from ``skrample_tpu_torch/csrc`` (printing ``-Xptxas -v``);
 2. kernels: each kernel against its plain PyTorch version on the card at the
-   shapes its path gives it (K1-K3 serving, K4-K6 training), with card times
+   shapes its path gives it (K1-K3 serving, K4-K6 training, B6/B7 Flux and
+   int8 serving), with card times
    of the kernel, the plain version and, where one PyTorch call computes the
    same function, that call;
 3. the serving slice: a ``ServingEngine`` over a DiT-512/8 (heads 4, bf16,
@@ -24,7 +25,23 @@ Phases, each failing the run with a non-zero exit:
    against the same step through the plain versions; an ``.npz`` round trip
    of the trained parameters; the median step time, the peak memory, and
    the card's time by kernel group over 3 traced steps (which must show
-   both K5 kernels once per block and step).
+   both K5 kernels once per block and step);
+5. int8 DiT serving: the phase-3 DiT with its block weights quantized
+   (``DiT.quantize_params``) serves the same 6 requests; B6 launches once
+   per int8 product (32 per denoise step); each output within cosine 0.99
+   of the bf16 output of the same request; latency and throughput;
+6. Flux serving at FLUX.1-dev's published widths and depth (19 double + 38
+   single blocks, dim 3072, 24 heads of 128, T5 4096, CLIP 768), bf16
+   weights drawn on the card, 1024x1024 requests (4096 image + 512 text
+   tokens) with random prompt features, guidance 3.5, 28-step DPM++2M /
+   FlowShift(Linear), buckets (1, 2): 3 requests (2 together, then the
+   first again alone); exact launches per forward (K2 57, K3 115, B7 76),
+   finite and packing-invariant outputs, one forward through the kernels
+   against the plain versions; then the int8 model (``quantize_params``)
+   serves 2 requests with B6 at 266 launches per forward, each within
+   cosine 0.99 of the bf16 output of the same request; per configuration
+   the median request latency (bucket 1), images per second (bucket 2),
+   peak memory and the card's busy share over one traced dispatch.
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -57,6 +74,8 @@ DEPTH = 8
 SEEDS = (11, 12, 13, 14, 15, 16)
 TRAIN_WARMUP = 3
 TRAIN_STEPS = 20
+FLUX_STEPS = 28  # FLUX.1-dev's default
+FLUX_REPEATS = 3  # dispatches per median
 
 
 class SmokeFailure(RuntimeError):
@@ -274,6 +293,7 @@ def kernels_phase() -> dict[str, dict]:
             timed(rows["adaln_forward"], "plain_ms", lambda args=args: adaln.adaln_reference(*args))
 
     rows.update(training_kernels(gen))
+    rows.update(flux_kernels(gen))
     for row in rows.values():
         library = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
         print(
@@ -407,9 +427,143 @@ def training_kernels(gen) -> dict[str, dict]:
     return rows
 
 
+def _ulps_bf16(a, b) -> float:
+    "The largest distance between two bf16 tensors, in units in the last place of the larger magnitude."
+    import torch
+
+    a32, b32 = a.float(), b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a32.abs(), b32.abs()).clamp_min(2.0**-126))) - 7)
+    return ((a32 - b32).abs() / ulp).max().item()
+
+
+def flux_kernels(gen) -> dict[str, dict]:
+    """B6 and B7 against their plain versions at the Flux and int8 serving paths' shapes, and K2 at
+    the Flux shape; times and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from skrample_tpu_torch.ops import flash_attention, quant, rope
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict] = {}
+    H, d, L, N_IMG = 24, 128, 512, 4096
+
+    # ---- B7: qk-norm + RoPE on bf16 qkv, in place as the blocks run it; tables as row views of the joint ones ----
+    angles = torch.rand((L + N_IMG, d // 2), generator=gen, device=dev) * 64
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    gq = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    gk = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    # 4080 = the 85x48 image tokens of a 1360x768 request: N not a multiple of 128 takes the kernel too
+    cases = [
+        ("image stream", N_IMG, slice(L, None)),
+        ("text stream", L, slice(0, L)),
+        ("joint", L + N_IMG, slice(None)),
+        ("1360x768 image stream", 4080, slice(L, L + 4080)),
+    ]
+    for label, n, rows_of in cases:
+        qkv = (torch.randn((1, n, 3 * H * d), generator=gen, device=dev) * 2).to(torch.bfloat16)
+        c, s_ = cos[rows_of], sin[rows_of]
+        want = rope.rope_qk_norm_reference(qkv, gq, gk, c, s_, H)
+        fresh = rope.rope_qk_norm_forward(qkv, gq, gk, c, s_, H)
+        inplace = rope.rope_qk_norm_forward(qkv.clone(), gq, gk, c, s_, H, in_place=True)
+        torch.cuda.synchronize()
+        ulps = max(_ulps_bf16(fresh, want), _ulps_bf16(inplace, want))
+        v_same = torch.equal(fresh[..., 2 * H * d :], qkv[..., 2 * H * d :]) and torch.equal(inplace, fresh)
+        err = max(max_err(fresh, want), max_err(inplace, want))
+        print(
+            f"B7 rope_qk_norm_forward bf16 {tuple(qkv.shape)} ({label}, tables rows {rows_of.start}:): max_abs_err "
+            f"{err:.3e}, {ulps:g} bf16 ulp (tolerance 1 ulp); v third bit-equal and in place == fresh: {v_same}"
+        )
+        expect(bool(torch.isfinite(fresh).all()) and ulps <= 1 and v_same, f"B7 {label} disagrees: {ulps} ulp, v {v_same}")
+        before = rope.rope_qk_norm_forward.launches
+        with torch.no_grad():
+            via = rope.fused_rope_qk_norm(qkv.clone(), gq, gk, c, s_, H)
+        launched = rope.rope_qk_norm_forward.launches - before
+        expect(launched == 1 and torch.equal(via, inplace), f"B7 {label}: the model's dispatch launched {launched} times")
+        qk_bytes = n * 2 * H * d * 2
+        b_ms, b_by = bound_ms(2 * qk_bytes + 2 * c.numel() * 4 + 2 * d * 4, 8 * n * 2 * H * d, PEAK_F32_FLOPS)
+        args = (qkv, gq, gk, c, s_, H)
+        timing = {}
+        timed(timing, "ms", lambda args=args: rope.rope_qk_norm_forward(*args, in_place=True))
+        timed(timing, "plain_ms", lambda args=args: rope.rope_qk_norm_reference(*args))
+        print(
+            f"B7 {label} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel in place, "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, bound {b_ms * 1e3:.2f} us ({b_by})"
+        )
+        if label == "image stream":
+            rows["rope_qk_norm_forward"] = {
+                "name": "rope_qk_norm_forward",
+                "route": "cuda",
+                "source": "skrample_tpu_torch/csrc/rope.cu",
+                "replaces": "skrample_tpu/ops/rope.py:94",
+                "max_abs_err": err,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": None,
+                **timing,
+            }
+
+    # ---- K2 at the Flux shape: bf16 qkv (1, 4608, 9216), 24 heads of 128 ----
+    N = L + N_IMG
+    qkv = torch.randn((1, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+    got = flash_attention.flash_attention_qkv_forward(qkv, H)
+    ref = flash_attention._qkv_reference(qkv, H)
+    q, k, v = qkv.view(1, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    print(f"K2 flash_attention_qkv_forward bf16 {tuple(qkv.shape)} (Flux): max_abs_err {err:.3e} (tolerance 5.0e-03)")
+    expect(bool(torch.isfinite(got).all()) and err <= 5e-3, f"K2 at the Flux shape disagrees: {err}")
+    b_ms, b_by = bound_ms((qkv.numel() + got.numel()) * 2, 4 * H * N * N * d, PEAK_BF16_FLOPS)
+    timing = {}
+    timed(timing, "ms", lambda: flash_attention.flash_attention_qkv_forward(qkv, H))
+    timed(timing, "plain_ms", lambda: flash_attention._qkv_reference(qkv, H))
+    timed(timing, "library_ms", lambda: F.scaled_dot_product_attention(q, k, v))
+    print(
+        f"K2 Flux shape (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
+        f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us, "
+        f"bound {b_ms * 1e3:.2f} us ({b_by})"
+    )
+    del qkv, got, ref, q, k, v
+
+    # ---- B6: per-row int8 quantization of bf16 activations: Flux's widths and the int8 DiT's ----
+    for label, shape in (("Flux qkv/mlp_in input", (4608, 3072)), ("Flux single out input", (4608, 15360)),
+                         ("DiT-512 mlp_out input, bucket 1", (1024 * 1, 2048))):
+        x = (torch.randn(shape, generator=gen, device=dev) * 3).to(torch.bfloat16)
+        x[1] = 0
+        q, sc = quant.quantize_rows(x)
+        want_q, want_s = quant.quantize_activation(x)
+        torch.cuda.synchronize()
+        same = torch.equal(q, want_q) and torch.equal(sc, want_s)
+        err = max(max_err(q, want_q), max_err(sc, want_s))
+        print(f"B6 quantize_rows bf16 {shape} ({label}): q and s bit-equal to the plain version: {same}")
+        expect(same, f"B6 {shape} differs from the plain version by {err}")
+        R, D = shape
+        b_ms, b_by = bound_ms(R * D * 2 + R * D + R * 4, 4 * R * D, PEAK_F32_FLOPS)
+        timing = {}
+        timed(timing, "ms", lambda x=x: quant.quantize_rows(x))
+        timed(timing, "plain_ms", lambda x=x: quant.quantize_activation(x))
+        print(
+            f"B6 {shape} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, bound {b_ms * 1e3:.2f} us ({b_by})"
+        )
+        if "quantize_rows" not in rows:  # the row keeps the first shape's numbers
+            rows["quantize_rows"] = {
+                "name": "quantize_rows",
+                "route": "cuda",
+                "source": "skrample_tpu_torch/csrc/quant.cu",
+                "replaces": "skrample_tpu/ops/quant.py:72",
+                "max_abs_err": err,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": None,
+                **timing,
+            }
+    return rows
+
+
 def _wrappers() -> dict:
     "Every kernel wrapper, by the name its row carries."
-    from skrample_tpu_torch.ops import adaln, flash_attention, fused
+    from skrample_tpu_torch.ops import adaln, flash_attention, fused, quant, rope
 
     return {
         "fused_step_cuda": fused.fused_step_cuda,
@@ -418,6 +572,8 @@ def _wrappers() -> dict:
         "flash_attention_qkv_forward_lse": flash_attention.flash_attention_qkv_forward_lse,
         "flash_attention_qkv_backward": flash_attention.flash_attention_qkv_backward,
         "adaln_backward": adaln.adaln_backward,
+        "quantize_rows": quant.quantize_rows,
+        "rope_qk_norm_forward": rope.rope_qk_norm_forward,
     }
 
 
@@ -455,6 +611,8 @@ def slice_phase(card: str) -> dict[str, int]:
         "flash_attention_qkv_forward_lse": 0,
         "flash_attention_qkv_backward": 0,
         "adaln_backward": 0,
+        "quantize_rows": 0,
+        "rope_qk_norm_forward": 0,
     }
     item_shape = (4, 64, 64)
 
@@ -534,7 +692,7 @@ def slice_phase(card: str) -> dict[str, int]:
         print(f"slice: request latency, bucket 1: {min(solo_s) * 1e3:.2f} ms (min of 3; {card})")
         best = min(batch_s)
         print(f"slice: batch of 4 latency: {best * 1e3:.2f} ms, {4 / best:.2f} img/s (min of 3; {card})")
-    return launches
+    return launches, dict(zip(SEEDS, outs))
 
 
 def _relative_fro(a, b) -> float:
@@ -588,6 +746,8 @@ def training_phase(card: str) -> dict[str, int]:
         "flash_attention_qkv_forward_lse": DEPTH,
         "flash_attention_qkv_backward": DEPTH,
         "adaln_backward": 2 * DEPTH + 1,
+        "quantize_rows": 0,
+        "rope_qk_norm_forward": 0,
     }
 
     for step in range(TRAIN_WARMUP):
@@ -713,6 +873,320 @@ def training_phase(card: str) -> dict[str, int]:
     return launches
 
 
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item()
+
+
+def int8_dit_phase(card: str, bf16_outputs: dict) -> dict[str, int]:
+    "Phase 5: the phase-3 DiT-512/8 with int8 block weights serves the same 6 requests."
+    import torch
+
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    config = DiTConfig(
+        dim=512, depth=DEPTH, heads=4, patch=2, channels=4, compute_dtype=torch.bfloat16, attention="flash"
+    )
+    model = DiT(config, device="cuda").load_jax_params(random_param_tree(config, seed=0))
+    model.requires_grad_(False)
+    int8 = model.quantize_params()
+    per_dispatch = dict.fromkeys(_wrappers(), 0)
+    per_dispatch.update(
+        fused_step_cuda=STEPS,
+        flash_attention_qkv_forward=DEPTH * STEPS,
+        adaln_forward=(2 * DEPTH + 1) * STEPS,
+        quantize_rows=4 * DEPTH * STEPS,  # qkv, proj, mlp_in, mlp_out of every block
+    )
+    engine = ServingEngine(
+        int8.as_sampleable(),
+        item_shape=(4, 64, 64),
+        sampler=structured.DPM(order=2),
+        schedule=scheduling.FlowShift(scheduling.Linear()),
+        model_transform=models.FlowModel(),
+        steps=STEPS,
+        dtype=torch.float32,
+        buckets=(1, 2, 4),
+        max_delay_ms=50.0,
+        device="cuda",
+    )
+    with engine:
+        engine.generate(99).cpu()
+        batches_before = engine.stats.batches
+        torch.cuda.synchronize()
+        _reset_counters()
+        first = [engine.submit(s) for s in SEEDS[:4]]
+        outs = [f.result() for f in first]
+        second = [engine.submit(s) for s in SEEDS[4:]]
+        outs += [f.result() for f in second]
+        outs = [o.cpu() for o in outs]
+        torch.cuda.synchronize()
+        launches = _counters()
+        dispatches = engine.stats.batches - batches_before
+        print(f"int8 DiT: 6 requests in {dispatches} dispatches; launches {launches} (per dispatch {per_dispatch})")
+        expect(dispatches == 2, f"int8 DiT: expected 2 dispatches (4 + 2), got {dispatches}")
+        for name, count in launches.items():
+            expect(count == per_dispatch[name] * dispatches, f"int8 DiT: {name} launched {count} times")
+        cosines = [_cosine(o, bf16_outputs[seed]) for seed, o in zip(SEEDS, outs)]
+        print(f"int8 DiT: cosine to the bf16 output of the same request: min {min(cosines):.6f} (bound 0.99)")
+        expect(all(bool(torch.isfinite(o).all()) for o in outs), "int8 DiT: non-finite output")
+        expect(min(cosines) > 0.99, f"int8 DiT: cosine to bf16 {min(cosines)} <= 0.99")
+
+        engine.max_delay_s = 2e-3
+        solo_s, batch_s = [], []
+        for i in range(3):
+            t0 = time.perf_counter()
+            engine.generate(200 + i).cpu()
+            solo_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for f in [engine.submit(300 + 4 * i + j) for j in range(4)]:
+                f.result().cpu()
+            batch_s.append(time.perf_counter() - t0)
+        print(f"int8 DiT: request latency, bucket 1: {min(solo_s) * 1e3:.2f} ms (min of 3; {card})")
+        best = min(batch_s)
+        print(f"int8 DiT: batch of 4 latency: {best * 1e3:.2f} ms, {4 / best:.2f} img/s (min of 3; {card})")
+    return launches
+
+
+FLUX_GROUPS = (
+    ("K1 fused_step", ("fused_step_kernel",)),
+    ("K2 flash_qkv", ("flash_qkv_kernel",)),
+    ("K3 adaln", ("adaln_kernel",)),
+    ("B6 quant_rows", ("quant_rows_kernel",)),
+    ("B7 rope_qk_norm", ("rope_qk_norm_kernel",)),
+    ("int8 matmul", ("imma", "i8i8", "s8s8", "int8")),
+    ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
+)
+
+
+def _flux_group(kernel: str) -> str:
+    lowered = kernel.lower()
+    for label, needles in FLUX_GROUPS:
+        if any(n in lowered for n in needles):
+            return label
+    return "other"
+
+
+def _traced_dispatch(run, label: str, median_s: float, card: str) -> None:
+    "The card's time by kernel group over one traced dispatch, and its busy share of the median untraced one."
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    card_ms: dict[str, float] = {}
+    card_launches: dict[str, int] = {}
+    names: dict[str, float] = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", 0.0)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0 and not evt.is_user_annotation:
+            group = _flux_group(evt.key)
+            card_ms[group] = card_ms.get(group, 0.0) + dev_us / 1e3
+            card_launches[group] = card_launches.get(group, 0) + evt.count
+            names[evt.key[:90]] = names.get(evt.key[:90], 0.0) + dev_us / 1e3
+    busy = sum(card_ms.values())
+    for group in sorted(card_ms, key=card_ms.get, reverse=True):
+        print(
+            f"{label} profile: {group:>16} {card_ms[group]:10.2f} ms on the card ({100 * card_ms[group] / busy:4.1f}% "
+            f"of busy), {card_launches[group]} launches"
+        )
+    # tracing slows the host, not the kernels: the idle share is against the median untraced dispatch
+    print(
+        f"{label} profile: card busy {busy:.2f} ms of the {median_s * 1e3:.2f} ms median untraced dispatch: idle "
+        f"{100 * (1 - busy / (median_s * 1e3)):.1f}% (the traced one took {traced_s * 1e3:.2f} ms); "
+        f"{sum(card_launches.values())} kernel launches ({card})"
+    )
+    for name in sorted(names, key=names.get, reverse=True)[:6]:
+        print(f"{label} profile: largest: {names[name]:.2f} ms  {name}")
+
+
+def _clocks() -> str:
+    "The card's SM clock (now and at most), power draw and limit, and temperature, as nvidia-smi reads them."
+    query = "clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu"
+    smi = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"], capture_output=True, text=True, timeout=60
+    )
+    return f"{query}: {smi.stdout.strip()}"
+
+
+def _plain_rope(qkv, q_gain, k_gain, cos, sin, heads, eps=1e-6, in_place=False):
+    from skrample_tpu_torch.ops import rope
+
+    return rope.rope_qk_norm_reference(qkv, q_gain, k_gain, cos, sin, heads, eps)
+
+
+def flux_phase(card: str) -> tuple[dict[str, int], dict[str, int]]:
+    """Phase 6: FLUX.1-dev at its published widths and depth, bf16 then int8; returns each
+    configuration's main-path launches."""
+    import torch
+
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.flux import Flux, FluxConfig, flux_forward_flops
+    from skrample_tpu_torch.ops import adaln, flash_attention, quant, rope
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    # FLUX.1-dev transformer/config.json: 19 + 38 layers, 24 heads of 128, joint_attention_dim 4096, pooled 768
+    config = FluxConfig(
+        dim=3072, heads=24, depth=19, single_depth=38, context_dim=4096, pooled_dim=768, guidance=True,
+        compute_dtype=torch.bfloat16, attention="flash",
+    )
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    model = Flux(config, device=dev, generator=gen, dtype=torch.bfloat16)
+    model.reset_parameters(gen, noise=0.02)  # scripts/bench_flux.py's recipe: every leaf random
+    model.requires_grad_(False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(
+        f"flux: FLUX.1-dev widths, {config.depth} double + {config.single_depth} single blocks, {n_params / 1e9:.3f}B "
+        f"parameters in bf16 drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated"
+    )
+    item_shape = (16, 128, 128)  # a 1024x1024 image through the 8x VAE: 4096 image tokens at patch 2
+    txt = 512
+    cgen = torch.Generator(dev).manual_seed(1)
+    contexts = [
+        (torch.randn((txt, config.context_dim), generator=cgen, device=dev),
+         torch.randn((config.pooled_dim,), generator=cgen, device=dev))
+        for _ in range(2)
+    ]
+    flops = flux_forward_flops(config, 1, 128, 128, txt)
+    per_forward = dict.fromkeys(_wrappers(), 0)
+    per_forward.update(
+        flash_attention_qkv_forward=config.depth + config.single_depth,
+        adaln_forward=4 * config.depth + config.single_depth + 1,
+        rope_qk_norm_forward=2 * config.depth + config.single_depth,
+    )
+
+    def serve(fn, label: str, requests: list, int8: bool) -> tuple[dict[str, int], list]:
+        "The main path (counters from 0), then latency and throughput medians and one traced dispatch."
+        want = dict(per_forward, fused_step_cuda=1)
+        if int8:
+            want["quantize_rows"] = 8 * config.depth + 3 * config.single_depth
+        engine = ServingEngine(
+            fn,
+            item_shape=item_shape,
+            sampler=structured.DPM(order=2),
+            schedule=scheduling.FlowShift(scheduling.Linear()),
+            model_transform=models.FlowModel(),
+            steps=FLUX_STEPS,
+            dtype=torch.float32,
+            buckets=(1, 2),
+            conditioned=True,
+            device=dev,
+        )
+        with engine:
+            torch.cuda.reset_peak_memory_stats()
+            batches_before = engine.stats.batches
+            torch.cuda.synchronize()
+            _reset_counters()
+            solo_s, pair_s = [], []
+            t0 = time.perf_counter()
+            futs = [engine.submit(seed, context=ctx) for seed, ctx in requests[:2]]
+            outs = [f.result().cpu() for f in futs]
+            pair_s.append(time.perf_counter() - t0)
+            if len(requests) > 2:
+                t0 = time.perf_counter()
+                outs.append(engine.generate(requests[2][0], context=requests[2][1]).cpu())
+                solo_s.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            launches = _counters()
+            dispatches = engine.stats.batches - batches_before
+            forwards = FLUX_STEPS * dispatches
+            print(f"{label}: {len(requests)} requests in {dispatches} dispatches ({engine.stats.bucket_counts})")
+            print(f"{label}: launches {launches} (per forward expected {want}, {forwards} forwards)")
+            expect(dispatches == (len(requests) + 1) // 2, f"{label}: {dispatches} dispatches")
+            for name, count in launches.items():
+                expect(count == want[name] * forwards, f"{label}: {name} launched {count}, expected {want[name] * forwards}")
+            for o in outs:
+                expect(tuple(o.shape) == item_shape and bool(torch.isfinite(o).all()), f"{label}: bad output")
+            peak = torch.cuda.max_memory_allocated()
+            print(f"{label}: after the main path, {_clocks()}")
+
+            for i in range(FLUX_REPEATS - len(solo_s)):
+                t0 = time.perf_counter()
+                engine.generate(500 + i, context=requests[0][1]).cpu()
+                solo_s.append(time.perf_counter() - t0)
+            for i in range(FLUX_REPEATS - len(pair_s)):
+                t0 = time.perf_counter()
+                for f in [engine.submit(600 + 2 * i + j, context=requests[j][1]) for j in range(2)]:
+                    f.result().cpu()
+                pair_s.append(time.perf_counter() - t0)
+            solo, pair = statistics.median(solo_s), statistics.median(pair_s)
+            print(
+                f"{label}: request latency, bucket 1: median {solo * 1e3:.1f} ms of {len(solo_s)} "
+                f"({', '.join(f'{v * 1e3:.1f}' for v in solo_s)}); {flops * FLUX_STEPS / solo / 1e12:.1f} TFLOP/s of "
+                f"model products ({card})"
+            )
+            print(
+                f"{label}: batch of 2: median {pair * 1e3:.1f} ms, {2 / pair:.4f} img/s "
+                f"({', '.join(f'{v * 1e3:.1f}' for v in pair_s)}; {card})"
+            )
+            print(f"{label}: peak device memory over the main path {peak / 2**30:.2f} GiB ({card})")
+            _traced_dispatch(
+                lambda: engine.generate(700, context=requests[0][1]).cpu(), f"{label} bucket 1", solo, card
+            )
+        return launches, outs
+
+    with torch.inference_mode():  # warm-up forwards at both bucket sizes: library handles and heuristics
+        for b in (1, 2):
+            x = torch.randn((b, *item_shape), device=dev)
+            ctx = torch.stack([contexts[0][0]] * b), torch.stack([contexts[0][1]] * b)
+            model(x, torch.tensor(500.0, device=dev), *ctx, guidance=3.5)
+        torch.cuda.synchronize()
+
+    # ---- bf16: requests A and B together, then A again alone ----
+    requests = [(1, contexts[0]), (2, contexts[1]), (1, contexts[0])]
+    bf16_launches, bf16_outs = serve(model.as_served(guidance=3.5), "flux bf16", requests, int8=False)
+    packing = _relative(bf16_outs[2], bf16_outs[0])
+    print(f"flux bf16: packing invariance, request A alone vs packed: relative max err {packing:.3e} (tol 5e-2, bf16)")
+    expect(packing <= 5e-2, f"flux bf16: packing changes request A by {packing}")
+
+    # ---- one forward at batch 1 through the kernels, then through the plain versions ----
+    fgen = torch.Generator(dev).manual_seed(2)
+    x = torch.randn((1, *item_shape), generator=fgen, device=dev)
+    args = (x, torch.tensor(500.0, device=dev), contexts[0][0][None], contexts[0][1][None])
+    with torch.inference_mode():
+        _reset_counters()
+        got = model(*args, guidance=3.5)
+        kernel_counts = _counters()
+        with (
+            mock.patch.object(flash_attention, "flash_attention_qkv_forward", flash_attention._qkv_reference),
+            mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+            mock.patch.object(rope, "rope_qk_norm_forward", _plain_rope),
+        ):
+            want = model(*args, guidance=3.5)
+        torch.cuda.synchronize()
+    expect(kernel_counts == per_forward, f"flux: one forward launched {kernel_counts}, expected {per_forward}")
+    expect(_counters() == kernel_counts, f"flux: the plain forward launched kernels: {_counters()}")
+    vs_plain = _relative(got, want)
+    print(f"flux bf16: one forward through the kernels vs the plain versions: relative max err {vs_plain:.3e} (tol 5e-2)")
+    expect(bool(torch.isfinite(want).all()) and vs_plain <= 5e-2, f"flux: kernel forward differs by {vs_plain}")
+
+    # ---- the int8 model beside the bf16 one: requests A and B ----
+    t0 = time.perf_counter()
+    int8 = model.quantize_params()
+    torch.cuda.synchronize()
+    print(
+        f"flux int8: quantized in {time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated with the bf16 model"
+    )
+    int8_launches, int8_outs = serve(int8.as_served(guidance=3.5), "flux int8", requests[:2], int8=True)
+    cosines = [_cosine(a, b) for a, b in zip(int8_outs, bf16_outs)]
+    print(f"flux int8: cosine to the bf16 output of the same request: {', '.join(f'{c:.6f}' for c in cosines)} (> 0.99)")
+    expect(min(cosines) > 0.99, f"flux int8: cosine to bf16 {min(cosines)} <= 0.99")
+    print(f"flux: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return bf16_launches, int8_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -730,15 +1204,17 @@ def main() -> int:
     try:
         device = device_phase()
         rows = kernels_phase()
-        serving = slice_phase(device["card"])
+        serving, dit_outputs = slice_phase(device["card"])
         train = training_phase(device["card"])
+        dit_int8 = int8_dit_phase(device["card"], dit_outputs)
+        flux_bf16, flux_int8 = flux_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
-    # each row's launches: its count in the serving path's run plus in the training path's run
+    # each row's launches: its counts summed over every path's main-path run
     for name, row in rows.items():
-        row["launches"] = serving[name] + train[name]
+        row["launches"] = sum(run[name] for run in (serving, train, dit_int8, flux_bf16, flux_int8))
     keys = (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

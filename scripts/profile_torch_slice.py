@@ -1,11 +1,12 @@
 #!/usr/bin/env python
 """Where one serving dispatch's time goes, for the PyTorch/CUDA port on one GPU.
 
-    python scripts/profile_torch_slice.py [--batch 4] [--depth 8] [--steps 25]
+    python scripts/profile_torch_slice.py [--batch 4] [--depth 8] [--steps 25] [--int8]
 
 Drives the serving slice that ``chip_smoke.py`` drives (ServingEngine over a
 DiT-512, heads 4, bf16, random weights from a numpy seed; 25-step DPM++2M over
-FlowShift(Linear); 4x64x64 latents), then:
+FlowShift(Linear); 4x64x64 latents; with ``--int8`` the DiT's int8 serving
+model, ``DiT.quantize_params()``), then:
 
 * times ``--reps`` dispatches of ``--batch`` requests on the host clock,
   each ending in a synchronize (the latency a caller sees);
@@ -44,6 +45,7 @@ GROUPS = (
     ("K1 fused_step", ("fused_step_kernel",)),
     ("K2 flash_qkv", ("flash_qkv_kernel",)),
     ("K3 adaln", ("adaln_kernel",)),
+    ("B6 quant_rows", ("quant_rows_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
 )
 
@@ -63,6 +65,7 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=25)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0, help="weight seed")
+    parser.add_argument("--int8", action="store_true", help="serve the int8 model (kernel B6 in front of each block product)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
@@ -75,6 +78,8 @@ def main() -> int:
     config = DiTConfig(dim=512, depth=args.depth, heads=4, compute_dtype=torch.bfloat16, attention="flash")
     model = DiT(config, device="cuda").load_jax_params(random_param_tree(config, args.seed))
     model.requires_grad_(False)
+    if args.int8:
+        model = model.quantize_params()
     engine = ServingEngine(
         model.as_sampleable(), (4, 64, 64), sampler=structured.DPM(order=2),
         schedule=scheduling.FlowShift(scheduling.Linear()), model_transform=models.FlowModel(),
@@ -115,6 +120,7 @@ def main() -> int:
         "batch": args.batch,
         "steps": args.steps,
         "depth": args.depth,
+        "int8": args.int8,
         "dispatch_ms_median": median_ms,
         "dispatch_ms_all": [w * 1e3 for w in walls],
         "img_per_s": args.batch / statistics.median(walls),

@@ -1,17 +1,26 @@
-"""Model families ported to PyTorch.  This slice carries the DiT, with its
-EMA shadow and ``.npz`` parameter checkpoints for training."""
+"""Model families ported to PyTorch: the DiT (with its EMA shadow and
+``.npz`` parameter checkpoints for training) and the Flux transformer, each
+with its int8 serving model (``quantize_params``)."""
 
 from .checkpoint import load_params, save_params
+from .conditioning import doubled_t, guided_mix, per_item
 from .dit import DiT, DiTConfig, random_param_tree
 from .ema import ema_decay_schedule, ema_init, ema_update
+from .flux import Flux, FluxConfig, flux_forward_flops
 
 __all__ = [
     "DiT",
     "DiTConfig",
+    "Flux",
+    "FluxConfig",
+    "doubled_t",
     "ema_decay_schedule",
     "ema_init",
     "ema_update",
+    "flux_forward_flops",
+    "guided_mix",
     "load_params",
+    "per_item",
     "random_param_tree",
     "save_params",
 ]

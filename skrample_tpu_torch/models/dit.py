@@ -11,14 +11,17 @@ adaLN and the fused-qkv attention are autograd Functions whose backwards
 are kernels too, and ``remat`` recomputes each block's activations in the
 backward as the JAX package's does.
 
-The sequence-parallel attentions (``"ring"``, ``"ulysses"``), pipelined
-apply and int8 serving trees belong to later slices of the port and raise
+:meth:`DiT.quantize_params` gives the int8 serving model (``ops/quant.py``).
+The sequence-parallel attentions (``"ring"``, ``"ulysses"``) and pipelined
+apply belong to later slices of the port and raise
 :class:`NotImplementedError` here.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
+import itertools
 import math
 from collections.abc import Callable
 from dataclasses import dataclass
@@ -38,6 +41,7 @@ from torch.utils.checkpoint import (
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import flash_attention_qkv
+from ..ops.quant import Int8Dense, dense_int8, quantize_params
 
 _LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
 
@@ -69,29 +73,96 @@ class DiTConfig:
         return self.dim // self.heads
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype, in_place: bool = True) -> torch.Tensor:
-    """``x @ w + b`` with ``w`` cast to ``dtype``, the bias added in float32,
-    the sum cast to ``dtype`` (the JAX package's ``_dense``).  The in-place
-    add of the float32 bias computes in float32 and rounds once to
-    ``dtype``, in one pass; autograd allows it because the matmul's backward
-    does not read its own output.  In a 16-bit dtype the product itself
-    rounds to that dtype before the bias add: PyTorch has no portable 16-bit
-    matmul with a float32 result.
-
-    ``in_place=False`` gives the same values without writing into the
-    matmul's output, which ``remat="dots"`` keeps for the backward."""
-    y = F.linear(x, layer.weight.to(dtype))
-    return y.add_(layer.bias) if in_place else (y + layer.bias).to(dtype)
+def _dense_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    "The forward of :class:`_Dense`, also taken alone where no gradient is wanted."
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda and x2.dtype != torch.float32:
+        y = torch.addmm(b.float(), x2, w.t(), out_dtype=torch.float32)
+    else:
+        y = torch.addmm(b.float(), x2.float(), w.t().float())
+    return y.to(x.dtype).view(*x.shape[:-1], y.shape[-1])
 
 
-_DENSE_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+class _Dense(torch.autograd.Function):
+    """``x @ wᵀ + b`` as the JAX package's ``_dense`` computes it: the product
+    with a float32 result, plus the float32 bias, rounded once to the
+    compute dtype; the bias gradient summed in float32.
+
+    On the card a 16-bit product takes ``torch.addmm(b, x, wᵀ,
+    out_dtype=float32)`` (``aten.addmm.dtype``: the float32 sum of the
+    product and the bias); on the CPU, the same of the upcast operands.
+    Nothing writes into that sum, which ``remat="dots"`` keeps; its one
+    rounding to the compute dtype is a separate pass.  The backward:
+    ``dx = g @ w`` and ``dw = gᵀ @ x`` in the compute dtype, ``db`` the
+    float32 sum of ``g`` over rows."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x.reshape(-1, x.shape[-1]), w)
+        ctx.bias_dtype = b.dtype
+        return _dense_forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
+        x2, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = g2.mm(w).view(*g.shape[:-1], w.shape[1]) if ctx.needs_input_grad[0] else None
+        dw = g2.t().mm(x2) if ctx.needs_input_grad[1] else None
+        db = g2.float().sum(0).to(ctx.bias_dtype) if ctx.needs_input_grad[2] else None
+        return dx, dw, db
+
+
+def _dense(layer: nn.Linear | Int8Dense, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The JAX package's ``_dense``: ``x @ w + b`` with ``w`` cast to
+    ``dtype``, the product and the bias add in float32, one rounding to
+    ``dtype`` (:class:`_Dense`); an int8 layer of a serving model goes
+    through :func:`~skrample_tpu_torch.ops.quant.dense_int8`."""
+    if isinstance(layer, Int8Dense):
+        return dense_int8(layer.params(), x, dtype)
+    w = layer.weight.to(dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or layer.bias.requires_grad):
+        return _Dense.apply(x, w, layer.bias)
+    return _dense_forward(x, w, layer.bias)
+
+
+# the dense layers' products: ``aten.addmm.dtype`` on the card, ``aten.addmm`` on the CPU
+_DENSE_OPS = frozenset({torch.ops.aten.addmm.dtype, torch.ops.aten.addmm.default})
 
 
 def _save_dense_outputs(ctx: Any, op: Any, *args: Any, **kwargs: Any) -> CheckpointPolicy:
     """The ``"dots"`` policy: keep the output of every matmul without batch
-    dimensions (the dense layers; ``F.linear`` reaches ``aten.mm``), recompute
-    everything else, batched attention products included."""
+    dimensions (the dense layers' float32 products), recompute everything
+    else, batched attention products included."""
     return CheckpointPolicy.MUST_SAVE if op in _DENSE_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _int8_copy(model: nn.Module, exclude: frozenset[str]) -> nn.Module:
+    """The int8 serving copy of ``model``: every ``nn.Linear`` that the JAX
+    package's ``quantize_params`` (with ``exclude``) would quantize becomes an
+    :class:`~skrample_tpu_torch.ops.quant.Int8Dense`; every other parameter is
+    shared with ``model``, not copied."""
+    tree: dict = {}
+    for name, layer in model.named_modules():
+        if isinstance(layer, nn.Linear):
+            node = tree
+            for part in name.split("."):
+                node = node.setdefault(part, {})
+            node.update(w=layer.weight.detach().t(), b=layer.bias.detach())
+    quantized = quantize_params(tree, exclude=exclude)
+    shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    clone = copy.deepcopy(model, shared)
+
+    def swap(node: dict, path: str) -> None:
+        if "w_q" in node:
+            parent, _, leaf = path.rpartition(".")
+            setattr(clone.get_submodule(parent), leaf, Int8Dense(node))
+        else:
+            for key, child in node.items():
+                if isinstance(child, dict):
+                    swap(child, f"{path}.{key}" if path else key)
+
+    swap(quantized, "")
+    return clone
 
 
 _DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _save_dense_outputs)
@@ -128,8 +199,7 @@ class DiTBlock(nn.Module):
     def forward(self, tokens: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         c = self.config
         B, N, _ = tokens.shape
-        # "dots" remat keeps the matmul outputs, so the bias must not be added into them
-        dense = functools.partial(_dense, dtype=c.compute_dtype, in_place=c.remat != "dots")
+        dense = functools.partial(_dense, dtype=c.compute_dtype)
         mods = dense(self.ada, temb)
         # the JAX package's order: (shift, gate, scale) for attention, then MLP
         s_attn, g_attn, sc_attn, s_mlp, g_mlp, sc_mlp = mods.chunk(6, dim=-1)
@@ -243,7 +313,7 @@ class DiT(nn.Module):
             for part in name.split("."):
                 entry = entry[int(part)] if part.isdigit() else entry[part]
             if "w_q" in entry:
-                raise NotImplementedError(f"int8 serving trees {_LATER}")
+                raise NotImplementedError("an int8 tree does not load: load the float tree, then quantize_params()")
             if set(entry) != {"w", "b"}:
                 raise ValueError(f"{name}: expected keys w, b; got {sorted(entry)}")
             w = np.array(entry["w"], dtype=np.float32)  # a copy: jax hands out read-only buffers
@@ -301,8 +371,14 @@ class DiT(nn.Module):
     def apply_pipelined(self, *args: Any, **kwargs: Any) -> torch.Tensor:
         raise NotImplementedError(f"pipeline-parallel apply {_LATER}")
 
-    def quantize_params(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"int8 serving trees {_LATER}")
+    def quantize_params(self) -> DiT:
+        """The int8 serving model: the block qkv/proj/mlp weights as
+        per-channel int8 with dynamic per-row activation scales (kernel B6),
+        as the JAX package's ``DiT.quantize_params`` builds its tree.  The
+        conditioning pathway (``ada``, ``final_mod``, ``t_mlp1``,
+        ``t_mlp2``) and layers under 16384 weights stay as they are and are
+        shared with this model.  Serving only: rounding has no gradient."""
+        return _int8_copy(self, frozenset({"ada", "final_mod", "t_mlp1", "t_mlp2"}))
 
     def param_spec(self, *args: Any, **kwargs: Any) -> dict:
         raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")

@@ -9,6 +9,10 @@
   backward (K6).
 * :mod:`.flash_attention` — attention off the fused qkv projection (K2),
   with the logsumexp forward (K4) and the backward (K5) for training.
+* :mod:`.rope` — per-head RMS qk-norm + rotary embedding on the fused qkv
+  projection (kernel B7).
+* :mod:`.quant` — the int8 serving path: per-row activation quantization
+  (kernel B6), per-channel weights, the int8 product.
 
 Every kernel is written by hand in ``csrc/`` and built on first use
 (:mod:`._cuda`); nothing here imports a compiler or touches a card at
@@ -18,12 +22,22 @@ import time.
 from .compiler import CompiledSampler, NonlinearSamplerError, compile_sampler
 from .fused import fused_step, fused_step_cuda
 from .loop import CompiledDenoiser
+from .quant import dense_int8, quantize_activation, quantize_params, quantize_rows, quantize_weight
+from .rope import fused_rope_qk_norm, rope_qk_norm_forward, rope_qk_norm_reference
 
 __all__ = [
     "CompiledDenoiser",
     "CompiledSampler",
     "NonlinearSamplerError",
     "compile_sampler",
+    "dense_int8",
+    "fused_rope_qk_norm",
     "fused_step",
     "fused_step_cuda",
+    "quantize_activation",
+    "quantize_params",
+    "quantize_rows",
+    "quantize_weight",
+    "rope_qk_norm_forward",
+    "rope_qk_norm_reference",
 ]

@@ -30,7 +30,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_step.cu", "flash_attention.cu", "flash_attention_bwd.cu", "adaln.cu")
+SOURCES = ("fused_step.cu", "flash_attention.cu", "flash_attention_bwd.cu", "adaln.cu", "quant.cu", "rope.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
@@ -55,6 +55,9 @@ _SIGNATURES: dict[str, list] = {
     # x, g, scale, dx, partials, dshift, dscale, B, N, D, scale row stride, dtype, eps, stream
     "skt_adaln_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _F, _P],
     "skt_adaln_backward_rows": [],  # token rows per block of the backward (sizes its partials)
+    "skt_quant_rows": [_P, _P, _P, _L, _I, _I, _P],  # x, q, s, R, D, dtype, stream
+    # qkv in, out (the same pointer: in place), cos, sin, table row stride, q gain, k gain, B, N, H, d, dtype, eps, stream
+    "skt_rope_qk_norm": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "skt_error_string": [_I],
 }
 

@@ -116,7 +116,8 @@ def test_nonlinear_sampler_raises_in_both() -> None:
 
 
 def test_port_imports_without_jax() -> None:
-    "Import the package and every submodule in a fresh interpreter; neither jax nor skrample_tpu may load."
+    """Import the package and every submodule in a fresh interpreter (the package walk reaches the
+    int8 and Flux modules too); neither jax nor skrample_tpu may load."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import skrample_tpu_torch\n"
@@ -125,6 +126,8 @@ def test_port_imports_without_jax() -> None:
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'skrample_tpu.')) "
         "or m == 'skrample_tpu')\n"
         "assert not bad, bad\n"
+        "wanted = ('ops.quant', 'ops.rope', 'models.flux', 'models.conditioning')\n"
+        "assert all('skrample_tpu_torch.' + m in sys.modules for m in wanted)\n"
         "print('clean')\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
