@@ -9,7 +9,7 @@ Phases, each failing the run with a non-zero exit:
    kernels from ``skrample_tpu_torch/csrc`` (printing ``-Xptxas -v``);
 2. kernels: each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (K1-K3 serving, K4-K6 training, B6/B7 Flux and
-   int8 serving), with card times
+   int8 serving, B8/B10 SDXL serving), with card times
    of the kernel, the plain version and, where one PyTorch call computes the
    same function, that call;
 3. the serving slice: a ``ServingEngine`` over a DiT-512/8 (heads 4, bf16,
@@ -41,7 +41,20 @@ Phases, each failing the run with a non-zero exit:
    serves 2 requests with B6 at 266 launches per forward, each within
    cosine 0.99 of the bf16 output of the same request; per configuration
    the median request latency (bucket 1), images per second (bucket 2),
-   peak memory and the card's busy share over one traced dispatch.
+   peak memory and the card's busy share over one traced dispatch;
+7. SDXL base serving: the published conditional UNet (widths (320, 640,
+   1280), transformer depths (0, 2, 10), heads of 64, context 2048, pooled
+   1280; 2.57B parameters in bf16 drawn on the card) behind
+   ``SDXLStack.as_served`` with classifier-free guidance 5.0, 25-step
+   DPM++2M over Karras(Scaled) with NoiseModel, buckets (1, 2), 1024x1024
+   requests (4x128x128 latents) with random prompt features: 3 requests
+   (2 together, then the first again alone); exact launches (B8 46 and
+   B10 70 per forward, K1 one per step), finite and packing-invariant
+   outputs, one CFG forward through the kernels against the plain versions,
+   the compiled Karras(Scaled) trajectory on the card against the CPU's,
+   cuDNN's bf16 conv rounding against one rounding of the f32 sum, every
+   conv's operands channels-last; latency, throughput, peak memory and the
+   card's time by kernel group over one traced dispatch.
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -76,6 +89,8 @@ TRAIN_WARMUP = 3
 TRAIN_STEPS = 20
 FLUX_STEPS = 28  # FLUX.1-dev's default
 FLUX_REPEATS = 3  # dispatches per median
+SDXL_STEPS = 25
+SDXL_REPEATS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -294,6 +309,7 @@ def kernels_phase() -> dict[str, dict]:
 
     rows.update(training_kernels(gen))
     rows.update(flux_kernels(gen))
+    rows.update(sdxl_kernels(gen))
     for row in rows.values():
         library = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
         print(
@@ -561,9 +577,116 @@ def flux_kernels(gen) -> dict[str, dict]:
     return rows
 
 
+def sdxl_kernels(gen) -> dict[str, dict]:
+    """B8 and B10 against their plain versions at the SDXL serving path's shapes (batch 4: bucket 2
+    under classifier-free guidance); times and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from skrample_tpu_torch.ops import flash_attention, groupnorm
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict] = {}
+
+    # ---- B8: GroupNorm(32) + f32 affine + SiLU, eps 1e-5, on (B, H*W, C) views of NHWC activations ----
+    cases = [
+        ((4, 16384, 320), torch.bfloat16, True, True, 1e-5),
+        ((4, 4096, 960), torch.bfloat16, True, True, 1e-5),
+        ((4, 1024, 2560), torch.bfloat16, True, True, 1e-5),
+        ((4, 4096, 640), torch.float32, False, True, 1e-6),  # the UNet family's resnet form: no affine, eps 1e-6
+    ]
+    for shape, dtype, affine, silu, eps in cases:
+        B, N, C = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 3 + 1.5).to(dtype)
+        scale = (1 + 0.1 * torch.randn(C, generator=gen, device=dev)) if affine else None
+        bias = 0.1 * torch.randn(C, generator=gen, device=dev) if affine else None
+        got = groupnorm.groupnorm_forward(x, 32, silu, eps, scale, bias)
+        want = groupnorm.groupnorm_reference(x, 32, silu, eps, scale, bias)
+        again = groupnorm.groupnorm_forward(x, 32, silu, eps, scale, bias)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        rel = 2**-7 if dtype == torch.bfloat16 else 1e-5
+        tol = rel * want.float().abs().max().item()
+        form = ("affine" if affine else "no affine") + (" + SiLU" if silu else "")
+        print(
+            f"B8 groupnorm_forward {dtype} {shape} ({form}, eps {eps:g}): max_abs_err {err:.3e} (tolerance {tol:.3e}: "
+            f"one rounding each, f32 statistics merged in another order); a second run gives the same bits: "
+            f"{torch.equal(got, again)}"
+        )
+        expect(bool(torch.isfinite(got).all()) and err <= tol, f"B8 {shape} disagrees with the plain version: {err}")
+        expect(torch.equal(got, again), f"B8 {shape} is not deterministic")
+        side = int(math.isqrt(N))
+        nchw = x.view(B, side, side, C).permute(0, 3, 1, 2)  # the channels-last NCHW tensor the library takes
+        w_lib = (scale if affine else torch.ones(C, device=dev)).to(dtype)
+        b_lib = (bias if affine else torch.zeros(C, device=dev)).to(dtype)
+        n_bytes = 2 * x.numel() * x.element_size() + (2 * C * 4 if affine else 0)
+        b_ms, b_by = bound_ms(n_bytes, 12 * x.numel(), PEAK_F32_FLOPS)
+        timing: dict = {}
+        args = (x, 32, silu, eps, scale, bias)
+        timed(timing, "ms", lambda args=args: groupnorm.groupnorm_forward(*args))
+        timed(timing, "plain_ms", lambda args=args: groupnorm.groupnorm_reference(*args))
+        timed(timing, "library_ms", lambda a=(nchw, w_lib, b_lib, eps): F.group_norm(a[0], 32, a[1], a[2], a[3]))
+        print(
+            f"B8 {shape} {dtype} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us "
+            f"(F.group_norm on the channels-last NCHW tensor, no SiLU), bound {b_ms * 1e3:.2f} us ({b_by})"
+        )
+        if "groupnorm_forward" not in rows:  # the row keeps the first shape's numbers
+            rows["groupnorm_forward"] = {
+                "name": "groupnorm_forward",
+                "route": "cuda",
+                "source": "skrample_tpu_torch/csrc/groupnorm.cu",
+                "replaces": "skrample_tpu/ops/groupnorm.py:145",
+                "max_abs_err": err,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                **timing,
+            }
+
+    # ---- B10: d = 64 attention on the chunk(3) views of a fused qkv product, bf16 ----
+    for B, N, H in ((4, 4096, 10), (4, 1024, 20)):
+        d = 64
+        qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        got = flash_attention.flash_attention_pairs_forward(q, k, v, H)
+        want = flash_attention._packed_reference(q, k, v, H)
+        qh, kh, vh = (t.reshape(B, N, H, d).transpose(1, 2).contiguous() for t in (q, k, v))
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        lib_err = max_err(F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2).reshape(B, N, H * d), want)
+        print(
+            f"B10 flash_attention_pairs_forward bf16 q/k/v {tuple(q.shape)} views of row stride {q.stride(1)} "
+            f"({H} heads of 64): max_abs_err {err:.3e} (tolerance 5.0e-03, as K2); SDPA vs plain {lib_err:.3e}"
+        )
+        expect(bool(torch.isfinite(got).all()) and err <= 5e-3, f"B10 N={N} disagrees with the plain attention: {err}")
+        b_ms, b_by = bound_ms((3 * B * N * H * d + got.numel()) * 2, 4 * B * H * N * N * d, PEAK_BF16_FLOPS)
+        timing = {}
+        timed(timing, "ms", lambda a=(q, k, v, H): flash_attention.flash_attention_pairs_forward(*a))
+        timed(timing, "plain_ms", lambda a=(q, k, v, H): flash_attention._packed_reference(*a))
+        timed(timing, "library_ms", lambda a=(qh, kh, vh): F.scaled_dot_product_attention(*a))
+        print(
+            f"B10 N {N} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us "
+            f"(scaled_dot_product_attention on contiguous (B, H, N, 64)), bound {b_ms * 1e3:.2f} us ({b_by})"
+        )
+        if "flash_attention_pairs_forward" not in rows:
+            rows["flash_attention_pairs_forward"] = {
+                "name": "flash_attention_pairs_forward",
+                "route": "cuda",
+                "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "skrample_tpu/ops/flash_attention.py:798",
+                "max_abs_err": err,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                **timing,
+            }
+        del qkv, q, k, v, qh, kh, vh, got, want
+    return rows
+
+
 def _wrappers() -> dict:
     "Every kernel wrapper, by the name its row carries."
-    from skrample_tpu_torch.ops import adaln, flash_attention, fused, quant, rope
+    from skrample_tpu_torch.ops import adaln, flash_attention, fused, groupnorm, quant, rope
 
     return {
         "fused_step_cuda": fused.fused_step_cuda,
@@ -574,6 +697,8 @@ def _wrappers() -> dict:
         "adaln_backward": adaln.adaln_backward,
         "quantize_rows": quant.quantize_rows,
         "rope_qk_norm_forward": rope.rope_qk_norm_forward,
+        "groupnorm_forward": groupnorm.groupnorm_forward,
+        "flash_attention_pairs_forward": flash_attention.flash_attention_pairs_forward,
     }
 
 
@@ -613,6 +738,8 @@ def slice_phase(card: str) -> dict[str, int]:
         "adaln_backward": 0,
         "quantize_rows": 0,
         "rope_qk_norm_forward": 0,
+        "groupnorm_forward": 0,
+        "flash_attention_pairs_forward": 0,
     }
     item_shape = (4, 64, 64)
 
@@ -748,6 +875,8 @@ def training_phase(card: str) -> dict[str, int]:
         "adaln_backward": 2 * DEPTH + 1,
         "quantize_rows": 0,
         "rope_qk_norm_forward": 0,
+        "groupnorm_forward": 0,
+        "flash_attention_pairs_forward": 0,
     }
 
     for step in range(TRAIN_WARMUP):
@@ -961,15 +1090,15 @@ FLUX_GROUPS = (
 )
 
 
-def _flux_group(kernel: str) -> str:
+def _group(kernel: str, groups: tuple = FLUX_GROUPS) -> str:
     lowered = kernel.lower()
-    for label, needles in FLUX_GROUPS:
+    for label, needles in groups:
         if any(n in lowered for n in needles):
             return label
     return "other"
 
 
-def _traced_dispatch(run, label: str, median_s: float, card: str) -> None:
+def _traced_dispatch(run, label: str, median_s: float, card: str, groups: tuple = FLUX_GROUPS) -> dict[str, int]:
     "The card's time by kernel group over one traced dispatch, and its busy share of the median untraced one."
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -982,13 +1111,15 @@ def _traced_dispatch(run, label: str, median_s: float, card: str) -> None:
     card_ms: dict[str, float] = {}
     card_launches: dict[str, int] = {}
     names: dict[str, float] = {}
+    kernel_counts: dict[str, int] = {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", 0.0)
         if evt.device_type == torch.autograd.DeviceType.CUDA and dev_us > 0 and not evt.is_user_annotation:
-            group = _flux_group(evt.key)
+            group = _group(evt.key, groups)
             card_ms[group] = card_ms.get(group, 0.0) + dev_us / 1e3
             card_launches[group] = card_launches.get(group, 0) + evt.count
             names[evt.key[:90]] = names.get(evt.key[:90], 0.0) + dev_us / 1e3
+            kernel_counts[evt.key] = kernel_counts.get(evt.key, 0) + evt.count
     busy = sum(card_ms.values())
     for group in sorted(card_ms, key=card_ms.get, reverse=True):
         print(
@@ -1003,6 +1134,7 @@ def _traced_dispatch(run, label: str, median_s: float, card: str) -> None:
     )
     for name in sorted(names, key=names.get, reverse=True)[:6]:
         print(f"{label} profile: largest: {names[name]:.2f} ms  {name}")
+    return {name: count for name, count in kernel_counts.items()}
 
 
 def _clocks() -> str:
@@ -1187,6 +1319,253 @@ def flux_phase(card: str) -> tuple[dict[str, int], dict[str, int]]:
     return bf16_launches, int8_launches
 
 
+SDXL_GROUPS = (
+    ("K1 fused_step", ("fused_step_kernel",)),
+    ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("B10 attention", ("flash_strided_kernel",)),
+    ("layout copies", ("nchwtonhwc", "nhwctonchw")),
+    ("cuDNN convs", ("fprop", "implicit_gemm", "conv", "cudnn", "winograd")),
+    ("plain cross-attention", ("softmax", "sgemm", "f32f32_f32f32", "gemv2t", "gemmsn")),
+    ("cuBLAS dense", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
+)
+
+
+def _conv_rounding(gen) -> None:
+    """cuDNN's bf16 3x3 conv with a bf16 bias, against one rounding of the f32 sum of the same
+    bf16 operands (the JAX package's ``_conv``), and against rounding twice (product, then bias)."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    x = torch.randn((4, 640, 64, 64), generator=gen, device=dev).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((640, 640, 3, 3), generator=gen, device=dev) / 80).to(torch.bfloat16)
+    w = w.contiguous(memory_format=torch.channels_last)
+    b = (0.5 * torch.randn(640, generator=gen, device=dev)).to(torch.bfloat16)
+    got = F.conv2d(x, w, b, 1, 1)
+    once = F.conv2d(x.float(), w.float(), b.float(), 1, 1).to(torch.bfloat16)
+    twice = (F.conv2d(x, w, None, 1, 1) + b[None, :, None, None]).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    share_once = (got != once).float().mean().item()
+    share_twice = (got != twice).float().mean().item()
+    print(
+        f"sdxl: cuDNN bf16 conv 640->640 3x3 at (4, 64, 64) with a bf16 bias: {100 * share_once:.3f}% of outputs "
+        f"differ from one rounding of the f32 sum (max {_ulps_bf16(got, once):g} ulp), {100 * share_twice:.3f}% from "
+        f"rounding the product and then the bias add (max {_ulps_bf16(got, twice):g} ulp)"
+    )
+
+
+def _layout_audit(run) -> None:
+    """Every convolution of one forward: are its input and weight channels-last?  And every copy
+    of a 4-D tensor that changes its stride order, by op and shape (a NCHW <-> NHWC relayout)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+
+    def order(t) -> tuple[int, ...]:
+        return tuple(sorted(range(t.ndim), key=lambda i: (-t.stride(i), i)))
+
+    class Audit(TorchDispatchMode):
+        def __init__(self) -> None:
+            super().__init__()
+            self.convs = 0
+            self.not_cl: list[str] = []
+            self.relayouts: dict[str, int] = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            op = func.overloadpacket
+            if op in (aten.conv2d, aten.convolution):  # under inference_mode the composite op arrives whole
+                self.convs += 1
+                for label, t in (("input", args[0]), ("weight", args[1])):
+                    if not t.is_contiguous(memory_format=torch.channels_last):
+                        self.not_cl.append(f"{label} {tuple(t.shape)}")
+            elif op in (aten._to_copy, aten.clone, aten.copy_, aten.to, aten.contiguous):
+                src, dst = (args[1], args[0]) if op is aten.copy_ else (args[0], out)
+                if src.ndim == 4 and min(src.shape) > 1 and order(src) != order(dst):
+                    key = f"{func.__name__} {tuple(src.shape)}"
+                    self.relayouts[key] = self.relayouts.get(key, 0) + 1
+            return out
+
+    audit = Audit()
+    with audit:
+        run()
+    print(
+        f"sdxl layout: {audit.convs} convolutions in one CFG forward, {len(audit.not_cl)} with an operand that is not "
+        f"channels-last {audit.not_cl[:4]}; 4-D copies that change the stride order: "
+        f"{sum(audit.relayouts.values())} {audit.relayouts}"
+    )
+    expect(not audit.not_cl, f"sdxl: convolutions outside channels-last: {audit.not_cl[:4]}")
+
+
+def sdxl_phase(card: str) -> dict[str, int]:
+    """Phase 7: SDXL base at its published widths and depth, bf16, with classifier-free guidance;
+    returns the main path's launches."""
+    import numpy as np
+    import torch
+
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.conditioning import guided_mix
+    from skrample_tpu_torch.models.sdxl import SDXLStack
+    from skrample_tpu_torch.models.unet_cond import CondUNet, CondUNetConfig, cond_unet_forward_flops
+    from skrample_tpu_torch.ops import CompiledDenoiser, compile_sampler, flash_attention, groupnorm
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    sampler, schedule, transform = structured.DPM(order=2), scheduling.Karras(scheduling.Scaled()), models.NoiseModel()
+
+    # ---- the compiled Karras(Scaled) trajectory: K1 on the card against the plain chain on the CPU ----
+    compiled = compile_sampler(sampler, schedule, transform, SDXL_STEPS)
+    x0 = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 4, 128, 128), dtype=np.float32))
+
+    def toy(x, t, s, a):  # elementwise and IEEE on both devices: any difference is the step arithmetic
+        return x * 0.25 - 0.125
+
+    on_cpu = CompiledDenoiser.build(compiled, device="cpu").run(toy, x0)
+    on_card = CompiledDenoiser.build(compiled, device=dev).run(toy, x0.to(dev)).cpu()
+    traj = max_err(on_card, on_cpu)
+    print(f"sdxl: 25-step DPM++2M / Karras(Scaled) / NoiseModel trajectory, K1 on the card vs the CPU: {traj:.3e}")
+    expect(traj <= 1e-6 * on_cpu.abs().max().item(), f"sdxl: the compiled trajectory differs on the card by {traj}")
+
+    _conv_rounding(torch.Generator(dev).manual_seed(3))
+
+    # ---- the published UNet, bf16, every leaf random (standard init + 0.02 N(0, 1)) ----
+    config = CondUNetConfig(compute_dtype=torch.bfloat16)  # stabilityai/stable-diffusion-xl-base-1.0 unet/config.json
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    unet = CondUNet(config, device=dev, generator=gen, dtype=torch.bfloat16)
+    unet.reset_parameters(gen, noise=0.02)
+    unet.requires_grad_(False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in unet.parameters())
+    print(
+        f"sdxl: SDXL base UNet (widths {config.widths}, depths {config.transformer_layers}, heads {config.heads}), "
+        f"{n_params / 1e9:.3f}B parameters in bf16 drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated"
+    )
+    item_shape = (4, 128, 128)  # a 1024x1024 image through the 8x VAE
+    cgen = torch.Generator(dev).manual_seed(1)
+
+    def features() -> tuple:
+        return (torch.randn((77, config.context_dim), generator=cgen, device=dev),
+                torch.randn((config.pooled_dim,), generator=cgen, device=dev))
+
+    contexts = [features(), features()]
+    uncond = features()
+    stack = SDXLStack(unet)
+    served = stack.as_served(SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev), 5.0, uncond)
+    flops = 2 * cond_unet_forward_flops(config, 1, 128, 128, 77)  # one request's CFG forward: batch 2
+    per_forward = dict.fromkeys(_wrappers(), 0)
+    per_forward.update(groupnorm_forward=46, flash_attention_pairs_forward=70)
+    want = dict(per_forward, fused_step_cuda=1)
+
+    def cfg_forward(b: int):
+        x = torch.randn((b, *item_shape), generator=cgen, device=dev)
+        ctx = torch.stack([contexts[0][0]] * b), torch.stack([contexts[0][1]] * b)
+        return lambda: served(x, torch.tensor(500.0, device=dev), None, None, ctx)
+
+    with torch.inference_mode():  # warm-up CFG forwards at both bucket sizes: cuDNN and cuBLAS heuristics
+        for b in (1, 2):
+            cfg_forward(b)()
+        torch.cuda.synchronize()
+
+    engine = ServingEngine(
+        served, item_shape=item_shape, sampler=sampler, schedule=schedule, model_transform=transform,
+        steps=SDXL_STEPS, dtype=torch.float32, buckets=(1, 2), conditioned=True, device=dev,
+    )
+    with engine:
+        # ---- the main path: requests A and B together, then A again alone ----
+        torch.cuda.reset_peak_memory_stats()
+        batches_before = engine.stats.batches
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        futs = [engine.submit(seed, context=ctx) for seed, ctx in ((1, contexts[0]), (2, contexts[1]))]
+        outs = [f.result().cpu() for f in futs]
+        pair_s = [time.perf_counter() - t0]
+        t0 = time.perf_counter()
+        outs.append(engine.generate(1, context=contexts[0]).cpu())
+        solo_s = [time.perf_counter() - t0]
+        torch.cuda.synchronize()
+        launches = _counters()
+        dispatches = engine.stats.batches - batches_before
+        forwards = SDXL_STEPS * dispatches
+        print(f"sdxl: 3 requests in {dispatches} dispatches ({engine.stats.bucket_counts})")
+        print(f"sdxl: launches {launches} (per forward expected {want}, {forwards} CFG forwards)")
+        expect(dispatches == 2, f"sdxl: {dispatches} dispatches, expected 2")
+        for name, count in launches.items():
+            expect(count == want[name] * forwards, f"sdxl: {name} launched {count}, expected {want[name] * forwards}")
+        for o in outs:
+            expect(tuple(o.shape) == item_shape and bool(torch.isfinite(o).all()), "sdxl: bad output")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"sdxl: after the main path, {_clocks()}")
+
+        packing = _relative(outs[2], outs[0])
+        print(f"sdxl: packing invariance, request A alone vs packed: relative max err {packing:.3e} (tol 5e-2, bf16)")
+        expect(packing <= 5e-2, f"sdxl: packing changes request A by {packing}")
+
+        for i in range(SDXL_REPEATS - 1):
+            t0 = time.perf_counter()
+            engine.generate(500 + i, context=contexts[0]).cpu()
+            solo_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for f in [engine.submit(600 + 2 * i + j, context=contexts[j]) for j in range(2)]:
+                f.result().cpu()
+            pair_s.append(time.perf_counter() - t0)
+        solo, pair = statistics.median(solo_s), statistics.median(pair_s)
+        print(
+            f"sdxl: request latency, bucket 1 (CFG: 2 images a forward): median {solo * 1e3:.1f} ms of {len(solo_s)} "
+            f"({', '.join(f'{v * 1e3:.1f}' for v in solo_s)}); {flops * SDXL_STEPS / solo / 1e12:.1f} TFLOP/s of "
+            f"model products ({flops / 1e12:.2f} TFLOP a CFG forward; {card})"
+        )
+        print(
+            f"sdxl: batch of 2: median {pair * 1e3:.1f} ms, {2 / pair:.4f} img/s "
+            f"({', '.join(f'{v * 1e3:.1f}' for v in pair_s)}; {card})"
+        )
+        print(f"sdxl: peak device memory over the main path {peak / 2**30:.2f} GiB ({card})")
+        kernels = _traced_dispatch(
+            lambda: engine.generate(700, context=contexts[0]).cpu(), "sdxl bucket 1", solo, card, SDXL_GROUPS
+        )
+        relayout = {k: n for k, n in kernels.items() if _group(k, SDXL_GROUPS) == "layout copies"}
+        print(f"sdxl layout: NCHW<->NHWC conversion kernels in the traced dispatch: {sum(relayout.values())}")
+
+    # ---- one CFG forward (the UNet over the doubled batch) through the kernels, then the plain versions ----
+    with torch.inference_mode():
+        _layout_audit(cfg_forward(1))
+        x = torch.randn((1, *item_shape), generator=cgen, device=dev)
+        args = (
+            torch.cat([x, x]),
+            torch.tensor([500.0, 500.0], device=dev),
+            torch.stack([contexts[0][0], uncond[0]]),
+            torch.stack([contexts[0][1], uncond[1]]),
+            SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev).expand(2, 6),
+        )
+        _reset_counters()
+        got = unet(*args)
+        kernel_counts = _counters()
+        with (
+            mock.patch.object(groupnorm, "groupnorm_forward", groupnorm.groupnorm_reference),
+            mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+        ):
+            plain = unet(*args)
+        torch.cuda.synchronize()
+    expect(kernel_counts == per_forward, f"sdxl: one CFG forward launched {kernel_counts}, expected {per_forward}")
+    expect(_counters() == kernel_counts, f"sdxl: the plain forward launched kernels: {_counters()}")
+    vs_plain = _relative(got, plain)
+    guided = _relative(guided_mix(got[:1], got[1:], 5.0), guided_mix(plain[:1], plain[1:], 5.0))
+    print(
+        f"sdxl: one CFG forward through the kernels vs the plain versions: both branches relative max err "
+        f"{vs_plain:.3e} (tol 5e-2); after the guidance-5 mix {guided:.3e} (the mix multiplies the branches' "
+        f"difference by 5)"
+    )
+    expect(bool(torch.isfinite(plain).all()) and vs_plain <= 5e-2, f"sdxl: kernel forward differs by {vs_plain}")
+    print(f"sdxl: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1208,13 +1587,14 @@ def main() -> int:
         train = training_phase(device["card"])
         dit_int8 = int8_dit_phase(device["card"], dit_outputs)
         flux_bf16, flux_int8 = flux_phase(device["card"])
+        sdxl = sdxl_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     # each row's launches: its counts summed over every path's main-path run
     for name, row in rows.items():
-        row["launches"] = sum(run[name] for run in (serving, train, dit_int8, flux_bf16, flux_int8))
+        row["launches"] = sum(run[name] for run in (serving, train, dit_int8, flux_bf16, flux_int8, sdxl))
     keys = (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -35,6 +35,23 @@
 //   the TPU kernel's trick), with the division by the row sum done once at
 //   the end on the (16, d) output instead of on the (16, N) probabilities.
 // wgmma and TMA, which Hopper's full rate needs, are later work.
+//
+// B10: the same body (attention_block below) behind a strided entry point,
+// skt_flash_attention_strided, at d = 64: q, k and v each through their own
+// base pointer and (batch, head, row) strides, so the q/k/v thirds of the
+// CondUNet's fused attn1_qkv product, taken as chunk(3) views of row stride
+// 3*H*64, are read in place, and the output is written at its own strides
+// (a packed (B, N, H*64) tensor).  Any N: a ragged last tile zero-fills its
+// rows and masks its keys to -inf.  Replaces:
+// skrample_tpu/ops/flash_attention.py, flash_attention_pairs_forward
+// (_pairs_softmax_kernel), which puts two d = 64 heads side by side in one
+// 128-lane tile and runs a one-pass softmax over a head pair's whole K/V
+// rows held in VMEM; both are TPU layout devices.  Here a block takes one
+// head, and the online softmax above gives the same result within rounding.
+// What bounds it: operations, 4*B*H*N^2*64 (at B 4, H 10, N 4096: 172 GFLOP,
+// 174 us at 989 TFLOP/s).  B9 (flash_attention_packed_forward at d % 128 == 0
+// and flash_attention_forward on (B, H, N, d)) is this entry point at another
+// D and other strides.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -42,6 +59,22 @@
 #include <stdint.h>
 
 #include "tile_mma.cuh"
+
+// B10's arguments: element strides (batch, head, row) of q, k, v and the
+// output.  Must match skrample_tpu_torch/ops/flash_attention.py:_StridedArgs
+// field for field; outside the anonymous namespace, as the C entry point takes it.
+struct StridedArgs {
+    const void* q;
+    const void* k;
+    const void* v;
+    void* o;
+    long long q_strides[3];
+    long long k_strides[3];
+    long long v_strides[3];
+    long long o_strides[3];
+    int B, N, H, d;
+    float scale_log2;
+};
 
 namespace {
 
@@ -61,15 +94,22 @@ struct Layout {
     }
 };
 
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, long long row_stride, int tid) {
-    load_rows<T, D, kBlockQ, kThreads>(dst, src, row0, row_stride, tid);
+template <typename T, int D, bool kMask>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, long long row_stride, int tid, int n_rows) {
+    load_rows<T, D, kBlockQ, kThreads, kMask>(dst, src, row0, row_stride, tid, n_rows);
 }
 
-template <typename T, int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-    flash_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ lse, int N, int H,
-                     float scale_log2) {
+// One block's work: query rows [q0, q0 + 64) of one (batch item, head), whose
+// q, k and v rows start at g_q, g_k and g_v with their own row strides; the
+// output rows start at g_o.  lse_bh: this (b, h)'s N logsumexp values (kLse).
+// kRagged: N need not be a multiple of 64 (rows past N zero-filled, keys past
+// N masked, rows past N not written).
+template <typename T, int D, bool kLse, bool kRagged>
+__device__ __forceinline__ void attention_block(const T* __restrict__ g_q, long long q_stride,
+                                                const T* __restrict__ g_k, long long k_stride,
+                                                const T* __restrict__ g_v, long long v_stride, T* __restrict__ g_o,
+                                                long long o_stride, float* __restrict__ lse_bh, int N, int q0,
+                                                float scale_log2) {
     constexpr int kStride = Layout<D>::kStride;
     constexpr int kTile = Layout<D>::kTile;
     constexpr int kSteps = D / 16;     // k-steps of the score product
@@ -79,26 +119,15 @@ __global__ void __launch_bounds__(kThreads)
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* s_q = reinterpret_cast<T*>(smem_raw);
 
-    const int qtile = blockIdx.x;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
     const int tid = threadIdx.x;
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int gid = lane / 4;  // row within the mma fragment
     const int tig = lane % 4;  // column pair within the mma fragment
 
-    const int width = H * D;
-    const long long row_stride = 3LL * width;
-    const T* base = qkv + (long long)b * N * row_stride;
-    const T* g_q = base + h * D;
-    const T* g_k = base + width + h * D;
-    const T* g_v = base + 2 * width + h * D;
-    const int q0 = qtile * kBlockQ;
-
-    load_tile<T, D>(s_q, g_q, q0, row_stride, tid);
-    load_tile<T, D>(s_q + kTile, g_k, 0, row_stride, tid);
-    load_tile<T, D>(s_q + 2 * kTile, g_v, 0, row_stride, tid);
+    load_tile<T, D, kRagged>(s_q, g_q, q0, q_stride, tid, N);
+    load_tile<T, D, kRagged>(s_q + kTile, g_k, 0, k_stride, tid, N);
+    load_tile<T, D, kRagged>(s_q + 2 * kTile, g_v, 0, v_stride, tid, N);
     cp_async_commit();
 
     uint32_t q_frag[kSteps][4];
@@ -109,15 +138,15 @@ __global__ void __launch_bounds__(kThreads)
     float m_run[2] = {neg_inf, neg_inf};  // running max (log2 units), rows gid and gid + 8
     float l_run[2] = {0.f, 0.f};          // this thread's share of the running row sums
 
-    const int n_tiles = N / kBlockK;
+    const int n_tiles = (N + kBlockK - 1) / kBlockK;
     for (int j = 0; j < n_tiles; ++j) {
         const int stage = j & 1;
         T* s_k = s_q + (1 + 2 * stage) * kTile;
         T* s_v = s_k + kTile;
         if (j + 1 < n_tiles) {
             T* next_k = s_q + (1 + 2 * (stage ^ 1)) * kTile;
-            load_tile<T, D>(next_k, g_k, (j + 1) * kBlockK, row_stride, tid);
-            load_tile<T, D>(next_k + kTile, g_v, (j + 1) * kBlockK, row_stride, tid);
+            load_tile<T, D, kRagged>(next_k, g_k, (j + 1) * kBlockK, k_stride, tid, N);
+            load_tile<T, D, kRagged>(next_k + kTile, g_v, (j + 1) * kBlockK, v_stride, tid, N);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -155,7 +184,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int t = 0; t < kKeyTiles; ++t) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[t][e] *= scale_log2;
+            for (int e = 0; e < 4; ++e) {
+                s[t][e] *= scale_log2;
+                // keys past N (zero rows of a ragged last tile) take no probability
+                if (kRagged && j * kBlockK + t * 8 + tig * 2 + (e & 1) >= N) s[t][e] = neg_inf;
+            }
             tile_max[0] = fmaxf(tile_max[0], fmaxf(s[t][0], s[t][1]));
             tile_max[1] = fmaxf(tile_max[1], fmaxf(s[t][2], s[t][3]));
         }
@@ -215,21 +248,40 @@ __global__ void __launch_bounds__(kThreads)
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         l_row[i] = l;
     }
+    const int row = q0 + warp * 16 + gid;  // rows `row` and `row + 8`
     if (kLse && tig == 0) {
         // m_run is the same in the four lanes of a row; back to natural-log units
-        float* lse_row = lse + ((long long)b * H + h) * N + q0 + warp * 16 + gid;
-        lse_row[0] = m_run[0] * 0.69314718055994531f + logf(l_row[0]);
-        lse_row[8] = m_run[1] * 0.69314718055994531f + logf(l_row[1]);
+        if (!kRagged || row < N) lse_bh[row] = m_run[0] * 0.69314718055994531f + logf(l_row[0]);
+        if (!kRagged || row + 8 < N) lse_bh[row + 8] = m_run[1] * 0.69314718055994531f + logf(l_row[1]);
     }
-    T* g_o = out + ((long long)b * N + q0 + warp * 16) * width + h * D;
+    T* o_row = g_o + (long long)row * o_stride;
 #pragma unroll
     for (int t = 0; t < kOutTiles; ++t) {
         const int col = t * 8 + tig * 2;
-        *reinterpret_cast<uint32_t*>(g_o + (long long)gid * width + col) =
-            Mma<T>::pack(o[t][0] / l_row[0], o[t][1] / l_row[0]);
-        *reinterpret_cast<uint32_t*>(g_o + (long long)(gid + 8) * width + col) =
-            Mma<T>::pack(o[t][2] / l_row[1], o[t][3] / l_row[1]);
+        if (!kRagged || row < N) {
+            *reinterpret_cast<uint32_t*>(o_row + col) = Mma<T>::pack(o[t][0] / l_row[0], o[t][1] / l_row[0]);
+        }
+        if (!kRagged || row + 8 < N) {
+            *reinterpret_cast<uint32_t*>(o_row + 8 * o_stride + col) =
+                Mma<T>::pack(o[t][2] / l_row[1], o[t][3] / l_row[1]);
+        }
     }
+}
+
+// K2 / K4: q, k and v read in place from the packed (B, N, 3*H*d) qkv tensor.
+template <typename T, int D, bool kLse>
+__global__ void __launch_bounds__(kThreads)
+    flash_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ lse, int N, int H,
+                     float scale_log2) {
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int width = H * D;
+    const long long row_stride = 3LL * width;
+    const T* base = qkv + (long long)b * N * row_stride + h * D;
+    attention_block<T, D, kLse, false>(base, row_stride, base + width, row_stride, base + 2 * width, row_stride,
+                                       out + (long long)b * N * width + h * D, width,
+                                       kLse ? lse + ((long long)b * H + h) * N : nullptr, N, blockIdx.x * kBlockQ,
+                                       scale_log2);
 }
 
 template <typename T, int D, bool kLse>
@@ -248,7 +300,61 @@ int launch(const void* qkv, void* out, float* lse, int B, int N, int H, float sc
     return (int)cudaGetLastError();
 }
 
+// B10: one block per (64-row query tile, head, batch item), any strides.
+template <typename T, int D, bool kRagged>
+__global__ void __launch_bounds__(kThreads) flash_strided_kernel(const StridedArgs a) {
+    const long long h = blockIdx.y;
+    const long long b = blockIdx.z;
+    const T* g_q = static_cast<const T*>(a.q) + b * a.q_strides[0] + h * a.q_strides[1];
+    const T* g_k = static_cast<const T*>(a.k) + b * a.k_strides[0] + h * a.k_strides[1];
+    const T* g_v = static_cast<const T*>(a.v) + b * a.v_strides[0] + h * a.v_strides[1];
+    T* g_o = static_cast<T*>(a.o) + b * a.o_strides[0] + h * a.o_strides[1];
+    attention_block<T, D, false, kRagged>(g_q, a.q_strides[2], g_k, a.k_strides[2], g_v, a.v_strides[2], g_o,
+                                          a.o_strides[2], nullptr, a.N, blockIdx.x * kBlockQ, a.scale_log2);
+}
+
+template <typename T, int D, bool kRagged>
+int launch_strided(const StridedArgs& a, cudaStream_t stream) {
+    constexpr int smem = Layout<D>::template bytes<T>();
+    static bool configured = false;
+    if (!configured) {
+        const cudaError_t err = cudaFuncSetAttribute(flash_strided_kernel<T, D, kRagged>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        configured = true;
+    }
+    const dim3 grid((a.N + kBlockQ - 1) / kBlockQ, a.H, a.B);
+    flash_strided_kernel<T, D, kRagged><<<grid, kThreads, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_strided(const StridedArgs& a, cudaStream_t stream) {
+    if (a.N % kBlockQ) return launch_strided<T, 64, true>(a, stream);
+    return launch_strided<T, 64, false>(a, stream);
+}
+
 }  // namespace
+
+// B10: q, k, v, o of dtype 1 = bf16 or 2 = fp16, head dim d = 64, element
+// strides whose rows are 16-byte aligned (every stride a multiple of 8, every
+// base pointer 16-byte aligned); any B, H, N >= 1 (grid limits aside).
+extern "C" int skt_flash_attention_strided(const StridedArgs* args, int size, int dtype, cudaStream_t stream) {
+    if (size != (int)sizeof(StridedArgs)) return (int)cudaErrorInvalidValue;
+    const StridedArgs a = *args;
+    if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.N < 1 || a.d != 64) return (int)cudaErrorInvalidValue;
+    const long long* strides[4] = {a.q_strides, a.k_strides, a.v_strides, a.o_strides};
+    const void* bases[4] = {a.q, a.k, a.v, a.o};
+    for (int t = 0; t < 4; ++t) {
+        if (reinterpret_cast<uintptr_t>(bases[t]) % 16) return (int)cudaErrorInvalidValue;
+        for (int i = 0; i < 3; ++i) {
+            if (strides[t][i] % 8) return (int)cudaErrorInvalidValue;
+        }
+    }
+    if (dtype == 1) return dispatch_strided<__nv_bfloat16>(a, stream);
+    if (dtype == 2) return dispatch_strided<__half>(a, stream);
+    return (int)cudaErrorInvalidValue;
+}
 
 // qkv: (B, N, 3*H*d) contiguous; out: (B, N, H*d) contiguous; dtype 1 = bf16, 2 = fp16.
 extern "C" int skt_flash_attention_qkv(const void* qkv, void* out, int B, int N, int H, int d, int dtype,

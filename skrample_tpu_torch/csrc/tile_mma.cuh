@@ -1,4 +1,4 @@
-// Building blocks shared by the attention kernels (K2/K4 in
+// Building blocks shared by the attention kernels (K2/K4/B10 in
 // flash_attention.cu, K5 in flash_attention_bwd.cu): cp.async copies into
 // shared memory, ldmatrix loads, and the m16n8k16 tensor-core product with
 // f32 accumulators, for bf16 and fp16 operands.
@@ -29,6 +29,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// 16 bytes when ``valid``, else 16 zero bytes (src-size 0: nothing is read from ``src``)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -95,8 +100,11 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4], c
 
 // Copy rows [row0, row0 + kRows) of a d-wide slice (row_stride elements
 // apart in global memory) into a tile whose rows are padded_stride(D) apart.
-template <typename T, int D, int kRows, int kThreads>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, long long row_stride, int tid) {
+// With kMask, rows at or past n_rows are zero-filled and never read (a
+// ragged last tile).
+template <typename T, int D, int kRows, int kThreads, bool kMask = false>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, long long row_stride, int tid,
+                                          int n_rows = 0) {
     constexpr int kPerRow = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
     constexpr int kChunks = kRows * kPerRow;
     static_assert(kChunks % kThreads == 0, "tile chunks must split evenly over the block");
@@ -105,7 +113,13 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, long l
         const int c = tid + i * kThreads;
         const int r = c / kPerRow;
         const int col = (c % kPerRow) * (16 / (int)sizeof(T));
-        cp_async16(dst + r * padded_stride(D) + col, src + (long long)(row0 + r) * row_stride + col);
+        if (kMask) {
+            const bool valid = row0 + r < n_rows;
+            const int row = valid ? row0 + r : 0;  // an address inside the tensor, never read
+            cp_async16_zfill(dst + r * padded_stride(D) + col, src + (long long)row * row_stride + col, valid);
+        } else {
+            cp_async16(dst + r * padded_stride(D) + col, src + (long long)(row0 + r) * row_stride + col);
+        }
     }
 }
 

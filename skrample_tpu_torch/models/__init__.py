@@ -1,18 +1,29 @@
 """Model families ported to PyTorch: the DiT (with its EMA shadow and
-``.npz`` parameter checkpoints for training) and the Flux transformer, each
-with its int8 serving model (``quantize_params``)."""
+``.npz`` parameter checkpoints for training), the Flux transformer, each
+with its int8 serving model (``quantize_params``), and the conv families:
+the UNet, the conditional UNet (SD1.5 / SDXL) and the SDXL stack's serving
+part."""
 
 from .checkpoint import load_params, save_params
 from .conditioning import doubled_t, guided_mix, per_item
 from .dit import DiT, DiTConfig, random_param_tree
 from .ema import ema_decay_schedule, ema_init, ema_update
 from .flux import Flux, FluxConfig, flux_forward_flops
+from .sdxl import SDXLStack
+from .unet import UNet, UNetConfig
+from .unet_cond import CondUNet, CondUNetConfig, cond_unet_forward_flops
 
 __all__ = [
+    "CondUNet",
+    "CondUNetConfig",
     "DiT",
     "DiTConfig",
     "Flux",
     "FluxConfig",
+    "SDXLStack",
+    "UNet",
+    "UNetConfig",
+    "cond_unet_forward_flops",
     "doubled_t",
     "ema_decay_schedule",
     "ema_init",

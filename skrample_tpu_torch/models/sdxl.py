@@ -1,0 +1,134 @@
+"""The SDXL model stack's serving part: a :class:`~.unet_cond.CondUNet`
+with the published glue (sibling of the JAX package's ``models/sdxl.py``).
+
+The published SDXL conditioning: sequence context = the two CLIP towers'
+penultimate hidden states concatenated along width (768 + 1280 = 2048),
+pooled vector = CLIP-G's projected EOS pooling (1280), plus the
+``time_ids`` micro-conditioning ``[orig_h, orig_w, crop_top, crop_left,
+target_h, target_w]`` embedded inside the UNet.  The denoiser is an epsilon
+predictor on the Scaled (VP) schedule.
+
+:meth:`SDXLStack.as_served` is the serving entry point: a closure for
+``ServingEngine(conditioned=True)`` whose requests each submit
+``context=(context_row, pooled_row)``, classifier-free guidance running as
+one doubled-batch forward.  The text encoders, the VAE, the checkpoint
+importers and the generation pipeline belong to later slices of the port:
+their entry points raise :class:`NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from .conditioning import doubled_t, guided_mix, per_item
+from .dit import _LATER
+from .unet_cond import CondUNet
+
+
+@dataclass
+class SDXLStack:
+    """A conditional UNet with the SDXL glue; ``vae``, ``clip_l`` and
+    ``clip_g`` are accepted for parity with the JAX stack and unused until
+    their slices are ported."""
+
+    unet: CondUNet
+    vae: Any = None
+    clip_l: Any = None
+    clip_g: Any = None
+
+    @classmethod
+    def from_checkpoints(cls, *args: Any, **kwargs: Any) -> SDXLStack:
+        raise NotImplementedError(f"importing SDXL checkpoints (import_weights.py, vae.py, text_encoder.py) {_LATER}")
+
+    def encode_prompt(self, *args: Any, **kwargs: Any) -> tuple[torch.Tensor, torch.Tensor | None]:
+        raise NotImplementedError(f"the CLIP text encoders (text_encoder.py) {_LATER}")
+
+    def pipeline(self, *args: Any, **kwargs: Any) -> Any:
+        raise NotImplementedError(f"the generation pipeline (pipeline.py) {_LATER}")
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError(f"the VAE (vae.py) {_LATER}")
+
+    def encode_image(self, x: torch.Tensor, generator: Any = None) -> torch.Tensor:
+        raise NotImplementedError(f"the VAE (vae.py) {_LATER}")
+
+    @staticmethod
+    def time_ids(
+        orig: tuple[int, int], crop: tuple[int, int], target: tuple[int, int], device: str | torch.device = "cpu"
+    ) -> torch.Tensor:
+        "The SDXL micro-conditioning row: (orig_h, orig_w, crop_top, crop_left, target_h, target_w), (1, 6) float32."
+        return torch.tensor([[*orig, *crop, *target]], dtype=torch.float32, device=device)
+
+    def model_fn(
+        self,
+        context: torch.Tensor,
+        pooled: torch.Tensor | None = None,
+        time_ids: torch.Tensor | None = None,
+        guidance_scale: float = 1.0,
+        uncond: tuple[torch.Tensor, torch.Tensor | None] | None = None,
+        controlnet: Any = None,
+        control_image: torch.Tensor | None = None,
+        control_scale: float = 1.0,
+    ) -> Callable[[torch.Tensor, Any, Any, Any], torch.Tensor]:
+        """(x, t, sigma, alpha) -> prediction closure; CFG against the encoded
+        empty prompt ``uncond=(context, pooled)``.  A ControlNet (``controlnet=``)
+        belongs to a later slice."""
+        if controlnet is not None or control_image is not None:
+            raise NotImplementedError(f"ControlNet conditioning (controlnet.py) {_LATER}")
+        if guidance_scale != 1.0 and uncond is None:
+            raise ValueError("guidance_scale != 1 needs uncond=(context, pooled): the encoded empty prompt")
+        if guidance_scale == 1.0:
+            return self.unet.as_sampleable(context, pooled, time_ids)
+        return self.unet.as_sampleable(
+            context,
+            pooled,
+            time_ids,
+            guidance_scale=guidance_scale,
+            uncond_context=uncond[0],
+            uncond_pooled=uncond[1],
+        )
+
+    def as_served(
+        self,
+        time_ids: torch.Tensor | None = None,
+        guidance_scale: float = 1.0,
+        uncond: tuple[torch.Tensor, torch.Tensor | None] | None = None,
+    ) -> Callable[..., torch.Tensor]:
+        """A ``(x, t, sigma, alpha, cond)`` closure for
+        ``ServingEngine(conditioned=True)``: each request submits
+        ``context=(context_row, pooled_row)`` (SDXL) or a bare context row
+        (SD1.5) and the engine stacks them.  ``time_ids`` binds one
+        micro-conditioning row for all requests; with ``guidance_scale != 1``
+        both CFG branches run in one forward over the doubled batch."""
+        sdxl = bool(self.unet.config.pooled_dim)
+        if sdxl and time_ids is None:
+            raise ValueError("SDXL serving needs time_ids=: see SDXLStack.time_ids")
+        if guidance_scale != 1.0 and uncond is None:
+            raise ValueError("guidance_scale != 1 needs uncond=: the encoded empty prompt")
+
+        def model_fn(x: torch.Tensor, t: Any, sigma: Any, alpha: Any, cond: Any = None) -> torch.Tensor:
+            if cond is None:
+                raise ValueError("conditioned serving requires context= per request")
+            if sdxl:
+                context, pooled = cond
+            else:  # SD1.5: a bare context row, or encode_prompt's (context, None)
+                context = cond[0] if isinstance(cond, tuple) else cond
+                pooled = None
+            B = x.shape[0]
+            tid = per_item(time_ids.to(x.device), B, 1) if sdxl else None
+            if guidance_scale == 1.0:
+                return self.unet(x, t, context, pooled, tid)
+            pool = tid2 = None
+            if sdxl:
+                pool = torch.cat([pooled, per_item(uncond[1], B, 1)])
+                tid2 = torch.cat([tid, tid])
+            both = self.unet(
+                torch.cat([x, x]), doubled_t(t, B), torch.cat([context, per_item(uncond[0], B, 2)]), pool, tid2
+            )
+            return guided_mix(both[:B], both[B:], guidance_scale)
+
+        return model_fn

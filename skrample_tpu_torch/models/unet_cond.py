@@ -1,0 +1,481 @@
+"""The text-conditioned SD-class UNet (UNet2DConditionModel) as a PyTorch
+module: the SD1.5 / SDXL denoiser.
+
+The same network as the JAX package's ``models/unet_cond.py``, parameter
+for parameter (diffusers ``UNet2DConditionModel``):
+
+* resnet blocks with timestep-embedding injection
+  (``h += time_emb_proj(silu(emb))``) and GroupNorm(affine, eps 1e-5),
+* ``Transformer2DModel`` stages per level: GroupNorm + token projection,
+  then K basic blocks of self-attention, cross-attention over the text
+  context and a GEGLU feed-forward (exact erf gelu); K is the per-level
+  ``transformer_layers`` (SDXL: (0, 2, 10)),
+* skip concatenation down -> up on the channel axis, a stride-2 conv
+  downsample with torch ``padding=1``, nearest-2x upsample + conv,
+* SDXL's added conditioning: pooled text + six sinusoidally embedded
+  ``time_ids`` through a second MLP into the time embedding.
+
+The interior is channels-last, as in :mod:`.unet`: every GroupNorm (46 a
+forward at SDXL base) is kernel B8 and every d = 64 self-attention (70) is
+kernel B10, reading the ``chunk(3)`` views of the fused qkv product in
+place.  Cross-attention (77 text tokens) and every other head dim stay plain
+PyTorch, as the JAX package leaves them to einsum outside any Pallas
+kernel; a self-attention that the JAX package would send to its packed
+kernel (another head dim dividing 128) raises on the card until B9 is
+ported.  :meth:`CondUNet.load_jax_params` carries the JAX package's tree
+across and :meth:`CondUNet.param_tree` back.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..ops._cuda import resolve_device
+from ..ops.flash_attention import attention_reference, flash_attention_pairs, pairs_kernel_fits
+from ..ops.groupnorm import groupnorm_cl
+from .conditioning import doubled_t, guided_mix, per_item
+from .dit import _LATER, _dense, _timestep_embedding
+from .unet import (
+    _AffineSpec,
+    _ConvSpec,
+    _DenseSpec,
+    _random_tree,
+    _to_channels_last,
+    _to_nchw,
+    _TreeModule,
+    _upsample_nearest,
+    _conv,
+)
+
+__all__ = ["CondUNet", "CondUNetConfig", "attention_route", "random_param_tree"]
+
+
+@dataclass(frozen=True)
+class CondUNetConfig:
+    channels: int = 4
+    widths: tuple[int, ...] = (320, 640, 1280)
+    "Per-level channel widths (SDXL's (320, 640, 1280); SD1.5 adds a 4th 1280)."
+    layers_per_block: int = 2
+    transformer_layers: tuple[int, ...] = (0, 2, 10)
+    "Basic transformer blocks per attention stage, per level; 0 = a plain level."
+    mid_transformer_layers: int | None = None
+    "Mid-block depth; None = the last level's count (SD1.5 sets it: its last level is plain)."
+    heads: tuple[int, ...] = (5, 10, 20)
+    "Attention heads per level (head_dim = width / heads; 64 for SDXL)."
+    context_dim: int = 2048
+    pooled_dim: int = 1280
+    "SDXL's pooled-text width (with ``time_ids`` micro-conditioning); 0 = SD1.5."
+    time_ids: int = 6
+    add_time_embed_dim: int = 256
+    groups: int = 32
+    compute_dtype: torch.dtype = torch.bfloat16
+    layout: str = "auto"
+    """Accepted for parity with the JAX configuration and ignored: the port's
+    interior is always channels-last (NCHW against NHWC was a TPU lane
+    choice)."""
+
+    @property
+    def levels(self) -> int:
+        return len(self.widths)
+
+    @property
+    def resolved_mid_layers(self) -> int:
+        return self.transformer_layers[-1] if self.mid_transformer_layers is None else self.mid_transformer_layers
+
+    @property
+    def time_dim(self) -> int:
+        return 4 * self.widths[0]
+
+
+def _ln_affine(x: torch.Tensor, p: Any) -> torch.Tensor:
+    "LayerNorm with a learned f32 affine (eps 1e-5): statistics and affine in f32, one rounding."
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    return (((x32 - mean) * torch.rsqrt(var + 1e-5)) * p.g + p.b).to(x.dtype)
+
+
+def attention_route(n: int, kv_len: int, heads: int, head_dim: int, cuda: bool) -> str:
+    """Where ``CondUNet._mha`` sends an attention: ``"pairs"`` (kernel B10: a
+    self-attention at head dim 64, any ``N`` and head count) or ``"plain"``
+    (cross-attention and every other head dim, as the JAX package runs them
+    as einsum).  A self-attention the JAX package would send to its packed
+    kernel (a head dim dividing 128) raises on the card: that is B9, not yet
+    ported, and no plain version stands in for it there.  The JAX package's
+    ``N >= 1024`` and ``N % 128`` conditions are TPU budgets and are dropped."""
+    if kv_len != n:
+        return "plain"
+    if pairs_kernel_fits(n, heads, head_dim):
+        return "pairs"
+    if head_dim <= 128 and 128 % head_dim == 0 and cuda:
+        raise NotImplementedError(
+            f"self-attention at head dim {head_dim} needs kernel B9 (flash_attention_packed_forward), which {_LATER}"
+        )
+    return "plain"
+
+
+def _cond_unet_skeleton(c: CondUNetConfig) -> dict:
+    "The JAX ``CondUNet.init`` tree with leaf specs in place of arrays."
+
+    def resnet(c_in: int, c_out: int) -> dict:
+        return {
+            "norm1": _AffineSpec(c_in),
+            "conv1": _ConvSpec(3, c_in, c_out),
+            "temb": _DenseSpec(c.time_dim, c_out),
+            "norm2": _AffineSpec(c_out),
+            "conv2": _ConvSpec(3, c_out, c_out, scale=0.0),
+            "skip": _ConvSpec(1, c_in, c_out) if c_in != c_out else None,
+        }
+
+    def basic(d: int) -> dict:
+        return {
+            "ln1": _AffineSpec(d),
+            "attn1_qkv": _DenseSpec(d, 3 * d),
+            "attn1_out": _DenseSpec(d, d),
+            "ln2": _AffineSpec(d),
+            "attn2_q": _DenseSpec(d, d),
+            "attn2_kv": _DenseSpec(c.context_dim, 2 * d),
+            "attn2_out": _DenseSpec(d, d),
+            "ln3": _AffineSpec(d),
+            "ff_in": _DenseSpec(d, 8 * d),
+            "ff_out": _DenseSpec(4 * d, d),
+        }
+
+    def transformer(d: int, depth: int) -> dict | None:
+        if not depth:
+            return None
+        return {
+            "norm": _AffineSpec(d),
+            "proj_in": _DenseSpec(d, d),
+            "blocks": [basic(d) for _ in range(depth)],
+            "proj_out": _DenseSpec(d, d, scale=0.0),
+        }
+
+    widths = c.widths
+    tree: dict = {
+        "conv_in": _ConvSpec(3, c.channels, widths[0]),
+        "t_mlp1": _DenseSpec(widths[0], c.time_dim),
+        "t_mlp2": _DenseSpec(c.time_dim, c.time_dim),
+        "norm_out": _AffineSpec(widths[0]),
+        "conv_out": _ConvSpec(3, widths[0], c.channels, scale=0.0),
+    }
+    if c.pooled_dim:
+        tree["add_mlp1"] = _DenseSpec(c.pooled_dim + c.time_ids * c.add_time_embed_dim, c.time_dim)
+        tree["add_mlp2"] = _DenseSpec(c.time_dim, c.time_dim)
+    tree["down"] = [
+        {
+            "resnets": [resnet(widths[max(i - 1, 0)] if j == 0 else w, w) for j in range(c.layers_per_block)],
+            "attns": [transformer(w, c.transformer_layers[i]) for _ in range(c.layers_per_block)],
+            "downsample": _ConvSpec(3, w, w) if i < c.levels - 1 else None,
+        }
+        for i, w in enumerate(widths)
+    ]
+    mid = widths[-1]
+    tree["mid"] = {"res1": resnet(mid, mid), "attn": transformer(mid, c.resolved_mid_layers), "res2": resnet(mid, mid)}
+    # skip-channel bookkeeping mirrors the down path exactly
+    skip_widths = [widths[0]]
+    for i, w in enumerate(widths):
+        skip_widths += [w] * c.layers_per_block
+        if i < c.levels - 1:
+            skip_widths.append(w)
+    tree["up"] = []
+    for i in reversed(range(c.levels)):
+        w = widths[i]
+        prev = widths[min(i + 1, c.levels - 1)]
+        resnets, attns = [], []
+        for j in range(c.layers_per_block + 1):
+            resnets.append(resnet((prev if j == 0 else w) + skip_widths.pop(), w))
+            attns.append(transformer(w, c.transformer_layers[i]))
+        tree["up"].append({"resnets": resnets, "attns": attns, "upsample": _ConvSpec(3, w, w) if i > 0 else None})
+    return tree
+
+
+class CondUNet(_TreeModule):
+    """``CondUNet(config)(x, t, context[, pooled, time_ids, control])``:
+    (B, C, H, W) latents, a (B,) or scalar timestep, (B, L, context_dim) text
+    features [, (B, pooled_dim) pooled text, (B, time_ids) micro-conditioning]
+    -> a prediction of the latents' shape and dtype.
+
+    Built on ``device`` (CUDA unless the caller asks for the CPU) with
+    parameters in ``dtype`` (the norms' affines in float32) and the JAX
+    package's initialisation drawn from ``generator``: zero ``conv2``,
+    ``proj_out`` and ``conv_out``, so a fresh model outputs exactly 0;
+    :meth:`reset_parameters` with ``noise`` draws random weights."""
+
+    def __init__(
+        self,
+        config: CondUNetConfig = CondUNetConfig(),
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__()
+        c = config
+        if not (len(c.transformer_layers) == len(c.heads) == c.levels):
+            raise ValueError("widths / transformer_layers / heads must have equal lengths")
+        for w, h, k in zip(c.widths, c.heads, c.transformer_layers):
+            if k and w % h:
+                raise ValueError(f"width {w} not divisible by heads {h}")
+        self.config = c
+        self._build(_cond_unet_skeleton(c), dtype, resolve_device(device))
+        self.reset_parameters(generator)
+
+    # -- building blocks ------------------------------------------------------
+
+    def _gn(self, x: torch.Tensor, p: Any, silu: bool = False) -> torch.Tensor:
+        "Affine GroupNorm (eps 1e-5) + optional SiLU in one B8 pass: f32 statistics and affine, one rounding."
+        return groupnorm_cl(x, self.config.groups, fuse_silu=silu, eps=1e-5, scale=p.g, bias=p.b)
+
+    def _resnet(self, p: dict, x: torch.Tensor, cond: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        h = _conv(p["conv1"], self._gn(x, p["norm1"], silu=True), dtype)
+        emb = _dense(p["temb"], cond, dtype)
+        h = h + emb[:, None, None, :]
+        h = _conv(p["conv2"], self._gn(h, p["norm2"], silu=True), dtype)
+        skip = _conv(p["skip"], x, dtype) if p["skip"] is not None else x
+        return skip + h
+
+    def _mha(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+        "Multi-head attention on packed (B, N, H*d) projections; see :func:`attention_route`."
+        B, N, D = q.shape
+        d = D // heads
+        if attention_route(N, k.shape[1], heads, d, q.is_cuda) == "pairs":
+            return flash_attention_pairs(q, k, v, heads)
+
+        def split(x: torch.Tensor) -> torch.Tensor:
+            return x.reshape(B, -1, heads, d).transpose(1, 2)
+
+        out = attention_reference(split(q), split(k), split(v))
+        return out.transpose(1, 2).reshape(B, N, D)
+
+    def _transformer(
+        self, p: dict, x: torch.Tensor, context: torch.Tensor, heads: int, dtype: torch.dtype
+    ) -> torch.Tensor:
+        "Transformer2DModel: norm -> tokens -> K basic blocks -> back + residual."
+        B, H, W, C = x.shape
+        tokens = self._gn(x, p["norm"]).view(B, H * W, C)
+        h = _dense(p["proj_in"], tokens.to(dtype), dtype)
+        for blk in p["blocks"]:
+            qkv = _dense(blk["attn1_qkv"], _ln_affine(h, blk["ln1"]), dtype)
+            q, k, v = qkv.chunk(3, dim=-1)
+            h = h + _dense(blk["attn1_out"], self._mha(q, k, v, heads), dtype)
+            q = _dense(blk["attn2_q"], _ln_affine(h, blk["ln2"]), dtype)
+            k, v = _dense(blk["attn2_kv"], context, dtype).chunk(2, dim=-1)
+            h = h + _dense(blk["attn2_out"], self._mha(q, k, v, heads), dtype)
+            gate, act = _dense(blk["ff_in"], _ln_affine(h, blk["ln3"]), dtype).chunk(2, dim=-1)
+            # GEGLU uses the exact (erf) gelu, unlike the DiT family's tanh
+            h = h + _dense(blk["ff_out"], gate * F.gelu(act), dtype)
+        h = _dense(p["proj_out"], h, dtype)
+        return x + h.view(B, H, W, C)
+
+    # -- forward ----------------------------------------------------------------
+
+    def _cond_vector(
+        self,
+        t: torch.Tensor,
+        pooled: torch.Tensor | None,
+        time_ids: torch.Tensor | None,
+        batch: int,
+        dtype: torch.dtype,
+    ) -> torch.Tensor:
+        "silu(time embedding [+ SDXL text_time added conditioning]): what every resnet's time injection reads."
+        c = self.config
+        tree = self.tree
+        if (pooled is not None) != bool(c.pooled_dim):
+            raise ValueError("pooled= goes with CondUNetConfig(pooled_dim > 0), and is required there")
+        if c.pooled_dim and time_ids is None:
+            # SDXL was trained on this micro-conditioning: zeroing it would sample a degenerate 0x0 crop
+            raise ValueError(
+                "SDXL conditioning needs time_ids= (orig_h, orig_w, crop_top, crop_left, "
+                "target_h, target_w): see SDXLStack.time_ids"
+            )
+        temb = _timestep_embedding(t, c.widths[0]).to(dtype)
+        temb = _dense(tree["t_mlp2"], F.silu(_dense(tree["t_mlp1"], temb, dtype)), dtype)
+        if c.pooled_dim:
+            ids_emb = _timestep_embedding(time_ids.reshape(-1), c.add_time_embed_dim)
+            add = torch.cat([pooled.float(), ids_emb.reshape(batch, -1)], dim=-1)
+            temb = temb + _dense(tree["add_mlp2"], F.silu(_dense(tree["add_mlp1"], add.to(dtype), dtype)), dtype)
+        return F.silu(temb)
+
+    def _encode(
+        self, h: torch.Tensor, cond: torch.Tensor, context: torch.Tensor, dtype: torch.dtype
+    ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        "conv_in -> down path -> mid; returns (mid output, skip stack)."
+        c = self.config
+        tree = self.tree
+        h = _conv(tree["conv_in"], h, dtype)
+        skips = [h]
+        for i, level in enumerate(tree["down"]):
+            for res, attn in zip(level["resnets"], level["attns"]):
+                h = self._resnet(res, h, cond, dtype)
+                if attn is not None:
+                    h = self._transformer(attn, h, context, c.heads[i], dtype)
+                skips.append(h)
+            if level["downsample"] is not None:
+                h = _conv(level["downsample"], h, dtype, stride=2, pad=1)
+                skips.append(h)
+        mid = tree["mid"]
+        h = self._resnet(mid["res1"], h, cond, dtype)
+        if mid["attn"] is not None:
+            h = self._transformer(mid["attn"], h, context, c.heads[-1], dtype)
+        h = self._resnet(mid["res2"], h, cond, dtype)
+        return h, skips
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor | float,
+        context: torch.Tensor,
+        pooled: torch.Tensor | None = None,
+        time_ids: torch.Tensor | None = None,
+        control: tuple[list[torch.Tensor], torch.Tensor] | None = None,
+    ) -> torch.Tensor:
+        """``control``: a ``(down_residuals, mid_residual)`` pair (NCHW), the
+        published ControlNet injection points: each down residual adds to the
+        matching skip entry, the mid residual after the mid block."""
+        c = self.config
+        dtype = c.compute_dtype
+        B = x.shape[0]
+        t = torch.as_tensor(t, device=x.device)
+        if t.ndim == 0:
+            t = t.expand(B)
+        cond = self._cond_vector(t, pooled, time_ids, B, dtype)
+        context = context.to(dtype)
+
+        h, skips = self._encode(_to_channels_last(x, dtype), cond, context, dtype)
+        if control is not None:
+            down_res, mid_res = control
+            if len(down_res) != len(skips):
+                raise ValueError(f"control carries {len(down_res)} down residuals, the UNet has {len(skips)} skips")
+            skips = [s + _to_channels_last(r, s.dtype) for s, r in zip(skips, down_res)]
+            h = h + _to_channels_last(mid_res, h.dtype)
+
+        for idx, level in enumerate(self.tree["up"]):
+            i = c.levels - 1 - idx
+            for res, attn in zip(level["resnets"], level["attns"]):
+                h = torch.cat([h, skips.pop()], dim=-1)
+                h = self._resnet(res, h, cond, dtype)
+                if attn is not None:
+                    h = self._transformer(attn, h, context, c.heads[i], dtype)
+            if level["upsample"] is not None:
+                h = _upsample_nearest(h, (2 * h.shape[1], 2 * h.shape[2]))
+                h = _conv(level["upsample"], h, dtype)
+
+        h = self._gn(h, self.tree["norm_out"], silu=True)
+        h = _conv(self.tree["conv_out"], h, dtype)
+        return _to_nchw(h, x.dtype)
+
+    apply = forward
+
+    def quantize_params(self, *args: Any, **kwargs: Any) -> CondUNet:
+        raise NotImplementedError(f"the conditional UNet's int8 'deep' serving tree {_LATER}")
+
+    def param_spec(self, *args: Any, **kwargs: Any) -> dict:
+        raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
+
+    def as_sampleable(
+        self,
+        context: torch.Tensor,
+        pooled: torch.Tensor | None = None,
+        time_ids: torch.Tensor | None = None,
+        guidance_scale: float = 1.0,
+        uncond_context: torch.Tensor | None = None,
+        uncond_pooled: torch.Tensor | None = None,
+    ) -> Callable[[torch.Tensor, Any, Any, Any], torch.Tensor]:
+        """Sampling closure.  ``guidance_scale != 1`` runs classifier-free
+        guidance against ``uncond_context`` (the encoded empty prompt), both
+        branches in one doubled-batch forward."""
+        if guidance_scale == 1.0:
+
+            def model_fn(x: torch.Tensor, t: Any, s: Any, a: Any) -> torch.Tensor:
+                B = x.shape[0]  # single-prompt conditioning serves any batch
+                pool = None if pooled is None else per_item(pooled, B, 1)
+                tid = None if time_ids is None else per_item(time_ids, B, 1)
+                return self(x, t, per_item(context, B, 2), pool, tid)
+
+            return model_fn
+
+        if uncond_context is None or (pooled is not None and uncond_pooled is None):
+            raise ValueError("guided sampling needs uncond_context= (and uncond_pooled= with SDXL)")
+
+        def guided_fn(x: torch.Tensor, t: Any, s: Any, a: Any) -> torch.Tensor:
+            B = x.shape[0]
+            ctx = torch.cat([per_item(context, B, 2), per_item(uncond_context, B, 2)])
+            pool = ids = None
+            if pooled is not None:
+                pool = torch.cat([per_item(pooled, B, 1), per_item(uncond_pooled, B, 1)])
+                ids = torch.cat([per_item(time_ids, B, 1)] * 2)
+            both = self(torch.cat([x, x]), doubled_t(t, B), ctx, pool, ids)
+            return guided_mix(both[:B], both[B:], guidance_scale)
+
+        return guided_fn
+
+
+def random_param_tree(config: CondUNetConfig, seed: int) -> dict:
+    """A JAX-layout CondUNet tree from a numpy seed: the standard
+    initialisation plus ``0.02 * N(0, 1)`` on every leaf (the JAX tests'
+    recipe, ``tests/test_sdxl_stack.py``; the zero-initialised output layers
+    would otherwise make the prediction exactly 0)."""
+    return _random_tree(_cond_unet_skeleton(config), seed)
+
+
+def cond_unet_forward_flops(config: CondUNetConfig, batch: int, h: int, w: int, context_len: int) -> float:
+    """FLOPs (2 per multiply-add) of one forward at a (h, w) latent: every
+    convolution, dense layer (the conditioning MLPs included) and attention
+    product, counted from shapes as the JAX package's
+    ``scripts/bench_sdxl.py`` counts them by tracing."""
+    c = config
+    total = 0.0
+    cross = context_len
+
+    def conv(k: int, c_in: int, c_out: int, hw: int) -> float:
+        return 2.0 * batch * hw * k * k * c_in * c_out
+
+    def dense(d_in: int, d_out: int, rows: int) -> float:
+        return 2.0 * batch * rows * d_in * d_out
+
+    def transformer(d: int, depth: int, n: int) -> float:
+        f = 2 * dense(d, d, n)  # proj_in, proj_out
+        per_block = dense(d, 3 * d, n) + dense(d, d, n) + dense(d, d, n) + dense(c.context_dim, 2 * d, cross)
+        per_block += dense(d, d, n) + dense(d, 8 * d, n) + dense(4 * d, d, n)
+        per_block += 4.0 * batch * n * n * d + 4.0 * batch * n * cross * d  # self and cross attention products
+        return f + depth * per_block
+
+    def resnet(c_in: int, c_out: int, hw: int) -> float:
+        f = conv(3, c_in, c_out, hw) + conv(3, c_out, c_out, hw) + dense(c.time_dim, c_out, 1)
+        return f + (conv(1, c_in, c_out, hw) if c_in != c_out else 0.0)
+
+    skel = _cond_unet_skeleton(c)
+    hw = h * w
+    total += dense(c.widths[0], c.time_dim, 1) + dense(c.time_dim, c.time_dim, 1)
+    if c.pooled_dim:
+        add_in = c.pooled_dim + c.time_ids * c.add_time_embed_dim
+        total += dense(add_in, c.time_dim, 1) + dense(c.time_dim, c.time_dim, 1)
+    total += conv(3, c.channels, c.widths[0], hw)
+    for i, level in enumerate(skel["down"]):
+        for res, attn in zip(level["resnets"], level["attns"]):
+            total += resnet(res["conv1"].c_in, res["conv1"].c_out, hw)
+            if attn is not None:
+                total += transformer(c.widths[i], len(attn["blocks"]), hw)
+        if level["downsample"] is not None:
+            hw //= 4
+            total += conv(3, c.widths[i], c.widths[i], hw)
+    mid = skel["mid"]
+    total += 2 * resnet(c.widths[-1], c.widths[-1], hw)
+    if mid["attn"] is not None:
+        total += transformer(c.widths[-1], len(mid["attn"]["blocks"]), hw)
+    for idx, level in enumerate(skel["up"]):
+        i = c.levels - 1 - idx
+        for res, attn in zip(level["resnets"], level["attns"]):
+            total += resnet(res["conv1"].c_in, res["conv1"].c_out, hw)
+            if attn is not None:
+                total += transformer(c.widths[i], len(attn["blocks"]), hw)
+        if level["upsample"] is not None:
+            hw *= 4
+            total += conv(3, c.widths[i], c.widths[i], hw)
+    total += conv(3, c.widths[0], c.channels, hw)
+    return total

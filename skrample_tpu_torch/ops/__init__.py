@@ -8,7 +8,10 @@
 * :mod:`.adaln` — fused layernorm + adaLN modulation (kernel K3) and its
   backward (K6).
 * :mod:`.flash_attention` — attention off the fused qkv projection (K2),
-  with the logsumexp forward (K4) and the backward (K5) for training.
+  with the logsumexp forward (K4) and the backward (K5) for training, and
+  d=64 attention on packed, strided q/k/v (B10).
+* :mod:`.groupnorm` — channels-last GroupNorm (+ f32 affine) (+ SiLU)
+  (kernel B8).
 * :mod:`.rope` — per-head RMS qk-norm + rotary embedding on the fused qkv
   projection (kernel B7).
 * :mod:`.quant` — the int8 serving path: per-row activation quantization
@@ -20,7 +23,9 @@ import time.
 """
 
 from .compiler import CompiledSampler, NonlinearSamplerError, compile_sampler
+from .flash_attention import flash_attention_pairs, flash_attention_pairs_forward
 from .fused import fused_step, fused_step_cuda
+from .groupnorm import groupnorm_cl, groupnorm_eager_bign, groupnorm_forward, groupnorm_reference
 from .loop import CompiledDenoiser
 from .quant import dense_int8, quantize_activation, quantize_params, quantize_rows, quantize_weight
 from .rope import fused_rope_qk_norm, rope_qk_norm_forward, rope_qk_norm_reference
@@ -31,9 +36,15 @@ __all__ = [
     "NonlinearSamplerError",
     "compile_sampler",
     "dense_int8",
+    "flash_attention_pairs",
+    "flash_attention_pairs_forward",
     "fused_rope_qk_norm",
     "fused_step",
     "fused_step_cuda",
+    "groupnorm_cl",
+    "groupnorm_eager_bign",
+    "groupnorm_forward",
+    "groupnorm_reference",
     "quantize_activation",
     "quantize_params",
     "quantize_rows",

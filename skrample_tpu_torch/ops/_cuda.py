@@ -30,7 +30,15 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_step.cu", "flash_attention.cu", "flash_attention_bwd.cu", "adaln.cu", "quant.cu", "rope.cu")
+SOURCES = (
+    "fused_step.cu",
+    "flash_attention.cu",
+    "flash_attention_bwd.cu",
+    "adaln.cu",
+    "quant.cu",
+    "rope.cu",
+    "groupnorm.cu",
+)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
@@ -58,6 +66,10 @@ _SIGNATURES: dict[str, list] = {
     "skt_quant_rows": [_P, _P, _P, _L, _I, _I, _P],  # x, q, s, R, D, dtype, stream
     # qkv in, out (the same pointer: in place), cos, sin, table row stride, q gain, k gain, B, N, H, d, dtype, eps, stream
     "skt_rope_qk_norm": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # x, y, scale, bias (both None: no affine), f32 scratch, B, N, C, groups, vec, rows per chunk, chunks,
+    # dtype, silu, eps, stream
+    "skt_groupnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "skt_flash_attention_strided": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
     "skt_error_string": [_I],
 }
 

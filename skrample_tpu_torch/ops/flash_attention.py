@@ -9,14 +9,20 @@ writes each row's logsumexp, and :func:`flash_attention_qkv_backward` (K5,
 ``csrc/flash_attention_bwd.cu``) recomputes the probabilities from it to
 give the gradient in the packed qkv layout.  :func:`flash_attention_qkv`
 ties them into a :class:`torch.autograd.Function`, as the JAX package's
-``custom_vjp`` does.  The plain versions beside each kernel
-(:func:`attention_reference`, :func:`_packed_reference`,
-:func:`_qkv_reference`, :func:`_qkv_reference_lse`,
-:func:`_qkv_backward_reference`) are the CPU path and the kernels' oracles.
+``custom_vjp`` does.  :func:`flash_attention_pairs_forward` launches B10
+(the same kernel body behind a strided entry point, head dim 64) on three
+packed ``(B, N, H*64)`` tensors that may be strided views, such as the
+``chunk(3)`` thirds of a fused qkv product; :func:`flash_attention_pairs` is
+its autograd Function, with the plain version's gradient backward.  The
+plain versions beside each kernel (:func:`attention_reference`,
+:func:`_packed_reference`, :func:`_qkv_reference`,
+:func:`_qkv_reference_lse`, :func:`_qkv_backward_reference`) are the CPU
+path and the kernels' oracles.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -277,3 +283,127 @@ def flash_attention_qkv(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FlashQKV.apply(qkv, heads)
     return flash_attention_qkv_forward(qkv, heads)
+
+
+# ---- B10: d = 64 attention on packed, possibly strided q, k, v -----------------------
+
+_PAIRS_D = 64
+
+
+def pairs_kernel_fits(N: int, heads: int, d: int) -> bool:
+    """Shapes B10 takes: head dim 64, at any ``N`` and any head count.  The
+    JAX package's even-heads, ``N % 128`` and VMEM-budget conditions are TPU
+    lane and memory rules: B10 runs one head a block and masks a ragged
+    last tile."""
+    return d == _PAIRS_D
+
+
+class _StridedArgs(ctypes.Structure):
+    "``StridedArgs`` of ``csrc/flash_attention.cu``: element strides (batch, head, row) of q, k, v, out."
+
+    _fields_ = [  # noqa: RUF012 — ctypes layout declaration
+        ("q", ctypes.c_void_p),
+        ("k", ctypes.c_void_p),
+        ("v", ctypes.c_void_p),
+        ("o", ctypes.c_void_p),
+        ("q_strides", ctypes.c_longlong * 3),
+        ("k_strides", ctypes.c_longlong * 3),
+        ("v_strides", ctypes.c_longlong * 3),
+        ("o_strides", ctypes.c_longlong * 3),
+        ("B", ctypes.c_int),
+        ("N", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("scale_log2", ctypes.c_float),
+    ]
+
+
+def _head_strides(x: torch.Tensor, d: int) -> tuple[int, int, int]:
+    "(batch, head, row) element strides of a packed (B, N, H*d) tensor or view."
+    return x.stride(0), d * x.stride(2), x.stride(1)
+
+
+def flash_attention_pairs_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """Kernel B10: ``(B, N, H*64)`` x3 -> ``(B, N, H*64)``, unmasked softmax
+    attention per head.
+
+    On CPU tensors this is :func:`_packed_reference`.  On CUDA tensors it
+    launches the kernel or raises: bf16 or fp16, all three of one shape,
+    head dim 64, any ``B``, ``N`` and head count; each may be a strided view
+    (the ``chunk(3)`` thirds of a qkv product) with unit channel stride,
+    16-byte aligned base and row and batch strides a multiple of 8 elements.
+    The output is a new contiguous tensor."""
+    if q.device.type == "cpu":
+        return _packed_reference(q, k, v, heads)
+    name = "flash_attention_pairs_forward"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.ndim != 3:
+        raise ValueError(f"{name}: q must be (B, N, H*d), got {tuple(q.shape)}")
+    B, N, D = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"{name}: dtype {q.dtype} unsupported on CUDA (bfloat16 or float16)")
+    if D % heads or not pairs_kernel_fits(N, heads, D // heads):
+        raise ValueError(f"{name}: width {D} over {heads} heads: head dim must be {_PAIRS_D}")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {label} must be {tuple(q.shape)} {q.dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.stride(2) != 1 or t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(f"{name}: {label} needs unit channel stride, 16-byte aligned rows and batches")
+    out = torch.empty((B, N, D), dtype=q.dtype, device=q.device)
+    args = _StridedArgs(
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        out.data_ptr(),
+        (ctypes.c_longlong * 3)(*_head_strides(q, _PAIRS_D)),
+        (ctypes.c_longlong * 3)(*_head_strides(k, _PAIRS_D)),
+        (ctypes.c_longlong * 3)(*_head_strides(v, _PAIRS_D)),
+        (ctypes.c_longlong * 3)(*_head_strides(out, _PAIRS_D)),
+        B,
+        N,
+        heads,
+        _PAIRS_D,
+        (1.0 / math.sqrt(_PAIRS_D)) * _LOG2E,
+    )
+    lib = _cuda.library()
+    with torch.cuda.device(q.device):
+        code = lib.skt_flash_attention_strided(
+            ctypes.byref(args), ctypes.sizeof(args), _cuda.DTYPE_CODES[q.dtype], _cuda.stream()
+        )
+    _cuda.check(code, name)
+    flash_attention_pairs_forward.launches += 1
+    return out
+
+
+flash_attention_pairs_forward.launches = 0
+
+
+class _FlashPairs(torch.autograd.Function):
+    """B10 forward, the plain version's gradient backward: the JAX package's
+    ``_flash_pairs_vjp``.  The kernel is looked up in this module when it
+    runs, so a caller may swap it for its plain version."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.heads = heads
+        return flash_attention_pairs_forward(q, k, v, heads)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _packed_reference(*inputs, ctx.heads)
+        grads = torch.autograd.grad(out, inputs, g)
+        return *(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad)), None
+
+
+def flash_attention_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """d = 64 packed attention ``(B, N, H*64)`` x3 -> ``(B, N, H*64)`` with its
+    gradient: B10 forward, the plain version's gradient backward where one is
+    wanted.  On CPU tensors the plain version; on CUDA tensors every shape
+    goes to the kernel, which raises on what it cannot take."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashPairs.apply(q, k, v, heads)
+    return flash_attention_pairs_forward(q, k, v, heads)

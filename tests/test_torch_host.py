@@ -117,7 +117,7 @@ def test_nonlinear_sampler_raises_in_both() -> None:
 
 def test_port_imports_without_jax() -> None:
     """Import the package and every submodule in a fresh interpreter (the package walk reaches the
-    int8 and Flux modules too); neither jax nor skrample_tpu may load."""
+    int8, Flux and conv-family modules too); neither jax nor skrample_tpu may load."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import skrample_tpu_torch\n"
@@ -126,7 +126,8 @@ def test_port_imports_without_jax() -> None:
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'skrample_tpu.')) "
         "or m == 'skrample_tpu')\n"
         "assert not bad, bad\n"
-        "wanted = ('ops.quant', 'ops.rope', 'models.flux', 'models.conditioning')\n"
+        "wanted = ('ops.quant', 'ops.rope', 'models.flux', 'models.conditioning', 'ops.groupnorm', 'models.unet',\n"
+        "          'models.unet_cond', 'models.sdxl')\n"
         "assert all('skrample_tpu_torch.' + m in sys.modules for m in wanted)\n"
         "print('clean')\n"
     )

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from skrample_tpu_torch.ops import adaln, flash_attention, fused, quant, rope
+from skrample_tpu_torch.ops import adaln, flash_attention, fused, groupnorm, quant, rope
 
 
 @pytest.fixture
@@ -564,3 +564,168 @@ def test_flux_forward_through_the_kernels(cuda: torch.device) -> None:
             want = model(x, t, ctx, pooled, guidance=3.5)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+
+
+# ---- the SDXL slice: B8 GroupNorm and B10 d = 64 attention ---------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(("affine", "silu"), [(True, True), (True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    ("shape", "groups"),
+    [((2, 1024, 320), 32), ((3, 1000, 960), 32), ((1, 77, 30), 3), ((2, 4096, 2560), 32)],
+)
+def test_groupnorm_kernel_matches_plain(
+    cuda: torch.device, shape, groups: int, dtype: torch.dtype, affine: bool, silu: bool
+) -> None:
+    """B8 against the plain version on the same inputs: f32 within 1e-5 of the largest output (the
+    same centered statistics merged in another order); bf16 within 2^-7 of it (one rounding each,
+    an ulp apart where the f32 values straddle a boundary).  A ragged N (1000), C = 960 (groups of
+    30) and C = 30 (no 16-byte vectors) included; two runs give the same bits."""
+    gen = torch.Generator(cuda).manual_seed(shape[1] + shape[2])
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3 + 1.5).to(dtype)
+    C = shape[-1]
+    scale = (1 + 0.1 * torch.randn(C, generator=gen, device=cuda)) if affine else None
+    bias = 0.1 * torch.randn(C, generator=gen, device=cuda) if affine else None
+    before = groupnorm.groupnorm_forward.launches
+    got = groupnorm.groupnorm_forward(x, groups, silu, 1e-5, scale, bias)
+    again = groupnorm.groupnorm_forward(x, groups, silu, 1e-5, scale, bias)
+    assert groupnorm.groupnorm_forward.launches == before + 2
+    want = groupnorm.groupnorm_reference(x, groups, silu, 1e-5, scale, bias)
+    rel = 1e-5 if dtype == torch.float32 else 2**-7
+    assert got.dtype == dtype and torch.isfinite(got).all() and torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= rel * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_groupnorm_kernel_raises_on_what_it_cannot_take(cuda: torch.device) -> None:
+    x = torch.zeros(2, 64, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="groups"):
+        groupnorm.groupnorm_forward(x, 7)
+    with pytest.raises(ValueError, match="dtype|float32"):
+        groupnorm.groupnorm_forward(x.half(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        groupnorm.groupnorm_forward(x.transpose(0, 1), 8)
+    with pytest.raises(ValueError, match="together"):
+        groupnorm.groupnorm_forward(x, 8, scale=torch.ones(96, device=cuda))
+    with pytest.raises(ValueError, match="scale"):
+        groupnorm.groupnorm_forward(x, 8, scale=torch.ones(96, device=cuda).half(), bias=torch.zeros(96, device=cuda))
+
+
+@pytest.mark.gpu
+def test_groupnorm_function_on_the_card(cuda: torch.device) -> None:
+    "``groupnorm_cl`` under autograd: B8 forward, gradients equal to the plain version's (same function)."
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn((2, 16, 16, 320), generator=gen, device=cuda).requires_grad_(True)
+    scale = (1 + 0.1 * torch.randn(320, generator=gen, device=cuda)).requires_grad_(True)
+    bias = (0.1 * torch.randn(320, generator=gen, device=cuda)).requires_grad_(True)
+    g = torch.randn(x.shape, generator=gen, device=cuda)
+    before = groupnorm.groupnorm_forward.launches
+    out = groupnorm.groupnorm_cl(x, 32, True, 1e-5, scale, bias)
+    grads = torch.autograd.grad(out, (x, scale, bias), g)
+    assert groupnorm.groupnorm_forward.launches == before + 1
+    ref = groupnorm.groupnorm_reference(x.view(2, 256, 320), 32, True, 1e-5, scale, bias).view(x.shape)
+    want = torch.autograd.grad(ref, (x, scale, bias), g)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    for a, b in zip(grads, want):
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-5 * b.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(("B", "N", "heads"), [(2, 1024, 10), (1, 4096, 4), (2, 1000, 5), (1, 77, 3)])
+def test_pairs_attention_kernel_matches_plain(
+    cuda: torch.device, B: int, N: int, heads: int, dtype: torch.dtype
+) -> None:
+    """B10 on the ``chunk(3)`` views of one fused qkv tensor (row stride 3*H*64) against the plain
+    attention on the same views: atol 5e-3, as K2 (probabilities round to 16 bits at other points).
+    Ragged N (1000, 77: a last tile of masked keys) and odd head counts included."""
+    gen = torch.Generator(cuda).manual_seed(N + heads)
+    qkv = torch.randn((B, N, 3 * heads * 64), generator=gen, device=cuda).to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = flash_attention.flash_attention_pairs_forward.launches
+    got = flash_attention.flash_attention_pairs_forward(q, k, v, heads)
+    assert flash_attention.flash_attention_pairs_forward.launches == before + 1
+    want = flash_attention._packed_reference(q, k, v, heads)
+    assert got.shape == want.shape and got.is_contiguous() and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 5e-3
+    # the same attention from separate contiguous tensors: the strides are honoured
+    again = flash_attention.flash_attention_pairs_forward(q.contiguous(), k.contiguous(), v.contiguous(), heads)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_pairs_attention_kernel_raises_on_what_it_cannot_take(cuda: torch.device) -> None:
+    q = torch.zeros(1, 128, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention.flash_attention_pairs_forward(q.float(), q.float(), q.float(), 4)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_pairs_forward(q, q, q, 2)
+    with pytest.raises(ValueError, match="stride"):
+        flash_attention.flash_attention_pairs_forward(q, q[:, :, :], q.transpose(1, 2).contiguous().transpose(1, 2), 4)
+
+
+@pytest.mark.gpu
+def test_cond_unet_forward_through_the_kernels(cuda: torch.device) -> None:
+    """A small bf16 CondUNet (widths (64, 128, 256), heads (1, 2, 4): head dim 64, depths (0, 1, 2))
+    under CFG-like batch 2 launches B8 for every GroupNorm and B10 for every self-attention, exactly,
+    and agrees with the same forward through the plain versions to 5e-2 of its largest value; a head
+    dim the packed kernel (B9) would take raises on the card."""
+    from unittest import mock
+
+    from skrample_tpu_torch.models.unet_cond import CondUNet, CondUNetConfig, random_param_tree
+
+    config = CondUNetConfig(
+        widths=(64, 128, 256), heads=(1, 2, 4), transformer_layers=(0, 1, 2), context_dim=48, pooled_dim=56
+    )
+    model = CondUNet(config, device=cuda, dtype=torch.bfloat16).load_jax_params(random_param_tree(config, 3))
+    gen = torch.Generator(cuda).manual_seed(4)
+    x = torch.randn((2, 4, 32, 32), generator=gen, device=cuda)
+    args = (
+        x,
+        torch.tensor([700.0, 30.0], device=cuda),
+        torch.randn((2, 77, 48), generator=gen, device=cuda),
+        torch.randn((2, 56), generator=gen, device=cuda),
+        torch.tensor([[256.0, 256.0, 0.0, 0.0, 256.0, 256.0]] * 2, device=cuda),
+    )
+    with torch.inference_mode():
+        before = groupnorm.groupnorm_forward.launches, flash_attention.flash_attention_pairs_forward.launches
+        got = model(*args)
+        counts = (
+            groupnorm.groupnorm_forward.launches - before[0],
+            flash_attention.flash_attention_pairs_forward.launches - before[1],
+        )
+        # GroupNorms: 2 per resnet (6 down, 2 mid, 9 up), 1 per Transformer2D (4 down, 1 mid, 6 up), norm_out;
+        # self-attentions: one per basic block (2 + 4 down, 2 mid, 6 + 3 up): SDXL base's 46 and 70 in miniature
+        resnets = config.layers_per_block * 3 + 2 + (config.layers_per_block + 1) * 3
+        transformers = 2 * 2 + 1 + 3 * 2
+        assert counts == (2 * resnets + transformers + 1, 2 * 1 + 2 * 2 + 2 + 3 * 1 + 3 * 2)
+        with (
+            mock.patch.object(groupnorm, "groupnorm_forward", groupnorm.groupnorm_reference),
+            mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+        ):
+            want = model(*args)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
+    with pytest.raises(NotImplementedError, match="B9"):
+        model._mha(*(torch.zeros(1, 256, 128, device=cuda, dtype=torch.bfloat16) for _ in range(3)), 4)
+
+
+@pytest.mark.gpu
+def test_conv_gives_an_item_the_same_bits_at_any_batch(cuda: torch.device) -> None:
+    """The conv families' ``_conv`` at SDXL's 32x32 level (3x3, 1280 channels, where cuDNN sums in
+    another order at batch 4 than at batch 2): an item's output bits do not depend on its batch,
+    and the output is a contiguous NHWC tensor (channels-last, no relayout)."""
+    from skrample_tpu_torch.models.unet import _Conv, _conv, _ConvSpec
+
+    conv = _Conv(_ConvSpec(3, 1280, 1280), torch.bfloat16).to_empty(device=cuda)
+    gen = torch.Generator(cuda).manual_seed(5)
+    with torch.no_grad():
+        conv.w.copy_(torch.randn(conv.w.shape, generator=gen, device=cuda) / 100)
+        conv.b.copy_(torch.randn(conv.b.shape, generator=gen, device=cuda))
+    x = torch.randn((4, 32, 32, 1280), generator=gen, device=cuda).to(torch.bfloat16)
+    pair = _conv(conv, x[:2], torch.bfloat16)
+    four = _conv(conv, x, torch.bfloat16)
+    assert four.shape == (4, 32, 32, 1280) and four.is_contiguous()
+    assert torch.equal(pair, four[:2])
