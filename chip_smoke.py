@@ -9,9 +9,11 @@ Phases, each failing the run with a non-zero exit:
    kernels from ``skrample_tpu_torch/csrc`` (printing ``-Xptxas -v``);
 2. kernels: each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (K1-K3 serving, K4-K6 training, B6/B7 Flux and
-   int8 serving, B8/B10 SDXL serving), with card times
-   of the kernel, the plain version and, where one PyTorch call computes the
-   same function, that call;
+   int8 serving, B8/B10 SDXL serving, B12 at four f32 shapes of the SDXL
+   VAE's fused decode, bf16 with the norm, and bf16 without it at the SDXL
+   UNet's 640-channel conv), with card times of the kernel, the plain
+   version and, where one PyTorch call computes the same function, that
+   call;
 3. the serving slice: a ``ServingEngine`` over a DiT-512/8 (heads 4, bf16,
    random weights from a numpy seed), 25-step DPM++2M / FlowShift(Linear),
    buckets (1, 2, 4), answering 6 requests (4 together, then 2); the launch
@@ -48,13 +50,27 @@ Phases, each failing the run with a non-zero exit:
    ``SDXLStack.as_served`` with classifier-free guidance 5.0, 25-step
    DPM++2M over Karras(Scaled) with NoiseModel, buckets (1, 2), 1024x1024
    requests (4x128x128 latents) with random prompt features: 3 requests
-   (2 together, then the first again alone); exact launches (B8 46 and
-   B10 70 per forward, K1 one per step), finite and packing-invariant
-   outputs, one CFG forward through the kernels against the plain versions,
-   the compiled Karras(Scaled) trajectory on the card against the CPU's,
-   cuDNN's bf16 conv rounding against one rounding of the f32 sum, every
-   conv's operands channels-last; latency, throughput, peak memory and the
-   card's time by kernel group over one traced dispatch.
+   (2 together, then the first again alone); exact launches (B8 46, B10 70
+   and B12 38 per forward, K1 one per step), finite outputs, request A
+   alone equal to A packed bit for bit, one CFG forward through the
+   kernels against the plain versions, the compiled Karras(Scaled)
+   trajectory on the card against the CPU's, the port's bf16 conv against
+   one rounding of the f32 sum (ROADMAP C7; cuDNN's double rounding
+   beside it), every cuDNN conv's operands channels-last; latency,
+   throughput, peak memory and the card's time by kernel group over one
+   traced dispatch;
+8. SDXL to pixels: the SDXL base VAE (stabilityai/stable-diffusion-xl-
+   base-1.0 ``vae/config.json`` through the port's ``vae_config``: f32,
+   83.7M parameters drawn on the card) behind the phase-7 UNet,
+   ``ServingEngine(stack.as_served(...), conditioned=True,
+   postprocess=stack.decode)``, 10-step requests (phase 7's 25 cut: the
+   phase adds the decode): 3 requests to (3, 1024, 1024) pixels (2
+   together, then the first alone); exact launches (B12 31 and B8 1 per
+   decode on top of the UNet's), finite pixels, A alone == A packed bit
+   for bit, the fused decode against the unfused one and against the
+   plain versions (1e-3 relative Frobenius), median fused and unfused
+   decode times, one traced fused decode by kernel group, and one
+   ``encode_image`` at 1024x1024.
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -91,6 +107,7 @@ FLUX_STEPS = 28  # FLUX.1-dev's default
 FLUX_REPEATS = 3  # dispatches per median
 SDXL_STEPS = 25
 SDXL_REPEATS = 3
+VAE_STEPS = 10  # phase 8 cuts phase 7's 25-step schedule: the decode, not the denoise, is what it adds
 
 
 class SmokeFailure(RuntimeError):
@@ -148,9 +165,9 @@ def cuda_ms(fn, iters: int = 50) -> tuple[float, float]:
     return device_ms, _events_ms(eager, iters)
 
 
-def timed(row: dict, key: str, fn) -> None:
+def timed(row: dict, key: str, fn, iters: int = 50) -> None:
     "Store the card's time under ``key`` and the eager per-call time beside it."
-    row[key], row[key + "_eager"] = cuda_ms(fn)
+    row[key], row[key + "_eager"] = cuda_ms(fn, iters)
 
 
 def bound_ms(n_bytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -310,6 +327,7 @@ def kernels_phase() -> dict[str, dict]:
     rows.update(training_kernels(gen))
     rows.update(flux_kernels(gen))
     rows.update(sdxl_kernels(gen))
+    rows.update(vae_kernels(gen))
     for row in rows.values():
         library = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
         print(
@@ -443,13 +461,18 @@ def training_kernels(gen) -> dict[str, dict]:
     return rows
 
 
-def _ulps_bf16(a, b) -> float:
-    "The largest distance between two bf16 tensors, in units in the last place of the larger magnitude."
+def _ulp_map(a, b):
+    "Per element, the distance of two bf16 tensors in units in the last place of the larger magnitude."
     import torch
 
     a32, b32 = a.float(), b.float()
     ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a32.abs(), b32.abs()).clamp_min(2.0**-126))) - 7)
-    return ((a32 - b32).abs() / ulp).max().item()
+    return (a32 - b32).abs() / ulp
+
+
+def _ulps_bf16(a, b) -> float:
+    "The largest distance between two bf16 tensors, in units in the last place of the larger magnitude."
+    return _ulp_map(a, b).max().item()
 
 
 def flux_kernels(gen) -> dict[str, dict]:
@@ -684,9 +707,111 @@ def sdxl_kernels(gen) -> dict[str, dict]:
     return rows
 
 
+def _plain_b12(x, w, b, stats=None, residual=None, scale=None, bias=None, out_stats=True):
+    "B12's plain version behind its wrapper's signature (swapped in for the kernel to hold a path to it)."
+    from skrample_tpu_torch.ops import fused_conv
+
+    out, raw = fused_conv.conv3x3_ref(x, w, b, stats, residual, scale, bias)
+    return out, (raw if out_stats else None)
+
+
+def vae_kernels(gen) -> dict[str, dict]:
+    """B12 against its plain version: f32 with GroupNorm(32) + f32 affine + SiLU on the input read and a
+    residual, at four of the SDXL VAE's fused-decode shapes; bf16 with the norm at one of them; bf16 with
+    the norm and the statistics off at the SDXL UNet's (2, 64, 64, 640 -> 640) conv (the C7 route).
+    Times and bounds; the library time is ``F.conv2d`` with its bias on the input normalized beforehand:
+    the conv alone, not the norm, the residual or the statistics."""
+    import torch
+    import torch.nn.functional as F
+
+    from skrample_tpu_torch.ops import fused_conv
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict] = {}
+    cases = [
+        ((1, 128, 128, 512), 512, torch.float32, True),
+        ((1, 256, 256, 512), 512, torch.float32, True),
+        ((1, 512, 512, 512), 256, torch.float32, True),
+        ((1, 1024, 1024, 256), 128, torch.float32, True),
+        ((1, 256, 256, 512), 512, torch.bfloat16, True),
+        ((2, 64, 64, 640), 640, torch.bfloat16, False),
+    ]
+    for shape, co, dtype, norm in cases:
+        N, H, W, C = shape
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        w = (torch.randn((3, 3, C, co), generator=gen, device=dev) / (3 * C**0.5)).to(dtype)
+        b = 0.1 * torch.randn(co, generator=gen, device=dev)
+        stats = res = scale = bias = None
+        if norm:
+            stats = fused_conv.finalize_group_stats(fused_conv.channel_stats(x), 32, H * W)
+            scale = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+            bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+            res = torch.randn((N, H, W, co), generator=gen, device=dev).to(dtype)
+        args = (x, w, b, stats, res, scale, bias)
+        got, raw = fused_conv.conv3x3_gn_silu_forward(*args, out_stats=norm)
+        want, want_raw = fused_conv.conv3x3_ref(*args)
+        again, _ = fused_conv.conv3x3_gn_silu_forward(*args, out_stats=norm)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        rel = err / want.float().abs().max().item()
+        raw_rel = _relative(raw, want_raw) if norm else 0.0
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        form = "GN(32) + affine + SiLU on read, residual, statistics" if norm else "norm and statistics off"
+        print(
+            f"B12 conv3x3_gn_silu_forward {dtype} {shape} -> {co} ({form}): max_abs_err {err:.3e}, relative "
+            f"{rel:.3e} (tolerance {tol:.0e}), statistics relative {raw_rel:.3e}; a second run gives the same "
+            f"bits: {torch.equal(got, again)}"
+        )
+        ok = bool(torch.isfinite(got).all()) and rel <= tol and raw_rel <= tol and torch.equal(got, again)
+        expect(ok, f"B12 {dtype} {shape} disagrees with the plain version: {rel}, statistics {raw_rel}")
+        flops = 2.0 * N * H * W * 9 * C * co
+        size = x.element_size()
+        n_bytes = (x.numel() + w.numel() + got.numel() + (res.numel() if norm else 0)) * size + co * 4
+        if norm:
+            n_bytes += (stats.numel() + 2 * C + raw.numel()) * 4
+        b_ms, b_by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+        xin = x
+        if norm:
+            xin = fused_conv._normalize_silu(
+                x.float(), stats[:, None, None, 0, :], stats[:, None, None, 1, :], scale, bias
+            ).to(dtype)
+        x_lib = xin.permute(0, 3, 1, 2)  # the channels-last NCHW view cuDNN takes without a copy
+        w_lib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b_lib = b.to(dtype)
+
+        def library(a=(x_lib, w_lib, b_lib)):
+            with fused_conv.cudnn_tf32(False):
+                return F.conv2d(a[0], a[1], a[2], 1, 1)
+
+        iters = 50 if flops < 2e11 else 5
+        timing: dict = {}
+        timed(timing, "ms", lambda a=args, s=norm: fused_conv.conv3x3_gn_silu_forward(*a, out_stats=s), iters)
+        timed(timing, "plain_ms", lambda a=args, s=norm: _plain_b12(*a, out_stats=s), iters)
+        timed(timing, "library_ms", library, iters)
+        print(
+            f"B12 {shape} -> {co} {dtype} (card time, CUDA-graph replay of {iters}): {timing['ms'] * 1e3:.2f} us "
+            f"kernel ({flops / timing['ms'] / 1e9:.1f} TFLOP/s), {timing['plain_ms'] * 1e3:.2f} us plain, library "
+            f"{timing['library_ms'] * 1e3:.2f} us (F.conv2d + bias, TF32 off, on the normalized input: the conv "
+            f"alone), bound {b_ms * 1e3:.2f} us ({b_by}, {flops / 1e9:.1f} GFLOP)"
+        )
+        if "conv3x3_gn_silu_forward" not in rows:  # the row keeps the first shape's numbers
+            rows["conv3x3_gn_silu_forward"] = {
+                "name": "conv3x3_gn_silu_forward",
+                "route": "cuda",
+                "source": "skrample_tpu_torch/csrc/fused_conv.cu",
+                "replaces": "skrample_tpu/ops/fused_conv.py:251",
+                "max_abs_err": err,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                **timing,
+            }
+        del x, w, got, want, again, args, xin, x_lib, res
+    return rows
+
+
 def _wrappers() -> dict:
     "Every kernel wrapper, by the name its row carries."
-    from skrample_tpu_torch.ops import adaln, flash_attention, fused, groupnorm, quant, rope
+    from skrample_tpu_torch.ops import adaln, flash_attention, fused, fused_conv, groupnorm, quant, rope
 
     return {
         "fused_step_cuda": fused.fused_step_cuda,
@@ -699,6 +824,7 @@ def _wrappers() -> dict:
         "rope_qk_norm_forward": rope.rope_qk_norm_forward,
         "groupnorm_forward": groupnorm.groupnorm_forward,
         "flash_attention_pairs_forward": flash_attention.flash_attention_pairs_forward,
+        "conv3x3_gn_silu_forward": fused_conv.conv3x3_gn_silu_forward,
     }
 
 
@@ -740,6 +866,7 @@ def slice_phase(card: str) -> dict[str, int]:
         "rope_qk_norm_forward": 0,
         "groupnorm_forward": 0,
         "flash_attention_pairs_forward": 0,
+        "conv3x3_gn_silu_forward": 0,
     }
     item_shape = (4, 64, 64)
 
@@ -877,6 +1004,7 @@ def training_phase(card: str) -> dict[str, int]:
         "rope_qk_norm_forward": 0,
         "groupnorm_forward": 0,
         "flash_attention_pairs_forward": 0,
+        "conv3x3_gn_silu_forward": 0,
     }
 
     for step in range(TRAIN_WARMUP):
@@ -1320,6 +1448,7 @@ def flux_phase(card: str) -> tuple[dict[str, int], dict[str, int]]:
 
 
 SDXL_GROUPS = (
+    ("B12 convs", ("conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
     ("K1 fused_step", ("fused_step_kernel",)),
     ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("B10 attention", ("flash_strided_kernel",)),
@@ -1331,28 +1460,46 @@ SDXL_GROUPS = (
 
 
 def _conv_rounding(gen) -> None:
-    """cuDNN's bf16 3x3 conv with a bf16 bias, against one rounding of the f32 sum of the same
-    bf16 operands (the JAX package's ``_conv``), and against rounding twice (product, then bias)."""
+    """ROADMAP C7 on the card: the port's bf16 ``_conv`` (B12, norm and statistics off) at SDXL's 640-channel
+    3x3 conv, and beside it cuDNN's bf16 conv with a bf16 bias (the route before the repair), against one
+    rounding of the f32 sum of the same bf16 operands plus the f32 bias (the JAX package's ``_conv``; cuDNN
+    in f32, TF32 off).  The share of outputs that differ, and the largest distance in bf16 ulps over all
+    outputs and over those whose sum is not a cancellation (|sum| >= 2^-11 of the sum of |terms|): where
+    5760 terms cancel far below their scale, two f32 summation orders round many ulps apart whatever the
+    route, so the 1-ulp bound is held where it measures the rounding."""
     import torch
     import torch.nn.functional as F
 
+    from skrample_tpu_torch.models.unet import _Conv, _conv, _ConvSpec
+    from skrample_tpu_torch.ops.fused_conv import cudnn_tf32
+
     dev = torch.device("cuda")
-    x = torch.randn((4, 640, 64, 64), generator=gen, device=dev).to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
-    w = (torch.randn((640, 640, 3, 3), generator=gen, device=dev) / 80).to(torch.bfloat16)
-    w = w.contiguous(memory_format=torch.channels_last)
-    b = (0.5 * torch.randn(640, generator=gen, device=dev)).to(torch.bfloat16)
-    got = F.conv2d(x, w, b, 1, 1)
-    once = F.conv2d(x.float(), w.float(), b.float(), 1, 1).to(torch.bfloat16)
-    twice = (F.conv2d(x, w, None, 1, 1) + b[None, :, None, None]).to(torch.bfloat16)
+    conv = _Conv(_ConvSpec(3, 640, 640), torch.bfloat16).to_empty(device=dev)
+    with torch.no_grad():
+        conv.w.copy_(torch.randn(conv.w.shape, generator=gen, device=dev) / 80)
+        conv.b.copy_(0.5 * torch.randn(640, generator=gen, device=dev))
+        x = torch.randn((4, 64, 64, 640), generator=gen, device=dev).to(torch.bfloat16)
+        port = _conv(conv, x, torch.bfloat16).permute(0, 3, 1, 2)
+        xn = x.permute(0, 3, 1, 2)  # channels-last NCHW
+        before = F.conv2d(xn, conv.w, conv.b, 1, 1)
+        w32, b32 = conv.w.float(), conv.b.float()
+        with cudnn_tf32(False):
+            exact = F.conv2d(xn.float(), w32, b32, 1, 1)
+            terms = F.conv2d(xn.float().abs(), w32.abs(), b32.abs(), 1, 1)
+    once = exact.to(torch.bfloat16)
+    settled = exact.abs() >= terms / 2048
     torch.cuda.synchronize()
-    share_once = (got != once).float().mean().item()
-    share_twice = (got != twice).float().mean().item()
-    print(
-        f"sdxl: cuDNN bf16 conv 640->640 3x3 at (4, 64, 64) with a bf16 bias: {100 * share_once:.3f}% of outputs "
-        f"differ from one rounding of the f32 sum (max {_ulps_bf16(got, once):g} ulp), {100 * share_twice:.3f}% from "
-        f"rounding the product and then the bias add (max {_ulps_bf16(got, twice):g} ulp)"
-    )
+    results = {}
+    for label, got in (("the port's _conv (B12)", port), ("cuDNN bf16 with a bf16 bias", before)):
+        ulps = _ulp_map(got, once)
+        results[label] = share, worst = (ulps > 0).float().mean().item(), ulps[settled].max().item()
+        print(
+            f"sdxl C7: {label}, 640->640 3x3 at (4, 64, 64): {100 * share:.3f}% of outputs differ from one "
+            f"rounding of the f32 sum; max {ulps.max().item():g} ulp over all outputs, {worst:g} ulp over the "
+            f"{100 * settled.float().mean().item():.2f}% that are not cancellations"
+        )
+    share, worst = results["the port's _conv (B12)"]
+    expect(share <= 1e-2 and worst <= 1, f"sdxl C7: the port's conv differs from one rounding: {share}, {worst} ulp")
 
 
 def _layout_audit(run) -> None:
@@ -1399,9 +1546,10 @@ def _layout_audit(run) -> None:
     expect(not audit.not_cl, f"sdxl: convolutions outside channels-last: {audit.not_cl[:4]}")
 
 
-def sdxl_phase(card: str) -> dict[str, int]:
+def sdxl_phase(card: str) -> tuple[dict[str, int], dict]:
     """Phase 7: SDXL base at its published widths and depth, bf16, with classifier-free guidance;
-    returns the main path's launches."""
+    returns the main path's launches and what phase 8 serves with (the UNet, prompt features, the
+    per-forward launches)."""
     import numpy as np
     import torch
 
@@ -1409,7 +1557,7 @@ def sdxl_phase(card: str) -> dict[str, int]:
     from skrample_tpu_torch.models.conditioning import guided_mix
     from skrample_tpu_torch.models.sdxl import SDXLStack
     from skrample_tpu_torch.models.unet_cond import CondUNet, CondUNetConfig, cond_unet_forward_flops
-    from skrample_tpu_torch.ops import CompiledDenoiser, compile_sampler, flash_attention, groupnorm
+    from skrample_tpu_torch.ops import CompiledDenoiser, compile_sampler, flash_attention, fused_conv, groupnorm
     from skrample_tpu_torch.sampling import models, structured
     from skrample_tpu_torch.serving import ServingEngine
 
@@ -1459,7 +1607,8 @@ def sdxl_phase(card: str) -> dict[str, int]:
     served = stack.as_served(SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev), 5.0, uncond)
     flops = 2 * cond_unet_forward_flops(config, 1, 128, 128, 77)  # one request's CFG forward: batch 2
     per_forward = dict.fromkeys(_wrappers(), 0)
-    per_forward.update(groupnorm_forward=46, flash_attention_pairs_forward=70)
+    # B12: every stride-1 3x3 conv (conv_in, 2 a resnet: 6 down, 2 mid, 9 up; 2 upsamples; conv_out)
+    per_forward.update(groupnorm_forward=46, flash_attention_pairs_forward=70, conv3x3_gn_silu_forward=38)
     want = dict(per_forward, fused_step_cuda=1)
 
     def cfg_forward(b: int):
@@ -1504,8 +1653,8 @@ def sdxl_phase(card: str) -> dict[str, int]:
         print(f"sdxl: after the main path, {_clocks()}")
 
         packing = _relative(outs[2], outs[0])
-        print(f"sdxl: packing invariance, request A alone vs packed: relative max err {packing:.3e} (tol 5e-2, bf16)")
-        expect(packing <= 5e-2, f"sdxl: packing changes request A by {packing}")
+        print(f"sdxl: packing invariance, request A alone vs packed: bit-equal {torch.equal(outs[2], outs[0])}")
+        expect(torch.equal(outs[2], outs[0]), f"sdxl: packing changes request A by {packing}")
 
         for i in range(SDXL_REPEATS - 1):
             t0 = time.perf_counter()
@@ -1549,6 +1698,7 @@ def sdxl_phase(card: str) -> dict[str, int]:
         with (
             mock.patch.object(groupnorm, "groupnorm_forward", groupnorm.groupnorm_reference),
             mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+            mock.patch.object(fused_conv, "conv3x3_gn_silu_forward", _plain_b12),
         ):
             plain = unet(*args)
         torch.cuda.synchronize()
@@ -1563,6 +1713,183 @@ def sdxl_phase(card: str) -> dict[str, int]:
     )
     expect(bool(torch.isfinite(plain).all()) and vs_plain <= 5e-2, f"sdxl: kernel forward differs by {vs_plain}")
     print(f"sdxl: phase took {time.perf_counter() - phase_t0:.1f} s")
+    parts = {"unet": unet, "contexts": contexts, "uncond": uncond, "per_forward": per_forward}
+    return launches, parts
+
+
+# stabilityai/stable-diffusion-xl-base-1.0 vae/config.json (the fields the importer reads)
+SDXL_VAE_CONFIG = {
+    "in_channels": 3,
+    "out_channels": 3,
+    "latent_channels": 4,
+    "block_out_channels": (128, 256, 512, 512),
+    "layers_per_block": 2,
+    "norm_num_groups": 32,
+    "scaling_factor": 0.13025,
+    "act_fn": "silu",
+    "down_block_types": ("DownEncoderBlock2D",) * 4,
+    "up_block_types": ("UpDecoderBlock2D",) * 4,
+}
+VAE_GROUPS = (
+    ("B12 convs", ("conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
+    ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("cuDNN convs", ("fprop", "implicit_gemm", "conv", "cudnn", "winograd")),
+    ("attention softmax", ("softmax",)),
+    ("cuBLAS products", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
+)
+
+
+def vae_phase(card: str, parts: dict) -> dict[str, int]:
+    """Phase 8: SDXL served to pixels.  The SDXL base VAE at its published widths (f32, drawn on the card)
+    behind the phase-7 UNet: ``ServingEngine(stack.as_served(...), conditioned=True,
+    postprocess=stack.decode)``; returns the main path's launches."""
+    import dataclasses
+
+    import torch
+
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.import_weights import vae_config
+    from skrample_tpu_torch.models.sdxl import SDXLStack
+    from skrample_tpu_torch.models.vae import VAE, fused_convs_per_decode, vae_decode_flops
+    from skrample_tpu_torch.ops import fused_conv, groupnorm
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    config = vae_config(SDXL_VAE_CONFIG)
+    gen = torch.Generator(dev).manual_seed(8)
+    vae = VAE(config, device=dev, generator=gen)
+    vae.reset_parameters(gen, noise=0.02)
+    vae.requires_grad_(False)
+    n_params = sum(p.numel() for p in vae.parameters())
+    per_decode = fused_convs_per_decode(config)
+    flops = vae_decode_flops(config, 1, 128, 128)
+    print(
+        f"vae: SDXL base VAE (widths {config.widths()}, {config.blocks_per_level} blocks a level, groups "
+        f"{config.groups}, {config.compute_dtype}), {n_params / 1e6:.2f}M parameters drawn on the card; "
+        f"{per_decode} B12 convs a fused decode; a 1024x1024 decode is {flops / 1e12:.2f} TFLOP"
+    )
+    expect(per_decode == 31, f"vae: {per_decode} fused convs a decode, expected 31")
+    stack = SDXLStack(parts["unet"], vae)
+    contexts, uncond = parts["contexts"], parts["uncond"]
+    served = stack.as_served(SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev), 5.0, uncond)
+    zgen = torch.Generator(dev).manual_seed(9)
+
+    def latents(b: int):
+        return torch.randn((b, 4, 128, 128), generator=zgen, device=dev)
+
+    with torch.inference_mode():  # warm-up decodes at both bucket sizes: cuDNN and cuBLAS heuristics
+        for b in (1, 2):
+            stack.decode(latents(b))
+        torch.cuda.synchronize()
+        _reset_counters()
+        stack.decode(latents(1))
+        one = _counters()
+    want_one = dict.fromkeys(_wrappers(), 0)
+    want_one.update(conv3x3_gn_silu_forward=31, groupnorm_forward=1)  # B8: the mid attention's norm
+    print(f"vae: one decode call launched {one}")
+    expect(one == want_one, f"vae: one decode launched {one}, expected {want_one}")
+
+    engine = ServingEngine(
+        served, item_shape=(4, 128, 128), sampler=structured.DPM(order=2),
+        schedule=scheduling.Karras(scheduling.Scaled()), model_transform=models.NoiseModel(),
+        steps=VAE_STEPS, dtype=torch.float32, buckets=(1, 2), conditioned=True, device=dev,
+        postprocess=stack.decode,
+    )
+    with engine:
+        # ---- the main path: requests A and B together, then A again alone, to pixels ----
+        torch.cuda.reset_peak_memory_stats()
+        batches_before = engine.stats.batches
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        futs = [engine.submit(seed, context=ctx) for seed, ctx in ((1, contexts[0]), (2, contexts[1]))]
+        outs = [f.result().cpu() for f in futs]
+        pair_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs.append(engine.generate(1, context=contexts[0]).cpu())
+        solo_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        dispatches = engine.stats.batches - batches_before
+    forwards = VAE_STEPS * dispatches
+    want = {name: n * forwards for name, n in parts["per_forward"].items()}
+    want["fused_step_cuda"] = VAE_STEPS * dispatches
+    want["conv3x3_gn_silu_forward"] += per_decode * dispatches
+    want["groupnorm_forward"] += dispatches
+    print(f"vae: 3 requests to pixels in {dispatches} dispatches; launches {launches} (expected {want})")
+    expect(dispatches == 2 and launches == want, f"vae: launches {launches}, expected {want}")
+    for o in outs:
+        expect(tuple(o.shape) == (3, 1024, 1024) and bool(torch.isfinite(o).all()), f"vae: bad pixels {o.shape}")
+    same = torch.equal(outs[2], outs[0])
+    print(
+        f"vae: pixels (3, 1024, 1024) finite, range [{outs[0].min().item():.3f}, {outs[0].max().item():.3f}]; "
+        f"request A alone == A packed, bit for bit: {same}"
+    )
+    expect(same, f"vae: packing changes request A's pixels by {_relative(outs[2], outs[0])}")
+    print(
+        f"vae: {VAE_STEPS}-step requests with the decode: a pair {pair_s * 1e3:.1f} ms, A alone "
+        f"{solo_s * 1e3:.1f} ms; peak device memory {peak / 2**30:.2f} GiB over the main path ({card})"
+    )
+
+    # ---- the decode held against the unfused decode and against the plain versions ----
+    unfused_vae = dataclasses.replace(config, fused_decode=False)
+    with torch.inference_mode():
+        z = latents(1)
+        fused = stack.decode(z)
+        vae.config = unfused_vae
+        unfused = stack.decode(z)
+        vae.config = config
+        with (
+            mock.patch.object(groupnorm, "groupnorm_forward", groupnorm.groupnorm_reference),
+            mock.patch.object(fused_conv, "conv3x3_gn_silu_forward", _plain_b12),
+        ):
+            _reset_counters()
+            plain = stack.decode(z)
+            plain_counts = _counters()
+        torch.cuda.synchronize()
+    vs_unfused, vs_plain = _relative_fro(fused, unfused), _relative_fro(fused, plain)
+    print(
+        f"vae: fused decode vs the unfused decode of the same latents: {vs_unfused:.3e} relative Frobenius "
+        f"(tolerance 1e-3: the uncentered against the centered variance, f32); through the kernels vs the plain "
+        f"versions: {vs_plain:.3e} (tolerance 1e-3)"
+    )
+    expect(all(v == 0 for v in plain_counts.values()), f"vae: the plain decode launched kernels: {plain_counts}")
+    expect(vs_unfused <= 1e-3 and vs_plain <= 1e-3, f"vae: decodes disagree: {vs_unfused}, {vs_plain}")
+
+    # ---- decode times, fused and unfused, in turns; one traced fused decode by kernel group ----
+    times: dict[str, list[float]] = {"fused": [], "unfused": []}
+    with torch.inference_mode():
+        for label in ("fused", "unfused", "unfused", "fused", "fused", "unfused"):
+            vae.config = config if label == "fused" else unfused_vae
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stack.decode(z)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+        vae.config = config
+        med = {label: statistics.median(v) for label, v in times.items()}
+        for label, v in times.items():
+            print(
+                f"vae: {label} decode of one 1024x1024 image: median {med[label] * 1e3:.1f} ms of 3 "
+                f"({', '.join(f'{t * 1e3:.1f}' for t in v)}); {flops / med[label] / 1e12:.1f} TFLOP/s ({card})"
+            )
+        _traced_dispatch(lambda: stack.decode(z), "vae fused decode", med["fused"], card, VAE_GROUPS)
+
+        # ---- encode: a request's pixels back to latents ----
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        z_back = stack.encode_image(outs[0][None].to(dev))
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    print(
+        f"vae: encode_image at 1024x1024: {tuple(z_back.shape)}, finite {bool(torch.isfinite(z_back).all())}, "
+        f"{enc_s * 1e3:.1f} ms, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})"
+    )
+    expect(tuple(z_back.shape) == (1, 4, 128, 128) and bool(torch.isfinite(z_back).all()), "vae: bad encode")
+    print(f"vae: phase took {time.perf_counter() - phase_t0:.1f} s")
     return launches
 
 
@@ -1587,14 +1914,15 @@ def main() -> int:
         train = training_phase(device["card"])
         dit_int8 = int8_dit_phase(device["card"], dit_outputs)
         flux_bf16, flux_int8 = flux_phase(device["card"])
-        sdxl = sdxl_phase(device["card"])
+        sdxl, sdxl_parts = sdxl_phase(device["card"])
+        vae = vae_phase(device["card"], sdxl_parts)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     # each row's launches: its counts summed over every path's main-path run
     for name, row in rows.items():
-        row["launches"] = sum(run[name] for run in (serving, train, dit_int8, flux_bf16, flux_int8, sdxl))
+        row["launches"] = sum(run[name] for run in (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae))
     keys = (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

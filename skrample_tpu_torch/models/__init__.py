@@ -1,17 +1,19 @@
 """Model families ported to PyTorch: the DiT (with its EMA shadow and
 ``.npz`` parameter checkpoints for training), the Flux transformer, each
 with its int8 serving model (``quantize_params``), and the conv families:
-the UNet, the conditional UNet (SD1.5 / SDXL) and the SDXL stack's serving
-part."""
+the UNet, the conditional UNet (SD1.5 / SDXL), the KL autoencoder (VAE)
+with its diffusers importer, and the SDXL stack (serving to pixels)."""
 
 from .checkpoint import load_params, save_params
 from .conditioning import doubled_t, guided_mix, per_item
 from .dit import DiT, DiTConfig, random_param_tree
 from .ema import ema_decay_schedule, ema_init, ema_update
 from .flux import Flux, FluxConfig, flux_forward_flops
+from .import_weights import diffusers_vae, vae_config
 from .sdxl import SDXLStack
 from .unet import UNet, UNetConfig
 from .unet_cond import CondUNet, CondUNetConfig, cond_unet_forward_flops
+from .vae import VAE, VAEConfig, vae_decode_flops
 
 __all__ = [
     "CondUNet",
@@ -23,7 +25,10 @@ __all__ = [
     "SDXLStack",
     "UNet",
     "UNetConfig",
+    "VAE",
+    "VAEConfig",
     "cond_unet_forward_flops",
+    "diffusers_vae",
     "doubled_t",
     "ema_decay_schedule",
     "ema_init",
@@ -34,4 +39,6 @@ __all__ = [
     "per_item",
     "random_param_tree",
     "save_params",
+    "vae_config",
+    "vae_decode_flops",
 ]

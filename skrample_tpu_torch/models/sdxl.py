@@ -11,9 +11,14 @@ predictor on the Scaled (VP) schedule.
 :meth:`SDXLStack.as_served` is the serving entry point: a closure for
 ``ServingEngine(conditioned=True)`` whose requests each submit
 ``context=(context_row, pooled_row)``, classifier-free guidance running as
-one doubled-batch forward.  The text encoders, the VAE, the checkpoint
-importers and the generation pipeline belong to later slices of the port:
-their entry points raise :class:`NotImplementedError`.
+one doubled-batch forward.  With a :class:`~.vae.VAE` in ``vae``,
+:meth:`SDXLStack.decode` turns denoised latents into pixels, so
+``ServingEngine(stack.as_served(...), conditioned=True,
+postprocess=stack.decode)`` serves requests to images, and
+:meth:`SDXLStack.encode_image` turns pixels into latents.  The text
+encoders, the checkpoint importers and the generation pipeline belong to
+later slices of the port: their entry points raise
+:class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -24,19 +29,21 @@ from typing import Any
 
 import torch
 
+from ..ops._cuda import resolve_device
 from .conditioning import doubled_t, guided_mix, per_item
 from .dit import _LATER
 from .unet_cond import CondUNet
+from .vae import VAE
 
 
 @dataclass
 class SDXLStack:
-    """A conditional UNet with the SDXL glue; ``vae``, ``clip_l`` and
-    ``clip_g`` are accepted for parity with the JAX stack and unused until
-    their slices are ported."""
+    """A conditional UNet with the SDXL glue and, optionally, the VAE that
+    maps its latents to pixels; ``clip_l`` and ``clip_g`` are accepted for
+    parity with the JAX stack and unused until their slice is ported."""
 
     unet: CondUNet
-    vae: Any = None
+    vae: VAE | None = None
     clip_l: Any = None
     clip_g: Any = None
 
@@ -50,18 +57,29 @@ class SDXLStack:
     def pipeline(self, *args: Any, **kwargs: Any) -> Any:
         raise NotImplementedError(f"the generation pipeline (pipeline.py) {_LATER}")
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(f"the VAE (vae.py) {_LATER}")
+    def _vae(self) -> VAE:
+        if self.vae is None:
+            raise ValueError("this SDXLStack has no VAE: build it with SDXLStack(unet, vae)")
+        return self.vae
 
-    def encode_image(self, x: torch.Tensor, generator: Any = None) -> torch.Tensor:
-        raise NotImplementedError(f"the VAE (vae.py) {_LATER}")
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        "Scaled latents (B, 4, h, w) -> pixels (B, 3, 8h, 8w): the VAE's decode (a ``postprocess`` for serving)."
+        return self._vae().decode(z)
+
+    def encode_image(
+        self, x: torch.Tensor, generator: torch.Generator | None = None, noise: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        """Pixels (B, 3, H, W) -> scaled latents: the posterior mode, or a draw
+        with ``noise`` or from ``generator`` (the JAX stack's ``key``)."""
+        return self._vae().encode(x, generator, noise)
 
     @staticmethod
     def time_ids(
-        orig: tuple[int, int], crop: tuple[int, int], target: tuple[int, int], device: str | torch.device = "cpu"
+        orig: tuple[int, int], crop: tuple[int, int], target: tuple[int, int], device: str | torch.device = "cuda"
     ) -> torch.Tensor:
-        "The SDXL micro-conditioning row: (orig_h, orig_w, crop_top, crop_left, target_h, target_w), (1, 6) float32."
-        return torch.tensor([[*orig, *crop, *target]], dtype=torch.float32, device=device)
+        """The SDXL micro-conditioning row: (orig_h, orig_w, crop_top, crop_left, target_h, target_w), (1, 6)
+        float32, on ``device`` (the card unless the caller asks for the CPU)."""
+        return torch.tensor([[*orig, *crop, *target]], dtype=torch.float32, device=resolve_device(device))
 
     def model_fn(
         self,

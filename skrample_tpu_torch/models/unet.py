@@ -3,15 +3,16 @@ machinery the conv families share.
 
 The same network as the JAX package's ``models/unet.py``, parameter for
 parameter.  The interior runs channels-last: activations are contiguous
-``(B, H, W, C)`` tensors, each convolution takes their ``(B, C, H, W)``
-view (``torch.channels_last`` strides) and gives one back, and every
-GroupNorm reads the ``(B, H*W, C)`` view through kernel B8
-(``ops/groupnorm.py``) without a copy.  One transpose at entry and exit; the
-``apply`` interface is NCHW.  Conv weights keep the JAX tree's OIHW shape
-(checkpoint-portable) in ``channels_last`` memory, so cuDNN takes them
-without a per-call relayout.  ``UNetConfig.layout`` is accepted for parity
-with the JAX configuration and ignored: NCHW against NHWC was a choice of
-TPU lane layout.
+``(B, H, W, C)`` tensors that kernel B12 (``ops/fused_conv.py``) reads as
+they are, and every other convolution takes as their ``(B, C, H, W)`` view
+(``torch.channels_last`` strides); every GroupNorm reads the ``(B, H*W,
+C)`` view through kernel B8 (``ops/groupnorm.py``) without a copy.  One
+transpose at entry and exit; the ``apply`` interface is NCHW.  Conv weights
+keep the JAX tree's OIHW shape (checkpoint-portable) in ``channels_last``
+memory: the (Co, 3, 3, C) layout B12 reads, and the one cuDNN takes
+without a relayout.  ``UNetConfig.layout`` is accepted for parity with the
+JAX configuration and ignored: NCHW against NHWC was a choice of TPU lane
+layout.
 
 Parameters live in one tree that mirrors the JAX package's
 (``tree["down"][0]["blocks"][0]["conv1"]``), leaves being :class:`_Conv`,
@@ -34,8 +35,9 @@ from torch import nn
 
 from ..ops._cuda import resolve_device
 from ..ops.flash_attention import _packed_reference
+from ..ops.fused_conv import conv3x3_gn_silu, cudnn_tf32
 from ..ops.groupnorm import groupnorm_cl
-from .dit import _dense, _timestep_embedding
+from .dit import _dense, _dense_forward, _timestep_embedding
 
 __all__ = ["UNet", "UNetConfig", "random_param_tree"]
 
@@ -264,15 +266,36 @@ def _target(leaf: _Leaf, key: str) -> torch.Tensor:
 
 
 def _conv(p: _Conv, x: torch.Tensor, dtype: torch.dtype, stride: int = 1, pad: str | int = "SAME") -> torch.Tensor:
-    """A conv on a channels-last ``(B, H, W, C)`` activation, returning one.
+    """A conv on a channels-last ``(B, H, W, C)`` activation, returning one,
+    as the JAX package's ``_conv`` computes it: the float32 sum of the
+    product, plus the float32 bias, rounded once to ``dtype``.
 
     ``pad``: "SAME" (at stride 2 on an even input it pads (0, 1), the VAE
     downsampler's asymmetric padding) or an int for torch-style symmetric
     padding (the conditional UNet's stride-2 downsample uses 1, which
-    samples a different grid than SAME).  bf16 compute on the card goes to
-    cuDNN, which rounds the product to bf16 before it adds the bias (ROADMAP
-    C7: the JAX package adds the f32 bias to the f32 sum and rounds once)."""
+    samples a different grid than SAME).  The routes (ROADMAP C7):
+
+    * 1x1: a product with a float32 result plus the bias, one rounding
+      (the dense layers' ``_dense``);
+    * 3x3 at stride 1 in a 16-bit dtype: kernel B12 with the norm and the
+      statistics off, any channel count (``ops/fused_conv.py``);
+    * every other 16-bit conv (the stride-2 downsamplers): the operands
+      upcast to float32 and cuDNN in TF32, whose 11 significant bits hold a
+      bf16 value exactly, so the products are exact and the sum float32;
+    * float32: cuDNN with TF32 off.
+
+    cuDNN picks its algorithm by the whole problem's shape (a 1280-channel
+    3x3 conv at 32x32 sums in another order at batch 4 than at batch 2), so
+    where it runs each batch item is convolved alone: a request's output does
+    not depend on the requests packed beside it.  B12 splits each item the
+    same way at any batch."""
     k = p.w.shape[-1]
+    w = p.w.to(dtype)
+    x = x.to(dtype)
+    if k == 1 and stride == 1:
+        return _dense_forward(x, w.reshape(w.shape[0], w.shape[1]), p.b)
+    if dtype != torch.float32 and k == 3 and stride == 1 and pad in ("SAME", 1):
+        return conv3x3_gn_silu(x.contiguous(), w.permute(2, 3, 1, 0), p.b, out_stats=False)[0]
     if pad == "SAME":
         padding = 0
         if stride == 1:
@@ -285,14 +308,13 @@ def _conv(p: _Conv, x: torch.Tensor, dtype: torch.dtype, stride: int = 1, pad: s
             x = F.pad(x, (0, 0, *pads))
     else:
         padding = pad
-    w, b = p.w.to(dtype), p.b.to(dtype)
+    exact = dtype != torch.float32  # a 16-bit conv in float32 on exact TF32 products
+    w32, b32 = w.float(), p.b.float()
     items = x.permute(0, 3, 1, 2).split(1)
-    # cuDNN picks its algorithm by the whole problem's shape (a 1280-channel 3x3 conv at 32x32 sums in
-    # another order at batch 4 than at batch 2), so each batch item is convolved alone: a request's output
-    # does not depend on the requests packed beside it
-    outs = [F.conv2d(item, w, b, stride, padding) for item in items]
+    with cudnn_tf32(exact):
+        outs = [F.conv2d(item.float(), w32, b32, stride, padding) for item in items]
     y = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(dtype)
 
 
 def _groupnorm(x: torch.Tensor, groups: int, silu: bool = False) -> torch.Tensor:

@@ -16,9 +16,10 @@ for parameter (diffusers ``UNet2DConditionModel``):
   ``time_ids`` through a second MLP into the time embedding.
 
 The interior is channels-last, as in :mod:`.unet`: every GroupNorm (46 a
-forward at SDXL base) is kernel B8 and every d = 64 self-attention (70) is
-kernel B10, reading the ``chunk(3)`` views of the fused qkv product in
-place.  Cross-attention (77 text tokens) and every other head dim stay plain
+forward at SDXL base) is kernel B8, every stride-1 3x3 conv (38) is kernel
+B12 with its norm off (``_conv``: one rounding of the f32 sum), and every
+d = 64 self-attention (70) is kernel B10, reading the ``chunk(3)`` views of
+the fused qkv product in place.  Cross-attention (77 text tokens) and every other head dim stay plain
 PyTorch, as the JAX package leaves them to einsum outside any Pallas
 kernel; a self-attention that the JAX package would send to its packed
 kernel (another head dim dividing 128) raises on the card until B9 is

@@ -12,6 +12,9 @@
   d=64 attention on packed, strided q/k/v (B10).
 * :mod:`.groupnorm` — channels-last GroupNorm (+ f32 affine) (+ SiLU)
   (kernel B8).
+* :mod:`.fused_conv` — a 3x3 conv with GroupNorm(+affine)+SiLU applied to
+  its input as it is read, a residual epilogue and the output's channel
+  statistics (kernel B12); the statistics chain of the fused VAE decode.
 * :mod:`.rope` — per-head RMS qk-norm + rotary embedding on the fused qkv
   projection (kernel B7).
 * :mod:`.quant` — the int8 serving path: per-row activation quantization
@@ -25,6 +28,7 @@ import time.
 from .compiler import CompiledSampler, NonlinearSamplerError, compile_sampler
 from .flash_attention import flash_attention_pairs, flash_attention_pairs_forward
 from .fused import fused_step, fused_step_cuda
+from .fused_conv import channel_stats, conv3x3_gn_silu, conv3x3_gn_silu_forward, conv3x3_ref, finalize_group_stats
 from .groupnorm import groupnorm_cl, groupnorm_eager_bign, groupnorm_forward, groupnorm_reference
 from .loop import CompiledDenoiser
 from .quant import dense_int8, quantize_activation, quantize_params, quantize_rows, quantize_weight
@@ -34,8 +38,13 @@ __all__ = [
     "CompiledDenoiser",
     "CompiledSampler",
     "NonlinearSamplerError",
+    "channel_stats",
     "compile_sampler",
+    "conv3x3_gn_silu",
+    "conv3x3_gn_silu_forward",
+    "conv3x3_ref",
     "dense_int8",
+    "finalize_group_stats",
     "flash_attention_pairs",
     "flash_attention_pairs_forward",
     "fused_rope_qk_norm",

@@ -1,0 +1,220 @@
+"""Kernel B12's module (``ops/fused_conv.py``) and the conv routes it serves,
+against the JAX package on the same numpy inputs.
+
+* the plain B12 (``conv3x3_gn_silu_forward`` on the CPU) against the JAX
+  ``conv3x3_gn_silu`` with its Pallas kernel in interpret mode: the norm on
+  and off, with and without a residual, the GroupNorm affine (folded into
+  the statistics on the JAX side), output and output statistics, f32
+  rtol/atol 1e-5;
+* a GroupNorm gain of 0 (ROADMAP C2): finite, and equal to the JAX
+  package's unfused composition (its fused path gives NaN there);
+* the autograd Function's gradients against ``jax.vjp`` of the JAX
+  ``conv3x3_gn_silu`` (its ``custom_vjp`` differentiates the eager form);
+* ``channel_stats`` and ``finalize_group_stats`` against the JAX versions
+  without affine;
+* the conv families' ``_conv`` in bf16 (ROADMAP C7): one rounding of the
+  f32 sum plus the f32 bias, as the JAX ``_conv``, for every conv kind the
+  UNets run; and the scope of cuDNN's TF32 switch around its convs.
+"""
+
+from __future__ import annotations
+
+import importlib
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from skrample_tpu.models import unet as junet
+from skrample_tpu.ops import groupnorm as jgn
+from skrample_tpu_torch.models import unet as tunet
+from skrample_tpu_torch.ops import fused_conv as tfc
+
+jfc = importlib.import_module("skrample_tpu.ops.fused_conv")
+
+SHAPE, CO, GROUPS = (2, 8, 8, 16), 24, 4
+
+
+def _inputs(seed: int, shape=SHAPE, co=CO):
+    "x with a non-zero mean (a border padded before the norm would show), HWIO w, b, residual, affine."
+    rng = np.random.default_rng(seed)
+    N, H, W, C = shape
+    x = (rng.standard_normal(shape) * 2 + 1.5).astype(np.float32)
+    w = (rng.standard_normal((3, 3, C, co)) / (3 * np.sqrt(C))).astype(np.float32)
+    b = (0.5 * rng.standard_normal(co)).astype(np.float32)
+    res = rng.standard_normal((N, H, W, co)).astype(np.float32)
+    g = (1 + 0.2 * rng.standard_normal(C)).astype(np.float32)
+    gb = (0.2 * rng.standard_normal(C)).astype(np.float32)
+    return x, w, b, res, g, gb
+
+
+def _close(got, want, tol=1e-5) -> None:
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol, atol=tol)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize(("norm", "affine", "residual"), [(False, False, False), (False, False, True),
+                                                         (True, False, False), (True, False, True),
+                                                         (True, True, True)])
+def test_plain_b12_matches_the_jax_kernel(norm: bool, affine: bool, residual: bool) -> None:
+    x, w, b, res, g, gb = _inputs(1)
+    stats = scale = bias = None
+    jstats = None
+    if norm:
+        raw = tfc.channel_stats(_t(x))
+        stats = tfc.finalize_group_stats(raw, GROUPS, x.shape[1] * x.shape[2])
+        jraw = jfc.channel_stats(jnp.asarray(x))
+        jstats = jfc.finalize_group_stats(
+            jraw, GROUPS, x.shape[1] * x.shape[2], scale=jnp.asarray(g) if affine else None,
+            bias=jnp.asarray(gb) if affine else None,
+        )
+        if affine:
+            scale, bias = _t(g), _t(gb)
+    got, got_raw = tfc.conv3x3_gn_silu_forward(
+        _t(x), _t(w), _t(b), stats, _t(res) if residual else None, scale, bias
+    )
+    want, want_raw = jfc.conv3x3_gn_silu(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jstats, jnp.asarray(res) if residual else None
+    )
+    assert got.shape == (*x.shape[:3], CO) and got_raw.shape == (x.shape[0], 2, CO)
+    _close(got, want)
+    _close(got_raw, want_raw)
+    again, none = tfc.conv3x3_gn_silu_forward(_t(x), _t(w), _t(b), stats, None, scale, bias, out_stats=False)
+    assert none is None and again.shape == got.shape
+
+
+def test_ragged_shapes_match_the_jax_composition() -> None:
+    "Odd H, W and channel counts through the plain B12 against the JAX eager form (``conv3x3_ref``)."
+    x, w, b, res, _, _ = _inputs(2, (1, 7, 5, 12), 10)
+    stats = tfc.finalize_group_stats(tfc.channel_stats(_t(x)), 3, 35)
+    jstats = jfc.finalize_group_stats(jfc.channel_stats(jnp.asarray(x)), 3, 35)
+    got, got_raw = tfc.conv3x3_gn_silu_forward(_t(x), _t(w), _t(b), stats, _t(res))
+    want, want_raw = jfc.conv3x3_ref(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jstats, jnp.asarray(res), True)
+    _close(got, want)
+    _close(got_raw, want_raw)
+
+
+def test_zero_gain_is_finite_and_equals_the_unfused_composition() -> None:
+    """ROADMAP C2: at gain 0 the normalized input is the GroupNorm bias alone.  The port keeps the
+    affine apart and stays finite; the JAX package's folded statistics divide by the gain (its
+    fused path gives inf/NaN), so the port is held to the JAX unfused composition instead."""
+    x, w, b, _, _, gb = _inputs(3)
+    g = np.zeros_like(gb)
+    stats = tfc.finalize_group_stats(tfc.channel_stats(_t(x)), GROUPS, 64)
+    got, got_raw = tfc.conv3x3_gn_silu_forward(_t(x), _t(w), _t(b), stats, None, _t(g), _t(gb))
+    assert torch.isfinite(got).all() and torch.isfinite(got_raw).all()
+    xin = jgn.groupnorm_cl(jnp.asarray(x), GROUPS, fuse_silu=True, scale=jnp.asarray(g), bias=jnp.asarray(gb))
+    params = {"w": jnp.asarray(w).transpose(3, 2, 0, 1), "b": jnp.asarray(b)}  # OIHW, as the JAX tree holds it
+    want = junet._conv(params, xin, jnp.float32, cl=True)
+    _close(got, want)
+    folded = jfc.finalize_group_stats(
+        jfc.channel_stats(jnp.asarray(x)), GROUPS, 64, scale=jnp.asarray(g), bias=jnp.asarray(gb)
+    )
+    assert not np.isfinite(np.asarray(folded)).all()  # the JAX fold: C2
+
+
+def test_function_grads_match_jax_vjp() -> None:
+    "The autograd Function (B12 forward, plain backward) against ``jax.vjp`` of the JAX op: every input."
+    x, w, b, res, _, _ = _inputs(4)
+    raw = jfc.channel_stats(jnp.asarray(x))
+    jstats = jfc.finalize_group_stats(raw, GROUPS, 64)
+    rng = np.random.default_rng(5)
+    g_out = rng.standard_normal((*x.shape[:3], CO)).astype(np.float32)
+    g_raw = (0.01 * rng.standard_normal((x.shape[0], 2, CO))).astype(np.float32)
+
+    def f(xx, ww, bb, ss, rr):
+        return jfc.conv3x3_gn_silu(xx, ww, bb, ss, rr)
+
+    jargs = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jstats, jnp.asarray(res))
+    _, vjp = jax.vjp(f, *jargs)
+    want = vjp((jnp.asarray(g_out), jnp.asarray(g_raw)))
+    targs = [_t(x), _t(w), _t(b), torch.from_numpy(np.array(jstats)), _t(res)]
+    for t in targs:
+        t.requires_grad_(True)
+    out, traw = tfc.conv3x3_gn_silu(*targs)
+    grads = torch.autograd.grad((out, traw), targs, (_t(g_out), _t(g_raw)))
+    for got, ref in zip(grads, want):
+        scale = float(np.abs(np.asarray(ref)).max())
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5 * scale)
+
+
+def test_statistics_plumbing_matches_jax() -> None:
+    "``channel_stats`` and ``finalize_group_stats`` (no affine: the port keeps it apart) against the JAX versions."
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal((3, 5, 6, 32)) * 3 + 2).astype(np.float32)
+    raw = tfc.channel_stats(_t(x))
+    jraw = jfc.channel_stats(jnp.asarray(x))
+    _close(raw, jraw, 1e-5)
+    for groups in (1, 8, 32):
+        _close(tfc.finalize_group_stats(raw, groups, 30), jfc.finalize_group_stats(jraw, groups, 30), 1e-5)
+    assert tfc.finalize_group_stats(raw, 8, 30).shape == (3, 2, 32)
+
+
+def _ulps(a: torch.Tensor, b: np.ndarray) -> np.ndarray:
+    a32, b32 = a.float().numpy(), np.asarray(b, np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.maximum(np.abs(a32), np.abs(b32)), 2.0**-126))) - 7)
+    return np.abs(a32 - b32) / ulp
+
+
+@pytest.mark.parametrize(
+    ("k", "c_in", "c_out", "stride", "pad"),
+    [(3, 32, 48, 1, "SAME"), (3, 4, 32, 1, "SAME"), (3, 32, 4, 1, "SAME"), (1, 48, 32, 1, "SAME"),
+     (3, 32, 32, 2, 1), (3, 16, 16, 2, "SAME")],
+)
+def test_bf16_conv_rounds_once_as_jax_does(k: int, c_in: int, c_out: int, stride: int, pad) -> None:
+    """ROADMAP C7 on the CPU: the port's bf16 ``_conv`` (3x3 through B12's plain version, the narrow
+    conv_in/conv_out shapes too, 1x1 through the product with an f32 result, stride 2 on f32
+    operands) against the JAX ``_conv`` (f32 sum, f32 bias, one rounding): equal except for at most
+    1 ulp where the two f32 sums, taken in other orders, straddle a rounding boundary."""
+    rng = np.random.default_rng(c_in * c_out + k)
+    w = (rng.standard_normal((c_out, c_in, k, k)) / (k * np.sqrt(c_in))).astype(np.float32)
+    b = rng.standard_normal(c_out).astype(np.float32)
+    x = rng.standard_normal((2, 12, 12, c_in)).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = junet._conv({"w": jnp.asarray(w), "b": jnp.asarray(b)}, xb, jnp.bfloat16, stride, cl=True, pad=pad)
+    conv = tunet._Conv(tunet._ConvSpec(k, c_in, c_out), torch.float32).to_empty(device="cpu")
+    with torch.no_grad():
+        conv.w.copy_(_t(w))
+        conv.b.copy_(_t(b))
+        got = tunet._conv(conv, _t(x).to(torch.bfloat16), torch.bfloat16, stride, pad)
+    want32 = np.asarray(want.astype(jnp.float32))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want32.shape and got.is_contiguous()
+    ulps = _ulps(got, want32)
+    assert ulps.max() <= 1 and (ulps > 0).mean() <= 2e-2
+
+
+@pytest.mark.parametrize(("dtype", "stride", "tf32"), [(torch.float32, 1, False), (torch.float32, 2, False),
+                                                       (torch.bfloat16, 2, True)])
+def test_cudnn_tf32_is_scoped_to_the_conv(dtype: torch.dtype, stride: int, tf32: bool) -> None:
+    """``_conv``'s cuDNN convs set TF32 for their own call only: off for float32 (cuDNN's default is on),
+    on for a 16-bit conv on exact f32 products; the process's setting is restored after."""
+    conv = tunet._Conv(tunet._ConvSpec(3, 8, 8), torch.float32).to_empty(device="cpu")
+    with torch.no_grad():
+        conv.w.normal_()
+        conv.b.zero_()
+    seen = []
+    real = torch.nn.functional.conv2d
+
+    def spy(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return real(*args, **kwargs)
+
+    before = torch.backends.cudnn.allow_tf32
+    for outside in (True, False):
+        torch.backends.cudnn.allow_tf32 = outside
+        seen.clear()
+        try:
+            with mock.patch.object(tunet.F, "conv2d", spy), torch.no_grad():
+                tunet._conv(conv, torch.ones((2, 8, 8, 8), dtype=dtype), dtype, stride)
+            assert seen == [tf32, tf32] and torch.backends.cudnn.allow_tf32 == outside
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+    with tfc.cudnn_tf32(False):
+        assert not torch.backends.cudnn.allow_tf32
+    assert torch.backends.cudnn.allow_tf32 == before

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from skrample_tpu_torch.ops import adaln, flash_attention, fused, groupnorm, quant, rope
+from skrample_tpu_torch.ops import adaln, flash_attention, fused, fused_conv, groupnorm, quant, rope
 
 
 @pytest.fixture
@@ -729,3 +729,164 @@ def test_conv_gives_an_item_the_same_bits_at_any_batch(cuda: torch.device) -> No
     four = _conv(conv, x, torch.bfloat16)
     assert four.shape == (4, 32, 32, 1280) and four.is_contiguous()
     assert torch.equal(pair, four[:2])
+
+
+# ---- B12: the norm-into-conv kernel, and the conv routes it serves ------------------------
+
+
+def _b12_inputs(cuda, shape, co, dtype, norm, affine, residual, seed):
+    "Inputs of a B12 call: a non-zero-mean x (the border must be zeroed after the norm), HWIO w, f32 stats."
+    gen = torch.Generator(cuda).manual_seed(seed)
+    N, H, W, C = shape
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2 + 1.5).to(dtype)
+    w = (torch.randn((3, 3, C, co), generator=gen, device=cuda) / (3 * C**0.5)).to(dtype)
+    b = 0.5 * torch.randn(co, generator=gen, device=cuda)
+    stats = scale = bias = res = None
+    if norm:
+        mean = 1.5 + 0.1 * torch.randn((N, 1, C), generator=gen, device=cuda)
+        inv = 0.5 + torch.rand((N, 1, C), generator=gen, device=cuda)
+        stats = torch.cat([mean, inv], 1).contiguous()
+    if affine:
+        scale = 1 + 0.2 * torch.randn(C, generator=gen, device=cuda)
+        bias = 0.2 * torch.randn(C, generator=gen, device=cuda)
+    if residual:
+        res = torch.randn((N, H, W, co), generator=gen, device=cuda).to(dtype)
+    return x, w, b, stats, res, scale, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(("norm", "affine", "residual"), [(False, False, False), (True, False, True), (True, True, True)])
+@pytest.mark.parametrize(
+    ("shape", "co"),
+    [((2, 16, 16, 64), 128), ((1, 13, 19, 40), 72), ((2, 9, 7, 4), 130), ((1, 24, 24, 96), 3), ((3, 5, 33, 12), 20)],
+)
+def test_conv3x3_kernel_matches_plain(
+    cuda: torch.device, shape, co: int, dtype: torch.dtype, norm: bool, affine: bool, residual: bool
+) -> None:
+    """B12 against its plain version on the same inputs, output and statistics: f32 within 1e-4 of the
+    largest value (the same products summed in another order, a fast exp in the SiLU), bf16 within
+    1e-2 (one rounding each of the normalized input and of the output, an ulp apart where the f32
+    values straddle a boundary).  Ragged H*W (not a multiple of the 128-pixel tile), channel counts
+    that take the scalar loads (C = 4, 12, 20, 40 in bf16), ragged Co (3, 20, 72, 130); two runs give
+    the same bits, and an item alone gives the bits it gives in the batch."""
+    args = _b12_inputs(cuda, shape, co, dtype, norm, affine, residual, sum(shape) + co)
+    before = fused_conv.conv3x3_gn_silu_forward.launches
+    out, raw = fused_conv.conv3x3_gn_silu_forward(*args)
+    out2, raw2 = fused_conv.conv3x3_gn_silu_forward(*args)
+    solo = [None if t is None or t.ndim < 2 else t[-1:] for t in args]
+    solo[1:3] = args[1:3]
+    solo[5:] = args[5:]
+    out1, raw1 = fused_conv.conv3x3_gn_silu_forward(*solo)
+    assert fused_conv.conv3x3_gn_silu_forward.launches == before + 3
+    want, want_raw = fused_conv.conv3x3_ref(*args)
+    torch.cuda.synchronize()
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    assert out.shape == (*shape[:3], co) and out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - want.float()).abs().max().item() <= rel * want.float().abs().max().item()
+    for k in range(2):
+        assert (raw[:, k] - want_raw[:, k]).abs().max().item() <= rel * want_raw[:, k].abs().max().item()
+    assert torch.equal(out, out2) and torch.equal(raw, raw2)
+    assert torch.equal(out1, out[-1:]) and torch.equal(raw1, raw[-1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_without_statistics_and_at_zero_gain(cuda: torch.device, dtype: torch.dtype) -> None:
+    """``out_stats=False`` gives the same output without the statistics epilogue; a GroupNorm gain of 0
+    (ROADMAP C2: the JAX package's folded affine gives inf/NaN there) stays finite and equals the plain
+    version, whose normalized input is then the bias alone."""
+    x, w, b, stats, res, scale, bias = _b12_inputs(cuda, (2, 20, 20, 64), 64, dtype, True, True, True, 7)
+    out, raw = fused_conv.conv3x3_gn_silu_forward(x, w, b, stats, res, scale, bias)
+    bare, none = fused_conv.conv3x3_gn_silu_forward(x, w, b, stats, res, scale, bias, out_stats=False)
+    assert none is None and torch.equal(bare, out)
+    zero = torch.zeros_like(scale)
+    got, got_raw = fused_conv.conv3x3_gn_silu_forward(x, w, b, stats, res, zero, bias)
+    want, _ = fused_conv.conv3x3_ref(x, w, b, stats, res, zero, bias)
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    assert torch.isfinite(got).all() and torch.isfinite(got_raw).all()
+    assert (got.float() - want.float()).abs().max().item() <= rel * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_conv3x3_kernel_raises_on_what_it_cannot_take(cuda: torch.device) -> None:
+    x = torch.zeros(1, 8, 8, 16, device=cuda)
+    w = torch.zeros(3, 3, 16, 32, device=cuda)
+    b = torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        fused_conv.conv3x3_gn_silu_forward(x.half(), w.half(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv.conv3x3_gn_silu_forward(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError, match="HWIO"):
+        fused_conv.conv3x3_gn_silu_forward(x, w.to(torch.bfloat16), b)
+    with pytest.raises(ValueError, match="stats"):
+        fused_conv.conv3x3_gn_silu_forward(x, w, b, stats=torch.zeros(1, 2, 8, device=cuda))
+    with pytest.raises(ValueError, match="together"):
+        fused_conv.conv3x3_gn_silu_forward(x, w, b, scale=torch.ones(16, device=cuda), bias=torch.zeros(16, device=cuda))
+    with pytest.raises(ValueError, match="residual"):
+        fused_conv.conv3x3_gn_silu_forward(x, w, b, residual=torch.zeros(1, 8, 8, 16, device=cuda))
+
+
+@pytest.mark.gpu
+def test_conv3x3_function_on_the_card(cuda: torch.device) -> None:
+    "``conv3x3_gn_silu`` under autograd: B12 forward, gradients equal to the plain version's (the same function)."
+    args = list(_b12_inputs(cuda, (2, 10, 12, 32), 48, torch.float32, True, True, True, 9))
+    for i in (0, 1, 2, 4, 5, 6):
+        args[i] = args[i].requires_grad_(True)
+    before = fused_conv.conv3x3_gn_silu_forward.launches
+    out, raw = fused_conv.conv3x3_gn_silu(*args)
+    gen = torch.Generator(cuda).manual_seed(10)
+    g, g_raw = torch.randn(out.shape, generator=gen, device=cuda), torch.randn(raw.shape, generator=gen, device=cuda)
+    wanted = [args[i] for i in (0, 1, 2, 4, 5, 6)]
+    grads = torch.autograd.grad((out, raw), wanted, (g, g_raw))
+    assert fused_conv.conv3x3_gn_silu_forward.launches == before + 1
+    ref, ref_raw = fused_conv.conv3x3_ref(*args)
+    want = torch.autograd.grad((ref, ref_raw), wanted, (g, g_raw))
+    for a, b in zip(grads, want):
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    "Distance of two bf16 tensors in units in the last place of the larger magnitude."
+    a32, b32 = a.float(), b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a32.abs(), b32.abs()).clamp_min(2.0**-126))) - 7)
+    return (a32 - b32).abs() / ulp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    ("k", "c_in", "c_out", "stride", "pad"),
+    [(3, 640, 640, 1, "SAME"), (3, 4, 320, 1, "SAME"), (3, 320, 4, 1, "SAME"), (1, 640, 320, 1, "SAME"),
+     (3, 320, 320, 2, 1), (3, 128, 128, 2, "SAME")],
+)
+def test_conv_rounds_once_on_the_card(cuda: torch.device, k: int, c_in: int, c_out: int, stride: int, pad) -> None:
+    """ROADMAP C7: every bf16 conv of the conv families (3x3 through B12, the narrow conv_in/conv_out
+    too; 1x1 as a product with an f32 result; stride 2 on exact TF32 products) against one rounding of
+    the f32 sum of the same bf16 operands plus the f32 bias (cuDNN in f32, TF32 off): at most 1% of
+    outputs differ, and none by more than 1 ulp among the outputs whose sum is not a cancellation
+    (|sum| >= 2^-11 of the sum of |terms|, over 95% of them).  Two f32 sums of K terms in different
+    orders differ by ~2^-24 K of the terms' scale: where the terms cancel to far below that, any two
+    orders round apart by many bf16 ulps, so the bound there says nothing about the rounding."""
+    from skrample_tpu_torch.models.unet import _Conv, _conv, _ConvSpec
+
+    conv = _Conv(_ConvSpec(k, c_in, c_out), torch.bfloat16).to_empty(device=cuda)
+    gen = torch.Generator(cuda).manual_seed(c_in + c_out + k)
+    with torch.no_grad():
+        conv.w.copy_(torch.randn(conv.w.shape, generator=gen, device=cuda) / (k * c_in**0.5))
+        conv.b.copy_(torch.randn(conv.b.shape, generator=gen, device=cuda))
+        x = torch.randn((2, 32, 32, c_in), generator=gen, device=cuda).to(torch.bfloat16)
+        got = _conv(conv, x, torch.bfloat16, stride, pad)
+        xin = x.permute(0, 3, 1, 2).float()
+        if pad == "SAME" and stride == 2:
+            xin, padding = torch.nn.functional.pad(xin, (0, 1, 0, 1)), 0
+        else:
+            padding = k // 2 if pad == "SAME" else pad
+        w32, b32 = conv.w.float(), conv.b.float()
+        with fused_conv.cudnn_tf32(False):
+            exact = torch.nn.functional.conv2d(xin, w32, b32, stride, padding).permute(0, 2, 3, 1)
+            terms = torch.nn.functional.conv2d(xin.abs(), w32.abs(), b32.abs(), stride, padding).permute(0, 2, 3, 1)
+    ulps = _ulps(got, exact.to(torch.bfloat16))
+    settled = exact.abs() >= terms / 2048
+    assert got.shape == exact.shape and got.is_contiguous()
+    assert (ulps > 0).float().mean().item() <= 1e-2 and ulps[settled].max().item() <= 1
+    assert settled.float().mean().item() > 0.95

@@ -273,7 +273,7 @@ def test_as_served_equals_as_sampleable() -> None:
     port, _, _ = _cond_pair(TINY, 8)
     stack = tsdxl.SDXLStack(port)
     x, t, ctx, pooled, _ = (torch.from_numpy(a) for a in _cond_inputs(9, (2, 4, 8, 8)))
-    tid = tsdxl.SDXLStack.time_ids((64, 64), (0, 0), (64, 64))
+    tid = tsdxl.SDXLStack.time_ids((64, 64), (0, 0), (64, 64), device="cpu")
     uncond = (torch.zeros_like(ctx[0]), torch.zeros_like(pooled[0]))
     with torch.no_grad():
         bound = stack.model_fn(ctx[0], pooled[0], tid, 5.0, uncond)(x, t, 1.0, 0.0)
@@ -283,9 +283,12 @@ def test_as_served_equals_as_sampleable() -> None:
         stack.as_served(None)
     with pytest.raises(ValueError, match="uncond"):
         stack.as_served(tid, 5.0)
-    for name in ("from_checkpoints", "encode_prompt", "pipeline", "decode", "encode_image"):
+    for name in ("from_checkpoints", "encode_prompt", "pipeline"):
         with pytest.raises(NotImplementedError, match="later slice"):
             getattr(stack, name)(None) if name != "from_checkpoints" else tsdxl.SDXLStack.from_checkpoints(None)
+    for name in ("decode", "encode_image"):  # a stack built without a VAE
+        with pytest.raises(ValueError, match="no VAE"):
+            getattr(stack, name)(x)
     with pytest.raises(NotImplementedError, match="ControlNet"):
         stack.model_fn(ctx[0], pooled[0], tid, controlnet=object(), control_image=x)
 
@@ -313,7 +316,9 @@ def test_guided_serve_matches_the_jax_engine() -> None:
 
     stack = tsdxl.SDXLStack(port)
     tfn = stack.as_served(
-        tsdxl.SDXLStack.time_ids((64, 64), (0, 0), (64, 64)), 5.0, (torch.from_numpy(u_ctx), torch.from_numpy(u_pool))
+        tsdxl.SDXLStack.time_ids((64, 64), (0, 0), (64, 64), device="cpu"),
+        5.0,
+        (torch.from_numpy(u_ctx), torch.from_numpy(u_pool)),
     )
     tparts = {"sampler": tstruct.DPM(order=2), "model_transform": tmodels.NoiseModel()}
     tparts["schedule"] = tsched.Karras(tsched.Scaled())
