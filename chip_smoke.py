@@ -328,6 +328,9 @@ def kernels_phase() -> dict[str, dict]:
     rows.update(flux_kernels(gen))
     rows.update(sdxl_kernels(gen))
     rows.update(vae_kernels(gen))
+    ragged_kernels(gen)
+    rows.update(b9_kernels(gen))
+    rows.update(tconv_kernels(gen))
     for row in rows.values():
         library = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
         print(
@@ -825,6 +828,9 @@ def _wrappers() -> dict:
         "groupnorm_forward": groupnorm.groupnorm_forward,
         "flash_attention_pairs_forward": flash_attention.flash_attention_pairs_forward,
         "conv3x3_gn_silu_forward": fused_conv.conv3x3_gn_silu_forward,
+        "flash_attention_forward": flash_attention.flash_attention_forward,
+        "flash_attention_packed_forward": flash_attention.flash_attention_packed_forward,
+        "tconv_causal_gn_silu_forward": fused_conv.tconv_causal_gn_silu_forward,
     }
 
 
@@ -855,19 +861,10 @@ def slice_phase(card: str) -> dict[str, int]:
     )
     model = DiT(config, device="cuda").load_jax_params(random_param_tree(config, seed=0))
     model.requires_grad_(False)
-    per_dispatch = {
-        "fused_step_cuda": STEPS,
-        "flash_attention_qkv_forward": DEPTH * STEPS,
-        "adaln_forward": (2 * DEPTH + 1) * STEPS,
-        "flash_attention_qkv_forward_lse": 0,
-        "flash_attention_qkv_backward": 0,
-        "adaln_backward": 0,
-        "quantize_rows": 0,
-        "rope_qk_norm_forward": 0,
-        "groupnorm_forward": 0,
-        "flash_attention_pairs_forward": 0,
-        "conv3x3_gn_silu_forward": 0,
-    }
+    per_dispatch = dict.fromkeys(_wrappers(), 0)
+    per_dispatch.update(
+        fused_step_cuda=STEPS, flash_attention_qkv_forward=DEPTH * STEPS, adaln_forward=(2 * DEPTH + 1) * STEPS
+    )
     item_shape = (4, 64, 64)
 
     engine = ServingEngine(
@@ -993,19 +990,13 @@ def training_phase(card: str) -> dict[str, int]:
     data = training.synthetic_dataset(64, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     batches = [training.draw_batch(data, 4, gen) for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
-    per_step = {
-        "fused_step_cuda": 0,
-        "flash_attention_qkv_forward": 0,
-        "adaln_forward": 2 * DEPTH + 1,
-        "flash_attention_qkv_forward_lse": DEPTH,
-        "flash_attention_qkv_backward": DEPTH,
-        "adaln_backward": 2 * DEPTH + 1,
-        "quantize_rows": 0,
-        "rope_qk_norm_forward": 0,
-        "groupnorm_forward": 0,
-        "flash_attention_pairs_forward": 0,
-        "conv3x3_gn_silu_forward": 0,
-    }
+    per_step = dict.fromkeys(_wrappers(), 0)
+    per_step.update(
+        adaln_forward=2 * DEPTH + 1,
+        flash_attention_qkv_forward_lse=DEPTH,
+        flash_attention_qkv_backward=DEPTH,
+        adaln_backward=2 * DEPTH + 1,
+    )
 
     for step in range(TRAIN_WARMUP):
         training.train_step(model, opt, ema, *batches[step], step=step)
@@ -1757,7 +1748,7 @@ def vae_phase(card: str, parts: dict) -> dict[str, int]:
 
     dev = torch.device("cuda")
     phase_t0 = time.perf_counter()
-    config = vae_config(SDXL_VAE_CONFIG)
+    config = dataclasses.replace(vae_config(SDXL_VAE_CONFIG), fused_decode=True)  # "auto" is unfused (C10)
     gen = torch.Generator(dev).manual_seed(8)
     vae = VAE(config, device=dev, generator=gen)
     vae.reset_parameters(gen, noise=0.02)
@@ -1893,6 +1884,632 @@ def vae_phase(card: str, parts: dict) -> dict[str, int]:
     return launches
 
 
+def ragged_kernels(gen) -> None:
+    """ROADMAP C9: K2 at FLUX.1-dev's 1360x768 token count (512 text + 4080 image = 4592, not a multiple
+    of 64) and K4 and K5 at a DiT training shape with N = 1000, each against its plain version, and each
+    launched by the model-level dispatch ``flash_attention_qkv`` at that N (no plain fall-back); their
+    card times beside the tiled shapes' rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from skrample_tpu_torch.ops import flash_attention
+
+    dev = torch.device("cuda")
+    # ---- K2 at (1, 4592, 9216), 24 heads of 128 ----
+    B, N, H, d = 1, 4592, 24, 128
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+    got = flash_attention.flash_attention_qkv_forward(qkv, H)
+    ref = flash_attention._qkv_reference(qkv, H)
+    before = flash_attention.flash_attention_qkv_forward.launches
+    with torch.inference_mode():
+        via = flash_attention.flash_attention_qkv(qkv, H)
+    launched = flash_attention.flash_attention_qkv_forward.launches - before
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    print(
+        f"C9 K2 flash_attention_qkv_forward bf16 {tuple(qkv.shape)} (Flux 1360x768, N % 64 = {N % 64}): max_abs_err "
+        f"{err:.3e} (tolerance 5.0e-03); flash_attention_qkv launched the kernel {launched} time(s), same bits: "
+        f"{torch.equal(via, got)}"
+    )
+    expect(bool(torch.isfinite(got).all()) and err <= 5e-3, f"C9: K2 at N={N} disagrees with the plain attention")
+    expect(launched == 1 and torch.equal(via, got), f"C9: flash_attention_qkv at N={N} did not launch K2 ({launched})")
+    q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+    b_ms, b_by = bound_ms((qkv.numel() + got.numel()) * 2, 4 * B * H * N * N * d, PEAK_BF16_FLOPS)
+    timing: dict = {}
+    timed(timing, "ms", lambda: flash_attention.flash_attention_qkv_forward(qkv, H))
+    timed(timing, "plain_ms", lambda: flash_attention._qkv_reference(qkv, H), 5)
+    timed(timing, "library_ms", lambda: F.scaled_dot_product_attention(q, k, v))
+    print(
+        f"C9 K2 N {N} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
+        f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us, "
+        f"bound {b_ms * 1e3:.2f} us ({b_by})"
+    )
+    del qkv, got, ref, via, q, k, v
+
+    # ---- K4 and K5 at the DiT training shape with N = 1000: bf16 qkv (4, 1000, 1536), 4 heads ----
+    B, N, H = 4, 1000, 4
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, H)
+    ref_o, ref_lse = flash_attention._qkv_reference_lse(qkv, H)
+    g = torch.randn((B, N, H * d), generator=gen, device=dev).to(torch.bfloat16)
+    dqkv = flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, H)
+    want = flash_attention._qkv_backward_reference(qkv, o, lse, g, H)
+    torch.cuda.synchronize()
+    o_err, lse_err = max_err(o, ref_o), max_err(lse, ref_lse)
+    grad_rel = max(
+        max_err(part, ref_part) / ref_part.float().abs().max().item()
+        for part, ref_part in zip(dqkv.chunk(3, -1), want.chunk(3, -1))
+    )
+    print(
+        f"C9 K4 bf16 {tuple(qkv.shape)}: o max_abs_err {o_err:.3e} (tolerance 5e-3), lse {lse_err:.3e} (1e-3); "
+        f"K5: worst third relative {grad_rel:.3e} (tolerance 2e-2)"
+    )
+    ok = o_err <= 5e-3 and lse_err <= 1e-3 and grad_rel <= 2e-2 and bool(torch.isfinite(dqkv).all())
+    expect(ok, f"C9: K4/K5 at N={N} disagree: o {o_err}, lse {lse_err}, grads {grad_rel}")
+    leaf = qkv.detach().requires_grad_(True)
+    counts = (flash_attention.flash_attention_qkv_forward_lse.launches, flash_attention.flash_attention_qkv_backward.launches)
+    flash_attention.flash_attention_qkv(leaf, H).backward(g)
+    torch.cuda.synchronize()
+    launched = (
+        flash_attention.flash_attention_qkv_forward_lse.launches - counts[0],
+        flash_attention.flash_attention_qkv_backward.launches - counts[1],
+    )
+    same = torch.equal(leaf.grad, dqkv)
+    print(f"C9: flash_attention_qkv with a gradient at N={N} launched (K4, K5) {launched}; the same gradient bits: {same}")
+    expect(launched == (1, 1) and same, f"C9: the training dispatch at N={N} launched {launched}")
+    n_bytes = (qkv.numel() + o.numel() + g.numel() + dqkv.numel()) * 2 + lse.numel() * 4
+    for label, fn, plain, flops, nb in (
+        ("K4", lambda: flash_attention.flash_attention_qkv_forward_lse(qkv, H),
+         lambda: flash_attention._qkv_reference_lse(qkv, H), 4 * B * H * N * N * d, (qkv.numel() + o.numel()) * 2),
+        ("K5", lambda: flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, H),
+         lambda: flash_attention._qkv_backward_reference(qkv, o, lse, g, H), 10 * B * H * N * N * d, n_bytes),
+    ):
+        b_ms, b_by = bound_ms(nb, flops, PEAK_BF16_FLOPS)
+        timing = {}
+        timed(timing, "ms", fn)
+        timed(timing, "plain_ms", plain, 10)
+        print(
+            f"C9 {label} N {N} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, bound {b_ms * 1e3:.2f} us ({b_by})"
+        )
+
+
+def b9_kernels(gen) -> dict[str, dict]:
+    """B9 against its plain versions: ``flash_attention_forward`` on the (B, H, N, d) views of the
+    DiT-384/6's fused qkv at 64x64 latents and batch 4 (4, 6, 1024, 64), and
+    ``flash_attention_packed_forward`` on the chunk(3) views of a (2, 4096, 3*5*128) product; times,
+    bounds (4 B H N^2 d operations) and ``scaled_dot_product_attention`` on the same views."""
+    import torch
+    import torch.nn.functional as F
+
+    from skrample_tpu_torch.ops import flash_attention
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict] = {}
+    cases = (
+        ("flash_attention_forward", 195, 4, 1024, 6, 64),
+        ("flash_attention_packed_forward", 251, 2, 4096, 5, 128),
+    )
+    for name, line, B, N, H, d in cases:
+        qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        heads = [t.reshape(B, N, H, d).transpose(1, 2) for t in (q, k, v)]
+        if name == "flash_attention_forward":
+            args = tuple(heads)
+            kernel = lambda a=args: flash_attention.flash_attention_forward(*a)  # noqa: E731
+            plain = lambda a=args: flash_attention.attention_reference(*a)  # noqa: E731
+        else:
+            args = (q, k, v, H)
+            kernel = lambda a=args: flash_attention.flash_attention_packed_forward(*a)  # noqa: E731
+            plain = lambda a=args: flash_attention._packed_reference(*a)  # noqa: E731
+        got, want = kernel(), plain()
+        library = lambda a=tuple(heads): F.scaled_dot_product_attention(*a)  # noqa: E731
+        lib_out = library()
+        if name == "flash_attention_packed_forward":
+            lib_out = lib_out.transpose(1, 2).reshape(B, N, H * d)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        print(
+            f"B9 {name} bf16 {B}x{H} heads of {d}, N {N} (views of a fused qkv of row stride {q.stride(1)}): "
+            f"max_abs_err {err:.3e} (tolerance 5.0e-03, as K2); SDPA vs plain {max_err(lib_out, want):.3e}"
+        )
+        expect(bool(torch.isfinite(got).all()) and err <= 5e-3, f"B9 {name} disagrees with the plain attention: {err}")
+        b_ms, b_by = bound_ms(4 * B * N * H * d * 2, 4 * B * H * N * N * d, PEAK_BF16_FLOPS)
+        timing: dict = {}
+        timed(timing, "ms", kernel)
+        timed(timing, "plain_ms", plain, 10)
+        timed(timing, "library_ms", library)
+        print(
+            f"B9 {name} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us "
+            f"(scaled_dot_product_attention on the (B, H, N, d) views), bound {b_ms * 1e3:.2f} us ({b_by})"
+        )
+        rows[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"skrample_tpu/ops/flash_attention.py:{line}",
+            "max_abs_err": err,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            **timing,
+        }
+        del qkv, q, k, v, heads, got, want, lib_out
+    return rows
+
+
+def _plain_b13(x, w, b, stats=None, residual=None, repeat_in=1, out_stats=True):
+    "B13's plain version behind its wrapper's signature (swapped in for the kernel to hold a path to it)."
+    from skrample_tpu_torch.ops import fused_conv
+
+    out, raw = fused_conv.tconv_causal_ref(x, w, b, stats, residual, repeat_in)
+    return out, (raw if out_stats else None)
+
+
+def tconv_kernels(gen) -> dict[str, dict]:
+    """B13 against its plain version, bf16, at the 16-frame 512x512 video decode's shapes: the finest
+    level's temporal resblock conv with statistics and a residual (1, 16, 262144, 64 -> 64), a frame-repeat
+    upsample (1, 8, 65536, 128 -> 128, ``repeat_in=2``) and a mid-level conv with statistics (1, 4, 4096,
+    256 -> 256).  Times and bounds; the library time is ``F.conv3d`` (kernel (3, 1, 1), causal by its
+    first T outputs) on the normalized (and repeated) input: the conv alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from skrample_tpu_torch.ops import fused_conv
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict] = {}
+    cases = (((1, 16, 262144, 64), 64, "residual", 1), ((1, 8, 65536, 128), 128, "repeat", 2), ((1, 4, 4096, 256), 256, "stats", 1))
+    for shape, co, mode, rep in cases:
+        B, T, S, C = shape
+        k = 3
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        w = torch.randn((k, C, co), generator=gen, device=dev) / (k * C) ** 0.5
+        b = 0.1 * torch.randn(co, generator=gen, device=dev)
+        stats = res = None
+        if mode != "repeat":
+            raw_in = fused_conv.channel_stats(x.reshape(B * T, S, C))
+            stats = fused_conv.finalize_group_stats(raw_in, 16, S).reshape(B, T, 2, C)
+        if mode == "residual":
+            res = torch.randn((B, T, S, co), generator=gen, device=dev).to(torch.bfloat16)
+        args = (x, w, b, stats, res, rep)
+        got, raw = fused_conv.tconv_causal_gn_silu_forward(*args)
+        want, want_raw = fused_conv.tconv_causal_ref(*args)
+        again, again_raw = fused_conv.tconv_causal_gn_silu_forward(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        rel = err / want.float().abs().max().item()
+        raw_rel = _relative(raw, want_raw)
+        same = torch.equal(got, again) and torch.equal(raw, again_raw)
+        form = {"residual": "GN+SiLU on read, residual, statistics", "repeat": "x2 frame repeat, statistics",
+                "stats": "GN+SiLU on read, statistics"}[mode]
+        print(
+            f"B13 tconv_causal_gn_silu_forward bf16 {shape} -> {co} ({form}): max_abs_err {err:.3e}, relative "
+            f"{rel:.3e} (tolerance 1e-2: one bf16 rounding of f32 sums in another order), statistics relative "
+            f"{raw_rel:.3e} (1e-2); a second run gives the same bits: {same}"
+        )
+        ok = bool(torch.isfinite(got).all()) and rel <= 1e-2 and raw_rel <= 1e-2 and same
+        expect(ok, f"B13 {shape} {mode} disagrees with the plain version: {rel}, statistics {raw_rel}, same {same}")
+        T_out = T * rep
+        flops = 2.0 * B * T_out * S * k * C * co
+        n_bytes = (x.numel() + k * C * co + got.numel() + (res.numel() if res is not None else 0)) * 2 + co * 4
+        n_bytes += raw.numel() * 4 + (stats.numel() * 4 if stats is not None else 0)
+        b_ms, b_by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+        xin = x
+        if stats is not None:
+            xin = fused_conv._normalize_silu(x.float(), stats[:, :, None, 0, :], stats[:, :, None, 1, :]).to(x.dtype)
+        if rep > 1:
+            xin = xin.repeat_interleave(rep, dim=1)
+        x_lib = xin.view(B, T_out, S, 1, C).permute(0, 4, 1, 2, 3)  # channels-last 3-D: no copy
+        w_lib = w.to(x.dtype).permute(2, 1, 0)[..., None, None].contiguous(memory_format=torch.channels_last_3d)
+        b_lib = b.to(x.dtype)
+
+        def library(a=(x_lib, w_lib, b_lib)):
+            return F.conv3d(a[0], a[1], a[2], padding=(k - 1, 0, 0))
+
+        lib_out = library()[:, :, :T_out, :, 0].permute(0, 2, 3, 1)
+        lib_rel = max_err(lib_out, want) / want.float().abs().max().item() if res is None else float("nan")
+        iters = 5 if flops > 5e10 else 50
+        timing: dict = {}
+        timed(timing, "ms", lambda a=args: fused_conv.tconv_causal_gn_silu_forward(*a), iters)
+        timed(timing, "plain_ms", lambda a=args: _plain_b13(*a), iters)
+        timed(timing, "library_ms", library, iters)
+        print(
+            f"B13 {shape} -> {co} (card time, CUDA-graph replay of {iters}): {timing['ms'] * 1e3:.2f} us kernel "
+            f"({flops / timing['ms'] / 1e9:.1f} TFLOP/s, {n_bytes / timing['ms'] / 1e9:.2f} TB/s), "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us (F.conv3d + bias "
+            f"on the normalized input: the conv alone; vs plain {lib_rel:.3e} where there is no residual), bound "
+            f"{b_ms * 1e3:.2f} us ({b_by}: {n_bytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP)"
+        )
+        if "tconv_causal_gn_silu_forward" not in rows:  # the row keeps the first shape's numbers
+            rows["tconv_causal_gn_silu_forward"] = {
+                "name": "tconv_causal_gn_silu_forward",
+                "route": "cuda",
+                "source": "skrample_tpu_torch/csrc/tconv.cu",
+                "replaces": "skrample_tpu/ops/fused_conv.py:448",
+                "max_abs_err": err,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                **timing,
+            }
+        del x, w, got, want, again, args, xin, x_lib, res, lib_out
+    return rows
+
+
+def dit384_phase(card: str) -> dict[str, int]:
+    """Phase 9: B9 on the serving path.  The DiT's own default width, DiT-384/6 over 6 heads of 64
+    (``DiTConfig(dim=384, depth=6, heads=6, attention="flash")``, bf16, random weights), serves 3
+    requests of 4x64x64 latents (2 together, then the first alone): exactly 6 B9a launches a forward,
+    A alone against A packed, one forward through the kernels against the plain versions."""
+    import torch
+
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.ops import adaln, flash_attention
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    config = DiTConfig(dim=384, depth=6, heads=6, compute_dtype=torch.bfloat16, attention="flash")
+    model = DiT(config, device=dev).load_jax_params(random_param_tree(config, seed=6)).requires_grad_(False)
+    per_forward = dict.fromkeys(_wrappers(), 0)
+    per_forward.update(flash_attention_forward=config.depth, adaln_forward=2 * config.depth + 1)
+    engine = ServingEngine(
+        model.as_sampleable(), item_shape=(4, 64, 64), steps=STEPS, dtype=torch.float32, buckets=(1, 2),
+        max_delay_ms=50.0, device=dev,
+    )
+    with engine:
+        engine.generate(99).cpu()  # warm-up
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        pair = [engine.submit(s) for s in SEEDS[:2]]
+        outs = [f.result().cpu() for f in pair]
+        solo = engine.generate(SEEDS[0]).cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counters()
+        want = {name: n * 2 * STEPS for name, n in per_forward.items()}
+        want["fused_step_cuda"] = 2 * STEPS
+        print(f"dit384: 3 requests (2 + 1) in {wall * 1e3:.1f} ms; launches {launches}")
+        expect(launches == want, f"dit384: launched {launches}, expected {want} (B9a {config.depth} a forward)")
+        for o in (*outs, solo):
+            expect(tuple(o.shape) == (4, 64, 64) and bool(torch.isfinite(o).all()), "dit384: bad output")
+        packing = _relative(solo, outs[0])
+        print(f"dit384: A alone vs A packed: relative max err {packing:.3e}, bit-equal {torch.equal(solo, outs[0])} (tolerance 5e-2)")
+        expect(packing <= 5e-2, f"dit384: packing changes request A by {packing}")
+
+        # ---- one forward at batch 2 through the kernels, then through the plain versions ----
+        x = torch.randn((2, 4, 64, 64), generator=torch.Generator(dev).manual_seed(3), device=dev)
+        with torch.inference_mode():
+            _reset_counters()
+            got = model(x, 500.0)
+            counts = _counters()
+            with (
+                mock.patch.object(flash_attention, "flash_attention_forward", flash_attention.attention_reference),
+                mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+            ):
+                plain = model(x, 500.0)
+        torch.cuda.synchronize()
+        vs_plain = _relative(got, plain)
+        print(f"dit384: one forward launched {counts}; kernels vs plain versions: relative max err {vs_plain:.3e} (tolerance 5e-2)")
+        expect(counts == per_forward and vs_plain <= 5e-2, f"dit384: forward {counts} / {vs_plain}")
+        solo_s = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            engine.generate(200 + i).cpu()
+            solo_s.append(time.perf_counter() - t0)
+        print(f"dit384: request latency, bucket 1: median {statistics.median(solo_s) * 1e3:.2f} ms of 3 ({card})")
+    print(f"dit384: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return launches
+
+
+def sdxl_packed_phase(card: str, parts: dict) -> dict[str, int]:
+    """Phase 9b: B9b on a served path.  The phase-7 SDXL UNet read at head dim 32 (heads (10, 20, 40): the
+    same weights; ``CondUNet._mha`` zero-pads each head to 128 and pre-scales q, the JAX package's recipe
+    for its packed kernel) serves one 10-step 1024x1024 request under CFG 5.0: exactly 70 B9b launches a
+    CFG forward (every self-attention) and no B10; one CFG forward (both branches) through the kernels
+    against the plain versions.  No published CondUNet has such heads: this drives the route, not a model."""
+    import dataclasses
+
+    import torch
+
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.sdxl import SDXLStack
+    from skrample_tpu_torch.ops import flash_attention, fused_conv, groupnorm
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    unet, contexts, uncond = parts["unet"], parts["contexts"], parts["uncond"]
+    config = unet.config
+    unet.config = dataclasses.replace(config, heads=tuple(w // 32 for w in config.widths))
+    per_forward = dict(parts["per_forward"], flash_attention_pairs_forward=0, flash_attention_packed_forward=70)
+    time_ids = SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev)
+    try:
+        served = SDXLStack(unet).as_served(time_ids, 5.0, uncond)
+        engine = ServingEngine(
+            served, item_shape=(4, 128, 128), sampler=structured.DPM(order=2),
+            schedule=scheduling.Karras(scheduling.Scaled()), model_transform=models.NoiseModel(), steps=VAE_STEPS,
+            dtype=torch.float32, buckets=(1,), conditioned=True, device=dev,
+        )
+        with engine:
+            torch.cuda.synchronize()
+            _reset_counters()
+            t0 = time.perf_counter()
+            out = engine.generate(1, context=contexts[0]).cpu()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counters()
+        want = {name: n * VAE_STEPS for name, n in per_forward.items()}
+        want["fused_step_cuda"] = VAE_STEPS
+        print(f"sdxl head dim 32: one {VAE_STEPS}-step request in {wall * 1e3:.1f} ms ({card}); launches {launches}")
+        expect(launches == want, f"sdxl head dim 32: launched {launches}, expected {want}")
+        expect(tuple(out.shape) == (4, 128, 128) and bool(torch.isfinite(out).all()), "sdxl head dim 32: bad latent")
+        x = torch.randn((1, 4, 128, 128), generator=torch.Generator(dev).manual_seed(12), device=dev)
+        args = (
+            torch.cat([x, x]),
+            torch.tensor([500.0, 500.0], device=dev),
+            torch.stack([contexts[0][0], uncond[0]]),
+            torch.stack([contexts[0][1], uncond[1]]),
+            time_ids.expand(2, 6),
+        )
+        with torch.inference_mode():
+            got = unet(*args)
+            with (
+                mock.patch.object(groupnorm, "groupnorm_forward", groupnorm.groupnorm_reference),
+                mock.patch.object(flash_attention, "flash_attention_packed_forward", flash_attention._packed_reference),
+                mock.patch.object(fused_conv, "conv3x3_gn_silu_forward", _plain_b12),
+            ):
+                plain = unet(*args)
+        vs_plain = _relative(got, plain)
+        print(
+            f"sdxl head dim 32: one CFG forward through the kernels vs the plain versions: both branches relative "
+            f"max err {vs_plain:.3e} (tolerance 5e-2, as phase 7)"
+        )
+        expect(bool(torch.isfinite(got).all()) and vs_plain <= 5e-2, f"sdxl head dim 32: forward differs by {vs_plain}")
+    finally:
+        unet.config = config
+    print(f"sdxl head dim 32: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return launches
+
+
+VIDEO_GROUPS = (
+    ("K1 fused_step", ("fused_step_kernel",)),
+    ("K2 flash_qkv", ("flash_qkv_kernel",)),
+    ("K3 adaln", ("adaln_kernel",)),
+    ("B12 convs", ("conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
+    ("B13 tconvs", ("tconv_kernel", "tconv_stats_reduce_kernel")),
+    ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("plain attention (temporal, VAE mid)", ("softmax",)),
+    ("cuBLAS products", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
+)
+VIDEO_FRAMES, VIDEO_LATENT = 4, (16, 4, 64, 64)  # 16 pixel frames at 512x512 after the 4x temporal, 8x spatial decode
+
+
+def video_phase(card: str) -> dict[str, int]:
+    """Phase 10: the video family served to pixels.  VideoDiT-512/8 (4 heads of 128, 16 channels, bf16)
+    and the VideoVAE at the repo's benchmark widths (base 64, 4 levels, 2 temporal levels, 2 blocks,
+    groups 16, bf16), random weights (standard init + 0.02 N(0, 1) on every leaf, drawn on the card),
+    ``ServingEngine(dit.as_sampleable(), (16, 4, 64, 64), postprocess=vae.decode)``: 3 requests of 25
+    steps to (3, 16, 512, 512) pixels (2 together, then the first alone)."""
+    import dataclasses
+
+    import torch
+
+    from skrample_tpu_torch.models.video_dit import VideoDiT, VideoDiTConfig, video_dit_forward_flops
+    from skrample_tpu_torch.models.video_vae import (
+        VideoVAE,
+        VideoVAEConfig,
+        fused_convs_per_decode,
+        video_vae_decode_flops,
+    )
+    from skrample_tpu_torch.ops import adaln, flash_attention, fused_conv, groupnorm
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(10)
+    dit_cfg = VideoDiTConfig(dim=512, depth=8, heads=4, channels=16, compute_dtype=torch.bfloat16, attention="flash")
+    dit = VideoDiT(dit_cfg, device=dev, generator=gen)
+    dit.reset_parameters(gen, noise=0.02)
+    dit.requires_grad_(False)
+    vae_cfg = VideoVAEConfig(base=64, levels=4, temporal_levels=2, blocks_per_level=2, groups=16, fused_decode=True)
+    vae = VideoVAE(vae_cfg, device=dev, generator=gen)
+    vae.reset_parameters(gen, noise=0.02)
+    vae.requires_grad_(False)
+    unfused_cfg = dataclasses.replace(vae_cfg, fused_decode=False)
+    b12_fused, b13 = fused_convs_per_decode(vae_cfg)
+    decode_flops = video_vae_decode_flops(vae_cfg, 1, VIDEO_FRAMES, 64, 64)
+    print(
+        f"video: VideoDiT-512/8 ({sum(p.numel() for p in dit.parameters()) / 1e6:.2f}M parameters) and VideoVAE "
+        f"(widths {vae_cfg.widths()}, {sum(p.numel() for p in vae.parameters()) / 1e6:.2f}M parameters), bf16, drawn "
+        f"on the card; a fused decode: {b12_fused} fused B12 convs and {b13} B13 tconvs by the tree; "
+        f"{decode_flops / 1e12:.2f} TFLOP a decode"
+    )
+    expect((b12_fused, b13) == (31, 12), f"video: the tree counts {(b12_fused, b13)} fused convs, expected (31, 12)")
+    # the decode's bare in_conv and out_conv are bf16 3x3 convs: B12 with its norm off (_conv, ROADMAP C7)
+    per_decode = dict.fromkeys(_wrappers(), 0)
+    per_decode.update(conv3x3_gn_silu_forward=b12_fused + 2, tconv_causal_gn_silu_forward=b13, groupnorm_forward=1)
+    per_forward = dict.fromkeys(_wrappers(), 0)
+    per_forward.update(flash_attention_qkv_forward=dit_cfg.depth, adaln_forward=3 * dit_cfg.depth + 1)
+    zgen = torch.Generator(dev).manual_seed(11)
+
+    def latents(b: int):
+        return torch.randn((b, *VIDEO_LATENT), generator=zgen, device=dev)
+
+    with torch.inference_mode():  # warm-up, then one decode counted
+        for b in (1, 2):
+            vae.decode(latents(b))
+        torch.cuda.synchronize()
+        _reset_counters()
+        vae.decode(latents(1))
+        one = _counters()
+    print(f"video: one fused decode launched {one}")
+    expect(one == per_decode, f"video: one decode launched {one}, expected {per_decode}")
+
+    engine = ServingEngine(
+        dit.as_sampleable(), item_shape=VIDEO_LATENT, steps=STEPS, dtype=torch.float32, buckets=(1, 2),
+        max_delay_ms=50.0, device=dev, postprocess=vae.decode,
+    )
+    with engine:
+        engine.generate(99).cpu()  # warm-up: both buckets' heuristics
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        t0 = time.perf_counter()
+        pair = [engine.submit(s) for s in SEEDS[:2]]
+        outs = [f.result() for f in pair]
+        torch.cuda.synchronize()
+        pair_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs.append(engine.generate(SEEDS[0]))
+        torch.cuda.synchronize()
+        solo_s = time.perf_counter() - t0
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        forwards, dispatches = 2 * STEPS, 2
+        want = {name: n * forwards + per_decode[name] * dispatches for name, n in per_forward.items()}
+        want["fused_step_cuda"] = forwards
+        print(f"video: 3 requests (2 + 1) launched {launches}")
+        expect(launches == want, f"video: launched {launches}, expected {want}")
+        for o in outs:
+            ok = tuple(o.shape) == (3, 16, 512, 512) and bool(torch.isfinite(o).all())
+            expect(ok, f"video: bad pixels {tuple(o.shape)}")
+        same = torch.equal(outs[2], outs[0])
+        print(
+            f"video: request A alone vs A packed with B: bit-equal {same} (relative {_relative(outs[2], outs[0]):.3e}); "
+            f"a pair {pair_s * 1e3:.1f} ms, A alone {solo_s * 1e3:.1f} ms; peak {peak / 2**30:.2f} GiB ({card})"
+        )
+        expect(same, "video: packing changes request A's pixels")
+
+        # ---- one forward through the kernels vs the plain versions; one conditioned CFG forward ----
+        plain_dit = (
+            (flash_attention, "flash_attention_qkv_forward", flash_attention._qkv_reference),
+            (adaln, "adaln_forward", adaln.adaln_reference),
+        )
+        x = latents(1)
+        with torch.inference_mode():
+            _reset_counters()
+            got = dit(x, 500.0)
+            counts = _counters()
+            with contextlib.ExitStack() as patches:
+                for module, name, fn in plain_dit:
+                    patches.enter_context(mock.patch.object(module, name, fn))
+                plain = dit(x, 500.0)
+        vs_plain = _relative(got, plain)
+        print(f"video: one forward launched {counts}; kernels vs plain: relative max err {vs_plain:.3e} (tolerance 5e-2)")
+        expect(counts == per_forward and vs_plain <= 5e-2, f"video: forward {counts}, {vs_plain}")
+        cond_cfg = dataclasses.replace(dit_cfg, context_dim=512)
+        cond = VideoDiT(cond_cfg, device=dev, generator=gen)
+        cond.reset_parameters(gen, noise=0.02)
+        cond.requires_grad_(False)
+        text = torch.randn((64, 512), generator=gen, device=dev)
+        guided = cond.as_sampleable(text, guidance_scale=5.0)
+        ctx = text[None]
+        with torch.inference_mode():
+            _reset_counters()
+            got = guided(x, 500.0, None, None)
+            counts = _counters()
+            branches = (cond(x, 500.0, ctx), cond(x, 500.0))
+            with contextlib.ExitStack() as patches:
+                for module, name, fn in plain_dit:
+                    patches.enter_context(mock.patch.object(module, name, fn))
+                plain = guided(x, 500.0, None, None)
+                plain_branches = (cond(x, 500.0, ctx), cond(x, 500.0))
+        want_cfg = dict(per_forward, flash_attention_qkv_forward=2 * dit_cfg.depth, adaln_forward=2 * (4 * dit_cfg.depth + 1))
+        vs_plain = [_relative(a, b) for a, b in zip(branches, plain_branches)]
+        print(
+            f"video: one guided forward (context 512, 64 text tokens, CFG 5.0: conditioned then null row) launched "
+            f"{counts}; kernels vs plain: conditioned branch {vs_plain[0]:.3e}, null branch {vs_plain[1]:.3e} "
+            f"relative max (tolerance 5e-2); the guidance-5 mix {_relative(got, plain):.3e} (it multiplies the "
+            f"branches' difference by 5)"
+        )
+        expect(counts == want_cfg and max(vs_plain) <= 5e-2, f"video: guided forward {counts}, {vs_plain}")
+        del cond, guided
+
+        # ---- the decode: fused vs unfused, each through the kernels vs the plain versions ----
+        z = latents(1)
+        plain_vae = (
+            (fused_conv, "conv3x3_gn_silu_forward", _plain_b12),
+            (fused_conv, "tconv_causal_gn_silu_forward", _plain_b13),
+            (groupnorm, "groupnorm_forward", groupnorm.groupnorm_reference),
+        )
+        decoded = {}
+        with torch.inference_mode():
+            for label, cfg in (("fused", vae_cfg), ("unfused", unfused_cfg)):
+                vae.config = cfg
+                decoded[label] = vae.decode(z)
+                with contextlib.ExitStack() as patches:
+                    for module, name, fn in plain_vae:
+                        patches.enter_context(mock.patch.object(module, name, fn))
+                    _reset_counters()
+                    decoded[label + " plain"] = vae.decode(z)
+                    expect(all(v == 0 for v in _counters().values()), f"video: the plain {label} decode launched kernels")
+            vae.config = vae_cfg
+        torch.cuda.synchronize()
+        fu = _relative_fro(decoded["fused"], decoded["unfused"])
+        fp = _relative(decoded["fused"], decoded["fused plain"])
+        up = _relative(decoded["unfused"], decoded["unfused plain"])
+        print(
+            f"video: fused vs unfused decode: {fu:.3e} relative Frobenius, {_relative(decoded['fused'], decoded['unfused']):.3e} "
+            f"relative max (tolerance 5e-2 Frobenius: bf16 activations rounded at other points over 45 layers, "
+            f"the uncentered against the centered variance); through the kernels vs the plain versions: fused "
+            f"{fp:.3e}, unfused {up:.3e} relative max (tolerance 5e-2)"
+        )
+        expect(fu <= 5e-2 and fp <= 5e-2 and up <= 5e-2, f"video: decodes disagree: {fu}, {fp}, {up}")
+        del decoded
+
+        # ---- times: the forward at the benchmark's 16 x 1024 tokens; decodes fused and unfused in turns ----
+        x16 = torch.randn((1, 16, 16, 64, 64), generator=zgen, device=dev)
+        flops = video_dit_forward_flops(dit_cfg, 1, 16, 64, 64)
+        with torch.inference_mode():
+            fwd_s = []
+            for i in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dit(x16, 500.0 + i)
+                torch.cuda.synchronize()
+                fwd_s.append(time.perf_counter() - t0)
+            fwd = statistics.median(fwd_s[1:])
+            print(
+                f"video: VideoDiT forward at 16 frames x 1024 tokens: median {fwd * 1e3:.2f} ms of 5, "
+                f"{flops / fwd / 1e12:.1f} TFLOP/s ({flops / 1e12:.3f} TFLOP; {card})"
+            )
+            times: dict[str, list[float]] = {"fused": [], "unfused": []}
+            for label in ("fused", "unfused", "unfused", "fused", "fused", "unfused"):
+                vae.config = vae_cfg if label == "fused" else unfused_cfg
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vae.decode(z)
+                torch.cuda.synchronize()
+                times[label].append(time.perf_counter() - t0)
+            vae.config = vae_cfg
+            med = {label: statistics.median(v) for label, v in times.items()}
+            for label, v in times.items():
+                print(
+                    f"video: {label} decode of 16 frames at 512x512: median {med[label] * 1e3:.2f} ms of 3 "
+                    f"({', '.join(f'{t * 1e3:.2f}' for t in v)}); {decode_flops / med[label] / 1e12:.1f} TFLOP/s ({card})"
+                )
+            _traced_dispatch(lambda: vae.decode(z), "video fused decode", med["fused"], card, VIDEO_GROUPS)
+            vae.config = unfused_cfg
+            _traced_dispatch(lambda: vae.decode(z), "video unfused decode", med["unfused"], card, VIDEO_GROUPS)
+            vae.config = vae_cfg
+        req_s = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            engine.generate(400 + i).cpu()
+            req_s.append(time.perf_counter() - t0)
+        median_req = statistics.median(req_s)
+        print(
+            f"video: request latency to pixels, bucket 1: median {median_req * 1e3:.1f} ms of 3 "
+            f"({', '.join(f'{t * 1e3:.1f}' for t in req_s)}; {card}); {_clocks()}"
+        )
+        _traced_dispatch(lambda: engine.generate(500).cpu(), "video dispatch", median_req, card, VIDEO_GROUPS)
+    print(f"video: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1916,13 +2533,17 @@ def main() -> int:
         flux_bf16, flux_int8 = flux_phase(device["card"])
         sdxl, sdxl_parts = sdxl_phase(device["card"])
         vae = vae_phase(device["card"], sdxl_parts)
+        dit384 = dit384_phase(device["card"])
+        packed = sdxl_packed_phase(device["card"], sdxl_parts)
+        video = video_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     # each row's launches: its counts summed over every path's main-path run
+    runs = (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video)
     for name, row in rows.items():
-        row["launches"] = sum(run[name] for run in (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae))
+        row["launches"] = sum(run[name] for run in runs)
     keys = (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

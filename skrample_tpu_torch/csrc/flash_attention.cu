@@ -16,6 +16,10 @@
 // 2*H*d + h*d, and writes the packed (B, N, H*d) layout the output
 // projection wants: no split copies, no head transposes.
 //
+// Any N: where N is not a multiple of 64 the last query tile zero-fills its
+// rows past N and writes none of them, and the last K/V tile's keys past N
+// take no probability (the kRagged instance of attention_block, as B10).
+//
 // What bounds it on the H100: operations.  4*B*H*N^2*d flops against
 // (3 + 1)*B*N*H*d*2 bytes: at B 4, H 4, N 1024, d 128 that is 8.6 GFLOP
 // (8.7 us at 989 TFLOP/s bf16) against 16.8 MB (5.0 us at 3.35 TB/s).
@@ -49,9 +53,18 @@
 // rows held in VMEM; both are TPU layout devices.  Here a block takes one
 // head, and the online softmax above gives the same result within rounding.
 // What bounds it: operations, 4*B*H*N^2*64 (at B 4, H 10, N 4096: 172 GFLOP,
-// 174 us at 989 TFLOP/s).  B9 (flash_attention_packed_forward at d % 128 == 0
-// and flash_attention_forward on (B, H, N, d)) is this entry point at another
-// D and other strides.
+// 174 us at 989 TFLOP/s).
+//
+// B9: the same entry point at D = 128 as well, for
+// skrample_tpu/ops/flash_attention.py flash_attention_forward (q, k, v as
+// (B, H, N, d), kernel bodies _flash_kernel / _softmax_kernel) and
+// flash_attention_packed_forward (three packed (B, N, H*d) tensors at
+// d = 128).  The TPU kernels' N % 128, block pickers and lane padding are
+// TPU rules; here a head of another d <= 128 is zero-padded by the wrapper
+// to the next instance (64 or 128), which is exact: padded q and k lanes add
+// zero to every score, padded v lanes give output lanes that are sliced
+// away, and the wrapper keeps the true scale 1/sqrt(d).  Bound: operations,
+// 4*B*H*N^2*d (at B 4, H 6, N 1024, d 64: 6.4 GFLOP, 6.5 us).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -269,7 +282,8 @@ __device__ __forceinline__ void attention_block(const T* __restrict__ g_q, long 
 }
 
 // K2 / K4: q, k and v read in place from the packed (B, N, 3*H*d) qkv tensor.
-template <typename T, int D, bool kLse>
+// kRagged: N is not a multiple of 64 (the last query tile and K/V tile are masked).
+template <typename T, int D, bool kLse, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
     flash_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ lse, int N, int H,
                      float scale_log2) {
@@ -278,26 +292,32 @@ __global__ void __launch_bounds__(kThreads)
     const int width = H * D;
     const long long row_stride = 3LL * width;
     const T* base = qkv + (long long)b * N * row_stride + h * D;
-    attention_block<T, D, kLse, false>(base, row_stride, base + width, row_stride, base + 2 * width, row_stride,
-                                       out + (long long)b * N * width + h * D, width,
-                                       kLse ? lse + ((long long)b * H + h) * N : nullptr, N, blockIdx.x * kBlockQ,
-                                       scale_log2);
+    attention_block<T, D, kLse, kRagged>(base, row_stride, base + width, row_stride, base + 2 * width, row_stride,
+                                         out + (long long)b * N * width + h * D, width,
+                                         kLse ? lse + ((long long)b * H + h) * N : nullptr, N, blockIdx.x * kBlockQ,
+                                         scale_log2);
 }
 
-template <typename T, int D, bool kLse>
-int launch(const void* qkv, void* out, float* lse, int B, int N, int H, float scale_log2, cudaStream_t stream) {
+template <typename T, int D, bool kLse, bool kRagged>
+int launch_qkv(const void* qkv, void* out, float* lse, int B, int N, int H, float scale_log2, cudaStream_t stream) {
     constexpr int smem = Layout<D>::template bytes<T>();
     static bool configured = false;
     if (!configured) {
-        const cudaError_t err =
-            cudaFuncSetAttribute(flash_qkv_kernel<T, D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        const cudaError_t err = cudaFuncSetAttribute(flash_qkv_kernel<T, D, kLse, kRagged>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return (int)err;
         configured = true;
     }
-    const dim3 grid(N / kBlockQ, H, B);
-    flash_qkv_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out),
-                                                                    lse, N, H, scale_log2);
+    const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
+    flash_qkv_kernel<T, D, kLse, kRagged><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(qkv), static_cast<T*>(out), lse, N, H, scale_log2);
     return (int)cudaGetLastError();
+}
+
+template <typename T, bool kLse>
+int launch(const void* qkv, void* out, float* lse, int B, int N, int H, float scale_log2, cudaStream_t stream) {
+    if (N % kBlockQ) return launch_qkv<T, 128, kLse, true>(qkv, out, lse, B, N, H, scale_log2, stream);
+    return launch_qkv<T, 128, kLse, false>(qkv, out, lse, B, N, H, scale_log2, stream);
 }
 
 // B10: one block per (64-row query tile, head, batch item), any strides.
@@ -328,21 +348,30 @@ int launch_strided(const StridedArgs& a, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int dispatch_strided_d(const StridedArgs& a, cudaStream_t stream) {
+    if (a.N % kBlockQ) return launch_strided<T, D, true>(a, stream);
+    return launch_strided<T, D, false>(a, stream);
+}
+
 template <typename T>
 int dispatch_strided(const StridedArgs& a, cudaStream_t stream) {
-    if (a.N % kBlockQ) return launch_strided<T, 64, true>(a, stream);
-    return launch_strided<T, 64, false>(a, stream);
+    if (a.d == 64) return dispatch_strided_d<T, 64>(a, stream);
+    return dispatch_strided_d<T, 128>(a, stream);
 }
 
 }  // namespace
 
-// B10: q, k, v, o of dtype 1 = bf16 or 2 = fp16, head dim d = 64, element
-// strides whose rows are 16-byte aligned (every stride a multiple of 8, every
-// base pointer 16-byte aligned); any B, H, N >= 1 (grid limits aside).
+// B10 / B9: q, k, v, o of dtype 1 = bf16 or 2 = fp16, head dim d = 64 or
+// 128, element strides whose rows are 16-byte aligned (every stride a
+// multiple of 8, every base pointer 16-byte aligned); any B, H, N >= 1 (grid
+// limits aside).  scale_log2 is the caller's: B9 pads a head to the next
+// instance and keeps its true 1/sqrt(d).
 extern "C" int skt_flash_attention_strided(const StridedArgs* args, int size, int dtype, cudaStream_t stream) {
     if (size != (int)sizeof(StridedArgs)) return (int)cudaErrorInvalidValue;
     const StridedArgs a = *args;
-    if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.N < 1 || a.d != 64) return (int)cudaErrorInvalidValue;
+    if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.N < 1 || (a.d != 64 && a.d != 128))
+        return (int)cudaErrorInvalidValue;
     const long long* strides[4] = {a.q_strides, a.k_strides, a.v_strides, a.o_strides};
     const void* bases[4] = {a.q, a.k, a.v, a.o};
     for (int t = 0; t < 4; ++t) {
@@ -356,23 +385,21 @@ extern "C" int skt_flash_attention_strided(const StridedArgs* args, int size, in
     return (int)cudaErrorInvalidValue;
 }
 
-// qkv: (B, N, 3*H*d) contiguous; out: (B, N, H*d) contiguous; dtype 1 = bf16, 2 = fp16.
+// qkv: (B, N, 3*H*d) contiguous; out: (B, N, H*d) contiguous; dtype 1 = bf16, 2 = fp16; any N >= 1.
 extern "C" int skt_flash_attention_qkv(const void* qkv, void* out, int B, int N, int H, int d, int dtype,
                                        float scale_log2, cudaStream_t stream) {
-    if (B < 1 || H < 1 || N < kBlockQ || N % kBlockQ || N % kBlockK) return (int)cudaErrorInvalidValue;
-    if (d != 128) return (int)cudaErrorInvalidValue;
-    if (dtype == 1) return launch<__nv_bfloat16, 128, false>(qkv, out, nullptr, B, N, H, scale_log2, stream);
-    if (dtype == 2) return launch<__half, 128, false>(qkv, out, nullptr, B, N, H, scale_log2, stream);
+    if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || d != 128) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return launch<__nv_bfloat16, false>(qkv, out, nullptr, B, N, H, scale_log2, stream);
+    if (dtype == 2) return launch<__half, false>(qkv, out, nullptr, B, N, H, scale_log2, stream);
     return (int)cudaErrorInvalidValue;
 }
 
 // K4: as skt_flash_attention_qkv, and lse: (B, H, N) f32 contiguous.
 extern "C" int skt_flash_attention_qkv_lse(const void* qkv, void* out, void* lse, int B, int N, int H, int d,
                                            int dtype, float scale_log2, cudaStream_t stream) {
-    if (B < 1 || H < 1 || N < kBlockQ || N % kBlockQ || N % kBlockK) return (int)cudaErrorInvalidValue;
-    if (d != 128) return (int)cudaErrorInvalidValue;
+    if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || d != 128) return (int)cudaErrorInvalidValue;
     float* l = static_cast<float*>(lse);
-    if (dtype == 1) return launch<__nv_bfloat16, 128, true>(qkv, out, l, B, N, H, scale_log2, stream);
-    if (dtype == 2) return launch<__half, 128, true>(qkv, out, l, B, N, H, scale_log2, stream);
+    if (dtype == 1) return launch<__nv_bfloat16, true>(qkv, out, l, B, N, H, scale_log2, stream);
+    if (dtype == 2) return launch<__half, true>(qkv, out, l, B, N, H, scale_log2, stream);
     return (int)cudaErrorInvalidValue;
 }

@@ -34,6 +34,10 @@
 //   accumulators) fed by ldmatrix from 16-byte-padded rows, the streamed
 //   tiles double-buffered with cp.async, as in K2.  P and dS round to the
 //   operand type before their products, as the TPU kernels cast them.
+// * Any N: where N is not a multiple of 64 (the kRagged instances) the
+//   last tiles zero-fill their rows past N, keys past N take no probability
+//   in the dq kernel and queries past N none in the dkv kernel, lse and
+//   delta read 0 there, and no dq, dk or dv row past N is written.
 // wgmma and TMA, which Hopper's full rate needs, are later work.
 
 #include <cuda_bf16.h>
@@ -61,9 +65,9 @@ struct Tiles {
     }
 };
 
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, long long row_stride, int tid) {
-    load_rows<T, D, kBlock, kThreads>(dst, src, row0, row_stride, tid);
+template <typename T, int D, bool kMask>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, long long row_stride, int tid, int n_rows) {
+    load_rows<T, D, kBlock, kThreads, kMask>(dst, src, row0, row_stride, tid, n_rows);
 }
 
 // A fragment: rows [row0, row0 + 16) x columns [16 kk, 16 kk + 16) of a row-major tile.
@@ -130,21 +134,26 @@ __device__ __forceinline__ void zero(float (&acc)[M][4]) {
     for (int t = 0; t < M; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
 }
 
-// rows gid and gid + 8 of a 16-row accumulator block, times `scale`, into a packed output
+// rows gid and gid + 8 of a 16-row accumulator block, times `scale`, into a packed output; of
+// those, only the rows below `rows` (the rows left before N: a ragged last tile writes no row past N)
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(T* dst, long long row_stride, const float (&acc)[D / 8][4], float scale,
-                                           int gid, int tig) {
+                                           int gid, int tig, int rows) {
 #pragma unroll
     for (int t = 0; t < D / 8; ++t) {
         const int col = t * 8 + tig * 2;
-        *reinterpret_cast<uint32_t*>(dst + (long long)gid * row_stride + col) =
-            Mma<T>::pack(acc[t][0] * scale, acc[t][1] * scale);
-        *reinterpret_cast<uint32_t*>(dst + (long long)(gid + 8) * row_stride + col) =
-            Mma<T>::pack(acc[t][2] * scale, acc[t][3] * scale);
+        if (gid < rows) {
+            *reinterpret_cast<uint32_t*>(dst + (long long)gid * row_stride + col) =
+                Mma<T>::pack(acc[t][0] * scale, acc[t][1] * scale);
+        }
+        if (gid + 8 < rows) {
+            *reinterpret_cast<uint32_t*>(dst + (long long)(gid + 8) * row_stride + col) =
+                Mma<T>::pack(acc[t][2] * scale, acc[t][3] * scale);
+        }
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dqkv, int N, int H, float scale,
@@ -169,28 +178,30 @@ __global__ void __launch_bounds__(kThreads)
     const T* g_k = base + width + h * D;
     const T* g_v = base + 2 * width + h * D;
 
-    load_tile<T, D>(s_q, base + h * D, q0, row_stride, tid);
-    load_tile<T, D>(s_do, dout + (long long)b * N * width + h * D, q0, width, tid);
-    load_tile<T, D>(s_q + 2 * kTile, g_k, 0, row_stride, tid);
-    load_tile<T, D>(s_q + 3 * kTile, g_v, 0, row_stride, tid);
+    load_tile<T, D, kRagged>(s_q, base + h * D, q0, row_stride, tid, N);
+    load_tile<T, D, kRagged>(s_do, dout + (long long)b * N * width + h * D, q0, width, tid, N);
+    load_tile<T, D, kRagged>(s_q + 2 * kTile, g_k, 0, row_stride, tid, N);
+    load_tile<T, D, kRagged>(s_q + 3 * kTile, g_v, 0, row_stride, tid, N);
     cp_async_commit();
 
-    // this thread's two query rows: lse in log2 units, delta
-    const long long row = ((long long)b * H + h) * N + q0 + warp * 16 + gid;
-    const float lse2[2] = {lse[row] * kLog2e, lse[row + 8] * kLog2e};
-    const float dl[2] = {delta[row], delta[row + 8]};
+    // this thread's two query rows: lse in log2 units, delta (0 for a row past N, which is not stored)
+    const int r0 = q0 + warp * 16 + gid;
+    const long long row = ((long long)b * H + h) * N + r0;
+    const bool in0 = !kRagged || r0 < N, in1 = !kRagged || r0 + 8 < N;
+    const float lse2[2] = {in0 ? lse[row] * kLog2e : 0.f, in1 ? lse[row + 8] * kLog2e : 0.f};
+    const float dl[2] = {in0 ? delta[row] : 0.f, in1 ? delta[row + 8] : 0.f};
 
     float dq[D / 8][4];
     zero(dq);
-    const int n_tiles = N / kBlock;
+    const int n_tiles = (N + kBlock - 1) / kBlock;
     for (int j = 0; j < n_tiles; ++j) {
         const int stage = j & 1;
         const T* s_k = s_q + (2 + 2 * stage) * kTile;
         const T* s_v = s_k + kTile;
         if (j + 1 < n_tiles) {
             T* next_k = s_q + (2 + 2 * (stage ^ 1)) * kTile;
-            load_tile<T, D>(next_k, g_k, (j + 1) * kBlock, row_stride, tid);
-            load_tile<T, D>(next_k + kTile, g_v, (j + 1) * kBlock, row_stride, tid);
+            load_tile<T, D, kRagged>(next_k, g_k, (j + 1) * kBlock, row_stride, tid, N);
+            load_tile<T, D, kRagged>(next_k + kTile, g_v, (j + 1) * kBlock, row_stride, tid, N);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -207,6 +218,11 @@ __global__ void __launch_bounds__(kThreads)
             p[t][1] = exp2f(p[t][1] * scale_log2 - lse2[0]);
             p[t][2] = exp2f(p[t][2] * scale_log2 - lse2[1]);
             p[t][3] = exp2f(p[t][3] * scale_log2 - lse2[1]);
+            if (kRagged) {  // keys past N (zero rows of a ragged last tile) take no probability
+                const int key = j * kBlock + t * 8 + tig * 2;
+                if (key >= N) p[t][0] = p[t][2] = 0.f;
+                if (key + 1 >= N) p[t][1] = p[t][3] = 0.f;
+            }
         }
         float ds[kBlock / 8][4];  // dP = dO V^T, then dS
         zero(ds);
@@ -222,10 +238,10 @@ __global__ void __launch_bounds__(kThreads)
         __syncthreads();  // this stage is refilled by the next iteration's prefetch
     }
     T* out = dqkv + ((long long)b * N + q0 + warp * 16) * row_stride + h * D;
-    store_rows<T, D>(out, row_stride, dq, scale, gid, tig);
+    store_rows<T, D>(out, row_stride, dq, scale, gid, tig, N - q0 - warp * 16);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRagged>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dqkv, int N, int H, float scale,
@@ -256,9 +272,16 @@ __global__ void __launch_bounds__(kThreads)
     // stream in the Q tile, dO tile and lse/delta rows starting at query row i0
     auto load_stage = [&](int stage, int i0) {
         T* s_q = s_k + (2 + 2 * stage) * kTile;
-        load_tile<T, D>(s_q, g_q, i0, row_stride, tid);
-        load_tile<T, D>(s_q + kTile, g_do, i0, width, tid);
-        if (tid < 2 * kBlock / 4) {  // 64 floats each of lse and delta, 16 bytes a thread
+        load_tile<T, D, kRagged>(s_q, g_q, i0, row_stride, tid, N);
+        load_tile<T, D, kRagged>(s_q + kTile, g_do, i0, width, tid, N);
+        if constexpr (kRagged) {
+            // (b, h) rows of lse and delta start at b*H*N + h*N, 16-byte aligned only when N % 4 == 0:
+            // one float a thread, 0 past N, stored before the barrier that precedes their use
+            const int which = tid / kBlock;
+            const int c = tid % kBlock;
+            const float* src = which ? delta_bh : lse_bh;
+            s_rows[(2 * stage + which) * kBlock + c] = i0 + c < N ? src[i0 + c] : 0.f;
+        } else if (tid < 2 * kBlock / 4) {  // 64 floats each of lse and delta, 16 bytes a thread
             const int which = tid / (kBlock / 4);
             const int c = tid % (kBlock / 4);
             const float* src = (which ? delta_bh : lse_bh) + i0 + 4 * c;
@@ -266,8 +289,8 @@ __global__ void __launch_bounds__(kThreads)
         }
     };
 
-    load_tile<T, D>(s_k, base + width + h * D, k0, row_stride, tid);
-    load_tile<T, D>(s_v, base + 2 * width + h * D, k0, row_stride, tid);
+    load_tile<T, D, kRagged>(s_k, base + width + h * D, k0, row_stride, tid, N);
+    load_tile<T, D, kRagged>(s_v, base + 2 * width + h * D, k0, row_stride, tid, N);
     load_stage(0, 0);
     cp_async_commit();
 
@@ -275,7 +298,7 @@ __global__ void __launch_bounds__(kThreads)
     float dv[D / 8][4];
     zero(dk);
     zero(dv);
-    const int n_tiles = N / kBlock;
+    const int n_tiles = (N + kBlock - 1) / kBlock;
     for (int i = 0; i < n_tiles; ++i) {
         const int stage = i & 1;
         const T* s_q = s_k + (2 + 2 * stage) * kTile;
@@ -304,6 +327,11 @@ __global__ void __launch_bounds__(kThreads)
             pt[t][1] = exp2f(pt[t][1] * scale_log2 - l1);
             pt[t][2] = exp2f(pt[t][2] * scale_log2 - l0);
             pt[t][3] = exp2f(pt[t][3] * scale_log2 - l1);
+            if (kRagged) {  // queries past N (zero rows of a ragged last tile) contribute nothing
+                const int query = i * kBlock + col;
+                if (query >= N) pt[t][0] = pt[t][2] = 0.f;
+                if (query + 1 >= N) pt[t][1] = pt[t][3] = 0.f;
+            }
         }
         accumulate<T, D>(dv, pt, s_do, lane);  // dV += P^T dO
 
@@ -325,48 +353,58 @@ __global__ void __launch_bounds__(kThreads)
         __syncthreads();  // this stage is refilled by the next iteration's prefetch
     }
     T* out = dqkv + ((long long)b * N + k0 + warp * 16) * row_stride + h * D;
-    store_rows<T, D>(out + width, row_stride, dk, scale, gid, tig);
-    store_rows<T, D>(out + 2 * width, row_stride, dv, 1.f, gid, tig);
+    store_rows<T, D>(out + width, row_stride, dk, scale, gid, tig, N - k0 - warp * 16);
+    store_rows<T, D>(out + 2 * width, row_stride, dv, 1.f, gid, tig, N - k0 - warp * 16);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kRagged>
 int launch(const void* qkv, const void* dout, const float* lse, const float* delta, void* dqkv, int B, int N, int H,
            float scale, cudaStream_t stream) {
     constexpr int smem_dq = Tiles<D>::template bytes<T>();
     constexpr int smem_dkv = smem_dq + 4 * kBlock * (int)sizeof(float);
     static bool configured = false;
     if (!configured) {
-        cudaError_t err =
-            cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
+        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, kRagged>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
         if (err != cudaSuccess) return (int)err;
-        err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkv);
+        err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, kRagged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem_dkv);
         if (err != cudaSuccess) return (int)err;
         configured = true;
     }
-    const dim3 grid(N / kBlock, H, B);
+    const dim3 grid((N + kBlock - 1) / kBlock, H, B);
     const T* q = static_cast<const T*>(qkv);
     const T* g = static_cast<const T*>(dout);
     T* out = static_cast<T*>(dqkv);
     const float scale_log2 = scale * kLog2e;
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem_dq, stream>>>(q, g, lse, delta, out, N, H, scale, scale_log2);
+    flash_bwd_dq_kernel<T, D, kRagged>
+        <<<grid, kThreads, smem_dq, stream>>>(q, g, lse, delta, out, N, H, scale, scale_log2);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem_dkv, stream>>>(q, g, lse, delta, out, N, H, scale, scale_log2);
+    flash_bwd_dkv_kernel<T, D, kRagged>
+        <<<grid, kThreads, smem_dkv, stream>>>(q, g, lse, delta, out, N, H, scale, scale_log2);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* qkv, const void* dout, const float* lse, const float* delta, void* dqkv, int B, int N, int H,
+             float scale, cudaStream_t stream) {
+    if (N % kBlock) return launch<T, 128, true>(qkv, dout, lse, delta, dqkv, B, N, H, scale, stream);
+    return launch<T, 128, false>(qkv, dout, lse, delta, dqkv, B, N, H, scale, stream);
 }
 
 }  // namespace
 
 // qkv, dqkv: (B, N, 3*H*d); dout: (B, N, H*d); lse, delta: (B, H, N) f32; all
-// contiguous.  dtype 1 = bf16, 2 = fp16.  Launches the dq kernel, then the dkv
-// kernel, on `stream`.
+// contiguous; any N >= 1.  dtype 1 = bf16, 2 = fp16.  Launches the dq kernel,
+// then the dkv kernel, on `stream`.
 extern "C" int skt_flash_attention_qkv_backward(const void* qkv, const void* dout, const void* lse, const void* delta,
                                                 void* dqkv, int B, int N, int H, int d, int dtype, float scale,
                                                 cudaStream_t stream) {
-    if (B < 1 || H < 1 || N < kBlock || N % kBlock || d != 128) return (int)cudaErrorInvalidValue;
+    if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || d != 128) return (int)cudaErrorInvalidValue;
     const float* l = static_cast<const float*>(lse);
     const float* dl = static_cast<const float*>(delta);
-    if (dtype == 1) return launch<__nv_bfloat16, 128>(qkv, dout, l, dl, dqkv, B, N, H, scale, stream);
-    if (dtype == 2) return launch<__half, 128>(qkv, dout, l, dl, dqkv, B, N, H, scale, stream);
+    if (dtype == 1) return dispatch<__nv_bfloat16>(qkv, dout, l, dl, dqkv, B, N, H, scale, stream);
+    if (dtype == 2) return dispatch<__half>(qkv, dout, l, dl, dqkv, B, N, H, scale, stream);
     return (int)cudaErrorInvalidValue;
 }

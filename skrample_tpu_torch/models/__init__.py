@@ -2,7 +2,8 @@
 ``.npz`` parameter checkpoints for training), the Flux transformer, each
 with its int8 serving model (``quantize_params``), and the conv families:
 the UNet, the conditional UNet (SD1.5 / SDXL), the KL autoencoder (VAE)
-with its diffusers importer, and the SDXL stack (serving to pixels)."""
+with its diffusers importer, and the SDXL stack (serving to pixels); the
+video family: the factorized spatio-temporal DiT and the causal video VAE."""
 
 from .checkpoint import load_params, save_params
 from .conditioning import doubled_t, guided_mix, per_item
@@ -14,6 +15,8 @@ from .sdxl import SDXLStack
 from .unet import UNet, UNetConfig
 from .unet_cond import CondUNet, CondUNetConfig, cond_unet_forward_flops
 from .vae import VAE, VAEConfig, vae_decode_flops
+from .video_dit import VideoDiT, VideoDiTConfig, video_dit_forward_flops
+from .video_vae import VideoVAE, VideoVAEConfig, video_vae_decode_flops
 
 __all__ = [
     "CondUNet",
@@ -27,6 +30,10 @@ __all__ = [
     "UNetConfig",
     "VAE",
     "VAEConfig",
+    "VideoDiT",
+    "VideoDiTConfig",
+    "VideoVAE",
+    "VideoVAEConfig",
     "cond_unet_forward_flops",
     "diffusers_vae",
     "doubled_t",
@@ -41,4 +48,6 @@ __all__ = [
     "save_params",
     "vae_config",
     "vae_decode_flops",
+    "video_dit_forward_flops",
+    "video_vae_decode_flops",
 ]

@@ -40,7 +40,7 @@ from torch.utils.checkpoint import (
 
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
-from ..ops.flash_attention import flash_attention_qkv
+from ..ops.flash_attention import flash_attention, flash_attention_qkv
 from ..ops.quant import Int8Dense, dense_int8, quantize_params
 
 _LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
@@ -57,8 +57,10 @@ class DiTConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     attention: str = "full"
     """``"full"`` (plain attention; the (N, N) scores hit device memory) or
-    ``"flash"`` (kernel K2 straight off the fused qkv projection, for
-    head_dim 128; K4 and K5 where a gradient is wanted).  ``"ring"`` and
+    ``"flash"`` (kernel K2 straight off the fused qkv projection at
+    head_dim 128, K4 and K5 where a gradient is wanted; kernel B9 on the
+    (B, H, N, d) views of the q/k/v thirds at a head dim that is not a
+    multiple of 128, with the plain version's gradient).  ``"ring"`` and
     ``"ulysses"`` are later slices."""
     remat: bool | str = False
     """Recompute each transformer block's activations in the backward
@@ -206,13 +208,15 @@ class DiTBlock(nn.Module):
 
         h = adaln_modulate(tokens, s_attn, sc_attn)
         qkv = dense(self.qkv, h)
-        if c.attention == "flash":
+        if c.attention == "flash" and c.head_dim % 128 == 0:
             out = flash_attention_qkv(qkv, c.heads)
         else:
+            # (B, H, N, d) views of the q/k/v thirds: B9 reads them in place
             q, k, v = (
                 part.reshape(B, N, c.heads, c.head_dim).transpose(1, 2) for part in qkv.chunk(3, dim=-1)
             )
-            out = _full_attention(q, k, v, c.head_dim).transpose(1, 2).reshape(B, N, c.dim)
+            out = flash_attention(q, k, v) if c.attention == "flash" else _full_attention(q, k, v, c.head_dim)
+            out = out.transpose(1, 2).reshape(B, N, c.dim)
         tokens = tokens + g_attn[:, None] * dense(self.proj, out)
 
         h = adaln_modulate(tokens, s_mlp, sc_mlp)
@@ -242,8 +246,6 @@ class DiT(nn.Module):
             raise NotImplementedError(f"sequence-parallel attention ({config.attention!r}, mesh=) {_LATER}")
         if config.attention not in ("full", "flash"):
             raise ValueError(f"unknown attention kind {config.attention!r}")
-        if config.attention == "flash" and config.head_dim % 128:
-            raise NotImplementedError(f"attention='flash' at head_dim {config.head_dim} (transposed kernel) {_LATER}")
         if config.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {config.remat!r}")
         self.config = c = config

@@ -79,6 +79,16 @@ class _AffineSpec:
     width: int
 
 
+@dataclass(frozen=True)
+class _TConvSpec:
+    "A causal temporal conv (the video VAE's): ``w`` (k, c_in, c_out), ``b`` (c_out,)."
+
+    k: int
+    c_in: int
+    c_out: int
+    scale: float | None = None  # None: 1/sqrt(k*c_in); 0: zero weights
+
+
 class _Conv(nn.Module):
     "A conv's ``w`` (OIHW shape, channels_last memory) and ``b``."
 
@@ -87,6 +97,15 @@ class _Conv(nn.Module):
         shape = (spec.c_out, spec.c_in, spec.k, spec.k)
         w = torch.empty(shape, device="meta", dtype=dtype).to(memory_format=torch.channels_last)
         self.w = nn.Parameter(w)
+        self.b = nn.Parameter(torch.empty(spec.c_out, device="meta", dtype=dtype))
+
+
+class _TConv(nn.Module):
+    "A temporal conv's ``w`` (k, C, Co) and ``b``, the JAX tree's layout."
+
+    def __init__(self, spec: _TConvSpec, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.w = nn.Parameter(torch.empty((spec.k, spec.c_in, spec.c_out), device="meta", dtype=dtype))
         self.b = nn.Parameter(torch.empty(spec.c_out, device="meta", dtype=dtype))
 
 
@@ -99,13 +118,15 @@ class _Affine(nn.Module):
         self.b = nn.Parameter(torch.empty(spec.width, device="meta", dtype=torch.float32))
 
 
-_Leaf = _Conv | nn.Linear | _Affine
-_Spec = _ConvSpec | _DenseSpec | _AffineSpec
+_Leaf = _Conv | nn.Linear | _Affine | _TConv
+_Spec = _ConvSpec | _DenseSpec | _AffineSpec | _TConvSpec
 
 
 def _leaf(spec: _Spec, dtype: torch.dtype) -> _Leaf:
     if isinstance(spec, _ConvSpec):
         return _Conv(spec, dtype)
+    if isinstance(spec, _TConvSpec):
+        return _TConv(spec, dtype)
     if isinstance(spec, _DenseSpec):
         return nn.Linear(spec.d_in, spec.d_out, device="meta", dtype=dtype)
     return _Affine(spec)
@@ -139,7 +160,7 @@ def _leaf_arrays(leaf: _Leaf) -> dict[str, np.ndarray]:
 
     if isinstance(leaf, nn.Linear):
         return {"w": np.ascontiguousarray(host(leaf.weight).T), "b": host(leaf.bias)}
-    if isinstance(leaf, _Conv):
+    if isinstance(leaf, _Conv | _TConv):
         return {"w": np.ascontiguousarray(host(leaf.w)), "b": host(leaf.b)}
     return {"g": host(leaf.g), "b": host(leaf.b)}
 
@@ -149,6 +170,10 @@ def _spec_arrays(spec: _Spec, normal: Callable[[tuple[int, ...]], Any], zeros: C
     if isinstance(spec, _ConvSpec):
         shape = (spec.c_out, spec.c_in, spec.k, spec.k)
         scale = spec.scale if spec.scale is not None else 1 / math.sqrt(spec.k * spec.k * spec.c_in)
+        return {"w": normal(shape) * scale if scale else zeros(shape), "b": zeros((spec.c_out,))}
+    if isinstance(spec, _TConvSpec):
+        shape = (spec.k, spec.c_in, spec.c_out)
+        scale = spec.scale if spec.scale is not None else 1 / math.sqrt(spec.k * spec.c_in)
         return {"w": normal(shape) * scale if scale else zeros(shape), "b": zeros((spec.c_out,))}
     if isinstance(spec, _DenseSpec):
         shape = (spec.d_in, spec.d_out)

@@ -19,16 +19,17 @@ The interior is channels-last, as in :mod:`.unet`: every GroupNorm (46 a
 forward at SDXL base) is kernel B8, every stride-1 3x3 conv (38) is kernel
 B12 with its norm off (``_conv``: one rounding of the f32 sum), and every
 d = 64 self-attention (70) is kernel B10, reading the ``chunk(3)`` views of
-the fused qkv product in place.  Cross-attention (77 text tokens) and every other head dim stay plain
-PyTorch, as the JAX package leaves them to einsum outside any Pallas
-kernel; a self-attention that the JAX package would send to its packed
-kernel (another head dim dividing 128) raises on the card until B9 is
-ported.  :meth:`CondUNet.load_jax_params` carries the JAX package's tree
+the fused qkv product in place.  A self-attention at another head dim
+dividing 128 is kernel B9 on heads zero-padded to 128, as the JAX package
+pads them for its packed kernel.  Cross-attention (77 text tokens) and
+every other head dim stay plain PyTorch, as the JAX package leaves them to
+einsum outside any Pallas kernel.  :meth:`CondUNet.load_jax_params` carries the JAX package's tree
 across and :meth:`CondUNet.param_tree` back.
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
@@ -37,7 +38,12 @@ import torch
 import torch.nn.functional as F
 
 from ..ops._cuda import resolve_device
-from ..ops.flash_attention import attention_reference, flash_attention_pairs, pairs_kernel_fits
+from ..ops.flash_attention import (
+    attention_reference,
+    flash_attention_packed,
+    flash_attention_pairs,
+    pairs_kernel_fits,
+)
 from ..ops.groupnorm import groupnorm_cl
 from .conditioning import doubled_t, guided_mix, per_item
 from .dit import _LATER, _dense, _timestep_embedding
@@ -101,22 +107,21 @@ def _ln_affine(x: torch.Tensor, p: Any) -> torch.Tensor:
     return (((x32 - mean) * torch.rsqrt(var + 1e-5)) * p.g + p.b).to(x.dtype)
 
 
-def attention_route(n: int, kv_len: int, heads: int, head_dim: int, cuda: bool) -> str:
-    """Where ``CondUNet._mha`` sends an attention: ``"pairs"`` (kernel B10: a
-    self-attention at head dim 64, any ``N`` and head count) or ``"plain"``
-    (cross-attention and every other head dim, as the JAX package runs them
-    as einsum).  A self-attention the JAX package would send to its packed
-    kernel (a head dim dividing 128) raises on the card: that is B9, not yet
-    ported, and no plain version stands in for it there.  The JAX package's
-    ``N >= 1024`` and ``N % 128`` conditions are TPU budgets and are dropped."""
+def attention_route(n: int, kv_len: int, heads: int, head_dim: int) -> str:
+    """Where ``CondUNet._mha`` sends an attention, as the JAX package's
+    ``_mha`` does: ``"pairs"`` (kernel B10: a self-attention at head dim 64,
+    any ``N`` and head count), ``"packed"`` (kernel B9: a self-attention
+    whose head dim divides 128 and is not 64, each head zero-padded to 128
+    with q pre-scaled by ``sqrt(128 / d)``, the reference's recipe) or
+    ``"plain"`` (cross-attention and every other head dim, as the JAX
+    package runs them as einsum).  The JAX package's ``N >= 1024`` and
+    ``N % 128`` conditions are TPU budgets and are dropped."""
     if kv_len != n:
         return "plain"
     if pairs_kernel_fits(n, heads, head_dim):
         return "pairs"
-    if head_dim <= 128 and 128 % head_dim == 0 and cuda:
-        raise NotImplementedError(
-            f"self-attention at head dim {head_dim} needs kernel B9 (flash_attention_packed_forward), which {_LATER}"
-        )
+    if head_dim <= 128 and 128 % head_dim == 0:
+        return "packed"
     return "plain"
 
 
@@ -244,8 +249,21 @@ class CondUNet(_TreeModule):
         "Multi-head attention on packed (B, N, H*d) projections; see :func:`attention_route`."
         B, N, D = q.shape
         d = D // heads
-        if attention_route(N, k.shape[1], heads, d, q.is_cuda) == "pairs":
+        route = attention_route(N, k.shape[1], heads, d)
+        if route == "pairs":
             return flash_attention_pairs(q, k, v, heads)
+        if route == "packed":
+            # zero-padded heads: padded q/k lanes add zero logits and padded v lanes slice away, so the
+            # result is exact; q's pre-scale (rounded to the compute dtype, as the reference's) cancels
+            # the kernel's 1/sqrt(128)
+            def pad_heads(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+                h = x.reshape(B, N, heads, d)
+                if scale != 1.0:
+                    h = h * torch.tensor(scale, dtype=h.dtype, device=h.device)
+                return F.pad(h, (0, 128 - d)).reshape(B, N, heads * 128)
+
+            out = flash_attention_packed(pad_heads(q, math.sqrt(128 / d)), pad_heads(k), pad_heads(v), heads)
+            return out.reshape(B, N, heads, 128)[..., :d].reshape(B, N, D)
 
         def split(x: torch.Tensor) -> torch.Tensor:
             return x.reshape(B, -1, heads, d).transpose(1, 2)

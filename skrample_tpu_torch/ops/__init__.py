@@ -8,13 +8,15 @@
 * :mod:`.adaln` — fused layernorm + adaLN modulation (kernel K3) and its
   backward (K6).
 * :mod:`.flash_attention` — attention off the fused qkv projection (K2),
-  with the logsumexp forward (K4) and the backward (K5) for training, and
-  d=64 attention on packed, strided q/k/v (B10).
+  with the logsumexp forward (K4) and the backward (K5) for training,
+  d=64 attention on packed, strided q/k/v (B10), and attention on
+  (B, H, N, d) and on packed d=128 heads (B9).
 * :mod:`.groupnorm` — channels-last GroupNorm (+ f32 affine) (+ SiLU)
   (kernel B8).
 * :mod:`.fused_conv` — a 3x3 conv with GroupNorm(+affine)+SiLU applied to
   its input as it is read, a residual epilogue and the output's channel
-  statistics (kernel B12); the statistics chain of the fused VAE decode.
+  statistics (kernel B12), the causal temporal conv of the same kind
+  (kernel B13); the statistics chain of the fused VAE decodes.
 * :mod:`.rope` — per-head RMS qk-norm + rotary embedding on the fused qkv
   projection (kernel B7).
 * :mod:`.quant` — the int8 serving path: per-row activation quantization
@@ -26,9 +28,24 @@ import time.
 """
 
 from .compiler import CompiledSampler, NonlinearSamplerError, compile_sampler
-from .flash_attention import flash_attention_pairs, flash_attention_pairs_forward
+from .flash_attention import (
+    flash_attention_forward,
+    flash_attention_packed,
+    flash_attention_packed_forward,
+    flash_attention_pairs,
+    flash_attention_pairs_forward,
+)
 from .fused import fused_step, fused_step_cuda
-from .fused_conv import channel_stats, conv3x3_gn_silu, conv3x3_gn_silu_forward, conv3x3_ref, finalize_group_stats
+from .fused_conv import (
+    channel_stats,
+    conv3x3_gn_silu,
+    conv3x3_gn_silu_forward,
+    conv3x3_ref,
+    finalize_group_stats,
+    tconv_causal_gn_silu,
+    tconv_causal_gn_silu_forward,
+    tconv_causal_ref,
+)
 from .groupnorm import groupnorm_cl, groupnorm_eager_bign, groupnorm_forward, groupnorm_reference
 from .loop import CompiledDenoiser
 from .quant import dense_int8, quantize_activation, quantize_params, quantize_rows, quantize_weight
@@ -45,6 +62,9 @@ __all__ = [
     "conv3x3_ref",
     "dense_int8",
     "finalize_group_stats",
+    "flash_attention_forward",
+    "flash_attention_packed",
+    "flash_attention_packed_forward",
     "flash_attention_pairs",
     "flash_attention_pairs_forward",
     "fused_rope_qk_norm",
@@ -60,4 +80,7 @@ __all__ = [
     "quantize_weight",
     "rope_qk_norm_forward",
     "rope_qk_norm_reference",
+    "tconv_causal_gn_silu",
+    "tconv_causal_gn_silu_forward",
+    "tconv_causal_ref",
 ]

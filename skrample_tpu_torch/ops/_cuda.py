@@ -39,6 +39,7 @@ SOURCES = (
     "rope.cu",
     "groupnorm.cu",
     "fused_conv.cu",
+    "tconv.cu",
 )
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,6 +75,9 @@ _SIGNATURES: dict[str, list] = {
     # x, w (Co, 3, 3, C), bias, stats, gn scale, gn bias, residual, out, partial, raw (null where unused),
     # N, H, W, C, Co, dtype, stream
     "skt_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, wt (Co, k, C), bias, stats, residual, out, partial, raw (null where unused), B, T_in, S, C, Co, k, rep,
+    # dtype, stream
+    "skt_tconv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "skt_error_string": [_I],
 }
 

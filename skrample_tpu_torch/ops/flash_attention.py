@@ -12,8 +12,13 @@ ties them into a :class:`torch.autograd.Function`, as the JAX package's
 ``custom_vjp`` does.  :func:`flash_attention_pairs_forward` launches B10
 (the same kernel body behind a strided entry point, head dim 64) on three
 packed ``(B, N, H*64)`` tensors that may be strided views, such as the
-``chunk(3)`` thirds of a fused qkv product; :func:`flash_attention_pairs` is
-its autograd Function, with the plain version's gradient backward.  The
+``chunk(3)`` thirds of a fused qkv product, and B9 is the same entry point
+at head dim 128 too: :func:`flash_attention_forward` on ``(B, H, N, d)``
+(a head dim up to 128, zero-padded to an instance) and
+:func:`flash_attention_packed_forward` on packed ``(B, N, H*128)``.
+:func:`flash_attention_pairs`, :func:`flash_attention` and
+:func:`flash_attention_packed` are their autograd dispatches, with the plain
+version's gradient backward.  The
 plain versions beside each kernel (:func:`attention_reference`,
 :func:`_packed_reference`, :func:`_qkv_reference`,
 :func:`_qkv_reference_lse`, :func:`_qkv_backward_reference`) are the CPU
@@ -31,7 +36,6 @@ from . import _cuda
 
 _LANE = 128
 _LOG2E = 1.4426950408889634
-_BLOCK = 64  # query rows per kernel block and keys per K/V tile
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -127,8 +131,6 @@ def _check_qkv(qkv: torch.Tensor, heads: int, name: str) -> tuple[int, int, int]
     d = D3 // 3 // heads
     if d != 128:
         raise ValueError(f"{name}: head dim {d} unsupported (the kernel is built for 128)")
-    if N % _BLOCK:
-        raise ValueError(f"{name}: token count {N} must be a multiple of {_BLOCK}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be contiguous and 16-byte aligned")
     return B, N, d
@@ -139,8 +141,8 @@ def flash_attention_qkv_forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 
     On CPU tensors this is :func:`_qkv_reference`.  On CUDA tensors it
     launches the kernel or raises: bf16 or fp16 (an f32 qkv has no tensor-
-    core path in this kernel), contiguous, head dim 128, ``N`` a multiple of
-    64."""
+    core path in this kernel), contiguous, head dim 128, any ``N`` (a ragged
+    last tile is masked)."""
     if qkv.device.type == "cpu":
         return _qkv_reference(qkv, heads)
     B, N, d = _check_qkv(qkv, heads, "flash_attention_qkv_forward")
@@ -272,22 +274,26 @@ class _FlashQKV(torch.autograd.Function):
 def flash_attention_qkv(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """Fused-qkv attention ``(B, N, 3*H*d) -> (B, N, H*d)`` with its gradient.
 
-    The JAX package's dispatch rule: the kernels where the packed width
-    splits into ``heads`` heads of a multiple of 128 and ``N`` is a multiple
-    of 128; split + plain attention otherwise.  Where a gradient is wanted
-    the forward is K4 and the backward K5; where none is (grad mode off, or
-    qkv not requiring grad), the forward is K2 and nothing is saved."""
+    The JAX package's dispatch rule on the head dim: the kernels where the
+    packed width splits into ``heads`` heads of a multiple of 128, split +
+    plain attention otherwise.  Its ``N % 128`` rule is a TPU tiling one: on
+    a CUDA tensor every ``N`` goes to the kernels (which mask a ragged last
+    tile); on a CPU tensor, where every path is a plain version, it stays.
+    Where a gradient is wanted the forward is K4 and the backward K5; where
+    none is (grad mode off, or qkv not requiring grad), the forward is K2 and
+    nothing is saved."""
     _B, N, D3 = qkv.shape
-    if D3 % (3 * heads) or (D3 // 3 // heads) % _LANE or N % _LANE:
+    if D3 % (3 * heads) or (D3 // 3 // heads) % _LANE or (not qkv.is_cuda and N % _LANE):
         return _qkv_reference(qkv, heads)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FlashQKV.apply(qkv, heads)
     return flash_attention_qkv_forward(qkv, heads)
 
 
-# ---- B10: d = 64 attention on packed, possibly strided q, k, v -----------------------
+# ---- B10 and B9: attention on q, k, v at any strides (skt_flash_attention_strided) ---------
 
 _PAIRS_D = 64
+_STRIDED_D = (64, 128)  # the head dims the strided kernel is built for
 
 
 def pairs_kernel_fits(N: int, heads: int, d: int) -> bool:
@@ -323,6 +329,53 @@ def _head_strides(x: torch.Tensor, d: int) -> tuple[int, int, int]:
     return x.stride(0), d * x.stride(2), x.stride(1)
 
 
+def _check_strided(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ndim: int) -> None:
+    "What the strided entry point takes of q, k and v; raises on anything else."
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.ndim != ndim:
+        raise ValueError(f"{name}: q must have {ndim} dimensions, got {tuple(q.shape)}")
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"{name}: dtype {q.dtype} unsupported on CUDA (bfloat16 or float16)")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {label} must be {tuple(q.shape)} {q.dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(ndim - 1)):
+            raise ValueError(f"{name}: {label} needs unit channel stride, 16-byte aligned rows, heads and batches")
+
+
+def _launch_strided(
+    name: str,
+    views: tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
+    strides: tuple[tuple[int, int, int], ...],
+    B: int,
+    N: int,
+    H: int,
+    d_kernel: int,
+    scale: float,
+) -> None:
+    "One launch of ``skt_flash_attention_strided`` on q, k, v, out with their (batch, head, row) strides."
+    q, k, v, o = views
+    args = _StridedArgs(
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        o.data_ptr(),
+        *((ctypes.c_longlong * 3)(*st) for st in strides),
+        B,
+        N,
+        H,
+        d_kernel,
+        scale * _LOG2E,
+    )
+    lib = _cuda.library()
+    with torch.cuda.device(q.device):
+        code = lib.skt_flash_attention_strided(
+            ctypes.byref(args), ctypes.sizeof(args), _cuda.DTYPE_CODES[q.dtype], _cuda.stream()
+        )
+    _cuda.check(code, name)
+
+
 def flash_attention_pairs_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
     """Kernel B10: ``(B, N, H*64)`` x3 -> ``(B, N, H*64)``, unmasked softmax
     attention per head.
@@ -336,42 +389,14 @@ def flash_attention_pairs_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     if q.device.type == "cpu":
         return _packed_reference(q, k, v, heads)
     name = "flash_attention_pairs_forward"
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
-    if q.ndim != 3:
-        raise ValueError(f"{name}: q must be (B, N, H*d), got {tuple(q.shape)}")
+    _check_strided(name, q, k, v, 3)
     B, N, D = q.shape
-    if q.dtype not in (torch.bfloat16, torch.float16):
-        raise ValueError(f"{name}: dtype {q.dtype} unsupported on CUDA (bfloat16 or float16)")
     if D % heads or not pairs_kernel_fits(N, heads, D // heads):
         raise ValueError(f"{name}: width {D} over {heads} heads: head dim must be {_PAIRS_D}")
-    for label, t in (("q", q), ("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name}: {label} must be {tuple(q.shape)} {q.dtype}, got {tuple(t.shape)} {t.dtype}")
-        if t.stride(2) != 1 or t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
-            raise ValueError(f"{name}: {label} needs unit channel stride, 16-byte aligned rows and batches")
     out = torch.empty((B, N, D), dtype=q.dtype, device=q.device)
-    args = _StridedArgs(
-        q.data_ptr(),
-        k.data_ptr(),
-        v.data_ptr(),
-        out.data_ptr(),
-        (ctypes.c_longlong * 3)(*_head_strides(q, _PAIRS_D)),
-        (ctypes.c_longlong * 3)(*_head_strides(k, _PAIRS_D)),
-        (ctypes.c_longlong * 3)(*_head_strides(v, _PAIRS_D)),
-        (ctypes.c_longlong * 3)(*_head_strides(out, _PAIRS_D)),
-        B,
-        N,
-        heads,
-        _PAIRS_D,
-        (1.0 / math.sqrt(_PAIRS_D)) * _LOG2E,
-    )
-    lib = _cuda.library()
-    with torch.cuda.device(q.device):
-        code = lib.skt_flash_attention_strided(
-            ctypes.byref(args), ctypes.sizeof(args), _cuda.DTYPE_CODES[q.dtype], _cuda.stream()
-        )
-    _cuda.check(code, name)
+    views = (q, k, v, out)
+    strides = tuple(_head_strides(t, _PAIRS_D) for t in views)
+    _launch_strided(name, views, strides, B, N, heads, _PAIRS_D, 1.0 / math.sqrt(_PAIRS_D))
     flash_attention_pairs_forward.launches += 1
     return out
 
@@ -379,24 +404,30 @@ def flash_attention_pairs_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 flash_attention_pairs_forward.launches = 0
 
 
-class _FlashPairs(torch.autograd.Function):
-    """B10 forward, the plain version's gradient backward: the JAX package's
-    ``_flash_pairs_vjp``.  The kernel is looked up in this module when it
-    runs, so a caller may swap it for its plain version."""
+class _PlainBackward(torch.autograd.Function):
+    """A kernel's forward, the plain version's gradient backward: the JAX
+    package's ``_flash_pairs_vjp``, ``_flash_packed_vjp`` and ``_flash_vjp``.
+    ``kernel`` and ``plain`` are names in this module, looked up when they
+    run, so a caller may swap the kernel for its plain version."""
 
     @staticmethod
-    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    def forward(ctx, kernel: str, plain: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *extra):
         ctx.save_for_backward(q, k, v)
-        ctx.heads = heads
-        return flash_attention_pairs_forward(q, k, v, heads)
+        ctx.plain, ctx.extra = plain, extra
+        return globals()[kernel](q, k, v, *extra)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = _packed_reference(*inputs, ctx.heads)
+            out = globals()[ctx.plain](*inputs, *ctx.extra)
         grads = torch.autograd.grad(out, inputs, g)
-        return *(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad)), None
+        needs = ctx.needs_input_grad[2:5]
+        return None, None, *(gr if need else None for gr, need in zip(grads, needs)), *([None] * len(ctx.extra))
+
+
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def flash_attention_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
@@ -404,6 +435,101 @@ def flash_attention_pairs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hea
     gradient: B10 forward, the plain version's gradient backward where one is
     wanted.  On CPU tensors the plain version; on CUDA tensors every shape
     goes to the kernel, which raises on what it cannot take."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashPairs.apply(q, k, v, heads)
+    if _wants_grad(q, k, v):
+        return _PlainBackward.apply("flash_attention_pairs_forward", "_packed_reference", q, k, v, heads)
     return flash_attention_pairs_forward(q, k, v, heads)
+
+
+def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel B9 on ``(B, H, N, d)`` x3 -> ``(B, H, N, d)``: unmasked softmax
+    attention per (batch item, head).
+
+    On CPU tensors this is :func:`attention_reference`.  On CUDA tensors it
+    launches the strided kernel or raises: bf16 or fp16, all three of one
+    shape, any strides with a unit last stride whose others are multiples of
+    8 elements, any ``B``, ``H`` and ``N``, and ``d <= 128`` with ``d % 8 ==
+    0``.  At d = 64 and 128 the kernel reads q, k and v in place (views of a
+    qkv product need no copy); another d is zero-padded to the next of the
+    two, which is exact (the zero lanes add nothing to a score and their
+    output lanes are sliced away) with the true ``1/sqrt(d)`` scale.  The
+    result is a ``(B, H, N, d)`` view of a ``(B, N, H, d)`` tensor, so the
+    heads merge back into a packed ``(B, N, H*d)`` without a copy."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v)
+    name = "flash_attention_forward"
+    if q.ndim != 4:
+        raise ValueError(f"{name}: q must be (B, H, N, d), got {tuple(q.shape)}")
+    B, H, N, d = q.shape
+    if d > _STRIDED_D[1] or d % 8:
+        raise ValueError(f"{name}: head dim {d} unsupported (d <= 128, a multiple of 8)")
+    d_kernel = _STRIDED_D[0] if d <= _STRIDED_D[0] else _STRIDED_D[1]
+    if d != d_kernel:
+        q, k, v = (torch.nn.functional.pad(t, (0, d_kernel - d)) for t in (q, k, v))
+    _check_strided(name, q, k, v, 4)
+    out = torch.empty((B, N, H, d_kernel), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    views = (q, k, v, out)
+    strides = tuple((t.stride(0), t.stride(1), t.stride(2)) for t in views)
+    _launch_strided(name, views, strides, B, N, H, d_kernel, 1.0 / math.sqrt(d))
+    flash_attention_forward.launches += 1
+    return out if d == d_kernel else out[..., :d]
+
+
+flash_attention_forward.launches = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention on ``(B, H, N, d)`` with its gradient: B9 forward, the plain
+    version's gradient backward where one is wanted (the JAX package's
+    ``flash_attention``, whose backward is the einsum's vjp).  The JAX
+    package's ``N % 128`` rule stays on the CPU, where both paths are plain
+    versions; on a CUDA tensor every shape goes to the kernel, which raises
+    on what it cannot take."""
+    if not q.is_cuda and q.shape[2] % _LANE:
+        return attention_reference(q, k, v)
+    if _wants_grad(q, k, v):
+        return _PlainBackward.apply("flash_attention_forward", "attention_reference", q, k, v)
+    return flash_attention_forward(q, k, v)
+
+
+def flash_attention_packed_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """Kernel B9 on the packed layout: ``(B, N, H*d)`` x3 -> ``(B, N, H*d)``
+    at ``d = 128``, each head's q, k and v read in place at its feature
+    offset (the strided kernel at packed strides).
+
+    On CPU tensors this is :func:`_packed_reference`.  On CUDA tensors it
+    launches the kernel or raises: bf16 or fp16, all three of one shape,
+    ``d = 128`` (the JAX package's ``d % 128 == 0``; ``d > 128`` has no
+    instance), any ``B``, ``N`` and head count, strided views as
+    :func:`flash_attention_pairs_forward` takes them.  The JAX package's
+    ``N % 128`` and block pickers are TPU rules and are dropped."""
+    if q.device.type == "cpu":
+        return _packed_reference(q, k, v, heads)
+    name = "flash_attention_packed_forward"
+    _check_strided(name, q, k, v, 3)
+    B, N, D = q.shape
+    d = D // heads
+    if D % heads or d != _STRIDED_D[1]:
+        raise ValueError(f"{name}: width {D} over {heads} heads: head dim must be {_STRIDED_D[1]}")
+    out = torch.empty((B, N, D), dtype=q.dtype, device=q.device)
+    views = (q, k, v, out)
+    strides = tuple(_head_strides(t, d) for t in views)
+    _launch_strided(name, views, strides, B, N, heads, d, 1.0 / math.sqrt(d))
+    flash_attention_packed_forward.launches += 1
+    return out
+
+
+flash_attention_packed_forward.launches = 0
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """Packed-layout attention ``(B, N, H*d)`` x3 -> ``(B, N, H*d)`` with its
+    gradient: B9 forward, the plain version's gradient backward where one is
+    wanted.  The JAX package's dispatch: the plain version where the width
+    does not split into heads of a multiple of 128 (and, on the CPU, where
+    ``N % 128``); the kernel otherwise."""
+    _B, N, D = q.shape
+    if D % heads or (D // heads) % _LANE or (not q.is_cuda and N % _LANE):
+        return _packed_reference(q, k, v, heads)
+    if _wants_grad(q, k, v):
+        return _PlainBackward.apply("flash_attention_packed_forward", "_packed_reference", q, k, v, heads)
+    return flash_attention_packed_forward(q, k, v, heads)

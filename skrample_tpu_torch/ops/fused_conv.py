@@ -1,8 +1,9 @@
 """Norm-into-conv: a 3x3 SAME conv whose input is GroupNorm(+affine)+SiLU
 normalized as it is read, with a residual epilogue and the output's channel
-statistics (kernel B12), and the statistics plumbing of the chained decode.
+statistics (kernel B12), the causal temporal conv of the same kind (kernel
+B13), and the statistics plumbing of the chained decodes.
 
-The spatial half of the JAX package's ``ops/fused_conv.py``:
+The JAX package's ``ops/fused_conv.py``:
 
 * :func:`channel_stats` seeds a statistics chain at a tensor made by
   another op: ``(N, 2, C)`` float32 [sum, sumsq] per (item, channel);
@@ -16,7 +17,12 @@ The spatial half of the JAX package's ``ops/fused_conv.py``:
   a CUDA tensor and is the plain version on a CPU one;
 * :func:`conv3x3_gn_silu` is the dispatch a model calls, an autograd
   Function whose backward differentiates the plain version (the JAX
-  package's ``custom_vjp`` recipe: there is no backward kernel).
+  package's ``custom_vjp`` recipe: there is no backward kernel);
+* :func:`tconv_causal_ref`, :func:`tconv_causal_gn_silu_forward` (B13,
+  ``csrc/tconv.cu``) and :func:`tconv_causal_gn_silu` are the same three
+  for the video VAE's causal temporal conv on ``(B, T, S, C)``: GroupNorm
+  per (item, frame), ``k - 1`` zero frames on the left, an optional frame
+  repeat folded into the read, statistics per (item, output frame).
 
 The GroupNorm affine stays apart from ``(mean, inv)``: the kernel applies
 ``((x - mean) * inv) * g + b`` and then the SiLU.  The JAX package folds
@@ -283,3 +289,201 @@ def conv3x3_gn_silu(
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         return _Conv3x3.apply(*tensors)
     return conv3x3_gn_silu_forward(*tensors, out_stats=out_stats)
+
+
+# ---- B13: the causal temporal conv with GroupNorm+SiLU on its input read ----------------
+
+_TILE_SITES = 128  # output sites a kernel block (csrc/tconv.cu kBM): the statistics' partials
+
+
+def tconv_partials_shape(B: int, T_out: int, S: int, Co: int) -> tuple[int, int, int, int]:
+    "B13's statistics scratch: per (item, output frame), per 128-site tile of the kernel's grid, [sum, sumsq]."
+    return (B * T_out, math.ceil(S / _TILE_SITES), 2, Co)
+
+
+def _frame_stats(out: torch.Tensor) -> torch.Tensor:
+    "Raw ``(B, T, 2, C)`` [sum, sumsq] of a ``(B, T, S, C)`` tensor, one (item, frame) at a time."
+    B, T, S, C = out.shape
+    return channel_stats(out.reshape(B * T, S, C)).reshape(B, T, 2, C)
+
+
+def tconv_causal_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    stats: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    repeat_in: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain causal temporal conv and the raw statistics of its rounded
+    output, ``(out, (B, T * repeat_in, 2, Co) f32)``: the JAX package's
+    ``tconv_causal_ref`` (the video VAE's ``_tconv`` on ``(B, T, S, C)``).
+
+    ``stats`` ``(B, T, 2, C)`` [mean, inv] normalizes each (item, frame):
+    ``silu((x - mean) * inv)`` in float32, rounded to ``x``'s dtype; None
+    leaves ``x`` as it is.  ``repeat_in`` repeats each frame (the decoder's
+    frame-repeat upsample).  Then ``k - 1`` zero frames on the left, the
+    ``k`` taps' products summed in float32 (``w`` ``(k, C, Co)`` rounded to
+    ``x``'s dtype), the float32 bias and the residual added, one rounding."""
+    dtype = x.dtype
+    xin = x
+    if stats is not None:
+        xin = _normalize_silu(x.float(), stats[:, :, None, 0, :], stats[:, :, None, 1, :]).to(dtype)
+    if repeat_in > 1:
+        xin = xin.repeat_interleave(repeat_in, dim=1)
+    k, T = w.shape[0], xin.shape[1]
+    xp = F.pad(xin, (0, 0, 0, 0, k - 1, 0)).float()
+    w32 = w.to(dtype).float()
+    out = None
+    for i in range(k):
+        part = torch.matmul(xp[:, i : i + T], w32[i])
+        out = part if out is None else out + part
+    out = out + b.float()
+    if residual is not None:
+        out = out + residual.float()
+    outc = out.to(dtype)
+    return outc, _frame_stats(outc)
+
+
+def tconv_causal_gn_silu_forward(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    stats: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    repeat_in: int = 1,
+    out_stats: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Kernel B13, the contract of :func:`tconv_causal_ref`; ``(out, raw)``,
+    with ``raw`` None when ``out_stats`` is False (no statistics epilogue).
+
+    On CPU tensors this is the plain version.  On CUDA tensors it launches
+    the kernel or raises: ``x`` ``(B, T, S, C)`` bfloat16 contiguous (the
+    kernel has no float32 instance), ``w`` ``(k, C, Co)`` (rounded to
+    bfloat16 as it is laid out for the kernel), ``b`` ``(Co,)`` (taken as
+    float32), ``stats`` ``(B, T, 2, C)`` float32 contiguous, ``repeat_in`` 1
+    or 2 (2 only without ``stats``), ``residual`` ``(B, T * repeat_in, S,
+    Co)`` bfloat16 contiguous.  Any S, C and Co."""
+    if x.device.type == "cpu":
+        out, raw = tconv_causal_ref(x, w, b, stats, residual, repeat_in)
+        return out, (raw if out_stats else None)
+    name = "tconv_causal_gn_silu_forward"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.ndim != 4 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous (B, T, S, C) bfloat16, got {tuple(x.shape)} {x.dtype}")
+    B, T, S, C = x.shape
+    if w.ndim != 3 or w.shape[1] != C or w.device != x.device:
+        raise ValueError(f"{name}: w must be (k, {C}, Co) on {x.device}, got {tuple(w.shape)}")
+    k, _, Co = w.shape
+    if b.shape != (Co,) or b.device != x.device:
+        raise ValueError(f"{name}: b must be ({Co},) on {x.device}, got {tuple(b.shape)}")
+    if repeat_in not in (1, 2) or (repeat_in > 1 and stats is not None):
+        raise ValueError(f"{name}: repeat_in must be 1, or 2 without stats (the un-normed frame-repeat upsample)")
+    if stats is not None and (
+        stats.shape != (B, T, 2, C) or stats.dtype != torch.float32 or not stats.is_contiguous()
+    ):
+        raise ValueError(f"{name}: stats must be ({B}, {T}, 2, {C}) float32 contiguous, got {tuple(stats.shape)}")
+    T_out = T * repeat_in
+    if residual is not None and (
+        residual.shape != (B, T_out, S, Co) or residual.dtype != x.dtype or not residual.is_contiguous()
+    ):
+        raise ValueError(f"{name}: residual must be ({B}, {T_out}, {S}, {Co}) {x.dtype} contiguous")
+    for t in (stats, residual):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: every tensor must be on {x.device}")
+    wt = w.to(x.dtype).permute(2, 0, 1).contiguous()  # (Co, k, C): an output channel's taps in a row
+    b32 = b.float().contiguous()
+    out = torch.empty((B, T_out, S, Co), dtype=x.dtype, device=x.device)
+    partial = raw = None
+    if out_stats:
+        partial = torch.empty(tconv_partials_shape(B, T_out, S, Co), dtype=torch.float32, device=x.device)
+        raw = torch.empty((B, T_out, 2, Co), dtype=torch.float32, device=x.device)
+
+    def ptr(t: torch.Tensor | None) -> int | None:
+        return None if t is None else t.data_ptr()
+
+    lib = _cuda.library()
+    with torch.cuda.device(x.device):
+        code = lib.skt_tconv(
+            x.data_ptr(),
+            wt.data_ptr(),
+            b32.data_ptr(),
+            ptr(stats),
+            ptr(residual),
+            out.data_ptr(),
+            ptr(partial),
+            ptr(raw),
+            B,
+            T,
+            S,
+            C,
+            Co,
+            k,
+            repeat_in,
+            _cuda.DTYPE_CODES[x.dtype],
+            _cuda.stream(),
+        )
+    _cuda.check(code, name)
+    tconv_causal_gn_silu_forward.launches += 1
+    return out, raw
+
+
+tconv_causal_gn_silu_forward.launches = 0
+
+
+class _TConv(torch.autograd.Function):
+    """B13 forward, the plain version's gradient backward (x, w, b, stats,
+    residual; through both the output and its statistics): the JAX
+    package's ``_tconv_bwd``.  The kernel is looked up in this module when it
+    runs, so a caller may swap it for its plain version."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stats, residual, repeat_in):
+        ctx.save_for_backward(x, w, b, stats, residual)
+        ctx.repeat_in = repeat_in
+        return tconv_causal_gn_silu_forward(x, w, b, stats, residual, repeat_in)
+
+    @staticmethod
+    def backward(ctx, g_out: torch.Tensor, g_raw: torch.Tensor | None):
+        inputs = [None if t is None else t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out, raw = tconv_causal_ref(*inputs, ctx.repeat_in)
+        wanted = [t for t in inputs if t is not None]
+        outputs, cotangents = [out], [g_out]
+        if g_raw is not None:
+            outputs.append(raw)
+            cotangents.append(g_raw)
+        grads = iter(torch.autograd.grad(outputs, wanted, cotangents, allow_unused=True))
+        result = [None if t is None else next(grads) for t in inputs]
+        return *(gr if need else None for gr, need in zip(result, ctx.needs_input_grad)), None
+
+
+def tconv_causal_gn_silu(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    stats: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    repeat_in: int = 1,
+    out_stats: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Fused causal temporal conv ``tconv(silu(groupnorm(x))) + b (+
+    residual)`` on ``(B, T, S, C)`` (sites flattened) with a ``(k, C, Co)``
+    weight; ``(out, raw)`` where ``raw`` is the output's ``(B, T *
+    repeat_in, 2, Co)`` [sum, sumsq] per (item, frame) for the next call's
+    :func:`finalize_group_stats`.
+
+    ``stats``: ``(B, T, 2, C)`` [mean, inv] per (item, frame): GroupNorm
+    per frame, which keeps the conv causal (None: no norm).
+    ``repeat_in=2`` folds the decoder's frame-repeat upsample into the read
+    (``stats`` must then be None).  ``out_stats`` False skips the
+    statistics.  Differentiable in every tensor argument (the backward is
+    the plain version's).  On CPU tensors the plain version, on CUDA tensors
+    B13."""
+    if repeat_in > 1 and stats is not None:
+        raise ValueError("repeat_in > 1 is the un-normed frame-repeat upsample: stats must be None")
+    tensors = (x, w, b, stats, residual)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        return _TConv.apply(*tensors, repeat_in)
+    return tconv_causal_gn_silu_forward(*tensors, repeat_in=repeat_in, out_stats=out_stats)

@@ -7,11 +7,13 @@ work is asynchronous: the worker enqueues a batch and moves on, and a
 caller waits only when it reads its own result back.
 
 **Batch-composition invariance.**  Every request's initial latent (and,
-for stochastic samplers, its per-step noise) comes from its own
-``torch.Generator(device).manual_seed(seed)``, drawn per request and
-stacked, never batch-wide: a request's latent does not depend on which
-strangers or padding it was packed with (up to the matmul reduction order
-the library picks for each batch size).  Padding items use a fixed seed.
+for stochastic samplers, its per-step noise) comes from its own seed,
+drawn per request and stacked, never batch-wide: a request's latent does
+not depend on which strangers or padding it was packed with (up to the
+matmul reduction order the library picks for each batch size).  Padding
+items use a fixed seed.  The draws are the JAX package's, bit for bit
+(:mod:`.prng`): ``PRNGKey(seed)`` split into an initial-latent key and a
+step-noise key, so a seed gives the reference's latent.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Any
 
 import torch
 
-from . import scheduling
+from . import prng, scheduling
 from .ops import CompiledDenoiser, compile_sampler
 from .ops._cuda import resolve_device
 from .sampling import models, structured
@@ -167,12 +169,14 @@ class ServingEngine:
         return d
 
     def prepare(self, seed: int, initial: torch.Tensor | None = None, start: int = 0) -> tuple[Any, Any]:
-        """One request's ``(x0, noises)`` from its own generator: x0 first,
-        then (stochastic samplers only) the ``(steps, *item_shape)`` noise
-        buffer.  img2img noises ``initial`` to the entry point with the same
-        draw (the ``GenerationPipeline.generate`` recipe)."""
-        gen = torch.Generator(self.device).manual_seed(seed)
-        draw = torch.randn(self.item_shape, generator=gen, dtype=self.dtype, device=self.device)
+        """One request's ``(x0, noises)`` as the JAX engine's ``_prepare``
+        draws them: ``k_init, k_loop = split(PRNGKey(seed))``, x0 a normal
+        from ``k_init`` and (stochastic samplers only) the ``(steps,
+        *item_shape)`` noise buffer a normal from ``k_loop``.  img2img
+        noises ``initial`` to the entry point with the ``k_init`` draw (the
+        ``GenerationPipeline.generate`` recipe)."""
+        k_init, k_loop = prng.split(prng.PRNGKey(seed))
+        draw = prng.normal(k_init, self.item_shape, self.dtype, self.device)
         if initial is None:
             x0 = draw
         else:
@@ -181,7 +185,7 @@ class ServingEngine:
             x0 = entry.add_noise(torch.as_tensor(initial, device=self.device).to(self.dtype), draw) / denom
         noises = None
         if self._denoiser_for(start).requires_noise:
-            noises = torch.randn((self.steps, *self.item_shape), generator=gen, dtype=self.dtype, device=self.device)
+            noises = prng.normal(k_loop, (self.steps, *self.item_shape), self.dtype, self.device)
         return x0, noises
 
     def _collect(self) -> list | None:

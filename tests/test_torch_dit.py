@@ -10,6 +10,9 @@ versions of its kernels.
 
 from __future__ import annotations
 
+import importlib
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +30,9 @@ from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
 from skrample_tpu_torch.ops import CompiledDenoiser, compile_sampler
 from skrample_tpu_torch.sampling import models as tmodels
 from skrample_tpu_torch.sampling import structured as tstruct
+from skrample_tpu_torch.ops import flash_attention as tfa
+
+jfa = importlib.import_module("skrample_tpu.ops.flash_attention")  # skrample_tpu.ops re-exports a function of that name
 
 # dim 256 / heads 2 -> head_dim 128 (the fused-qkv path); a (2, 4, 32, 32)
 # latent at patch 2 -> N = 256 tokens
@@ -58,6 +64,48 @@ def test_forward_matches_jax(attention: str) -> None:
     assert got.shape == want.shape and got.dtype == want.dtype
     assert np.abs(want).max() > 0.1  # random weights: the comparison is not vacuous
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("heads", [4, 8])
+def test_flash_below_head_dim_128_matches_jax(heads: int) -> None:
+    """``attention="flash"`` at head dim 64 and 32: the port's B9 (``flash_attention`` on the (B, H, N, d)
+    views of the q/k/v thirds, once a block) against the JAX DiT, whose ``flash_attention`` runs its
+    Pallas kernel in interpret mode at these 256 tokens: f32, rtol 1e-4 / atol 1e-5."""
+    shape = {**SMALL, "heads": heads}
+    config = DiTConfig(**shape, compute_dtype=torch.float32, attention="flash")
+    tree = random_param_tree(config, 3)
+    port = DiT(config, device="cpu").load_jax_params(tree).requires_grad_(False)
+    ref = jdit.DiT(jdit.DiTConfig(**shape, compute_dtype=jnp.float32, attention="flash"))
+    x = np.random.default_rng(4).standard_normal(LATENT, dtype=np.float32)
+    t = np.array([730.0, 41.5], dtype=np.float32)
+    want = np.asarray(ref.apply(jax.tree.map(jnp.asarray, tree), jnp.asarray(x), jnp.asarray(t)))
+    with mock.patch.object(tfa, "flash_attention_forward", wraps=tfa.flash_attention_forward) as spy:
+        got = port(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    assert spy.call_count == SMALL["depth"]
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 40, 128])
+def test_b9_forward_plain_matches_pallas_interpret(d: int) -> None:
+    """B9a's plain version (``flash_attention_forward`` on the CPU) against the JAX
+    ``flash_attention_forward`` in interpret mode at (2, 3, 256, d): f32 rtol 1e-5, bf16 within 2e-3
+    plus one ulp; ``flash_attention``'s gradients against ``jax.vjp`` of the einsum reference."""
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((2, 3, 256, d), dtype=np.float32) for _ in range(3))
+    for dtype, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        want = jfa.flash_attention_forward(*(jnp.asarray(a, jdt) for a in (q, k, v)), interpret=True)
+        got = tfa.flash_attention_forward(*(torch.from_numpy(a).to(dtype) for a in (q, k, v)))
+        want, got = np.asarray(want.astype(jnp.float32)), got.float().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:  # one bf16 ulp past 2e-3: the kernel rounds unnormalised probabilities, the plain version normalised
+            assert np.all(np.abs(got - want) <= 2e-3 + 2**-8 * np.abs(want))
+    g = rng.standard_normal(q.shape, dtype=np.float32)
+    _, vjp = jax.vjp(jfa.attention_reference, *(jnp.asarray(a) for a in (q, k, v)))
+    inputs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    tfa.flash_attention(*inputs).backward(torch.from_numpy(g))
+    for mine, want in zip(inputs, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(mine.grad.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
 def test_scalar_timestep_broadcasts() -> None:
@@ -142,9 +190,8 @@ def test_load_jax_params_accepts_a_jax_tree() -> None:
         ({"attention": "ulysses"}, NotImplementedError, "later slice"),
         # remat True and "dots" are ported (tests/test_torch_training.py); other policies raise as in JAX
         ({"remat": "offload"}, ValueError, "remat must be bool or 'dots'"),
-        ({"attention": "flash", "heads": 4}, NotImplementedError, "later slice"),  # head_dim 64: the transposed kernel
     ],
-    ids=["ring", "ulysses", "remat", "flash-d64"],
+    ids=["ring", "ulysses", "remat"],
 )
 def test_later_slices_raise(kwargs: dict, error: type, match: str) -> None:
     "Configurations the port does not run raise at construction: later slices, and what the JAX package refuses too."

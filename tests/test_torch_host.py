@@ -117,7 +117,7 @@ def test_nonlinear_sampler_raises_in_both() -> None:
 
 def test_port_imports_without_jax() -> None:
     """Import the package and every submodule in a fresh interpreter (the package walk reaches the
-    int8, Flux, conv-family and VAE modules too); neither jax nor skrample_tpu may load."""
+    int8, Flux, conv-family, VAE, threefry and video modules too); neither jax nor skrample_tpu may load."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import skrample_tpu_torch\n"
@@ -127,7 +127,8 @@ def test_port_imports_without_jax() -> None:
         "or m == 'skrample_tpu')\n"
         "assert not bad, bad\n"
         "wanted = ('ops.quant', 'ops.rope', 'models.flux', 'models.conditioning', 'ops.groupnorm', 'models.unet',\n"
-        "          'models.unet_cond', 'models.sdxl', 'ops.fused_conv', 'models.vae', 'models.import_weights')\n"
+        "          'models.unet_cond', 'models.sdxl', 'ops.fused_conv', 'models.vae', 'models.import_weights',\n"
+        "          'prng', 'models.video_dit', 'models.video_vae')\n"
         "assert all('skrample_tpu_torch.' + m in sys.modules for m in wanted)\n"
         "print('clean')\n"
     )

@@ -77,8 +77,8 @@ def test_qkv_attention_kernel_raises_on_what_it_cannot_take(cuda: torch.device) 
         flash_attention.flash_attention_qkv_forward(torch.zeros(1, 128, 768, device=cuda), 2)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention.flash_attention_qkv_forward(torch.zeros(1, 128, 384, device=cuda, dtype=torch.bfloat16), 2)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        flash_attention.flash_attention_qkv_forward(torch.zeros(1, 96, 768, device=cuda, dtype=torch.bfloat16), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_qkv_forward(torch.zeros(1, 768, 96, device=cuda, dtype=torch.bfloat16).mT, 2)
 
 
 @pytest.mark.gpu
@@ -227,8 +227,8 @@ def test_adaln_backward_kernel_matches_plain(cuda: torch.device, dtype: torch.dt
 @pytest.mark.gpu
 def test_training_kernels_refuse_what_they_cannot_take(cuda: torch.device) -> None:
     bf16 = torch.bfloat16
-    with pytest.raises(ValueError, match="multiple of 64"):
-        flash_attention.flash_attention_qkv_forward_lse(torch.zeros(1, 96, 768, device=cuda, dtype=bf16), 2)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_qkv_forward_lse(torch.zeros(1, 96, 384, device=cuda, dtype=bf16), 2)
     qkv = torch.zeros(1, 128, 768, device=cuda, dtype=bf16)
     o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, 2)
     with pytest.raises(ValueError, match="g must be"):
@@ -670,8 +670,8 @@ def test_pairs_attention_kernel_raises_on_what_it_cannot_take(cuda: torch.device
 def test_cond_unet_forward_through_the_kernels(cuda: torch.device) -> None:
     """A small bf16 CondUNet (widths (64, 128, 256), heads (1, 2, 4): head dim 64, depths (0, 1, 2))
     under CFG-like batch 2 launches B8 for every GroupNorm and B10 for every self-attention, exactly,
-    and agrees with the same forward through the plain versions to 5e-2 of its largest value; a head
-    dim the packed kernel (B9) would take raises on the card."""
+    and agrees with the same forward through the plain versions to 5e-2 of its largest value; a
+    self-attention at head dim 32 (4 heads of a 128-wide projection) goes to the packed kernel B9."""
     from unittest import mock
 
     from skrample_tpu_torch.models.unet_cond import CondUNet, CondUNetConfig, random_param_tree
@@ -708,8 +708,11 @@ def test_cond_unet_forward_through_the_kernels(cuda: torch.device) -> None:
             want = model(*args)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
-    with pytest.raises(NotImplementedError, match="B9"):
-        model._mha(*(torch.zeros(1, 256, 128, device=cuda, dtype=torch.bfloat16) for _ in range(3)), 4)
+    before = flash_attention.flash_attention_packed_forward.launches
+    qkv = torch.randn((1, 256, 3 * 128), generator=gen, device=cuda).to(torch.bfloat16)
+    out = model._mha(*qkv.chunk(3, dim=-1), 4)
+    assert flash_attention.flash_attention_packed_forward.launches == before + 1
+    assert (out.float() - flash_attention._packed_reference(*qkv.chunk(3, dim=-1), 4).float()).abs().max() <= 5e-3
 
 
 @pytest.mark.gpu
@@ -890,3 +893,260 @@ def test_conv_rounds_once_on_the_card(cuda: torch.device, k: int, c_in: int, c_o
     assert got.shape == exact.shape and got.is_contiguous()
     assert (ulps > 0).float().mean().item() <= 1e-2 and ulps[settled].max().item() <= 1
     assert settled.float().mean().item() > 0.95
+
+
+# ---- ragged N in K2, K4, K5 (ROADMAP C9) ------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1000, 77, 4592])
+def test_qkv_kernels_take_a_ragged_n(cuda: torch.device, N: int) -> None:
+    """K2, K4 and K5 at an N that is not a multiple of 64 (the last tile masked): the forward atol 5e-3
+    and lse 1e-3 as at tiled N, each third of the gradient 2e-2 of its largest value; the dispatch
+    ``flash_attention_qkv`` launches them on the card at that N (no plain fall-back)."""
+    gen = torch.Generator(cuda).manual_seed(N)
+    heads = 2
+    qkv = torch.randn((2 if N < 4096 else 1, N, 3 * heads * 128), generator=gen, device=cuda).to(torch.bfloat16)
+    got = flash_attention.flash_attention_qkv_forward(qkv, heads)
+    ref = flash_attention._qkv_reference(qkv, heads)
+    assert (got.float() - ref.float()).abs().max().item() <= 5e-3
+    o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, heads)
+    ref_o, ref_lse = flash_attention._qkv_reference_lse(qkv, heads)
+    assert torch.equal(o, got) and (lse - ref_lse).abs().max().item() <= 1e-3
+    g = torch.randn(o.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    dqkv = flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, heads)
+    want = flash_attention._qkv_backward_reference(qkv, o, lse, g, heads)
+    for part, ref_part in zip(dqkv.chunk(3, -1), want.chunk(3, -1)):
+        assert torch.isfinite(part).all()
+        assert (part.float() - ref_part.float()).abs().max().item() <= 2e-2 * ref_part.float().abs().max().item()
+    before = flash_attention.flash_attention_qkv_forward.launches
+    with torch.inference_mode():
+        flash_attention.flash_attention_qkv(qkv, heads)
+    assert flash_attention.flash_attention_qkv_forward.launches == before + 1
+
+
+# ---- B9: attention on (B, H, N, d) and on packed d = 128 heads ---------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(("B", "H", "N", "d"), [(2, 6, 1024, 64), (1, 2, 1000, 128), (2, 3, 300, 40), (1, 2, 77, 32)])
+def test_flash_attention_forward_kernel_matches_plain(
+    cuda: torch.device, B: int, H: int, N: int, d: int, dtype: torch.dtype
+) -> None:
+    """B9a on the (B, H, N, d) views of one fused qkv tensor against the plain attention: atol 5e-3,
+    as K2.  Head dims 64 and 128 read in place; 40 and 32 zero-padded to 64 with the true scale."""
+    gen = torch.Generator(cuda).manual_seed(N + d)
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=cuda).to(dtype)
+    q, k, v = (part.reshape(B, N, H, d).transpose(1, 2) for part in qkv.chunk(3, dim=-1))
+    before = flash_attention.flash_attention_forward.launches
+    got = flash_attention.flash_attention_forward(q, k, v)
+    assert flash_attention.flash_attention_forward.launches == before + 1
+    want = flash_attention.attention_reference(q, k, v)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 5e-3
+    again = flash_attention.flash_attention_forward(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(("B", "N", "heads"), [(2, 4096, 5), (1, 1000, 3)])
+def test_flash_attention_packed_kernel_matches_plain(cuda: torch.device, B: int, N: int, heads: int) -> None:
+    "B9b on the chunk(3) views of a fused (B, N, 3*H*128) product against the plain attention: atol 5e-3."
+    gen = torch.Generator(cuda).manual_seed(N)
+    q, k, v = torch.randn((B, N, 3 * heads * 128), generator=gen, device=cuda).to(torch.bfloat16).chunk(3, dim=-1)
+    before = flash_attention.flash_attention_packed_forward.launches
+    got = flash_attention.flash_attention_packed_forward(q, k, v, heads)
+    assert flash_attention.flash_attention_packed_forward.launches == before + 1
+    want = flash_attention._packed_reference(q, k, v, heads)
+    assert (got.float() - want.float()).abs().max().item() <= 5e-3
+
+
+@pytest.mark.gpu
+def test_b9_kernels_raise_on_what_they_cannot_take(cuda: torch.device) -> None:
+    x = torch.zeros(1, 2, 128, 136, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_forward(x, x, x)
+    x = torch.zeros(1, 2, 128, 60, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_forward(x, x, x)
+    x = torch.zeros(1, 2, 128, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention.flash_attention_forward(x, x, x)
+    q = torch.zeros(1, 128, 512, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim must be 128"):
+        flash_attention.flash_attention_packed_forward(q, q, q, 8)
+
+
+@pytest.mark.gpu
+def test_dit_at_head_dim_64_through_b9(cuda: torch.device) -> None:
+    """A bf16 DiT-256/2 at 4 heads of 64 with ``attention="flash"`` launches B9a once a block, and agrees
+    with the same forward through the plain versions to 3e-2 of its largest value."""
+    from unittest import mock
+
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+
+    config = DiTConfig(dim=256, depth=2, heads=4, compute_dtype=torch.bfloat16, attention="flash")
+    model = DiT(config, device=cuda).load_jax_params(random_param_tree(config, 0))
+    x = torch.randn((2, 4, 32, 32), generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+    before = flash_attention.flash_attention_forward.launches
+    with torch.inference_mode():
+        got = model(x, 500.0)
+        assert flash_attention.flash_attention_forward.launches - before == config.depth
+        with (
+            mock.patch.object(flash_attention, "flash_attention_forward", flash_attention.attention_reference),
+            mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+        ):
+            want = model(x, 500.0)
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_cond_unet_packed_route_launches_b9(cuda: torch.device) -> None:
+    "The CondUNet's self-attention at head dim 32 (padded to 128) launches B9b once: atol 5e-3 vs plain."
+    from skrample_tpu_torch.models.unet_cond import CondUNet
+
+    gen = torch.Generator(cuda).manual_seed(32)
+    q, k, v = torch.randn((2, 1000, 3 * 4 * 32), generator=gen, device=cuda).to(torch.bfloat16).chunk(3, dim=-1)
+    before = flash_attention.flash_attention_packed_forward.launches
+    got = CondUNet._mha(None, q, k, v, 4)
+    assert flash_attention.flash_attention_packed_forward.launches == before + 1
+    want = flash_attention._packed_reference(q, k, v, 4)
+    assert (got.float() - want.float()).abs().max().item() <= 5e-3
+
+
+# ---- B13: the causal temporal conv --------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    ("mode", "S", "C", "Co"), [("stats", 300, 64, 72), ("residual", 4096, 40, 40), ("repeat", 200, 128, 128)]
+)
+def test_tconv_kernel_matches_plain(cuda: torch.device, mode: str, S: int, C: int, Co: int) -> None:
+    """B13 against its plain version, bf16, in the three forms of the fused video decode, at ragged
+    site counts and a channel count off the vector width: out within 1e-2 of the largest value (one
+    bf16 rounding of f32 sums in another order), statistics 1e-2 relative; the same bits twice; an item
+    alone gives its packed bits."""
+    gen = torch.Generator(cuda).manual_seed(S + C)
+    B, T, rep = 2, 4, 2 if mode == "repeat" else 1
+    x = (torch.randn((B, T, S, C), generator=gen, device=cuda) * 2 + 0.5).to(torch.bfloat16)
+    w = torch.randn((3, C, Co), generator=gen, device=cuda) / (3 * C) ** 0.5
+    b = 0.1 * torch.randn(Co, generator=gen, device=cuda)
+    stats = residual = None
+    if mode != "repeat":
+        raw = fused_conv.channel_stats(x.reshape(B * T, S, C))
+        stats = fused_conv.finalize_group_stats(raw, 8, S).reshape(B, T, 2, C)
+    if mode == "residual":
+        residual = torch.randn((B, T, S, Co), generator=gen, device=cuda).to(torch.bfloat16)
+    before = fused_conv.tconv_causal_gn_silu_forward.launches
+    got, raw = fused_conv.tconv_causal_gn_silu_forward(x, w, b, stats, residual, rep)
+    assert fused_conv.tconv_causal_gn_silu_forward.launches == before + 1
+    want, want_raw = fused_conv.tconv_causal_ref(x, w, b, stats, residual, rep)
+    assert got.shape == (B, T * rep, S, Co) and raw.shape == (B, T * rep, 2, Co)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+    assert (raw - want_raw).abs().max().item() <= 1e-2 * want_raw.abs().max().item()
+    again, again_raw = fused_conv.tconv_causal_gn_silu_forward(x, w, b, stats, residual, rep)
+    assert torch.equal(again, got) and torch.equal(again_raw, raw)
+    alone, alone_raw = fused_conv.tconv_causal_gn_silu_forward(
+        x[1:], w, b, None if stats is None else stats[1:], None if residual is None else residual[1:], rep
+    )
+    assert torch.equal(alone, got[1:]) and torch.equal(alone_raw, raw[1:])
+
+
+@pytest.mark.gpu
+def test_tconv_kernel_raises_on_what_it_cannot_take(cuda: torch.device) -> None:
+    x = torch.zeros(1, 2, 64, 16, device=cuda)
+    w = torch.zeros(3, 16, 16, device=cuda)
+    b = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_conv.tconv_causal_gn_silu_forward(x, w, b)
+    x = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="repeat_in"):
+        fused_conv.tconv_causal_gn_silu_forward(x, w, b, torch.zeros(1, 2, 2, 16, device=cuda), None, 2)
+    with pytest.raises(ValueError, match="residual"):
+        fused_conv.tconv_causal_gn_silu_forward(x, w, b, None, torch.zeros(1, 2, 64, 8, device=cuda, dtype=torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_video_vae_fused_decode_through_the_kernels(cuda: torch.device) -> None:
+    """A small bf16 VideoVAE's fused decode runs B12 and B13 as its tree counts them (B12 twice more: the
+    bare bf16 in_conv and out_conv, norm off, through ``_conv``), and agrees with its unfused decode and
+    with the fused decode through the plain versions to 5e-2 relative (Frobenius): bf16 activations
+    rounded at other points."""
+    import dataclasses
+    from unittest import mock
+
+    from skrample_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig, fused_convs_per_decode
+
+    config = VideoVAEConfig(base=32, levels=3, temporal_levels=2, groups=8, fused_decode=True)
+    gen = torch.Generator(cuda).manual_seed(3)
+    vae = VideoVAE(config, device=cuda, generator=gen)
+    vae.reset_parameters(gen, noise=0.02)
+    z = torch.randn((1, 16, 2, 16, 16), generator=gen, device=cuda)
+    counts = (fused_conv.conv3x3_gn_silu_forward.launches, fused_conv.tconv_causal_gn_silu_forward.launches)
+    with torch.inference_mode():
+        got = vae.decode(z)
+        launched = (
+            fused_conv.conv3x3_gn_silu_forward.launches - counts[0],
+            fused_conv.tconv_causal_gn_silu_forward.launches - counts[1],
+        )
+        b12, b13 = fused_convs_per_decode(config)
+        assert launched == (b12 + 2, b13)
+        vae.config = dataclasses.replace(config, fused_decode=False)
+        unfused = vae.decode(z)
+        vae.config = config
+        with (
+            mock.patch.object(fused_conv, "conv3x3_gn_silu_forward", _plain_conv3x3),
+            mock.patch.object(fused_conv, "tconv_causal_gn_silu_forward", _plain_tconv),
+        ):
+            plain = vae.decode(z)
+    assert got.shape == (1, 3, 8, 64, 64) and torch.isfinite(got).all()
+    assert _relative_fro(got, unfused) <= 5e-2 and _relative_fro(got, plain) <= 5e-2
+
+
+def _plain_conv3x3(x, w, b, stats=None, residual=None, scale=None, bias=None, out_stats=True):
+    out, raw = fused_conv.conv3x3_ref(x, w, b, stats, residual, scale, bias)
+    return out, (raw if out_stats else None)
+
+
+def _plain_tconv(x, w, b, stats=None, residual=None, repeat_in=1, out_stats=True):
+    out, raw = fused_conv.tconv_causal_ref(x, w, b, stats, residual, repeat_in)
+    return out, (raw if out_stats else None)
+
+
+@pytest.mark.gpu
+def test_video_dit_forward_through_the_kernels(cuda: torch.device) -> None:
+    """A bf16 VideoDiT (dim 256 over 2 heads of 128, depth 2, 4 frames of 16x16) launches K2 once a
+    block (frames folded into its batch) and K3 3 a block + 1, and agrees with the plain versions to
+    3e-2 of its largest value."""
+    from unittest import mock
+
+    from skrample_tpu_torch.models.video_dit import VideoDiT, VideoDiTConfig, random_param_tree
+
+    config = VideoDiTConfig(dim=256, depth=2, heads=2)
+    model = VideoDiT(config, device=cuda).load_jax_params(random_param_tree(config, 0))
+    x = torch.randn((1, 16, 4, 16, 16), generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+    k2, k3 = flash_attention.flash_attention_qkv_forward.launches, adaln.adaln_forward.launches
+    with torch.inference_mode():
+        got = model(x, 500.0)
+        assert flash_attention.flash_attention_qkv_forward.launches - k2 == config.depth
+        assert adaln.adaln_forward.launches - k3 == 3 * config.depth + 1
+        with (
+            mock.patch.object(flash_attention, "flash_attention_qkv_forward", flash_attention._qkv_reference),
+            mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+        ):
+            want = model(x, 500.0)
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_threefry_draws_on_the_card_equal_the_cpu(cuda: torch.device) -> None:
+    "The threefry bits and uniforms on the card are the CPU's, bit for bit; normals within 1e-5."
+    from skrample_tpu_torch import prng
+
+    key = prng.split(prng.PRNGKey(1234))[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(prng.random_bits(key, (3, 1000), 32, cuda).cpu(), prng.random_bits(key, (3, 1000), 32))
+        assert torch.equal(prng.uniform(key, (3, 1000), dtype, -1.0, 1.0, cuda).cpu(), prng.uniform(key, (3, 1000), dtype, -1.0, 1.0))
+        card, host = prng.normal(key, (3, 1000), dtype, cuda).cpu().float(), prng.normal(key, (3, 1000), dtype).float()
+        assert (card - host).abs().max().item() <= (1e-5 if dtype == torch.float32 else 2**-7 * host.abs().max().item())

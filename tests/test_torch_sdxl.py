@@ -126,19 +126,54 @@ def test_pairs_gradient_matches_jax_vjp() -> None:
 
 def test_mha_dispatch() -> None:
     """B10 takes every d = 64 self-attention (any N, any head count: the TPU's even-heads and
-    N >= 1024 gates are dropped); cross-attention and head dims outside the packed kernel's set
-    stay plain; on the card a head dim the JAX package sends to its packed kernel raises (B9)."""
+    N >= 1024 gates are dropped); B9 (``"packed"``) every self-attention at another head dim that
+    divides 128, at any N; cross-attention and other head dims stay plain."""
     for n, heads in ((4096, 10), (1024, 20), (100, 5), (64, 1)):
         assert tfa.pairs_kernel_fits(n, heads, 64)
-        assert tuc.attention_route(n, n, heads, 64, cuda=True) == "pairs"
-        assert tuc.attention_route(n, n, heads, 64, cuda=False) == "pairs"
+        assert tuc.attention_route(n, n, heads, 64) == "pairs"
     assert not tfa.pairs_kernel_fits(1024, 10, 128)
-    assert tuc.attention_route(4096, 77, 10, 64, cuda=True) == "plain"
-    assert tuc.attention_route(1024, 1024, 8, 40, cuda=True) == "plain"  # SD1.5's head dim: einsum in JAX too
+    assert tuc.attention_route(4096, 77, 10, 64) == "plain"
+    assert tuc.attention_route(1024, 1024, 8, 40) == "plain"  # SD1.5's head dim: einsum in JAX too
     for d in (32, 128):
-        assert tuc.attention_route(1024, 1024, 4, d, cuda=False) == "plain"
-        with pytest.raises(NotImplementedError, match="B9"):
-            tuc.attention_route(1024, 1024, 4, d, cuda=True)
+        for n in (1024, 100):
+            assert tuc.attention_route(n, n, 4, d) == "packed"
+        assert tuc.attention_route(1024, 77, 4, d) == "plain"
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_packed_route_matches_jax_mha(d: int) -> None:
+    """The CondUNet's B9 route (heads zero-padded to 128, q pre-scaled by sqrt(128/d)) against the JAX
+    ``_mha``, which runs its packed Pallas kernel in interpret mode at this N = 1024: f32, rtol 1e-4."""
+    rng = np.random.default_rng(40 + d)
+    q, k, v = (rng.standard_normal((1, 1024, 2 * d), dtype=np.float32) for _ in range(3))
+    want = np.asarray(juc.CondUNet._mha(None, *(jnp.asarray(a) for a in (q, k, v)), 2))
+    with mock.patch.object(tfa, "flash_attention_packed_forward", wraps=tfa.flash_attention_packed_forward) as spy:
+        got = tuc.CondUNet._mha(None, *(torch.from_numpy(a) for a in (q, k, v)), 2).numpy()
+    assert spy.call_count == 1
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_b9_packed_plain_matches_pallas_interpret() -> None:
+    """B9b's plain version (``flash_attention_packed_forward`` on the CPU) against the JAX
+    ``flash_attention_packed_forward`` in interpret mode at (1, 256, 2*128): f32 rtol 1e-5, bf16 atol
+    2e-3 plus one ulp; and its autograd dispatch's gradients against ``jax.vjp`` of the einsum."""
+    rng = np.random.default_rng(77)
+    q, k, v = (rng.standard_normal((1, 256, 256), dtype=np.float32) for _ in range(3))
+    for dtype, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        want = jfa.flash_attention_packed_forward(*(jnp.asarray(a, jdt) for a in (q, k, v)), 2, interpret=True)
+        got = tfa.flash_attention_packed_forward(*(torch.from_numpy(a).to(dtype) for a in (q, k, v)), 2)
+        want, got = np.asarray(want.astype(jnp.float32)), got.float().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:  # one bf16 ulp past 2e-3: the kernel rounds unnormalised probabilities, the plain version normalised
+            assert np.all(np.abs(got - want) <= 2e-3 + 2**-8 * np.abs(want))
+    g = rng.standard_normal((1, 256, 256), dtype=np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jfa._packed_reference(a, b, c, 2), *(jnp.asarray(a) for a in (q, k, v)))
+    inputs = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tfa.flash_attention_packed(*inputs, 2)
+    out.backward(torch.from_numpy(g))
+    for mine, want in zip(inputs, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(mine.grad.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
 # ---- the conditional UNet ---------------------------------------------------------------
@@ -296,8 +331,8 @@ def test_as_served_equals_as_sampleable() -> None:
 def test_guided_serve_matches_the_jax_engine() -> None:
     """8 steps of DPM++2M over Karras(Scaled) with NoiseModel, CFG 5.0, one request through the
     port's ``ServingEngine(conditioned=True)`` and ``SDXLStack.as_served``, against the same
-    through the JAX engine from the JAX engine's own x0: atol 1e-4 (the forward's f32 rounding
-    differences carried through 8 steps)."""
+    through the JAX engine from the same seed, whose x0 both engines draw alike (threefry keys):
+    atol 1e-4 (the forward's f32 rounding differences carried through 8 steps)."""
     port, ref, params = _cond_pair(TINY, 10)
     x, _, ctx, pooled, _ = _cond_inputs(11, (1, 4, 8, 8))
     rng = np.random.default_rng(12)
@@ -323,7 +358,6 @@ def test_guided_serve_matches_the_jax_engine() -> None:
     tparts = {"sampler": tstruct.DPM(order=2), "model_transform": tmodels.NoiseModel()}
     tparts["schedule"] = tsched.Karras(tsched.Scaled())
     with ServingEngine(tfn, (4, 8, 8), **tparts, **setup, device="cpu") as engine:
-        with mock.patch.object(engine, "prepare", lambda seed, initial=None, start=0: (torch.from_numpy(x0), None)):
-            got = engine.generate(3, context=(torch.from_numpy(ctx[0]), torch.from_numpy(pooled[0]))).numpy()
+        got = engine.generate(3, context=(torch.from_numpy(ctx[0]), torch.from_numpy(pooled[0]))).numpy()
     assert np.abs(want - x0).max() > 0.1
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -1,9 +1,10 @@
 """The port's serving engine, HTTP front-end, CLI and device rule, on the CPU.
 
-The engine draws every request's x0 (and noise) from its own
-``torch.Generator``, so a request's latent must not depend on what it was
-packed with.  Tolerances are 1e-5: the same f32 arithmetic, with the CPU
-matmul free to block a batch of 4 differently from a batch of 1.
+The engine draws every request's x0 (and noise) from its own seed, with
+the JAX engine's threefry keys, so a request's latent must not depend on
+what it was packed with, and a seed gives the JAX engine's x0.
+Tolerances are 1e-5: the same f32 arithmetic, with the CPU matmul free to
+block a batch of 4 differently from a batch of 1.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import json
 import urllib.request
 
-import jax  # noqa: F401 — conftest pins it to the CPU; imported as every test of this tier does
+import jax  # conftest pins it to the CPU
 import numpy as np
 import pytest
 import torch
@@ -23,6 +24,8 @@ from skrample_tpu_torch.ops import CompiledDenoiser, compile_sampler
 from skrample_tpu_torch.sampling import models, structured
 from skrample_tpu_torch.server import ServingServer, decode_array, encode_array
 from skrample_tpu_torch.serving import ServingEngine
+
+from skrample_tpu.serving import ServingEngine as JaxEngine
 
 ITEM = (4, 16, 16)
 STEPS = 4
@@ -61,13 +64,15 @@ def test_request_is_packing_invariant(model_fn, sampler: str) -> None:
 
 
 def test_engine_equals_the_denoiser_on_its_seed(model_fn) -> None:
-    "The engine's output is CompiledDenoiser.run from the request's own generator's x0."
+    """The engine's output is CompiledDenoiser.run from the request's x0, and that x0 is the JAX
+    engine's ``_prepare([PRNGKey(seed)])`` draw (f32 normals within 1e-4: the two erfinv)."""
     with _engine(model_fn) as engine:
         out = engine.generate(3)
         x0, noises = engine.prepare(3)
     assert noises is None
-    x0_again = torch.randn(ITEM, generator=torch.Generator("cpu").manual_seed(3))
-    assert torch.equal(x0, x0_again)
+    with JaxEngine(lambda x, t, s, a: x, ITEM, steps=STEPS, buckets=(1,)) as jengine:
+        x0_jax = np.asarray(jengine._prepare([jax.random.PRNGKey(3)], None, 0)[0][0])
+    np.testing.assert_allclose(x0.numpy(), x0_jax, rtol=0, atol=1e-4)
     compiled = compile_sampler(
         structured.DPM(order=2), scheduling.FlowShift(scheduling.Linear()), models.FlowModel(), STEPS
     )
