@@ -70,7 +70,17 @@ Phases, each failing the run with a non-zero exit:
    for bit, the fused decode against the unfused one and against the
    plain versions (1e-3 relative Frobenius), median fused and unfused
    decode times, one traced fused decode by kernel group, and one
-   ``encode_image`` at 1024x1024.
+   ``encode_image`` at 1024x1024;
+9. DiT-384/6 (heads of 64: B9a 6 a forward) served, and (9b) the SDXL UNet
+   read at head dim 32 (B9b);
+10. the video family to pixels: VideoDiT-512/8 and the VideoVAE (B12, B13);
+11. sequence-parallel serving on a one-rank NCCL group
+    (``make_mesh(dp=1, sp=1)``): the phase-3 DiT with ``attention="ring"``
+    (B11 once a block) and the phase-9 DiT with ``attention="ulysses"``
+    (B9a once a block) through ``ServingEngine``: exact launches, A alone ==
+    A packed bit for bit, each request against its flash DiT's, one forward
+    against the plain versions, latency medians and one traced request.
+    Phase 2 holds B11 to its plain version at four ring-hop shapes.
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -331,6 +341,7 @@ def kernels_phase() -> dict[str, dict]:
     ragged_kernels(gen)
     rows.update(b9_kernels(gen))
     rows.update(tconv_kernels(gen))
+    rows.update(b11_kernels(gen))
     for row in rows.values():
         library = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
         print(
@@ -831,6 +842,7 @@ def _wrappers() -> dict:
         "flash_attention_forward": flash_attention.flash_attention_forward,
         "flash_attention_packed_forward": flash_attention.flash_attention_packed_forward,
         "tconv_causal_gn_silu_forward": fused_conv.tconv_causal_gn_silu_forward,
+        "flash_attention_block_stats": flash_attention.flash_attention_block_stats,
     }
 
 
@@ -2510,6 +2522,243 @@ def video_phase(card: str) -> dict[str, int]:
     return launches
 
 
+def b11_kernels(gen) -> dict[str, dict]:
+    """B11 against its plain version at the ring's shapes: the ring DiT-512/8 at sp 1 (one hop over
+    the whole 1024-token sequence), one hop of a 4-way ring of it (256 keys), DiT-384's heads of 64,
+    and FLUX.1-dev's 4096 + 512 joint tokens over a 4-way ring (a ragged 1152-row block); q from a
+    fused qkv's first third and k, v from a fused kv, all (B, H, N, d) strided views.  o within 5e-3
+    plus one bf16 ulp of the plain value (``_o_bound``: o's typical size here is 0.05-0.1, so the
+    phase's 5e-2 would cover a wrong value product), m and l within 1e-3 of their largest value;
+    card times of the kernel, the plain version and ``aten._scaled_dot_product_flash_attention`` (o
+    and the row logsumexp ``m + log l``: the same function in another form), bounds (4 B H Nq Nk d
+    operations).  Then the S-hop fold: B11 over 4 K/V chunks of the DiT's (4, 1024, 1536) qkv, folded with
+    ``softmax_merge``, against K2 over the whole sequence, within the same bound.  The row carries
+    the first shape."""
+    import torch
+
+    from skrample_tpu_torch.ops import flash_attention
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict] = {}
+    shapes = ((4, 4, 1024, 1024, 128), (4, 4, 256, 256, 128), (4, 6, 1024, 1024, 64), (1, 24, 1152, 1152, 128))
+    for B, H, Nq, Nk, d in shapes:
+        q = torch.randn((B, Nq, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)[..., : H * d]
+        kv = torch.randn((B, Nk, 2 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+        q = q.reshape(B, Nq, H, d).transpose(1, 2)
+        k, v = (t.reshape(B, Nk, H, d).transpose(1, 2) for t in kv.chunk(2, dim=-1))
+        kernel = lambda q=q, k=k, v=v: flash_attention.flash_attention_block_stats(q, k, v)  # noqa: E731
+        plain = lambda q=q, k=k, v=v: flash_attention._block_stats_reference(q, k, v)  # noqa: E731
+        library = lambda q=q, k=k, v=v: torch.ops.aten._scaled_dot_product_flash_attention(q, k, v)  # noqa: E731
+        (o, m, l), (ro, rm, rl) = kernel(), plain()
+        lib = library()
+        torch.cuda.synchronize()
+        err, o_used = max_err(o, ro), _o_bound(o, ro)
+        m_err, l_err = _relative(m, rm), _relative(l, rl)
+        lse_err = _relative(lib[1], rm + torch.log(rl))
+        label = f"B11 flash_attention_block_stats bf16 q ({B}, {H}, {Nq}, {d}) vs {Nk} keys"
+        print(
+            f"{label}: o max_abs_err {err:.3e} (plain |o| max {ro.float().abs().max().item():.3e}, rms "
+            f"{ro.float().square().mean().sqrt().item():.3e}), {o_used:.3f} of its bound 5e-3 + 2**-8 |plain|; "
+            f"m {m_err:.3e} and l {l_err:.3e} relative (tolerance 1e-3); library o vs plain "
+            f"{max_err(lib[0], ro):.3e}, its logsumexp vs m + log l {lse_err:.3e}"
+        )
+        ok = bool(torch.isfinite(o).all()) and o_used <= 1 and m_err <= 1e-3 and l_err <= 1e-3
+        expect(ok, f"{label} disagrees with its plain version: o {err} ({o_used} of its bound), m {m_err}, l {l_err}")
+        n_bytes = (2 * B * H * Nq * d + 2 * B * H * Nk * d) * 2 + 2 * B * H * Nq * 4
+        b_ms, b_by = bound_ms(n_bytes, 4 * B * H * Nq * Nk * d, PEAK_BF16_FLOPS)
+        timing: dict = {}
+        timed(timing, "ms", kernel)
+        timed(timing, "plain_ms", plain, 10)
+        timed(timing, "library_ms", library)
+        print(
+            f"{label} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us "
+            f"(aten._scaled_dot_product_flash_attention), bound {b_ms * 1e3:.2f} us ({b_by})"
+        )
+        if "flash_attention_block_stats" not in rows:
+            rows["flash_attention_block_stats"] = {
+                "name": "flash_attention_block_stats",
+                "route": "cuda",
+                "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+                "replaces": "skrample_tpu/ops/flash_attention.py:891",
+                "max_abs_err": err,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                **timing,
+            }
+        del q, kv, k, v, o, m, l, ro, rm, rl, lib
+
+    # ---- the S-hop fold: 4 K/V chunks of the DiT qkv through B11 + softmax_merge vs K2 ----
+    B, N, H, d, S = 4, 1024, 4, 128, 4
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = (t.reshape(B, N, H, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    peak = torch.full(q.shape[:-1], -math.inf, dtype=torch.float32, device=dev)
+    total = torch.zeros(q.shape[:-1], dtype=torch.float32, device=dev)
+    for k_blk, v_blk in zip(k.chunk(S, dim=2), v.chunk(S, dim=2)):
+        acc, peak, total = flash_attention.softmax_merge(
+            (acc, peak, total), flash_attention.flash_attention_block_stats(q, k_blk, v_blk)
+        )
+    folded = (acc / total[..., None]).to(torch.bfloat16).transpose(1, 2).reshape(B, N, H * d)
+    whole = flash_attention.flash_attention_qkv_forward(qkv, H)
+    torch.cuda.synchronize()
+    err, o_used = max_err(folded, whole), _o_bound(folded, whole)
+    print(
+        f"B11 {S}-hop fold of the DiT qkv {tuple(qkv.shape)} with softmax_merge vs K2: max_abs_err {err:.3e} "
+        f"(K2 |o| max {whole.float().abs().max().item():.3e}), {o_used:.3f} of its bound 5e-3 + 2**-8 |K2|"
+    )
+    expect(bool(torch.isfinite(folded).all()) and o_used <= 1, f"B11 {S}-hop fold differs from K2 by {err}")
+    return rows
+
+
+def _o_bound(got, want) -> float:
+    """The largest ``|got - want| / (5e-3 + 2**-8 |want|)``: at most 1 when every output is within
+    5e-3 plus one bf16 ulp of ``want`` (two attentions in bf16 that normalise before and after
+    the value product round apart by an ulp where outputs are large)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (5e-3 + 2**-8 * want.abs())).max().item()
+
+
+SP_GROUPS = (
+    ("K1 fused_step", ("fused_step_kernel",)),
+    ("K3 adaln", ("adaln_kernel",)),
+    ("B11 block_stats", ("flash_block_stats_kernel",)),
+    ("B9 strided", ("flash_strided_kernel",)),
+    ("cuBLAS products", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
+    ("NCCL", ("nccl",)),
+)
+
+
+def sp_phase(card: str) -> dict[str, int]:
+    """Phase 11: sequence-parallel serving on a one-rank NCCL group.  ``make_mesh(dp=1, sp=1)`` over
+    ``init_process_group("nccl", world_size=1)`` (a ``FileStore`` in a temp dir, ``device_id`` the
+    card; no other backend), then phase 3's DiT-512/8 with ``attention="ring"`` (B11 a block, 8 a
+    forward) and phase 9's DiT-384/6 with ``attention="ulysses"`` (B9a a block, 6 a forward), each on
+    the same random tree as its flash DiT, through ``ServingEngine`` (25-step DPM++2M over
+    FlowShift(Linear), buckets (1, 2)): 3 requests of 4x64x64 (2 together, then the first alone) with
+    exact launch counts, A alone == A packed bit for bit, the request against the flash DiT's
+    (5e-2 relative), one forward through the plain versions (no launch, 5e-2), latency medians with
+    their spread, and one traced request's launches by group."""
+    import torch
+    import torch.distributed as dist
+
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_mesh(dp=1, sp=1)
+            print(f"sp: NCCL group of 1 rank on {dev}, mesh {mesh}")
+            models = (
+                ("ring DiT-512/8", {"dim": 512, "depth": DEPTH, "heads": 4}, "ring", 0, "flash_attention_block_stats"),
+                ("ulysses DiT-384/6", {"dim": 384, "depth": 6, "heads": 6}, "ulysses", 6, "flash_attention_forward"),
+            )
+            for label, shape, attention, seed, kernel in models:
+                config = DiTConfig(**shape, compute_dtype=torch.bfloat16, attention=attention)
+                tree = random_param_tree(config, seed)
+                model = DiT(config, mesh=mesh, device=dev).load_jax_params(tree).requires_grad_(False)
+                flash_config = DiTConfig(**shape, compute_dtype=torch.bfloat16, attention="flash")
+                flash = DiT(flash_config, device=dev).load_jax_params(tree).requires_grad_(False)
+                per_forward = dict.fromkeys(_wrappers(), 0)
+                per_forward.update({kernel: config.depth, "adaln_forward": 2 * config.depth + 1})
+                launches = _sp_serve(label, model, flash, per_forward, card)
+                for name, count in launches.items():
+                    total[name] += count
+                del model, flash
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    print(f"sp: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
+def _sp_serve(label: str, model, flash, per_forward: dict[str, int], card: str) -> dict[str, int]:
+    "Phase 11 for one model; returns the main path's launches (the 3 requests)."
+    import torch
+
+    from skrample_tpu_torch.ops import adaln, flash_attention
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda", 0)
+    item = (4, 64, 64)
+
+    def engine_of(m) -> ServingEngine:
+        return ServingEngine(
+            m.as_sampleable(), item_shape=item, steps=STEPS, dtype=torch.float32, buckets=(1, 2),
+            max_delay_ms=50.0, device=dev,
+        )
+
+    with engine_of(flash) as reference:
+        want = reference.generate(SEEDS[0]).cpu()
+    with engine_of(model) as engine:
+        engine.generate(99).cpu()  # warm-up
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        pair = [engine.submit(s) for s in SEEDS[:2]]
+        outs = [f.result().cpu() for f in pair]
+        solo = engine.generate(SEEDS[0]).cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counters()
+        want_counts = {name: n * 2 * STEPS for name, n in per_forward.items()}
+        want_counts["fused_step_cuda"] = 2 * STEPS
+        print(f"sp {label}: 3 requests (2 + 1) in {wall * 1e3:.1f} ms; launches {launches}")
+        expect(launches == want_counts, f"sp {label}: launched {launches}, expected {want_counts}")
+        for o in (*outs, solo):
+            expect(tuple(o.shape) == item and bool(torch.isfinite(o).all()), f"sp {label}: bad output")
+        bit_equal = torch.equal(solo, outs[0])
+        print(f"sp {label}: A alone vs A packed: bit-equal {bit_equal}, relative max err {_relative(solo, outs[0]):.3e}")
+        expect(bit_equal, f"sp {label}: request A alone differs from A packed")
+        vs_flash = _relative(solo, want)
+        print(f"sp {label}: request A vs the flash DiT's: relative max err {vs_flash:.3e} (tolerance 5e-2)")
+        expect(vs_flash <= 5e-2, f"sp {label}: the request differs from the flash DiT's by {vs_flash}")
+
+        # ---- one forward at batch 2 through the kernels, then through the plain versions ----
+        x = torch.randn((2, *item), generator=torch.Generator(dev).manual_seed(3), device=dev)
+        with torch.inference_mode():
+            _reset_counters()
+            got = model(x, 500.0)
+            counts = _counters()
+            with (
+                mock.patch.object(
+                    flash_attention, "flash_attention_block_stats", flash_attention._block_stats_reference
+                ),
+                mock.patch.object(flash_attention, "flash_attention_forward", flash_attention.attention_reference),
+                mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+            ):
+                _reset_counters()
+                plain = model(x, 500.0)
+                plain_counts = _counters()
+        torch.cuda.synchronize()
+        vs_plain = _relative(got, plain)
+        print(f"sp {label}: one forward launched {counts}; kernels vs plain versions: relative max err {vs_plain:.3e} (tolerance 5e-2)")
+        expect(counts == per_forward, f"sp {label}: a forward launched {counts}, expected {per_forward}")
+        expect(not any(plain_counts.values()), f"sp {label}: the plain forward launched {plain_counts}")
+        expect(bool(torch.isfinite(plain).all()) and vs_plain <= 5e-2, f"sp {label}: kernels vs plain {vs_plain}")
+
+        # ---- latency at the engine's default 2 ms window, and one traced request ----
+        engine.max_delay_s = 2e-3
+        solo_s = []
+        for i in range(5):
+            t0 = time.perf_counter()
+            engine.generate(200 + i).cpu()
+            solo_s.append(time.perf_counter() - t0)
+        median = statistics.median(solo_s)
+        print(
+            f"sp {label}: request latency, bucket 1: median {median * 1e3:.2f} ms of 5 "
+            f"(min {min(solo_s) * 1e3:.2f}, max {max(solo_s) * 1e3:.2f}; {card})"
+        )
+        traced = _traced_dispatch(lambda: engine.generate(300).cpu(), f"sp {label}", median, card, SP_GROUPS)
+        print(f"sp {label}: {sum(traced.values())} kernel launches a request ({card})")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2536,12 +2785,13 @@ def main() -> int:
         dit384 = dit384_phase(device["card"])
         packed = sdxl_packed_phase(device["card"], sdxl_parts)
         video = video_phase(device["card"])
+        sp = sp_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     # each row's launches: its counts summed over every path's main-path run
-    runs = (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video)
+    runs = (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp)
     for name, row in rows.items():
         row["launches"] = sum(run[name] for run in runs)
     keys = (

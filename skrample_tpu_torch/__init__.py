@@ -14,6 +14,8 @@ The same layer map as the JAX package, module for module, importing
   models      — the DiT as an ``nn.Module``, its EMA shadow, ``.npz``
                 parameter checkpoints
   serving     — the dynamic-batching engine; ``server`` its HTTP front-end
+  parallel    — sequence-parallel serving on ``torch.distributed``: meshes,
+                ring attention (kernel B11 a hop), Ulysses, joint streams
   training    — flow-matching training of the DiT
                 (``python -m skrample_tpu_torch.training``)
 

@@ -65,6 +65,25 @@
 // zero to every score, padded v lanes give output lanes that are sliced
 // away, and the wrapper keeps the true scale 1/sqrt(d).  Bound: operations,
 // 4*B*H*N^2*d (at B 4, H 6, N 1024, d 64: 6.4 GFLOP, 6.5 us).
+//
+// B11: the same body once more, behind skt_flash_attention_block_stats, for
+// skrample_tpu/ops/flash_attention.py flash_attention_block_stats (kernel
+// body _softmax_stats_kernel): one hop of ring attention.  The queries
+// attend ONE K/V block, o = softmax(q k^T / sqrt(d)) v normalised within the
+// block, and the row statistics m (the row max of the scaled scores, in
+// natural-log units) and l (the row sum of exp(s - m)) are written beside
+// it, float32 (B, H, Nq), so the caller folds the blocks together
+// (softmax_merge).  The TPU kernel holds the whole K/V block in VMEM as one
+// tile; here the block streams through the K/V loop, and the online
+// softmax's final state IS (m, l): the running max is kept in log2 units of
+// s*scale*log2(e), so m = m_log2 * ln 2, and l needs no conversion
+// (exp2(x*log2e - m_log2) == exp(x - m)).  Queries and keys have separate
+// counts Nq and Nk, each ragged where it is not a multiple of 64: query rows
+// past Nq are zero-filled and not written, keys past Nk are masked to -inf
+// before the max.  The TPU kernel rounds p / l to v's dtype before the PV
+// product; this body normalises the (16, d) output once at the end, which
+// differs by bf16 rounding only.  Bound: operations, 4*B*H*Nq*Nk*d (at B 4,
+// H 4, Nq = Nk = 1024, d 128: 8.6 GFLOP, 8.7 us).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -86,6 +105,24 @@ struct StridedArgs {
     long long v_strides[3];
     long long o_strides[3];
     int B, N, H, d;
+    float scale_log2;
+};
+
+// B11's arguments: q (B, H, Nq, d), k and v (B, H, Nk, d) and o (B, H, Nq, d)
+// at element strides (batch, head, row); m and l contiguous (B, H, Nq) f32.
+// Must match skrample_tpu_torch/ops/flash_attention.py:_BlockStatsArgs.
+struct BlockStatsArgs {
+    const void* q;
+    const void* k;
+    const void* v;
+    void* o;
+    float* m;
+    float* l;
+    long long q_strides[3];
+    long long k_strides[3];
+    long long v_strides[3];
+    long long o_strides[3];
+    int B, H, Nq, Nk, d;
     float scale_log2;
 };
 
@@ -112,16 +149,22 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, long l
     load_rows<T, D, kBlockQ, kThreads, kMask>(dst, src, row0, row_stride, tid, n_rows);
 }
 
+// What a block writes beside its output rows: nothing (K2, B9, B10), the
+// row logsumexp (K4), or the row max and sum of one K/V block (B11).
+enum Stats { kNoStats, kLseStats, kBlockStats };
+
 // One block's work: query rows [q0, q0 + 64) of one (batch item, head), whose
-// q, k and v rows start at g_q, g_k and g_v with their own row strides; the
-// output rows start at g_o.  lse_bh: this (b, h)'s N logsumexp values (kLse).
-// kRagged: N need not be a multiple of 64 (rows past N zero-filled, keys past
-// N masked, rows past N not written).
-template <typename T, int D, bool kLse, bool kRagged>
+// q, k and v rows start at g_q, g_k and g_v with their own row strides, over
+// Nq query rows and Nk keys; the output rows start at g_o.  stat_a, stat_b:
+// this (b, h)'s Nq logsumexp values (kLseStats), or its Nq row maxima and row
+// sums (kBlockStats).  kRagged: Nq or Nk need not be a multiple of 64 (query
+// rows past Nq zero-filled and not written, keys past Nk masked).
+template <typename T, int D, Stats kStats, bool kRagged>
 __device__ __forceinline__ void attention_block(const T* __restrict__ g_q, long long q_stride,
                                                 const T* __restrict__ g_k, long long k_stride,
                                                 const T* __restrict__ g_v, long long v_stride, T* __restrict__ g_o,
-                                                long long o_stride, float* __restrict__ lse_bh, int N, int q0,
+                                                long long o_stride, float* __restrict__ stat_a,
+                                                float* __restrict__ stat_b, int Nq, int Nk, int q0,
                                                 float scale_log2) {
     constexpr int kStride = Layout<D>::kStride;
     constexpr int kTile = Layout<D>::kTile;
@@ -138,9 +181,9 @@ __device__ __forceinline__ void attention_block(const T* __restrict__ g_q, long 
     const int gid = lane / 4;  // row within the mma fragment
     const int tig = lane % 4;  // column pair within the mma fragment
 
-    load_tile<T, D, kRagged>(s_q, g_q, q0, q_stride, tid, N);
-    load_tile<T, D, kRagged>(s_q + kTile, g_k, 0, k_stride, tid, N);
-    load_tile<T, D, kRagged>(s_q + 2 * kTile, g_v, 0, v_stride, tid, N);
+    load_tile<T, D, kRagged>(s_q, g_q, q0, q_stride, tid, Nq);
+    load_tile<T, D, kRagged>(s_q + kTile, g_k, 0, k_stride, tid, Nk);
+    load_tile<T, D, kRagged>(s_q + 2 * kTile, g_v, 0, v_stride, tid, Nk);
     cp_async_commit();
 
     uint32_t q_frag[kSteps][4];
@@ -151,15 +194,15 @@ __device__ __forceinline__ void attention_block(const T* __restrict__ g_q, long 
     float m_run[2] = {neg_inf, neg_inf};  // running max (log2 units), rows gid and gid + 8
     float l_run[2] = {0.f, 0.f};          // this thread's share of the running row sums
 
-    const int n_tiles = (N + kBlockK - 1) / kBlockK;
+    const int n_tiles = (Nk + kBlockK - 1) / kBlockK;
     for (int j = 0; j < n_tiles; ++j) {
         const int stage = j & 1;
         T* s_k = s_q + (1 + 2 * stage) * kTile;
         T* s_v = s_k + kTile;
         if (j + 1 < n_tiles) {
             T* next_k = s_q + (1 + 2 * (stage ^ 1)) * kTile;
-            load_tile<T, D, kRagged>(next_k, g_k, (j + 1) * kBlockK, k_stride, tid, N);
-            load_tile<T, D, kRagged>(next_k + kTile, g_v, (j + 1) * kBlockK, v_stride, tid, N);
+            load_tile<T, D, kRagged>(next_k, g_k, (j + 1) * kBlockK, k_stride, tid, Nk);
+            load_tile<T, D, kRagged>(next_k + kTile, g_v, (j + 1) * kBlockK, v_stride, tid, Nk);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -199,8 +242,8 @@ __device__ __forceinline__ void attention_block(const T* __restrict__ g_q, long 
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 s[t][e] *= scale_log2;
-                // keys past N (zero rows of a ragged last tile) take no probability
-                if (kRagged && j * kBlockK + t * 8 + tig * 2 + (e & 1) >= N) s[t][e] = neg_inf;
+                // keys past Nk (zero rows of a ragged last tile) take no probability
+                if (kRagged && j * kBlockK + t * 8 + tig * 2 + (e & 1) >= Nk) s[t][e] = neg_inf;
             }
             tile_max[0] = fmaxf(tile_max[0], fmaxf(s[t][0], s[t][1]));
             tile_max[1] = fmaxf(tile_max[1], fmaxf(s[t][2], s[t][3]));
@@ -262,19 +305,29 @@ __device__ __forceinline__ void attention_block(const T* __restrict__ g_q, long 
         l_row[i] = l;
     }
     const int row = q0 + warp * 16 + gid;  // rows `row` and `row + 8`
-    if (kLse && tig == 0) {
+    constexpr float kLn2 = 0.69314718055994531f;
+    if (kStats != kNoStats && tig == 0) {
         // m_run is the same in the four lanes of a row; back to natural-log units
-        if (!kRagged || row < N) lse_bh[row] = m_run[0] * 0.69314718055994531f + logf(l_row[0]);
-        if (!kRagged || row + 8 < N) lse_bh[row + 8] = m_run[1] * 0.69314718055994531f + logf(l_row[1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int r = row + 8 * i;
+            if (kRagged && r >= Nq) continue;
+            if (kStats == kLseStats) {
+                stat_a[r] = m_run[i] * kLn2 + logf(l_row[i]);
+            } else {
+                stat_a[r] = m_run[i] * kLn2;
+                stat_b[r] = l_row[i];
+            }
+        }
     }
     T* o_row = g_o + (long long)row * o_stride;
 #pragma unroll
     for (int t = 0; t < kOutTiles; ++t) {
         const int col = t * 8 + tig * 2;
-        if (!kRagged || row < N) {
+        if (!kRagged || row < Nq) {
             *reinterpret_cast<uint32_t*>(o_row + col) = Mma<T>::pack(o[t][0] / l_row[0], o[t][1] / l_row[0]);
         }
-        if (!kRagged || row + 8 < N) {
+        if (!kRagged || row + 8 < Nq) {
             *reinterpret_cast<uint32_t*>(o_row + 8 * o_stride + col) =
                 Mma<T>::pack(o[t][2] / l_row[1], o[t][3] / l_row[1]);
         }
@@ -292,10 +345,10 @@ __global__ void __launch_bounds__(kThreads)
     const int width = H * D;
     const long long row_stride = 3LL * width;
     const T* base = qkv + (long long)b * N * row_stride + h * D;
-    attention_block<T, D, kLse, kRagged>(base, row_stride, base + width, row_stride, base + 2 * width, row_stride,
-                                         out + (long long)b * N * width + h * D, width,
-                                         kLse ? lse + ((long long)b * H + h) * N : nullptr, N, blockIdx.x * kBlockQ,
-                                         scale_log2);
+    attention_block<T, D, kLse ? kLseStats : kNoStats, kRagged>(
+        base, row_stride, base + width, row_stride, base + 2 * width, row_stride,
+        out + (long long)b * N * width + h * D, width, kLse ? lse + ((long long)b * H + h) * N : nullptr, nullptr, N,
+        N, blockIdx.x * kBlockQ, scale_log2);
 }
 
 template <typename T, int D, bool kLse, bool kRagged>
@@ -329,8 +382,9 @@ __global__ void __launch_bounds__(kThreads) flash_strided_kernel(const StridedAr
     const T* g_k = static_cast<const T*>(a.k) + b * a.k_strides[0] + h * a.k_strides[1];
     const T* g_v = static_cast<const T*>(a.v) + b * a.v_strides[0] + h * a.v_strides[1];
     T* g_o = static_cast<T*>(a.o) + b * a.o_strides[0] + h * a.o_strides[1];
-    attention_block<T, D, false, kRagged>(g_q, a.q_strides[2], g_k, a.k_strides[2], g_v, a.v_strides[2], g_o,
-                                          a.o_strides[2], nullptr, a.N, blockIdx.x * kBlockQ, a.scale_log2);
+    attention_block<T, D, kNoStats, kRagged>(g_q, a.q_strides[2], g_k, a.k_strides[2], g_v, a.v_strides[2], g_o,
+                                             a.o_strides[2], nullptr, nullptr, a.N, a.N, blockIdx.x * kBlockQ,
+                                             a.scale_log2);
 }
 
 template <typename T, int D, bool kRagged>
@@ -360,6 +414,49 @@ int dispatch_strided(const StridedArgs& a, cudaStream_t stream) {
     return dispatch_strided_d<T, 128>(a, stream);
 }
 
+// B11: one block per (64-row query tile, head, batch item), the whole K/V
+// block streamed through the body's K/V loop.
+template <typename T, int D, bool kRagged>
+__global__ void __launch_bounds__(kThreads) flash_block_stats_kernel(const BlockStatsArgs a) {
+    const long long h = blockIdx.y;
+    const long long b = blockIdx.z;
+    const T* g_q = static_cast<const T*>(a.q) + b * a.q_strides[0] + h * a.q_strides[1];
+    const T* g_k = static_cast<const T*>(a.k) + b * a.k_strides[0] + h * a.k_strides[1];
+    const T* g_v = static_cast<const T*>(a.v) + b * a.v_strides[0] + h * a.v_strides[1];
+    T* g_o = static_cast<T*>(a.o) + b * a.o_strides[0] + h * a.o_strides[1];
+    const long long stats = (b * a.H + h) * a.Nq;
+    attention_block<T, D, kBlockStats, kRagged>(g_q, a.q_strides[2], g_k, a.k_strides[2], g_v, a.v_strides[2], g_o,
+                                                a.o_strides[2], a.m + stats, a.l + stats, a.Nq, a.Nk,
+                                                blockIdx.x * kBlockQ, a.scale_log2);
+}
+
+template <typename T, int D, bool kRagged>
+int launch_block_stats(const BlockStatsArgs& a, cudaStream_t stream) {
+    constexpr int smem = Layout<D>::template bytes<T>();
+    static bool configured = false;
+    if (!configured) {
+        const cudaError_t err = cudaFuncSetAttribute(flash_block_stats_kernel<T, D, kRagged>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        configured = true;
+    }
+    const dim3 grid((a.Nq + kBlockQ - 1) / kBlockQ, a.H, a.B);
+    flash_block_stats_kernel<T, D, kRagged><<<grid, kThreads, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int dispatch_block_stats_d(const BlockStatsArgs& a, cudaStream_t stream) {
+    if (a.Nq % kBlockQ || a.Nk % kBlockK) return launch_block_stats<T, D, true>(a, stream);
+    return launch_block_stats<T, D, false>(a, stream);
+}
+
+template <typename T>
+int dispatch_block_stats(const BlockStatsArgs& a, cudaStream_t stream) {
+    if (a.d == 64) return dispatch_block_stats_d<T, 64>(a, stream);
+    return dispatch_block_stats_d<T, 128>(a, stream);
+}
+
 }  // namespace
 
 // B10 / B9: q, k, v, o of dtype 1 = bf16 or 2 = fp16, head dim d = 64 or
@@ -382,6 +479,28 @@ extern "C" int skt_flash_attention_strided(const StridedArgs* args, int size, in
     }
     if (dtype == 1) return dispatch_strided<__nv_bfloat16>(a, stream);
     if (dtype == 2) return dispatch_strided<__half>(a, stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+// B11: q, k, v, o as for skt_flash_attention_strided, q and o over Nq rows,
+// k and v over Nk; m and l (B, H, Nq) f32 contiguous.  Any Nq, Nk >= 1.
+extern "C" int skt_flash_attention_block_stats(const BlockStatsArgs* args, int size, int dtype,
+                                               cudaStream_t stream) {
+    if (size != (int)sizeof(BlockStatsArgs)) return (int)cudaErrorInvalidValue;
+    const BlockStatsArgs a = *args;
+    if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.Nq < 1 || a.Nk < 1 || (a.d != 64 && a.d != 128))
+        return (int)cudaErrorInvalidValue;
+    const long long* strides[4] = {a.q_strides, a.k_strides, a.v_strides, a.o_strides};
+    const void* bases[4] = {a.q, a.k, a.v, a.o};
+    for (int t = 0; t < 4; ++t) {
+        if (reinterpret_cast<uintptr_t>(bases[t]) % 16) return (int)cudaErrorInvalidValue;
+        for (int i = 0; i < 3; ++i) {
+            if (strides[t][i] % 8) return (int)cudaErrorInvalidValue;
+        }
+    }
+    if (a.m == nullptr || a.l == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == 1) return dispatch_block_stats<__nv_bfloat16>(a, stream);
+    if (dtype == 2) return dispatch_block_stats<__half>(a, stream);
     return (int)cudaErrorInvalidValue;
 }
 

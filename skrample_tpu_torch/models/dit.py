@@ -12,9 +12,13 @@ are kernels too, and ``remat`` recomputes each block's activations in the
 backward as the JAX package's does.
 
 :meth:`DiT.quantize_params` gives the int8 serving model (``ops/quant.py``).
-The sequence-parallel attentions (``"ring"``, ``"ulysses"``) and pipelined
-apply belong to later slices of the port and raise
-:class:`NotImplementedError` here.
+The sequence-parallel attentions (``"ring"``, ``"ulysses"``) run over the
+``sp`` dim of a :class:`~torch.distributed.device_mesh.DeviceMesh`
+(``parallel/``): each rank holds its token shard of the residual stream.
+Data-parallel meshes, a mesh given to the ``"full"`` or ``"flash"``
+attention, tensor-parallel specs, pipelined apply and a gradient through
+the sequence-parallel attentions belong to later slices of the port and
+raise :class:`NotImplementedError` here.
 """
 
 from __future__ import annotations
@@ -42,6 +46,9 @@ from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import flash_attention, flash_attention_qkv
 from ..ops.quant import Int8Dense, dense_int8, quantize_params
+from ..parallel import batch_axis_of, gather
+from ..parallel.ring_attention import axis_group, ring_attention
+from ..parallel.ulysses import ulysses_attention
 
 _LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
 
@@ -56,12 +63,18 @@ class DiTConfig:
     mlp_ratio: int = 4
     compute_dtype: torch.dtype = torch.bfloat16
     attention: str = "full"
-    """``"full"`` (plain attention; the (N, N) scores hit device memory) or
+    """``"full"`` (plain attention; the (N, N) scores hit device memory),
     ``"flash"`` (kernel K2 straight off the fused qkv projection at
     head_dim 128, K4 and K5 where a gradient is wanted; kernel B9 on the
     (B, H, N, d) views of the q/k/v thirds at a head dim that is not a
-    multiple of 128, with the plain version's gradient).  ``"ring"`` and
-    ``"ulysses"`` are later slices."""
+    multiple of 128, with the plain version's gradient), ``"ring"``
+    (sequence-parallel exact attention: K/V blocks rotate over the mesh's
+    ``sp_axis``, each hop through kernel B11) or ``"ulysses"``
+    (sequence-parallel through head-sharding all-to-alls, B9 on each rank's
+    head shard over the whole sequence).  Ring and ulysses need
+    ``DiT(config, mesh=...)`` with the ``sp_axis``; they serve: a
+    gradient through the collectives raises."""
+    sp_axis: str = "sp"
     remat: bool | str = False
     """Recompute each transformer block's activations in the backward
     (per-block non-reentrant :func:`torch.utils.checkpoint.checkpoint`):
@@ -152,6 +165,9 @@ def _int8_copy(model: nn.Module, exclude: frozenset[str]) -> nn.Module:
             node.update(w=layer.weight.detach().t(), b=layer.bias.detach())
     quantized = quantize_params(tree, exclude=exclude)
     shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None:
+        shared[id(mesh)] = mesh  # a process group is shared, never copied
     clone = copy.deepcopy(model, shared)
 
     def swap(node: dict, path: str) -> None:
@@ -188,10 +204,11 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, head_dim:
 class DiTBlock(nn.Module):
     "One transformer block: adaLN-zero attention + MLP residuals."
 
-    def __init__(self, config: DiTConfig) -> None:
+    def __init__(self, config: DiTConfig, mesh: Any = None) -> None:
         super().__init__()
         c = config
         self.config = c
+        self.mesh = mesh
         self.qkv = nn.Linear(c.dim, 3 * c.dim, device="meta")
         self.proj = nn.Linear(c.dim, c.dim, device="meta")
         self.mlp_in = nn.Linear(c.dim, c.mlp_ratio * c.dim, device="meta")
@@ -215,7 +232,14 @@ class DiTBlock(nn.Module):
             q, k, v = (
                 part.reshape(B, N, c.heads, c.head_dim).transpose(1, 2) for part in qkv.chunk(3, dim=-1)
             )
-            out = flash_attention(q, k, v) if c.attention == "flash" else _full_attention(q, k, v, c.head_dim)
+            if c.attention == "ring":
+                out = ring_attention(q, k, v, self.mesh, axis=c.sp_axis)
+            elif c.attention == "ulysses":
+                out = ulysses_attention(q, k, v, self.mesh, axis=c.sp_axis)
+            elif c.attention == "flash":
+                out = flash_attention(q, k, v)
+            else:
+                out = _full_attention(q, k, v, c.head_dim)
             out = out.transpose(1, 2).reshape(B, N, c.dim)
         tokens = tokens + g_attn[:, None] * dense(self.proj, out)
 
@@ -227,6 +251,12 @@ class DiTBlock(nn.Module):
 class DiT(nn.Module):
     """``DiT(config)(x, t)``: (B, C, H, W) latents and a (B,) or scalar
     timestep -> a prediction of the latents' shape and dtype.
+
+    With ``attention="ring"`` or ``"ulysses"``, ``mesh`` is a
+    :class:`~torch.distributed.device_mesh.DeviceMesh` with the config's
+    ``sp_axis`` (and a ``"dp"`` dim of size 1, if any): every rank of the
+    axis calls the forward on the same whole input and gets the whole
+    output, and in between holds only its contiguous range of the tokens.
 
     Built on ``device`` (CUDA unless the caller asks for the CPU) with the
     JAX package's initialisation drawn from ``generator`` (a CPU generator;
@@ -242,13 +272,24 @@ class DiT(nn.Module):
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
-        if config.attention in ("ring", "ulysses") or mesh is not None:
-            raise NotImplementedError(f"sequence-parallel attention ({config.attention!r}, mesh=) {_LATER}")
-        if config.attention not in ("full", "flash"):
+        if config.attention not in ("full", "flash", "ring", "ulysses"):
             raise ValueError(f"unknown attention kind {config.attention!r}")
+        if config.attention in ("ring", "ulysses"):
+            if mesh is None:
+                raise ValueError(
+                    f"DiTConfig(attention={config.attention!r}) needs DiT(config, mesh=...) with the sp axis"
+                )
+            axis_group(mesh, config.sp_axis)  # raises on a mesh without the axis
+            if batch_axis_of(mesh) is not None:
+                raise NotImplementedError(f"a data-parallel mesh (dp > 1) {_LATER}")
+        elif mesh is not None:
+            raise NotImplementedError(
+                f"DiT(mesh=...) with attention={config.attention!r} (data or tensor parallelism) {_LATER}"
+            )
         if config.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {config.remat!r}")
         self.config = c = config
+        self.mesh = mesh
         device = resolve_device(device)
         patch_dim = c.channels * c.patch * c.patch
         self.patch_in = nn.Linear(patch_dim, c.dim, device="meta")
@@ -256,7 +297,7 @@ class DiT(nn.Module):
         self.t_mlp2 = nn.Linear(c.dim, c.dim, device="meta")
         self.final_mod = nn.Linear(c.dim, 2 * c.dim, device="meta")
         self.final_out = nn.Linear(c.dim, patch_dim, device="meta")
-        self.blocks = nn.ModuleList(DiTBlock(c) for _ in range(c.depth))
+        self.blocks = nn.ModuleList(DiTBlock(c, mesh) for _ in range(c.depth))
         self.to_empty(device=device)
         self.reset_parameters(generator)
 
@@ -351,7 +392,15 @@ class DiT(nn.Module):
         if t.ndim == 0:
             t = t.expand(B)
 
-        tokens = _dense(self.patch_in, self.patchify(x).to(dtype), dtype)
+        patches = self.patchify(x)
+        sequence_parallel = c.attention in ("ring", "ulysses")
+        if sequence_parallel:
+            # this rank's contiguous token range: the JAX package's P(batch, "sp", None) layout
+            _group, size, rank = axis_group(self.mesh, c.sp_axis)
+            if patches.shape[1] % size:
+                raise ValueError(f"tokens ({patches.shape[1]}) must divide the {c.sp_axis!r} axis size ({size})")
+            patches = patches.chunk(size, dim=1)[rank]
+        tokens = _dense(self.patch_in, patches.to(dtype), dtype)
         temb = _timestep_embedding(t, 256)
         temb = _dense(self.t_mlp2, F.silu(_dense(self.t_mlp1, temb.to(dtype), dtype)), dtype)
         temb = F.silu(temb)
@@ -366,6 +415,8 @@ class DiT(nn.Module):
         shift, scale = _dense(self.final_mod, temb, dtype).chunk(2, dim=-1)
         tokens = adaln_modulate(tokens, shift, scale)
         out = _dense(self.final_out, tokens, dtype)
+        if sequence_parallel:
+            out = gather(self.mesh, out, dim=1, axis=c.sp_axis)
         return self.unpatchify(out, H, W).to(x.dtype)
 
     apply = forward

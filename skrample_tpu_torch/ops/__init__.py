@@ -9,8 +9,9 @@
   backward (K6).
 * :mod:`.flash_attention` — attention off the fused qkv projection (K2),
   with the logsumexp forward (K4) and the backward (K5) for training,
-  d=64 attention on packed, strided q/k/v (B10), and attention on
-  (B, H, N, d) and on packed d=128 heads (B9).
+  d=64 attention on packed, strided q/k/v (B10), attention on
+  (B, H, N, d) and on packed d=128 heads (B9), and one K/V block's
+  attention with its row statistics, a ring hop (B11).
 * :mod:`.groupnorm` — channels-last GroupNorm (+ f32 affine) (+ SiLU)
   (kernel B8).
 * :mod:`.fused_conv` — a 3x3 conv with GroupNorm(+affine)+SiLU applied to

@@ -72,6 +72,7 @@ _SIGNATURES: dict[str, list] = {
     # dtype, silu, eps, stream
     "skt_groupnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "skt_flash_attention_strided": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
+    "skt_flash_attention_block_stats": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
     # x, w (Co, 3, 3, C), bias, stats, gn scale, gn bias, residual, out, partial, raw (null where unused),
     # N, H, W, C, Co, dtype, stream
     "skt_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -16,13 +16,16 @@ packed ``(B, N, H*64)`` tensors that may be strided views, such as the
 at head dim 128 too: :func:`flash_attention_forward` on ``(B, H, N, d)``
 (a head dim up to 128, zero-padded to an instance) and
 :func:`flash_attention_packed_forward` on packed ``(B, N, H*128)``.
+:func:`flash_attention_block_stats` launches B11, the same body once more: one
+K/V block's attention with the row max and sum that :func:`softmax_merge`
+folds across blocks (a ring attention hop), at separate query and key counts.
 :func:`flash_attention_pairs`, :func:`flash_attention` and
 :func:`flash_attention_packed` are their autograd dispatches, with the plain
 version's gradient backward.  The
 plain versions beside each kernel (:func:`attention_reference`,
 :func:`_packed_reference`, :func:`_qkv_reference`,
-:func:`_qkv_reference_lse`, :func:`_qkv_backward_reference`) are the CPU
-path and the kernels' oracles.
+:func:`_qkv_reference_lse`, :func:`_qkv_backward_reference`,
+:func:`_block_stats_reference`) are the CPU path and the kernels' oracles.
 """
 
 from __future__ import annotations
@@ -329,17 +332,22 @@ def _head_strides(x: torch.Tensor, d: int) -> tuple[int, int, int]:
     return x.stride(0), d * x.stride(2), x.stride(1)
 
 
-def _check_strided(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ndim: int) -> None:
-    "What the strided entry point takes of q, k and v; raises on anything else."
+def _check_strided(
+    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ndim: int, kv_shape: torch.Size | None = None
+) -> None:
+    """What the strided entry points take of q, k and v (k and v of ``kv_shape``, q's shape by
+    default); raises on anything else."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.ndim != ndim:
         raise ValueError(f"{name}: q must have {ndim} dimensions, got {tuple(q.shape)}")
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"{name}: dtype {q.dtype} unsupported on CUDA (bfloat16 or float16)")
+    shapes = {"q": q.shape, "k": kv_shape or q.shape, "v": kv_shape or q.shape}
     for label, t in (("q", q), ("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name}: {label} must be {tuple(q.shape)} {q.dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.shape != shapes[label] or t.dtype != q.dtype or t.device != q.device:
+            want = tuple(shapes[label])
+            raise ValueError(f"{name}: {label} must be {want} {q.dtype}, got {tuple(t.shape)} {t.dtype}")
         if t.stride(-1) != 1 or t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(ndim - 1)):
             raise ValueError(f"{name}: {label} needs unit channel stride, 16-byte aligned rows, heads and batches")
 
@@ -533,3 +541,125 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, he
     if _wants_grad(q, k, v):
         return _PlainBackward.apply("flash_attention_packed_forward", "_packed_reference", q, k, v, heads)
     return flash_attention_packed_forward(q, k, v, heads)
+
+
+# ---- B11: one K/V block's attention and row statistics (skt_flash_attention_block_stats) ----
+
+
+def _block_stats_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain one-block attention with its row statistics: B11's oracle and CPU path.
+
+    The JAX package's order (both branches of its ``flash_attention_block_stats``): float32
+    scores times ``1/sqrt(d)``, the row max ``m``, ``p = exp(s - m)``, ``l = sum(p)``, ``p / l``
+    rounded to v's dtype, the value product in float32, the output rounded to q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.matmul((p / l[..., None]).to(v.dtype).float(), v.float())
+    return o.to(q.dtype), m, l
+
+
+class _BlockStatsArgs(ctypes.Structure):
+    "``BlockStatsArgs`` of ``csrc/flash_attention.cu``: element strides (batch, head, row) of q, k, v, out."
+
+    _fields_ = [  # noqa: RUF012 — ctypes layout declaration
+        ("q", ctypes.c_void_p),
+        ("k", ctypes.c_void_p),
+        ("v", ctypes.c_void_p),
+        ("o", ctypes.c_void_p),
+        ("m", ctypes.c_void_p),
+        ("l", ctypes.c_void_p),
+        ("q_strides", ctypes.c_longlong * 3),
+        ("k_strides", ctypes.c_longlong * 3),
+        ("v_strides", ctypes.c_longlong * 3),
+        ("o_strides", ctypes.c_longlong * 3),
+        ("B", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("Nq", ctypes.c_int),
+        ("Nk", ctypes.c_int),
+        ("d", ctypes.c_int),
+        ("scale_log2", ctypes.c_float),
+    ]
+
+
+def flash_attention_block_stats(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B11: one K/V block's attention and the row statistics that fold blocks together.
+
+    ``q`` ``(B, H, Nq, d)``, ``k`` and ``v`` ``(B, H, Nk, d)`` -> ``(o, m, l)``: ``o =
+    softmax(q kᵀ / sqrt(d)) v`` normalised within the block, ``(B, H, Nq, d)`` in q's dtype;
+    ``m`` the row max of the scaled scores (natural-log units) and ``l`` the row sum of
+    ``exp(s - m)``, both ``(B, H, Nq)`` float32 contiguous.  :func:`softmax_merge` folds a
+    sequence of such results into exact attention over every block: the inner op of ring
+    attention (``parallel/ring_attention.py``).
+
+    On CPU tensors this is :func:`_block_stats_reference`.  On CUDA tensors it launches the
+    kernel or raises: bf16 or fp16, any ``B``, ``H``, ``Nq``, ``Nk`` (ragged tiles masked), q,
+    k and v at any strides as :func:`flash_attention_forward` takes them, ``d <= 128`` with ``d
+    % 8 == 0`` (64 and 128 read in place, another d zero-padded to the next, with the true
+    ``1/sqrt(d)``).  The JAX package's ``Nq % block_q``, ``Nk % 128`` gates and their quiet
+    einsum branch are TPU tiling rules and are dropped; its 128-lane broadcast of ``m`` and
+    ``l`` is a TPU layout and is not carried over."""
+    if q.device.type == "cpu":
+        return _block_stats_reference(q, k, v)
+    name = "flash_attention_block_stats"
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"{name}: q and k must be (B, H, N, d), got {tuple(q.shape)} and {tuple(k.shape)}")
+    B, H, Nq, d = q.shape
+    Nk = k.shape[2]
+    if d > _STRIDED_D[1] or d % 8:
+        raise ValueError(f"{name}: head dim {d} unsupported (d <= 128, a multiple of 8)")
+    d_kernel = _STRIDED_D[0] if d <= _STRIDED_D[0] else _STRIDED_D[1]
+    if d != d_kernel:
+        q, k, v = (torch.nn.functional.pad(t, (0, d_kernel - d)) for t in (q, k, v))
+    _check_strided(name, q, k, v, 4, torch.Size((B, H, Nk, d_kernel)))
+    o = torch.empty((B, H, Nq, d_kernel), dtype=q.dtype, device=q.device)
+    m = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
+    args = _BlockStatsArgs(
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        o.data_ptr(),
+        m.data_ptr(),
+        l.data_ptr(),
+        *((ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2)) for t in (q, k, v, o)),
+        B,
+        H,
+        Nq,
+        Nk,
+        d_kernel,
+        (1.0 / math.sqrt(d)) * _LOG2E,
+    )
+    lib = _cuda.library()
+    with torch.cuda.device(q.device):
+        code = lib.skt_flash_attention_block_stats(
+            ctypes.byref(args), ctypes.sizeof(args), _cuda.DTYPE_CODES[q.dtype], _cuda.stream()
+        )
+    _cuda.check(code, name)
+    flash_attention_block_stats.launches += 1
+    return (o if d == d_kernel else o[..., :d]), m, l
+
+
+flash_attention_block_stats.launches = 0
+
+
+def softmax_merge(
+    state: tuple[torch.Tensor, torch.Tensor, torch.Tensor], block: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fold one ``(o, m, l)`` block result into a running ``(acc, peak, total)`` state (acc
+    unnormalised float32); after every block, the exact attention is ``acc / total[..., None]``.
+    Plain float32 PyTorch, as the JAX package computes it outside its kernels."""
+    acc, peak, total = state
+    o_blk, m_blk, l_blk = block
+    peak_next = torch.maximum(peak, m_blk)
+    r_old = torch.exp(peak - peak_next)
+    r_new = torch.exp(m_blk - peak_next)
+    total_next = total * r_old + l_blk * r_new
+    acc_next = acc * r_old[..., None] + o_blk.float() * (l_blk * r_new)[..., None]
+    return acc_next, peak_next, total_next

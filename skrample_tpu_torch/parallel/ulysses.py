@@ -1,0 +1,69 @@
+"""Ulysses-style sequence parallelism for full (non-factorized) attention.
+
+DeepSpeed-Ulysses (arXiv 2309.14509) re-buckets a token-sharded sequence to a
+head-sharded one for the attention proper: an all-to-all scatters heads and
+gathers tokens, each rank runs exact attention over the complete sequence for
+its ``H/S`` head shard (kernel B9 on a card), and the inverse all-to-all
+restores the token sharding.  Two all-to-alls of the activations per
+attention, whatever the sequence length; but each rank attends one head's
+full sequence, so ring attention (``ring_attention.py``) stays the scheme
+for sequences whose per-head work outgrows a rank.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..ops import flash_attention as fa
+from .ring_attention import axis_group, refuse_grad
+
+_HEADS_OPS = ("flash", "einsum")
+
+
+def to_heads(x: torch.Tensor, group: dist.ProcessGroup, size: int) -> torch.Tensor:
+    """``(B, H, n, d)`` token shard -> ``(B, H/S, S*n, d)`` head shard over the whole sequence:
+    the JAX package's ``all_to_all(split_axis=1, concat_axis=2, tiled=True)``, as one
+    ``all_to_all_single`` on a contiguous ``(S, B, H/S, n, d)`` buffer whose slot j goes to rank
+    j; the slots received are the tokens of each source rank, in rank order.  Serving only: a
+    gradient through it raises (:func:`~.ring_attention.refuse_grad`)."""
+    refuse_grad(x)
+    B, H, n, d = x.shape
+    send = x.reshape(B, size, H // size, n, d).transpose(0, 1).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.permute(1, 2, 0, 3, 4).reshape(B, H // size, size * n, d)
+
+
+def from_heads(x: torch.Tensor, group: dist.ProcessGroup, size: int) -> torch.Tensor:
+    "The inverse of :func:`to_heads`: ``(B, H/S, S*n, d)`` -> ``(B, H, n, d)`` (scatter tokens, gather heads)."
+    B, Hs, N, d = x.shape
+    send = x.reshape(B, Hs, size, N // size, d).permute(2, 0, 1, 3, 4).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.transpose(0, 1).reshape(B, size * Hs, N // size, d)
+
+
+def ulysses_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mesh: DeviceMesh,
+    axis: str = "sp",
+    heads_op: str = "flash",
+) -> torch.Tensor:
+    """Exact softmax attention with token-sharded inputs and outputs.
+
+    ``q/k/v``: this rank's token shards ``(B, H, N/S, d)``, in rank order over ``axis``;
+    ``H`` must divide by the axis size S.  Returns this rank's output shard.  Non-causal.
+    ``heads_op``: ``"flash"`` runs B9 (``flash_attention``) on each rank's head shard,
+    ``"einsum"`` the plain ``attention_reference``."""
+    if heads_op not in _HEADS_OPS:
+        raise ValueError(f"unknown heads_op {heads_op!r}")
+    group, size, _rank = axis_group(mesh, axis)
+    if q.shape[1] % size:
+        raise ValueError(f"heads ({q.shape[1]}) must divide the {axis!r} axis size ({size})")
+    q_h, k_h, v_h = (to_heads(t, group, size) for t in (q, k, v))
+    attend = fa.flash_attention if heads_op == "flash" else fa.attention_reference
+    return from_heads(attend(q_h, k_h, v_h), group, size)

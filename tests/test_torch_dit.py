@@ -186,18 +186,26 @@ def test_load_jax_params_accepts_a_jax_tree() -> None:
 @pytest.mark.parametrize(
     ("kwargs", "error", "match"),
     [
-        ({"attention": "ring"}, NotImplementedError, "later slice"),
-        ({"attention": "ulysses"}, NotImplementedError, "later slice"),
+        # ring and ulysses are ported (tests/test_torch_parallel.py); without a mesh they raise as in JAX
+        ({"attention": "ring"}, ValueError, r"needs DiT\(config, mesh=\.\.\.\)"),
+        ({"attention": "ulysses"}, ValueError, r"needs DiT\(config, mesh=\.\.\.\)"),
         # remat True and "dots" are ported (tests/test_torch_training.py); other policies raise as in JAX
         ({"remat": "offload"}, ValueError, "remat must be bool or 'dots'"),
+        # a mesh for an attention that is not sequence-parallel: data/tensor parallelism, a later slice
+        ({"attention": "flash", "mesh": object()}, NotImplementedError, r"DiT\(mesh=\.\.\.\) with attention='flash'"),
+        ({"attention": "full", "mesh": object()}, NotImplementedError, r"DiT\(mesh=\.\.\.\) with attention='full'"),
     ],
-    ids=["ring", "ulysses", "remat"],
+    ids=["ring", "ulysses", "remat", "flash-mesh", "full-mesh"],
 )
 def test_later_slices_raise(kwargs: dict, error: type, match: str) -> None:
-    "Configurations the port does not run raise at construction: later slices, and what the JAX package refuses too."
-    config = DiTConfig(**{**SMALL, **kwargs})
+    """Configurations the port does not run raise at construction: what the JAX package refuses
+    too (a sequence-parallel attention without a mesh, a remat policy it does not know), and a
+    mesh given to the full or flash attention, which the port does not shard yet (refused before
+    the mesh is read, so any object stands for one; a real mesh: tests/test_torch_parallel.py)."""
+    fields = {**SMALL, **kwargs}
+    mesh = fields.pop("mesh", None)
     with pytest.raises(error, match=match):
-        DiT(config, device="cpu")
+        DiT(DiTConfig(**fields), mesh=mesh, device="cpu")
 
 
 def test_model_needs_cuda_unless_told_cpu(monkeypatch) -> None:

@@ -158,7 +158,7 @@ def test_no_jax_or_reference_imports(path: pathlib.Path) -> None:
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_stray_prints_in_library(path: pathlib.Path) -> None:
     "Library code reports through return values and exceptions; only the CLIs print."
-    if path.name in ("__main__.py", "training.py"):
+    if path.name in ("__main__.py", "training.py", "dryrun.py"):
         return
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id == "print":

@@ -1150,3 +1150,89 @@ def test_threefry_draws_on_the_card_equal_the_cpu(cuda: torch.device) -> None:
         assert torch.equal(prng.uniform(key, (3, 1000), dtype, -1.0, 1.0, cuda).cpu(), prng.uniform(key, (3, 1000), dtype, -1.0, 1.0))
         card, host = prng.normal(key, (3, 1000), dtype, cuda).cpu().float(), prng.normal(key, (3, 1000), dtype).float()
         assert (card - host).abs().max().item() <= (1e-5 if dtype == torch.float32 else 2**-7 * host.abs().max().item())
+
+
+# ---- B11: one K/V block's attention and row statistics (a ring attention hop) ----------
+
+
+def _block_stats_inputs(cuda: torch.device, B: int, H: int, Nq: int, Nk: int, d: int, dtype: torch.dtype):
+    "q as the (B, H, Nq, d) view of a fused qkv's first third, k and v views of a fused (B, Nk, 2*H*d) kv."
+    gen = torch.Generator(cuda).manual_seed(Nq * 7 + Nk + d)
+    q = torch.randn((B, Nq, 3 * H * d), generator=gen, device=cuda).to(dtype)[..., : H * d]
+    kv = torch.randn((B, Nk, 2 * H * d), generator=gen, device=cuda).to(dtype)
+    heads = lambda t, n: t.reshape(B, n, H, d).transpose(1, 2)  # noqa: E731
+    return heads(q, Nq), *(heads(t, Nk) for t in kv.chunk(2, dim=-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    ("B", "H", "Nq", "Nk", "d"),
+    [(4, 4, 256, 256, 128), (1, 24, 1152, 1152, 128), (2, 3, 40, 24, 64), (2, 6, 1024, 1024, 64), (2, 3, 100, 300, 80)],
+)
+def test_block_stats_kernel_matches_plain(
+    cuda: torch.device, B: int, H: int, Nq: int, Nk: int, d: int, dtype: torch.dtype
+) -> None:
+    """B11 on strided q, k, v views against its plain version: o within 5e-3 plus one bf16 ulp of
+    the plain value (the kernel normalises after the value product, the plain version before: at
+    24 keys outputs reach 1-2, where one rounding is 2**-7), m and l within 1e-3 of their largest
+    value.  A ring hop's shapes, Flux's ragged 1152-row joint block, Nq != Nk on both sides of a
+    tile, head dims 64 and 128 in place and 80 zero-padded to 128."""
+    q, k, v = _block_stats_inputs(cuda, B, H, Nq, Nk, d, dtype)
+    before = flash_attention.flash_attention_block_stats.launches
+    o, m, l = flash_attention.flash_attention_block_stats(q, k, v)
+    assert flash_attention.flash_attention_block_stats.launches == before + 1
+    ro, rm, rl = flash_attention._block_stats_reference(q, k, v)
+    assert o.shape == (B, H, Nq, d) and o.dtype == dtype and torch.isfinite(o).all()
+    assert m.shape == l.shape == (B, H, Nq) and m.dtype == l.dtype == torch.float32
+    assert m.is_contiguous() and l.is_contiguous()
+    assert ((o.float() - ro.float()).abs() <= 5e-3 + 2**-8 * ro.float().abs()).all()
+    for got, want in ((m, rm), (l, rl)):
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    again = flash_attention.flash_attention_block_stats(q.contiguous(), k.contiguous(), v.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(again, (o, m, l)))
+
+
+@pytest.mark.gpu
+def test_block_stats_m_is_in_natural_log_units(cuda: torch.device) -> None:
+    """At a large score scale (inputs x 6: scaled scores in the hundreds) m is the row max of
+    ``q kᵀ / sqrt(d)`` itself: a max kept in log2 units and not converted would be 1.44x off.
+    m within 1e-3 of its largest value, l relative 1e-3 (at least 1: the max's own term)."""
+    q, k, v = _block_stats_inputs(cuda, 2, 4, 256, 192, 128, torch.bfloat16)
+    q, k = q * 6, k * 6
+    o, m, l = flash_attention.flash_attention_block_stats(q, k, v)
+    ro, rm, rl = flash_attention._block_stats_reference(q, k, v)
+    assert rm.abs().max().item() > 100
+    assert (m - rm).abs().max().item() <= 1e-3 * rm.abs().max().item()
+    assert (l >= 1).all() and ((l - rl).abs() / rl).max().item() <= 1e-3
+    assert (o.float() - ro.float()).abs().max().item() <= 5e-2
+
+
+@pytest.mark.gpu
+def test_block_stats_kernel_raises_on_what_it_cannot_take(cuda: torch.device) -> None:
+    bf16 = torch.bfloat16
+    x = torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention.flash_attention_block_stats(x, x, x)
+    q = torch.zeros(1, 2, 64, 64, device=cuda, dtype=bf16)
+    kv = torch.zeros(1, 2, 96, 64, device=cuda, dtype=bf16)
+    with pytest.raises(ValueError, match="v must be"):
+        flash_attention.flash_attention_block_stats(q, kv, kv[:, :, :64])
+    with pytest.raises(ValueError, match="k must be"):
+        flash_attention.flash_attention_block_stats(q, torch.zeros(2, 2, 96, 64, device=cuda, dtype=bf16), kv)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros(1, 2, 64, 136, device=cuda, dtype=bf16)
+        flash_attention.flash_attention_block_stats(wide, wide, wide)
+    with pytest.raises(ValueError, match="k must be"):
+        flash_attention.flash_attention_block_stats(q, torch.zeros(1, 2, 96, 32, device=cuda, dtype=bf16), kv)
+
+
+@pytest.mark.gpu
+def test_sequence_parallel_sample_on_one_card(cuda: torch.device, tmp_path) -> None:
+    """The dry run's 8-step samples on a one-rank NCCL group (bf16): the ring DiT (B11 every hop)
+    and the ulysses DiT (B9) within 5e-2 of the flash DiT's sample, relative to its largest value."""
+    from skrample_tpu_torch.parallel.dryrun import sample_cases, spawn_sp
+
+    flash, ring, ulysses = spawn_sp(1, sample_cases("bfloat16"), str(tmp_path), "nccl", "cuda")[0]
+    for got in (ring, ulysses):
+        assert np.isfinite(got).all() and np.abs(got - flash).max() <= 5e-2 * np.abs(flash).max()
