@@ -10,10 +10,11 @@ Phases, each failing the run with a non-zero exit:
 2. kernels: each kernel against its plain PyTorch version on the card at the
    shapes its path gives it (K1-K3 serving, K4-K6 training, B6/B7 Flux and
    int8 serving, B8/B10 SDXL serving, B12 at four f32 shapes of the SDXL
-   VAE's fused decode, bf16 with the norm, and bf16 without it at the SDXL
-   UNet's 640-channel conv), with card times of the kernel, the plain
-   version and, where one PyTorch call computes the same function, that
-   call;
+   VAE's fused decode, bf16 with the norm, at the video decode's finest
+   level with the norm and bare at its 3-channel out_conv, and bare at the
+   SDXL UNet's 320-, 640- and 1280-channel convs), with card times of the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call, and B12's and B13's host time a launch and plan;
 3. the serving slice: a ``ServingEngine`` over a DiT-512/8 (heads 4, bf16,
    random weights from a numpy seed), 25-step DPM++2M / FlowShift(Linear),
    buckets (1, 2, 4), answering 6 requests (4 together, then 2); the launch
@@ -218,7 +219,45 @@ def device_phase() -> dict:
     print("---- nvcc -Xptxas -v ----")
     print(_cuda.build_log().strip())
     print("---- end of build log ----")
+    for line in _sm90_instantiations(_cuda.build_log()):
+        print(line)
     return {"name": name, "count": count, "card": card}
+
+
+def _sm90_instantiations(log: str) -> list[str]:
+    """B12's and B13's Hopper instantiations (<WN, MT>: a consumer warpgroup's N width and M tiles) with
+    their registers at launch (setmaxnreg then moves them to the consumers), spills and injected
+    warpgroup fences, read from the ``-Xptxas -v`` log."""
+    import re
+
+    lines, current = [], None
+    stats: dict[str, dict] = {}
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w*?(conv3x3|tconv)_sm90_kernelILi(\d+)ELi(\d+)E\w*)'", line)
+        if entry:
+            current = f"{entry.group(2)}_sm90_kernel<{entry.group(3)}, {entry.group(4)}>"
+            stats.setdefault(current, {"fences": 0})
+            continue
+        fence = re.search(r"C7519.*(conv3x3|tconv)_sm90_kernelILi(\d+)ELi(\d+)E", line)
+        if fence:
+            key = f"{fence.group(1)}_sm90_kernel<{fence.group(2)}, {fence.group(3)}>"
+            stats.setdefault(key, {"fences": 0})["fences"] += 1
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            stats[current]["spills"] = int(spill.group(1))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            stats[current]["registers"] = int(used.group(1))
+            current = None
+    for name, st in stats.items():
+        lines.append(
+            f"{name}: {st.get('registers')} registers at launch, {st.get('spills')} bytes spilled, "
+            f"{st['fences']} warpgroup fences injected by ptxas"
+        )
+    return lines
 
 
 def kernels_phase() -> dict[str, dict]:
@@ -731,10 +770,14 @@ def _plain_b12(x, w, b, stats=None, residual=None, scale=None, bias=None, out_st
 
 def vae_kernels(gen) -> dict[str, dict]:
     """B12 against its plain version: f32 with GroupNorm(32) + f32 affine + SiLU on the input read and a
-    residual, at four of the SDXL VAE's fused-decode shapes; bf16 with the norm at one of them; bf16 with
-    the norm and the statistics off at the SDXL UNet's (2, 64, 64, 640 -> 640) conv (the C7 route).
-    Times and bounds; the library time is ``F.conv2d`` with its bias on the input normalized beforehand:
-    the conv alone, not the norm, the residual or the statistics."""
+    residual, at four of the SDXL VAE's fused-decode shapes (the CUDA-core route); bf16 with the norm,
+    the affine, a residual and the statistics at (1, 256, 256, 512); the video decode's finest level
+    (16 frames of 512x512, 64 -> 64: the norm without affine, a residual, the statistics) and its bare
+    64 -> 3 out_conv; and bare, statistics off, the SDXL UNet's convs at (2, 64, 64, 640), (2, 128, 128,
+    320) and (2, 32, 32, 1280) (the C7 route); every bf16 shape on the wgmma route.  Times, bounds, the
+    plan's shared memory, the wrapper's host time per launch; the library time is ``F.conv2d`` with its
+    bias on the input normalized beforehand: the conv alone, not the norm, the residual or the
+    statistics."""
     import torch
     import torch.nn.functional as F
 
@@ -742,47 +785,60 @@ def vae_kernels(gen) -> dict[str, dict]:
 
     dev = torch.device("cuda")
     rows: dict[str, dict] = {}
-    cases = [
-        ((1, 128, 128, 512), 512, torch.float32, True),
-        ((1, 256, 256, 512), 512, torch.float32, True),
-        ((1, 512, 512, 512), 256, torch.float32, True),
-        ((1, 1024, 1024, 256), 128, torch.float32, True),
-        ((1, 256, 256, 512), 512, torch.bfloat16, True),
-        ((2, 64, 64, 640), 640, torch.bfloat16, False),
+    bf16 = torch.bfloat16
+    cases = [  # (shape, Co, dtype, norm, affine, residual, statistics)
+        ((1, 128, 128, 512), 512, torch.float32, True, True, True, True),
+        ((1, 256, 256, 512), 512, torch.float32, True, True, True, True),
+        ((1, 512, 512, 512), 256, torch.float32, True, True, True, True),
+        ((1, 1024, 1024, 256), 128, torch.float32, True, True, True, True),
+        ((1, 256, 256, 512), 512, bf16, True, True, True, True),
+        ((16, 512, 512, 64), 64, bf16, True, False, True, True),
+        ((16, 512, 512, 64), 3, bf16, False, False, False, False),
+        ((2, 64, 64, 640), 640, bf16, False, False, False, False),
+        ((2, 128, 128, 320), 320, bf16, False, False, False, False),
+        ((2, 32, 32, 1280), 1280, bf16, False, False, False, False),
     ]
-    for shape, co, dtype, norm in cases:
+    for shape, co, dtype, norm, affine, residual, with_stats in cases:
         N, H, W, C = shape
+        plan = fused_conv.conv3x3_plan(H, W, C, co, dtype)
         x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
         w = (torch.randn((3, 3, C, co), generator=gen, device=dev) / (3 * C**0.5)).to(dtype)
         b = 0.1 * torch.randn(co, generator=gen, device=dev)
         stats = res = scale = bias = None
         if norm:
-            stats = fused_conv.finalize_group_stats(fused_conv.channel_stats(x), 32, H * W)
+            stats = fused_conv.finalize_group_stats(fused_conv.channel_stats(x), min(32, C // 4), H * W)
+        if affine:
             scale = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
             bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+        if residual:
             res = torch.randn((N, H, W, co), generator=gen, device=dev).to(dtype)
         args = (x, w, b, stats, res, scale, bias)
-        got, raw = fused_conv.conv3x3_gn_silu_forward(*args, out_stats=norm)
+        got, raw = fused_conv.conv3x3_gn_silu_forward(*args, out_stats=with_stats)
         want, want_raw = fused_conv.conv3x3_ref(*args)
-        again, _ = fused_conv.conv3x3_gn_silu_forward(*args, out_stats=norm)
+        again, _ = fused_conv.conv3x3_gn_silu_forward(*args, out_stats=with_stats)
         torch.cuda.synchronize()
         err = max_err(got, want)
         rel = err / want.float().abs().max().item()
-        raw_rel = _relative(raw, want_raw) if norm else 0.0
+        raw_rel = _relative(raw, want_raw) if with_stats else 0.0
         tol = 1e-4 if dtype == torch.float32 else 1e-2
-        form = "GN(32) + affine + SiLU on read, residual, statistics" if norm else "norm and statistics off"
+        form = ", ".join(
+            label for label, on in (("GN + SiLU on read", norm), ("affine", affine), ("residual", residual),
+                                    ("statistics", with_stats)) if on
+        ) or "norm and statistics off"
         print(
-            f"B12 conv3x3_gn_silu_forward {dtype} {shape} -> {co} ({form}): max_abs_err {err:.3e}, relative "
-            f"{rel:.3e} (tolerance {tol:.0e}), statistics relative {raw_rel:.3e}; a second run gives the same "
-            f"bits: {torch.equal(got, again)}"
+            f"B12 conv3x3_gn_silu_forward {dtype} {shape} -> {co} ({form}; route {plan.route}): max_abs_err "
+            f"{err:.3e}, relative {rel:.3e} (tolerance {tol:.0e}), statistics relative {raw_rel:.3e}; a second "
+            f"run gives the same bits: {torch.equal(got, again)}"
         )
         ok = bool(torch.isfinite(got).all()) and rel <= tol and raw_rel <= tol and torch.equal(got, again)
-        expect(ok, f"B12 {dtype} {shape} disagrees with the plain version: {rel}, statistics {raw_rel}")
+        expect(ok, f"B12 {dtype} {shape} -> {co} disagrees with the plain version: {rel}, statistics {raw_rel}")
         flops = 2.0 * N * H * W * 9 * C * co
         size = x.element_size()
-        n_bytes = (x.numel() + w.numel() + got.numel() + (res.numel() if norm else 0)) * size + co * 4
+        n_bytes = (x.numel() + w.numel() + got.numel() + (res.numel() if residual else 0)) * size + co * 4
         if norm:
-            n_bytes += (stats.numel() + 2 * C + raw.numel()) * 4
+            n_bytes += (stats.numel() + (2 * C if affine else 0)) * 4
+        if with_stats:
+            n_bytes += raw.numel() * 4
         b_ms, b_by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
         xin = x
         if norm:
@@ -797,16 +853,26 @@ def vae_kernels(gen) -> dict[str, dict]:
             with fused_conv.cudnn_tf32(False):
                 return F.conv2d(a[0], a[1], a[2], 1, 1)
 
+        def kernel(a=args, s=with_stats):
+            return fused_conv.conv3x3_gn_silu_forward(*a, out_stats=s)
+
         iters = 50 if flops < 2e11 else 5
         timing: dict = {}
-        timed(timing, "ms", lambda a=args, s=norm: fused_conv.conv3x3_gn_silu_forward(*a, out_stats=s), iters)
-        timed(timing, "plain_ms", lambda a=args, s=norm: _plain_b12(*a, out_stats=s), iters)
+        timed(timing, "ms", kernel, iters)
+        timed(timing, "plain_ms", lambda a=args, s=with_stats: _plain_b12(*a, out_stats=s), iters)
         timed(timing, "library_ms", library, iters)
+        timing["host_us"] = host_us(kernel)
+        geometry = (
+            f"; plan: BN {plan.bn} x {plan.n_tiles}, {plan.block_rows} rows a tile in strips of {plan.strip_w}, "
+            f"{plan.b_stages} weight stages, {plan.smem} bytes of shared memory"
+            if plan.route == "wgmma" else ""
+        )
         print(
             f"B12 {shape} -> {co} {dtype} (card time, CUDA-graph replay of {iters}): {timing['ms'] * 1e3:.2f} us "
             f"kernel ({flops / timing['ms'] / 1e9:.1f} TFLOP/s), {timing['plain_ms'] * 1e3:.2f} us plain, library "
             f"{timing['library_ms'] * 1e3:.2f} us (F.conv2d + bias, TF32 off, on the normalized input: the conv "
-            f"alone), bound {b_ms * 1e3:.2f} us ({b_by}, {flops / 1e9:.1f} GFLOP)"
+            f"alone), bound {b_ms * 1e3:.2f} us ({b_by}, {flops / 1e9:.1f} GFLOP); host {timing['host_us']:.1f} us "
+            f"a launch (median of 200){geometry}"
         )
         if "conv3x3_gn_silu_forward" not in rows:  # the row keeps the first shape's numbers
             rows["conv3x3_gn_silu_forward"] = {
@@ -817,7 +883,7 @@ def vae_kernels(gen) -> dict[str, dict]:
                 "max_abs_err": err,
                 "bound_ms": b_ms,
                 "bound_by": b_by,
-                **timing,
+                **{k: v for k, v in timing.items() if k != "host_us"},
             }
         del x, w, got, want, again, args, xin, x_lib, res
     return rows
@@ -853,6 +919,35 @@ def _counters() -> dict[str, int]:
 def _reset_counters() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes = dict.fromkeys(fn.routes, 0)
+
+
+def _routes() -> dict[str, dict[str, int]]:
+    "B12's and B13's launches by route (wgmma, mma.sync, f32) since the counters were reset."
+    from skrample_tpu_torch.ops import fused_conv
+
+    return {
+        "conv3x3_gn_silu_forward": dict(fused_conv.conv3x3_gn_silu_forward.routes),
+        "tconv_causal_gn_silu_forward": dict(fused_conv.tconv_causal_gn_silu_forward.routes),
+    }
+
+
+def host_us(fn, calls: int = 200) -> float:
+    "A wrapper's host time per launch: the median over ``calls`` eager calls (host clock, no synchronize)."
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if i % 20 == 19:
+            torch.cuda.synchronize()  # keep the launch queue short
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
 
 
 def _relative(a, b) -> float:
@@ -1451,7 +1546,7 @@ def flux_phase(card: str) -> tuple[dict[str, int], dict[str, int]]:
 
 
 SDXL_GROUPS = (
-    ("B12 convs", ("conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
+    ("B12 convs", ("conv3x3_sm90_kernel", "conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
     ("K1 fused_step", ("fused_step_kernel",)),
     ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("B10 attention", ("flash_strided_kernel",)),
@@ -1650,6 +1745,11 @@ def sdxl_phase(card: str) -> tuple[dict[str, int], dict]:
         expect(dispatches == 2, f"sdxl: {dispatches} dispatches, expected 2")
         for name, count in launches.items():
             expect(count == want[name] * forwards, f"sdxl: {name} launched {count}, expected {want[name] * forwards}")
+        # B12's routes: conv_in (C = 4) takes the mma.sync kernel, the other 37 convs a forward the wgmma one
+        routes = _routes()["conv3x3_gn_silu_forward"]
+        want_routes = {"wgmma": 37 * forwards, "mma_sync": forwards, "f32": 0}
+        print(f"sdxl: B12 launches by route {routes} (expected {want_routes})")
+        expect(routes == want_routes, f"sdxl: B12 routes {routes}, expected {want_routes}")
         for o in outs:
             expect(tuple(o.shape) == item_shape and bool(torch.isfinite(o).all()), "sdxl: bad output")
         peak = torch.cuda.max_memory_allocated()
@@ -1734,7 +1834,7 @@ SDXL_VAE_CONFIG = {
     "up_block_types": ("UpDecoderBlock2D",) * 4,
 }
 VAE_GROUPS = (
-    ("B12 convs", ("conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
+    ("B12 convs", ("conv3x3_sm90_kernel", "conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
     ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("cuDNN convs", ("fprop", "implicit_gemm", "conv", "cudnn", "winograd")),
     ("attention softmax", ("softmax",)),
@@ -2126,12 +2226,17 @@ def tconv_kernels(gen) -> dict[str, dict]:
         timed(timing, "ms", lambda a=args: fused_conv.tconv_causal_gn_silu_forward(*a), iters)
         timed(timing, "plain_ms", lambda a=args: _plain_b13(*a), iters)
         timed(timing, "library_ms", library, iters)
+        timing["host_us"] = host_us(lambda a=args: fused_conv.tconv_causal_gn_silu_forward(*a))
+        plan = fused_conv.tconv_plan(T, S, C, co, k, rep)
         print(
             f"B13 {shape} -> {co} (card time, CUDA-graph replay of {iters}): {timing['ms'] * 1e3:.2f} us kernel "
             f"({flops / timing['ms'] / 1e9:.1f} TFLOP/s, {n_bytes / timing['ms'] / 1e9:.2f} TB/s), "
             f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us (F.conv3d + bias "
             f"on the normalized input: the conv alone; vs plain {lib_rel:.3e} where there is no residual), bound "
-            f"{b_ms * 1e3:.2f} us ({b_by}: {n_bytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP)"
+            f"{b_ms * 1e3:.2f} us ({b_by}: {n_bytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP); host "
+            f"{timing['host_us']:.1f} us a launch (median of 200); plan ({plan.route}): {plan.block_rows} sites x "
+            f"BN {plan.bn} a tile, walks of {plan.walk} frames over {plan.frame_slots} frame slots, "
+            f"{plan.b_stages} weight stages, {plan.smem} bytes of shared memory"
         )
         if "tconv_causal_gn_silu_forward" not in rows:  # the row keeps the first shape's numbers
             rows["tconv_causal_gn_silu_forward"] = {
@@ -2142,7 +2247,7 @@ def tconv_kernels(gen) -> dict[str, dict]:
                 "max_abs_err": err,
                 "bound_ms": b_ms,
                 "bound_by": b_by,
-                **timing,
+                **{k: v for k, v in timing.items() if k != "host_us"},
             }
         del x, w, got, want, again, args, xin, x_lib, res, lib_out
     return rows
@@ -2290,8 +2395,8 @@ VIDEO_GROUPS = (
     ("K1 fused_step", ("fused_step_kernel",)),
     ("K2 flash_qkv", ("flash_qkv_kernel",)),
     ("K3 adaln", ("adaln_kernel",)),
-    ("B12 convs", ("conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
-    ("B13 tconvs", ("tconv_kernel", "tconv_stats_reduce_kernel")),
+    ("B12 convs", ("conv3x3_sm90_kernel", "conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
+    ("B13 tconvs", ("tconv_sm90_kernel", "tconv_kernel", "tconv_stats_reduce_kernel")),
     ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
     ("plain attention (temporal, VAE mid)", ("softmax",)),
     ("cuBLAS products", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
@@ -2314,6 +2419,7 @@ def video_phase(card: str) -> dict[str, int]:
         VideoVAE,
         VideoVAEConfig,
         fused_convs_per_decode,
+        fused_decode_on,
         video_vae_decode_flops,
     )
     from skrample_tpu_torch.ops import adaln, flash_attention, fused_conv, groupnorm
@@ -2357,8 +2463,14 @@ def video_phase(card: str) -> dict[str, int]:
         _reset_counters()
         vae.decode(latents(1))
         one = _counters()
-    print(f"video: one fused decode launched {one}")
+    routes = _routes()
+    print(f"video: one fused decode launched {one}; B12 and B13 by route {routes}")
     expect(one == per_decode, f"video: one decode launched {one}, expected {per_decode}")
+    want_routes = {
+        "conv3x3_gn_silu_forward": {"wgmma": b12_fused + 2, "mma_sync": 0, "f32": 0},
+        "tconv_causal_gn_silu_forward": {"wgmma": b13, "mma_sync": 0},
+    }
+    expect(routes == want_routes, f"video: one decode's routes {routes}, expected {want_routes}")
 
     engine = ServingEngine(
         dit.as_sampleable(), item_shape=VIDEO_LATENT, steps=STEPS, dtype=torch.float32, buckets=(1, 2),
@@ -2489,7 +2601,7 @@ def video_phase(card: str) -> dict[str, int]:
                 f"{flops / fwd / 1e12:.1f} TFLOP/s ({flops / 1e12:.3f} TFLOP; {card})"
             )
             times: dict[str, list[float]] = {"fused": [], "unfused": []}
-            for label in ("fused", "unfused", "unfused", "fused", "fused", "unfused"):
+            for label in ("fused", "unfused", "unfused", "fused") * 2 + ("fused", "unfused"):
                 vae.config = vae_cfg if label == "fused" else unfused_cfg
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2500,9 +2612,15 @@ def video_phase(card: str) -> dict[str, int]:
             med = {label: statistics.median(v) for label, v in times.items()}
             for label, v in times.items():
                 print(
-                    f"video: {label} decode of 16 frames at 512x512: median {med[label] * 1e3:.2f} ms of 3 "
+                    f"video: {label} decode of 16 frames at 512x512: median {med[label] * 1e3:.2f} ms of 5 "
                     f"({', '.join(f'{t * 1e3:.2f}' for t in v)}); {decode_flops / med[label] / 1e12:.1f} TFLOP/s ({card})"
                 )
+            fused_wins = med["fused"] < min(times["unfused"])
+            print(
+                f"video: C10, fused_decode='auto': the fused median {med['fused'] * 1e3:.2f} ms against the unfused "
+                f"fastest {min(times['unfused']) * 1e3:.2f} ms: the card picks {'fused' if fused_wins else 'unfused'}; "
+                f"'auto' takes {'fused' if fused_decode_on('auto', dev) else 'unfused'} on the card"
+            )
             _traced_dispatch(lambda: vae.decode(z), "video fused decode", med["fused"], card, VIDEO_GROUPS)
             vae.config = unfused_cfg
             _traced_dispatch(lambda: vae.decode(z), "video unfused decode", med["unfused"], card, VIDEO_GROUPS)

@@ -15,41 +15,76 @@
 //
 // Replaces: skrample_tpu/ops/fused_conv.py, _conv3x3_fused (kernel body
 // _conv3x3_kernel), reached through conv3x3_gn_silu: the 31 convs of the
-// image VAE's fused decode (models/vae.py _decode_fused), and, with the
-// norm and the statistics off, every stride-1 3x3 conv of the conv UNets
-// (the port's _conv: one rounding of the f32 sum where cuDNN rounds the
-// product and then the bias add).  The TPU kernel walks (item, row tile)
-// in order and carries the output statistics in a VMEM accumulator across
-// that sequential grid; its row-tile picker and VMEM budget are TPU
-// matters and do not carry over.
+// image VAE's fused decode (models/vae.py _decode_fused), the video VAE's
+// fused decode, and, with the norm and the statistics off, every stride-1
+// 3x3 conv of the conv UNets and VAEs (the port's _conv: one rounding of
+// the f32 sum where cuDNN rounds the product and then the bias add).  The
+// TPU kernel walks (item, row tile) in order and carries the output
+// statistics in a VMEM accumulator across that sequential grid; its
+// row-tile picker and VMEM budget are TPU matters and do not carry over.
 //
-// What bounds it on the H100: operations, 2*N*H*W*9*C*Co.  The SDXL VAE is
-// float32, and Hopper's tensor cores have no full-f32 product (TF32 keeps
-// 11 significant bits), so the f32 instantiation runs on the CUDA cores:
-// 67 TFLOP/s, 147 ms for the 9.7 TFLOP of a 1024x1024 decode's 31 convs.
-// The bf16 instantiation runs on the tensor cores (989 TFLOP/s).
+// What bounds it on the H100: operations, 2*N*H*W*9*C*Co, at the widths of
+// the UNets (C = 320-1280) and of the decodes' upper levels; bytes at
+// C = Co = 64 (the video decode's finest level) and at the 3-channel
+// out_conv.  Three routes, chosen by dtype and shape in skt_conv3x3 (the
+// wrapper's plan names the route: conv3x3_plan in ops/fused_conv.py):
 //
-// What the design does about it: an implicit GEMM, M = the item's H*W
-// pixels, N = Co, K = 9*C taken tap by tap, one block per (128-pixel tile,
-// 128-channel tile, batch item), 256 threads.
-// * f32: FFMA, an 8x8 register tile a thread over K slices of 8 channels
-//   (the classic SGEMM tiling), A and B slices double-buffered in shared
-//   memory; the next slice's global loads are issued before the current
-//   slice's products and normalized and stored after them.
-// * bf16: mma.sync m16n8k16 with f32 accumulators (csrc/tile_mma.cuh), K
-//   slices of 32 channels, each warp a 64x32 tile of the block's 128x128,
-//   operands by ldmatrix from 16-byte-padded rows; the same prefetch.
-// * The norm is applied in f32 as a slice is moved to shared memory, so
-//   the normalized tensor never exists in device memory; each input value
-//   is normalized once per tap it feeds (9 times), a few percent of the
-//   products' work.
-// * Statistics: each block sums its tile's rounded outputs per channel in a
-//   fixed order (registers, then warp shuffles, then shared memory) into a
-//   per-(item, pixel tile) partial; a second small kernel sums the partials
-//   over tiles in tile order.  No atomics, and the grid splits each item
-//   the same way at any batch size: an item's output and statistics are
-//   the same bits alone or packed.
-// wgmma, TMA and a persistent schedule are later work.
+// * bf16 with C % 8 == 0: conv3x3_sm90_kernel, the Hopper design.  Its
+//   predecessor (mma.sync from ldmatrix, one block an SM, one prefetch slot
+//   in registers, the norm recomputed for every tap and every 128-wide N
+//   tile) ran the bare conv at 138 TFLOP/s and the normed one at 75: the
+//   norm, an __expf and a divide per A element for each of the 9 taps and
+//   each N tile, cost as much as the products (Hopper's special-function
+//   units give 16 results a clock an SM).  Now:
+//   - an implicit GEMM, M = a run of the output's padded-width index space
+//     (a strip of strip_w columns seen strip_w + 2 wide), N = Co in tiles of
+//     BN (8 ... 256, covering Co rounded up to 8 exactly), K = 9 taps x C in
+//     64-channel slices;
+//   - per K slice, TMA loads the HALO of the block's rows once (a 4-D box of
+//     (N, H, W, C) at signed coordinates (h0 - 1, w0 - 1): zero fill outside
+//     the image and past C) into a 128-byte-swizzled stage; the consumers
+//     normalize it in place once (zero after the norm outside the image), a
+//     piece per tap of the previous slice, so the norm runs beside the tensor
+//     cores; the nine taps are nine row-shifted wgmma descriptors of that one
+//     stage (tap (dy, dx) starts dy (strip_w + 2) + dx rows in), and the
+//     padded columns are computed and dropped;
+//   - wgmma m64nWNk16, bf16 operands from shared memory, f32 accumulators in
+//     registers: two consumer warpgroups split the tile in M (BN < 128) or in
+//     N (BN >= 128), up to 128 accumulators a thread (MT M tiles of 64 rows,
+//     a compile-time count: a wgmma under a runtime condition makes ptxas
+//     fence every one);
+//   - a producer warpgroup (setmaxnreg 40; the consumers take 232): one lane
+//     streams halos through a 2-stage ring, one lane the weight tiles
+//     (Co, 9, C) tap by tap through a ring of 2-4 2-D TMA boxes; full and
+//     empty mbarriers; a persistent grid of at most one block an SM;
+//   - the epilogue adds bias and residual to the f32 sums, rounds once,
+//     stages a warpgroup's 64-row tile in shared memory and stores 16-byte
+//     vectors (scalar stores where Co % 8 != 0); the residual arrives by
+//     16-byte cp.async.
+//   Measured on an H100 80GB HBM3 at 700 W (scripts/bench_conv_kernels.py),
+//   the norm with its residual and statistics adds about 60% to the bare
+//   conv, where it multiplied the predecessor's time: at (1, 256, 256,
+//   512 -> 512) 512 us bare, 807-816 us with GroupNorm + affine + SiLU on
+//   read, a residual and the statistics (the predecessor: 4092 us with
+//   them); at the video decode's finest level
+//   (16, 512, 512, 64 -> 64) 1086-1111 us bare, 1805-1808 with the norm, a
+//   residual and the statistics.  There a block's tile has one K slice, so
+//   its halo norm and its epilogue (which the tensor cores wait out) weigh
+//   as much as its products.
+// * bf16 with C % 8 != 0 (SDXL's conv_in, C = 4): conv3x3_bf16_kernel, the
+//   mma.sync design, kept as an explicit route: TMA needs 16-byte global
+//   strides.  No other shape takes it.
+// * f32 (the SDXL VAE's fused decode): conv3x3_f32_kernel on the CUDA
+//   cores (Hopper's tensor cores have no full-f32 product; TF32 keeps 11
+//   significant bits): 67 TFLOP/s peak, an 8x8 register tile a thread over
+//   K slices of 8 channels, A and B double-buffered in shared memory.
+//
+// Statistics: each block sums its tile's rounded outputs per channel in a
+// fixed order (rows in order within a warpgroup, then warpgroup 0 before 1)
+// into a per-(item, pixel tile) partial; a second small kernel sums the
+// partials over tiles in tile order.  No atomics, and every split depends on
+// (H, W, C, Co) alone, never on the batch: an item's output and statistics
+// are the same bits alone or packed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +92,8 @@
 
 #include <type_traits>
 
+#include "conv_sm90.cuh"
+#include "sm90.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -267,9 +304,13 @@ __global__ void __launch_bounds__(kThreads, 2) conv3x3_f32_kernel(const Conv<flo
     }
 }
 
-// --------------------------------------------------------------- bf16: mma.sync
+// ------------------------------------------- bf16, C % 8 != 0: mma.sync (explicit route)
 
-template <bool kNorm, bool kVec>
+// The mma.sync design, for the shapes TMA cannot take (a row of C bf16 is not a whole number of
+// 16-byte units): an implicit GEMM of 128 x 128 tiles, 8 warps of 64 x 32, K slices of 32 channels by
+// scalar loads, the norm applied on the way to shared memory (once per tap it feeds).
+
+template <bool kNorm>
 __global__ void __launch_bounds__(kThreads) conv3x3_bf16_kernel(const Conv<__nv_bfloat16> p) {
     using T = __nv_bfloat16;
     __shared__ __align__(16) T As[2][kBM][kRow16];
@@ -317,16 +358,10 @@ __global__ void __launch_bounds__(kThreads) conv3x3_bf16_kernel(const Conv<__nv_
             a_pix[r] = tap_pixel(ph[r], pw[r], pok[r], tap, H, W);
             const T* src = xn + (a_pix[r] < 0 ? 0 : a_pix[r]) * C + c;
             const T* wsrc = wrow[r] + (long long)tap * C + c;
-            if constexpr (kVec) {  // C % 8 == 0: a vector is all in range or all out
-                const bool c_ok = c < C;
-                xa[r].u = (a_pix[r] >= 0 && c_ok) ? *reinterpret_cast<const uint4*>(src) : make_uint4(0, 0, 0, 0);
-                wb[r].u = (cok[r] && c_ok) ? *reinterpret_cast<const uint4*>(wsrc) : make_uint4(0, 0, 0, 0);
-            } else {
 #pragma unroll
-                for (int e = 0; e < 8; ++e) {
-                    xa[r].h[e] = (a_pix[r] >= 0 && c + e < C) ? src[e] : __float2bfloat16_rn(0.f);
-                    wb[r].h[e] = (cok[r] && c + e < C) ? wsrc[e] : __float2bfloat16_rn(0.f);
-                }
+            for (int e = 0; e < 8; ++e) {
+                xa[r].h[e] = (a_pix[r] >= 0 && c + e < C) ? src[e] : __float2bfloat16_rn(0.f);
+                wb[r].h[e] = (cok[r] && c + e < C) ? wsrc[e] : __float2bfloat16_rn(0.f);
             }
         }
     };
@@ -474,66 +509,383 @@ __global__ void __launch_bounds__(kThreads) conv_stats_reduce_kernel(const float
     }
 }
 
-bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+// ------------------------------------------------------- bf16, C % 8 == 0: wgmma
 
-template <typename T, bool kNorm, bool kVec>
-void launch(const Conv<T>& p, dim3 grid, cudaStream_t stream) {
-    if constexpr (std::is_same_v<T, float>) {
-        conv3x3_f32_kernel<kNorm, kVec><<<grid, kThreads, 0, stream>>>(p);
-    } else {
-        conv3x3_bf16_kernel<kNorm, kVec><<<grid, kThreads, 0, stream>>>(p);
+using conv_sm90::bf16;
+
+constexpr int kTaps = 9;
+constexpr int kFirstPiece = 3;  // the next slice's halo is normalized a piece per tap from this tap on
+
+// The wgmma route's arguments: the tensors, and the plan (conv3x3_plan in ops/fused_conv.py).
+struct Sm90 {
+    const float* bias;
+    const float* stats;
+    const float* gn_scale;
+    const float* gn_bias;
+    const bf16* residual;
+    bf16* out;
+    float* partial;
+    int H, W, C, Co;
+    int bn, mt, split_n, strip_w, runs, halo_rows, n_tiles, b_stages, tiles_m, nk, total;
+};
+
+struct Sm90Layout {
+    int halo_bytes, b;
+    conv_sm90::Tail tail;
+};
+
+// shared memory: 2 halo stages, b_stages weight stages, then the warpgroups' staging (one M tile),
+// statistics, row tables and the mbarriers (halo full/empty, weights full/empty)
+__host__ __device__ inline Sm90Layout sm90_layout(const Sm90& p) {
+    Sm90Layout L;
+    L.halo_bytes = conv_sm90::round_up(p.halo_rows * (p.strip_w + 2) * sm90::kRowBytes, sm90::kSwizzleAtom);
+    L.b = 2 * L.halo_bytes;
+    const int wn = p.split_n ? p.bn / 2 : p.bn;
+    L.tail = conv_sm90::tail_layout(L.b + p.b_stages * p.bn * sm90::kRowBytes, wn, 1, 4 + 2 * p.b_stages);
+    return L;
+}
+
+struct Tile {
+    int n, nt, mtile, w0, wt, q0, hr0;
+};
+
+// tile -> (item, N tile, pixel tile = strip * runs + run); the run starts at padded-width index q0 of
+// its strip, whose halo rows start at hr0 (image row hr0 - 1)
+__device__ __forceinline__ Tile decode(const Sm90& p, int tile) {
+    Tile T;
+    T.nt = tile % p.n_tiles;
+    const int rest = tile / p.n_tiles;
+    T.mtile = rest % p.tiles_m;
+    T.n = rest / p.tiles_m;
+    const int strip = T.mtile / p.runs, run = T.mtile % p.runs;
+    T.w0 = strip * p.strip_w;
+    T.wt = min(p.strip_w, p.W - T.w0);
+    T.q0 = run * p.mt * 64 * (p.split_n ? 1 : 2);
+    T.hr0 = T.q0 / (p.strip_w + 2);
+    return T;
+}
+
+// Normalize 16-byte chunks [256 jb, 256 je) of a halo stage in place (thread tid < 256 takes chunks
+// tid + 256 j, so always the channels 8 (tid % 8)..+7 of the slice): zero outside the image.
+__device__ __forceinline__ void normalize_halo(const Sm90& p, const Tile& T, uint32_t halo, const conv_sm90::Norm8& nm,
+                                               int jb, int je, int tid) {
+    const int Wd = p.strip_w + 2;
+    const int chunks = p.halo_rows * Wd * 8;
+    const int c = tid & 7;
+    const int jend = min(je, (chunks - tid + conv_sm90::kConsumers - 1) / conv_sm90::kConsumers);
+#pragma unroll 2
+    for (int j = jb; j < jend; ++j) {
+        const int i = tid + conv_sm90::kConsumers * j;
+        const int pix = i >> 3;
+        const int hr = pix / Wd, hc = pix - hr * Wd;
+        const int row = T.hr0 - 1 + hr, col = T.w0 - 1 + hc;
+        const uint32_t addr = conv_sm90::chunk_addr(halo, pix, c);
+        if (row >= 0 && row < p.H && col >= 0 && col < p.W) {
+            conv_sm90::sts128(addr, nm.apply(conv_sm90::lds128(addr)));
+        } else {
+            conv_sm90::sts128(addr, make_uint4(0, 0, 0, 0));
+        }
     }
 }
 
-template <typename T>
-int run(Conv<T> p, float* raw, int N, bool vec, cudaStream_t stream) {
-    const dim3 grid(p.mtiles, (p.Co + kBN - 1) / kBN, N);
-    const bool norm = p.stats != nullptr;
-    if (norm && vec) launch<T, true, true>(p, grid, stream);
-    if (norm && !vec) launch<T, true, false>(p, grid, stream);
-    if (!norm && vec) launch<T, false, true>(p, grid, stream);
-    if (!norm && !vec) launch<T, false, false>(p, grid, stream);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || raw == nullptr) return (int)err;
-    const dim3 rgrid((2 * p.Co + kStatCols - 1) / kStatCols, N);
-    conv_stats_reduce_kernel<<<rgrid, kThreads, 0, stream>>>(p.partial, raw, p.mtiles, p.Co);
+template <int WN, int MT>
+__global__ void __launch_bounds__(conv_sm90::kThreads, 1)
+    conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                        const Sm90 p) {
+    using namespace conv_sm90;
+    using namespace sm90;
+    extern __shared__ __align__(1024) uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((kSwizzleAtom - (smem_u32(smem_raw) & (kSwizzleAtom - 1))) & (kSwizzleAtom - 1));
+    const Sm90Layout L = sm90_layout(p);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.tail.bars);
+    uint64_t* halo_full = bars;
+    uint64_t* halo_empty = bars + 2;
+    uint64_t* b_full = bars + 4;
+    uint64_t* b_empty = b_full + p.b_stages;
+    const int tid = threadIdx.x, wg = tid / 128;
+    const int Wd = p.strip_w + 2;
+    if (tid == 0) {
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(&halo_full[i], 1);
+            mbar_init(&halo_empty[i], kConsumers);
+        }
+        for (int i = 0; i < p.b_stages; ++i) {
+            mbar_init(&b_full[i], 1);
+            mbar_init(&b_empty[i], kConsumers);
+        }
+        fence_barrier_init();
+    }
+    __syncthreads();
+
+    if (wg == 2) {
+        // ---- producer: one lane streams halos, one lane weight tiles ----
+        setmaxnreg_dec<kProducerRegs>();
+        const int warp = (tid / 32) & 3;
+        if (warp == 0 && (tid & 31) == 0) {
+            prefetch_map(&xmap);
+            int count = 0;
+            for (int tile = blockIdx.x; tile < p.total; tile += gridDim.x) {
+                const Tile T = decode(p, tile);
+                for (int kc = 0; kc < p.nk; ++kc, ++count) {
+                    const int s = count & 1;
+                    mbar_wait(&halo_empty[s], ((count >> 1) & 1) ^ 1);
+                    mbar_expect_tx(&halo_full[s], p.halo_rows * Wd * kRowBytes);
+                    tma_load_4d(smem + s * L.halo_bytes, &xmap, &halo_full[s], kc * 64, T.w0 - 1, T.hr0 - 1, T.n);
+                }
+            }
+        } else if (warp == 1 && (tid & 31) == 0) {
+            prefetch_map(&wmap);
+            int count = 0;
+            for (int tile = blockIdx.x; tile < p.total; tile += gridDim.x) {
+                const int nt = tile % p.n_tiles;
+                for (int kc = 0; kc < p.nk; ++kc) {
+                    for (int tap = 0; tap < kTaps; ++tap, ++count) {
+                        const int s = count % p.b_stages;
+                        mbar_wait(&b_empty[s], ((count / p.b_stages) & 1) ^ 1);
+                        mbar_expect_tx(&b_full[s], p.bn * kRowBytes);
+                        tma_load_3d(smem + L.b + s * p.bn * kRowBytes, &wmap, &b_full[s], kc * 64, tap, nt * p.bn);
+                    }
+                }
+            }
+        }
+    } else {
+        // ---- consumers: warpgroup g ----
+        setmaxnreg_inc<kConsumerRegs>();
+        const int g = wg, t = tid & 127;
+        const bool norm = p.stats != nullptr;
+        const int rowoff = p.split_n ? 0 : g * p.mt * 64;
+        const int col_wg = p.split_n ? g * WN : 0;
+        const uint32_t halo_base = smem_u32(smem), b_base = smem_u32(smem + L.b);
+        const int J = (p.halo_rows * Wd * 8 + kConsumers - 1) / kConsumers;
+        float* red = reinterpret_cast<float*>(smem + L.tail.red);
+        Epi e;
+        e.bias = p.bias;
+        e.residual = p.residual;
+        e.out = p.out;
+        e.Co = p.Co;
+        e.sr = 1;
+        e.staging = smem + L.tail.staging + g * 64 * (WN + 8) * 2;
+        e.rows = reinterpret_cast<long long*>(smem + L.tail.rows) + g * 64;
+        constexpr bool prefetch = MT == 1;  // the staging tile holds the whole tile: fetched during the last slice
+        float acc[MT][WN / 2];
+        Norm8 nm;
+        int hcount = 0, bcount = 0;
+        bool ahead = false;  // this slice's halo was normalized during the previous slice
+        for (int tile = blockIdx.x; tile < p.total; tile += gridDim.x) {
+            const Tile T = decode(p, tile);
+            e.col0 = T.nt * p.bn + col_wg;
+            const int o = T.q0 - T.hr0 * Wd;
+            const auto row_of = [&](int r) -> long long {
+                const int q = T.q0 + rowoff + r;
+                const int i = q / Wd, j = q - i * Wd;
+                return (i < p.H && j < T.wt) ? ((long long)T.n * p.H + i) * p.W + T.w0 + j : -1;
+            };
+            zero_acc<WN, MT>(acc);
+            for (int kc = 0; kc < p.nk; ++kc, ++hcount) {
+                const int s = hcount & 1;
+                const uint32_t halo = halo_base + s * L.halo_bytes;
+                if (!ahead) mbar_wait(&halo_full[s], (hcount >> 1) & 1);
+                if (norm) {
+                    if (!ahead) {
+                        nm.load(p.stats + (long long)T.n * 2 * p.C, p.gn_scale, p.gn_bias, p.C, kc * 64 + (tid & 7) * 8);
+                        normalize_halo(p, T, halo, nm, 0, J, tid);
+                    }
+                    fence_proxy_async();
+                    named_bar(kBarConsumers, kConsumers);
+                }
+                // the block's next slice (this tile's, or the next tile's first), normalized during this one
+                int nkc = kc + 1, ntile = tile;
+                if (nkc == p.nk) {
+                    nkc = 0;
+                    ntile = tile + gridDim.x;
+                }
+                const bool next = norm && ntile < p.total;
+                const Tile NT = next ? decode(p, ntile) : T;
+                const int ns = (hcount + 1) & 1;
+                if (prefetch && kc == p.nk - 1) {  // the residual of the tile, in flight during its last slice
+                    fill_rows(e, 0, t, row_of);
+                    named_bar(2 + g, 128);
+                    if (p.residual != nullptr) load_residual<WN>(e, t);
+                }
+                for (int tap = 0; tap < kTaps; ++tap, ++bcount) {
+                    const int bs = bcount % p.b_stages;
+                    mbar_wait(&b_full[bs], (bcount / p.b_stages) & 1);
+                    const int dy = tap / 3, dx = tap - 3 * dy;
+                    const uint32_t a0 = halo + (o + rowoff + dy * Wd + dx) * kRowBytes;
+                    const uint32_t b0 = b_base + bs * p.bn * kRowBytes + col_wg * kRowBytes;
+                    wgmma_fence();
+                    tap_products<WN, MT>(acc, a0, b0);
+                    wgmma_commit();
+                    wgmma_wait<1>();
+                    // the group before this one is done: release its weights, and its halo after a slice
+                    if (tap > 0 || kc > 0) mbar_arrive(&b_empty[(bcount - 1) % p.b_stages]);
+                    if (tap == 0 && kc > 0) mbar_arrive(&halo_empty[(hcount - 1) & 1]);
+                    if (next && tap >= kFirstPiece) {
+                        if (tap == kFirstPiece) {
+                            mbar_wait(&halo_full[ns], ((hcount + 1) >> 1) & 1);
+                            nm.load(p.stats + (long long)NT.n * 2 * p.C, p.gn_scale, p.gn_bias, p.C,
+                                    nkc * 64 + (tid & 7) * 8);
+                        }
+                        const int piece = tap - kFirstPiece, pieces = kTaps - kFirstPiece;
+                        normalize_halo(p, NT, halo_base + ns * L.halo_bytes, nm, piece * J / pieces,
+                                       (piece + 1) * J / pieces, tid);
+                    }
+                }
+                ahead = next;
+            }
+            wgmma_wait<0>();
+#pragma unroll
+            for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+            mbar_arrive(&b_empty[(bcount - 1) % p.b_stages]);
+            mbar_arrive(&halo_empty[(hcount - 1) & 1]);
+
+            float s1 = 0.f, s2 = 0.f;
+            epilogue<WN, MT>(e, acc, g, t, prefetch, row_of, s1, s2);
+            if (p.partial != nullptr)
+                write_partial<WN>(p.partial + ((long long)T.n * p.tiles_m + T.mtile) * 2 * p.Co, p.Co, e.col0,
+                                  p.split_n, g, t, s1, s2, red);
+        }
+    }
+}
+
+template <int WN, int MT>
+int launch_sm90(const CUtensorMap& xmap, const CUtensorMap& wmap, const Sm90& p, cudaStream_t stream) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        conv3x3_sm90_kernel<WN, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, conv_sm90::kMaxSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    const int bytes = sm90_layout(p).tail.end + sm90::kSwizzleAtom;
+    const int grid = p.total < sm90::sm_count() ? p.total : sm90::sm_count();
+    conv3x3_sm90_kernel<WN, MT><<<grid, conv_sm90::kThreads, bytes, stream>>>(xmap, wmap, p);
     return (int)cudaGetLastError();
 }
+
+// The wgmma route: check the plan, encode the tensor maps (the weights' cached), launch.
+int run_sm90(Sm90 p, const void* x, const void* wt, int N, cudaStream_t stream) {
+    const int Wd = p.strip_w + 2;
+    const int wn = p.split_n ? p.bn / 2 : p.bn;
+    const int bm = p.mt * 64 * (p.split_n ? 1 : 2);
+    const int strips = (p.W + p.strip_w - 1) / p.strip_w;
+    const bool shape_ok = p.C % 8 == 0 && p.bn % 8 == 0 && p.bn <= 256 && (!p.split_n || p.bn % 16 == 0) &&
+                          (p.mt == 1 || p.mt == conv_sm90::mt_max(wn) || (wn == 64 && p.mt == 2)) &&
+                          p.strip_w >= 1 && Wd <= 256 && p.runs * bm >= p.H * Wd && p.halo_rows <= 256 &&
+                          p.halo_rows * Wd >= bm + 3 * Wd + 1 && p.n_tiles * p.bn >= p.Co &&
+                          p.tiles_m == strips * p.runs && p.b_stages >= 2 && p.b_stages <= 8;
+    if (!shape_ok || sm90_layout(p).tail.end + sm90::kSwizzleAtom > conv_sm90::kMaxSmem)
+        return (int)cudaErrorInvalidValue;
+    const long long total = (long long)N * p.tiles_m * p.n_tiles;
+    if (total > (1LL << 30)) return (int)cudaErrorInvalidValue;
+    p.total = (int)total;
+    p.nk = (p.C + 63) / 64;
+    CUtensorMap xmap, wmap;
+    const cuuint64_t xd[4] = {(cuuint64_t)p.C, (cuuint64_t)p.W, (cuuint64_t)p.H, (cuuint64_t)N};
+    const cuuint64_t xs[3] = {(cuuint64_t)p.C * 2, (cuuint64_t)p.W * p.C * 2, (cuuint64_t)p.H * p.W * p.C * 2};
+    const cuuint32_t xb[4] = {64, (cuuint32_t)Wd, (cuuint32_t)p.halo_rows, 1};
+    if (!sm90::encode_bf16(&xmap, x, 4, xd, xs, xb)) return (int)cudaErrorInvalidValue;
+    static sm90::MapCache weights;
+    const cuuint64_t wd[3] = {(cuuint64_t)p.C, kTaps, (cuuint64_t)p.Co};
+    const cuuint64_t ws[2] = {(cuuint64_t)p.C * 2, (cuuint64_t)kTaps * p.C * 2};
+    const cuuint32_t wb[3] = {64, 1, (cuuint32_t)p.bn};
+    if (!weights.get(&wmap, wt, 3, wd, ws, wb)) return (int)cudaErrorInvalidValue;
+    const bool one = p.mt == 1;
+    switch (wn) {
+        case 8: return one ? launch_sm90<8, 1>(xmap, wmap, p, stream) : launch_sm90<8, 4>(xmap, wmap, p, stream);
+        case 16: return one ? launch_sm90<16, 1>(xmap, wmap, p, stream) : launch_sm90<16, 4>(xmap, wmap, p, stream);
+        case 32: return one ? launch_sm90<32, 1>(xmap, wmap, p, stream) : launch_sm90<32, 4>(xmap, wmap, p, stream);
+        case 64:
+            return one ? launch_sm90<64, 1>(xmap, wmap, p, stream)
+                       : p.mt == 2 ? launch_sm90<64, 2>(xmap, wmap, p, stream) : launch_sm90<64, 4>(xmap, wmap, p, stream);
+        case 80: return one ? launch_sm90<80, 1>(xmap, wmap, p, stream) : launch_sm90<80, 3>(xmap, wmap, p, stream);
+        case 128: return one ? launch_sm90<128, 1>(xmap, wmap, p, stream) : launch_sm90<128, 2>(xmap, wmap, p, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
+template <typename T, bool kNorm>
+void launch(const Conv<T>& p, dim3 grid, cudaStream_t stream) {
+    if constexpr (std::is_same_v<T, float>) {
+        if (p.C % 4 == 0 && aligned16(p.x) && aligned16(p.wt)) {
+            conv3x3_f32_kernel<kNorm, true><<<grid, kThreads, 0, stream>>>(p);
+        } else {
+            conv3x3_f32_kernel<kNorm, false><<<grid, kThreads, 0, stream>>>(p);
+        }
+    } else {
+        conv3x3_bf16_kernel<kNorm><<<grid, kThreads, 0, stream>>>(p);
+    }
+}
+
+// the f32 and mma.sync routes: one block per (128-pixel tile, 128-channel tile, item)
+template <typename T>
+int run(const Conv<T>& p, int N, cudaStream_t stream) {
+    const dim3 grid(p.mtiles, (p.Co + kBN - 1) / kBN, N);
+    if (p.stats != nullptr) {
+        launch<T, true>(p, grid, stream);
+    } else {
+        launch<T, false>(p, grid, stream);
+    }
+    return (int)cudaGetLastError();
+}
+
+int reduce_stats(const float* partial, float* raw, int N, int mtiles, int Co, cudaStream_t stream) {
+    const dim3 rgrid((2 * Co + kStatCols - 1) / kStatCols, N);
+    conv_stats_reduce_kernel<<<rgrid, kThreads, 0, stream>>>(partial, raw, mtiles, Co);
+    return (int)cudaGetLastError();
+}
+
+enum Route { kRouteF32 = 0, kRouteMmaSync = 1, kRouteWgmma = 2 };
 
 }  // namespace
 
 // x (N, H, W, C) and wt (Co, 3, 3, C) of dtype 0 = f32 or 1 = bf16, contiguous; bias (Co,) f32.
 // stats (N, 2, C) f32 [mean, inv] turns the norm on (null: a plain conv); gn_scale and gn_bias (C,)
 // f32, both or neither, only with stats.  residual (N, H, W, Co) of x's dtype or null.  out
-// (N, H, W, Co).  partial (N, ceil(H*W / 128), 2, Co) f32 scratch and raw (N, 2, Co) f32, both or
-// neither: the output's [sum, sumsq] per (item, channel).
+// (N, H, W, Co).  partial (N, plan[1], 2, Co) f32 scratch and raw (N, 2, Co) f32, both or neither:
+// the output's [sum, sumsq] per (item, channel).  plan (conv3x3_plan in ops/fused_conv.py): route
+// (0 f32, 1 bf16 mma.sync for C % 8 != 0, 2 bf16 wgmma for C % 8 == 0), pixel tiles an item, then for
+// route 2 BN, M tiles a warpgroup, split in N, strip width, runs a strip, halo rows, N tiles, weight
+// stages.  A plan that does not match the shape is refused (cudaErrorInvalidValue).
 extern "C" int skt_conv3x3(const void* x, const void* wt, const void* bias, const void* stats, const void* gn_scale,
                            const void* gn_bias, const void* residual, void* out, void* partial, void* raw, int N,
-                           int H, int W, int C, int Co, int dtype, cudaStream_t stream) {
-    if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || Co < 1 || (long long)H * W > (1LL << 30))
+                           int H, int W, int C, int Co, int dtype, const int* plan, cudaStream_t stream) {
+    if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1 || Co < 1 || (long long)H * W > (1LL << 30) || plan == nullptr)
         return (int)cudaErrorInvalidValue;
     if ((gn_scale == nullptr) != (gn_bias == nullptr) || (gn_scale != nullptr && stats == nullptr))
         return (int)cudaErrorInvalidValue;
     if ((partial == nullptr) != (raw == nullptr) || x == nullptr || wt == nullptr || bias == nullptr || out == nullptr)
         return (int)cudaErrorInvalidValue;
-    const int mtiles = (int)(((long long)H * W + kBM - 1) / kBM);
-    if ((Co + kBN - 1) / kBN > 65535) return (int)cudaErrorInvalidValue;
-    if (dtype == 0) {
-        const Conv<float> p{static_cast<const float*>(x), static_cast<const float*>(wt), static_cast<const float*>(bias),
-                            static_cast<const float*>(stats), static_cast<const float*>(gn_scale),
-                            static_cast<const float*>(gn_bias), static_cast<const float*>(residual),
-                            static_cast<float*>(out), static_cast<float*>(partial), H, W, C, Co, mtiles};
-        const bool vec = C % 4 == 0 && aligned16(x) && aligned16(wt);
-        return run(p, static_cast<float*>(raw), N, vec, stream);
-    }
-    if (dtype == 1) {
+    const int route = plan[0], mtiles = plan[1];
+    const int want = dtype == 0 ? kRouteF32 : dtype == 1 ? (C % 8 == 0 ? kRouteWgmma : kRouteMmaSync) : -1;
+    if (route != want) return (int)cudaErrorInvalidValue;
+    int err = 0;
+    if (route == kRouteWgmma) {
         using T = __nv_bfloat16;
-        const Conv<T> p{static_cast<const T*>(x), static_cast<const T*>(wt), static_cast<const float*>(bias),
-                        static_cast<const float*>(stats), static_cast<const float*>(gn_scale),
-                        static_cast<const float*>(gn_bias), static_cast<const T*>(residual), static_cast<T*>(out),
-                        static_cast<float*>(partial), H, W, C, Co, mtiles};
-        const bool vec = C % 8 == 0 && aligned16(x) && aligned16(wt);
-        return run(p, static_cast<float*>(raw), N, vec, stream);
+        // TMA reads x and wt; the epilogue copies 16 bytes at a time where Co % 8 == 0
+        if (!aligned16(x) || !aligned16(wt) || (Co % 8 == 0 && (!aligned16(residual) || !aligned16(out))))
+            return (int)cudaErrorInvalidValue;
+        Sm90 p{static_cast<const float*>(bias), static_cast<const float*>(stats), static_cast<const float*>(gn_scale),
+               static_cast<const float*>(gn_bias), static_cast<const T*>(residual), static_cast<T*>(out),
+               static_cast<float*>(partial), H, W, C, Co,
+               plan[2], plan[3], plan[4], plan[5], plan[6], plan[7], plan[8], plan[9], mtiles, 0, 0};
+        err = run_sm90(p, x, wt, N, stream);
+    } else {
+        if (mtiles != (int)(((long long)H * W + kBM - 1) / kBM) || (Co + kBN - 1) / kBN > 65535)
+            return (int)cudaErrorInvalidValue;
+        if (route == kRouteF32) {
+            const Conv<float> p{static_cast<const float*>(x), static_cast<const float*>(wt), static_cast<const float*>(bias),
+                                static_cast<const float*>(stats), static_cast<const float*>(gn_scale),
+                                static_cast<const float*>(gn_bias), static_cast<const float*>(residual),
+                                static_cast<float*>(out), static_cast<float*>(partial), H, W, C, Co, mtiles};
+            err = run(p, N, stream);
+        } else {
+            using T = __nv_bfloat16;
+            const Conv<T> p{static_cast<const T*>(x), static_cast<const T*>(wt), static_cast<const float*>(bias),
+                            static_cast<const float*>(stats), static_cast<const float*>(gn_scale),
+                            static_cast<const float*>(gn_bias), static_cast<const T*>(residual), static_cast<T*>(out),
+                            static_cast<float*>(partial), H, W, C, Co, mtiles};
+            err = run(p, N, stream);
+        }
     }
-    return (int)cudaErrorInvalidValue;
+    if (err != 0 || raw == nullptr) return err;
+    return reduce_stats(static_cast<const float*>(partial), static_cast<float*>(raw), N, mtiles, Co, stream);
 }

@@ -1,0 +1,317 @@
+// Hopper (sm_90a) building blocks for the conv kernels (B12 bf16 and B13 in
+// fused_conv.cu and tconv.cu), as inline PTX: mbarriers, TMA tile loads
+// (cp.async.bulk.tensor) completing on an mbarrier, wgmma with both operands
+// read from shared memory through matrix descriptors, its fence, commit and
+// wait, named barriers, the async-proxy fence, setmaxnreg, and the host's
+// tensor-map encoding (the driver's cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint: the library keeps its plain C interface and links
+// no -lcuda), with a cache for maps that do not move between calls.
+//
+// Operand layout: every tile is K-major with 64 bf16 (128 bytes) a row, as a
+// TMA box with the 128-byte swizzle writes it (16-byte chunk c of row r lands
+// at chunk c ^ (r % 8), the pattern anchored at 1024-byte-aligned addresses).
+// The hardware applies the swizzle to the absolute shared-memory address,
+// so a descriptor may start at any row of such a tile: a 3x3 conv reads its
+// nine taps as nine row-shifted views of one normalized halo tile.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+
+namespace sm90 {
+
+constexpr int kRowBytes = 128;  // a K-major tile row: 64 bf16
+constexpr int kSwizzleAtom = 1024;  // the 128-byte swizzle repeats every 8 rows
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects ``bytes`` of TMA traffic before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the phase with parity ``parity``.  A wait that lasts ~10 s of clocks
+// traps (an unspecified launch failure the wrapper reports) rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    long long start = 0;
+    while (true) {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(addr), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (start == 0) {
+            start = clock64();
+        } else if (clock64() - start > (1LL << 34)) {
+            __trap();
+        }
+    }
+}
+
+// ---- TMA: a box of a tensor map into shared memory, completing on ``bar`` ----
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+            "r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
+        "[%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- barriers and fences among the consumer warps ----
+
+// bar.sync on named barrier ``id`` (1..15) for ``threads`` threads (a multiple of 32)
+__device__ __forceinline__ void named_bar(int id, int threads) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// generic-proxy writes to shared memory (the norm, in place) made visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// ---- wgmma ----
+
+// Descriptor of a K-major bf16 tile with 128-byte rows in the 128-byte swizzle, starting at any row
+// (and at a 32-byte K step within the row): 8-row groups 1024 bytes apart.  The base-offset field
+// stays 0: the swizzle is applied to the absolute address, the pattern TMA wrote (on the H100, a
+// descriptor that starts 1-7 rows into the pattern with the base offset set to that row reads
+// wrong values; with 0 it reads the rows it starts at).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+    uint64_t d = 0;
+    d |= (uint64_t)((addr & 0x3FFFF) >> 4);       // start address, 16-byte units
+    d |= (uint64_t)1 << 16;                       // leading byte offset: unused by a swizzled K-major tile
+    d |= (uint64_t)(kSwizzleAtom >> 4) << 32;     // stride byte offset: the next 8-row group
+    d |= (uint64_t)1 << 62;                       // 128-byte swizzle
+    return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across a wgmma fence or wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N f32, the warpgroup's fragments) += A (64 x 16, descriptor a) * B (N x 16, descriptor b)^T.
+// Fragment of thread t: warp w = t / 32, lane l; d[4j + e] sits at row 16w + l/4 + 8 (e / 2),
+// column 8j + 2 (l % 4) + e % 2.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+    __device__ static void mma(float (&d)[4], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct Wgmma<16> {
+    __device__ static void mma(float (&d)[8], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct Wgmma<32> {
+    __device__ static void mma(float (&d)[16], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct Wgmma<64> {
+    __device__ static void mma(float (&d)[32], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct Wgmma<80> {
+    __device__ static void mma(float (&d)[40], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct Wgmma<128> {
+    __device__ static void mma(float (&d)[64], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+
+// ---- host: tensor maps ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+    static EncodeTiled fn = nullptr;
+    static std::once_flag once;
+    std::call_once(once, [] {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult status;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status) == cudaSuccess &&
+            status == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(ptr);
+    });
+    return fn;
+}
+
+// A bf16 tensor map of ``rank`` dims (dims innermost first, byte strides of dims 1..rank-1), a box of
+// ``box``, the 128-byte swizzle, zero fill outside the tensor.  False when the driver refuses it.
+inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                        const cuuint64_t* strides, const cuuint32_t* box) {
+    const EncodeTiled fn = encode_fn();
+    if (fn == nullptr) return false;
+    const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, ones,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Weight maps, which do not move between calls, cached by (pointer, dims, box): a map is a function
+// of those alone, so a hit is always the map the call would encode.
+class MapCache {
+  public:
+    bool get(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+             const cuuint32_t* box) {
+        Key key{};
+        key.base = base;
+        key.rank = rank;
+        for (int i = 0; i < rank; ++i) {
+            key.dims[i] = dims[i];
+            key.box[i] = box[i];
+        }
+        std::lock_guard<std::mutex> guard(mutex_);
+        for (int i = 0; i < used_; ++i) {
+            if (same(entries_[i].key, key)) {
+                *map = entries_[i].map;
+                return true;
+            }
+        }
+        if (!encode_bf16(map, base, rank, dims, strides, box)) return false;
+        Entry& slot = entries_[next_];
+        slot.key = key;
+        slot.map = *map;
+        next_ = (next_ + 1) % kEntries;
+        if (used_ < kEntries) ++used_;
+        return true;
+    }
+
+  private:
+    static constexpr int kEntries = 256;
+    struct Key {
+        const void* base;
+        int rank;
+        cuuint64_t dims[5];
+        cuuint32_t box[5];
+    };
+    struct Entry {
+        Key key;
+        CUtensorMap map;
+    };
+    static bool same(const Key& a, const Key& b) {
+        if (a.base != b.base || a.rank != b.rank) return false;
+        for (int i = 0; i < a.rank; ++i)
+            if (a.dims[i] != b.dims[i] || a.box[i] != b.box[i]) return false;
+        return true;
+    }
+    std::mutex mutex_;
+    Entry entries_[kEntries];
+    int used_ = 0;
+    int next_ = 0;
+};
+
+inline int sm_count() {
+    static int count = 0;
+    static std::once_flag once;
+    std::call_once(once, [] {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    });
+    return count;
+}
+
+}  // namespace sm90

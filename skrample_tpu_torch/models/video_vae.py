@@ -28,8 +28,9 @@ The interface is ``(B, C, T, H, W)``; the interior runs channels-last
   temporal levels) a decode runs B12 31 times and B13 12 times
   (:func:`fused_convs_per_decode`).
 
-``VideoVAEConfig.fused_decode="auto"`` takes the composition, which the
-card's A/B measured faster (see the field's docstring).  :meth:`VideoVAE.encode` draws from the posterior with
+``VideoVAEConfig.fused_decode="auto"`` takes the fused decode on a CUDA
+device, which the card's A/B measured faster (see the field's docstring),
+and the composition on the CPU.  :meth:`VideoVAE.encode` draws from the posterior with
 the JAX package's threefry keys (:mod:`..prng`).
 """
 
@@ -91,13 +92,14 @@ class VideoVAEConfig:
     fused_decode: Any = "auto"
     """Decode through kernels B12 and B13's norm-into-conv statistics chain:
     ``True`` anywhere (the CPU runs their plain versions); ``False``: the
-    composition.  ``"auto"`` takes the composition, the faster decode on the
-    card: ``chip_smoke.py``'s video phase measured a 16-frame 512x512 bf16
-    decode at the benchmark's configuration at 129.2 ms fused against
-    93.7 ms unfused on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-    (B12 and B13 with their norms on read take 103.6 ms of card time where
-    the bare B12, B8 and the tconv products take 70.0; the chain's
-    per-frame statistics add ~3700 small launches)."""
+    composition.  ``"auto"`` takes the fused decode on a CUDA device, the
+    faster decode on the card, and the composition on the CPU (as the JAX
+    package's ``"auto"`` off its accelerator): ``chip_smoke.py``'s video
+    phase measured a 16-frame 512x512 bf16 decode at the benchmark's
+    configuration at a median of 59.41 ms fused against 68.15 ms unfused
+    (its fastest of 5: 67.85) on an NVIDIA H100 80GB HBM3 at a 700 W power
+    limit, the card busy 45.58 ms fused against 67.00 unfused (B12 and B13
+    with their norms on read 25.90 ms; the unfused B8 passes alone 18.26)."""
 
     def __post_init__(self) -> None:
         if self.temporal_levels > self.levels - 1:
@@ -115,6 +117,15 @@ class VideoVAEConfig:
 
     def widths(self) -> list[int]:
         return [self.base * min(2**level, 4) for level in range(self.levels)]
+
+
+def fused_decode_on(mode: Any, device: torch.device | str) -> bool:
+    """Whether ``VideoVAEConfig.fused_decode`` = ``mode`` takes the fused decode on ``device``:
+    ``"auto"`` on a CUDA device, where the card's A/B measured it faster, and the composition on the
+    CPU, as the JAX package's ``"auto"`` off its accelerator."""
+    if mode == "auto":
+        return torch.device(device).type == "cuda"
+    return bool(mode)
 
 
 def _video_vae_skeleton(c: VideoVAEConfig) -> dict:
@@ -297,9 +308,8 @@ class VideoVAE(_TreeModule):
 
     # -- decoder ---------------------------------------------------------------
 
-    def _use_fused_decode(self) -> bool:
-        mode = self.config.fused_decode
-        return False if mode == "auto" else bool(mode)
+    def _use_fused_decode(self, device: torch.device) -> bool:
+        return fused_decode_on(self.config.fused_decode, device)
 
     def _finalize(self, raw: torch.Tensor, hw: int) -> torch.Tensor:
         "Raw (..., 2, C) sums over ``hw`` sites -> [mean, inv] of the same shape, per (item, frame)."
@@ -366,7 +376,7 @@ class VideoVAE(_TreeModule):
         dec = self.tree["decoder"]
         scale = torch.tensor(c.scaling_factor, dtype=torch.float32, device=z.device)  # a true division, as jnp's
         h = (z.float() / scale + c.shift_factor).to(dtype).permute(0, 2, 3, 4, 1).contiguous()
-        if self._use_fused_decode():
+        if self._use_fused_decode(h.device):
             h = self._decode_fused(h, dtype)
         else:
             h = self._sconv(dec["in_conv"], h, dtype)

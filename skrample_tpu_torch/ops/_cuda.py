@@ -51,6 +51,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the entry points (see the sources for what each computes)
 _SIGNATURES: dict[str, list] = {
@@ -74,11 +75,11 @@ _SIGNATURES: dict[str, list] = {
     "skt_flash_attention_strided": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
     "skt_flash_attention_block_stats": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
     # x, w (Co, 3, 3, C), bias, stats, gn scale, gn bias, residual, out, partial, raw (null where unused),
-    # N, H, W, C, Co, dtype, stream
-    "skt_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # N, H, W, C, Co, dtype, plan (fused_conv.conv3x3_plan), stream
+    "skt_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _P],
     # x, wt (Co, k, C), bias, stats, residual, out, partial, raw (null where unused), B, T_in, S, C, Co, k, rep,
-    # dtype, stream
-    "skt_tconv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, plan (fused_conv.tconv_plan), stream
+    "skt_tconv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _IP, _P],
     "skt_error_string": [_I],
 }
 

@@ -22,7 +22,11 @@ The JAX package's ``ops/fused_conv.py``:
   ``csrc/tconv.cu``) and :func:`tconv_causal_gn_silu` are the same three
   for the video VAE's causal temporal conv on ``(B, T, S, C)``: GroupNorm
   per (item, frame), ``k - 1`` zero frames on the left, an optional frame
-  repeat folded into the read, statistics per (item, output frame).
+  repeat folded into the read, statistics per (item, output frame);
+* :func:`conv3x3_plan` and :func:`tconv_plan` choose each kernel's route
+  (``wgmma`` for bf16 with C % 8 == 0, ``mma_sync`` otherwise, ``f32``) and
+  its geometry from the shape alone; the wrappers hand the plan to the C
+  entry points and count launches by route (``.routes``).
 
 The GroupNorm affine stays apart from ``(mean, inv)``: the kernel applies
 ``((x - mean) * inv) * g + b`` and then the SiLU.  The JAX package folds
@@ -38,6 +42,9 @@ the same bits alone or packed in a batch.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import dataclasses
+import functools
 import math
 from collections.abc import Iterator
 
@@ -47,7 +54,240 @@ import torch.nn.functional as F
 from . import _cuda
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE_PIXELS = 128  # output pixels a kernel block (csrc/fused_conv.cu kBM): the statistics' partials
+
+
+# ---- launch plans: the geometry of each route, chosen from the shape alone --------------------
+#
+# The C entry points take the plan these helpers compute (``Conv3x3Plan.args``, ``TConvPlan.args``) and
+# refuse one that does not fit the shape.  Every choice depends on the conv's shape, never on the batch,
+# so an item's tiles, and with them its bits, are the same alone or packed.  The shared-memory sums
+# mirror ``csrc/conv_sm90.cuh`` (``tail_layout``) and the kernels' ``sm90_layout``.
+
+_SMEM_LIMIT = 232448  # bytes of shared memory a block may use on the H100
+_SWIZZLE_ATOM = 1024  # the 128-byte swizzle's repeat: every stage is aligned to it
+_ROW = 128  # bytes of a K-major tile row: 64 bf16 channels
+_FILL = 132  # tiles an item should give to fill the card's SMs
+_N_TILES = (8, 16, 32, 64, 128, 160, 256)  # BN instantiated (csrc: Wgmma<BN> or, from 128 on, Wgmma<BN / 2>)
+_OLD_TILE = 128  # pixels / sites a block of the f32 and mma.sync routes
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _mt_choices(wn: int) -> tuple[int, ...]:
+    """M tiles of 64 rows a consumer warpgroup may hold, the most first: as many as keep its f32
+    accumulators within 128 registers, 2 at a 64-wide warpgroup tile, or one (the counts the kernels
+    instantiate, ``csrc/conv_sm90.cuh`` ``mt_max``)."""
+    return (4, 2, 1) if wn == 64 else ((2 if wn >= 128 else 3 if wn >= 80 else 4), 1)
+
+
+def n_tile(co: int) -> tuple[int, int]:
+    """``(BN, N tiles)`` for ``co`` output channels: the tiles cover exactly ``co`` rounded up to a
+    multiple of 8 (no more zero columns than that forces), in as few tiles as the instantiated widths
+    allow."""
+    cols = _round_up(co, 8)
+    return min(((cols // bn, bn) for bn in _N_TILES if cols % bn == 0))[::-1]
+
+
+def _tail_bytes(start: int, wn: int, sr: int, n_bars: int) -> int:
+    "End of ``conv_sm90::tail_layout``: staging, statistics, row tables, mbarriers."
+    rows = start + 2 * sr * 64 * (wn + 8) * 2 + 2 * 2 * 128 * 4
+    return _round_up(rows + 2 * sr * 64 * 8, 16) + n_bars * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv3x3Plan:
+    """B12's route and, on the wgmma route, its geometry.
+
+    A block's output tile is ``block_rows`` consecutive indices of a strip's padded-width index space
+    (a strip of ``strip_w`` image columns seen ``strip_w + 2`` wide: output (i, j) at index
+    i * (strip_w + 2) + j, the two extra columns computed and dropped) by ``bn`` channels.  Its halo is
+    ``halo_rows`` rows of ``strip_w + 2`` pixels starting at the run's first row; tap (dy, dx) reads the
+    halo from row offset dy * (strip_w + 2) + dx on.  ``tiles`` pixel tiles an item (``strips * runs``)
+    index the statistics' partials."""
+
+    route: str  # "wgmma" (bf16, C % 8 == 0), "mma_sync" (bf16, C % 8 != 0), "f32"
+    tiles: int
+    bn: int = 0
+    mt: int = 0  # M tiles of 64 rows a consumer warpgroup holds
+    split_n: bool = False  # the two consumer warpgroups split the tile in N (else in M)
+    strip_w: int = 0
+    runs: int = 0  # block tiles a strip
+    halo_rows: int = 0
+    n_tiles: int = 0
+    b_stages: int = 0
+    smem: int = 0
+
+    @property
+    def wn(self) -> int:
+        return self.bn // 2 if self.split_n else self.bn
+
+    @property
+    def block_rows(self) -> int:
+        return self.mt * 64 * (1 if self.split_n else 2)
+
+    @property
+    def strips(self) -> int:
+        return self.tiles // self.runs if self.runs else 0
+
+    def args(self) -> list[int]:
+        route = {"f32": 0, "mma_sync": 1, "wgmma": 2}[self.route]
+        fields = (self.bn, self.mt, int(self.split_n), self.strip_w, self.runs, self.halo_rows)
+        return [route, self.tiles, *fields, self.n_tiles, self.b_stages]
+
+    @functools.cached_property
+    def c_args(self) -> ctypes.Array:
+        "``args`` as the C int array the entry point reads."
+        values = self.args()
+        return (ctypes.c_int * len(values))(*values)
+
+
+def _conv3x3_smem(strip_w: int, halo_rows: int, bn: int, wn: int, b_stages: int) -> int:
+    halo = _round_up(halo_rows * (strip_w + 2) * _ROW, _SWIZZLE_ATOM)
+    return _tail_bytes(2 * halo + b_stages * bn * _ROW, wn, 1, 4 + 2 * b_stages) + _SWIZZLE_ATOM
+
+
+@functools.lru_cache(maxsize=1024)
+def conv3x3_plan(H: int, W: int, C: int, Co: int, dtype: torch.dtype = torch.bfloat16) -> Conv3x3Plan:
+    """B12's plan for an (H, W, C) -> Co conv of ``dtype``.  The wgmma route takes the most M tiles a
+    warpgroup can hold (4, 2, 1 at a 64-wide warpgroup tile), with the deepest weight ring (4, 3, 2
+    stages) whose halo stages fit strips at least min(W, 64) wide, then the widest strips that fit
+    (balanced: every strip but the last as wide, at most 254 + 2 pixels a TMA box row).  More rows a
+    tile beat more tiles even where an item then fills a third of the card (the card measured (2, 32,
+    32, 1280) at 263 us in 128-row tiles, 337 us in 64-row ones), and a wider halo beats a deeper ring
+    at C = 64, where the norm's work grows with the halo (the video decode's finest level)."""
+    old = Conv3x3Plan("f32" if dtype == torch.float32 else "mma_sync", math.ceil(H * W / _OLD_TILE))
+    if dtype == torch.float32 or C % 8:
+        return old
+    bn, n_tiles = n_tile(Co)
+    split_n = bn >= 128
+    wn = bn // 2 if split_n else bn
+    for mt in _mt_choices(wn):
+        bm = mt * 64 * (1 if split_n else 2)
+        for b_stages in (4, 3, 2):
+            widest = 0
+            for w in range(min(W, 254), 0, -1):
+                rows = -(-(bm + 3 * (w + 2) + 1) // (w + 2))
+                if rows <= 256 and _conv3x3_smem(w, rows, bn, wn, b_stages) <= _SMEM_LIMIT:
+                    widest = w
+                    break
+            if widest >= min(W, 64) or (b_stages == 2 and widest):
+                break
+        if not widest:
+            continue
+        strips = -(-W // widest)
+        strip_w = -(-W // strips)
+        wd = strip_w + 2
+        halo_rows = -(-(bm + 3 * wd + 1) // wd)
+        runs = -(-(H * wd) // bm)
+        return Conv3x3Plan(
+            "wgmma", strips * runs, bn, mt, split_n, strip_w, runs, halo_rows, n_tiles, b_stages,
+            _conv3x3_smem(strip_w, halo_rows, bn, wn, b_stages),
+        )
+    raise ValueError(f"conv3x3_plan: no wgmma geometry fits ({H}, {W}, {C}) -> {Co}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TConvPlan:
+    """B13's route and, on the wgmma route, its geometry: a tile is (item, ``walk`` output frames,
+    ``block_rows`` sites, ``bn`` channels); its input frames pass through a ring of ``frame_slots``
+    normalized frames in shared memory.  ``runs`` site tiles a frame index the statistics' partials."""
+
+    route: str  # "wgmma" (C % 8 == 0) or "mma_sync"
+    runs: int
+    bn: int = 0
+    mt: int = 0
+    split_n: bool = False
+    walk: int = 0
+    frame_slots: int = 0
+    n_tiles: int = 0
+    b_stages: int = 0
+    sr: int = 0  # M tiles the epilogue stages at once: all of them when a residual is prefetched
+    resident: bool = False  # the weights loaded once (b_stages = k * ceil(C / 64) tiles), not streamed
+    segs: int = 0  # walks an item: ceil(T_out / walk)
+    smem: int = 0
+
+    @property
+    def wn(self) -> int:
+        return self.bn // 2 if self.split_n else self.bn
+
+    @property
+    def block_rows(self) -> int:
+        return self.mt * 64 * (1 if self.split_n else 2)
+
+    def args(self) -> list[int]:
+        route = {"mma_sync": 1, "wgmma": 2}[self.route]
+        fields = (self.bn, self.mt, int(self.split_n), self.walk, self.frame_slots, self.n_tiles, self.b_stages)
+        return [route, self.runs, *fields, self.sr, int(self.resident)]
+
+    @functools.cached_property
+    def c_args(self) -> ctypes.Array:
+        "``args`` as the C int array the entry point reads."
+        values = self.args()
+        return (ctypes.c_int * len(values))(*values)
+
+
+def _frames_read(k: int, rep: int) -> int:
+    """The most input frames one output frame reads: the ring's least number of slots, and with it
+    the slot of frame j - slots is free before frame j's first reader (the walk never waits on
+    itself)."""
+    return (k - 1 + rep - 1) // rep + 1
+
+
+def _tconv_smem(bm: int, nk: int, slots: int, bn: int, wn: int, sr: int, b_stages: int) -> int:
+    return _tail_bytes(slots * nk * bm * _ROW + b_stages * bn * _ROW, wn, sr, 2 * slots + 2 * b_stages) + _SWIZZLE_ATOM
+
+
+@functools.lru_cache(maxsize=1024)
+def tconv_plan(
+    T_in: int, S: int, C: int, Co: int, k: int = 3, rep: int = 1, residual: bool = False
+) -> TConvPlan:
+    """B13's plan for (T_in, S, C) -> Co with k taps and frame repeat ``rep`` (with or without a
+    residual).  The wgmma route tries the most M tiles a warpgroup can hold first (4, 2, 1 at a
+    64-wide warpgroup tile; at most 256 sites a tile, a TMA box); within each, with one N tile, its
+    k * ceil(C / 64) weight tiles resident in shared memory for the whole walk (a streamed ring
+    reloads them every output frame), then a ring of 4, 3, 2 weight stages; a spare frame slot (the
+    next frame loads during the products) before none, and with a residual the whole residual tile
+    staged (prefetched during the products).  It takes the first that fits and gives ~132 tiles an
+    item at a walk of one frame (else the one with the most tiles); then the longest walk that still
+    gives ~132 tiles an item (each input frame is then read once a walk).  The card measured the
+    frame repeat (8, 65536, 128 -> 128) at 447 us in streamed 256-site tiles and 510 us in resident
+    128-site ones: more sites a tile first."""
+    if C % 8:
+        return TConvPlan("mma_sync", math.ceil(S / _OLD_TILE))
+    bn, n_tiles = n_tile(Co)
+    split_n = bn >= 128
+    wn = bn // 2 if split_n else bn
+    nk = -(-C // 64)
+    T_out = T_in * rep
+    need = _frames_read(k, rep)
+    rings = ([(k * nk, True)] if n_tiles == 1 else []) + [(stages, False) for stages in (4, 3, 2)]
+    fits = []
+    for mt in _mt_choices(wn):
+        for stages, resident in rings:
+            bm = mt * 64 * (1 if split_n else 2)
+            sr = mt if residual else 1
+            slots = next(
+                (n for n in (need + 1, need) if _tconv_smem(bm, nk, n, bn, wn, sr, stages) <= _SMEM_LIMIT), None
+            )
+            if bm <= 256 and slots is not None:
+                fits.append((mt, bm, -(-S // bm), slots, stages, sr, resident))
+    if not fits:
+        raise ValueError(f"tconv_plan: no wgmma geometry fits ({T_in}, {S}, {C}) -> {Co}")
+    full = [f for f in fits if f[2] * n_tiles * T_out >= _FILL]
+    if full:
+        pick = full[0]
+    else:  # no geometry fills the card: the most tiles, in the first ring that gives them
+        pick = max(fits, key=lambda f: f[2])
+    mt, bm, runs, slots, stages, sr, resident = pick
+    segs = max(1, min(T_out, -(-_FILL // (runs * n_tiles))))
+    walk = -(-T_out // segs)
+    segs = -(-T_out // walk)
+    return TConvPlan(
+        "wgmma", runs, bn, mt, split_n, walk, slots, n_tiles, stages, sr, resident, segs,
+        _tconv_smem(bm, nk, slots, bn, wn, sr, stages),
+    )
 
 
 @contextlib.contextmanager
@@ -199,11 +439,14 @@ def conv3x3_gn_silu_forward(
             raise ValueError(f"{name}: every tensor must be on {x.device}")
     wt = w.permute(3, 0, 1, 2).contiguous()  # (Co, 3, 3, C): a no-op for a channels_last OIHW weight
     b32 = b.float().contiguous()
+    plan = conv3x3_plan(H, W, C, Co, x.dtype)
+    vector_residual = residual is not None and Co % 8 == 0  # read by 16-byte copies
+    if plan.route == "wgmma" and (x.data_ptr() % 16 or wt.data_ptr() % 16 or (vector_residual and residual.data_ptr() % 16)):
+        raise ValueError(f"{name}: x, w (and a residual with Co % 8 == 0) must start on 16-byte boundaries (TMA)")
     out = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
     partial = raw = None
     if out_stats:
-        tiles = math.ceil(H * W / _TILE_PIXELS)
-        partial = torch.empty((N, tiles, 2, Co), dtype=torch.float32, device=x.device)
+        partial = torch.empty((N, plan.tiles, 2, Co), dtype=torch.float32, device=x.device)
         raw = torch.empty((N, 2, Co), dtype=torch.float32, device=x.device)
 
     def ptr(t: torch.Tensor | None) -> int | None:
@@ -228,14 +471,17 @@ def conv3x3_gn_silu_forward(
             C,
             Co,
             _cuda.DTYPE_CODES[x.dtype],
+            plan.c_args,
             _cuda.stream(),
         )
     _cuda.check(code, name)
     conv3x3_gn_silu_forward.launches += 1
+    conv3x3_gn_silu_forward.routes[plan.route] += 1
     return out, raw
 
 
 conv3x3_gn_silu_forward.launches = 0
+conv3x3_gn_silu_forward.routes = dict.fromkeys(("wgmma", "mma_sync", "f32"), 0)  # launches by route
 
 
 class _Conv3x3(torch.autograd.Function):
@@ -293,12 +539,11 @@ def conv3x3_gn_silu(
 
 # ---- B13: the causal temporal conv with GroupNorm+SiLU on its input read ----------------
 
-_TILE_SITES = 128  # output sites a kernel block (csrc/tconv.cu kBM): the statistics' partials
-
-
-def tconv_partials_shape(B: int, T_out: int, S: int, Co: int) -> tuple[int, int, int, int]:
-    "B13's statistics scratch: per (item, output frame), per 128-site tile of the kernel's grid, [sum, sumsq]."
-    return (B * T_out, math.ceil(S / _TILE_SITES), 2, Co)
+def tconv_partials_shape(
+    B: int, T_in: int, S: int, C: int, Co: int, k: int = 3, rep: int = 1, residual: bool = False
+) -> tuple[int, int, int, int]:
+    "B13's statistics scratch: per (item, output frame), per site tile of its plan, [sum, sumsq]."
+    return (B * T_in * rep, tconv_plan(T_in, S, C, Co, k, rep, residual).runs, 2, Co)
 
 
 def _frame_stats(out: torch.Tensor) -> torch.Tensor:
@@ -394,10 +639,16 @@ def tconv_causal_gn_silu_forward(
             raise ValueError(f"{name}: every tensor must be on {x.device}")
     wt = w.to(x.dtype).permute(2, 0, 1).contiguous()  # (Co, k, C): an output channel's taps in a row
     b32 = b.float().contiguous()
+    plan = tconv_plan(T, S, C, Co, k, repeat_in, residual is not None)
+    vector_residual = residual is not None and Co % 8 == 0  # read by 16-byte copies
+    if plan.route == "wgmma" and (x.data_ptr() % 16 or wt.data_ptr() % 16 or (vector_residual and residual.data_ptr() % 16)):
+        raise ValueError(f"{name}: x (and a residual with Co % 8 == 0) must start on 16-byte boundaries (TMA)")
     out = torch.empty((B, T_out, S, Co), dtype=x.dtype, device=x.device)
     partial = raw = None
     if out_stats:
-        partial = torch.empty(tconv_partials_shape(B, T_out, S, Co), dtype=torch.float32, device=x.device)
+        partial = torch.empty(
+            tconv_partials_shape(B, T, S, C, Co, k, repeat_in, residual is not None), dtype=torch.float32, device=x.device
+        )
         raw = torch.empty((B, T_out, 2, Co), dtype=torch.float32, device=x.device)
 
     def ptr(t: torch.Tensor | None) -> int | None:
@@ -422,14 +673,17 @@ def tconv_causal_gn_silu_forward(
             k,
             repeat_in,
             _cuda.DTYPE_CODES[x.dtype],
+            plan.c_args,
             _cuda.stream(),
         )
     _cuda.check(code, name)
     tconv_causal_gn_silu_forward.launches += 1
+    tconv_causal_gn_silu_forward.routes[plan.route] += 1
     return out, raw
 
 
 tconv_causal_gn_silu_forward.launches = 0
+tconv_causal_gn_silu_forward.routes = dict.fromkeys(("wgmma", "mma_sync"), 0)  # launches by route
 
 
 class _TConv(torch.autograd.Function):

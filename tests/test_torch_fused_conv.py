@@ -14,7 +14,10 @@ against the JAX package on the same numpy inputs.
   without affine;
 * the conv families' ``_conv`` in bf16 (ROADMAP C7): one rounding of the
   f32 sum plus the f32 bias, as the JAX ``_conv``, for every conv kind the
-  UNets run; and the scope of cuDNN's TF32 switch around its convs.
+  UNets run; and the scope of cuDNN's TF32 switch around its convs;
+* B12's wgmma plan (``conv3x3_plan``): its invariants at the served shapes,
+  and a float64 emulation of its tiling (the halo with zero after the norm,
+  nine shifted views over the padded width) against the plain version.
 """
 
 from __future__ import annotations
@@ -218,3 +221,105 @@ def test_cudnn_tf32_is_scoped_to_the_conv(dtype: torch.dtype, stride: int, tf32:
     with tfc.cudnn_tf32(False):
         assert not torch.backends.cudnn.allow_tf32
     assert torch.backends.cudnn.allow_tf32 == before
+
+
+# ---- B12's wgmma plan and its tiling, emulated in plain PyTorch ------------------------------
+
+
+def _emulate_wgmma_b12(x, w, b, stats=None, residual=None, scale=None, bias=None):
+    """B12 computed the way the wgmma kernel tiles it (``conv3x3_plan``), in float64 on the CPU: per
+    (item, strip, run) the halo of ``halo_rows`` rows of ``strip_w + 2`` pixels from the run's first
+    row, normalized once with zero after the norm outside the image; each tap a row-shifted view of it
+    starting dy * (strip_w + 2) + dx rows in; the run's padded columns computed and dropped.  Returns
+    the output (float64, before rounding) and how many times each output pixel was written."""
+    N, H, W, C = x.shape
+    Co = w.shape[3]
+    plan = tfc.conv3x3_plan(H, W, C, Co)
+    wd, bm = plan.strip_w + 2, plan.block_rows
+    xin = x.double()
+    if stats is not None:
+        xin = tfc._normalize_silu(x.double(), stats[:, None, None, 0, :].double(), stats[:, None, None, 1, :].double(),
+                                  None if scale is None else scale.double(), None if bias is None else bias.double())
+    taps = w.double().reshape(9, C, Co)  # HWIO: tap dy * 3 + dx
+    out = torch.zeros((N, H, W, Co), dtype=torch.float64)
+    writes = torch.zeros((N, H, W), dtype=torch.int64)
+    for n in range(N):
+        for strip in range(plan.strips):
+            w0 = strip * plan.strip_w
+            wt = min(plan.strip_w, W - w0)
+            for run in range(plan.runs):
+                q0 = run * bm
+                hr0 = q0 // wd
+                halo = torch.zeros((plan.halo_rows, wd, C), dtype=torch.float64)
+                for hr in range(plan.halo_rows):
+                    row = hr0 - 1 + hr
+                    if 0 <= row < H:
+                        lo, hi = max(w0 - 1, 0), min(w0 - 1 + wd, W)
+                        halo[hr, lo - (w0 - 1) : hi - (w0 - 1)] = xin[n, row, lo:hi]
+                halo = halo.reshape(-1, C)
+                o = q0 - hr0 * wd
+                acc = torch.zeros((bm, Co), dtype=torch.float64)
+                for tap in range(9):
+                    start = o + (tap // 3) * wd + tap % 3
+                    acc += halo[start : start + bm] @ taps[tap]
+                for r in range(bm):
+                    i, j = divmod(q0 + r, wd)
+                    if i < H and j < wt:
+                        out[n, i, w0 + j] = acc[r] + b.double()
+                        writes[n, i, w0 + j] += 1
+    if residual is not None:
+        out = out + residual.double()
+    return out, writes
+
+
+@pytest.mark.parametrize(
+    ("shape", "co", "norm"),
+    [((1, 5, 7, 16), 3, True), ((2, 3, 1, 8), 64, False), ((1, 9, 130, 16), 320, True), ((1, 6, 19, 40), 72, True)],
+)
+def test_wgmma_tiling_emulation_matches_plain(shape, co: int, norm: bool) -> None:
+    """The wgmma route's index arithmetic, run on the CPU where no card exists: the halo with zero after
+    the norm, the nine shifted views over the padded width, the padded columns dropped, ragged strips
+    (W = 130 in strips of the plan's width, W = 1, 7, 19) and runs (H * W no whole number of tiles):
+    every output pixel written exactly once, and the result equal to the plain version's f32 sum
+    (rtol/atol 1e-5; the plain version rounds its output to f32)."""
+    x, w, b, res, g, gb = _inputs(sum(shape) + co, shape, co)
+    stats = g_t = gb_t = None
+    if norm:
+        stats = tfc.finalize_group_stats(tfc.channel_stats(_t(x)), 4, shape[1] * shape[2])
+        g_t, gb_t = _t(g), _t(gb)
+    got, writes = _emulate_wgmma_b12(_t(x), _t(w), _t(b), stats, _t(res), g_t, gb_t)
+    want, _ = tfc.conv3x3_ref(_t(x), _t(w), _t(b), stats, _t(res), g_t, gb_t)
+    assert torch.equal(writes, torch.ones_like(writes))
+    _close(got.float(), want)
+
+
+@pytest.mark.parametrize(
+    ("H", "W", "C", "co"),
+    [(64, 64, 640, 640), (128, 128, 320, 320), (32, 32, 1280, 1280), (256, 256, 512, 512), (512, 512, 64, 64),
+     (512, 512, 64, 3), (128, 128, 320, 4), (5, 1, 16, 8), (5, 130, 64, 640), (13, 19, 40, 72)],
+)
+def test_conv3x3_plan_invariants(H: int, W: int, C: int, co: int) -> None:
+    """B12's wgmma plan: BN covers Co rounded up to 8 exactly (Co 640 in 4 tiles of 160, 1280 in 5 of
+    256, 3 and 4 in one of 8), a warpgroup's accumulators within 128 registers, strips that cover W once
+    (each but the last as wide) within a TMA box row, runs that cover the padded index space, a halo
+    that holds every tap's view of the run, shared memory within the H100's 227 KB, and a plan that is a
+    function of (H, W, C, Co) alone: no batch argument exists."""
+    plan = tfc.conv3x3_plan(H, W, C, co)
+    assert plan.route == "wgmma" and plan.args()[0] == 2
+    assert plan.n_tiles * plan.bn == -(-co // 8) * 8 and plan.bn in (8, 16, 32, 64, 128, 160, 256)
+    assert plan.split_n == (plan.bn >= 128) and plan.mt * plan.wn // 2 <= 128
+    assert plan.mt in tfc._mt_choices(plan.wn)
+    wd = plan.strip_w + 2
+    assert (plan.strips - 1) * plan.strip_w < W <= plan.strips * plan.strip_w and wd <= 256
+    assert (plan.runs - 1) * plan.block_rows < H * wd <= plan.runs * plan.block_rows
+    assert plan.halo_rows * wd >= plan.block_rows + 3 * wd + 1 and plan.halo_rows <= 256
+    assert plan.smem <= 232448 and plan.tiles == plan.strips * plan.runs
+    if (H, W, C, co) == (512, 512, 64, 64):  # the video decode's finest level: 512-row tiles, a wide halo
+        assert (plan.mt, plan.block_rows) == (4, 512)
+    if (H, W, C, co) == (32, 32, 1280, 1280):  # 128-row tiles, not 64-row ones
+        assert plan.block_rows == 128
+    assert {(64, 64, 640, 640): (160, 4), (32, 32, 1280, 1280): (256, 5), (512, 512, 64, 3): (8, 1)}.get(
+        (H, W, C, co), (plan.bn, plan.n_tiles)
+    ) == (plan.bn, plan.n_tiles)
+    assert tfc.conv3x3_plan(H, W, 4, co).route == "mma_sync"  # C % 8 != 0: the explicit route
+    assert tfc.conv3x3_plan(H, W, C, co, torch.float32).route == "f32"

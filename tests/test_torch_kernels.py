@@ -1015,6 +1015,66 @@ def test_cond_unet_packed_route_launches_b9(cuda: torch.device) -> None:
     assert (got.float() - want.float()).abs().max().item() <= 5e-3
 
 
+_B12_VARIANTS = (  # (norm, affine, residual, statistics, zero gain)
+    (False, False, False, False, False),
+    (True, False, True, True, False),
+    (True, True, True, True, False),
+    (True, True, False, True, True),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 7, 64, 130])
+@pytest.mark.parametrize("C", [4, 16, 64, 320])
+@pytest.mark.parametrize("co", [3, 4, 64, 320, 640])
+def test_conv3x3_routes_match_plain(cuda: torch.device, co: int, C: int, W: int) -> None:
+    """B12 bf16 on both of its routes against the plain version: the wgmma kernel (C % 8 == 0: halo,
+    shifted descriptors, BN from Co) and the mma.sync kernel (C = 4, the explicit route), over
+    Co in {3, 4, 64, 320, 640}, C in {4, 16, 64, 320}, W in {1, 7, 64, 130} at H = 5 (H * W never a
+    whole number of tiles), the variants cycling through bare, norm + residual + statistics, with the
+    affine, and gain 0 without the residual.  Output within 1e-2 of the largest value, statistics 1e-2
+    relative; the route counted; the same bits twice; item 1 alone equals item 1 packed at N = 3."""
+    variant = _B12_VARIANTS[(co + C + W) % len(_B12_VARIANTS)]
+    norm, affine, residual, with_stats, zero_gain = variant
+    args = list(_b12_inputs(cuda, (3, 5, W, C), co, torch.bfloat16, norm, affine, residual, co * 7 + C + W))
+    if zero_gain:
+        args[5] = torch.zeros_like(args[5])
+    route = "wgmma" if C % 8 == 0 else "mma_sync"
+    assert fused_conv.conv3x3_plan(5, W, C, co).route == route
+    before = fused_conv.conv3x3_gn_silu_forward.routes[route]
+    out, raw = fused_conv.conv3x3_gn_silu_forward(*args, out_stats=with_stats)
+    again, again_raw = fused_conv.conv3x3_gn_silu_forward(*args, out_stats=with_stats)
+    solo = [t if t is None or t.ndim < 2 or i in (1, 2) else t[1:2] for i, t in enumerate(args)]
+    solo[5:] = args[5:]
+    alone, alone_raw = fused_conv.conv3x3_gn_silu_forward(*solo, out_stats=with_stats)
+    assert fused_conv.conv3x3_gn_silu_forward.routes[route] == before + 3
+    want, want_raw = fused_conv.conv3x3_ref(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (3, 5, W, co) and torch.isfinite(out).all()
+    assert (out.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+    assert torch.equal(out, again) and torch.equal(alone, out[1:2])
+    if with_stats:
+        for k in range(2):
+            assert (raw[:, k] - want_raw[:, k]).abs().max().item() <= 1e-2 * want_raw[:, k].abs().max().item()
+        assert torch.equal(raw, again_raw) and torch.equal(alone_raw, raw[1:2])
+    else:
+        assert raw is None
+
+
+@pytest.mark.gpu
+def test_conv3x3_wgmma_one_tile_and_the_video_shapes(cuda: torch.device) -> None:
+    """The wgmma route on one tile (a 4x4 image: every tap's shifted view starts at a different row of
+    the swizzle pattern) and at the video decode's finest-level shapes cut to 2 frames of 64x96 (Co 64
+    with the norm, residual and statistics; Co 3, bare): output within 1e-2, statistics 1e-2."""
+    for shape, co, norm in (((1, 4, 4, 64), 64, True), ((2, 64, 96, 64), 64, True), ((2, 64, 96, 64), 3, False)):
+        args = _b12_inputs(cuda, shape, co, torch.bfloat16, norm, False, norm, sum(shape) + co)
+        out, raw = fused_conv.conv3x3_gn_silu_forward(*args)
+        want, want_raw = fused_conv.conv3x3_ref(*args)
+        torch.cuda.synchronize()
+        assert (out.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+        assert (raw - want_raw).abs().max().item() <= 1e-2 * want_raw.abs().max().item()
+
+
 # ---- B13: the causal temporal conv --------------------------------------------------------
 
 
@@ -1050,6 +1110,43 @@ def test_tconv_kernel_matches_plain(cuda: torch.device, mode: str, S: int, C: in
     alone, alone_raw = fused_conv.tconv_causal_gn_silu_forward(
         x[1:], w, b, None if stats is None else stats[1:], None if residual is None else residual[1:], rep
     )
+    assert torch.equal(alone, got[1:]) and torch.equal(alone_raw, raw[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2, 5, 16])
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("Co", [64, 128, 256])
+def test_tconv_frame_walk_matches_plain(cuda: torch.device, T: int, rep: int, Co: int) -> None:
+    """B13's wgmma frame walk against the plain version at T in {1, 2, 5, 16} (T < k included), rep 1
+    (the norm on, a residual at Co 64 and 256) and 2 (the frame repeat, no norm), Co in {64, 128, 256},
+    S = 333 sites (no whole number of tiles), C = 64 or 128: out within 1e-2 of the largest value,
+    statistics 1e-2 relative, the same bits twice, item 1 alone equal to item 1 packed."""
+    S, C, B = 333, 64 if Co != 128 else 128, 2
+    gen = torch.Generator(cuda).manual_seed(T * 1000 + rep * 100 + Co)
+    x = (torch.randn((B, T, S, C), generator=gen, device=cuda) * 2 + 0.5).to(torch.bfloat16)
+    w = torch.randn((3, C, Co), generator=gen, device=cuda) / (3 * C) ** 0.5
+    b = 0.1 * torch.randn(Co, generator=gen, device=cuda)
+    stats = residual = None
+    if rep == 1:
+        raw_in = fused_conv.channel_stats(x.reshape(B * T, S, C))
+        stats = fused_conv.finalize_group_stats(raw_in, 8, S).reshape(B, T, 2, C)
+        if Co != 128:
+            residual = torch.randn((B, T, S, Co), generator=gen, device=cuda).to(torch.bfloat16)
+    assert fused_conv.tconv_plan(T, S, C, Co, 3, rep).route == "wgmma"
+    before = fused_conv.tconv_causal_gn_silu_forward.routes["wgmma"]
+    got, raw = fused_conv.tconv_causal_gn_silu_forward(x, w, b, stats, residual, rep)
+    again, again_raw = fused_conv.tconv_causal_gn_silu_forward(x, w, b, stats, residual, rep)
+    alone, alone_raw = fused_conv.tconv_causal_gn_silu_forward(
+        x[1:], w, b, None if stats is None else stats[1:], None if residual is None else residual[1:], rep
+    )
+    assert fused_conv.tconv_causal_gn_silu_forward.routes["wgmma"] == before + 3
+    want, want_raw = fused_conv.tconv_causal_ref(x, w, b, stats, residual, rep)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T * rep, S, Co) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+    assert (raw - want_raw).abs().max().item() <= 1e-2 * want_raw.abs().max().item()
+    assert torch.equal(again, got) and torch.equal(again_raw, raw)
     assert torch.equal(alone, got[1:]) and torch.equal(alone_raw, raw[1:])
 
 
