@@ -83,6 +83,12 @@ Phases, each failing the run with a non-zero exit:
     against the plain versions, latency medians and one traced request.
     Phase 2 holds B11 to its plain version at four ring-hop shapes.
 
+Every read of the launch counters holds each K2, K4, B9 and B10 launch to the
+Hopper body's route (wgmma, ``csrc/flash_attention_sm90.cu``) and each B11
+launch to the mma.sync body's, and each path phase prints its attention
+launches by route; the device phase requires the eight Hopper attention
+instantiations to build without spills or injected warpgroup fences.
+
 The second-to-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 ``skrample_tpu_torch`` package beside this file, it exits non-zero and prints
@@ -219,29 +225,57 @@ def device_phase() -> dict:
     print("---- nvcc -Xptxas -v ----")
     print(_cuda.build_log().strip())
     print("---- end of build log ----")
-    for line in _sm90_instantiations(_cuda.build_log()):
-        print(line)
+    stats = _sm90_instantiations(_cuda.build_log())
+    for label, st in stats.items():
+        print(
+            f"{label}: {st.get('registers')} registers at launch, {st.get('spills')} bytes spilled, "
+            f"{st['fences']} warpgroup fences or serialisations injected by ptxas"
+        )
+    attention = {label: st for label, st in stats.items() if label.startswith("flash_")}
+    expect(len(attention) == 8, f"expected 8 Hopper attention instantiations in the build log, found {sorted(attention)}")
+    for label, st in attention.items():
+        expect(st.get("spills") == 0 and st["fences"] == 0, f"{label}: {st.get('spills')} bytes spilled, {st['fences']} fences")
     return {"name": name, "count": count, "card": card}
 
 
-def _sm90_instantiations(log: str) -> list[str]:
-    """B12's and B13's Hopper instantiations (<WN, MT>: a consumer warpgroup's N width and M tiles) with
-    their registers at launch (setmaxnreg then moves them to the consumers), spills and injected
-    warpgroup fences, read from the ``-Xptxas -v`` log."""
+def _sm90_label(mangled: str) -> str | None:
+    """A Hopper instantiation's readable name from its mangled one: the convs' <WN, MT> (a consumer
+    warpgroup's N width and M tiles), the attention's <type, head dim, lse>; None for other kernels."""
     import re
 
-    lines, current = [], None
+    conv = re.search(r"(conv3x3|tconv)_sm90_kernelILi(\d+)ELi(\d+)E", mangled)
+    if conv:
+        return f"{conv.group(1)}_sm90_kernel<{conv.group(2)}, {conv.group(3)}>"
+    attention = re.search(r"(flash_qkv|flash_strided)_sm90_kernelI(\w*?)EEv", mangled)
+    if attention:
+        args = attention.group(2) + "E"
+        parts = ["bf16" if "bfloat16" in args else "f16", *(f"d {v}" for v in re.findall(r"Li(\d+)E", args))]
+        if "Lb1E" in args:
+            parts.append("lse")
+        return f"{attention.group(1)}_sm90_kernel<{', '.join(parts)}>"
+    return None
+
+
+def _sm90_instantiations(log: str) -> dict[str, dict]:
+    """B12's, B13's and the attention's Hopper instantiations with their registers at launch (setmaxnreg
+    then moves them to the consumers), spills, and the warpgroup fences or serialisations ptxas injected
+    (C7519 and its kin), read from the ``-Xptxas -v`` log."""
+    import re
+
+    current = None
     stats: dict[str, dict] = {}
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\w*?(conv3x3|tconv)_sm90_kernelILi(\d+)ELi(\d+)E\w*)'", line)
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            current = f"{entry.group(2)}_sm90_kernel<{entry.group(3)}, {entry.group(4)}>"
-            stats.setdefault(current, {"fences": 0})
+            current = _sm90_label(entry.group(1))
+            if current:
+                stats.setdefault(current, {"fences": 0})
             continue
-        fence = re.search(r"C7519.*(conv3x3|tconv)_sm90_kernelILi(\d+)ELi(\d+)E", line)
-        if fence:
-            key = f"{fence.group(1)}_sm90_kernel<{fence.group(2)}, {fence.group(3)}>"
-            stats.setdefault(key, {"fences": 0})["fences"] += 1
+        if "C7519" in line or ("wgmma" in line and "serializ" in line):
+            name = re.search(r"'(\w+)'", line)
+            key = _sm90_label(name.group(1)) if name else None
+            if key:
+                stats.setdefault(key, {"fences": 0})["fences"] += 1
             continue
         if current is None:
             continue
@@ -252,12 +286,36 @@ def _sm90_instantiations(log: str) -> list[str]:
         if used:
             stats[current]["registers"] = int(used.group(1))
             current = None
-    for name, st in stats.items():
-        lines.append(
-            f"{name}: {st.get('registers')} registers at launch, {st.get('spills')} bytes spilled, "
-            f"{st['fences']} warpgroup fences injected by ptxas"
-        )
-    return lines
+    return stats
+
+
+ATTENTION_SM90 = (  # the wrappers of K2, K4, B9 and B10: the Hopper body, csrc/flash_attention_sm90.cu
+    "flash_attention_qkv_forward",
+    "flash_attention_qkv_forward_lse",
+    "flash_attention_forward",
+    "flash_attention_packed_forward",
+    "flash_attention_pairs_forward",
+)
+
+
+def _attention_route(name: str, N: int, d: int, fn) -> None:
+    """One attention row's route and plan: a call of ``fn`` must count one launch on the wgmma route of
+    wrapper ``name``; prints the plan and the wrapper's host time a launch (median of 200 eager calls)."""
+    import torch
+
+    from skrample_tpu_torch.ops import flash_attention
+
+    wrapper = getattr(flash_attention, name)
+    before = dict(wrapper.routes)
+    fn()
+    torch.cuda.synchronize()
+    expect(wrapper.routes == {"wgmma": before["wgmma"] + 1}, f"{name}: routes {wrapper.routes} after one call")
+    plan = flash_attention.attention_plan(N, d)
+    print(
+        f"{name} N {N} d {d}: route wgmma (csrc/flash_attention_sm90.cu); plan: {plan.block_q} query rows a "
+        f"block, keys in tiles of {plan.block_k} through {plan.stages} stages, {plan.smem} bytes of shared "
+        f"memory; host {host_us(fn):.1f} us a launch (median of 200)"
+    )
 
 
 def kernels_phase() -> dict[str, dict]:
@@ -333,7 +391,7 @@ def kernels_phase() -> dict[str, dict]:
     rows["flash_attention_qkv_forward"] = {
         "name": "flash_attention_qkv_forward",
         "route": "cuda",
-        "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+        "source": "skrample_tpu_torch/csrc/flash_attention_sm90.cu",
         "replaces": "skrample_tpu/ops/flash_attention.py:311",
         "max_abs_err": err,
         "bound_ms": b_ms,
@@ -342,6 +400,7 @@ def kernels_phase() -> dict[str, dict]:
     timed(rows["flash_attention_qkv_forward"], "ms", lambda: flash_attention.flash_attention_qkv_forward(qkv, H))
     timed(rows["flash_attention_qkv_forward"], "plain_ms", lambda: flash_attention._qkv_reference(qkv, H))
     timed(rows["flash_attention_qkv_forward"], "library_ms", library_attention)
+    _attention_route("flash_attention_qkv_forward", N, d, lambda: flash_attention.flash_attention_qkv_forward(qkv, H))
 
     # ---- K3: adaLN, bf16 (4, 1024, 512), shift/scale as column chunks of the modulation matrix ----
     D = 512
@@ -425,7 +484,7 @@ def training_kernels(gen) -> dict[str, dict]:
     row = rows["flash_attention_qkv_forward_lse"] = {
         "name": "flash_attention_qkv_forward_lse",
         "route": "cuda",
-        "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+        "source": "skrample_tpu_torch/csrc/flash_attention_sm90.cu",
         "replaces": "skrample_tpu/ops/flash_attention.py:419",
         "max_abs_err": max(err, lse_err),
         "bound_ms": b_ms,
@@ -434,6 +493,7 @@ def training_kernels(gen) -> dict[str, dict]:
     timed(row, "ms", lambda: flash_attention.flash_attention_qkv_forward_lse(qkv, H))
     timed(row, "plain_ms", lambda: flash_attention._qkv_reference_lse(qkv, H))
     timed(row, "library_ms", lambda: aten._scaled_dot_product_flash_attention(q, k, v))
+    _attention_route("flash_attention_qkv_forward_lse", N, 128, lambda: flash_attention.flash_attention_qkv_forward_lse(qkv, H))
 
     # ---- K5: the backward, from K4's o and lse and a bf16 output gradient ----
     g = torch.randn((B, N, H * d), generator=gen, device=dev).to(torch.bfloat16)
@@ -610,6 +670,7 @@ def flux_kernels(gen) -> dict[str, dict]:
     timed(timing, "ms", lambda: flash_attention.flash_attention_qkv_forward(qkv, H))
     timed(timing, "plain_ms", lambda: flash_attention._qkv_reference(qkv, H))
     timed(timing, "library_ms", lambda: F.scaled_dot_product_attention(q, k, v))
+    _attention_route("flash_attention_qkv_forward", N, d, lambda: flash_attention.flash_attention_qkv_forward(qkv, H))
     print(
         f"K2 Flux shape (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
         f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us, "
@@ -740,6 +801,7 @@ def sdxl_kernels(gen) -> dict[str, dict]:
         timed(timing, "ms", lambda a=(q, k, v, H): flash_attention.flash_attention_pairs_forward(*a))
         timed(timing, "plain_ms", lambda a=(q, k, v, H): flash_attention._packed_reference(*a))
         timed(timing, "library_ms", lambda a=(qh, kh, vh): F.scaled_dot_product_attention(*a))
+        _attention_route("flash_attention_pairs_forward", N, d, lambda a=(q, k, v, H): flash_attention.flash_attention_pairs_forward(*a))
         print(
             f"B10 N {N} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
             f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us "
@@ -749,7 +811,7 @@ def sdxl_kernels(gen) -> dict[str, dict]:
             rows["flash_attention_pairs_forward"] = {
                 "name": "flash_attention_pairs_forward",
                 "route": "cuda",
-                "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+                "source": "skrample_tpu_torch/csrc/flash_attention_sm90.cu",
                 "replaces": "skrample_tpu/ops/flash_attention.py:798",
                 "max_abs_err": err,
                 "bound_ms": b_ms,
@@ -913,7 +975,16 @@ def _wrappers() -> dict:
 
 
 def _counters() -> dict[str, int]:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Every wrapper's launches since the counters were reset.  Every K2, K4, B9 and B10 launch must have
+    gone through the Hopper body (route wgmma) and every B11 launch through the mma.sync body: checked
+    here, at each read, so every path phase holds its attention launches to their routes exactly."""
+    wrappers = _wrappers()
+    bodies = {name: "wgmma" for name in ATTENTION_SM90} | {"flash_attention_block_stats": "mma_sync"}
+    for name, route in bodies.items():
+        fn = wrappers[name]
+        if hasattr(fn, "routes"):  # not where a phase has swapped the wrapper for its plain version
+            expect(fn.routes == {route: fn.launches}, f"{name}: {fn.launches} launches, by route {fn.routes}")
+    return {name: fn.launches for name, fn in wrappers.items()}
 
 
 def _reset_counters() -> None:
@@ -931,6 +1002,13 @@ def _routes() -> dict[str, dict[str, int]]:
         "conv3x3_gn_silu_forward": dict(fused_conv.conv3x3_gn_silu_forward.routes),
         "tconv_causal_gn_silu_forward": dict(fused_conv.tconv_causal_gn_silu_forward.routes),
     }
+
+
+def _attention_routes() -> str:
+    "The attention wrappers' launches by route since the counters were reset, for a phase's log."
+    wrappers = _wrappers()
+    names = (*ATTENTION_SM90, "flash_attention_block_stats")
+    return ", ".join(f"{name} {wrappers[name].routes}" for name in names if wrappers[name].launches)
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -1006,6 +1084,7 @@ def slice_phase(card: str) -> dict[str, int]:
         buckets = engine.stats.bucket_counts
         print(f"slice: 6 requests in {dispatches} dispatches, {wall * 1e3:.1f} ms; buckets {buckets}")
         print(f"slice: launches {launches} (per dispatch expected {per_dispatch})")
+        print(f"slice: attention launches by route: {_attention_routes()}")
         expect(dispatches == 2, f"expected 2 dispatches (4 + 2), got {dispatches}")
         for name, count in launches.items():
             want = per_dispatch[name] * dispatches
@@ -1059,7 +1138,7 @@ def _relative_fro(a, b) -> float:
 
 TRAIN_GROUPS = (
     ("K3 adaln", ("adaln_kernel",)),
-    ("K4 flash_qkv_lse", ("flash_qkv_kernel",)),
+    ("K4 flash_qkv_lse", ("flash_qkv_sm90_kernel",)),
     ("K5 dq kernel", ("flash_bwd_dq_kernel",)),
     ("K5 dkv kernel", ("flash_bwd_dkv_kernel",)),
     ("K6 adaln_bwd", ("adaln_bwd_kernel", "adaln_bwd_reduce_kernel")),
@@ -1123,6 +1202,7 @@ def training_phase(card: str) -> dict[str, int]:
     launches = _counters()
     peak = torch.cuda.max_memory_allocated()
     print(f"train: launches {launches} over {TRAIN_STEPS} steps (per step expected {per_step})")
+    print(f"train: attention launches by route: {_attention_routes()}")
     for name, count in launches.items():
         want = per_step[name] * TRAIN_STEPS
         expect(count == want, f"train: {name} launched {count} times, expected {want}")
@@ -1281,6 +1361,7 @@ def int8_dit_phase(card: str, bf16_outputs: dict) -> dict[str, int]:
         launches = _counters()
         dispatches = engine.stats.batches - batches_before
         print(f"int8 DiT: 6 requests in {dispatches} dispatches; launches {launches} (per dispatch {per_dispatch})")
+        print(f"int8 DiT: attention launches by route: {_attention_routes()}")
         expect(dispatches == 2, f"int8 DiT: expected 2 dispatches (4 + 2), got {dispatches}")
         for name, count in launches.items():
             expect(count == per_dispatch[name] * dispatches, f"int8 DiT: {name} launched {count} times")
@@ -1307,7 +1388,7 @@ def int8_dit_phase(card: str, bf16_outputs: dict) -> dict[str, int]:
 
 FLUX_GROUPS = (
     ("K1 fused_step", ("fused_step_kernel",)),
-    ("K2 flash_qkv", ("flash_qkv_kernel",)),
+    ("K2 flash_qkv", ("flash_qkv_sm90_kernel",)),
     ("K3 adaln", ("adaln_kernel",)),
     ("B6 quant_rows", ("quant_rows_kernel",)),
     ("B7 rope_qk_norm", ("rope_qk_norm_kernel",)),
@@ -1324,8 +1405,11 @@ def _group(kernel: str, groups: tuple = FLUX_GROUPS) -> str:
     return "other"
 
 
-def _traced_dispatch(run, label: str, median_s: float, card: str, groups: tuple = FLUX_GROUPS) -> dict[str, int]:
-    "The card's time by kernel group over one traced dispatch, and its busy share of the median untraced one."
+def _traced_dispatch(
+    run, label: str, median_s: float, card: str, groups: tuple = FLUX_GROUPS, share: str | None = None
+) -> dict[str, int]:
+    """The card's time by kernel group over one traced dispatch, and its busy share of the median untraced
+    one; ``share`` names a group whose share of the busy time gets a line of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1360,6 +1444,12 @@ def _traced_dispatch(run, label: str, median_s: float, card: str, groups: tuple 
     )
     for name in sorted(names, key=names.get, reverse=True)[:6]:
         print(f"{label} profile: largest: {names[name]:.2f} ms  {name}")
+    if share is not None:
+        ms = card_ms.get(share, 0.0)
+        print(
+            f"{label} profile: {share} took {ms:.2f} ms of the card's {busy:.2f} busy ms ({100 * ms / busy:.1f}%) "
+            f"in {card_launches.get(share, 0)} launches ({card})"
+        )
     return {name: count for name, count in kernel_counts.items()}
 
 
@@ -1461,6 +1551,7 @@ def flux_phase(card: str) -> tuple[dict[str, int], dict[str, int]]:
             forwards = FLUX_STEPS * dispatches
             print(f"{label}: {len(requests)} requests in {dispatches} dispatches ({engine.stats.bucket_counts})")
             print(f"{label}: launches {launches} (per forward expected {want}, {forwards} forwards)")
+            print(f"{label}: attention launches by route: {_attention_routes()}")
             expect(dispatches == (len(requests) + 1) // 2, f"{label}: {dispatches} dispatches")
             for name, count in launches.items():
                 expect(count == want[name] * forwards, f"{label}: {name} launched {count}, expected {want[name] * forwards}")
@@ -1490,7 +1581,11 @@ def flux_phase(card: str) -> tuple[dict[str, int], dict[str, int]]:
             )
             print(f"{label}: peak device memory over the main path {peak / 2**30:.2f} GiB ({card})")
             _traced_dispatch(
-                lambda: engine.generate(700, context=requests[0][1]).cpu(), f"{label} bucket 1", solo, card
+                lambda: engine.generate(700, context=requests[0][1]).cpu(),
+                f"{label} bucket 1",
+                solo,
+                card,
+                share="K2 flash_qkv",
             )
         return launches, outs
 
@@ -1549,7 +1644,7 @@ SDXL_GROUPS = (
     ("B12 convs", ("conv3x3_sm90_kernel", "conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
     ("K1 fused_step", ("fused_step_kernel",)),
     ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
-    ("B10 attention", ("flash_strided_kernel",)),
+    ("B10 attention", ("flash_strided_sm90_kernel",)),
     ("layout copies", ("nchwtonhwc", "nhwctonchw")),
     ("cuDNN convs", ("fprop", "implicit_gemm", "conv", "cudnn", "winograd")),
     ("plain cross-attention", ("softmax", "sgemm", "f32f32_f32f32", "gemv2t", "gemmsn")),
@@ -1742,6 +1837,7 @@ def sdxl_phase(card: str) -> tuple[dict[str, int], dict]:
         forwards = SDXL_STEPS * dispatches
         print(f"sdxl: 3 requests in {dispatches} dispatches ({engine.stats.bucket_counts})")
         print(f"sdxl: launches {launches} (per forward expected {want}, {forwards} CFG forwards)")
+        print(f"sdxl: attention launches by route: {_attention_routes()}")
         expect(dispatches == 2, f"sdxl: {dispatches} dispatches, expected 2")
         for name, count in launches.items():
             expect(count == want[name] * forwards, f"sdxl: {name} launched {count}, expected {want[name] * forwards}")
@@ -1923,6 +2019,7 @@ def vae_phase(card: str, parts: dict) -> dict[str, int]:
     want["conv3x3_gn_silu_forward"] += per_decode * dispatches
     want["groupnorm_forward"] += dispatches
     print(f"vae: 3 requests to pixels in {dispatches} dispatches; launches {launches} (expected {want})")
+    print(f"vae: attention launches by route: {_attention_routes()}")
     expect(dispatches == 2 and launches == want, f"vae: launches {launches}, expected {want}")
     for o in outs:
         expect(tuple(o.shape) == (3, 1024, 1024) and bool(torch.isfinite(o).all()), f"vae: bad pixels {o.shape}")
@@ -2131,6 +2228,7 @@ def b9_kernels(gen) -> dict[str, dict]:
         timed(timing, "ms", kernel)
         timed(timing, "plain_ms", plain, 10)
         timed(timing, "library_ms", library)
+        _attention_route(name, N, d, kernel)
         print(
             f"B9 {name} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel, "
             f"{timing['plain_ms'] * 1e3:.2f} us plain, library {timing['library_ms'] * 1e3:.2f} us "
@@ -2139,7 +2237,7 @@ def b9_kernels(gen) -> dict[str, dict]:
         rows[name] = {
             "name": name,
             "route": "cuda",
-            "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+            "source": "skrample_tpu_torch/csrc/flash_attention_sm90.cu",
             "replaces": f"skrample_tpu/ops/flash_attention.py:{line}",
             "max_abs_err": err,
             "bound_ms": b_ms,
@@ -2288,6 +2386,7 @@ def dit384_phase(card: str) -> dict[str, int]:
         want = {name: n * 2 * STEPS for name, n in per_forward.items()}
         want["fused_step_cuda"] = 2 * STEPS
         print(f"dit384: 3 requests (2 + 1) in {wall * 1e3:.1f} ms; launches {launches}")
+        print(f"dit384: attention launches by route: {_attention_routes()}")
         expect(launches == want, f"dit384: launched {launches}, expected {want} (B9a {config.depth} a forward)")
         for o in (*outs, solo):
             expect(tuple(o.shape) == (4, 64, 64) and bool(torch.isfinite(o).all()), "dit384: bad output")
@@ -2361,6 +2460,7 @@ def sdxl_packed_phase(card: str, parts: dict) -> dict[str, int]:
         want = {name: n * VAE_STEPS for name, n in per_forward.items()}
         want["fused_step_cuda"] = VAE_STEPS
         print(f"sdxl head dim 32: one {VAE_STEPS}-step request in {wall * 1e3:.1f} ms ({card}); launches {launches}")
+        print(f"sdxl head dim 32: attention launches by route: {_attention_routes()}")
         expect(launches == want, f"sdxl head dim 32: launched {launches}, expected {want}")
         expect(tuple(out.shape) == (4, 128, 128) and bool(torch.isfinite(out).all()), "sdxl head dim 32: bad latent")
         x = torch.randn((1, 4, 128, 128), generator=torch.Generator(dev).manual_seed(12), device=dev)
@@ -2393,7 +2493,7 @@ def sdxl_packed_phase(card: str, parts: dict) -> dict[str, int]:
 
 VIDEO_GROUPS = (
     ("K1 fused_step", ("fused_step_kernel",)),
-    ("K2 flash_qkv", ("flash_qkv_kernel",)),
+    ("K2 flash_qkv", ("flash_qkv_sm90_kernel",)),
     ("K3 adaln", ("adaln_kernel",)),
     ("B12 convs", ("conv3x3_sm90_kernel", "conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
     ("B13 tconvs", ("tconv_sm90_kernel", "tconv_kernel", "tconv_stats_reduce_kernel")),
@@ -2496,6 +2596,7 @@ def video_phase(card: str) -> dict[str, int]:
         want = {name: n * forwards + per_decode[name] * dispatches for name, n in per_forward.items()}
         want["fused_step_cuda"] = forwards
         print(f"video: 3 requests (2 + 1) launched {launches}")
+        print(f"video: attention launches by route: {_attention_routes()}")
         expect(launches == want, f"video: launched {launches}, expected {want}")
         for o in outs:
             ok = tuple(o.shape) == (3, 16, 512, 512) and bool(torch.isfinite(o).all())
@@ -2741,7 +2842,7 @@ SP_GROUPS = (
     ("K1 fused_step", ("fused_step_kernel",)),
     ("K3 adaln", ("adaln_kernel",)),
     ("B11 block_stats", ("flash_block_stats_kernel",)),
-    ("B9 strided", ("flash_strided_kernel",)),
+    ("B9 strided", ("flash_strided_sm90_kernel",)),
     ("cuBLAS products", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
     ("NCCL", ("nccl",)),
 )
@@ -2827,6 +2928,7 @@ def _sp_serve(label: str, model, flash, per_forward: dict[str, int], card: str) 
         want_counts = {name: n * 2 * STEPS for name, n in per_forward.items()}
         want_counts["fused_step_cuda"] = 2 * STEPS
         print(f"sp {label}: 3 requests (2 + 1) in {wall * 1e3:.1f} ms; launches {launches}")
+        print(f"sp {label}: attention launches by route: {_attention_routes()}")
         expect(launches == want_counts, f"sp {label}: launched {launches}, expected {want_counts}")
         for o in (*outs, solo):
             expect(tuple(o.shape) == item and bool(torch.isfinite(o).all()), f"sp {label}: bad output")

@@ -43,7 +43,7 @@ from skrample_tpu_torch.serving import ServingEngine
 
 GROUPS = (
     ("K1 fused_step", ("fused_step_kernel",)),
-    ("K2 flash_qkv", ("flash_qkv_kernel",)),
+    ("K2 flash_qkv", ("flash_qkv_sm90_kernel",)),
     ("K3 adaln", ("adaln_kernel",)),
     ("B6 quant_rows", ("quant_rows_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),

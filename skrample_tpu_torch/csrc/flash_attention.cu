@@ -1,72 +1,18 @@
-// K2: attention straight off the fused qkv projection,
-// out[b, n, h*d:(h+1)*d] = softmax(q_h k_h^T / sqrt(d)) v_h, unmasked.
-// K4: the same body with kLse set, which also writes each row's logsumexp
-// lse[b, h, n] = m*ln2 + log(l) (natural-log units, f32) from the online-
-// softmax state, for the backward (csrc/flash_attention_bwd.cu).
+// The FlashAttention-2 forward body on mma.sync (attention_block), which
+// served K2, K4, B9 and B10 until they moved to the Hopper body of
+// flash_attention_sm90.cu, and still serves B11 below.
 //
-// Replaces: skrample_tpu/ops/flash_attention.py, flash_attention_qkv_forward
-// (kernel bodies _softmax_kernel, which runs at the serving slice's shape
-// because one TPU tile holds a whole 1024-wide score row, and _flash_kernel
-// for longer rows) and, as K4, flash_attention_qkv_forward_lse
-// (_softmax_lse_kernel / _flash_lse_kernel).  K4 adds B*H*N*4 bytes of
-// output to K2's traffic and no operations: it is bound like K2.
+// What the body does: one block per (64-row query tile, head, batch item),
+// 4 warps, each warp owning 16 query rows, the score matrix never leaving
+// registers; tensor cores through mma.sync m16n8k16 with f32 accumulators,
+// operands from shared memory by ldmatrix (transposed for V), P re-packed
+// from the score accumulators into A fragments without touching memory;
+// K/V tiles of 64 keys double-buffered with cp.async, rows padded by 16
+// bytes so every ldmatrix is free of bank conflicts; online softmax in
+// registers in the log2 domain (exp2 of s*scale*log2e), the division by the
+// row sum done once at the end on the (16, d) output.
 //
-// Like the TPU kernel it reads q, k and v IN PLACE from
-// the packed (B, N, 3*H*d) qkv tensor, at feature offsets h*d, H*d + h*d and
-// 2*H*d + h*d, and writes the packed (B, N, H*d) layout the output
-// projection wants: no split copies, no head transposes.
-//
-// Any N: where N is not a multiple of 64 the last query tile zero-fills its
-// rows past N and writes none of them, and the last K/V tile's keys past N
-// take no probability (the kRagged instance of attention_block, as B10).
-//
-// What bounds it on the H100: operations.  4*B*H*N^2*d flops against
-// (3 + 1)*B*N*H*d*2 bytes: at B 4, H 4, N 1024, d 128 that is 8.6 GFLOP
-// (8.7 us at 989 TFLOP/s bf16) against 16.8 MB (5.0 us at 3.35 TB/s).
-//
-// What the design does about it (a FlashAttention-2-style forward, not a
-// port of the TPU's full-row tile, which would need 4 MB of scores per
-// (b, h) where a Hopper block has 227 KB of shared memory):
-// * one block per (64-row query tile, head, batch item), 4 warps, each warp
-//   owning 16 query rows; the score matrix never leaves registers;
-// * tensor cores through mma.sync m16n8k16 with f32 accumulators; operands
-//   come from shared memory by ldmatrix (transposed for V), P is re-packed
-//   from the score accumulators into A fragments without touching memory;
-// * K/V tiles of 64 keys are double-buffered with cp.async, so the next
-//   tile streams in while the current one is multiplied; rows are padded
-//   by 16 bytes so every ldmatrix is free of bank conflicts;
-// * online softmax in registers in the log2 domain (exp2 of s*scale*log2e,
-//   the TPU kernel's trick), with the division by the row sum done once at
-//   the end on the (16, d) output instead of on the (16, N) probabilities.
-// wgmma and TMA, which Hopper's full rate needs, are later work.
-//
-// B10: the same body (attention_block below) behind a strided entry point,
-// skt_flash_attention_strided, at d = 64: q, k and v each through their own
-// base pointer and (batch, head, row) strides, so the q/k/v thirds of the
-// CondUNet's fused attn1_qkv product, taken as chunk(3) views of row stride
-// 3*H*64, are read in place, and the output is written at its own strides
-// (a packed (B, N, H*64) tensor).  Any N: a ragged last tile zero-fills its
-// rows and masks its keys to -inf.  Replaces:
-// skrample_tpu/ops/flash_attention.py, flash_attention_pairs_forward
-// (_pairs_softmax_kernel), which puts two d = 64 heads side by side in one
-// 128-lane tile and runs a one-pass softmax over a head pair's whole K/V
-// rows held in VMEM; both are TPU layout devices.  Here a block takes one
-// head, and the online softmax above gives the same result within rounding.
-// What bounds it: operations, 4*B*H*N^2*64 (at B 4, H 10, N 4096: 172 GFLOP,
-// 174 us at 989 TFLOP/s).
-//
-// B9: the same entry point at D = 128 as well, for
-// skrample_tpu/ops/flash_attention.py flash_attention_forward (q, k, v as
-// (B, H, N, d), kernel bodies _flash_kernel / _softmax_kernel) and
-// flash_attention_packed_forward (three packed (B, N, H*d) tensors at
-// d = 128).  The TPU kernels' N % 128, block pickers and lane padding are
-// TPU rules; here a head of another d <= 128 is zero-padded by the wrapper
-// to the next instance (64 or 128), which is exact: padded q and k lanes add
-// zero to every score, padded v lanes give output lanes that are sliced
-// away, and the wrapper keeps the true scale 1/sqrt(d).  Bound: operations,
-// 4*B*H*N^2*d (at B 4, H 6, N 1024, d 64: 6.4 GFLOP, 6.5 us).
-//
-// B11: the same body once more, behind skt_flash_attention_block_stats, for
+// B11: the body behind skt_flash_attention_block_stats, for
 // skrample_tpu/ops/flash_attention.py flash_attention_block_stats (kernel
 // body _softmax_stats_kernel): one hop of ring attention.  The queries
 // attend ONE K/V block, o = softmax(q k^T / sqrt(d)) v normalised within the
@@ -91,22 +37,6 @@
 #include <stdint.h>
 
 #include "tile_mma.cuh"
-
-// B10's arguments: element strides (batch, head, row) of q, k, v and the
-// output.  Must match skrample_tpu_torch/ops/flash_attention.py:_StridedArgs
-// field for field; outside the anonymous namespace, as the C entry point takes it.
-struct StridedArgs {
-    const void* q;
-    const void* k;
-    const void* v;
-    void* o;
-    long long q_strides[3];
-    long long k_strides[3];
-    long long v_strides[3];
-    long long o_strides[3];
-    int B, N, H, d;
-    float scale_log2;
-};
 
 // B11's arguments: q (B, H, Nq, d), k and v (B, H, Nk, d) and o (B, H, Nq, d)
 // at element strides (batch, head, row); m and l contiguous (B, H, Nq) f32.
@@ -334,86 +264,6 @@ __device__ __forceinline__ void attention_block(const T* __restrict__ g_q, long 
     }
 }
 
-// K2 / K4: q, k and v read in place from the packed (B, N, 3*H*d) qkv tensor.
-// kRagged: N is not a multiple of 64 (the last query tile and K/V tile are masked).
-template <typename T, int D, bool kLse, bool kRagged>
-__global__ void __launch_bounds__(kThreads)
-    flash_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, float* __restrict__ lse, int N, int H,
-                     float scale_log2) {
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int width = H * D;
-    const long long row_stride = 3LL * width;
-    const T* base = qkv + (long long)b * N * row_stride + h * D;
-    attention_block<T, D, kLse ? kLseStats : kNoStats, kRagged>(
-        base, row_stride, base + width, row_stride, base + 2 * width, row_stride,
-        out + (long long)b * N * width + h * D, width, kLse ? lse + ((long long)b * H + h) * N : nullptr, nullptr, N,
-        N, blockIdx.x * kBlockQ, scale_log2);
-}
-
-template <typename T, int D, bool kLse, bool kRagged>
-int launch_qkv(const void* qkv, void* out, float* lse, int B, int N, int H, float scale_log2, cudaStream_t stream) {
-    constexpr int smem = Layout<D>::template bytes<T>();
-    static bool configured = false;
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(flash_qkv_kernel<T, D, kLse, kRagged>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
-    const dim3 grid((N + kBlockQ - 1) / kBlockQ, H, B);
-    flash_qkv_kernel<T, D, kLse, kRagged><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(qkv), static_cast<T*>(out), lse, N, H, scale_log2);
-    return (int)cudaGetLastError();
-}
-
-template <typename T, bool kLse>
-int launch(const void* qkv, void* out, float* lse, int B, int N, int H, float scale_log2, cudaStream_t stream) {
-    if (N % kBlockQ) return launch_qkv<T, 128, kLse, true>(qkv, out, lse, B, N, H, scale_log2, stream);
-    return launch_qkv<T, 128, kLse, false>(qkv, out, lse, B, N, H, scale_log2, stream);
-}
-
-// B10: one block per (64-row query tile, head, batch item), any strides.
-template <typename T, int D, bool kRagged>
-__global__ void __launch_bounds__(kThreads) flash_strided_kernel(const StridedArgs a) {
-    const long long h = blockIdx.y;
-    const long long b = blockIdx.z;
-    const T* g_q = static_cast<const T*>(a.q) + b * a.q_strides[0] + h * a.q_strides[1];
-    const T* g_k = static_cast<const T*>(a.k) + b * a.k_strides[0] + h * a.k_strides[1];
-    const T* g_v = static_cast<const T*>(a.v) + b * a.v_strides[0] + h * a.v_strides[1];
-    T* g_o = static_cast<T*>(a.o) + b * a.o_strides[0] + h * a.o_strides[1];
-    attention_block<T, D, kNoStats, kRagged>(g_q, a.q_strides[2], g_k, a.k_strides[2], g_v, a.v_strides[2], g_o,
-                                             a.o_strides[2], nullptr, nullptr, a.N, a.N, blockIdx.x * kBlockQ,
-                                             a.scale_log2);
-}
-
-template <typename T, int D, bool kRagged>
-int launch_strided(const StridedArgs& a, cudaStream_t stream) {
-    constexpr int smem = Layout<D>::template bytes<T>();
-    static bool configured = false;
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(flash_strided_kernel<T, D, kRagged>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
-    const dim3 grid((a.N + kBlockQ - 1) / kBlockQ, a.H, a.B);
-    flash_strided_kernel<T, D, kRagged><<<grid, kThreads, smem, stream>>>(a);
-    return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
-int dispatch_strided_d(const StridedArgs& a, cudaStream_t stream) {
-    if (a.N % kBlockQ) return launch_strided<T, D, true>(a, stream);
-    return launch_strided<T, D, false>(a, stream);
-}
-
-template <typename T>
-int dispatch_strided(const StridedArgs& a, cudaStream_t stream) {
-    if (a.d == 64) return dispatch_strided_d<T, 64>(a, stream);
-    return dispatch_strided_d<T, 128>(a, stream);
-}
-
 // B11: one block per (64-row query tile, head, batch item), the whole K/V
 // block streamed through the body's K/V loop.
 template <typename T, int D, bool kRagged>
@@ -459,30 +309,7 @@ int dispatch_block_stats(const BlockStatsArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// B10 / B9: q, k, v, o of dtype 1 = bf16 or 2 = fp16, head dim d = 64 or
-// 128, element strides whose rows are 16-byte aligned (every stride a
-// multiple of 8, every base pointer 16-byte aligned); any B, H, N >= 1 (grid
-// limits aside).  scale_log2 is the caller's: B9 pads a head to the next
-// instance and keeps its true 1/sqrt(d).
-extern "C" int skt_flash_attention_strided(const StridedArgs* args, int size, int dtype, cudaStream_t stream) {
-    if (size != (int)sizeof(StridedArgs)) return (int)cudaErrorInvalidValue;
-    const StridedArgs a = *args;
-    if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.N < 1 || (a.d != 64 && a.d != 128))
-        return (int)cudaErrorInvalidValue;
-    const long long* strides[4] = {a.q_strides, a.k_strides, a.v_strides, a.o_strides};
-    const void* bases[4] = {a.q, a.k, a.v, a.o};
-    for (int t = 0; t < 4; ++t) {
-        if (reinterpret_cast<uintptr_t>(bases[t]) % 16) return (int)cudaErrorInvalidValue;
-        for (int i = 0; i < 3; ++i) {
-            if (strides[t][i] % 8) return (int)cudaErrorInvalidValue;
-        }
-    }
-    if (dtype == 1) return dispatch_strided<__nv_bfloat16>(a, stream);
-    if (dtype == 2) return dispatch_strided<__half>(a, stream);
-    return (int)cudaErrorInvalidValue;
-}
-
-// B11: q, k, v, o as for skt_flash_attention_strided, q and o over Nq rows,
+// B11: q, k, v, o as for skt_flash_attention_strided (flash_attention_sm90.cu), q and o over Nq rows,
 // k and v over Nk; m and l (B, H, Nq) f32 contiguous.  Any Nq, Nk >= 1.
 extern "C" int skt_flash_attention_block_stats(const BlockStatsArgs* args, int size, int dtype,
                                                cudaStream_t stream) {
@@ -501,24 +328,5 @@ extern "C" int skt_flash_attention_block_stats(const BlockStatsArgs* args, int s
     if (a.m == nullptr || a.l == nullptr) return (int)cudaErrorInvalidValue;
     if (dtype == 1) return dispatch_block_stats<__nv_bfloat16>(a, stream);
     if (dtype == 2) return dispatch_block_stats<__half>(a, stream);
-    return (int)cudaErrorInvalidValue;
-}
-
-// qkv: (B, N, 3*H*d) contiguous; out: (B, N, H*d) contiguous; dtype 1 = bf16, 2 = fp16; any N >= 1.
-extern "C" int skt_flash_attention_qkv(const void* qkv, void* out, int B, int N, int H, int d, int dtype,
-                                       float scale_log2, cudaStream_t stream) {
-    if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || d != 128) return (int)cudaErrorInvalidValue;
-    if (dtype == 1) return launch<__nv_bfloat16, false>(qkv, out, nullptr, B, N, H, scale_log2, stream);
-    if (dtype == 2) return launch<__half, false>(qkv, out, nullptr, B, N, H, scale_log2, stream);
-    return (int)cudaErrorInvalidValue;
-}
-
-// K4: as skt_flash_attention_qkv, and lse: (B, H, N) f32 contiguous.
-extern "C" int skt_flash_attention_qkv_lse(const void* qkv, void* out, void* lse, int B, int N, int H, int d,
-                                           int dtype, float scale_log2, cudaStream_t stream) {
-    if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || d != 128) return (int)cudaErrorInvalidValue;
-    float* l = static_cast<float*>(lse);
-    if (dtype == 1) return launch<__nv_bfloat16, true>(qkv, out, l, B, N, H, scale_log2, stream);
-    if (dtype == 2) return launch<__half, true>(qkv, out, l, B, N, H, scale_log2, stream);
     return (int)cudaErrorInvalidValue;
 }

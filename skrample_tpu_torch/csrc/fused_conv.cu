@@ -780,7 +780,7 @@ int run_sm90(Sm90 p, const void* x, const void* wt, int N, cudaStream_t stream) 
     const cuuint64_t xd[4] = {(cuuint64_t)p.C, (cuuint64_t)p.W, (cuuint64_t)p.H, (cuuint64_t)N};
     const cuuint64_t xs[3] = {(cuuint64_t)p.C * 2, (cuuint64_t)p.W * p.C * 2, (cuuint64_t)p.H * p.W * p.C * 2};
     const cuuint32_t xb[4] = {64, (cuuint32_t)Wd, (cuuint32_t)p.halo_rows, 1};
-    if (!sm90::encode_bf16(&xmap, x, 4, xd, xs, xb)) return (int)cudaErrorInvalidValue;
+    if (!sm90::encode_16bit(&xmap, x, 4, xd, xs, xb)) return (int)cudaErrorInvalidValue;
     static sm90::MapCache weights;
     const cuuint64_t wd[3] = {(cuuint64_t)p.C, kTaps, (cuuint64_t)p.Co};
     const cuuint64_t ws[2] = {(cuuint64_t)p.C * 2, (cuuint64_t)kTaps * p.C * 2};

@@ -1,23 +1,29 @@
 // Hopper (sm_90a) building blocks for the conv kernels (B12 bf16 and B13 in
-// fused_conv.cu and tconv.cu), as inline PTX: mbarriers, TMA tile loads
+// fused_conv.cu and tconv.cu) and the forward attention (K2, K4, B9, B10 in
+// flash_attention_sm90.cu), as inline PTX: mbarriers, TMA tile loads
 // (cp.async.bulk.tensor) completing on an mbarrier, wgmma with both operands
-// read from shared memory through matrix descriptors, its fence, commit and
-// wait, named barriers, the async-proxy fence, setmaxnreg, and the host's
-// tensor-map encoding (the driver's cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint: the library keeps its plain C interface and links
-// no -lcuda), with a cache for maps that do not move between calls.
+// read from shared memory through matrix descriptors (SS) or with A from
+// registers (RS), for bf16 and fp16, its fence, commit and wait, named
+// barriers, the async-proxy fence, setmaxnreg, and the host's tensor-map
+// encoding (cuTensorMapEncodeTiled, looked up at run time through the CUDA
+// runtime's entry-point query: the library keeps its plain C interface and
+// links no -lcuda), with a cache for maps that are encoded again and again.
 //
-// Operand layout: every tile is K-major with 64 bf16 (128 bytes) a row, as a
+// Operand layout: every tile has 64 16-bit values (128 bytes) a row, as a
 // TMA box with the 128-byte swizzle writes it (16-byte chunk c of row r lands
 // at chunk c ^ (r % 8), the pattern anchored at 1024-byte-aligned addresses).
-// The hardware applies the swizzle to the absolute shared-memory address,
+// Read K-major (desc_sw128), a row is one M or N index and its 64 K values;
+// the hardware applies the swizzle to the absolute shared-memory address,
 // so a descriptor may start at any row of such a tile: a 3x3 conv reads its
-// nine taps as nine row-shifted views of one normalized halo tile.
+// nine taps as nine row-shifted views of one normalized halo tile.  Read
+// MN-major (desc_mn_sw128, the attention's V), a row is one K index and its
+// 64 N values, and 64-wide N groups sit in separate tiles.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -103,6 +109,11 @@ __device__ __forceinline__ void named_bar(int id, int threads) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// bar.arrive: count this warp's threads towards named barrier ``id`` without waiting
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // generic-proxy writes to shared memory (the norm, in place) made visible to wgmma's async proxy
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
@@ -132,6 +143,20 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
     return d;
 }
 
+// Descriptor of an MN-major 16-bit tile in the 128-byte swizzle: rows of 128 bytes are K indices, each
+// holding 64 consecutive N values; 8-row K groups 1024 bytes apart (the stride byte offset), and the next
+// 64 N values in the tile ``n_group_bytes`` further on (the leading byte offset).  The wgmma reading it
+// sets its transpose bit for B.  A K step of 16 starts 2048 bytes on, at a swizzle atom: the base offset
+// stays 0.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr, uint32_t n_group_bytes) {
+    uint64_t d = 0;
+    d |= (uint64_t)((addr & 0x3FFFF) >> 4);
+    d |= (uint64_t)((n_group_bytes >> 4) & 0x3FFF) << 16;
+    d |= (uint64_t)(kSwizzleAtom >> 4) << 32;
+    d |= (uint64_t)1 << 62;
+    return d;
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 
@@ -145,6 +170,12 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x N f32, the warpgroup's fragments) += A (64 x 16, descriptor a) * B (N x 16, descriptor b)^T.
@@ -219,6 +250,105 @@ struct Wgmma<128> {
     }
 };
 
+// The attention's two products, for T = __nv_bfloat16 or __half, with the fragment layout of Wgmma above
+// and scale_d 0 to overwrite d instead of adding to it.  SS: d (64 x N) (+)= A (64 x 16, descriptor a)
+// * B (N x 16, descriptor b)^T, both K-major.  RS: d (64 x N) (+)= A (64 x 16) * B (16 x N, descriptor
+// b, MN-major: the transpose bit is set), A from registers in the layout of the D fragment of a 16-wide
+// product (thread t: a[0] row 16 w + l/4, columns 2 (l % 4) and + 1; a[1] 8 rows down; a[2], a[3] the same
+// 8 columns on), so an accumulator re-packs into the next product's A without touching memory.
+template <typename T, int N>
+struct WgmmaSS;
+template <typename T, int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaSS<__nv_bfloat16, 64> {
+    __device__ static void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <>
+struct WgmmaRS<__nv_bfloat16, 64> {
+    __device__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    }
+};
+
+template <>
+struct WgmmaSS<__half, 64> {
+    __device__ static void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <>
+struct WgmmaRS<__half, 64> {
+    __device__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    }
+};
+
+template <>
+struct WgmmaSS<__nv_bfloat16, 128> {
+    __device__ static void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <>
+struct WgmmaRS<__nv_bfloat16, 128> {
+    __device__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    }
+};
+
+template <>
+struct WgmmaSS<__half, 128> {
+    __device__ static void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "l"(a), "l"(b), "r"(scale_d));
+    }
+};
+
+template <>
+struct WgmmaRS<__half, 128> {
+    __device__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+    }
+};
+
 // ---- host: tensor maps ----
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -238,30 +368,35 @@ inline EncodeTiled encode_fn() {
     return fn;
 }
 
-// A bf16 tensor map of ``rank`` dims (dims innermost first, byte strides of dims 1..rank-1), a box of
-// ``box``, the 128-byte swizzle, zero fill outside the tensor.  False when the driver refuses it.
-inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                        const cuuint64_t* strides, const cuuint32_t* box) {
+// A 16-bit tensor map (bf16, or fp16 with ``f16``) of ``rank`` dims (dims innermost first, byte strides
+// of dims 1..rank-1), a box of ``box``, the 128-byte swizzle, zero fill outside the tensor.  False when
+// the encoding is refused.
+inline bool encode_16bit(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box, bool f16 = false) {
     const EncodeTiled fn = encode_fn();
     if (fn == nullptr) return false;
     const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, ones,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+    const CUtensorMapDataType type = f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Weight maps, which do not move between calls, cached by (pointer, dims, box): a map is a function
-// of those alone, so a hit is always the map the call would encode.
+// Maps cached by (pointer, type, dims, strides, box): a map is a function of those alone, so a hit is
+// always the map the call would encode.  The conv weights, which do not move between calls, and the
+// attention's operands, which PyTorch's caching allocator hands out at the same few addresses.
 class MapCache {
   public:
     bool get(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-             const cuuint32_t* box) {
+             const cuuint32_t* box, bool f16 = false) {
         Key key{};
         key.base = base;
         key.rank = rank;
+        key.f16 = f16;
         for (int i = 0; i < rank; ++i) {
             key.dims[i] = dims[i];
             key.box[i] = box[i];
+            if (i + 1 < rank) key.strides[i] = strides[i];
         }
         std::lock_guard<std::mutex> guard(mutex_);
         for (int i = 0; i < used_; ++i) {
@@ -270,7 +405,7 @@ class MapCache {
                 return true;
             }
         }
-        if (!encode_bf16(map, base, rank, dims, strides, box)) return false;
+        if (!encode_16bit(map, base, rank, dims, strides, box, f16)) return false;
         Entry& slot = entries_[next_];
         slot.key = key;
         slot.map = *map;
@@ -284,7 +419,9 @@ class MapCache {
     struct Key {
         const void* base;
         int rank;
+        bool f16;
         cuuint64_t dims[5];
+        cuuint64_t strides[4];
         cuuint32_t box[5];
     };
     struct Entry {
@@ -292,9 +429,10 @@ class MapCache {
         CUtensorMap map;
     };
     static bool same(const Key& a, const Key& b) {
-        if (a.base != b.base || a.rank != b.rank) return false;
+        if (a.base != b.base || a.rank != b.rank || a.f16 != b.f16) return false;
         for (int i = 0; i < a.rank; ++i)
-            if (a.dims[i] != b.dims[i] || a.box[i] != b.box[i]) return false;
+            if (a.dims[i] != b.dims[i] || a.box[i] != b.box[i] || (i + 1 < a.rank && a.strides[i] != b.strides[i]))
+                return false;
         return true;
     }
     std::mutex mutex_;

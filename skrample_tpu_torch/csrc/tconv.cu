@@ -567,7 +567,7 @@ int run_sm90(Sm90 p, const void* x, const void* wt, int B, cudaStream_t stream) 
     const cuuint64_t xd[3] = {(cuuint64_t)p.C, (cuuint64_t)p.S, (cuuint64_t)B * p.T_in};
     const cuuint64_t xs[2] = {(cuuint64_t)p.C * 2, (cuuint64_t)p.S * p.C * 2};
     const cuuint32_t xb[3] = {64, (cuuint32_t)bm, 1};
-    if (!sm90::encode_bf16(&xmap, x, 3, xd, xs, xb)) return (int)cudaErrorInvalidValue;
+    if (!sm90::encode_16bit(&xmap, x, 3, xd, xs, xb)) return (int)cudaErrorInvalidValue;
     static sm90::MapCache weights;
     const cuuint64_t wd[3] = {(cuuint64_t)p.C, (cuuint64_t)p.k, (cuuint64_t)p.Co};
     const cuuint64_t ws[2] = {(cuuint64_t)p.C * 2, (cuuint64_t)p.k * p.C * 2};

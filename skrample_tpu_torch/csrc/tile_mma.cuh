@@ -1,4 +1,4 @@
-// Building blocks shared by the attention kernels (K2/K4/B10 in
+// Building blocks shared by the mma.sync attention kernels (B11 in
 // flash_attention.cu, K5 in flash_attention_bwd.cu): cp.async copies into
 // shared memory, ldmatrix loads, and the m16n8k16 tensor-core product with
 // f32 accumulators, for bf16 and fp16 operands.

@@ -33,6 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "fused_step.cu",
     "flash_attention.cu",
+    "flash_attention_sm90.cu",
     "flash_attention_bwd.cu",
     "adaln.cu",
     "quant.cu",
@@ -56,8 +57,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the entry points (see the sources for what each computes)
 _SIGNATURES: dict[str, list] = {
     "skt_fused_step": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
-    "skt_flash_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, _F, _P],  # qkv, out, B, N, H, d, dtype, scale, stream
-    "skt_flash_attention_qkv_lse": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],  # qkv, out, lse, then as above
+    # qkv, out, B, N, H, d, dtype, scale, block_q, stages (flash_attention.attention_plan), stream
+    "skt_flash_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "skt_flash_attention_qkv_lse": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],  # qkv, out, lse, then as above
+    "skt_attention_sm90_probe": [_P, _P, _P, _I, _I, _I, _P],  # a, b, out, mode, d, dtype, stream
     # qkv, dout, lse, delta, dqkv, B, N, H, d, dtype, scale, stream
     "skt_flash_attention_qkv_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, shift, scale, out, B, N, D, shift row stride, scale row stride, dtype, eps, stream

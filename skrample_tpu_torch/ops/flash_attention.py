@@ -16,9 +16,13 @@ packed ``(B, N, H*64)`` tensors that may be strided views, such as the
 at head dim 128 too: :func:`flash_attention_forward` on ``(B, H, N, d)``
 (a head dim up to 128, zero-padded to an instance) and
 :func:`flash_attention_packed_forward` on packed ``(B, N, H*128)``.
-:func:`flash_attention_block_stats` launches B11, the same body once more: one
-K/V block's attention with the row max and sum that :func:`softmax_merge`
-folds across blocks (a ring attention hop), at separate query and key counts.
+K2, K4, B9 and B10 run one Hopper body (TMA, ``wgmma``, a producer warp and
+ping-ponged consumer warpgroups) in the geometry :func:`attention_plan`
+picks from ``(N, d)`` alone; each wrapper counts its launches by route
+(``.routes``).  :func:`flash_attention_block_stats` launches B11
+(``csrc/flash_attention.cu``, the ``mma.sync`` body): one K/V block's
+attention with the row max and sum that :func:`softmax_merge` folds across
+blocks (a ring attention hop), at separate query and key counts.
 :func:`flash_attention_pairs`, :func:`flash_attention` and
 :func:`flash_attention_packed` are their autograd dispatches, with the plain
 version's gradient backward.  The
@@ -31,6 +35,8 @@ plain versions beside each kernel (:func:`attention_reference`,
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -39,6 +45,43 @@ from . import _cuda
 
 _LANE = 128
 _LOG2E = 1.4426950408889634
+
+# ---- the Hopper body's plan: its geometry, chosen from (N, d) alone --------------------------------
+
+_BLOCK_K = 128  # keys a K/V tile (csrc/flash_attention_sm90.cu kBlockK): fixes the order of each row's sums
+_SWIZZLE_ATOM = 1024  # the shared memory's alignment slack
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """The geometry of K2, K4, B9 and B10 on the Hopper body for ``N`` rows at head dim ``d``: a block
+    takes ``block_q`` query rows (two consumer warpgroups of 64) of one (batch item, head) and streams
+    the keys in tiles of ``block_k`` through a ring of ``stages`` K/V stages; ``smem`` is the block's
+    shared memory (``csrc/flash_attention_sm90.cu`` ``smem_bytes``), which the C entry points check."""
+
+    block_q: int
+    block_k: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(N: int, d: int) -> AttentionPlan:
+    """K2's, K4's, B9's and B10's plan for ``N`` query (and key) rows at head dim ``d`` (64 or 128).
+
+    It never reads the batch or the head count, and a row's arithmetic depends only on ``block_k``: an
+    item's bits are the same alone or packed.  Two consumer warpgroups (128 query rows) a block at every
+    N, the DiT's 1024 rows included: one warpgroup's 64-row blocks measured 1.1-1.6x slower at every
+    served shape.  Two K/V stages (at d = 128, Q 32 KB + 2 x 64 KB): three or four measured no faster
+    at any served shape, and three slower at Flux's (``scripts/bench_attention_kernels.py --vary``,
+    PERF.md)."""
+    if d not in (64, 128):
+        raise ValueError(f"attention_plan: head dim {d} has no instance (64 or 128)")
+    if N < 1:
+        raise ValueError(f"attention_plan: N = {N}")
+    block_q, stages = 128, 2
+    smem = (block_q + 2 * stages * _BLOCK_K) * d * 2 + (1 + 4 * stages) * 8 + _SWIZZLE_ATOM
+    return AttentionPlan(block_q, _BLOCK_K, stages, smem)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -150,6 +193,7 @@ def flash_attention_qkv_forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
         return _qkv_reference(qkv, heads)
     B, N, d = _check_qkv(qkv, heads, "flash_attention_qkv_forward")
     out = torch.empty((B, N, heads * d), dtype=qkv.dtype, device=qkv.device)
+    plan = attention_plan(N, d)
     lib = _cuda.library()
     with torch.cuda.device(qkv.device):
         code = lib.skt_flash_attention_qkv(
@@ -161,14 +205,18 @@ def flash_attention_qkv_forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
             d,
             _cuda.DTYPE_CODES[qkv.dtype],
             (1.0 / math.sqrt(d)) * _LOG2E,  # log2-domain scores, as the TPU kernel folds them
+            plan.block_q,
+            plan.stages,
             _cuda.stream(),
         )
     _cuda.check(code, "flash_attention_qkv_forward")
     flash_attention_qkv_forward.launches += 1
+    flash_attention_qkv_forward.routes["wgmma"] += 1
     return out
 
 
 flash_attention_qkv_forward.launches = 0
+flash_attention_qkv_forward.routes = {"wgmma": 0}  # launches by route: the Hopper body is the only one
 
 
 def flash_attention_qkv_forward_lse(qkv: torch.Tensor, heads: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -182,6 +230,7 @@ def flash_attention_qkv_forward_lse(qkv: torch.Tensor, heads: int) -> tuple[torc
     B, N, d = _check_qkv(qkv, heads, "flash_attention_qkv_forward_lse")
     out = torch.empty((B, N, heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, heads, N, 1), dtype=torch.float32, device=qkv.device)
+    plan = attention_plan(N, d)
     lib = _cuda.library()
     with torch.cuda.device(qkv.device):
         code = lib.skt_flash_attention_qkv_lse(
@@ -194,14 +243,18 @@ def flash_attention_qkv_forward_lse(qkv: torch.Tensor, heads: int) -> tuple[torc
             d,
             _cuda.DTYPE_CODES[qkv.dtype],
             (1.0 / math.sqrt(d)) * _LOG2E,
+            plan.block_q,
+            plan.stages,
             _cuda.stream(),
         )
     _cuda.check(code, "flash_attention_qkv_forward_lse")
     flash_attention_qkv_forward_lse.launches += 1
+    flash_attention_qkv_forward_lse.routes["wgmma"] += 1
     return out, lse
 
 
 flash_attention_qkv_forward_lse.launches = 0
+flash_attention_qkv_forward_lse.routes = {"wgmma": 0}
 
 
 def flash_attention_qkv_backward(
@@ -308,7 +361,8 @@ def pairs_kernel_fits(N: int, heads: int, d: int) -> bool:
 
 
 class _StridedArgs(ctypes.Structure):
-    "``StridedArgs`` of ``csrc/flash_attention.cu``: element strides (batch, head, row) of q, k, v, out."
+    """``StridedArgs`` of ``csrc/flash_attention_sm90.cu``: element strides (batch, head, row) of q, k, v,
+    out, and the plan."""
 
     _fields_ = [  # noqa: RUF012 — ctypes layout declaration
         ("q", ctypes.c_void_p),
@@ -324,6 +378,8 @@ class _StridedArgs(ctypes.Structure):
         ("H", ctypes.c_int),
         ("d", ctypes.c_int),
         ("scale_log2", ctypes.c_float),
+        ("block_q", ctypes.c_int),
+        ("stages", ctypes.c_int),
     ]
 
 
@@ -364,6 +420,7 @@ def _launch_strided(
 ) -> None:
     "One launch of ``skt_flash_attention_strided`` on q, k, v, out with their (batch, head, row) strides."
     q, k, v, o = views
+    plan = attention_plan(N, d_kernel)
     args = _StridedArgs(
         q.data_ptr(),
         k.data_ptr(),
@@ -375,6 +432,8 @@ def _launch_strided(
         H,
         d_kernel,
         scale * _LOG2E,
+        plan.block_q,
+        plan.stages,
     )
     lib = _cuda.library()
     with torch.cuda.device(q.device):
@@ -406,10 +465,12 @@ def flash_attention_pairs_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     strides = tuple(_head_strides(t, _PAIRS_D) for t in views)
     _launch_strided(name, views, strides, B, N, heads, _PAIRS_D, 1.0 / math.sqrt(_PAIRS_D))
     flash_attention_pairs_forward.launches += 1
+    flash_attention_pairs_forward.routes["wgmma"] += 1
     return out
 
 
 flash_attention_pairs_forward.launches = 0
+flash_attention_pairs_forward.routes = {"wgmma": 0}
 
 
 class _PlainBackward(torch.autograd.Function):
@@ -479,10 +540,12 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     strides = tuple((t.stride(0), t.stride(1), t.stride(2)) for t in views)
     _launch_strided(name, views, strides, B, N, H, d_kernel, 1.0 / math.sqrt(d))
     flash_attention_forward.launches += 1
+    flash_attention_forward.routes["wgmma"] += 1
     return out if d == d_kernel else out[..., :d]
 
 
 flash_attention_forward.launches = 0
+flash_attention_forward.routes = {"wgmma": 0}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -523,10 +586,12 @@ def flash_attention_packed_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     strides = tuple(_head_strides(t, d) for t in views)
     _launch_strided(name, views, strides, B, N, heads, d, 1.0 / math.sqrt(d))
     flash_attention_packed_forward.launches += 1
+    flash_attention_packed_forward.routes["wgmma"] += 1
     return out
 
 
 flash_attention_packed_forward.launches = 0
+flash_attention_packed_forward.routes = {"wgmma": 0}
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
@@ -643,10 +708,12 @@ def flash_attention_block_stats(
         )
     _cuda.check(code, name)
     flash_attention_block_stats.launches += 1
+    flash_attention_block_stats.routes["mma_sync"] += 1
     return (o if d == d_kernel else o[..., :d]), m, l
 
 
 flash_attention_block_stats.launches = 0
+flash_attention_block_stats.routes = {"mma_sync": 0}  # the FlashAttention-2 body of csrc/flash_attention.cu
 
 
 def softmax_merge(

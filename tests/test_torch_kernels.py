@@ -10,6 +10,8 @@ neither jax nor the JAX package, so it runs on a machine with only PyTorch:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -923,6 +925,160 @@ def test_qkv_kernels_take_a_ragged_n(cuda: torch.device, N: int) -> None:
     with torch.inference_mode():
         flash_attention.flash_attention_qkv(qkv, heads)
     assert flash_attention.flash_attention_qkv_forward.launches == before + 1
+
+
+# ---- the Hopper forward attention (K2, K4, B9, B10: csrc/flash_attention_sm90.cu) ----------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_sm90_attention_primitives_one_product(cuda: torch.device, mode: int, d: int, dtype: torch.dtype) -> None:
+    """One wgmma product of the Hopper body against ``torch.matmul`` in f32 on the same 16-bit inputs
+    (the sums' order differs: atol/rtol 1e-3).  Mode 0: the score product from shared memory (SS, both
+    K-major, d / 64 slabs of the 128-byte swizzle); mode 1: the value product with A from registers (RS)
+    and B read MN-major through the transpose bit (``desc_mn_sw128``).  bf16 and the ``.f16`` form."""
+    from skrample_tpu_torch.ops import _cuda
+
+    gen = torch.Generator(cuda).manual_seed(16 * mode + d)
+    a = torch.randn((64, d if mode == 0 else 128), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((128, d), generator=gen, device=cuda).to(dtype)
+    out = torch.full((64, 128 if mode == 0 else d), float("nan"), device=cuda)
+    lib = _cuda.library()
+    code = lib.skt_attention_sm90_probe(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), mode, d, _cuda.DTYPE_CODES[dtype], _cuda.stream()
+    )
+    _cuda.check(code, "probe")
+    torch.cuda.synchronize()
+    want = a.float() @ (b.float().t() if mode == 0 else b.float())
+    torch.testing.assert_close(out, want, atol=1e-3, rtol=1e-3)
+
+
+def _sm90_views(layout: str, B: int, H: int, N: int, d: int, dtype: torch.dtype, gen) -> tuple:
+    "q, k, v of one fused qkv tensor: packed qkv (K2), chunk(3) views (B9b, B10) or (B, H, N, d) views (B9a)."
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=gen.device).to(dtype)
+    if layout == "qkv":
+        return (qkv,)
+    q, k, v = qkv.chunk(3, dim=-1)
+    if layout == "chunk":
+        return q, k, v
+    return tuple(part.reshape(B, N, H, d).transpose(1, 2) for part in (q, k, v))
+
+
+def _sm90_call(layout: str, views: tuple, H: int, d: int) -> torch.Tensor:
+    if layout == "qkv":
+        return flash_attention.flash_attention_qkv_forward(views[0], H)
+    if layout == "chunk":
+        fn = flash_attention.flash_attention_pairs_forward if d == 64 else flash_attention.flash_attention_packed_forward
+        return fn(*views, H)
+    return flash_attention.flash_attention_forward(*views)
+
+
+def _sm90_plain(layout: str, views: tuple, H: int) -> torch.Tensor:
+    if layout == "qkv":
+        return flash_attention._qkv_reference(views[0], H)
+    if layout == "chunk":
+        return flash_attention._packed_reference(*views, H)
+    return flash_attention.attention_reference(*views)
+
+
+_SM90_CASES = [
+    ("qkv", 2, 2, 77, 128),
+    ("qkv", 1, 3, 1000, 128),
+    ("qkv", 1, 2, 4592, 128),
+    ("chunk", 2, 3, 77, 64),
+    ("chunk", 1, 2, 1000, 64),
+    ("chunk", 1, 2, 1000, 128),
+    ("chunk", 1, 2, 4592, 64),
+    ("bhnd", 2, 2, 300, 64),
+    ("bhnd", 1, 3, 1024, 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(("layout", "B", "H", "N", "d"), _SM90_CASES)
+def test_sm90_attention_matches_plain(
+    cuda: torch.device, layout: str, B: int, H: int, N: int, d: int, dtype: torch.dtype
+) -> None:
+    """The Hopper body behind each wrapper against its plain version at ragged and tiled N, d 64 and
+    128, on the packed qkv, on chunk(3) views and on (B, H, N, d) views, every launch counted on the
+    wgmma route.  Tolerance: atol 5e-3, or one ulp of the largest output where that is more (P rounds to
+    16 bits before its normalisation here, after it in the plain version, which moves an output by up to
+    about one ulp: at N = 77 outputs reach past 1, where a bf16 ulp is 7.8e-3)."""
+    gen = torch.Generator(cuda).manual_seed(N + d + H)
+    views = _sm90_views(layout, B, H, N, d, dtype, gen)
+    wrapper = {
+        "qkv": flash_attention.flash_attention_qkv_forward,
+        "chunk": flash_attention.flash_attention_pairs_forward if d == 64 else flash_attention.flash_attention_packed_forward,
+        "bhnd": flash_attention.flash_attention_forward,
+    }[layout]
+    before = dict(wrapper.routes)
+    got = _sm90_call(layout, views, H, d)
+    want = _sm90_plain(layout, views, H)
+    assert wrapper.routes == {"wgmma": before["wgmma"] + 1}
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    top = want.float().abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(top)) - (7 if dtype == torch.bfloat16 else 10))
+    assert (got.float() - want.float()).abs().max().item() <= max(5e-3, ulp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [77, 1000, 1024])
+def test_sm90_lse_matches_plain(cuda: torch.device, N: int) -> None:
+    """K4 on the Hopper body: the output equals K2's bit for bit, lse within 1e-3 of the plain
+    logsumexp (natural-log units), at a ragged and a tiled N."""
+    gen = torch.Generator(cuda).manual_seed(N)
+    qkv = torch.randn((2, N, 3 * 3 * 128), generator=gen, device=cuda).to(torch.bfloat16)
+    o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, 3)
+    ref_o, ref_lse = flash_attention._qkv_reference_lse(qkv, 3)
+    assert torch.equal(o, flash_attention.flash_attention_qkv_forward(qkv, 3))
+    assert (o.float() - ref_o.float()).abs().max().item() <= 5e-3
+    assert lse.shape == ref_lse.shape and (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(("layout", "H", "N", "d"), [("qkv", 2, 1000, 128), ("chunk", 3, 1000, 64), ("bhnd", 2, 300, 128)])
+def test_sm90_attention_batch_one_is_a_slice_of_batch_four(cuda: torch.device, layout: str, H: int, N: int, d: int) -> None:
+    "An item's output alone equals its slice of a batch of 4, bit for bit (the plan never reads B); K4 too."
+    gen = torch.Generator(cuda).manual_seed(7)
+    views = _sm90_views(layout, 4, H, N, d, torch.bfloat16, gen)
+    packed = _sm90_call(layout, views, H, d)
+    alone = _sm90_call(layout, tuple(v[2:3] for v in views), H, d)
+    assert torch.equal(alone, packed[2:3])
+    if layout == "qkv":
+        o4, lse4 = flash_attention.flash_attention_qkv_forward_lse(views[0], H)
+        o1, lse1 = flash_attention.flash_attention_qkv_forward_lse(views[0][2:3], H)
+        assert torch.equal(o1, o4[2:3]) and torch.equal(lse1, lse4[2:3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(("layout", "d"), [("qkv", 128), ("chunk", 64), ("bhnd", 128)])
+def test_sm90_attention_stages_do_not_change_a_bit(cuda: torch.device, layout: str, d: int) -> None:
+    """The depth of the K/V ring (2, 3 and, at d = 64, 4 stages) gives the same bits: a row's sums run
+    in the key tile's order alone.  At a ragged N (200), whose last block holds rows past N."""
+    from unittest import mock
+
+    gen = torch.Generator(cuda).manual_seed(3)
+    views = _sm90_views(layout, 2, 2, 200, d, torch.bfloat16, gen)
+    outs = []
+    for stages in (2, 3, 4) if d == 64 else (2, 3):
+        forced = dataclasses.replace(flash_attention.attention_plan(200, d), stages=stages)
+        with mock.patch.object(flash_attention, "attention_plan", lambda N, d, forced=forced: forced):
+            outs.append(_sm90_call(layout, views, 2, d))
+    assert all(torch.equal(out, outs[0]) for out in outs[1:])
+
+
+@pytest.mark.gpu
+def test_sm90_attention_refuses_a_plan_that_does_not_fit(cuda: torch.device) -> None:
+    "The C entry point checks the plan it is given: a block whose shared memory exceeds 227 KB raises."
+    from unittest import mock
+
+    qkv = torch.zeros((1, 256, 3 * 128), device=cuda, dtype=torch.bfloat16)
+    plan = dataclasses.replace(flash_attention.attention_plan(256, 128), stages=8)
+    with mock.patch.object(flash_attention, "attention_plan", lambda N, d: plan), pytest.raises(RuntimeError, match="CUDA error"):
+        flash_attention.flash_attention_qkv_forward(qkv, 1)
 
 
 # ---- B9: attention on (B, H, N, d) and on packed d = 128 heads ---------------------------
