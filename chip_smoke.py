@@ -83,10 +83,10 @@ Phases, each failing the run with a non-zero exit:
     against the plain versions, latency medians and one traced request.
     Phase 2 holds B11 to its plain version at four ring-hop shapes.
 
-Every read of the launch counters holds each K2, K4, B9 and B10 launch to the
-Hopper body's route (wgmma, ``csrc/flash_attention_sm90.cu``) and each B11
-launch to the mma.sync body's, and each path phase prints its attention
-launches by route; the device phase requires the eight Hopper attention
+Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
+launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
+and ``csrc/flash_attention_bwd.cu``), and each path phase prints its attention
+launches by route; the device phase requires the sixteen Hopper attention
 instantiations to build without spills or injected warpgroup fences.
 
 The second-to-last line is a JSON object listing the kernels; the last line
@@ -232,7 +232,7 @@ def device_phase() -> dict:
             f"{st['fences']} warpgroup fences or serialisations injected by ptxas"
         )
     attention = {label: st for label, st in stats.items() if label.startswith("flash_")}
-    expect(len(attention) == 8, f"expected 8 Hopper attention instantiations in the build log, found {sorted(attention)}")
+    expect(len(attention) == 16, f"expected 16 Hopper attention instantiations in the build log: {sorted(attention)}")
     for label, st in attention.items():
         expect(st.get("spills") == 0 and st["fences"] == 0, f"{label}: {st.get('spills')} bytes spilled, {st['fences']} fences")
     return {"name": name, "count": count, "card": card}
@@ -240,13 +240,15 @@ def device_phase() -> dict:
 
 def _sm90_label(mangled: str) -> str | None:
     """A Hopper instantiation's readable name from its mangled one: the convs' <WN, MT> (a consumer
-    warpgroup's N width and M tiles), the attention's <type, head dim, lse>; None for other kernels."""
+    warpgroup's N width and M tiles), the attention's <type, head dim, lse> (the forward body's K2/K4, B9/B10
+    and B11 kernels, K5's dq and dkv kernels); None for other kernels."""
     import re
 
     conv = re.search(r"(conv3x3|tconv)_sm90_kernelILi(\d+)ELi(\d+)E", mangled)
     if conv:
         return f"{conv.group(1)}_sm90_kernel<{conv.group(2)}, {conv.group(3)}>"
-    attention = re.search(r"(flash_qkv|flash_strided)_sm90_kernelI(\w*?)EEv", mangled)
+    kernels = "flash_qkv|flash_strided|flash_block_stats|flash_bwd_dq|flash_bwd_dkv"
+    attention = re.search(rf"({kernels})_sm90_kernelI(\w*?)EEv", mangled)
     if attention:
         args = attention.group(2) + "E"
         parts = ["bf16" if "bfloat16" in args else "f16", *(f"d {v}" for v in re.findall(r"Li(\d+)E", args))]
@@ -289,12 +291,14 @@ def _sm90_instantiations(log: str) -> dict[str, dict]:
     return stats
 
 
-ATTENTION_SM90 = (  # the wrappers of K2, K4, B9 and B10: the Hopper body, csrc/flash_attention_sm90.cu
+ATTENTION_SM90 = (  # K2, K4, B9, B10, B11 (csrc/flash_attention_sm90.cu) and K5 (csrc/flash_attention_bwd.cu)
     "flash_attention_qkv_forward",
     "flash_attention_qkv_forward_lse",
     "flash_attention_forward",
     "flash_attention_packed_forward",
     "flash_attention_pairs_forward",
+    "flash_attention_block_stats",
+    "flash_attention_qkv_backward",
 )
 
 
@@ -975,15 +979,14 @@ def _wrappers() -> dict:
 
 
 def _counters() -> dict[str, int]:
-    """Every wrapper's launches since the counters were reset.  Every K2, K4, B9 and B10 launch must have
-    gone through the Hopper body (route wgmma) and every B11 launch through the mma.sync body: checked
-    here, at each read, so every path phase holds its attention launches to their routes exactly."""
+    """Every wrapper's launches since the counters were reset.  Every K2, K4, K5, B9, B10 and B11 launch must
+    have gone through the Hopper kernels (route wgmma): checked here, at each read, so every path phase
+    holds its attention launches to their routes exactly."""
     wrappers = _wrappers()
-    bodies = {name: "wgmma" for name in ATTENTION_SM90} | {"flash_attention_block_stats": "mma_sync"}
-    for name, route in bodies.items():
+    for name in ATTENTION_SM90:
         fn = wrappers[name]
         if hasattr(fn, "routes"):  # not where a phase has swapped the wrapper for its plain version
-            expect(fn.routes == {route: fn.launches}, f"{name}: {fn.launches} launches, by route {fn.routes}")
+            expect(fn.routes == {"wgmma": fn.launches}, f"{name}: {fn.launches} launches, by route {fn.routes}")
     return {name: fn.launches for name, fn in wrappers.items()}
 
 
@@ -1007,8 +1010,7 @@ def _routes() -> dict[str, dict[str, int]]:
 def _attention_routes() -> str:
     "The attention wrappers' launches by route since the counters were reset, for a phase's log."
     wrappers = _wrappers()
-    names = (*ATTENTION_SM90, "flash_attention_block_stats")
-    return ", ".join(f"{name} {wrappers[name].routes}" for name in names if wrappers[name].launches)
+    return ", ".join(f"{name} {wrappers[name].routes}" for name in ATTENTION_SM90 if wrappers[name].launches)
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -1139,8 +1141,8 @@ def _relative_fro(a, b) -> float:
 TRAIN_GROUPS = (
     ("K3 adaln", ("adaln_kernel",)),
     ("K4 flash_qkv_lse", ("flash_qkv_sm90_kernel",)),
-    ("K5 dq kernel", ("flash_bwd_dq_kernel",)),
-    ("K5 dkv kernel", ("flash_bwd_dkv_kernel",)),
+    ("K5 dq kernel", ("flash_bwd_dq_sm90_kernel",)),
+    ("K5 dkv kernel", ("flash_bwd_dkv_sm90_kernel",)),
     ("K6 adaln_bwd", ("adaln_bwd_kernel", "adaln_bwd_reduce_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
     ("AdamW + EMA", ("multi_tensor_apply",)),
@@ -2798,7 +2800,7 @@ def b11_kernels(gen) -> dict[str, dict]:
             rows["flash_attention_block_stats"] = {
                 "name": "flash_attention_block_stats",
                 "route": "cuda",
-                "source": "skrample_tpu_torch/csrc/flash_attention.cu",
+                "source": "skrample_tpu_torch/csrc/flash_attention_sm90.cu",
                 "replaces": "skrample_tpu/ops/flash_attention.py:891",
                 "max_abs_err": err,
                 "bound_ms": b_ms,
@@ -2841,7 +2843,7 @@ def _o_bound(got, want) -> float:
 SP_GROUPS = (
     ("K1 fused_step", ("fused_step_kernel",)),
     ("K3 adaln", ("adaln_kernel",)),
-    ("B11 block_stats", ("flash_block_stats_kernel",)),
+    ("B11 block_stats", ("flash_block_stats_sm90_kernel",)),
     ("B9 strided", ("flash_strided_sm90_kernel",)),
     ("cuBLAS products", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
     ("NCCL", ("nccl",)),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Card times of the port's forward attention kernels (K2, K4, B9, B10) at the served paths' shapes, for an
-A/B of two trees.
+"""Card times of the port's attention kernels (K2, K4, K5, B9, B10, B11) at the served and trained paths'
+shapes, for an A/B of two trees.
 
     python3 scripts/bench_attention_kernels.py [--root TREE ...] [--rounds 1] [--vary FIELD=V1,V2,...]
+                                               [--only PREFIX,...]
 
 Each ``--root`` is a checkout of the repository (default: this one).  The trees are timed in turns
 within one process (root 1, root 2, ..., then the same in reverse order, ``--rounds`` times), each
@@ -13,9 +14,20 @@ bf16), the plain version's card time, the library call's (``F.scaled_dot_product
 same (B, H, N, d) views, with the name of the kernel it dispatched to, read from a trace), and the
 wrapper's host time per launch (the median over 200 eager calls, host clock, no synchronize).  Each
 kernel is first held against its plain version (atol 5e-3; K4's lse 1e-3).  ``--vary`` times, in a
-tree whose ``attention_plan`` exists, the plan with one field forced to each value given (``--vary
-stages=2,3``; ``block_q=64,128`` on a tree that instantiates 64-row blocks).  Prints one line a
-measurement and, last, a JSON object with every number.
+tree whose plan function exists, the plan with one field forced to each value given (``--vary
+stages=2,3`` for ``attention_plan``; ``--vary dkv_stages=2,3,4`` for K5's ``attention_backward_plan``).
+``--only K5,B11`` times the cases whose labels start so.  Prints one line a measurement and, last, a
+JSON object with every number.
+
+K5 (``flash_attention_qkv_backward``, at the DiT's training shape and its ragged N = 1000) is held to its
+plain version (each third within 2e-2 of its largest value) and timed whole, then split by a
+torch.profiler trace into its f32 ``delta`` pass, the dq kernel and the dkv kernel; its bound counts
+the function's 10*B*H*N^2*d operations and its inputs' and output's bytes, and its library call is
+``aten._scaled_dot_product_flash_attention_backward`` on the library forward's outputs.  B11
+(``flash_attention_block_stats``, at the ring's hop shapes and Flux's ragged 1152-row block, q a
+strided view of a fused qkv, k and v of a fused kv) is held to its plain version (o within 5e-3 plus
+one bf16 ulp, m and l 1e-3 relative), bound by 4*B*H*Nq*Nk*d operations, its library call
+``aten._scaled_dot_product_flash_attention`` (o and the row logsumexp).
 """
 
 from __future__ import annotations
@@ -44,6 +56,16 @@ CASES = (
     ("K2 DiT", "qkv", 4, 4, 1024, 128),
     ("B9a DiT-384", "bhnd", 4, 6, 1024, 64),
     ("K4 DiT", "lse", 4, 4, 1024, 128),
+)
+BACKWARD_CASES = (("K5 DiT", 4, 4, 1024), ("K5 DiT N 1000", 4, 4, 1000))  # (label, B, H, N) at d 128
+K5_GROUPS = (("dq kernel", "flash_bwd_dq"), ("dkv kernel", "flash_bwd_dkv"))  # the rest: the delta pass
+# (label, B, H, Nq, Nk, d): the ring DiT-512/8 at sp 1, one hop of its 4-way ring, DiT-384's heads of 64,
+# FLUX.1-dev's 4096 + 512 joint tokens over a 4-way ring
+BLOCK_STATS_CASES = (
+    ("B11 ring DiT", 4, 4, 1024, 1024, 128),
+    ("B11 ring hop", 4, 4, 256, 256, 128),
+    ("B11 d 64", 4, 6, 1024, 1024, 64),
+    ("B11 Flux", 1, 24, 1152, 1152, 128),
 )
 
 
@@ -100,6 +122,37 @@ def traced_kernels(fn) -> list[str]:
         fn()
         torch.cuda.synchronize()
     return sorted({e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def split_ms(fn, groups, calls: int = 20) -> dict[str, float]:
+    """Card time of one call by kernel group, from a torch.profiler trace of ``calls`` calls: ``groups`` is
+    (label, name needle) pairs; a kernel that matches none counts under "other"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            label = next((name for name, needle in groups if needle in e.key), "other")
+            out[label] = out.get(label, 0.0) + e.device_time_total / 1e3 / calls
+    return out
+
+
+def plan_variants(fa, plan_fn: str, plan_args: tuple, vary: tuple[str, list[int]] | None) -> list:
+    """(suffix, context) pairs to time: the tree's own plan, or, where the tree has ``plan_fn`` and its plan
+    the field ``vary`` names, that field forced to each value."""
+    if vary and hasattr(fa, plan_fn):
+        plan, (field, values) = getattr(fa, plan_fn)(*plan_args), vary
+        if field in {f.name for f in dataclasses.fields(plan)}:
+            forced = [(v, dataclasses.replace(plan, **{field: v})) for v in values]
+            return [(f" {field} {v}", mock.patch.object(fa, plan_fn, lambda *a, f=f: f)) for v, f in forced]
+    return [("", contextlib.nullcontext())]
 
 
 def load_tree(root: Path):
@@ -159,13 +212,15 @@ def check(label: str, root: Path, kind: str, got, want) -> float:
     return err
 
 
-def measure(fa, root: Path, results: dict, vary: tuple[str, list[int]] | None) -> None:
+def measure(fa, root: Path, results: dict, vary: tuple[str, list[int]] | None, only: tuple[str, ...]) -> None:
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(torch.device("cuda")).manual_seed(9)
     for case in CASES:
         label, kind, B, H, N, d = case
+        if not label.startswith(only):
+            continue
         args, heads = inputs(case, gen)
         kernel, plain = calls(fa, kind, args, H)
         want = plain()
@@ -173,13 +228,8 @@ def measure(fa, root: Path, results: dict, vary: tuple[str, list[int]] | None) -
         bound = max(n_bytes / HBM_BYTES_PER_S, 4.0 * B * H * N * N * d / PEAK_BF16_FLOPS) * 1e3
         iters = 5 if N > 2048 else 20
         row = results.setdefault(label, {"shape": [B, H, N, d], "bound_ms": bound})
-        variants = [("", None)]
-        if vary and hasattr(fa, "attention_plan"):
-            plan, (field, values) = fa.attention_plan(N, d), vary
-            variants = [(f" {field} {v}", dataclasses.replace(plan, **{field: v})) for v in values]
-        for suffix, forced in variants:
+        for suffix, patch in plan_variants(fa, "attention_plan", (N, d), vary):
             key = f"{root}{suffix}"
-            patch = mock.patch.object(fa, "attention_plan", lambda n, dd, f=forced: f) if forced else contextlib.nullcontext()
             with patch:
                 try:
                     got = kernel()
@@ -204,6 +254,102 @@ def measure(fa, root: Path, results: dict, vary: tuple[str, list[int]] | None) -
             print(f"{label}: plain {row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us "
                   f"({', '.join(name[:80] for name in row['library_kernels'])})")
         del args, heads, want
+    measure_backward(fa, root, results, vary, only)
+    measure_block_stats(fa, root, results, vary, only)
+
+
+def measure_backward(fa, root: Path, results: dict, vary: tuple[str, list[int]] | None, only: tuple[str, ...]):
+    "K5's rows: whole, split by kernel, against its bound, plain version and library call."
+    import torch
+
+    aten = torch.ops.aten
+    gen = torch.Generator(torch.device("cuda")).manual_seed(10)
+    for label, B, H, N in BACKWARD_CASES:
+        if not label.startswith(only):
+            continue
+        d = 128
+        qkv = torch.randn((B, N, 3 * H * d), generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn((B, N, H * d), generator=gen, device="cuda").to(torch.bfloat16)
+        o, lse = fa.flash_attention_qkv_forward_lse(qkv, H)
+        q, k, v = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4).unbind(0)
+        fwd = aten._scaled_dot_product_flash_attention(q, k, v)
+        lib_args = (g.view(B, N, H, d).transpose(1, 2), q, k, v, fwd[0], fwd[1], *fwd[2:6], 0.0, False, *fwd[6:8])
+        kernel = lambda: fa.flash_attention_qkv_backward(qkv, o, lse, g, H)  # noqa: E731
+        plain = lambda: fa._qkv_backward_reference(qkv, o, lse, g, H)  # noqa: E731
+        want = plain()
+        n_bytes = (qkv.numel() + o.numel() + g.numel() + qkv.numel()) * 2 + lse.numel() * 4
+        bound = max(n_bytes / HBM_BYTES_PER_S, 10.0 * B * H * N * N * d / PEAK_BF16_FLOPS) * 1e3
+        row = results.setdefault(label, {"shape": [B, H, N, d], "bound_ms": bound})
+        for suffix, patch in plan_variants(fa, "attention_backward_plan", (N, d), vary):
+            key = f"{root}{suffix}"
+            with patch:
+                got = kernel()
+                torch.cuda.synchronize()
+                err = max(
+                    (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                    for a, b in zip(got.chunk(3, -1), want.chunk(3, -1))
+                )
+                if err > 2e-2:
+                    raise SystemExit(f"{label} at {key}: a third's error {err} of its largest value")
+                row.setdefault(key, []).append(graph_ms(kernel, 20))
+                row.setdefault(f"{key} host_us", []).append(host_us(kernel))
+                split = split_ms(kernel, K5_GROUPS)
+                row.setdefault(f"{key} split", []).append(split)
+                row[f"relative_err {key}"] = err
+            parts = ", ".join(f"{name} {ms * 1e3:.2f}" for name, ms in sorted(split.items()))
+            print(f"{label} {(B, H, N, d)} [{key}]: {row[key][-1] * 1e3:.2f} us ({parts} us, traced), host "
+                  f"{row[f'{key} host_us'][-1]:.1f} us/launch; bound {bound * 1e3:.2f} us; worst third {err:.3e}")
+        if "plain_ms" not in row:
+            row["plain_ms"] = graph_ms(plain, 5)
+            library = lambda: aten._scaled_dot_product_flash_attention_backward(*lib_args)  # noqa: E731
+            row["library_ms"] = graph_ms(library, 20)
+            row["library_kernels"] = traced_kernels(library)
+            print(f"{label}: plain {row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us "
+                  f"({', '.join(name[:80] for name in row['library_kernels'])})")
+        del qkv, g, o, lse, q, k, v, fwd, lib_args, want
+
+
+def measure_block_stats(fa, root: Path, results: dict, vary: tuple[str, list[int]] | None, only: tuple[str, ...]):
+    "B11's rows against their bound, plain version and library call."
+    import torch
+
+    gen = torch.Generator(torch.device("cuda")).manual_seed(11)
+    for label, B, H, Nq, Nk, d in BLOCK_STATS_CASES:
+        if not label.startswith(only):
+            continue
+        q = torch.randn((B, Nq, 3 * H * d), generator=gen, device="cuda").to(torch.bfloat16)[..., : H * d]
+        kv = torch.randn((B, Nk, 2 * H * d), generator=gen, device="cuda").to(torch.bfloat16)
+        q = q.reshape(B, Nq, H, d).transpose(1, 2)
+        k, v = (t.reshape(B, Nk, H, d).transpose(1, 2) for t in kv.chunk(2, dim=-1))
+        kernel = lambda: fa.flash_attention_block_stats(q, k, v)  # noqa: E731
+        plain = lambda: fa._block_stats_reference(q, k, v)  # noqa: E731
+        ro, rm, rl = plain()
+        n_bytes = (2 * B * H * Nq * d + 2 * B * H * Nk * d) * 2 + 2 * B * H * Nq * 4
+        bound = max(n_bytes / HBM_BYTES_PER_S, 4.0 * B * H * Nq * Nk * d / PEAK_BF16_FLOPS) * 1e3
+        row = results.setdefault(label, {"shape": [B, H, Nq, Nk, d], "bound_ms": bound})
+        for suffix, patch in plan_variants(fa, "attention_plan", (Nq, d), vary):
+            key = f"{root}{suffix}"
+            with patch:
+                o, m, l = kernel()
+                torch.cuda.synchronize()
+                used = ((o.float() - ro.float()).abs() / (5e-3 + 2**-8 * ro.float().abs())).max().item()
+                stats = max((a - b).abs().max().item() / b.abs().max().item() for a, b in ((m, rm), (l, rl)))
+                if used > 1 or stats > 1e-3:
+                    raise SystemExit(f"{label} at {key}: o {used} of its bound, m/l {stats}")
+                row.setdefault(key, []).append(graph_ms(kernel, 20))
+                row.setdefault(f"{key} host_us", []).append(host_us(kernel))
+                row[f"o_bound_used {key}"] = used
+            print(f"{label} {(B, H, Nq, Nk, d)} [{key}]: {row[key][-1] * 1e3:.2f} us, host "
+                  f"{row[f'{key} host_us'][-1]:.1f} us/launch; bound {bound * 1e3:.2f} us; o {used:.3f} of its "
+                  f"bound, m/l {stats:.2e}")
+        if "plain_ms" not in row:
+            row["plain_ms"] = graph_ms(plain, 10)
+            library = lambda: torch.ops.aten._scaled_dot_product_flash_attention(q, k, v)  # noqa: E731
+            row["library_ms"] = graph_ms(library, 20)
+            row["library_kernels"] = traced_kernels(library)
+            print(f"{label}: plain {row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us "
+                  f"({', '.join(name[:80] for name in row['library_kernels'])})")
+        del q, kv, k, v, ro, rm, rl
 
 
 def main() -> int:
@@ -211,7 +357,9 @@ def main() -> int:
     parser.add_argument("--root", action="append", type=Path, help="a tree to time (repeatable; default: this one)")
     parser.add_argument("--rounds", type=int, default=1, help="forward-then-reverse passes over the trees")
     parser.add_argument("--vary", help="FIELD=V1,V2,...: time the plan with FIELD forced to each value")
+    parser.add_argument("--only", default="", help="PREFIX,...: time only the cases whose labels start so")
     args = parser.parse_args()
+    only = tuple(args.only.split(",")) if args.only else ("",)
     vary = None
     if args.vary:
         field, values = args.vary.split("=")
@@ -230,7 +378,7 @@ def main() -> int:
     results: dict = {}
     for _ in range(args.rounds):
         for root in roots + roots[::-1]:
-            measure(modules[root], root, results, vary)
+            measure(modules[root], root, results, vary, only)
     print(json.dumps({"card": card, "rows": results}))
     return 0
 

@@ -1,9 +1,10 @@
-// K5: the backward of attention straight off the fused qkv projection.
-// From qkv (B, N, 3*H*d), the forward's output o and logsumexp lse (K4) and
-// the output gradient g = dO, it writes dqkv (B, N, 3*H*d):
+// K5: the backward of attention straight off the fused qkv projection, on Hopper.
+// From qkv (B, N, 3*H*d), the output gradient g = dO (B, N, H*d), the forward's
+// logsumexp lse (K4) and delta = rowsum(dO * o) (the wrapper's f32 pass), it
+// writes dqkv (B, N, 3*H*d):
 //   P  = exp(q k^T / sqrt(d) - lse)      recomputed per tile, never stored
 //   dV = P^T dO
-//   dS = P * (dO v^T - delta),  delta = rowsum(dO * o) (the wrapper's f32 pass)
+//   dS = P * (dO v^T - delta)
 //   dQ = dS k / sqrt(d),  dK = dS^T q / sqrt(d)
 //
 // Replaces: skrample_tpu/ops/flash_attention.py, flash_attention_qkv_backward
@@ -13,398 +14,496 @@
 // output, where the JAX package concatenates three arrays.
 //
 // What bounds it on the H100: operations.  The function needs 10*B*H*N^2*d
-// flops (S, dV, dP, dQ, dK: five products of 2*N^2*d per (b, h)); the
+// flops (S, dP, dV, dQ, dK: five products of 2*N^2*d per (b, h)); the
 // dq / dkv split below recomputes S and dP in both kernels, so it does
 // 14*B*H*N^2*d.  At B 4, H 4, N 1024, d 128 that is 21.5 GFLOP of needed
-// work, 21.7 us at 989 TFLOP/s bf16, against 21 MB of traffic (6.3 us).
+// work, 21.7 us at 989 TFLOP/s bf16 (30.4 us for the 14), against 21 MB of
+// traffic (6.3 us).
 //
-// What the design does about it: the TPU's split, with its sequential grid
-// axis turned into a loop inside a Hopper block, so that neither kernel
-// needs atomics or a second pass:
-// * flash_bwd_dq_kernel: one block per (64-row query tile, head, batch
-//   item); Q and dO stay in shared memory while the K/V tiles stream past;
-//   each warp owns 16 query rows and accumulates their dQ in registers;
-// * flash_bwd_dkv_kernel: one block per (64-key tile, head, batch item); K
-//   and V stay while the Q/dO tiles (and their lse/delta rows) stream past;
-//   each warp owns 16 keys and accumulates their dK and dV in registers,
-//   working on the transposed scores S^T = K Q^T so that P^T and dS^T come
-//   out of the accumulators already in the A-fragment layout of dV += P^T dO
-//   and dK += dS^T Q;
-// * every product is mma.sync m16n8k16 (bf16 or fp16 operands, f32
-//   accumulators) fed by ldmatrix from 16-byte-padded rows, the streamed
-//   tiles double-buffered with cp.async, as in K2.  P and dS round to the
-//   operand type before their products, as the TPU kernels cast them.
-// * Any N: where N is not a multiple of 64 (the kRagged instances) the
-//   last tiles zero-fill their rows past N, keys past N take no probability
-//   in the dq kernel and queries past N none in the dkv kernel, lse and
-//   delta read 0 there, and no dq, dk or dv row past N is written.
-// wgmma and TMA, which Hopper's full rate needs, are later work.
+// What the design does about it: the TPU's split into two kernels, each
+// output element written once by one block (no atomics: a gradient's bits
+// are the same from run to run and at any batch), each kernel on the
+// forward body's Hopper skeleton (flash_attention_sm90.cu): a producer warp
+// keeps TMA loads of 4-D maps (d, N, H, B) in flight through an mbarrier
+// ring, setmaxnreg hands its registers to two consumer warpgroups of 64
+// rows, and every product is one of the forward's two wgmma forms (SS with
+// both operands K-major, RS with A from registers and B read MN-major):
+// * flash_bwd_dq_sm90_kernel: a block takes 128 query rows of one (batch
+//   item, head); Q and dO stay resident while K/V tiles of 128 keys stream
+//   past.  S = Q K^T and dP = dO V^T (SS, two commit groups: P's
+//   exponentials run while dP is in flight), P = exp2(S*scale*log2e -
+//   lse*log2e), dS = P (dP - delta) rounded once to the operand type as the
+//   TPU kernel casts it, dQ += dS K (RS: dS re-packed from the accumulators,
+//   K read MN-major).
+// * flash_bwd_dkv_sm90_kernel: a block takes 128 keys; K and V stay resident
+//   while Q/dO tiles of 64 queries stream past, their 64 lse (times log2e)
+//   and delta floats copied into the same stage by the producer warp.  The
+//   transposed scores S^T = K Q^T and dP^T = V dO^T (SS) put P^T and dS^T
+//   straight into the A-fragment layout of dV += P^T dO and dK += dS^T Q
+//   (RS, dO and Q read MN-major).  64-query tiles keep a consumer at dK and
+//   dV (128 registers) plus S^T and dP^T (64) under setmaxnreg's 240.
+// * the two consumer warpgroups take turns at the tensor cores (named
+//   barriers, as in the forward body), so that one's products run under the
+//   other's exponentials.
+// * Any N: TMA zero-fills rows past N within their (batch item, head); keys
+//   past N are masked to -inf before the dq kernel's exponentials, and a
+//   query past N reads lse = +inf in the dkv kernel, so its P^T and dS^T are
+//   0; no dq, dk or dv row past N is written.
+// Each output's sums run in a fixed order (the key tile in dq, the query
+// tile in dk and dv), so its bits do not depend on the batch or the stages.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tile_mma.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
-constexpr int kBlock = 64;  // query rows of a Q tile and keys of a K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace attn90;
 
-template <int D>
-struct Tiles {
-    static constexpr int kStride = padded_stride(D);
-    static constexpr int kTile = kBlock * kStride;  // elements of one 64-row tile
-    // two resident tiles, then two stages of two streamed tiles
-    template <typename T>
-    static constexpr int bytes() {
-        return 6 * kTile * (int)sizeof(T);
-    }
+constexpr int kD = 128;                     // the head dim the kernels are built for
+constexpr int kConsumers = 2;               // consumer warpgroups a block, 64 rows each
+constexpr int kBlock = 64 * kConsumers;     // query rows of a dq block, keys of a dkv block
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kKeyTile = 128;               // keys a K/V tile of the dq kernel
+constexpr int kQueryTile = 64;              // queries a Q/dO tile of the dkv kernel
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kBarEpilogue = 1;             // 1 + g: consumer warpgroup g alone
+constexpr int kBarTurn = 3;                 // 3 + g: consumer warpgroup g's turn at the tensor cores
+
+// Shared memory from a 1024-aligned base; every tile d / 64 slabs of 128-byte rows.  Mirrors
+// ops/flash_attention.py attention_backward_plan.
+__host__ __device__ constexpr int tile_bytes(int rows) { return rows * kD * 2; }
+// dq: Q and dO (kBlock rows each), stages x (K, V) of kKeyTile rows, then 1 + 2 stages mbarriers
+__host__ __device__ constexpr int dq_bars_offset(int stages) {
+    return 2 * tile_bytes(kBlock) + 2 * stages * tile_bytes(kKeyTile);
+}
+__host__ __device__ constexpr int dq_smem(int stages) {
+    return dq_bars_offset(stages) + (1 + 2 * stages) * 8 + kSwizzleAtom;
+}
+// dkv: K and V (kBlock rows each), stages x (Q, dO) of kQueryTile rows, stages x (lse, delta) of kQueryTile
+// floats, then 1 + 2 stages mbarriers
+__host__ __device__ constexpr int dkv_rows_offset(int stages) {
+    return 2 * tile_bytes(kBlock) + 2 * stages * tile_bytes(kQueryTile);
+}
+__host__ __device__ constexpr int dkv_bars_offset(int stages) {
+    return dkv_rows_offset(stages) + stages * 2 * kQueryTile * 4;
+}
+__host__ __device__ constexpr int dkv_smem(int stages) {
+    return dkv_bars_offset(stages) + (1 + 2 * stages) * 8 + kSwizzleAtom;
+}
+
+struct Params {
+    const float* lse;    // (B, H, N), natural-log units
+    const float* delta;  // (B, H, N)
+    void* dqkv;          // (B, N, 3*H*d)
+    int N, H, stages;
+    float scale;       // 1 / sqrt(d)
+    float scale_log2;  // scale * log2(e)
 };
 
-template <typename T, int D, bool kMask>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, long long row_stride, int tid, int n_rows) {
-    load_rows<T, D, kBlock, kThreads, kMask>(dst, src, row0, row_stride, tid, n_rows);
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+    return raw + ((kSwizzleAtom - (sm90::smem_u32(raw) & (kSwizzleAtom - 1))) & (kSwizzleAtom - 1));
 }
 
-// A fragment: rows [row0, row0 + 16) x columns [16 kk, 16 kk + 16) of a row-major tile.
-template <int D, typename T>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* tile, int row0, int kk, int lane) {
-    ldmatrix_x4(a, tile + (row0 + lane % 16) * padded_stride(D) + kk * 16 + (lane / 16) * 8);
-}
-
-// B fragments of n-tiles t and t + 1 where the tile's rows are the n index
-// (keys of K for S = Q K^T): b[0..1] for n-tile t, b[2..3] for t + 1.
-template <int D, typename T>
-__device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const T* tile, int t, int kk, int lane) {
-    const int mi = lane / 8;
-    ldmatrix_x4(b, tile + (t * 8 + (mi / 2) * 8 + lane % 8) * padded_stride(D) + kk * 16 + (mi % 2) * 8);
-}
-
-// B fragments of n-tiles t and t + 1 where the tile's rows are the k index
-// (keys of V for O = P V), read transposed.
-template <int D, typename T>
-__device__ __forceinline__ void load_b_cols(uint32_t (&b)[4], const T* tile, int t, int kk, int lane) {
-    const int mi = lane / 8;
-    ldmatrix_x4_trans(b, tile + (kk * 16 + (mi % 2) * 8 + lane % 8) * padded_stride(D) + t * 8 + (mi / 2) * 8);
-}
-
-// acc[16 rows x 64] += tile_a[row0.., :D] . tile_b[:64, :D]^T
+// One block: query rows [q0, q0 + kBlock) of (batch item blockIdx.z, head blockIdx.y) against every key.
 template <typename T, int D>
-__device__ __forceinline__ void scores(float (&acc)[kBlock / 8][4], const T* tile_a, int row0, const T* tile_b,
-                                       int lane) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        load_a<D>(a, tile_a, row0, kk, lane);
-#pragma unroll
-        for (int t = 0; t < kBlock / 8; t += 2) {
-            uint32_t b[4];
-            load_b_rows<D>(b, tile_b, t, kk, lane);
-            Mma<T>::run(acc[t], a, b[0], b[1]);
-            Mma<T>::run(acc[t + 1], a, b[2], b[3]);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+                             const Params p) {
+    static_assert(D == kD, "one head dim");
+    constexpr int kSlab = kBlock * kRowBytes;       // a slab of Q or dO
+    constexpr int kKVSlab = kKeyTile * kRowBytes;   // a slab of a K or V tile
+    constexpr int kTile = tile_bytes(kKeyTile);     // one K or V tile
+    extern __shared__ __align__(1024) uint8_t smem_raw[];
+    uint8_t* smem = aligned_smem(smem_raw);
+    const int stages = p.stages;
+    uint8_t* q_s = smem;
+    uint8_t* do_s = smem + tile_bytes(kBlock);
+    uint8_t* kv = smem + 2 * tile_bytes(kBlock);  // stage s: K at 2 s kTile, V at (2 s + 1) kTile
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + dq_bars_offset(stages));
+    uint64_t* q_full = bars;  // Q and dO
+    uint64_t* kv_full = bars + 1;
+    uint64_t* kv_empty = kv_full + stages;
+
+    const int tid = threadIdx.x, wg = tid / 128;
+    const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
+    const int N = p.N;
+    const int n_tiles = (N + kKeyTile - 1) / kKeyTile;
+    if (tid == 0) {
+        sm90::mbar_init(q_full, 1);
+        for (int s = 0; s < stages; ++s) {
+            sm90::mbar_init(&kv_full[s], 1);
+            sm90::mbar_init(&kv_empty[s], kConsumers * 128);
         }
+        sm90::fence_barrier_init();
     }
-}
+    __syncthreads();
 
-// acc[16 rows x D] += p[16 x 64] . tile[64, :D]
-template <typename T, int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4], const float (&p)[kBlock / 8][4], const T* tile,
-                                           int lane) {
-#pragma unroll
-    for (int kk = 0; kk < kBlock / 16; ++kk) {
-        uint32_t a[4];
-        pack_a<T>(a, p[2 * kk], p[2 * kk + 1]);
-#pragma unroll
-        for (int t = 0; t < D / 8; t += 2) {
-            uint32_t b[4];
-            load_b_cols<D>(b, tile, t, kk, lane);
-            Mma<T>::run(acc[t], a, b[0], b[1]);
-            Mma<T>::run(acc[t + 1], a, b[2], b[3]);
+    if (wg == kConsumers) {
+        // ---- producer: one thread loads Q and dO, then keeps the K/V ring in flight ----
+        sm90::setmaxnreg_dec<kProducerRegs>();
+        if (tid == kConsumers * 128) {
+            sm90::prefetch_map(&qmap);
+            sm90::prefetch_map(&kmap);
+            sm90::prefetch_map(&vmap);
+            sm90::prefetch_map(&domap);
+            sm90::mbar_expect_tx(q_full, 2 * tile_bytes(kBlock));
+            for (int c = 0; c < D / 64; ++c)
+                for (int r = 0; r < kBlock / 64; ++r) {
+                    const int off = c * kSlab + r * 64 * kRowBytes;
+                    sm90::tma_load_4d(q_s + off, &qmap, q_full, c * 64, q0 + r * 64, h, b);
+                    sm90::tma_load_4d(do_s + off, &domap, q_full, c * 64, q0 + r * 64, h, b);
+                }
+            int s = 0, phase = 0;
+            for (int j = 0; j < n_tiles; ++j) {
+                uint8_t* k_tile = kv + 2 * s * kTile;
+                sm90::mbar_wait(&kv_empty[s], phase ^ 1);
+                sm90::mbar_expect_tx(&kv_full[s], 2 * kTile);
+                for (int c = 0; c < D / 64; ++c)
+                    for (int r = 0; r < kKeyTile / 64; ++r) {
+                        const int off = c * kKVSlab + r * 64 * kRowBytes;
+                        sm90::tma_load_4d(k_tile + off, &kmap, &kv_full[s], c * 64, j * kKeyTile + r * 64, h, b);
+                        sm90::tma_load_4d(k_tile + kTile + off, &vmap, &kv_full[s], c * 64, j * kKeyTile + r * 64, h,
+                                          b);
+                    }
+                if (++s == stages) {
+                    s = 0;
+                    phase ^= 1;
+                }
+            }
         }
+        return;
     }
-}
 
-template <int M>
-__device__ __forceinline__ void zero(float (&acc)[M][4]) {
+    // ---- consumer warpgroup g: 64 query rows ----
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int g = wg, t = tid & 127, warp = t / 32, lane = t & 31;
+    const float inf = __int_as_float(0x7f800000);
+    const float scale_log2 = p.scale_log2;
+    // this thread's rows r0 and r0 + 8 of the warpgroup's 64: lse in log2 units and delta (a row past N,
+    // which is not stored, reads lse = +inf: its P is 0)
+    float lse2[2], dl[2];
 #pragma unroll
-    for (int t = 0; t < M; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-}
-
-// rows gid and gid + 8 of a 16-row accumulator block, times `scale`, into a packed output; of
-// those, only the rows below `rows` (the rows left before N: a ragged last tile writes no row past N)
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, long long row_stride, const float (&acc)[D / 8][4], float scale,
-                                           int gid, int tig, int rows) {
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) {
-        const int col = t * 8 + tig * 2;
-        if (gid < rows) {
-            *reinterpret_cast<uint32_t*>(dst + (long long)gid * row_stride + col) =
-                Mma<T>::pack(acc[t][0] * scale, acc[t][1] * scale);
-        }
-        if (gid + 8 < rows) {
-            *reinterpret_cast<uint32_t*>(dst + (long long)(gid + 8) * row_stride + col) =
-                Mma<T>::pack(acc[t][2] * scale, acc[t][3] * scale);
-        }
+    for (int i = 0; i < 2; ++i) {
+        const int row = q0 + g * 64 + 16 * warp + (lane >> 2) + 8 * i;
+        const long long at = ((long long)b * p.H + h) * N + row;
+        lse2[i] = row < N ? p.lse[at] * kLog2e : inf;
+        dl[i] = row < N ? p.delta[at] : 0.f;
     }
-}
 
-template <typename T, int D, bool kRagged>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dqkv, int N, int H, float scale,
-                        float scale_log2) {
-    constexpr int kTile = Tiles<D>::kTile;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* s_q = reinterpret_cast<T*>(smem_raw);
-    T* s_do = s_q + kTile;
+    // fragments of thread t (warp w, lane l): s[4 jj + e] at row 16 w + l / 4 + 8 (e / 2), key
+    // 8 jj + 2 (l % 4) + e % 2; dq[4 jj + e] the same at column 8 jj + ...
+    float dq_acc[D / 2];
+    float s_acc[kKeyTile / 2];
+    float dp_acc[kKeyTile / 2];
+    uint32_t ds[kKeyTile / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    const uint32_t q_addr = sm90::smem_u32(q_s) + g * 64 * kRowBytes;
+    const uint32_t do_addr = sm90::smem_u32(do_s) + g * 64 * kRowBytes;
+    const uint32_t kv_addr = sm90::smem_u32(kv);
 
-    const int q0 = blockIdx.x * kBlock;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int tid = threadIdx.x;
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const int gid = lane / 4;
-    const int tig = lane % 4;
-
-    const int width = H * D;
-    const long long row_stride = 3LL * width;
-    const T* base = qkv + (long long)b * N * row_stride;
-    const T* g_k = base + width + h * D;
-    const T* g_v = base + 2 * width + h * D;
-
-    load_tile<T, D, kRagged>(s_q, base + h * D, q0, row_stride, tid, N);
-    load_tile<T, D, kRagged>(s_do, dout + (long long)b * N * width + h * D, q0, width, tid, N);
-    load_tile<T, D, kRagged>(s_q + 2 * kTile, g_k, 0, row_stride, tid, N);
-    load_tile<T, D, kRagged>(s_q + 3 * kTile, g_v, 0, row_stride, tid, N);
-    cp_async_commit();
-
-    // this thread's two query rows: lse in log2 units, delta (0 for a row past N, which is not stored)
-    const int r0 = q0 + warp * 16 + gid;
-    const long long row = ((long long)b * H + h) * N + r0;
-    const bool in0 = !kRagged || r0 < N, in1 = !kRagged || r0 + 8 < N;
-    const float lse2[2] = {in0 ? lse[row] * kLog2e : 0.f, in1 ? lse[row + 8] * kLog2e : 0.f};
-    const float dl[2] = {in0 ? delta[row] : 0.f, in1 ? delta[row + 8] : 0.f};
-
-    float dq[D / 8][4];
-    zero(dq);
-    const int n_tiles = (N + kBlock - 1) / kBlock;
+    const Turns turns(g, kBarTurn);  // 2 n_tiles turns each
+    sm90::mbar_wait(q_full, 0);
+    int s = 0, phase = 0;
     for (int j = 0; j < n_tiles; ++j) {
-        const int stage = j & 1;
-        const T* s_k = s_q + (2 + 2 * stage) * kTile;
-        const T* s_v = s_k + kTile;
-        if (j + 1 < n_tiles) {
-            T* next_k = s_q + (2 + 2 * (stage ^ 1)) * kTile;
-            load_tile<T, D, kRagged>(next_k, g_k, (j + 1) * kBlock, row_stride, tid, N);
-            load_tile<T, D, kRagged>(next_k + kTile, g_v, (j + 1) * kBlock, row_stride, tid, N);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
+        const uint32_t k_tile = kv_addr + 2 * s * kTile;
+        sm90::mbar_wait(&kv_full[s], phase);
+        turns.take();
+        sm90::wgmma_fence();
+        ss_product<T, kKeyTile, D>(s_acc, q_addr, kSlab, k_tile, kKVSlab);
+        sm90::wgmma_commit();
+        ss_product<T, kKeyTile, D>(dp_acc, do_addr, kSlab, k_tile + kTile, kKVSlab);
+        sm90::wgmma_commit();
+        turns.pass(false);
 
-        float p[kBlock / 8][4];  // S, then P
-        zero(p);
-        scores<T, D>(p, s_q, warp * 16, s_k, lane);
+        // P while dP is in flight; keys at or past N take no probability
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(s_acc);
+        if (j == n_tiles - 1 && N % kKeyTile) {
+            const int limit = N - j * kKeyTile;
 #pragma unroll
-        for (int t = 0; t < kBlock / 8; ++t) {
-            p[t][0] = exp2f(p[t][0] * scale_log2 - lse2[0]);
-            p[t][1] = exp2f(p[t][1] * scale_log2 - lse2[0]);
-            p[t][2] = exp2f(p[t][2] * scale_log2 - lse2[1]);
-            p[t][3] = exp2f(p[t][3] * scale_log2 - lse2[1]);
-            if (kRagged) {  // keys past N (zero rows of a ragged last tile) take no probability
-                const int key = j * kBlock + t * 8 + tig * 2;
-                if (key >= N) p[t][0] = p[t][2] = 0.f;
-                if (key + 1 >= N) p[t][1] = p[t][3] = 0.f;
-            }
-        }
-        float ds[kBlock / 8][4];  // dP = dO V^T, then dS
-        zero(ds);
-        scores<T, D>(ds, s_do, warp * 16, s_v, lane);
+            for (int jj = 0; jj < kKeyTile / 8; ++jj)
 #pragma unroll
-        for (int t = 0; t < kBlock / 8; ++t) {
-            ds[t][0] = p[t][0] * (ds[t][0] - dl[0]);
-            ds[t][1] = p[t][1] * (ds[t][1] - dl[0]);
-            ds[t][2] = p[t][2] * (ds[t][2] - dl[1]);
-            ds[t][3] = p[t][3] * (ds[t][3] - dl[1]);
+                for (int e = 0; e < 4; ++e)
+                    if (8 * jj + 2 * (lane & 3) + (e & 1) >= limit) s_acc[4 * jj + e] = -inf;
         }
-        accumulate<T, D>(dq, ds, s_k, lane);
-        __syncthreads();  // this stage is refilled by the next iteration's prefetch
+#pragma unroll
+        for (int jj = 0; jj < kKeyTile / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s_acc[4 * jj + e] = ex2(fmaf(s_acc[4 * jj + e], scale_log2, -lse2[e >> 1]));
+
+        // dS = P (dP - delta), rounded once into the A fragments of dQ += dS K
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dp_acc);
+#pragma unroll
+        for (int jj = 0; jj < kKeyTile / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dp_acc[4 * jj + e] = s_acc[4 * jj + e] * (dp_acc[4 * jj + e] - dl[e >> 1]);
+        pack_a<T, kKeyTile>(ds, dp_acc);
+        sm90::fence_regs(dq_acc);
+        fence_frags(ds);
+        turns.take();
+        sm90::wgmma_fence();
+        rs_product<T, D, kKeyTile>(dq_acc, ds, k_tile, kKVSlab);
+        sm90::wgmma_commit();
+        turns.pass(j == n_tiles - 1);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dq_acc);
+        sm90::mbar_arrive(&kv_empty[s]);
+        if (++s == stages) {
+            s = 0;
+            phase ^= 1;
+        }
     }
-    T* out = dqkv + ((long long)b * N + q0 + warp * 16) * row_stride + h * D;
-    store_rows<T, D>(out, row_stride, dq, scale, gid, tig, N - q0 - warp * 16);
+
+    // ---- epilogue: dQ / sqrt(d), rounded once, staged in this warpgroup's Q rows, into dqkv's first third ----
+    const long long row_stride = 3LL * p.H * D;
+    T* dst = static_cast<T*>(p.dqkv) + ((long long)b * N + q0 + g * 64) * row_stride + h * D;
+    const float scale = p.scale;
+    store_rows<T, D>(dq_acc, [&](float x, int) { return x * scale; }, q_s + g * 64 * kRowBytes, kSlab, dst,
+                     row_stride, N - q0 - g * 64, kBarEpilogue + g);
 }
 
-template <typename T, int D, bool kRagged>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dqkv, int N, int H, float scale,
-                         float scale_log2) {
-    constexpr int kTile = Tiles<D>::kTile;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* s_k = reinterpret_cast<T*>(smem_raw);
-    T* s_v = s_k + kTile;
-    float* s_rows = reinterpret_cast<float*>(s_k + 6 * kTile);  // [stage][lse | delta][64]
+// One block: keys [k0, k0 + kBlock) of (batch item blockIdx.z, head blockIdx.y) against every query.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+                              const Params p) {
+    static_assert(D == kD, "one head dim");
+    constexpr int kSlab = kBlock * kRowBytes;        // a slab of K or V
+    constexpr int kQSlab = kQueryTile * kRowBytes;   // a slab of a Q or dO tile
+    constexpr int kTile = tile_bytes(kQueryTile);    // one Q or dO tile
+    extern __shared__ __align__(1024) uint8_t smem_raw[];
+    uint8_t* smem = aligned_smem(smem_raw);
+    const int stages = p.stages;
+    uint8_t* k_s = smem;
+    uint8_t* v_s = smem + tile_bytes(kBlock);
+    uint8_t* qd = smem + 2 * tile_bytes(kBlock);  // stage s: Q at 2 s kTile, dO at (2 s + 1) kTile
+    float* rows = reinterpret_cast<float*>(smem + dkv_rows_offset(stages));  // stage s: lse2, then delta
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + dkv_bars_offset(stages));
+    uint64_t* kv_full = bars;  // K and V
+    uint64_t* qd_full = bars + 1;
+    uint64_t* qd_empty = qd_full + stages;
 
-    const int k0 = blockIdx.x * kBlock;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int tid = threadIdx.x;
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const int gid = lane / 4;
-    const int tig = lane % 4;
-
-    const int width = H * D;
-    const long long row_stride = 3LL * width;
-    const T* base = qkv + (long long)b * N * row_stride;
-    const T* g_q = base + h * D;
-    const T* g_do = dout + (long long)b * N * width + h * D;
-    const float* lse_bh = lse + ((long long)b * H + h) * N;
-    const float* delta_bh = delta + ((long long)b * H + h) * N;
-
-    // stream in the Q tile, dO tile and lse/delta rows starting at query row i0
-    auto load_stage = [&](int stage, int i0) {
-        T* s_q = s_k + (2 + 2 * stage) * kTile;
-        load_tile<T, D, kRagged>(s_q, g_q, i0, row_stride, tid, N);
-        load_tile<T, D, kRagged>(s_q + kTile, g_do, i0, width, tid, N);
-        if constexpr (kRagged) {
-            // (b, h) rows of lse and delta start at b*H*N + h*N, 16-byte aligned only when N % 4 == 0:
-            // one float a thread, 0 past N, stored before the barrier that precedes their use
-            const int which = tid / kBlock;
-            const int c = tid % kBlock;
-            const float* src = which ? delta_bh : lse_bh;
-            s_rows[(2 * stage + which) * kBlock + c] = i0 + c < N ? src[i0 + c] : 0.f;
-        } else if (tid < 2 * kBlock / 4) {  // 64 floats each of lse and delta, 16 bytes a thread
-            const int which = tid / (kBlock / 4);
-            const int c = tid % (kBlock / 4);
-            const float* src = (which ? delta_bh : lse_bh) + i0 + 4 * c;
-            cp_async16(s_rows + (2 * stage + which) * kBlock + 4 * c, src);
+    const int tid = threadIdx.x, wg = tid / 128;
+    const int k0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
+    const int N = p.N;
+    const int n_tiles = (N + kQueryTile - 1) / kQueryTile;
+    if (tid == 0) {
+        sm90::mbar_init(kv_full, 1);
+        for (int s = 0; s < stages; ++s) {
+            sm90::mbar_init(&qd_full[s], 1 + 32);  // the TMA's expect_tx, and the producer warp's row copies
+            sm90::mbar_init(&qd_empty[s], kConsumers * 128);
         }
-    };
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
 
-    load_tile<T, D, kRagged>(s_k, base + width + h * D, k0, row_stride, tid, N);
-    load_tile<T, D, kRagged>(s_v, base + 2 * width + h * D, k0, row_stride, tid, N);
-    load_stage(0, 0);
-    cp_async_commit();
+    if (wg == kConsumers) {
+        // ---- producer warp: K and V, then the Q/dO ring by TMA and each stage's lse and delta rows ----
+        sm90::setmaxnreg_dec<kProducerRegs>();
+        if (tid < kConsumers * 128 + 32) {
+            const int lane = tid & 31;
+            if (lane == 0) {
+                sm90::prefetch_map(&qmap);
+                sm90::prefetch_map(&kmap);
+                sm90::prefetch_map(&vmap);
+                sm90::prefetch_map(&domap);
+                sm90::mbar_expect_tx(kv_full, 2 * tile_bytes(kBlock));
+                for (int c = 0; c < D / 64; ++c)
+                    for (int r = 0; r < kBlock / 64; ++r) {
+                        const int off = c * kSlab + r * 64 * kRowBytes;
+                        sm90::tma_load_4d(k_s + off, &kmap, kv_full, c * 64, k0 + r * 64, h, b);
+                        sm90::tma_load_4d(v_s + off, &vmap, kv_full, c * 64, k0 + r * 64, h, b);
+                    }
+            }
+            const float* lse = p.lse + ((long long)b * p.H + h) * N;
+            const float* delta = p.delta + ((long long)b * p.H + h) * N;
+            int s = 0, phase = 0;
+            for (int i = 0; i < n_tiles; ++i) {
+                uint8_t* q_tile = qd + 2 * s * kTile;
+                sm90::mbar_wait(&qd_empty[s], phase ^ 1);
+                if (lane == 0) {
+                    sm90::mbar_expect_tx(&qd_full[s], 2 * kTile);
+                    for (int c = 0; c < D / 64; ++c) {
+                        sm90::tma_load_4d(q_tile + c * kQSlab, &qmap, &qd_full[s], c * 64, i * kQueryTile, h, b);
+                        sm90::tma_load_4d(q_tile + kTile + c * kQSlab, &domap, &qd_full[s], c * 64, i * kQueryTile,
+                                          h, b);
+                    }
+                }
+                // a query past N reads lse = +inf (its P^T is 0) and delta 0
+                float* lse2 = rows + 2 * s * kQueryTile;
+                for (int c = lane; c < kQueryTile; c += 32) {
+                    const int row = i * kQueryTile + c;
+                    lse2[c] = row < N ? lse[row] * kLog2e : __int_as_float(0x7f800000);
+                    lse2[kQueryTile + c] = row < N ? delta[row] : 0.f;
+                }
+                sm90::mbar_arrive(&qd_full[s]);  // release: the row copies are seen by the consumers' wait
+                if (++s == stages) {
+                    s = 0;
+                    phase ^= 1;
+                }
+            }
+        }
+        return;
+    }
 
-    float dk[D / 8][4];
-    float dv[D / 8][4];
-    zero(dk);
-    zero(dv);
-    const int n_tiles = (N + kBlock - 1) / kBlock;
+    // ---- consumer warpgroup g: 64 keys ----
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int g = wg, t = tid & 127, lane = t & 31;
+    const float scale_log2 = p.scale_log2;
+
+    // fragments of thread t (warp w, lane l): st[4 jj + e] at key 16 w + l / 4 + 8 (e / 2), query
+    // 8 jj + 2 (l % 4) + e % 2; dk[4 jj + e], dv[4 jj + e] the same at column 8 jj + ...
+    float dk_acc[D / 2];
+    float dv_acc[D / 2];
+    float st[kQueryTile / 2];
+    float dpt[kQueryTile / 2];
+    uint32_t pf[kQueryTile / 16][4];
+    uint32_t dsf[kQueryTile / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const uint32_t k_addr = sm90::smem_u32(k_s) + g * 64 * kRowBytes;
+    const uint32_t v_addr = sm90::smem_u32(v_s) + g * 64 * kRowBytes;
+    const uint32_t qd_addr = sm90::smem_u32(qd);
+
+    const Turns turns(g, kBarTurn);  // 2 n_tiles turns each
+    sm90::mbar_wait(kv_full, 0);
+    int s = 0, phase = 0;
     for (int i = 0; i < n_tiles; ++i) {
-        const int stage = i & 1;
-        const T* s_q = s_k + (2 + 2 * stage) * kTile;
-        const T* s_do = s_q + kTile;
-        const float* s_lse = s_rows + 2 * stage * kBlock;
-        const float* s_delta = s_lse + kBlock;
-        if (i + 1 < n_tiles) {
-            load_stage(stage ^ 1, (i + 1) * kBlock);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
+        const uint32_t q_tile = qd_addr + 2 * s * kTile, do_tile = q_tile + kTile;
+        const float* lse2 = rows + 2 * s * kQueryTile;
+        const float* dl = lse2 + kQueryTile;
+        sm90::mbar_wait(&qd_full[s], phase);
+        turns.take();
+        sm90::wgmma_fence();
+        ss_product<T, kQueryTile, D>(st, k_addr, kSlab, q_tile, kQSlab);
+        sm90::wgmma_commit();
+        ss_product<T, kQueryTile, D>(dpt, v_addr, kSlab, do_tile, kQSlab);
+        sm90::wgmma_commit();
+        turns.pass(false);
 
-        // S^T = K Q^T for this warp's 16 keys x 64 queries, then P^T
-        float pt[kBlock / 8][4];
-        zero(pt);
-        scores<T, D>(pt, s_k, warp * 16, s_q, lane);
+        // P^T while dP^T is in flight
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(st);
 #pragma unroll
-        for (int t = 0; t < kBlock / 8; ++t) {
-            const int col = t * 8 + tig * 2;  // query index within the tile
-            const float l0 = s_lse[col] * kLog2e;
-            const float l1 = s_lse[col + 1] * kLog2e;
-            pt[t][0] = exp2f(pt[t][0] * scale_log2 - l0);
-            pt[t][1] = exp2f(pt[t][1] * scale_log2 - l1);
-            pt[t][2] = exp2f(pt[t][2] * scale_log2 - l0);
-            pt[t][3] = exp2f(pt[t][3] * scale_log2 - l1);
-            if (kRagged) {  // queries past N (zero rows of a ragged last tile) contribute nothing
-                const int query = i * kBlock + col;
-                if (query >= N) pt[t][0] = pt[t][2] = 0.f;
-                if (query + 1 >= N) pt[t][1] = pt[t][3] = 0.f;
-            }
+        for (int jj = 0; jj < kQueryTile / 8; ++jj) {
+            const float2 l = *reinterpret_cast<const float2*>(lse2 + 8 * jj + 2 * (lane & 3));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) st[4 * jj + e] = ex2(fmaf(st[4 * jj + e], scale_log2, -((e & 1) ? l.y : l.x)));
         }
-        accumulate<T, D>(dv, pt, s_do, lane);  // dV += P^T dO
+        pack_a<T, kQueryTile>(pf, st);
 
-        // dP^T = V dO^T, then dS^T = P^T (dP^T - delta)
-        float dst[kBlock / 8][4];
-        zero(dst);
-        scores<T, D>(dst, s_v, warp * 16, s_do, lane);
+        // dS^T = P^T (dP^T - delta), rounded once
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dpt);
 #pragma unroll
-        for (int t = 0; t < kBlock / 8; ++t) {
-            const int col = t * 8 + tig * 2;
-            const float d0 = s_delta[col];
-            const float d1 = s_delta[col + 1];
-            dst[t][0] = pt[t][0] * (dst[t][0] - d0);
-            dst[t][1] = pt[t][1] * (dst[t][1] - d1);
-            dst[t][2] = pt[t][2] * (dst[t][2] - d0);
-            dst[t][3] = pt[t][3] * (dst[t][3] - d1);
+        for (int jj = 0; jj < kQueryTile / 8; ++jj) {
+            const float2 dd = *reinterpret_cast<const float2*>(dl + 8 * jj + 2 * (lane & 3));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dpt[4 * jj + e] = st[4 * jj + e] * (dpt[4 * jj + e] - ((e & 1) ? dd.y : dd.x));
         }
-        accumulate<T, D>(dk, dst, s_q, lane);  // dK += dS^T Q
-        __syncthreads();  // this stage is refilled by the next iteration's prefetch
+        pack_a<T, kQueryTile>(dsf, dpt);
+
+        // dV += P^T dO and dK += dS^T Q, one group
+        sm90::fence_regs(dv_acc);
+        sm90::fence_regs(dk_acc);
+        fence_frags(pf);
+        fence_frags(dsf);
+        turns.take();
+        sm90::wgmma_fence();
+        rs_product<T, D, kQueryTile>(dv_acc, pf, do_tile, kQSlab);
+        rs_product<T, D, kQueryTile>(dk_acc, dsf, q_tile, kQSlab);
+        sm90::wgmma_commit();
+        turns.pass(i == n_tiles - 1);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dv_acc);
+        sm90::fence_regs(dk_acc);
+        sm90::mbar_arrive(&qd_empty[s]);
+        if (++s == stages) {
+            s = 0;
+            phase ^= 1;
+        }
     }
-    T* out = dqkv + ((long long)b * N + k0 + warp * 16) * row_stride + h * D;
-    store_rows<T, D>(out + width, row_stride, dk, scale, gid, tig, N - k0 - warp * 16);
-    store_rows<T, D>(out + 2 * width, row_stride, dv, 1.f, gid, tig, N - k0 - warp * 16);
+
+    // ---- epilogue: dK / sqrt(d) and dV, rounded once, staged in this warpgroup's K and V rows ----
+    const long long row_stride = 3LL * p.H * D;
+    T* dst = static_cast<T*>(p.dqkv) + ((long long)b * N + k0 + g * 64) * row_stride + h * D;
+    const int rows_left = N - k0 - g * 64;
+    const float scale = p.scale;
+    store_rows<T, D>(dk_acc, [&](float x, int) { return x * scale; }, k_s + g * 64 * kRowBytes, kSlab,
+                     dst + (long long)p.H * D, row_stride, rows_left, kBarEpilogue + g);
+    store_rows<T, D>(dv_acc, [](float x, int) { return x; }, v_s + g * 64 * kRowBytes, kSlab,
+                     dst + 2LL * p.H * D, row_stride, rows_left, kBarEpilogue + g);
 }
 
-template <typename T, int D, bool kRagged>
-int launch(const void* qkv, const void* dout, const float* lse, const float* delta, void* dqkv, int B, int N, int H,
-           float scale, cudaStream_t stream) {
-    constexpr int smem_dq = Tiles<D>::template bytes<T>();
-    constexpr int smem_dkv = smem_dq + 4 * kBlock * (int)sizeof(float);
-    static bool configured = false;
-    if (!configured) {
-        cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, kRagged>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
-        if (err != cudaSuccess) return (int)err;
-        err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D, kRagged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_dkv);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
-    const dim3 grid((N + kBlock - 1) / kBlock, H, B);
-    const T* q = static_cast<const T*>(qkv);
-    const T* g = static_cast<const T*>(dout);
-    T* out = static_cast<T*>(dqkv);
-    const float scale_log2 = scale * kLog2e;
-    flash_bwd_dq_kernel<T, D, kRagged>
-        <<<grid, kThreads, smem_dq, stream>>>(q, g, lse, delta, out, N, H, scale, scale_log2);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    flash_bwd_dkv_kernel<T, D, kRagged>
-        <<<grid, kThreads, smem_dkv, stream>>>(q, g, lse, delta, out, N, H, scale, scale_log2);
-    return (int)cudaGetLastError();
-}
+bool stages_ok(int stages, int smem) { return stages >= 2 && stages <= 8 && smem <= kMaxSmem; }
 
 template <typename T>
-int dispatch(const void* qkv, const void* dout, const float* lse, const float* delta, void* dqkv, int B, int N, int H,
-             float scale, cudaStream_t stream) {
-    if (N % kBlock) return launch<T, 128, true>(qkv, dout, lse, delta, dqkv, B, N, H, scale, stream);
-    return launch<T, 128, false>(qkv, dout, lse, delta, dqkv, B, N, H, scale, stream);
+int launch(const CUtensorMap (&maps)[4], const Params& p, int B, int dq_stages, int dkv_stages,
+           cudaStream_t stream) {
+    static const cudaError_t dq_attr = cudaFuncSetAttribute(
+        flash_bwd_dq_sm90_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    static const cudaError_t dkv_attr = cudaFuncSetAttribute(
+        flash_bwd_dkv_sm90_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (dq_attr != cudaSuccess) return (int)dq_attr;
+    if (dkv_attr != cudaSuccess) return (int)dkv_attr;
+    const dim3 grid((p.N + kBlock - 1) / kBlock, p.H, B);
+    Params dq = p;
+    dq.stages = dq_stages;
+    flash_bwd_dq_sm90_kernel<T, kD>
+        <<<grid, kThreads, dq_smem(dq_stages), stream>>>(maps[0], maps[1], maps[2], maps[3], dq);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    Params dkv = p;
+    dkv.stages = dkv_stages;
+    flash_bwd_dkv_sm90_kernel<T, kD>
+        <<<grid, kThreads, dkv_smem(dkv_stages), stream>>>(maps[0], maps[1], maps[2], maps[3], dkv);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv, dqkv: (B, N, 3*H*d); dout: (B, N, H*d); lse, delta: (B, H, N) f32; all
-// contiguous; any N >= 1.  dtype 1 = bf16, 2 = fp16.  Launches the dq kernel,
-// then the dkv kernel, on `stream`.
+// qkv, dqkv: (B, N, 3*H*d); dout: (B, N, H*d); lse, delta: (B, H, N) f32; all contiguous, qkv, dout and
+// dqkv 16-byte aligned; d = 128; any N >= 1.  dtype 1 = bf16, 2 = fp16.  block, dq_stages, query_tile,
+// dkv_stages: ops/flash_attention.py attention_backward_plan(N, d).  Launches the dq kernel, then the
+// dkv kernel, on ``stream``.
 extern "C" int skt_flash_attention_qkv_backward(const void* qkv, const void* dout, const void* lse, const void* delta,
                                                 void* dqkv, int B, int N, int H, int d, int dtype, float scale,
+                                                int block, int dq_stages, int query_tile, int dkv_stages,
                                                 cudaStream_t stream) {
-    if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || d != 128) return (int)cudaErrorInvalidValue;
-    const float* l = static_cast<const float*>(lse);
-    const float* dl = static_cast<const float*>(delta);
-    if (dtype == 1) return dispatch<__nv_bfloat16>(qkv, dout, l, dl, dqkv, B, N, H, scale, stream);
-    if (dtype == 2) return dispatch<__half>(qkv, dout, l, dl, dqkv, B, N, H, scale, stream);
-    return (int)cudaErrorInvalidValue;
+    if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || d != kD || (dtype != 1 && dtype != 2) ||
+        block != kBlock || query_tile != kQueryTile || !stages_ok(dq_stages, dq_smem(dq_stages)) ||
+        !stages_ok(dkv_stages, dkv_smem(dkv_stages)) || lse == nullptr || delta == nullptr ||
+        reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(dout) % 16 ||
+        reinterpret_cast<uintptr_t>(dqkv) % 16)
+        return (int)cudaErrorInvalidValue;
+    const long long width = (long long)H * d;
+    const long long qkv_strides[3] = {N * 3 * width, d, 3 * width};  // batch, head, row
+    const long long do_strides[3] = {N * width, d, width};
+    const bool f16 = dtype == 2;
+    CUtensorMap maps[4];  // q, k, v, dO
+    for (int part = 0; part < 3; ++part) {
+        const void* base = static_cast<const uint8_t*>(qkv) + part * width * 2;
+        if (!operand_map(&maps[part], base, d, N, H, B, qkv_strides, f16)) return (int)cudaErrorInvalidValue;
+    }
+    if (!operand_map(&maps[3], dout, d, N, H, B, do_strides, f16)) return (int)cudaErrorInvalidValue;
+    Params p{};
+    p.lse = static_cast<const float*>(lse);
+    p.delta = static_cast<const float*>(delta);
+    p.dqkv = dqkv;
+    p.N = N;
+    p.H = H;
+    p.scale = scale;
+    p.scale_log2 = scale * kLog2e;
+    if (f16) return launch<__half>(maps, p, B, dq_stages, dkv_stages, stream);
+    return launch<__nv_bfloat16>(maps, p, B, dq_stages, dkv_stages, stream);
 }

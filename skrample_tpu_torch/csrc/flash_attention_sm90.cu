@@ -1,4 +1,4 @@
-// The forward attention on Hopper: K2, K4, B9 and B10 on one body.
+// The forward attention on Hopper: K2, K4, B9, B10 and B11 on one body.
 //
 // K2: out[b, n, h*d:(h+1)*d] = softmax(q_h k_h^T / sqrt(d)) v_h, unmasked,
 // with q, k and v read IN PLACE from the packed (B, N, 3*H*d) qkv tensor and
@@ -6,11 +6,19 @@
 // logsumexp lse[b, h, n] = m*ln2 + log(l) (natural-log units, f32) for the
 // backward (csrc/flash_attention_bwd.cu).  B9 and B10: the same attention on
 // q, k, v and out at any (batch, head, row) strides, head dim 64 or 128 (the
-// chunk(3) views of a fused qkv product, or (B, H, N, d) tensors).
+// chunk(3) views of a fused qkv product, or (B, H, N, d) tensors).  B11 (one
+// hop of ring attention): B9 with Nq query rows against ONE K/V block of Nk
+// keys, o normalised within the block, and beside it the row statistics that
+// fold blocks together (softmax_merge): m, the row max of the scaled scores
+// in natural-log units, and l, the row sum of exp(s - m), f32 (B, H, Nq).
+// The online softmax's final state IS (m, l): its running max is kept in
+// log2 units of s * scale * log2(e), so m = m_log2 * ln 2, and l needs no
+// conversion (exp2(x * log2e - m_log2) == exp(x - m)).
 //
 // Replaces: skrample_tpu/ops/flash_attention.py flash_attention_qkv_forward
 // (K2), flash_attention_qkv_forward_lse (K4), flash_attention_forward and
-// flash_attention_packed_forward (B9), flash_attention_pairs_forward (B10).
+// flash_attention_packed_forward (B9), flash_attention_pairs_forward (B10),
+// flash_attention_block_stats (B11, kernel body _softmax_stats_kernel).
 // The TPU kernels' whole-row softmax tiles, head pairs side by side in 128
 // lanes and N % 128 rules are TPU layout devices; here a block takes 128
 // query rows of one (batch item, head) and streams every key through an
@@ -43,14 +51,14 @@
 //   where the softmax is as long as the products, a warpgroup also runs a
 //   tile's exponentials under its own previous value product;
 // * online softmax in the log2 domain (exp2 of s*scale*log2e - m), the row
-//   max taken on the raw scores; keys past N in the last tile are masked to
+//   max taken on the raw scores; keys past Nk in the last tile are masked to
 //   -inf before the max (a zero-filled key scores 0, not -inf); each row is
 //   normalised once at the end, rounded once, staged in the warpgroup's own
-//   Q rows and stored 16 bytes a thread, rows past N not written.
+//   Q rows and stored 16 bytes a thread, rows past Nq not written.  (B11's
+//   TPU kernel rounds p / l to v's type before the value product; this body
+//   rounds p and normalises the output, which differs by a rounding.)
 // Every row's arithmetic is fixed by the key tile (128), so a row's bits do
 // not depend on the batch, the head count or the plan's K/V stages.
-// Of the forward attentions only B11 (flash_attention.cu) keeps the
-// mma.sync body.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -58,7 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "sm90.cuh"
+#include "attention_sm90.cuh"
 
 // B9's and B10's arguments: element strides (batch, head, row) of q, k, v and
 // the output, and the plan.  Must match
@@ -77,10 +85,28 @@ struct StridedArgs {
     int block_q, stages;  // ops/flash_attention.py attention_plan
 };
 
+// B11's arguments: q (B, H, Nq, d), k and v (B, H, Nk, d) and o (B, H, Nq, d) at element strides (batch,
+// head, row); m and l contiguous (B, H, Nq) f32; the plan.  Must match
+// skrample_tpu_torch/ops/flash_attention.py:_BlockStatsArgs field for field.
+struct BlockStatsArgs {
+    const void* q;
+    const void* k;
+    const void* v;
+    void* o;
+    float* m;
+    float* l;
+    long long q_strides[3];
+    long long k_strides[3];
+    long long v_strides[3];
+    long long o_strides[3];
+    int B, H, Nq, Nk, d;
+    float scale_log2;
+    int block_q, stages;  // ops/flash_attention.py attention_plan(Nq, d)
+};
+
 namespace {
 
-using sm90::kRowBytes;
-using sm90::kSwizzleAtom;
+using namespace attn90;
 
 constexpr int kConsumers = 2;             // consumer warpgroups a block, 64 query rows each
 constexpr int kBlockQ = 64 * kConsumers;  // query rows a block
@@ -90,8 +116,10 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kBarTurn = 1;      // 1 + g: consumer warpgroup g's turn at the tensor cores
 constexpr int kBarEpilogue = 3;  // 3 + g: warpgroup g alone
-constexpr int kMaxSmem = 232448;
-constexpr float kLn2 = 0.69314718055994531f;
+
+// What a block writes beside its output rows: nothing (K2, B9, B10), the row logsumexp (K4), or the row
+// max and sum of one K/V block (B11).
+enum Stats { kNoStats, kLseStats, kBlockStats };
 
 // Shared memory of a block, from a 1024-aligned base: the Q tile (kBlockQ rows), then ``stages`` x (K tile,
 // V tile) of kBlockK rows, each tile d / 64 slabs of 128-byte rows, then the mbarriers.  Mirrors
@@ -107,55 +135,28 @@ __host__ __device__ constexpr int smem_bytes(int d, int stages) {
 struct Params {
     void* o;
     long long o_strides[3];  // batch, head, row (elements)
-    float* lse;              // (B, H, N) f32 for K4, else null
-    int N, H, stages;
+    float* stat_a;           // (B, H, Nq) f32: the logsumexp (K4) or the row max m (B11), else null
+    float* stat_b;           // (B, H, Nq) f32: the row sum l (B11), else null
+    int Nq, Nk, H, stages;   // query rows, keys (equal but for B11)
     float scale_log2;
 };
 
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
 // s (64 x 128 keys) = Q K^T: Q's 64 rows at q (slabs q_slab bytes apart), K's 128 rows at k (slabs of
-// 128 rows).  D / 16 K steps; step ks reads slab ks / 4 at byte (ks % 4) * 32 of each row.
+// 128 rows).
 template <typename T, int D>
 __device__ __forceinline__ void scores_product(float (&s)[kBlockK / 2], uint32_t q, int q_slab, uint32_t k) {
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-        const int off = (ks / 4) * q_slab + (ks % 4) * 32;
-        const int k_off = (ks / 4) * kBlockK * kRowBytes + (ks % 4) * 32;
-        sm90::WgmmaSS<T, kBlockK>::mma(s, sm90::desc_sw128(q + off), sm90::desc_sw128(k + k_off), ks > 0);
-    }
+    ss_product<T, kBlockK, D>(s, q, q_slab, k, kBlockK * kRowBytes);
 }
 
 // o (64 x D) += P V: P (64 x 128 keys) as A fragments, V's 128 rows of D values at v (slabs of 128 rows),
-// read MN-major; K step kk reads keys 16 kk.. at byte 16 kk * 128, the next 64 d values one slab on.
+// read MN-major.
 template <typename T, int D>
 __device__ __forceinline__ void values_product(float (&o)[D / 2], const uint32_t (&p)[kBlockK / 16][4], uint32_t v) {
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk)
-        sm90::WgmmaRS<T, D>::mma(o, p[kk], sm90::desc_mn_sw128(v + kk * 16 * kRowBytes, kBlockK * kRowBytes), 1);
+    rs_product<T, D, kBlockK>(o, p, v, kBlockK * kRowBytes);
 }
 
 // One block: query rows [q0, q0 + kBlockQ) of (batch item blockIdx.z, head blockIdx.y) against every key.
-template <typename T, int D, bool kLse>
+template <typename T, int D, int kStats>
 __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, const CUtensorMap* kmap,
                                                      const CUtensorMap* vmap, const Params& p) {
     constexpr int kSlabs = D / 64;
@@ -180,8 +181,8 @@ __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, co
 
     const int tid = threadIdx.x, wg = tid / 128;
     const int q0 = blockIdx.x * kBlockQ, h = blockIdx.y, b = blockIdx.z;
-    const int N = p.N;
-    const int n_tiles = (N + kBlockK - 1) / kBlockK;
+    const int Nq = p.Nq, Nk = p.Nk;
+    const int n_tiles = (Nk + kBlockK - 1) / kBlockK;
     if (tid == 0) {
         sm90::mbar_init(q_full, 1);
         for (int s = 0; s < stages; ++s) {
@@ -234,14 +235,7 @@ __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, co
     const int g = wg, t = tid & 127, warp = t / 32, lane = t & 31;
     const float neg_inf = __int_as_float(0xff800000);
     const float scale = p.scale_log2;
-    // The turns: warpgroup g waits for its own before issuing products and passes the next to the other
-    // after.  Every warpgroup takes n_tiles + 1 turns; warpgroup 1 hands warpgroup 0 the first and keeps
-    // its own last, so every barrier phase completes.
-    const auto turn = [&] { sm90::named_bar(kBarTurn + g, 256); };
-    const auto pass = [&](bool last) {
-        if (!(last && g == 1)) sm90::named_bar_arrive(kBarTurn + (g ^ 1), 256);
-    };
-    if (g == 1) sm90::named_bar_arrive(kBarTurn, 256);
+    const Turns turns(g, kBarTurn);  // n_tiles + 1 turns each
 
     // fragments of thread t (warp w, lane l): s[4 jj + e] at row 16 w + l / 4 + 8 (e / 2), key
     // 8 jj + 2 (l % 4) + e % 2; o[4 jj + e] the same at column 8 jj + ...
@@ -258,8 +252,8 @@ __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, co
     // the online softmax of tile j on the scores alone: mask, max, alpha, exponentials, l
     float alpha[2];
     const auto softmax = [&](int j) {
-        if (j == n_tiles - 1 && N % kBlockK) {
-            const int limit = N - j * kBlockK;  // keys at or past N take no probability
+        if (j == n_tiles - 1 && Nk % kBlockK) {
+            const int limit = Nk - j * kBlockK;  // keys at or past Nk take no probability
 #pragma unroll
             for (int jj = 0; jj < kBlockK / 8; ++jj)
 #pragma unroll
@@ -286,7 +280,12 @@ __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, co
         for (int jj = 0; jj < kBlockK / 8; ++jj) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                s_acc[4 * jj + e] = ex2(fmaf(s_acc[4 * jj + e], scale, neg_m[e >> 1]));
+                // B11's l counts the row max's own term as exactly 1, as exp(s - m) does: its exponent
+                // subtracts the max from the same rounded product (one fma elsewhere)
+                if constexpr (kStats == kBlockStats)
+                    s_acc[4 * jj + e] = ex2(__fmul_rn(s_acc[4 * jj + e], scale) + neg_m[e >> 1]);
+                else
+                    s_acc[4 * jj + e] = ex2(fmaf(s_acc[4 * jj + e], scale, neg_m[e >> 1]));
                 sum[e >> 1] += s_acc[4 * jj + e];
             }
         }
@@ -302,30 +301,23 @@ __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, co
             o_acc[4 * jj + 2] *= alpha[1];
             o_acc[4 * jj + 3] *= alpha[1];
         }
-#pragma unroll
-        for (int kk = 0; kk < kBlockK / 16; ++kk) {
-            pf[kk][0] = pack2<T>(s_acc[8 * kk], s_acc[8 * kk + 1]);
-            pf[kk][1] = pack2<T>(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
-            pf[kk][2] = pack2<T>(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
-            pf[kk][3] = pack2<T>(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
-        }
+        pack_a<T, kBlockK>(pf, s_acc);
     };
 
     // the softmax's writes to O and P stay before the wgmma fence that orders them for the products
     const auto fence_operands = [&] {
         sm90::fence_regs(o_acc);
-#pragma unroll
-        for (int kk = 0; kk < kBlockK / 16; ++kk) sm90::fence_regs(pf[kk]);
+        fence_frags(pf);
     };
 
     // tile 0's scores
     sm90::mbar_wait(q_full, 0);
     sm90::mbar_wait(&k_full[0], 0);
-    turn();
+    turns.take();
     sm90::wgmma_fence();
     scores_product<T, D>(s_acc, q_addr, kQSlab, kv_addr);
     sm90::wgmma_commit();
-    pass(false);
+    turns.pass(false);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s_acc);
     sm90::mbar_arrive(&k_empty[0]);
@@ -342,14 +334,14 @@ __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, co
         }
         sm90::mbar_wait(&k_full[s], phase);
         sm90::mbar_wait(&v_full[ps], pphase);
-        turn();
+        turns.take();
         fence_operands();
         sm90::wgmma_fence();
         scores_product<T, D>(s_acc, q_addr, kQSlab, kv_addr + 2 * s * kKV);
         if constexpr (kOverlap) sm90::wgmma_commit();
         values_product<T, D>(o_acc, pf, kv_addr + (2 * ps + 1) * kKV);
         sm90::wgmma_commit();
-        pass(false);
+        turns.pass(false);
         if constexpr (kOverlap) {  // this tile's softmax under the previous tile's value product
             sm90::wgmma_wait<1>();
             sm90::fence_regs(s_acc);
@@ -371,12 +363,12 @@ __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, co
 
     // the last tile's values
     sm90::mbar_wait(&v_full[s], phase);
-    turn();
+    turns.take();
     fence_operands();
     sm90::wgmma_fence();
     values_product<T, D>(o_acc, pf, kv_addr + (2 * s + 1) * kKV);
     sm90::wgmma_commit();
-    pass(true);
+    turns.pass(true);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(o_acc);
 
@@ -390,35 +382,23 @@ __device__ __forceinline__ void attention_block_sm90(const CUtensorMap* qmap, co
         l_row[i] = l;
     }
     const int r0 = 16 * warp + (lane >> 2);  // this thread's rows r0 and r0 + 8 of the warpgroup's 64
-    if (kLse && (lane & 3) == 0) {
+    if (kStats != kNoStats && (lane & 3) == 0) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
             const int row = q0 + g * 64 + r0 + 8 * i;
-            if (row < N) p.lse[((long long)b * p.H + h) * N + row] = m_run[i] * kLn2 + logf(l_row[i]);
+            if (row >= Nq) continue;
+            const long long at = ((long long)b * p.H + h) * Nq + row;
+            if (kStats == kLseStats) {
+                p.stat_a[at] = m_run[i] * kLn2 + logf(l_row[i]);
+            } else {
+                p.stat_a[at] = m_run[i] * kLn2;
+                p.stat_b[at] = l_row[i];
+            }
         }
     }
-    uint8_t* stage = smem + g * 64 * kRowBytes;
-#pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int r = r0 + 8 * i;
-            uint8_t* dst = stage + (jj / 8) * kQSlab + r * kRowBytes + (((jj % 8) ^ (r & 7)) << 4) + 4 * (lane & 3);
-            *reinterpret_cast<uint32_t*>(dst) =
-                pack2<T>(o_acc[4 * jj + 2 * i] / l_row[i], o_acc[4 * jj + 2 * i + 1] / l_row[i]);
-        }
-    }
-    sm90::named_bar(kBarEpilogue + g, 128);
-    T* o_base = static_cast<T*>(p.o) + b * p.o_strides[0] + h * p.o_strides[1];
-    constexpr int kChunks = D / 8;  // 16-byte chunks of an output row
-    for (int i = t; i < 64 * kChunks; i += 128) {
-        const int r = i / kChunks, c = i % kChunks;
-        const int row = q0 + g * 64 + r;
-        if (row < N) {
-            const uint8_t* src = stage + (c / 8) * kQSlab + r * kRowBytes + (((c % 8) ^ (r & 7)) << 4);
-            *reinterpret_cast<uint4*>(o_base + row * p.o_strides[2] + c * 8) = *reinterpret_cast<const uint4*>(src);
-        }
-    }
+    T* o_base = static_cast<T*>(p.o) + b * p.o_strides[0] + h * p.o_strides[1] + (q0 + g * 64) * p.o_strides[2];
+    store_rows<T, D>(o_acc, [&](float x, int i) { return x / l_row[i]; }, smem + g * 64 * kRowBytes, kQSlab, o_base,
+                     p.o_strides[2], Nq - q0 - g * 64, kBarEpilogue + g);
 }
 
 // K2 / K4: three maps over one packed qkv tensor.
@@ -426,7 +406,7 @@ template <typename T, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_qkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap, const Params p) {
-    attention_block_sm90<T, 128, kLse>(&qmap, &kmap, &vmap, p);
+    attention_block_sm90<T, 128, kLse ? kLseStats : kNoStats>(&qmap, &kmap, &vmap, p);
 }
 
 // B9 / B10: q, k and v at their own strides.
@@ -434,36 +414,35 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_strided_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                               const __grid_constant__ CUtensorMap vmap, const Params p) {
-    attention_block_sm90<T, D, false>(&qmap, &kmap, &vmap, p);
+    attention_block_sm90<T, D, kNoStats>(&qmap, &kmap, &vmap, p);
 }
 
-// The 4-D map (d, N, H, B) of one operand at element strides (batch, head, row): boxes of 64 columns by
-// 64 rows of one (head, batch item), zero-filled past N.  Cached: the allocator hands out a few addresses.
-bool operand_map(CUtensorMap* map, const void* base, int d, int N, int H, int B, const long long* strides,
-                 bool f16) {
-    static sm90::MapCache cache;
-    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)N, (cuuint64_t)H, (cuuint64_t)B};
-    const cuuint64_t bytes[3] = {(cuuint64_t)strides[2] * 2, (cuuint64_t)strides[1] * 2, (cuuint64_t)strides[0] * 2};
-    const cuuint32_t box[4] = {64, 64, 1, 1};
-    return cache.get(map, base, 4, dims, bytes, box, f16);
+// B11: B9 over Nq query rows against one block of Nk keys, with the block's row statistics.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_block_stats_sm90_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                                  const __grid_constant__ CUtensorMap vmap, const Params p) {
+    attention_block_sm90<T, D, kBlockStats>(&qmap, &kmap, &vmap, p);
 }
 
 bool plan_ok(int block_q, int d, int stages) {
     return block_q == kBlockQ && stages >= 2 && stages <= 8 && smem_bytes(d, stages) <= kMaxSmem;
 }
 
-template <typename T, int D, bool kLse, bool kQkv>
+template <typename T, int D, int kStats, bool kQkv>
 int launch(const CUtensorMap (&maps)[3], const Params& p, int B, cudaStream_t stream) {
     const auto kernel = [] {
         if constexpr (kQkv)
-            return flash_qkv_sm90_kernel<T, kLse>;
+            return flash_qkv_sm90_kernel<T, kStats == kLseStats>;
+        else if constexpr (kStats == kBlockStats)
+            return flash_block_stats_sm90_kernel<T, D>;
         else
             return flash_strided_sm90_kernel<T, D>;
     }();
     static const cudaError_t attr =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (attr != cudaSuccess) return (int)attr;
-    const dim3 grid((p.N + kBlockQ - 1) / kBlockQ, p.H, B);
+    const dim3 grid((p.Nq + kBlockQ - 1) / kBlockQ, p.H, B);
     kernel<<<grid, kThreads, smem_bytes(D, p.stages), stream>>>(maps[0], maps[1], maps[2], p);
     return (int)cudaGetLastError();
 }
@@ -487,13 +466,27 @@ int run_qkv(const void* qkv, void* out, float* lse, int B, int N, int H, int d, 
     p.o_strides[0] = N * width;
     p.o_strides[1] = d;
     p.o_strides[2] = width;
-    p.lse = lse;
-    p.N = N;
+    p.stat_a = lse;
+    p.Nq = p.Nk = N;
     p.H = H;
     p.stages = stages;
     p.scale_log2 = scale_log2;
-    if (f16) return launch<__half, 128, kLse, true>(maps, p, B, stream);
-    return launch<__nv_bfloat16, 128, kLse, true>(maps, p, B, stream);
+    constexpr int kStats = kLse ? kLseStats : kNoStats;
+    if (f16) return launch<__half, 128, kStats, true>(maps, p, B, stream);
+    return launch<__nv_bfloat16, 128, kStats, true>(maps, p, B, stream);
+}
+
+// The strided entry points' common checks: the plan, and what TMA takes of each of q, k, v and o (16-byte
+// aligned base, every stride a multiple of 8 elements).
+bool strided_ok(const void* const (&bases)[4], const long long* const (&strides)[4], int block_q, int d, int stages) {
+    if (!plan_ok(block_q, d, stages)) return false;
+    for (int t = 0; t < 4; ++t) {
+        if (reinterpret_cast<uintptr_t>(bases[t]) % 16) return false;
+        for (int i = 0; i < 3; ++i) {
+            if (strides[t][i] % 8) return false;
+        }
+    }
+    return true;
 }
 
 // ---- a one-product probe of the primitives, for the card tests ----
@@ -588,17 +581,11 @@ extern "C" int skt_flash_attention_qkv_lse(const void* qkv, void* out, void* lse
 extern "C" int skt_flash_attention_strided(const StridedArgs* args, int size, int dtype, cudaStream_t stream) {
     if (size != (int)sizeof(StridedArgs)) return (int)cudaErrorInvalidValue;
     const StridedArgs a = *args;
+    const long long* const strides[4] = {a.q_strides, a.k_strides, a.v_strides, a.o_strides};
+    const void* const bases[4] = {a.q, a.k, a.v, a.o};
     if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.N < 1 || (a.d != 64 && a.d != 128) ||
-        (dtype != 1 && dtype != 2) || !plan_ok(a.block_q, a.d, a.stages))
+        (dtype != 1 && dtype != 2) || !strided_ok(bases, strides, a.block_q, a.d, a.stages))
         return (int)cudaErrorInvalidValue;
-    const long long* strides[4] = {a.q_strides, a.k_strides, a.v_strides, a.o_strides};
-    const void* bases[4] = {a.q, a.k, a.v, a.o};
-    for (int t = 0; t < 4; ++t) {
-        if (reinterpret_cast<uintptr_t>(bases[t]) % 16) return (int)cudaErrorInvalidValue;
-        for (int i = 0; i < 3; ++i) {
-            if (strides[t][i] % 8) return (int)cudaErrorInvalidValue;
-        }
-    }
     const bool f16 = dtype == 2;
     CUtensorMap maps[3];
     for (int t = 0; t < 3; ++t) {
@@ -607,16 +594,53 @@ extern "C" int skt_flash_attention_strided(const StridedArgs* args, int size, in
     Params p{};
     p.o = a.o;
     for (int i = 0; i < 3; ++i) p.o_strides[i] = a.o_strides[i];
-    p.N = a.N;
+    p.Nq = p.Nk = a.N;
     p.H = a.H;
     p.stages = a.stages;
     p.scale_log2 = a.scale_log2;
     if (a.d == 64) {
-        if (f16) return launch<__half, 64, false, false>(maps, p, a.B, stream);
-        return launch<__nv_bfloat16, 64, false, false>(maps, p, a.B, stream);
+        if (f16) return launch<__half, 64, kNoStats, false>(maps, p, a.B, stream);
+        return launch<__nv_bfloat16, 64, kNoStats, false>(maps, p, a.B, stream);
     }
-    if (f16) return launch<__half, 128, false, false>(maps, p, a.B, stream);
-    return launch<__nv_bfloat16, 128, false, false>(maps, p, a.B, stream);
+    if (f16) return launch<__half, 128, kNoStats, false>(maps, p, a.B, stream);
+    return launch<__nv_bfloat16, 128, kNoStats, false>(maps, p, a.B, stream);
+}
+
+// B11: q, k, v, o as for skt_flash_attention_strided, q and o over Nq rows, k and v over Nk; m and l
+// (B, H, Nq) f32 contiguous.  Any Nq, Nk >= 1; block_q and stages: attention_plan(Nq, d).
+extern "C" int skt_flash_attention_block_stats(const BlockStatsArgs* args, int size, int dtype,
+                                               cudaStream_t stream) {
+    if (size != (int)sizeof(BlockStatsArgs)) return (int)cudaErrorInvalidValue;
+    const BlockStatsArgs a = *args;
+    const long long* const strides[4] = {a.q_strides, a.k_strides, a.v_strides, a.o_strides};
+    const void* const bases[4] = {a.q, a.k, a.v, a.o};
+    if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.Nq < 1 || a.Nk < 1 || (a.d != 64 && a.d != 128) ||
+        (dtype != 1 && dtype != 2) || a.m == nullptr || a.l == nullptr ||
+        !strided_ok(bases, strides, a.block_q, a.d, a.stages))
+        return (int)cudaErrorInvalidValue;
+    const bool f16 = dtype == 2;
+    const int rows[3] = {a.Nq, a.Nk, a.Nk};
+    CUtensorMap maps[3];
+    for (int t = 0; t < 3; ++t) {
+        if (!operand_map(&maps[t], bases[t], a.d, rows[t], a.H, a.B, strides[t], f16))
+            return (int)cudaErrorInvalidValue;
+    }
+    Params p{};
+    p.o = a.o;
+    for (int i = 0; i < 3; ++i) p.o_strides[i] = a.o_strides[i];
+    p.stat_a = a.m;
+    p.stat_b = a.l;
+    p.Nq = a.Nq;
+    p.Nk = a.Nk;
+    p.H = a.H;
+    p.stages = a.stages;
+    p.scale_log2 = a.scale_log2;
+    if (a.d == 64) {
+        if (f16) return launch<__half, 64, kBlockStats, false>(maps, p, a.B, stream);
+        return launch<__nv_bfloat16, 64, kBlockStats, false>(maps, p, a.B, stream);
+    }
+    if (f16) return launch<__half, 128, kBlockStats, false>(maps, p, a.B, stream);
+    return launch<__nv_bfloat16, 128, kBlockStats, false>(maps, p, a.B, stream);
 }
 
 // One wgmma product of the attention, for the card tests (mode 0: the SS score product, a (64 x d) and

@@ -32,7 +32,6 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "fused_step.cu",
-    "flash_attention.cu",
     "flash_attention_sm90.cu",
     "flash_attention_bwd.cu",
     "adaln.cu",
@@ -61,8 +60,9 @@ _SIGNATURES: dict[str, list] = {
     "skt_flash_attention_qkv": [_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "skt_flash_attention_qkv_lse": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],  # qkv, out, lse, then as above
     "skt_attention_sm90_probe": [_P, _P, _P, _I, _I, _I, _P],  # a, b, out, mode, d, dtype, stream
-    # qkv, dout, lse, delta, dqkv, B, N, H, d, dtype, scale, stream
-    "skt_flash_attention_qkv_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # qkv, dout, lse, delta, dqkv, B, N, H, d, dtype, scale, then block, dq_stages, query_tile, dkv_stages
+    # (flash_attention.attention_backward_plan), stream
+    "skt_flash_attention_qkv_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     # x, shift, scale, out, B, N, D, shift row stride, scale row stride, dtype, eps, stream
     "skt_adaln": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F, _P],
     "skt_adaln_supports": [_I],  # D -> 1 when the kernel is instantiated for that width

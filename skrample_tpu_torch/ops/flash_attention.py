@@ -1,14 +1,16 @@
 """Attention straight off the fused qkv projection, with its gradient.
 
 :func:`flash_attention_qkv_forward` launches the hand-written kernel K2
-(``csrc/flash_attention.cu``): it reads each head's q, k and v in place from
-the packed ``(B, N, 3*H*d)`` output of the qkv matmul and writes the packed
-``(B, N, H*d)`` layout, with the score matrix never leaving registers.
+(``csrc/flash_attention_sm90.cu``): it reads each head's q, k and v in place
+from the packed ``(B, N, 3*H*d)`` output of the qkv matmul and writes the
+packed ``(B, N, H*d)`` layout, with the score matrix never leaving registers.
 :func:`flash_attention_qkv_forward_lse` (K4, the same kernel body) also
 writes each row's logsumexp, and :func:`flash_attention_qkv_backward` (K5,
-``csrc/flash_attention_bwd.cu``) recomputes the probabilities from it to
-give the gradient in the packed qkv layout.  :func:`flash_attention_qkv`
-ties them into a :class:`torch.autograd.Function`, as the JAX package's
+``csrc/flash_attention_bwd.cu``: a dq and a dkv kernel on the same Hopper
+primitives, in the geometry of :func:`attention_backward_plan`) recomputes
+the probabilities from it to give the gradient in the packed qkv layout.
+:func:`flash_attention_qkv` ties them into a
+:class:`torch.autograd.Function`, as the JAX package's
 ``custom_vjp`` does.  :func:`flash_attention_pairs_forward` launches B10
 (the same kernel body behind a strided entry point, head dim 64) on three
 packed ``(B, N, H*64)`` tensors that may be strided views, such as the
@@ -16,13 +18,12 @@ packed ``(B, N, H*64)`` tensors that may be strided views, such as the
 at head dim 128 too: :func:`flash_attention_forward` on ``(B, H, N, d)``
 (a head dim up to 128, zero-padded to an instance) and
 :func:`flash_attention_packed_forward` on packed ``(B, N, H*128)``.
-K2, K4, B9 and B10 run one Hopper body (TMA, ``wgmma``, a producer warp and
-ping-ponged consumer warpgroups) in the geometry :func:`attention_plan`
+K2, K4, B9, B10 and B11 run one Hopper body (TMA, ``wgmma``, a producer warp
+and ping-ponged consumer warpgroups) in the geometry :func:`attention_plan`
 picks from ``(N, d)`` alone; each wrapper counts its launches by route
-(``.routes``).  :func:`flash_attention_block_stats` launches B11
-(``csrc/flash_attention.cu``, the ``mma.sync`` body): one K/V block's
-attention with the row max and sum that :func:`softmax_merge` folds across
-blocks (a ring attention hop), at separate query and key counts.
+(``.routes``).  :func:`flash_attention_block_stats` launches B11: one K/V
+block's attention with the row max and sum that :func:`softmax_merge` folds
+across blocks (a ring attention hop), at separate query and key counts.
 :func:`flash_attention_pairs`, :func:`flash_attention` and
 :func:`flash_attention_packed` are their autograd dispatches, with the plain
 version's gradient backward.  The
@@ -82,6 +83,54 @@ def attention_plan(N: int, d: int) -> AttentionPlan:
     block_q, stages = 128, 2
     smem = (block_q + 2 * stages * _BLOCK_K) * d * 2 + (1 + 4 * stages) * 8 + _SWIZZLE_ATOM
     return AttentionPlan(block_q, _BLOCK_K, stages, smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """The geometry of K5's two kernels (``csrc/flash_attention_bwd.cu``) for ``N`` rows at head dim 128.
+    The dq kernel's block takes ``block`` query rows (two consumer warpgroups of 64) of one (batch item,
+    head) and streams the keys in tiles of ``key_tile`` through ``dq_stages`` K/V stages; the dkv kernel's
+    block takes ``block`` keys and streams the queries in tiles of ``query_tile`` (with their lse and
+    delta) through ``dkv_stages`` Q/dO stages.  Each kernel's grid is ``(blocks, H, B)``; ``dq_smem`` and
+    ``dkv_smem`` are their blocks' shared memory (``dq_smem`` and ``dkv_smem`` in the source), which the
+    C entry point checks."""
+
+    block: int
+    key_tile: int
+    query_tile: int
+    dq_stages: int
+    dkv_stages: int
+    blocks: int
+    dq_smem: int
+    dkv_smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def attention_backward_plan(N: int, d: int) -> BackwardPlan:
+    """K5's plan for ``N`` query (and key) rows at head dim ``d`` (128 only).
+
+    It never reads the batch or the head count, and every output's sums run in the order of one tile
+    (``key_tile`` for dq, ``query_tile`` for dk and dv): a gradient's bits are the same for an item alone
+    or packed.  The dkv kernel's 64-query tiles keep a consumer warpgroup's dK and dV (128 registers) and
+    its S^T and dP^T (64) under setmaxnreg's 240; a 128-query tile would not fit.  Two stages in each
+    ring: the dq kernel's fits no third, and 2, 3 and 4 Q/dO stages took the dkv kernel the same time
+    (``scripts/bench_attention_kernels.py --vary dkv_stages=2,3,4``, PERF.md)."""
+    if d != 128:
+        raise ValueError(f"attention_backward_plan: head dim {d} has no instance (128)")
+    if N < 1:
+        raise ValueError(f"attention_backward_plan: N = {N}")
+    block, key_tile, query_tile = 128, _BLOCK_K, 64
+    dq_stages, dkv_stages = 2, 2
+
+    def tile(rows: int) -> int:
+        return rows * d * 2
+
+    dq_smem = 2 * tile(block) + 2 * dq_stages * tile(key_tile) + (1 + 2 * dq_stages) * 8 + _SWIZZLE_ATOM
+    dkv_smem = (
+        2 * tile(block) + 2 * dkv_stages * tile(query_tile) + dkv_stages * 2 * query_tile * 4
+        + (1 + 2 * dkv_stages) * 8 + _SWIZZLE_ATOM
+    )
+    return BackwardPlan(block, key_tile, query_tile, dq_stages, dkv_stages, -(-N // block), dq_smem, dkv_smem)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -268,8 +317,9 @@ def flash_attention_qkv_backward(
     ``(B, N, H*d)`` of qkv's dtype and contiguous, ``lse`` ``(B, H, N, 1)``
     float32 contiguous.  ``delta = rowsum(g * o)`` is a float32 PyTorch pass
     here, as the JAX package computes it outside its kernels; one call
-    launches both kernels (dq, then dk and dv), which write the three thirds
-    of one packed output."""
+    launches both kernels (dq, then dk and dv) in the geometry of
+    :func:`attention_backward_plan`, which write the three thirds of one
+    packed output."""
     if qkv.device.type == "cpu":
         return _qkv_backward_reference(qkv, o, lse, g, heads)
     name = "flash_attention_qkv_backward"
@@ -283,8 +333,10 @@ def flash_attention_qkv_backward(
         raise ValueError(f"{name}: lse must be ({B}, {heads}, {N}, 1) float32, got {tuple(lse.shape)} {lse.dtype}")
     if not lse.is_contiguous() or lse.data_ptr() % 16:
         raise ValueError(f"{name}: lse must be contiguous and 16-byte aligned")
-    delta = (g.view(B, N, heads, d).float() * o.view(B, N, heads, d).float()).sum(-1).transpose(1, 2).contiguous()
+    # f32 products of 16-bit values are exact: o is cast inside the product's kernel, not in a pass of its own
+    delta = (g.float() * o).view(B, N, heads, d).sum(-1).transpose(1, 2).contiguous()
     dqkv = torch.empty_like(qkv)
+    plan = attention_backward_plan(N, d)
     lib = _cuda.library()
     with torch.cuda.device(qkv.device):
         code = lib.skt_flash_attention_qkv_backward(
@@ -299,14 +351,20 @@ def flash_attention_qkv_backward(
             d,
             _cuda.DTYPE_CODES[qkv.dtype],
             1.0 / math.sqrt(d),
+            plan.block,
+            plan.dq_stages,
+            plan.query_tile,
+            plan.dkv_stages,
             _cuda.stream(),
         )
     _cuda.check(code, name)
     flash_attention_qkv_backward.launches += 1
+    flash_attention_qkv_backward.routes["wgmma"] += 1
     return dqkv
 
 
 flash_attention_qkv_backward.launches = 0
+flash_attention_qkv_backward.routes = {"wgmma": 0}
 
 
 class _FlashQKV(torch.autograd.Function):
@@ -629,7 +687,8 @@ def _block_stats_reference(
 
 
 class _BlockStatsArgs(ctypes.Structure):
-    "``BlockStatsArgs`` of ``csrc/flash_attention.cu``: element strides (batch, head, row) of q, k, v, out."
+    """``BlockStatsArgs`` of ``csrc/flash_attention_sm90.cu``: element strides (batch, head, row) of q, k, v,
+    out, and the plan."""
 
     _fields_ = [  # noqa: RUF012 — ctypes layout declaration
         ("q", ctypes.c_void_p),
@@ -648,7 +707,36 @@ class _BlockStatsArgs(ctypes.Structure):
         ("Nk", ctypes.c_int),
         ("d", ctypes.c_int),
         ("scale_log2", ctypes.c_float),
+        ("block_q", ctypes.c_int),
+        ("stages", ctypes.c_int),
     ]
+
+
+def _block_stats_args(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, d: int
+) -> _BlockStatsArgs:
+    """B11's arguments for ``(B, H, Nq, d_kernel)`` q and o and ``(B, H, Nk, d_kernel)`` k and v: the query
+    count sizes the grid and the Q map, the key count the K/V maps and the key loop; the plan is
+    :func:`attention_plan` at ``Nq``; the scale is the true head dim ``d``'s."""
+    B, H, Nq, d_kernel = q.shape
+    plan = attention_plan(Nq, d_kernel)
+    return _BlockStatsArgs(
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        o.data_ptr(),
+        m.data_ptr(),
+        l.data_ptr(),
+        *((ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2)) for t in (q, k, v, o)),
+        B,
+        H,
+        Nq,
+        k.shape[2],
+        d_kernel,
+        (1.0 / math.sqrt(d)) * _LOG2E,
+        plan.block_q,
+        plan.stages,
+    )
 
 
 def flash_attention_block_stats(
@@ -686,21 +774,7 @@ def flash_attention_block_stats(
     o = torch.empty((B, H, Nq, d_kernel), dtype=q.dtype, device=q.device)
     m = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
-    args = _BlockStatsArgs(
-        q.data_ptr(),
-        k.data_ptr(),
-        v.data_ptr(),
-        o.data_ptr(),
-        m.data_ptr(),
-        l.data_ptr(),
-        *((ctypes.c_longlong * 3)(t.stride(0), t.stride(1), t.stride(2)) for t in (q, k, v, o)),
-        B,
-        H,
-        Nq,
-        Nk,
-        d_kernel,
-        (1.0 / math.sqrt(d)) * _LOG2E,
-    )
+    args = _block_stats_args(q, k, v, o, m, l, d)
     lib = _cuda.library()
     with torch.cuda.device(q.device):
         code = lib.skt_flash_attention_block_stats(
@@ -708,12 +782,12 @@ def flash_attention_block_stats(
         )
     _cuda.check(code, name)
     flash_attention_block_stats.launches += 1
-    flash_attention_block_stats.routes["mma_sync"] += 1
+    flash_attention_block_stats.routes["wgmma"] += 1
     return (o if d == d_kernel else o[..., :d]), m, l
 
 
 flash_attention_block_stats.launches = 0
-flash_attention_block_stats.routes = {"mma_sync": 0}  # the FlashAttention-2 body of csrc/flash_attention.cu
+flash_attention_block_stats.routes = {"wgmma": 0}
 
 
 def softmax_merge(

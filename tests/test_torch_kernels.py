@@ -185,22 +185,27 @@ def test_qkv_attention_lse_kernel_matches_plain(cuda: torch.device, dtype: torch
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_qkv_attention_backward_kernel_matches_plain(cuda: torch.device, dtype: torch.dtype) -> None:
-    """K5 vs its plain version on the same (qkv, o, lse, g), each third (dq from one kernel,
-    dk and dv from the other) within 2e-2 of its largest value: the outputs round to 16 bits,
-    and P and dS round to 16 bits from f32 values summed in another order."""
+@pytest.mark.parametrize("N", [64, 100, 512, 1000, 1024])
+def test_qkv_attention_backward_kernel_matches_plain(cuda: torch.device, N: int, dtype: torch.dtype) -> None:
+    """K5 vs its plain version on the same (qkv, o, lse, g) at tiled and ragged N, each third
+    (dq from one kernel, dk and dv from the other) within 2e-2 of its largest value: the outputs
+    round to 16 bits, and P and dS round to 16 bits from f32 values summed in another order.  The
+    launch counts on the wgmma route, and a second call gives the same bits (no atomics: every
+    output element is written once by one block)."""
     gen = torch.Generator(cuda).manual_seed(6)
-    qkv = torch.randn((2, 512, 3 * 4 * 128), generator=gen, device=cuda).to(dtype)
-    g = torch.randn((2, 512, 4 * 128), generator=gen, device=cuda).to(dtype)
+    qkv = torch.randn((2, N, 3 * 4 * 128), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((2, N, 4 * 128), generator=gen, device=cuda).to(dtype)
     o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, 4)
-    before = flash_attention.flash_attention_qkv_backward.launches
-    got = flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, 4)
-    assert flash_attention.flash_attention_qkv_backward.launches == before + 1
+    wrapper = flash_attention.flash_attention_qkv_backward
+    before = wrapper.launches, dict(wrapper.routes)
+    got = wrapper(qkv, o, lse, g, 4)
+    assert wrapper.launches == before[0] + 1 and wrapper.routes == {"wgmma": before[1]["wgmma"] + 1}
     ref = flash_attention._qkv_backward_reference(qkv, o, lse, g, 4)
     for part, want in zip(got.chunk(3, dim=-1), ref.chunk(3, dim=-1)):
         scale = want.float().abs().max().item()
         assert scale > 0 and torch.isfinite(part).all()
         assert (part.float() - want.float()).abs().max().item() <= 2e-2 * scale
+    assert torch.equal(wrapper(qkv, o, lse, g, 4), got)
 
 
 @pytest.mark.gpu
@@ -1081,6 +1086,57 @@ def test_sm90_attention_refuses_a_plan_that_does_not_fit(cuda: torch.device) -> 
         flash_attention.flash_attention_qkv_forward(qkv, 1)
 
 
+# ---- the Hopper backward attention (K5: csrc/flash_attention_bwd.cu) and B11 on the forward body ----
+
+
+def _k5_inputs(cuda: torch.device, B: int, N: int, H: int, dtype: torch.dtype, seed: int):
+    "qkv, K4's o and lse, and an output gradient g: K5's inputs as the training step gives them."
+    gen = torch.Generator(cuda).manual_seed(seed)
+    qkv = torch.randn((B, N, 3 * H * 128), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((B, N, H * 128), generator=gen, device=cuda).to(dtype)
+    o, lse = flash_attention.flash_attention_qkv_forward_lse(qkv, H)
+    return qkv, o, lse, g
+
+
+@pytest.mark.gpu
+def test_sm90_backward_batch_one_is_a_slice_of_batch_four(cuda: torch.device) -> None:
+    "An item's gradient alone equals its slice of a batch of 4, bit for bit (the plan never reads B), at N 1000."
+    qkv, o, lse, g = _k5_inputs(cuda, 4, 1000, 2, torch.bfloat16, 5)
+    packed = flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, 2)
+    alone = flash_attention.flash_attention_qkv_backward(qkv[2:3], o[2:3], lse[2:3].contiguous(), g[2:3], 2)
+    assert torch.equal(alone, packed[2:3])
+
+
+@pytest.mark.gpu
+def test_sm90_backward_stages_do_not_change_a_bit(cuda: torch.device) -> None:
+    """The depth of the dkv kernel's Q/dO ring (2, 3, 4 stages; the dq kernel's K/V ring fits only 2) gives
+    the same bits: every output's sums run in the order of its tile alone.  At a ragged N (200)."""
+    from unittest import mock
+
+    qkv, o, lse, g = _k5_inputs(cuda, 2, 200, 2, torch.bfloat16, 3)
+    plan = flash_attention.attention_backward_plan(200, 128)
+    outs = []
+    for dkv_stages in (2, 3, 4):
+        forced = dataclasses.replace(plan, dkv_stages=dkv_stages)
+        with mock.patch.object(flash_attention, "attention_backward_plan", lambda N, d, forced=forced: forced):
+            outs.append(flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, 2))
+    assert all(torch.equal(out, outs[0]) for out in outs[1:])
+
+
+@pytest.mark.gpu
+def test_sm90_backward_refuses_a_plan_that_does_not_fit(cuda: torch.device) -> None:
+    "The C entry point checks the plan it is given: a dq block whose shared memory exceeds 227 KB raises."
+    from unittest import mock
+
+    qkv, o, lse, g = _k5_inputs(cuda, 1, 256, 1, torch.bfloat16, 4)
+    plan = dataclasses.replace(flash_attention.attention_backward_plan(256, 128), dq_stages=3)
+    with (
+        mock.patch.object(flash_attention, "attention_backward_plan", lambda N, d: plan),
+        pytest.raises(RuntimeError, match="CUDA error"),
+    ):
+        flash_attention.flash_attention_qkv_backward(qkv, o, lse, g, 1)
+
+
 # ---- B9: attention on (B, H, N, d) and on packed d = 128 heads ---------------------------
 
 
@@ -1421,7 +1477,17 @@ def _block_stats_inputs(cuda: torch.device, B: int, H: int, Nq: int, Nk: int, d:
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize(
     ("B", "H", "Nq", "Nk", "d"),
-    [(4, 4, 256, 256, 128), (1, 24, 1152, 1152, 128), (2, 3, 40, 24, 64), (2, 6, 1024, 1024, 64), (2, 3, 100, 300, 80)],
+    [
+        (4, 4, 256, 256, 128),
+        (1, 24, 1152, 1152, 128),
+        (2, 3, 1152, 1152, 64),
+        (2, 3, 40, 24, 64),
+        (2, 3, 40, 24, 128),
+        (2, 6, 1024, 1024, 64),
+        (2, 3, 100, 300, 64),
+        (2, 3, 100, 300, 128),
+        (2, 3, 100, 300, 80),
+    ],
 )
 def test_block_stats_kernel_matches_plain(
     cuda: torch.device, B: int, H: int, Nq: int, Nk: int, d: int, dtype: torch.dtype
@@ -1430,11 +1496,13 @@ def test_block_stats_kernel_matches_plain(
     the plain value (the kernel normalises after the value product, the plain version before: at
     24 keys outputs reach 1-2, where one rounding is 2**-7), m and l within 1e-3 of their largest
     value.  A ring hop's shapes, Flux's ragged 1152-row joint block, Nq != Nk on both sides of a
-    tile, head dims 64 and 128 in place and 80 zero-padded to 128."""
+    tile (the Q map's rows are Nq, the K/V maps' Nk, the key mask at Nk), head dims 64 and 128 in
+    place and 80 zero-padded to 128; the launch counts on the wgmma route (the Hopper body)."""
     q, k, v = _block_stats_inputs(cuda, B, H, Nq, Nk, d, dtype)
-    before = flash_attention.flash_attention_block_stats.launches
-    o, m, l = flash_attention.flash_attention_block_stats(q, k, v)
-    assert flash_attention.flash_attention_block_stats.launches == before + 1
+    wrapper = flash_attention.flash_attention_block_stats
+    before = wrapper.launches, dict(wrapper.routes)
+    o, m, l = wrapper(q, k, v)
+    assert wrapper.launches == before[0] + 1 and wrapper.routes == {"wgmma": before[1]["wgmma"] + 1}
     ro, rm, rl = flash_attention._block_stats_reference(q, k, v)
     assert o.shape == (B, H, Nq, d) and o.dtype == dtype and torch.isfinite(o).all()
     assert m.shape == l.shape == (B, H, Nq) and m.dtype == l.dtype == torch.float32

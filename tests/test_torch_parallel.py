@@ -163,14 +163,15 @@ def spawned(tmp_path_factory: pytest.TempPathFactory):
     """``spawned(world)``: every rank's result of every case, by case name.  Both worlds start at
     once, in two threads of this process (2 + 4 single-threaded ranks), and are each run once."""
 
-    def run(world: int) -> dict[str, list]:
+    def run(world: int, store_dir: str) -> dict[str, list]:
         cases = _cases(world)
-        store_dir = str(tmp_path_factory.mktemp(f"sp{world}"))
         per_rank = spawn_sp(world, list(cases.values()), store_dir, backend="gloo", device="cpu")
         return {name: [per_rank[r][i] for r in range(world)] for i, name in enumerate(cases)}
 
+    # made here, before the threads: two threads' first mktemp race to create pytest's base temp dir
+    dirs = {world: str(tmp_path_factory.mktemp(f"sp{world}")) for world in WORLDS}
     with ThreadPoolExecutor(len(WORLDS)) as pool:
-        futures = {world: pool.submit(run, world) for world in WORLDS}
+        futures = {world: pool.submit(run, world, dirs[world]) for world in WORLDS}
         yield lambda world: futures[world].result()
 
 
