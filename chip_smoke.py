@@ -66,12 +66,14 @@ Phases, each failing the run with a non-zero exit:
    ``ServingEngine(stack.as_served(...), conditioned=True,
    postprocess=stack.decode)``, 10-step requests (phase 7's 25 cut: the
    phase adds the decode): 3 requests to (3, 1024, 1024) pixels (2
-   together, then the first alone); exact launches (B12 31 and B8 1 per
-   decode on top of the UNet's), finite pixels, A alone == A packed bit
-   for bit, the fused decode against the unfused one and against the
-   plain versions (1e-3 relative Frobenius), median fused and unfused
-   decode times, one traced fused decode by kernel group, and one
-   ``encode_image`` at 1024x1024;
+   together, then the first alone) through the decode that
+   ``fused_decode="auto"`` takes on the card, the fused one; exact
+   launches (B12 31, all on its f32 route, and B8 1 per decode on top of
+   the UNet's), finite pixels, A alone == A packed bit for bit, the fused
+   decode against the unfused one and against the plain versions (1e-3
+   relative Frobenius), median fused and unfused decode times (C10: which
+   one ``"auto"`` should take), one traced fused decode by kernel group,
+   and one ``encode_image`` at 1024x1024;
 9. DiT-384/6 (heads of 64: B9a 6 a forward) served, and (9b) the SDXL UNet
    read at head dim 32 (B9b);
 10. the video family to pixels: VideoDiT-512/8 and the VideoVAE (B12, B13);
@@ -87,7 +89,8 @@ Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
 and ``csrc/flash_attention_bwd.cu``), and each path phase prints its attention
 launches by route; the device phase requires the sixteen Hopper attention
-instantiations to build without spills or injected warpgroup fences.
+instantiations and the ten of B12's f32 route to build without spills or
+injected warpgroup fences.
 
 The second-to-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -113,6 +116,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_F32_FLOPS = 67e12
 
 STEPS = 25
@@ -233,7 +237,9 @@ def device_phase() -> dict:
         )
     attention = {label: st for label, st in stats.items() if label.startswith("flash_")}
     expect(len(attention) == 16, f"expected 16 Hopper attention instantiations in the build log: {sorted(attention)}")
-    for label, st in attention.items():
+    f32_convs = {label: st for label, st in stats.items() if label.startswith("conv3x3_f32_")}
+    expect(len(f32_convs) == 10, f"expected 10 f32 conv instantiations in the build log: {sorted(f32_convs)}")
+    for label, st in {**attention, **f32_convs}.items():
         expect(st.get("spills") == 0 and st["fences"] == 0, f"{label}: {st.get('spills')} bytes spilled, {st['fences']} fences")
     return {"name": name, "count": count, "card": card}
 
@@ -244,7 +250,7 @@ def _sm90_label(mangled: str) -> str | None:
     and B11 kernels, K5's dq and dkv kernels); None for other kernels."""
     import re
 
-    conv = re.search(r"(conv3x3|tconv)_sm90_kernelILi(\d+)ELi(\d+)E", mangled)
+    conv = re.search(r"(conv3x3_f32|conv3x3|tconv)_sm90_kernelILi(\d+)ELi(\d+)E", mangled)
     if conv:
         return f"{conv.group(1)}_sm90_kernel<{conv.group(2)}, {conv.group(3)}>"
     kernels = "flash_qkv|flash_strided|flash_block_stats|flash_bwd_dq|flash_bwd_dkv"
@@ -836,7 +842,7 @@ def _plain_b12(x, w, b, stats=None, residual=None, scale=None, bias=None, out_st
 
 def vae_kernels(gen) -> dict[str, dict]:
     """B12 against its plain version: f32 with GroupNorm(32) + f32 affine + SiLU on the input read and a
-    residual, at four of the SDXL VAE's fused-decode shapes (the CUDA-core route); bf16 with the norm,
+    residual, at four of the SDXL VAE's fused-decode shapes (the f32 route: 3xTF32 wgmma); bf16 with the norm,
     the affine, a residual and the statistics at (1, 256, 256, 512); the video decode's finest level
     (16 frames of 512x512, 64 -> 64: the norm without affine, a residual, the statistics) and its bare
     64 -> 3 out_conv; and bare, statistics off, the SDXL UNet's convs at (2, 64, 64, 640), (2, 128, 128,
@@ -905,7 +911,20 @@ def vae_kernels(gen) -> dict[str, dict]:
             n_bytes += (stats.numel() + (2 * C if affine else 0)) * 4
         if with_stats:
             n_bytes += raw.numel() * 4
-        b_ms, b_by = bound_ms(n_bytes, flops, PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+        if dtype == torch.float32:
+            # two bounds of the f32 conv: its three TF32 products on the tensor cores, one FFMA product on the
+            # CUDA cores; the share is read against the smaller, so that no route can read over 100%
+            tf32_ms, ffma_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3, flops / PEAK_F32_FLOPS * 1e3
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = min(tf32_ms, ffma_ms)
+            b_ms, b_by = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+            print(
+                f"B12 f32 {shape} -> {co}: bounds 3xTF32 {tf32_ms * 1e3:.2f} us (3 x {flops / 1e9:.1f} GFLOP at "
+                f"{PEAK_TF32_FLOPS / 1e12:.1f} TFLOP/s), FFMA {ffma_ms * 1e3:.2f} us (at {PEAK_F32_FLOPS / 1e12:.0f} "
+                f"TFLOP/s), bytes {bytes_ms * 1e3:.2f} us; the row's bound: {b_ms * 1e3:.2f} us ({b_by})"
+            )
+        else:
+            b_ms, b_by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
         xin = x
         if norm:
             xin = fused_conv._normalize_silu(
@@ -931,7 +950,7 @@ def vae_kernels(gen) -> dict[str, dict]:
         geometry = (
             f"; plan: BN {plan.bn} x {plan.n_tiles}, {plan.block_rows} rows a tile in strips of {plan.strip_w}, "
             f"{plan.b_stages} weight stages, {plan.smem} bytes of shared memory"
-            if plan.route == "wgmma" else ""
+            if plan.route in ("wgmma", "f32") else ""
         )
         print(
             f"B12 {shape} -> {co} {dtype} (card time, CUDA-graph replay of {iters}): {timing['ms'] * 1e3:.2f} us "
@@ -1642,10 +1661,15 @@ def flux_phase(card: str) -> tuple[dict[str, int], dict[str, int]]:
     return bf16_launches, int8_launches
 
 
+B12_KERNELS = (  # B12's kernels by name (csrc/fused_conv.cu): bf16 wgmma, f32 3xTF32 with its weight split, mma.sync
+    "conv3x3_sm90_kernel", "conv3x3_f32_sm90_kernel", "tf32_split_kernel", "conv3x3_bf16_kernel",
+    "conv_stats_reduce_kernel",
+)
+B8_KERNELS = ("gn_stats_kernel", "gn_apply_kernel")  # csrc/groupnorm.cu: statistics with their finalize, apply
 SDXL_GROUPS = (
-    ("B12 convs", ("conv3x3_sm90_kernel", "conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
+    ("B12 convs", B12_KERNELS),
     ("K1 fused_step", ("fused_step_kernel",)),
-    ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("B8 groupnorm", B8_KERNELS),
     ("B10 attention", ("flash_strided_sm90_kernel",)),
     ("layout copies", ("nchwtonhwc", "nhwctonchw")),
     ("cuDNN convs", ("fprop", "implicit_gemm", "conv", "cudnn", "winograd")),
@@ -1932,8 +1956,8 @@ SDXL_VAE_CONFIG = {
     "up_block_types": ("UpDecoderBlock2D",) * 4,
 }
 VAE_GROUPS = (
-    ("B12 convs", ("conv3x3_sm90_kernel", "conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
-    ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("B12 convs", B12_KERNELS),
+    ("B8 groupnorm", B8_KERNELS),
     ("cuDNN convs", ("fprop", "implicit_gemm", "conv", "cudnn", "winograd")),
     ("attention softmax", ("softmax",)),
     ("cuBLAS products", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
@@ -1951,14 +1975,15 @@ def vae_phase(card: str, parts: dict) -> dict[str, int]:
     from skrample_tpu_torch import scheduling
     from skrample_tpu_torch.models.import_weights import vae_config
     from skrample_tpu_torch.models.sdxl import SDXLStack
-    from skrample_tpu_torch.models.vae import VAE, fused_convs_per_decode, vae_decode_flops
+    from skrample_tpu_torch.models.vae import VAE, fused_convs_per_decode, fused_decode_on, vae_decode_flops
     from skrample_tpu_torch.ops import fused_conv, groupnorm
     from skrample_tpu_torch.sampling import models, structured
     from skrample_tpu_torch.serving import ServingEngine
 
     dev = torch.device("cuda")
     phase_t0 = time.perf_counter()
-    config = dataclasses.replace(vae_config(SDXL_VAE_CONFIG), fused_decode=True)  # "auto" is unfused (C10)
+    config = vae_config(SDXL_VAE_CONFIG)  # fused_decode "auto": the fused decode on the card (C10)
+    expect(fused_decode_on(config.fused_decode, dev), f"vae: fused_decode {config.fused_decode!r} unfused on the card")
     gen = torch.Generator(dev).manual_seed(8)
     vae = VAE(config, device=dev, generator=gen)
     vae.reset_parameters(gen, noise=0.02)
@@ -1987,10 +2012,12 @@ def vae_phase(card: str, parts: dict) -> dict[str, int]:
         _reset_counters()
         stack.decode(latents(1))
         one = _counters()
+        one_routes = _routes()["conv3x3_gn_silu_forward"]
     want_one = dict.fromkeys(_wrappers(), 0)
     want_one.update(conv3x3_gn_silu_forward=31, groupnorm_forward=1)  # B8: the mid attention's norm
-    print(f"vae: one decode call launched {one}")
+    print(f"vae: one decode call launched {one}; B12 by route {one_routes}")
     expect(one == want_one, f"vae: one decode launched {one}, expected {want_one}")
+    expect(one_routes == {"wgmma": 0, "mma_sync": 0, "f32": 31}, f"vae: one decode's B12 routes {one_routes}")
 
     engine = ServingEngine(
         served, item_shape=(4, 128, 128), sampler=structured.DPM(order=2),
@@ -2013,6 +2040,7 @@ def vae_phase(card: str, parts: dict) -> dict[str, int]:
         solo_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         launches = _counters()
+        f32_launches = _routes()["conv3x3_gn_silu_forward"]["f32"]
         peak = torch.cuda.max_memory_allocated()
         dispatches = engine.stats.batches - batches_before
     forwards = VAE_STEPS * dispatches
@@ -2023,6 +2051,9 @@ def vae_phase(card: str, parts: dict) -> dict[str, int]:
     print(f"vae: 3 requests to pixels in {dispatches} dispatches; launches {launches} (expected {want})")
     print(f"vae: attention launches by route: {_attention_routes()}")
     expect(dispatches == 2 and launches == want, f"vae: launches {launches}, expected {want}")
+    print(f"vae: f32 B12 launches on the main path {f32_launches}, all on the f32 route (3xTF32 wgmma)")
+    want_f32 = per_decode * dispatches
+    expect(f32_launches == want_f32, f"vae: {f32_launches} f32 B12 launches, expected {want_f32}")
     for o in outs:
         expect(tuple(o.shape) == (3, 1024, 1024) and bool(torch.isfinite(o).all()), f"vae: bad pixels {o.shape}")
     same = torch.equal(outs[2], outs[0])
@@ -2078,6 +2109,12 @@ def vae_phase(card: str, parts: dict) -> dict[str, int]:
                 f"vae: {label} decode of one 1024x1024 image: median {med[label] * 1e3:.1f} ms of 3 "
                 f"({', '.join(f'{t * 1e3:.1f}' for t in v)}); {flops / med[label] / 1e12:.1f} TFLOP/s ({card})"
             )
+        print(
+            f"vae: C10, fused_decode='auto': the fused median {med['fused'] * 1e3:.1f} ms against the unfused "
+            f"median {med['unfused'] * 1e3:.1f} ms: the card picks "
+            f"{'fused' if med['fused'] < med['unfused'] else 'unfused'}; "
+            f"'auto' takes {'fused' if fused_decode_on('auto', dev) else 'unfused'} on the card"
+        )
         _traced_dispatch(lambda: stack.decode(z), "vae fused decode", med["fused"], card, VAE_GROUPS)
 
         # ---- encode: a request's pixels back to latents ----
@@ -2497,9 +2534,9 @@ VIDEO_GROUPS = (
     ("K1 fused_step", ("fused_step_kernel",)),
     ("K2 flash_qkv", ("flash_qkv_sm90_kernel",)),
     ("K3 adaln", ("adaln_kernel",)),
-    ("B12 convs", ("conv3x3_sm90_kernel", "conv3x3_f32_kernel", "conv3x3_bf16_kernel", "conv_stats_reduce_kernel")),
+    ("B12 convs", B12_KERNELS),
     ("B13 tconvs", ("tconv_sm90_kernel", "tconv_kernel", "tconv_stats_reduce_kernel")),
-    ("B8 groupnorm", ("gn_stats_kernel", "gn_finalize_kernel", "gn_apply_kernel")),
+    ("B8 groupnorm", B8_KERNELS),
     ("plain attention (temporal, VAE mid)", ("softmax",)),
     ("cuBLAS products", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
 )

@@ -1,18 +1,20 @@
-// Hopper (sm_90a) building blocks for the conv kernels (B12 bf16 and B13 in
-// fused_conv.cu and tconv.cu) and the forward attention (K2, K4, B9, B10 in
-// flash_attention_sm90.cu), as inline PTX: mbarriers, TMA tile loads
+// Hopper (sm_90a) building blocks for the conv kernels (B12 bf16 and f32 and
+// B13 in fused_conv.cu and tconv.cu) and the forward attention (K2, K4, B9,
+// B10 in flash_attention_sm90.cu), as inline PTX: mbarriers, TMA tile loads
 // (cp.async.bulk.tensor) completing on an mbarrier, wgmma with both operands
 // read from shared memory through matrix descriptors (SS) or with A from
-// registers (RS), for bf16 and fp16, its fence, commit and wait, named
-// barriers, the async-proxy fence, setmaxnreg, and the host's tensor-map
-// encoding (cuTensorMapEncodeTiled, looked up at run time through the CUDA
-// runtime's entry-point query: the library keeps its plain C interface and
-// links no -lcuda), with a cache for maps that are encoded again and again.
+// registers (RS), for bf16 and fp16, and RS for tf32 (the f32 conv), its
+// fence, commit and wait, named barriers, the async-proxy fence, setmaxnreg,
+// and the host's tensor-map encoding (cuTensorMapEncodeTiled, looked up at
+// run time through the CUDA runtime's entry-point query: the library keeps
+// its plain C interface and links no -lcuda), with a cache for maps that are
+// encoded again and again.
 //
-// Operand layout: every tile has 64 16-bit values (128 bytes) a row, as a
-// TMA box with the 128-byte swizzle writes it (16-byte chunk c of row r lands
-// at chunk c ^ (r % 8), the pattern anchored at 1024-byte-aligned addresses).
-// Read K-major (desc_sw128), a row is one M or N index and its 64 K values;
+// Operand layout: every tile has 128 bytes a row (64 16-bit values or 32
+// f32), as a TMA box with the 128-byte swizzle writes it (16-byte chunk c of
+// row r lands at chunk c ^ (r % 8), the pattern anchored at 1024-byte-aligned
+// addresses).
+// Read K-major (desc_sw128), a row is one M or N index and its K values;
 // the hardware applies the swizzle to the absolute shared-memory address,
 // so a descriptor may start at any row of such a tile: a 3x3 conv reads its
 // nine taps as nine row-shifted views of one normalized halo tile.  Read
@@ -95,6 +97,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
         "[%2];\n" ::"r"(smem_u32(dst)),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
+// ``bytes`` (a multiple of 16) of contiguous global memory at ``src`` into shared ``dst`` (both 16-byte
+// aligned), a 1-D bulk copy completing on ``bar`` (whose expected bytes the caller raised first)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+            smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
         : "memory");
 }
 
@@ -250,6 +262,78 @@ struct Wgmma<128> {
     }
 };
 
+// The f32 conv's products (B12's 3xTF32 route), RS: d (64 x N f32) += A (64 x 8 tf32, from registers) *
+// B (N x 8 tf32, descriptor b)^T, B K-major in the layout above: a 128-byte row holds 32 f32 values, so a K
+// step of 8 advances 32 bytes, as a bf16 K step of 16 does, and the descriptor is the same.  TF32 takes no
+// transpose.  A in the layout of mma.m16n8k8's tf32 A, a warp's 16 rows each: thread t (warp w, lane l)
+// holds a[0] at row 16 w + l/4, column l % 4; a[1] 8 rows down; a[2], a[3] the same 4 columns on.  The
+// hardware reads each operand's top 19 bits: an f32 value is split into hi + lo (tf32_round) first.  The
+// fragment layout of d is Wgmma's.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<8> {
+    __device__ static void mma(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaTf32<16> {
+    __device__ static void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaTf32<32> {
+    __device__ static void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaTf32<64> {
+    __device__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaTf32<128> {
+    __device__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+
+// v rounded to the nearest TF32 value (ties away from zero), as an f32 with its low 13 bits zero
+__device__ __forceinline__ float tf32_round(float v) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+    return __uint_as_float(r);
+}
+
 // The attention's two products, for T = __nv_bfloat16 or __half, with the fragment layout of Wgmma above
 // and scale_d 0 to overwrite d instead of adding to it.  SS: d (64 x N) (+)= A (64 x 16, descriptor a)
 // * B (N x 16, descriptor b)^T, both K-major.  RS: d (64 x N) (+)= A (64 x 16) * B (16 x N, descriptor
@@ -368,18 +452,23 @@ inline EncodeTiled encode_fn() {
     return fn;
 }
 
-// A 16-bit tensor map (bf16, or fp16 with ``f16``) of ``rank`` dims (dims innermost first, byte strides
-// of dims 1..rank-1), a box of ``box``, the 128-byte swizzle, zero fill outside the tensor.  False when
-// the encoding is refused.
-inline bool encode_16bit(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                         const cuuint64_t* strides, const cuuint32_t* box, bool f16 = false) {
+// A tensor map of ``type`` and ``rank`` dims (dims innermost first, byte strides of dims 1..rank-1), a box
+// of ``box``, the 128-byte swizzle, zero fill outside the tensor.  False when the encoding is refused.
+inline bool encode_tiled(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
     const EncodeTiled fn = encode_fn();
     if (fn == nullptr) return false;
     const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-    const CUtensorMapDataType type = f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 16-bit tensor map (bf16, or fp16 with ``f16``), as encode_tiled.
+inline bool encode_16bit(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box, bool f16 = false) {
+    const CUtensorMapDataType type = f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    return encode_tiled(map, type, base, rank, dims, strides, box);
 }
 
 // Maps cached by (pointer, type, dims, strides, box): a map is a function of those alone, so a hit is

@@ -20,14 +20,16 @@ channels-last, as in :mod:`.unet`, whose parameter machinery it shares
   consumer: each B12 call writes its output's channel sums, the next one
   normalizes with them.  31 B12 launches a decode at SDXL's shape.
 
-``fused_decode="auto"`` takes the composition, on the card too: the card's
-A/B put the fused decode behind it (see the field's docstring); the JAX
-package's gate, set by a TPU measurement, does not carry over.  Both paths
-agree to the rounding of the uncentered against the centered variance.
+``fused_decode="auto"`` takes the fused decode on a CUDA device, where the
+card's A/B measured it faster (see the field's docstring), and the
+composition on the CPU (:func:`fused_decode_on`); the JAX package's gate,
+set by a TPU measurement, does not carry over.  Both paths agree to the
+rounding of the uncentered against the centered variance.
 
 The SDXL VAE runs in float32 (``import_weights.vae_config`` says so for
 every imported AutoencoderKL), so its cuDNN convs run with TF32 off and
-its B12 convs on the CUDA cores.
+its B12 convs on B12's f32 route (three TF32 products on the tensor cores,
+f32 accuracy).
 """
 
 from __future__ import annotations
@@ -53,9 +55,18 @@ from .unet import (
     _upsample_nearest,
 )
 
-__all__ = ["VAE", "VAEConfig", "fused_convs_per_decode", "random_param_tree", "vae_decode_flops"]
+__all__ = ["VAE", "VAEConfig", "fused_convs_per_decode", "fused_decode_on", "random_param_tree", "vae_decode_flops"]
 
 _EPS = 1e-6  # every GroupNorm of the family
+
+
+def fused_decode_on(mode: Any, device: torch.device | str) -> bool:
+    """Whether a ``fused_decode`` of ``mode`` (``VAEConfig``'s, ``VideoVAEConfig``'s) takes the fused decode
+    on ``device``: ``"auto"`` on a CUDA device, where the card's A/Bs measured it faster, and the
+    composition on the CPU, as the JAX package's ``"auto"`` off its accelerator."""
+    if mode == "auto":
+        return torch.device(device).type == "cuda"
+    return bool(mode)
 
 
 @dataclass(frozen=True)
@@ -86,11 +97,13 @@ class VAEConfig:
     fused_decode: Any = "auto"
     """Decode through kernel B12's norm-into-conv stats chain: ``True``
     anywhere (the CPU runs B12's plain version); ``False``: the composition.
-    ``"auto"`` takes the composition, the faster decode on the card: a
-    1024x1024 SDXL VAE decode (f32) took 344.5 ms fused against 276.1 ms
-    unfused on an NVIDIA H100 80GB HBM3 at a 700 W power limit
-    (``chip_smoke.py`` phase 8), where B12's f32 loop runs at 29 TFLOP/s and
-    cuDNN's f32 conv at ~41."""
+    ``"auto"`` takes the fused decode on a CUDA device, the faster decode on
+    the card, and the composition on the CPU (:func:`fused_decode_on`): a
+    1024x1024 SDXL VAE decode (f32) took a median 125.4 ms fused against
+    274.2 ms unfused on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+    (``chip_smoke.py`` phase 8), B12's f32 route (three TF32 products) at
+    88-95 TFLOP/s of f32 work where cuDNN's f32 conv runs at ~41.  Before
+    that route the fused decode took 344.5 ms against 276.1 unfused."""
 
     def widths(self) -> list[int]:
         return [self.base * min(2**level, 4) for level in range(self.levels)]
@@ -249,9 +262,8 @@ class VAE(_TreeModule):
 
     # -- decoder ---------------------------------------------------------------
 
-    def _use_fused_decode(self) -> bool:
-        mode = self.config.fused_decode
-        return False if mode == "auto" else bool(mode)
+    def _use_fused_decode(self, device: torch.device) -> bool:
+        return fused_decode_on(self.config.fused_decode, device)
 
     def _finalize(self, raw: torch.Tensor, hw: int) -> torch.Tensor:
         return finalize_group_stats(raw, self.config.groups, hw, _EPS)
@@ -301,7 +313,7 @@ class VAE(_TreeModule):
         dec = self.tree["decoder"]
         scale = torch.tensor(c.scaling_factor, dtype=torch.float32, device=z.device)  # a true division, as jnp's
         h = _to_channels_last(z.float() / scale + c.shift_factor, dtype)
-        if self._use_fused_decode():
+        if self._use_fused_decode(z.device):
             h = self._decode_fused(h, dtype)
         else:
             if "post_quant_conv" in dec:

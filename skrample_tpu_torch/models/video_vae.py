@@ -63,7 +63,7 @@ from .unet import (
     _groupnorm,
     _upsample_nearest,
 )
-from .vae import _hwio
+from .vae import _hwio, fused_decode_on
 
 __all__ = ["VideoVAE", "VideoVAEConfig", "fused_convs_per_decode", "random_param_tree", "video_vae_decode_flops"]
 
@@ -117,15 +117,6 @@ class VideoVAEConfig:
 
     def widths(self) -> list[int]:
         return [self.base * min(2**level, 4) for level in range(self.levels)]
-
-
-def fused_decode_on(mode: Any, device: torch.device | str) -> bool:
-    """Whether ``VideoVAEConfig.fused_decode`` = ``mode`` takes the fused decode on ``device``:
-    ``"auto"`` on a CUDA device, where the card's A/B measured it faster, and the composition on the
-    CPU, as the JAX package's ``"auto"`` off its accelerator."""
-    if mode == "auto":
-        return torch.device(device).type == "cuda"
-    return bool(mode)
 
 
 def _video_vae_skeleton(c: VideoVAEConfig) -> dict:

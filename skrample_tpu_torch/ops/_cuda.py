@@ -72,14 +72,15 @@ _SIGNATURES: dict[str, list] = {
     "skt_quant_rows": [_P, _P, _P, _L, _I, _I, _P],  # x, q, s, R, D, dtype, stream
     # qkv in, out (the same pointer: in place), cos, sin, table row stride, q gain, k gain, B, N, H, d, dtype, eps, stream
     "skt_rope_qk_norm": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # x, y, scale, bias (both None: no affine), f32 scratch, B, N, C, groups, vec, rows per chunk, chunks,
-    # dtype, silu, eps, stream
-    "skt_groupnorm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, y, scale, bias (both None: no affine), f32 scratch, arrival counters, B, N, C, groups, vec, rows per
+    # chunk, chunks, row lanes (groupnorm.launch_geometry), dtype, silu, eps, stream
+    "skt_groupnorm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "skt_flash_attention_strided": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
     "skt_flash_attention_block_stats": [_P, _I, _I, _P],  # args struct, its size, dtype code, stream
-    # x, w (Co, 3, 3, C), bias, stats, gn scale, gn bias, residual, out, partial, raw (null where unused),
-    # N, H, W, C, Co, dtype, plan (fused_conv.conv3x3_plan), stream
-    "skt_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _P],
+    # x, w (Co, 3, 3, C), bias, stats, gn scale, gn bias, residual, out, partial, raw, the f32 route's split
+    # weights (null where unused), N, H, W, C, Co, dtype, plan (fused_conv.conv3x3_plan), stream
+    "skt_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _P],
+    "skt_conv_tf32_probe": [_P, _P, _P, _I, _I, _P],  # a, b, out, n, mode, stream
     # x, wt (Co, k, C), bias, stats, residual, out, partial, raw (null where unused), B, T_in, S, C, Co, k, rep,
     # dtype, plan (fused_conv.tconv_plan), stream
     "skt_tconv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _IP, _P],

@@ -68,7 +68,8 @@ _SWIZZLE_ATOM = 1024  # the 128-byte swizzle's repeat: every stage is aligned to
 _ROW = 128  # bytes of a K-major tile row: 64 bf16 channels
 _FILL = 132  # tiles an item should give to fill the card's SMs
 _N_TILES = (8, 16, 32, 64, 128, 160, 256)  # BN instantiated (csrc: Wgmma<BN> or, from 128 on, Wgmma<BN / 2>)
-_OLD_TILE = 128  # pixels / sites a block of the f32 and mma.sync routes
+_F32_N_TILES = (8, 16, 32, 64, 128)  # BN of the f32 route (csrc: WgmmaTf32<BN>; the warpgroups split in M)
+_OLD_TILE = 128  # pixels / sites a block of the mma.sync routes
 
 
 def _round_up(v: int, m: int) -> int:
@@ -82,12 +83,12 @@ def _mt_choices(wn: int) -> tuple[int, ...]:
     return (4, 2, 1) if wn == 64 else ((2 if wn >= 128 else 3 if wn >= 80 else 4), 1)
 
 
-def n_tile(co: int) -> tuple[int, int]:
+def n_tile(co: int, widths: tuple[int, ...] = _N_TILES) -> tuple[int, int]:
     """``(BN, N tiles)`` for ``co`` output channels: the tiles cover exactly ``co`` rounded up to a
     multiple of 8 (no more zero columns than that forces), in as few tiles as the instantiated widths
     allow."""
     cols = _round_up(co, 8)
-    return min(((cols // bn, bn) for bn in _N_TILES if cols % bn == 0))[::-1]
+    return min(((cols // bn, bn) for bn in widths if cols % bn == 0))[::-1]
 
 
 def _tail_bytes(start: int, wn: int, sr: int, n_bars: int) -> int:
@@ -107,7 +108,7 @@ class Conv3x3Plan:
     halo from row offset dy * (strip_w + 2) + dx on.  ``tiles`` pixel tiles an item (``strips * runs``)
     index the statistics' partials."""
 
-    route: str  # "wgmma" (bf16, C % 8 == 0), "mma_sync" (bf16, C % 8 != 0), "f32"
+    route: str  # "wgmma" (bf16, C % 8 == 0), "mma_sync" (bf16, C % 8 != 0), "f32" (3xTF32 wgmma)
     tiles: int
     bn: int = 0
     mt: int = 0  # M tiles of 64 rows a consumer warpgroup holds
@@ -148,18 +149,65 @@ def _conv3x3_smem(strip_w: int, halo_rows: int, bn: int, wn: int, b_stages: int)
     return _tail_bytes(2 * halo + b_stages * bn * _ROW, wn, 1, 4 + 2 * b_stages) + _SWIZZLE_ATOM
 
 
+def _conv3x3_f32_smem(strip_w: int, halo_rows: int, bn: int, b_stages: int) -> int:
+    """The f32 route's shared memory (``f32_layout`` in ``csrc/fused_conv.cu``): two halo stages, ``b_stages``
+    weight stages of a hi and a lo tile, each warp's statistics, the mbarriers."""
+    halo = _round_up(halo_rows * (strip_w + 2) * _ROW, _SWIZZLE_ATOM)
+    return 2 * halo + b_stages * 2 * bn * _ROW + 2 * 4 * 2 * bn * 4 + (4 + 2 * b_stages) * 8 + _SWIZZLE_ATOM
+
+
+def _halo_rows(bm: int, wd: int) -> int:
+    "Halo rows of ``wd`` pixels that hold every tap's view of a ``bm``-row run starting anywhere in a row."
+    return -(-(bm + 3 * wd + 1) // wd)
+
+
+def _conv3x3_f32_plan(H: int, W: int, C: int, Co: int) -> Conv3x3Plan:
+    """The f32 route's plan: 32 channels a K slice (a 128-byte row of f32), BN up to 128 (a weight stage
+    holds its hi and its lo tile), the two warpgroups splitting the tile in M.  Of 2 or 1 M tiles a
+    warpgroup and 4, 3 or 2 weight stages, each with the widest balanced strips that fit, it takes the one
+    whose tiles at one item fill the card's waves best: the fewest waves times a tile's rows (plus 32
+    rows' worth of fixed cost a tile), then the larger tile and the deeper ring.  At (128, 128, 512 ->
+    512) that is 256-row tiles in strips of 64: 264 tiles, two waves of the H100's 132 SMs."""
+    bn, n_tiles = n_tile(Co, _F32_N_TILES)
+    best = None
+    for mt in (2, 1):
+        bm = mt * 128
+        for b_stages in (4, 3, 2):
+            for w in range(min(W, 254), 0, -1):
+                strips = -(-W // w)
+                strip_w = -(-W // strips)  # balanced: every strip but the last as wide
+                wd = strip_w + 2
+                rows = _halo_rows(bm, wd)
+                smem = _conv3x3_f32_smem(strip_w, rows, bn, b_stages)
+                if rows <= 256 and smem <= _SMEM_LIMIT:
+                    break
+            else:
+                continue
+            runs = -(-(H * wd) // bm)
+            cost = -(-(strips * runs * n_tiles) // _FILL) * (bm + 32)
+            plan = Conv3x3Plan("f32", strips * runs, bn, mt, False, strip_w, runs, rows, n_tiles, b_stages, smem)
+            if best is None or (cost, -bm, -b_stages) < best[0]:
+                best = ((cost, -bm, -b_stages), plan)
+    if best is None:
+        raise ValueError(f"conv3x3_plan: no f32 geometry fits ({H}, {W}, {C}) -> {Co}")
+    return best[1]
+
+
 @functools.lru_cache(maxsize=1024)
 def conv3x3_plan(H: int, W: int, C: int, Co: int, dtype: torch.dtype = torch.bfloat16) -> Conv3x3Plan:
-    """B12's plan for an (H, W, C) -> Co conv of ``dtype``.  The wgmma route takes the most M tiles a
-    warpgroup can hold (4, 2, 1 at a 64-wide warpgroup tile), with the deepest weight ring (4, 3, 2
+    """B12's plan for an (H, W, C) -> Co conv of ``dtype``: float32 takes the f32 route
+    (:func:`_conv3x3_f32_plan`; a C that is not a multiple of 4 is planned at the next multiple, as the
+    wrapper zero-pads it); bf16 the wgmma route at C % 8 == 0, else mma_sync.  The wgmma route takes the
+    most M tiles a warpgroup can hold (4, 2, 1 at a 64-wide warpgroup tile), with the deepest weight ring (4, 3, 2
     stages) whose halo stages fit strips at least min(W, 64) wide, then the widest strips that fit
     (balanced: every strip but the last as wide, at most 254 + 2 pixels a TMA box row).  More rows a
     tile beat more tiles even where an item then fills a third of the card (the card measured (2, 32,
     32, 1280) at 263 us in 128-row tiles, 337 us in 64-row ones), and a wider halo beats a deeper ring
     at C = 64, where the norm's work grows with the halo (the video decode's finest level)."""
-    old = Conv3x3Plan("f32" if dtype == torch.float32 else "mma_sync", math.ceil(H * W / _OLD_TILE))
-    if dtype == torch.float32 or C % 8:
-        return old
+    if dtype == torch.float32:
+        return _conv3x3_f32_plan(H, W, _round_up(C, 4), Co)
+    if C % 8:
+        return Conv3x3Plan("mma_sync", math.ceil(H * W / _OLD_TILE))
     bn, n_tiles = n_tile(Co)
     split_n = bn >= 128
     wn = bn // 2 if split_n else bn
@@ -440,14 +488,26 @@ def conv3x3_gn_silu_forward(
     wt = w.permute(3, 0, 1, 2).contiguous()  # (Co, 3, 3, C): a no-op for a channels_last OIHW weight
     b32 = b.float().contiguous()
     plan = conv3x3_plan(H, W, C, Co, x.dtype)
+    if plan.route == "f32" and C % 4:
+        # TMA reads rows of whole 16-byte units: zero channels up to a multiple of 4 (no f32 path of the
+        # served models has such a C), whose normalized value is 0 (mean, inv, gain and bias 0)
+        pad = (0, 4 - C % 4)
+        x, wt = F.pad(x, pad), F.pad(wt, pad)
+        stats = None if stats is None else F.pad(stats, pad)
+        scale, bias = (None, None) if scale is None else (F.pad(scale, pad), F.pad(bias, pad))
+        C += pad[1]
     vector_residual = residual is not None and Co % 8 == 0  # read by 16-byte copies
     if plan.route == "wgmma" and (x.data_ptr() % 16 or wt.data_ptr() % 16 or (vector_residual and residual.data_ptr() % 16)):
         raise ValueError(f"{name}: x, w (and a residual with Co % 8 == 0) must start on 16-byte boundaries (TMA)")
+    if plan.route == "f32" and (x.data_ptr() % 16 or (residual is not None and residual.data_ptr() % 8)):
+        raise ValueError(f"{name}: x must start on a 16-byte boundary (TMA), a residual on an 8-byte one")
     out = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
-    partial = raw = None
+    partial = raw = wsplit = None
     if out_stats:
         partial = torch.empty((N, plan.tiles, 2, Co), dtype=torch.float32, device=x.device)
         raw = torch.empty((N, 2, Co), dtype=torch.float32, device=x.device)
+    if plan.route == "f32":  # the weights' TF32 halves, hi and lo, split by the launch
+        wsplit = torch.empty((2, Co, 3, 3, C), dtype=torch.float32, device=x.device)
 
     def ptr(t: torch.Tensor | None) -> int | None:
         return None if t is None else t.data_ptr()
@@ -465,6 +525,7 @@ def conv3x3_gn_silu_forward(
             out.data_ptr(),
             ptr(partial),
             ptr(raw),
+            ptr(wsplit),
             N,
             H,
             W,

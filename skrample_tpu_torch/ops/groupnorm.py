@@ -7,12 +7,13 @@ the affine in float32 before the SiLU, one rounding to the input dtype.
 :func:`groupnorm_eager_bign` is the JAX package's three-pass form with
 uncentered statistics, kept to hold the kernel to both.
 :func:`groupnorm_forward` launches the hand-written kernel B8
-(``csrc/groupnorm.cu``) on a ``(B, N, C)`` tensor of any size, and
+(``csrc/groupnorm.cu``) on a ``(B, N, C)`` tensor whose rows are at most
+1024 vectors (:func:`launch_geometry`), and
 :func:`groupnorm_cl` is the dispatch a model calls, an autograd Function
 whose backward is the plain version's exact gradient (the JAX package's
 ``custom_vjp``).  The TPU kernel's VMEM cap (``fits_kernel``), its
 ``C % 128`` gate and its group matrix do not carry over: on CUDA every
-shape with ``C % groups == 0`` goes to B8.
+such shape with ``C % groups == 0`` goes to B8.
 """
 
 from __future__ import annotations
@@ -26,10 +27,15 @@ from . import _cuda
 
 _EPS = 1e-6
 _DTYPES = (torch.float32, torch.bfloat16)
-_LANES = 32  # channel vectors per kernel block (csrc/groupnorm.cu kLanes)
-_MIN_ROWS = 32  # rows per statistics chunk at least
-_TARGET_BLOCKS = 8 * 132  # eight 256-thread blocks fill an H100 SM's 2048 threads
+_MAX_THREADS = 1024  # threads a kernel block (csrc/groupnorm.cu kMaxThreads): row lanes x channel vectors
+_MIN_THREADS = 256  # a block has at least this many (row lanes are added until it does)
+_ROWS_IN_FLIGHT = {1: 8, 4: 8, 8: 4}  # rows a thread loads before it uses them, by vector width (csrc: U)
+_SMS = 132  # the H100's SMs
+_SM_THREADS = 1024  # threads an SM holds of B8's blocks (64 registers a thread: csrc/groupnorm.cu launch bounds)
+_MAX_CHUNKS = 256  # chunks an item: the last block merges their partials (csrc: a few loads a thread)
+_LONG_CHUNK = 2048  # rows a chunk at most where N is large, up to _MAX_CHUNKS (more blocks at batch 1)
 _BATCH = 4  # the batch the row split is sized for (bucket 2 under classifier-free guidance)
+_ARRIVALS: dict[tuple[int | None, int], torch.Tensor] = {}  # zeroed arrival counters by (device, stream)
 
 
 def groupnorm_reference(
@@ -86,23 +92,48 @@ def groupnorm_eager_bign(
     return y.to(x.dtype)
 
 
-def launch_geometry(batch: int, n: int, c: int, dtype: torch.dtype, aligned: bool = True) -> tuple[int, int, int]:
-    """B8's ``(vec, rows_per_chunk, chunks)`` for a ``(batch, n, c)`` tensor.
+def launch_geometry(
+    batch: int, n: int, c: int, dtype: torch.dtype, aligned: bool = True
+) -> tuple[int, int, int, int]:
+    """B8's ``(vec, row_lanes, rows_per_chunk, chunks)`` for a ``(batch, n, c)`` tensor.
 
     ``vec``: channels per load, 16 bytes' worth where ``c`` and the
-    addresses allow, else 1.  Rows split into ``chunks`` of
-    ``rows_per_chunk`` (the last may be short, none is empty) so that the
-    statistics grid holds about :data:`_TARGET_BLOCKS` blocks at the
-    serving path's batch of 4.  The split does not depend on ``batch``, so
+    addresses allow, else 1.  A block owns whole rows: ``row_lanes`` x
+    ``c // vec`` threads, thread t the channel vector t % (c // vec) of
+    every ``row_lanes``-th row, with row lanes added until the block has
+    256 threads (at most 1024: a wider row is refused).  Rows split into
+    ``chunks`` of ``rows_per_chunk`` (the last may be short, none is empty,
+    each row lane gets at least one full batch of loads) so that the
+    statistics grid is one wave of the card at the serving path's batch of
+    4 (an SM holds 1024 of B8's threads: more, shorter blocks left a second
+    wave's tail), or chunks of at most 2048 rows where N is large; at most
+    256 chunks.  The split does not depend on ``batch``, so
     an item's statistics are summed in the same order at any batch size: a
     request packed with others normalizes exactly as it does alone."""
     wide = 16 // torch.empty((), dtype=dtype).element_size()
     vec = wide if aligned and c % wide == 0 else 1
-    slabs = math.ceil(c / vec / _LANES)
-    want = max(1, math.ceil(_TARGET_BLOCKS / (_BATCH * slabs)))
-    chunks = max(1, min(want, math.ceil(n / _MIN_ROWS)))
+    vectors = c // vec
+    if vectors > _MAX_THREADS:
+        raise ValueError(
+            f"groupnorm: a row of {c} channels is {vectors} vectors, more than B8's {_MAX_THREADS} threads"
+        )
+    lanes = -(-_MIN_THREADS // vectors)
+    wave = _SMS * (_SM_THREADS // (lanes * vectors))  # blocks the card holds at once
+    want = min(_MAX_CHUNKS, max(-(-wave // _BATCH), -(-n // _LONG_CHUNK)))
+    chunks = max(1, min(want, math.ceil(n / (lanes * _ROWS_IN_FLIGHT[vec]))))
     rows = math.ceil(n / chunks)
-    return vec, rows, math.ceil(n / rows)
+    return vec, lanes, rows, math.ceil(n / rows)
+
+
+def _arrivals(device: torch.device, batch: int) -> torch.Tensor:
+    """Zeroed arrival counters for a B8 launch on the current stream: the kernel leaves them zero, so
+    one buffer a (device, stream) serves every launch there; launches on other streams get their own."""
+    key = (device.index, _cuda.stream())
+    counters = _ARRIVALS.get(key)
+    if counters is None or counters.numel() < batch:
+        counters = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = counters
+    return counters
 
 
 def groupnorm_forward(
@@ -117,8 +148,9 @@ def groupnorm_forward(
 
     On CPU tensors this is the plain version.  On CUDA tensors it launches
     the kernel or raises: ``x`` (B, N, C) float32 or bfloat16, contiguous,
-    ``C`` divisible by ``groups``, any ``B``, ``N`` and ``C``; ``scale`` and
-    ``bias`` both or neither, (C,) float32 contiguous."""
+    ``C`` divisible by ``groups``, any ``B`` and ``N``, a row of at most 1024
+    vectors (:func:`launch_geometry`); ``scale`` and ``bias`` both or
+    neither, (C,) float32 contiguous."""
     if x.device.type == "cpu":
         return groupnorm_reference(x, groups, fuse_silu, eps, scale, bias)
     name = "groupnorm_forward"
@@ -139,8 +171,9 @@ def groupnorm_forward(
         if t.shape != (C,) or t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be ({C},) float32 contiguous on {x.device}, got {t.shape}")
     y = torch.empty_like(x)
-    vec, rows, chunks = launch_geometry(B, N, C, x.dtype, aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    work = torch.empty(2 * B * (chunks + 1) * C, dtype=torch.float32, device=x.device)
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    vec, lanes, rows, chunks = launch_geometry(B, N, C, x.dtype, aligned)
+    work = torch.empty(2 * B * (chunks * groups + C), dtype=torch.float32, device=x.device)
     lib = _cuda.library()
     with torch.cuda.device(x.device):
         code = lib.skt_groupnorm(
@@ -149,6 +182,7 @@ def groupnorm_forward(
             None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             work.data_ptr(),
+            _arrivals(x.device, B).data_ptr(),
             B,
             N,
             C,
@@ -156,6 +190,7 @@ def groupnorm_forward(
             vec,
             rows,
             chunks,
+            lanes,
             _cuda.DTYPE_CODES[x.dtype],
             int(fuse_silu),
             eps,
@@ -206,7 +241,8 @@ def groupnorm_cl(
     (1e-5 in the conditional UNet, 1e-6 in the UNet).
 
     On CPU tensors the plain version; on CUDA tensors B8 for every shape
-    with ``C % groups == 0`` (the kernel raises on anything else).  The
+    with ``C % groups == 0`` and rows of at most 1024 vectors (the kernel
+    raises on anything else).  The
     activation must be contiguous: its ``(B, N, C)`` view is taken without
     a copy."""
     shape = x.shape

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from skrample_tpu.models import unet as junet
 from skrample_tpu.ops import groupnorm as jgn
@@ -323,3 +324,128 @@ def test_conv3x3_plan_invariants(H: int, W: int, C: int, co: int) -> None:
     ) == (plan.bn, plan.n_tiles)
     assert tfc.conv3x3_plan(H, W, 4, co).route == "mma_sync"  # C % 8 != 0: the explicit route
     assert tfc.conv3x3_plan(H, W, C, co, torch.float32).route == "f32"
+
+
+# ---- B12's f32 route: 3xTF32 products over its tiling, emulated in plain PyTorch ------------
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    "float32 rounded to the nearest TF32 value, ties away from zero (``cvt.rna.tf32.f32``), on the bits."
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _emulate_f32_b12(x, w, b, stats=None, residual=None, scale=None, bias=None, products=3):
+    """B12's f32 route computed the way its kernel tiles it (``conv3x3_plan(..., float32)``), in float32 on
+    the CPU: per (item, strip, run) the halo normalized once (zero after the norm outside the image), split
+    into TF32 halves hi + lo; the weights split the same way; per 32-channel K slice and tap, the products
+    hi * hi + hi * lo + lo * hi (``products=1``: hi * hi alone) of the row-shifted view summed in float32;
+    the padded columns dropped; then the bias and the residual."""
+    N, H, W, C = x.shape
+    Co = w.shape[3]
+    plan = tfc.conv3x3_plan(H, W, C, Co, torch.float32)
+    assert plan.route == "f32" and not plan.split_n
+    wd, bm = plan.strip_w + 2, plan.block_rows
+    xin = x.float()
+    if stats is not None:
+        y = (x.float() - stats[:, None, None, 0, :]) * stats[:, None, None, 1, :]
+        if scale is not None:
+            y = y * scale + bias
+        xin = y / (1 + torch.exp(-y))
+    taps = w.float().reshape(9, C, Co)
+    w_hi = _tf32(taps)
+    w_lo = _tf32(taps - w_hi)
+    out = torch.zeros((N, H, W, Co))
+    for n in range(N):
+        for strip in range(plan.strips):
+            w0 = strip * plan.strip_w
+            wt = min(plan.strip_w, W - w0)
+            for run in range(plan.runs):
+                q0 = run * bm
+                hr0 = q0 // wd
+                halo = torch.zeros((plan.halo_rows, wd, C))
+                for hr in range(plan.halo_rows):
+                    row = hr0 - 1 + hr
+                    if 0 <= row < H:
+                        lo, hi = max(w0 - 1, 0), min(w0 - 1 + wd, W)
+                        halo[hr, lo - (w0 - 1) : hi - (w0 - 1)] = xin[n, row, lo:hi]
+                halo = halo.reshape(-1, C)
+                a_hi = _tf32(halo)
+                a_lo = _tf32(halo - a_hi)
+                o = q0 - hr0 * wd
+                acc = torch.zeros((bm, Co))
+                for k0 in range(0, C, 32):
+                    ks = slice(k0, k0 + 32)
+                    for tap in range(9):
+                        rows = slice(o + (tap // 3) * wd + tap % 3, o + (tap // 3) * wd + tap % 3 + bm)
+                        acc += a_hi[rows, ks] @ w_hi[tap, ks]
+                        if products == 3:
+                            acc += a_hi[rows, ks] @ w_lo[tap, ks] + a_lo[rows, ks] @ w_hi[tap, ks]
+                for r in range(bm):
+                    i, j = divmod(q0 + r, wd)
+                    if i < H and j < wt:
+                        out[n, i, w0 + j] = acc[r] + b.float()
+    if residual is not None:
+        out = out + residual.float()
+    return out
+
+
+@pytest.mark.parametrize(
+    ("shape", "co", "norm"),
+    [((1, 5, 7, 12), 20, True), ((2, 3, 1, 8), 64, False), ((1, 9, 130, 16), 3, True), ((1, 6, 19, 40), 72, True)],
+)
+def test_f32_route_emulation_matches_plain(shape, co: int, norm: bool) -> None:
+    """The f32 route's three TF32 products over its own tiling (ragged strips and runs, C = 12 in a partial
+    K slice, ragged Co 3, 20 and 72) equal the plain version within 1e-5 of its largest value: the split
+    keeps f32 accuracy where one TF32 product would not."""
+    x, w, b, res, g, gb = _inputs(sum(shape) + co, shape, co)
+    stats = g_t = gb_t = None
+    if norm:
+        stats = tfc.finalize_group_stats(tfc.channel_stats(_t(x)), 4, shape[1] * shape[2])
+        g_t, gb_t = _t(g), _t(gb)
+    got = _emulate_f32_b12(_t(x), _t(w), _t(b), stats, _t(res), g_t, gb_t)
+    want, _ = tfc.conv3x3_ref(_t(x), _t(w), _t(b), stats, _t(res), g_t, gb_t)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_one_tf32_product_misses_the_tolerance_three_keep_it() -> None:
+    """At K = 9 * 512 (the SDXL VAE's 512-channel convs), against the float64 conv of the same normalized
+    input: one TF32 product (hi * hi) is off by more than the card tests' 1e-4 of the largest output;
+    the three products of the f32 route stay within it, by a wide margin (1e-5)."""
+    x, w, b, res, g, gb = _inputs(5, (1, 4, 6, 512), 16)
+    stats = tfc.finalize_group_stats(tfc.channel_stats(_t(x)), 32, 24)
+    args = (_t(x), _t(w), _t(b), stats, _t(res), _t(g), _t(gb))
+    y = (args[0].double() - stats[:, None, None, 0, :].double()) * stats[:, None, None, 1, :].double()
+    y = y * args[5].double() + args[6].double()
+    xin = y / (1 + torch.exp(-y))
+    exact = F.conv2d(xin.permute(0, 3, 1, 2), args[1].double().permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    exact = exact + args[2].double() + args[4].double()
+    top = exact.abs().max().item()
+    one = (_emulate_f32_b12(*args, products=1).double() - exact).abs().max().item() / top
+    three = (_emulate_f32_b12(*args).double() - exact).abs().max().item() / top
+    assert one > 1e-4 and three < 1e-5, (one, three)
+
+
+@pytest.mark.parametrize(("H", "W", "C", "co"), [(128, 128, 512, 512), (256, 256, 512, 512), (512, 512, 512, 256),
+                                                 (1024, 1024, 256, 128)])
+def test_conv3x3_f32_plan_invariants(H: int, W: int, C: int, co: int) -> None:
+    """B12's f32 plan at the SDXL VAE's four fused-decode shapes: route "f32", BN covering Co rounded up to
+    8 exactly with at most 128 channels a tile (a weight stage holds a hi and a lo tile), the warpgroups
+    splitting M (1 or 2 M tiles of 64 rows each), strips that cover W once within a TMA box row, runs that
+    cover the padded index space, a halo that holds every tap's view, shared memory within the H100's
+    227 KB (two halo stages, the weight stages of a hi and a lo tile), and a function of (H, W, C, Co)
+    alone.  At (128, 128, 512 -> 512) the 256-row tiles fill exactly two waves of the card's 132 SMs."""
+    plan = tfc.conv3x3_plan(H, W, C, co, torch.float32)
+    assert plan.route == "f32" and plan.args()[0] == 0 and not plan.split_n
+    assert plan.n_tiles * plan.bn == -(-co // 8) * 8 and plan.bn in (8, 16, 32, 64, 128)
+    assert plan.mt in (1, 2) and plan.block_rows == 128 * plan.mt and plan.mt * plan.bn // 2 <= 128
+    wd = plan.strip_w + 2
+    assert (plan.strips - 1) * plan.strip_w < W <= plan.strips * plan.strip_w and wd <= 256
+    assert (plan.runs - 1) * plan.block_rows < H * wd <= plan.runs * plan.block_rows
+    assert plan.halo_rows * wd >= plan.block_rows + 3 * wd + 1 and plan.halo_rows <= 256
+    halo = -(-plan.halo_rows * wd * 128 // 1024) * 1024
+    assert plan.smem == 2 * halo + plan.b_stages * 2 * plan.bn * 128 + 64 * plan.bn + (4 + 2 * plan.b_stages) * 8 + 1024
+    assert plan.smem <= 232448 and plan.b_stages >= 2 and plan.tiles == plan.strips * plan.runs
+    if (H, W, C, co) == (128, 128, 512, 512):
+        assert plan.tiles * plan.n_tiles == 2 * 132 and plan.block_rows == 256
+    assert tfc.conv3x3_plan(H, W, C - 1, co, torch.float32) == tfc.conv3x3_plan(H, W, C, co, torch.float32)

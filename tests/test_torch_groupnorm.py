@@ -130,17 +130,95 @@ def test_function_gradients_match_jax_vjp(affine: bool, fuse_silu: bool) -> None
     ],
 )
 def test_launch_geometry(batch: int, n: int, c: int, dtype: torch.dtype) -> None:
-    """B8's grid: chunks of rows that cover N with none empty, 16-byte vectors only where C
-    allows them, enough statistics blocks to fill the card at batch 4 where N allows it, and the
-    same row split at every batch size (an item's statistics do not depend on its batch)."""
-    vec, rows, chunks = tgn.launch_geometry(batch, n, c, dtype)
+    """B8's grid: a block owns whole rows (row lanes x channel vectors, the fewest row lanes that make
+    256 threads, at most 1024), 16-byte vectors only where C allows them, chunks of rows that cover N with
+    none empty, one wave of statistics blocks at batch 4 where N allows it (at least half
+    the chunks asked for: rounding the rows up can merge some), and the same split at every batch size
+    (an item's statistics do not depend on its batch); an unaligned tensor takes 1-channel vectors, and
+    a row of more than 1024 of them is refused."""
+    vec, lanes, rows, chunks = tgn.launch_geometry(batch, n, c, dtype)
     wide = 16 // torch.empty((), dtype=dtype).element_size()
     assert vec == (wide if c % wide == 0 else 1)
+    vectors = c // vec
+    assert 256 <= lanes * vectors <= 1024 and (lanes - 1) * vectors < 256
     assert (chunks - 1) * rows < n <= chunks * rows
-    slabs = math.ceil(c / vec / 32)
-    assert 4 * slabs * chunks >= min(tgn._TARGET_BLOCKS, 4 * slabs * math.ceil(n / 32))
-    assert all(tgn.launch_geometry(b, n, c, dtype) == (vec, rows, chunks) for b in (1, 2, 8))
-    assert tgn.launch_geometry(batch, n, c, dtype, aligned=False)[0] == 1
+    asked = min(
+        tgn._MAX_CHUNKS,
+        max(-(-tgn._SMS * (tgn._SM_THREADS // (lanes * vectors)) // 4), -(-n // tgn._LONG_CHUNK)),
+        math.ceil(n / (lanes * tgn._ROWS_IN_FLIGHT[vec])),
+    )
+    assert 2 * chunks >= asked and chunks <= tgn._MAX_CHUNKS
+    assert all(tgn.launch_geometry(b, n, c, dtype) == (vec, lanes, rows, chunks) for b in (1, 2, 8))
+    if c <= 1024:
+        assert tgn.launch_geometry(batch, n, c, dtype, aligned=False)[0] == 1
+    else:
+        with pytest.raises(ValueError, match="vectors"):
+            tgn.launch_geometry(batch, n, c, dtype, aligned=False)
+
+
+def _emulate_b8(x: torch.Tensor, groups: int, eps: float, geometry: tuple[int, int, int, int]) -> torch.Tensor:
+    """Each channel's ``[mean, inv]`` ``(B, 2, C)`` the way B8 reduces them, in float32: per (chunk, row
+    lane, channel) a Welford mean and M2 over the lane's rows in order; the row lanes merged per channel,
+    then the channels per group, then the chunks per group in chunk order, each by a two-pass merge about
+    the merged mean."""
+    vec, lanes, rows, chunks = geometry
+    B, N, C = x.shape
+    cg = C // groups
+    out = []
+    for item in x.float():
+        means, m2s, counts = [], [], []
+        for k in range(chunks):
+            xs = item[k * rows : min(N, (k + 1) * rows)]
+            r = xs.shape[0]
+            steps = -(-r // lanes)
+            pad = torch.cat([xs, torch.zeros(steps * lanes - r, C)]).reshape(steps, lanes, C)
+            n_lane = torch.tensor([len(range(lane, r, lanes)) for lane in range(lanes)], dtype=torch.float32)[:, None]
+            mean = torch.zeros(lanes, C)
+            m2 = torch.zeros(lanes, C)
+            for i in range(steps):
+                live = (i < n_lane).float()
+                n = torch.full((lanes, 1), float(i + 1))
+                delta = pad[i] - mean
+                mean = mean + live * delta / n
+                m2 = m2 + live * delta * (pad[i] - mean)
+            mu_c = (n_lane * mean).sum(0) / r
+            q_c = (m2 + n_lane * (mean - mu_c) ** 2).sum(0)
+            mu_g = mu_c.reshape(groups, cg).sum(-1) / cg
+            q_g = (q_c.reshape(groups, cg) + r * (mu_c.reshape(groups, cg) - mu_g[:, None]) ** 2).sum(-1)
+            means.append(mu_g)
+            m2s.append(q_g)
+            counts.append(float(r * cg))
+        n_k = torch.tensor(counts)[:, None]
+        mean_k, m2_k = torch.stack(means), torch.stack(m2s)
+        mu = (n_k * mean_k).sum(0) / (N * cg)
+        var = (m2_k + n_k * (mean_k - mu) ** 2).sum(0) / (N * cg)
+        inv = 1.0 / torch.sqrt(var + eps)
+        out.append(torch.stack([mu.repeat_interleave(cg), inv.repeat_interleave(cg)]))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize(
+    ("shape", "groups", "dtype"), [((8, 300, 40), 4, torch.bfloat16), ((2, 1000, 320), 32, torch.float32)]
+)
+def test_b8_statistics_order_matches_plain(shape, groups: int, dtype: torch.dtype) -> None:
+    """B8's statistics order (Welford per row lane, then lanes, channels and chunks merged about their
+    merged means), emulated in float32 at the kernel's own split, normalizes within 1e-5 of the plain
+    version's largest output (f32: the same centered statistics in another order); groups of 10
+    channels (C = 320) and of 10 with one 8-channel vector straddling two (C = 40 over 4).  The split is
+    the same at batch 1, 2, 4 and 8, so an item's statistics are the same bits at every batch size."""
+    x, scale, bias = _inputs(shape, sum(shape), True)
+    xt = _torch(x, dtype)
+    geometry = tgn.launch_geometry(shape[0], shape[1], shape[2], dtype)
+    assert geometry[3] > 1  # more than one chunk: the chunk merge runs
+    stats = _emulate_b8(xt, groups, 1e-5, geometry)
+    y = (xt.float() - stats[:, None, 0]) * stats[:, None, 1] * _torch(scale) + _torch(bias)
+    y = (y * torch.sigmoid(y)).to(dtype)
+    want = tgn.groupnorm_reference(xt, groups, True, 1e-5, _torch(scale), _torch(bias))
+    tol = 1e-5 if dtype == torch.float32 else 2**-7
+    assert (y.float() - want.float()).abs().max().item() <= tol * want.float().abs().max().item()
+    for b in (1, 2, 4):
+        assert tgn.launch_geometry(b, shape[1], shape[2], dtype) == geometry
+        assert torch.equal(_emulate_b8(xt[:1], groups, 1e-5, geometry)[0], stats[0])
 
 
 def test_groupnorm_cl_refuses_groups_that_do_not_divide() -> None:

@@ -1557,3 +1557,134 @@ def test_sequence_parallel_sample_on_one_card(cuda: torch.device, tmp_path) -> N
     flash, ring, ulysses = spawn_sp(1, sample_cases("bfloat16"), str(tmp_path), "nccl", "cuda")[0]
     for got in (ring, ulysses):
         assert np.isfinite(got).all() and np.abs(got - flash).max() <= 5e-2 * np.abs(flash).max()
+
+
+# ---- B12's f32 route (3xTF32 wgmma) and B8's whole-row design ------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 128])
+def test_conv_tf32_probe_one_tap(cuda: torch.device, n: int, mode: int) -> None:
+    """One tap of the f32 route's products (``tap_products_3x``: 4 K steps of wgmma m64nNk8 tf32 from
+    128-byte-swizzled K-major tiles) against float64 on the same inputs.  Mode 0 zeroes the lo halves:
+    hi * hi alone must equal the product of the TF32-rounded inputs (atol 1e-6 of its largest value: the
+    f32 sums of 32 exact products); mode 1, the full split, must equal the f32 inputs' product within
+    1e-5 (a single TF32 product is ~1e-3 off)."""
+    from skrample_tpu_torch.ops import _cuda
+
+    gen = torch.Generator(cuda).manual_seed(n + mode)
+    a = torch.randn((64, 32), generator=gen, device=cuda)
+    b = torch.randn((n, 32), generator=gen, device=cuda)
+    out = torch.full((64, n), float("nan"), device=cuda)
+    code = _cuda.library().skt_conv_tf32_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, mode, _cuda.stream())
+    _cuda.check(code, "probe")
+    torch.cuda.synchronize()
+
+    def tf32(t: torch.Tensor) -> torch.Tensor:  # round to nearest, ties away, on the bits
+        bits = t.view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    if mode == 0:
+        want = tf32(a).double() @ tf32(b).double().t()
+        tol = 1e-6
+    else:
+        want = a.double() @ b.double().t()
+        tol = 1e-5
+    assert (out.double() - want).abs().max().item() <= tol * want.abs().max().item()
+
+
+_F32_CASES = (  # (shape, Co, norm, affine, residual): the SDXL VAE decode's f32 convs, cut to a few tiles
+    ((1, 24, 40, 64), 64, True, True, True),  # a resblock's conv2: GN + affine + SiLU on read, the skip added
+    ((2, 16, 18, 96), 32, True, True, False),  # a level change (conv1: C > Co), two items
+    ((1, 33, 70, 128), 3, True, True, False),  # out_conv: 3 channels, strips and runs ragged
+    ((1, 20, 20, 4), 128, False, False, False),  # conv_in from the latent: no norm, one K slice
+    ((1, 9, 11, 40), 130, True, False, True),  # ragged C (a partial K slice) and Co (two N tiles)
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(("shape", "co", "norm", "affine", "residual"), _F32_CASES)
+def test_conv3x3_f32_route_matches_plain(
+    cuda: torch.device, shape, co: int, norm: bool, affine: bool, residual: bool
+) -> None:
+    """B12's f32 route (3xTF32 wgmma) against its plain version (cuDNN, TF32 off) at small analogues of
+    the SDXL VAE's fused-decode convs: output and statistics within 1e-4 of their largest value (the same
+    products in three TF32 parts, summed in another order), the route counted, the same bits twice, an
+    item alone the bits it gives in the batch, and a GroupNorm gain of 0 finite and equal to the plain
+    version."""
+    args = list(_b12_inputs(cuda, shape, co, torch.float32, norm, affine, residual, sum(shape) + co))
+    assert fused_conv.conv3x3_plan(*shape[1:], co, torch.float32).route == "f32"
+    before = fused_conv.conv3x3_gn_silu_forward.routes["f32"]
+    out, raw = fused_conv.conv3x3_gn_silu_forward(*args)
+    again, again_raw = fused_conv.conv3x3_gn_silu_forward(*args)
+    solo = [t if t is None or t.ndim < 2 or i in (1, 2) else t[-1:] for i, t in enumerate(args)]
+    solo[5:] = args[5:]
+    alone, alone_raw = fused_conv.conv3x3_gn_silu_forward(*solo)
+    assert fused_conv.conv3x3_gn_silu_forward.routes["f32"] == before + 3
+    want, want_raw = fused_conv.conv3x3_ref(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (*shape[:3], co) and torch.isfinite(out).all()
+    assert (out - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    for k in range(2):
+        assert (raw[:, k] - want_raw[:, k]).abs().max().item() <= 1e-4 * want_raw[:, k].abs().max().item()
+    assert torch.equal(out, again) and torch.equal(raw, again_raw)
+    assert torch.equal(alone, out[-1:]) and torch.equal(alone_raw, raw[-1:])
+    if affine:
+        args[5] = torch.zeros_like(args[5])
+        got, got_raw = fused_conv.conv3x3_gn_silu_forward(*args)
+        want, _ = fused_conv.conv3x3_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.isfinite(got_raw).all()
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_conv3x3_f32_route_pads_a_ragged_c(cuda: torch.device) -> None:
+    """At C % 4 != 0 the wrapper zero-pads the channels (TMA reads whole 16-byte units): C = 6 and 3 with
+    the norm, the affine and the statistics, within 1e-4 of the plain version."""
+    for shape, co in (((1, 12, 14, 6), 16), ((2, 7, 9, 3), 8)):
+        args = _b12_inputs(cuda, shape, co, torch.float32, True, True, True, 3 * co)
+        out, raw = fused_conv.conv3x3_gn_silu_forward(*args)
+        want, want_raw = fused_conv.conv3x3_ref(*args)
+        torch.cuda.synchronize()
+        assert (out - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        assert (raw - want_raw).abs().max().item() <= 1e-4 * want_raw.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    ("shape", "dtype", "affine"),
+    [
+        ((2, 4096, 320), torch.bfloat16, True),  # SDXL level 1 (groups of 10), cut from 16384 rows
+        ((2, 1024, 960), torch.bfloat16, True),  # groups of 30: rows of 120 vectors, 3 row lanes
+        ((1, 256, 2560), torch.bfloat16, True),  # 320 vectors a row: one row lane
+        ((1, 65536, 128), torch.float32, False),  # the unfused VAE decode's f32 norm, cut from 1048576 rows
+        ((3, 999, 64), torch.float32, True),  # ragged N, short chunks
+    ],
+)
+def test_groupnorm_whole_rows_match_plain(cuda: torch.device, shape, dtype: torch.dtype, affine: bool) -> None:
+    """B8 at small analogues of the served shapes: within 2^-7 (bf16) or 1e-5 (f32) of the largest output
+    of the plain version, the same bits twice (the arrival counter left at zero: the second launch finalizes
+    too), the first item alone the bits it gives in the batch, and finite at a gain of 0."""
+    gen = torch.Generator(cuda).manual_seed(shape[1] + shape[2])
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3 + 1.5).to(dtype)
+    C = shape[-1]
+    scale = (1 + 0.1 * torch.randn(C, generator=gen, device=cuda)) if affine else None
+    bias = 0.1 * torch.randn(C, generator=gen, device=cuda) if affine else None
+    got = groupnorm.groupnorm_forward(x, 32, True, 1e-5, scale, bias)
+    again = groupnorm.groupnorm_forward(x, 32, True, 1e-5, scale, bias)
+    alone = groupnorm.groupnorm_forward(x[:1].contiguous(), 32, True, 1e-5, scale, bias)
+    want = groupnorm.groupnorm_reference(x, 32, True, 1e-5, scale, bias)
+    torch.cuda.synchronize()
+    rel = 1e-5 if dtype == torch.float32 else 2**-7
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= rel * want.float().abs().max().item()
+    assert torch.equal(got, again) and torch.equal(alone, got[:1])
+    if affine:
+        zero = groupnorm.groupnorm_forward(x, 32, True, 1e-5, torch.zeros_like(scale), bias)
+        torch.cuda.synchronize()
+        assert torch.isfinite(zero).all()
+        want_zero = groupnorm.groupnorm_reference(x, 32, True, 1e-5, torch.zeros_like(scale), bias)
+        top = max(want_zero.float().abs().max().item(), 1e-3)
+        assert (zero.float() - want_zero.float()).abs().max().item() <= rel * top
