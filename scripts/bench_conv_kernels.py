@@ -30,6 +30,9 @@ import sys
 import time
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import card_time  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 494.7e12
@@ -117,7 +120,9 @@ def host_us(fn, calls: int = 200) -> float:
 
 def split_ms(fn, groups, calls: int = 20) -> dict[str, float]:
     """Card time of one call by kernel group, from a torch.profiler trace of ``calls`` calls: ``groups`` is
-    (label, name needle) pairs; a kernel that matches none counts under "other"."""
+    (label, name needle) pairs; a kernel that matches none counts under "other".  The groups' times add up
+    to the union of the kernels' spans (``chip_smoke.card_time``): a programmatic dependent launch is
+    traced from its launch, and the part of its span under the kernel before it counts for that kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -128,15 +133,15 @@ def split_ms(fn, groups, calls: int = 20) -> dict[str, float]:
             fn()
         torch.cuda.synchronize()
     out: dict[str, float] = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            label = next((name for name, needle in groups if needle in e.key), "other")
-            out[label] = out.get(label, 0.0) + e.device_time_total / 1e3 / calls
+    kernel_ms, _launches, _busy = card_time(prof)
+    for kernel, ms in kernel_ms.items():
+        label = next((name for name, needle in groups if needle in kernel), "other")
+        out[label] = out.get(label, 0.0) + ms / calls
     return out
 
 
-def load_tree(root: Path):
-    "The ``fused_conv`` and ``groupnorm`` modules of the tree at ``root``, with its own kernel build directory."
+def load_tree(root: Path, names: tuple[str, ...] = ("ops.fused_conv", "ops.groupnorm")):
+    "The ``skrample_tpu_torch`` modules ``names`` of the tree at ``root``, with its own kernel build directory."
     import os
 
     for name in [m for m in sys.modules if m == "skrample_tpu_torch" or m.startswith("skrample_tpu_torch.")]:
@@ -144,15 +149,14 @@ def load_tree(root: Path):
     sys.path.insert(0, str(root))
     os.environ["SKRAMPLE_TPU_TORCH_BUILD"] = str(root / "build" / "skrample_tpu_torch")
     try:
-        module = importlib.import_module("skrample_tpu_torch.ops.fused_conv")
-        gn = importlib.import_module("skrample_tpu_torch.ops.groupnorm")
+        modules = tuple(importlib.import_module(f"skrample_tpu_torch.{name}") for name in names)
         cuda = importlib.import_module("skrample_tpu_torch.ops._cuda")
         t0 = time.perf_counter()
         cuda.library()
         print(f"{root}: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     finally:
         sys.path.remove(str(root))
-    return module, gn
+    return modules
 
 
 def b12_inputs(fc, case, gen, dtype=None):

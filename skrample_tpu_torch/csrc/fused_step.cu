@@ -8,14 +8,26 @@
 // `rows` latents with 2*K*rows flops per element, far below the card's
 // 295 flop/byte ridge; at the serving slice's shape (K = 4, rows = 1, f32
 // (4, 4, 64, 64) latents) that is 1.31 MB, 0.39 us at 3.35 TB/s, so in
-// practice a launch costs more than the traffic.
+// practice a launch and one memory round trip cost more than the traffic.
 //
 // What the design does about it:
 // * the K basis POINTERS and the rows x K weights travel in one by-value
 //   kernel parameter (FusedStepArgs), so there is no stacked copy of the
 //   basis and no per-step host-to-device copy of the weights;
-// * each thread moves 16 bytes per basis with one vector load (4 f32 or
-//   8 bf16 values) and reads each basis once for all rows;
+// * rows and K are template parameters: every (rows, K) that the samplers
+//   emit with K <= 16 (rows 1 and 3, f32 and bf16) has its own instance, so
+//   a thread issues its K 16-byte loads back to back before its first
+//   multiply, and reads each basis once for all rows; K 17-32 (high-order
+//   multistep samplers), and rows 2, which no sampler emits, take one
+//   instance a rows count, unrolled to 32 with the bound read at run time
+//   (0.1-0.6 us slower at K 4 and 7 on the H100: PERF.md);
+// * the grid comes from ops/fused.py step_plan: blocks of 32-128 threads,
+//   as wide as still gives every SM a block at the paths' smallest latents
+//   (16384 f32 or 8192 bf16 vectors), a thread taking several vectors only
+//   past one wave of the card;
+// * a programmatic dependent launch (Hopper): the launch may overlap the
+//   tail of the stream's previous kernel, and the blocks wait in
+//   `griddepcontrol.wait` for its results before their first load;
 // * the arithmetic repeats the plain chain exactly: every product and every
 //   partial sum is rounded to the tensor's dtype in the same order as
 //   `acc = b[0]*w[0]; acc = acc + b[k]*w[k]` in PyTorch (no FMA
@@ -27,9 +39,10 @@
 
 namespace {
 
-constexpr int kMaxK = 16;
+constexpr int kMaxK = 32;
+constexpr int kUnrolledK = 16;  // K up to this has an instance of its own at rows 1 and 3
 constexpr int kMaxRows = 3;
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 128;
 
 }  // namespace
 
@@ -41,7 +54,9 @@ struct FusedStepArgs {
     long long n;  // elements per latent
     int K;
     int rows;
-    int vec;  // 1 when every pointer is 16-byte aligned
+    int vec;      // 1 when every pointer is 16-byte aligned
+    int threads;  // a block, and
+    int blocks;   // the grid (fused.step_plan)
 };
 
 namespace {
@@ -77,77 +92,116 @@ __device__ __forceinline__ float chain(float acc, float b, float w, bool first) 
     return first ? prod : Elem<T>::round(__fadd_rn(acc, prod));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) fused_step_kernel(const FusedStepArgs a) {
+// K > kUnrolledK: the kMaxK instance, K read from the arguments
+template <typename T, int R, int K>
+__global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(const FusedStepArgs a) {
+    constexpr bool kRuntimeK = K > kUnrolledK;
     constexpr int V = Elem<T>::kVec;
     using Bits = typename Elem<T>::Bits;
     union Pack {
         uint4 raw;
         Bits e[V];
     };
+    // a programmatic dependent launch may start before the previous kernel's results are visible: wait for
+    // them before the first load
+    asm volatile("griddepcontrol.wait;" ::: "memory");
     const long long stride = (long long)gridDim.x * blockDim.x;
     const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long nvec = a.vec ? a.n / V : 0;
 
     for (long long v = tid; v < nvec; v += stride) {
-        float acc[kMaxRows][V] = {};
+        Pack in[K];
 #pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-            if (k < a.K) {
-                Pack in;
-                in.raw = reinterpret_cast<const uint4*>(a.basis[k])[v];
-#pragma unroll
-                for (int r = 0; r < kMaxRows; ++r) {
-                    if (r < a.rows) {
-#pragma unroll
-                        for (int e = 0; e < V; ++e) {
-                            acc[r][e] = chain<T>(acc[r][e], Elem<T>::to_float(in.e[e]), a.w[r][k], k == 0);
-                        }
-                    }
-                }
-            }
+        for (int k = 0; k < K; ++k) {
+            if (!kRuntimeK || k < a.K) in[k].raw = __ldg(reinterpret_cast<const uint4*>(a.basis[k]) + v);
         }
 #pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-            if (r < a.rows) {
-                Pack o;
+        for (int r = 0; r < R; ++r) {
+            float acc[V] = {};
 #pragma unroll
-                for (int e = 0; e < V; ++e) o.e[e] = Elem<T>::from_float(acc[r][e]);
-                reinterpret_cast<uint4*>(a.out[r])[v] = o.raw;
+            for (int k = 0; k < K; ++k) {
+                if (kRuntimeK && k >= a.K) break;
+#pragma unroll
+                for (int e = 0; e < V; ++e) acc[e] = chain<T>(acc[e], Elem<T>::to_float(in[k].e[e]), a.w[r][k], k == 0);
             }
+            Pack o;
+#pragma unroll
+            for (int e = 0; e < V; ++e) o.e[e] = Elem<T>::from_float(acc[e]);
+            reinterpret_cast<uint4*>(a.out[r])[v] = o.raw;
         }
     }
 
     // scalar remainder: the tail past the last full vector, or everything
     // when some pointer is not 16-byte aligned
     for (long long i = nvec * V + tid; i < a.n; i += stride) {
-        float acc[kMaxRows] = {};
+        float b[K];
 #pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-            if (k < a.K) {
-                const float b = Elem<T>::to_float(reinterpret_cast<const Bits*>(a.basis[k])[i]);
-#pragma unroll
-                for (int r = 0; r < kMaxRows; ++r) {
-                    if (r < a.rows) acc[r] = chain<T>(acc[r], b, a.w[r][k], k == 0);
-                }
-            }
+        for (int k = 0; k < K; ++k) {
+            if (!kRuntimeK || k < a.K) b[k] = Elem<T>::to_float(reinterpret_cast<const Bits*>(a.basis[k])[i]);
         }
 #pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-            if (r < a.rows) reinterpret_cast<Bits*>(a.out[r])[i] = Elem<T>::from_float(acc[r]);
+        for (int r = 0; r < R; ++r) {
+            float acc = 0.f;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                if (kRuntimeK && k >= a.K) break;
+                acc = chain<T>(acc, b[k], a.w[r][k], k == 0);
+            }
+            reinterpret_cast<Bits*>(a.out[r])[i] = Elem<T>::from_float(acc);
         }
     }
 }
 
+template <typename T, int R, int K>
+cudaError_t launch_instance(const FusedStepArgs& a, cudaStream_t stream) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3((unsigned)a.blocks);
+    config.blockDim = dim3((unsigned)a.threads);
+    config.dynamicSmemBytes = 0;
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    return cudaLaunchKernelEx(&config, fused_step_kernel<T, R, K>, a);
+}
+
+// a rows count's instances: K = 1 .. kUnrolledK, then the kMaxK one
+template <typename T, int R>
+cudaError_t launch_rows(const FusedStepArgs& a, cudaStream_t stream) {
+    switch (a.K) {
+#define SKT_STEP_K(K) \
+    case K:           \
+        return launch_instance<T, R, K>(a, stream);
+        SKT_STEP_K(1)
+        SKT_STEP_K(2)
+        SKT_STEP_K(3)
+        SKT_STEP_K(4)
+        SKT_STEP_K(5)
+        SKT_STEP_K(6)
+        SKT_STEP_K(7)
+        SKT_STEP_K(8)
+        SKT_STEP_K(9)
+        SKT_STEP_K(10)
+        SKT_STEP_K(11)
+        SKT_STEP_K(12)
+        SKT_STEP_K(13)
+        SKT_STEP_K(14)
+        SKT_STEP_K(15)
+        SKT_STEP_K(16)
+#undef SKT_STEP_K
+        default:
+            return launch_instance<T, R, kMaxK>(a, stream);
+    }
+}
+
 template <typename T>
-int launch(const FusedStepArgs& a, cudaStream_t stream) {
-    constexpr int V = Elem<T>::kVec;
-    const long long work = a.vec ? a.n / V + a.n % V : a.n;
-    long long blocks = (work + kThreads - 1) / kThreads;
-    if (blocks < 1) blocks = 1;
-    if (blocks > 4096) blocks = 4096;
-    fused_step_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(a);
-    return (int)cudaGetLastError();
+cudaError_t launch(const FusedStepArgs& a, cudaStream_t stream) {
+    const cudaError_t err = a.rows == 1   ? launch_rows<T, 1>(a, stream)
+                            : a.rows == 3 ? launch_rows<T, 3>(a, stream)
+                                          : launch_instance<T, 2, kMaxK>(a, stream);
+    return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -156,9 +210,10 @@ extern "C" int skt_fused_step(const FusedStepArgs* args, int size, int dtype, cu
     if (size != (int)sizeof(FusedStepArgs)) return (int)cudaErrorInvalidValue;
     const FusedStepArgs a = *args;
     if (a.K < 1 || a.K > kMaxK || a.rows < 1 || a.rows > kMaxRows || a.n < 0) return (int)cudaErrorInvalidValue;
+    if (a.threads < 32 || a.threads > kMaxThreads || a.threads % 32 || a.blocks < 1) return (int)cudaErrorInvalidValue;
     if (a.n == 0) return (int)cudaGetLastError();
-    if (dtype == 0) return launch<float>(a, stream);
-    if (dtype == 1) return launch<__nv_bfloat16>(a, stream);
+    if (dtype == 0) return (int)launch<float>(a, stream);
+    if (dtype == 1) return (int)launch<__nv_bfloat16>(a, stream);
     return (int)cudaErrorInvalidValue;
 }
 

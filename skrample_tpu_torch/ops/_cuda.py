@@ -66,9 +66,10 @@ _SIGNATURES: dict[str, list] = {
     # x, shift, scale, out, B, N, D, shift row stride, scale row stride, dtype, eps, stream
     "skt_adaln": [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F, _P],
     "skt_adaln_supports": [_I],  # D -> 1 when the kernel is instantiated for that width
-    # x, g, scale, dx, partials, dshift, dscale, B, N, D, scale row stride, dtype, eps, stream
-    "skt_adaln_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _F, _P],
-    "skt_adaln_backward_rows": [],  # token rows per block of the backward (sizes its partials)
+    # x, g, scale, dx, partials, dshift, dscale, B, N, D, chunks (adaln.backward_chunks), scale row stride, dtype,
+    # eps, stream
+    "skt_adaln_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _F, _P],
+    "skt_adaln_backward_rows": [_I],  # D -> token rows a block of the backward (sizes its partials)
     "skt_quant_rows": [_P, _P, _P, _L, _I, _I, _P],  # x, q, s, R, D, dtype, stream
     # qkv in, out (the same pointer: in place), cos, sin, table row stride, q gain, k gain, B, N, H, d, dtype, eps, stream
     "skt_rope_qk_norm": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F, _P],

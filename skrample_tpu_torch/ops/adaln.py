@@ -106,6 +106,22 @@ def adaln_backward_reference(
     return dx, g32.sum(1), (g32 * xhat).sum(1)
 
 
+def backward_rows(d: int) -> int:
+    """K6's token rows a block at width ``d``, as the kernel is built
+    (``skt_adaln_backward_rows`` in ``csrc/adaln.cu``, which owns the
+    geometry); 0 for a width without an instance."""
+    return _cuda.library().skt_adaln_backward_rows(d)
+
+
+def backward_chunks(n: int, rows: int) -> int:
+    """Chunks of ``rows`` tokens (:func:`backward_rows`) that cover an item
+    of ``n`` tokens, the last maybe short: K6's grid is ``(chunks, batch)``,
+    each block writes one f32 partial row, and the count never reads the
+    batch size, so an item's sums are added in the same order at any
+    batch."""
+    return -(-n // rows)
+
+
 def adaln_backward(
     x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -115,8 +131,10 @@ def adaln_backward(
     On CPU tensors this is :func:`adaln_backward_reference`.  On CUDA
     tensors it launches the kernels or raises, on what K3 takes, with ``g``
     of x's shape and dtype and contiguous.  The sums over tokens are
-    reduced per block of rows into a float32 scratch and then added in block
-    order by a second small kernel: no atomics, the same bits on every run."""
+    reduced per chunk of rows (:func:`backward_chunks`) into a float32
+    scratch, which a second small kernel, launched as a programmatic
+    dependent of the first, adds in chunk order: no atomics, the same bits
+    on every run and for an item at any batch size."""
     if x.device.type == "cpu":
         return adaln_backward_reference(x, g, scale)
     name = "adaln_backward"
@@ -139,8 +157,8 @@ def adaln_backward(
     dx = torch.empty_like(x)
     if any(t.data_ptr() % 16 for t in (x, g, scale, dx)) or scale.stride(0) % 8:
         raise ValueError(f"{name}: tensors must be 16-byte aligned")
-    rows = lib.skt_adaln_backward_rows()
-    partials = torch.empty((B, -(-N // rows), 2, D), dtype=torch.float32, device=x.device)
+    chunks = backward_chunks(N, backward_rows(D))
+    partials = torch.empty((B, chunks, 2, D), dtype=torch.float32, device=x.device)
     dshift = torch.empty((B, D), dtype=torch.float32, device=x.device)
     dscale = torch.empty((B, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -155,6 +173,7 @@ def adaln_backward(
             B,
             N,
             D,
+            chunks,
             scale.stride(0),
             _cuda.DTYPE_CODES[x.dtype],
             _EPS,

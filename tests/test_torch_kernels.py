@@ -51,6 +51,63 @@ def test_fused_step_kernel_matches_plain(cuda: torch.device, dtype: torch.dtype,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(("rows", "K"), [(r, k) for r in (1, 2, 3) for k in (*range(1, 17), 17, 30, 32)])
+def test_fused_step_every_instance_is_bit_exact(cuda: torch.device, dtype: torch.dtype, rows: int, K: int) -> None:
+    """Every K1 instance (rows 1 and 3: K 1-16 each its own, 17-32 the shared one; rows 2: the shared
+    one at every K) against the plain chain, tolerance 0: 4099 elements a latent (16-byte vectors,
+    then a 3-element scalar tail)."""
+    gen = torch.Generator(cuda).manual_seed(100 * rows + K)
+    w = np.random.default_rng(K).standard_normal((rows, K))
+    basis = [torch.randn(4099, generator=gen, device=cuda).to(dtype) for _ in range(K)]
+    got = fused.fused_step_cuda(w, basis)
+    assert torch.equal(got, fused.fused_step(w, basis))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_step_unaligned_basis_takes_the_scalar_path(cuda: torch.device, dtype: torch.dtype) -> None:
+    "Basis tensors that are views at an offset of one element: no 16-byte vector, bit-exact all the same."
+    gen = torch.Generator(cuda).manual_seed(5)
+    w = np.random.default_rng(5).standard_normal((3, 5))
+    basis = [torch.randn(65537, generator=gen, device=cuda).to(dtype)[1:] for _ in range(5)]
+    assert all(t.data_ptr() % 16 for t in basis)
+    assert torch.equal(fused.fused_step_cuda(w, basis), fused.fused_step(w, basis))
+
+
+@pytest.mark.gpu
+def test_fused_step_programmatic_launch_in_a_graph(cuda: torch.device) -> None:
+    """K1 is a programmatic dependent launch: right after the kernel that writes one of its basis
+    tensors, eager and captured in a CUDA graph and replayed, it gives the plain chain's bits on
+    that kernel's output."""
+    gen = torch.Generator(cuda).manual_seed(6)
+    w = np.random.default_rng(6).standard_normal((1, 4))
+    basis = [torch.randn((4, 4, 64, 64), generator=gen, device=cuda) for _ in range(4)]
+    source = torch.randn((4, 4, 64, 64), generator=gen, device=cuda)
+
+    def step() -> torch.Tensor:
+        torch.mul(source, 3.0, out=basis[1])  # the model's output, written just before the step
+        return fused.fused_step_cuda(w, basis)
+
+    got = step()
+    want = fused.fused_step(w, basis)
+    assert torch.equal(got, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step()
+    basis[1].zero_()
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_fused_step_kernel_raises_on_what_it_cannot_take(cuda: torch.device) -> None:
     x = torch.zeros(16, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
@@ -229,6 +286,80 @@ def test_adaln_backward_kernel_matches_plain(cuda: torch.device, dtype: torch.dt
         assert (mine.float() - want.float()).abs().max().item() <= rel * want.float().abs().max().item()
     for a, b in zip(got, adaln.adaln_backward(x, g, scale)):
         assert torch.equal(a, b)
+
+
+def _adaln_bwd_inputs(cuda: torch.device, shape: tuple[int, int, int], dtype: torch.dtype, seed: int):
+    B, N, D = shape
+    gen = torch.Generator(cuda).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2 + 0.3).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    mods = torch.randn((B, 3 * D), generator=gen, device=cuda).to(dtype)
+    return x, g, mods[:, 2 * D :]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(("N", "D"), [(1, 512), (17, 512), (250, 768), (1000, 512), (17, 1152), (250, 3072)])
+def test_adaln_backward_kernel_at_ragged_n(cuda: torch.device, dtype: torch.dtype, N: int, D: int) -> None:
+    """K6 at token counts that leave a short last chunk (or a single row), with the column sums in
+    registers (D <= 1024) and in shared memory (1152, 3072): the tolerances of
+    ``test_adaln_backward_kernel_matches_plain``, one count a call, and the same bits on a second
+    call."""
+    x, g, scale = _adaln_bwd_inputs(cuda, (3, N, D), dtype, N + D)
+    before = adaln.adaln_backward.launches
+    got = adaln.adaln_backward(x, g, scale)
+    assert adaln.adaln_backward.launches == before + 1
+    ref = adaln.adaln_backward_reference(x, g, scale)
+    for i, (mine, want) in enumerate(zip(got, ref)):
+        rel = (1e-4 if dtype == torch.float32 else 2**-7) if i == 0 else 1e-4
+        assert torch.isfinite(mine).all()
+        assert (mine.float() - want.float()).abs().max().item() <= rel * want.float().abs().max().item()
+    for a, b in zip(got, adaln.adaln_backward(x, g, scale)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adaln_backward_item_alone_equals_the_item_in_a_batch(cuda: torch.device, dtype: torch.dtype) -> None:
+    "K6's chunking never reads the batch: item 2 alone and inside a batch of 4 give the same bits."
+    x, g, scale = _adaln_bwd_inputs(cuda, (4, 1000, 512), dtype, 9)
+    batch = adaln.adaln_backward(x, g, scale)
+    alone = adaln.adaln_backward(x[2:3].contiguous(), g[2:3].contiguous(), scale[2:3])
+    for a, b in zip(alone, batch):
+        assert torch.equal(a[0], b[2])
+
+
+@pytest.mark.gpu
+def test_adaln_backward_rows(cuda: torch.device) -> None:
+    """K6's token rows a block, as built (``skt_adaln_backward_rows``): 32 (8 warps of 4) up to
+    D 1024, 16 above, 0 for a width without an instance; the geometry that
+    ``test_torch_step_kernels.py`` emulates."""
+    from skrample_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for d in range(64, 3200, 64):
+        want = (32 if d <= 1024 else 16) if lib.skt_adaln_supports(d) else 0
+        assert adaln.backward_rows(d) == want, d
+
+
+@pytest.mark.gpu
+def test_adaln_backward_on_two_streams(cuda: torch.device) -> None:
+    """K6 on two streams at once, each call with its own scratch: the bits of the default stream's
+    call."""
+    args = _adaln_bwd_inputs(cuda, (4, 1024, 512), torch.bfloat16, 10)
+    want = adaln.adaln_backward(*args)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(adaln.adaln_backward(*args))
+    torch.cuda.synchronize()
+    for got in outs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
