@@ -83,7 +83,20 @@ Phases, each failing the run with a non-zero exit:
     (B9a once a block) through ``ServingEngine``: exact launches, A alone ==
     A packed bit for bit, each request against its flash DiT's, one forward
     against the plain versions, latency medians and one traced request.
-    Phase 2 holds B11 to its plain version at four ring-hop shapes.
+    Phase 2 holds B11 to its plain version at four ring-hop shapes;
+12. the library's generation surface: ``GenerationPipeline`` over phase 3's
+    DiT-512/8 (25-step DPM++2M / FlowShift(Linear)): deterministic, bit for
+    bit the ``ServingEngine`` request of the same seed; stochasticity 0.3
+    with in-loop key noise (``CompiledDenoiser.run(key=)``: the same key
+    twice bit for bit, the kernels against the plain versions, the host
+    cost of one threefry draw); Brownian structured noise (``stack_noise``
+    timed), img2img at strength 0.6 and CFG 3.0; latency medians; the
+    functional ``RKUltra(order=4)`` loop over the same DiT (K2/K3 a model
+    call, no K1; against the plain versions); ``SDXLStack.pipeline`` over
+    phase 7's UNet at 1024x1024 with CFG 5.0, bit for bit phase 7's request
+    A; and the noise generators on the card against the CPU (threefry bits
+    and uniforms exact, normals 1e-5, Pyramid and Colored 1e-4 relative),
+    with exact launches on every counted request.
 
 Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
@@ -1982,7 +1995,7 @@ def sdxl_phase(card: str) -> tuple[dict[str, int], dict]:
     )
     expect(bool(torch.isfinite(plain).all()) and vs_plain <= 5e-2, f"sdxl: kernel forward differs by {vs_plain}")
     print(f"sdxl: phase took {time.perf_counter() - phase_t0:.1f} s")
-    parts = {"unet": unet, "contexts": contexts, "uncond": uncond, "per_forward": per_forward}
+    parts = {"unet": unet, "contexts": contexts, "uncond": uncond, "per_forward": per_forward, "request_a": outs[2]}
     return launches, parts
 
 
@@ -3062,6 +3075,281 @@ def _sp_serve(label: str, model, flash, per_forward: dict[str, int], card: str) 
     return launches
 
 
+PIPE_SHAPE = (1, 4, 64, 64)  # one DiT-512/8 request's latent, with its batch axis
+PIPE_REPEATS = 5  # requests per latency median
+
+
+def _pipeline_request(label: str, run, want: dict[str, int], total: dict[str, int]) -> object:
+    """One main-path request of phase 12: the counters set to 0 just before it, read just after, held to
+    ``want`` exactly and added to ``total``; the output must be finite."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counters()
+    out = run()
+    torch.cuda.synchronize()
+    launches = _counters()
+    want = {name: want.get(name, 0) for name in launches}
+    print(f"pipeline {label}: launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+    expect(launches == want, f"pipeline {label}: launched {launches}, expected {want}")
+    expect(bool(torch.isfinite(out).all()), f"pipeline {label}: non-finite output")
+    for name, count in launches.items():
+        total[name] += count
+    return out
+
+
+def _median_ms(run, repeats: int = PIPE_REPEATS) -> tuple[float, list[float]]:
+    "The median of ``repeats`` host-clock request latencies, each ending in its result's copy to the host."
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        run().cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def _noise_on_card_vs_cpu() -> None:
+    """Phase 12d: the noise generators drawn on the card against the same seed drawn on the CPU, at
+    (1, 4, 64, 64) and steps 0, 12 and 24 of 25."""
+    import torch
+
+    from skrample_tpu_torch import noise, prng
+    from skrample_tpu_torch.common import Step
+
+    dev = torch.device("cuda")
+    key = prng.PRNGKey(2024)
+    bits_equal = torch.equal(prng.random_bits(key, PIPE_SHAPE, device=dev).cpu(), prng.random_bits(key, PIPE_SHAPE))
+    uniforms_equal = all(
+        torch.equal(prng.uniform(key, PIPE_SHAPE, dtype, device=dev).cpu(), prng.uniform(key, PIPE_SHAPE, dtype))
+        for dtype in (torch.float32, torch.bfloat16, torch.float16)
+    )
+    normal_err = max_err(prng.normal(key, PIPE_SHAPE, device=dev).cpu(), prng.normal(key, PIPE_SHAPE))
+    print(
+        f"pipeline noise: prng bits equal {bits_equal}, uniforms (f32, bf16, f16) equal {uniforms_equal} (tolerance 0); "
+        f"normals max abs err {normal_err:.3e} (tolerance 1e-5: CUDA's erfinv vs the CPU's)"
+    )
+    expect(bits_equal and uniforms_equal, "pipeline noise: threefry bits or uniforms differ on the card")
+    expect(normal_err <= 1e-5, f"pipeline noise: normals differ by {normal_err}")
+    for name in ("Random", "Offset", "Pyramid", "Colored", "Brownian"):
+        cls = getattr(noise, name)
+        on_card, on_cpu = cls.from_inputs(PIPE_SHAPE, 5, device=dev), cls.from_inputs(PIPE_SHAPE, 5, device="cpu")
+        errs = []
+        for n in (0, 12, 24):
+            got = on_card.generate(n, Step.from_int(n, STEPS)).cpu()
+            want = on_cpu.generate(n, Step.from_int(n, STEPS))
+            expect(tuple(got.shape) == PIPE_SHAPE and bool(torch.isfinite(got).all()), f"pipeline noise: bad {name}")
+            errs.append(_relative(got, want) if name in ("Pyramid", "Colored") else max_err(got, want))
+        if name in ("Pyramid", "Colored"):
+            how = "relative max err", 1e-4, "cuBLAS products" if name == "Pyramid" else "cuFFT vs pocketfft"
+        else:
+            how = "max abs err", 1e-5, "CUDA's erfinv vs the CPU's"
+        print(
+            f"pipeline noise: {name} on the card vs the CPU, steps 0/12/24: {how[0]} "
+            f"{', '.join(f'{e:.3e}' for e in errs)} (tolerance {how[1]:g}: {how[2]})"
+        )
+        expect(max(errs) <= how[1], f"pipeline noise: {name} differs on the card by {max(errs)}")
+
+
+def pipeline_phase(card: str, parts: dict) -> dict[str, int]:
+    """Phase 12: the library's generation surface on the card.  (a) ``GenerationPipeline`` over phase
+    3's DiT-512/8 (bf16, the same random tree), 25-step DPM++2M over FlowShift(Linear) with FlowModel:
+    deterministic, equal bit for bit to ``ServingEngine``'s request of the same seed; with stochasticity
+    0.3 and in-loop key noise (``CompiledDenoiser.run(key=)``), the same key twice bit for bit and the
+    kernels against the plain versions; with Brownian structured noise (``stack_noise`` timed), img2img
+    at strength 0.6 (entering at step 10) and CFG 3.0 through a second DiT as ``uncond_model_fn``;
+    latency medians, and the host cost of one in-loop threefry normal.  (b) ``RKUltra(order=4)`` (the
+    functional RK loop) over the same DiT, K2/K3 as many times as its model calls, no K1.  (c)
+    ``SDXLStack.pipeline`` over phase 7's UNet, 1024x1024, CFG 5.0: phase 7's request A.  (d) the
+    noise generators on the card against the CPU.  Returns the main path's launches (the counted
+    requests of a-c)."""
+    import torch
+
+    from skrample_tpu_torch import prng, scheduling
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.sdxl import SDXLStack
+    from skrample_tpu_torch.noise import Brownian, BrownianProps, stack_noise
+    from skrample_tpu_torch.ops import adaln, flash_attention, fused
+    from skrample_tpu_torch.pipeline import GenerationPipeline
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.sampling.rk_solvers import RKUltra
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    config = DiTConfig(
+        dim=512, depth=DEPTH, heads=4, patch=2, channels=4, compute_dtype=torch.bfloat16, attention="flash"
+    )
+    model = DiT(config, device=dev).load_jax_params(random_param_tree(config, seed=0)).requires_grad_(False)
+    uncond = DiT(config, device=dev).load_jax_params(random_param_tree(config, seed=1)).requires_grad_(False)
+    schedule, transform = scheduling.FlowShift(scheduling.Linear()), models.FlowModel()
+
+    def pipeline(stochasticity: float = 0.0, **kwargs) -> GenerationPipeline:
+        return GenerationPipeline(
+            model.as_sampleable(), structured.DPM(order=2, stochasticity=stochasticity), schedule, transform, STEPS,
+            PIPE_SHAPE, device=dev, **kwargs,
+        )
+
+    def per_request(steps: int, forwards: int = 1) -> dict[str, int]:
+        return {
+            "fused_step_cuda": steps,
+            "flash_attention_qkv_forward": DEPTH * steps * forwards,
+            "adaln_forward": (2 * DEPTH + 1) * steps * forwards,
+        }
+
+    plain_kernels = (
+        mock.patch("skrample_tpu_torch.ops.loop.fused_step_cuda", lambda w, basis: fused.fused_step(w, basis)),
+        mock.patch.object(flash_attention, "flash_attention_qkv_forward", flash_attention._qkv_reference),
+        mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+    )
+
+    # ---- a.1: deterministic DPM++2M, against ServingEngine's request of the same seed ----
+    det = pipeline()
+    det.generate(99).cpu()  # warm-up: library handles, allocator
+    got = _pipeline_request("DiT deterministic", lambda: det.generate(SEEDS[0]), per_request(STEPS), total).cpu()
+    with ServingEngine(
+        model.as_sampleable(), PIPE_SHAPE[1:], structured.DPM(order=2), schedule, transform, STEPS, buckets=(1,),
+        device=dev,
+    ) as engine:
+        served = engine.generate(SEEDS[0]).cpu()
+    bit_equal = torch.equal(got[0], served)
+    print(
+        f"pipeline DiT deterministic: GenerationPipeline.generate({SEEDS[0]}) vs ServingEngine.generate({SEEDS[0]}): "
+        f"bit-equal {bit_equal}, max abs err {max_err(got[0], served):.3e} (tolerance 0)"
+    )
+    expect(bit_equal, "pipeline: the deterministic DiT pipeline differs from ServingEngine's request")
+
+    # ---- a.2: stochasticity 0.3, per-step noise drawn in the loop from the request key ----
+    sde = pipeline(0.3)
+    sde.generate(98).cpu()
+    noisy = _pipeline_request("DiT stochastic", lambda: sde.generate(SEEDS[1]), per_request(STEPS), total).cpu()
+    again = sde.generate(SEEDS[1]).cpu()
+    expect(torch.equal(noisy, again), "pipeline: the same key gave another image")
+    expect(_relative(noisy, got) > 1e-2, "pipeline: stochasticity 0.3 did not move the image")
+    _reset_counters()
+    with plain_kernels[0], plain_kernels[1], plain_kernels[2]:
+        plain = sde.generate(SEEDS[1]).cpu()
+    expect(not any(_counters().values()), f"pipeline: the plain run launched kernels: {_counters()}")
+    vs_plain = _relative(noisy, plain)
+    print(
+        f"pipeline DiT stochastic (in-loop key noise): same key twice bit-equal True; kernels vs plain versions "
+        f"relative max err {vs_plain:.3e} (tolerance 5e-2, bf16)"
+    )
+    expect(bool(torch.isfinite(plain).all()) and vs_plain <= 5e-2, f"pipeline: kernels vs plain {vs_plain}")
+    key = prng.PRNGKey(SEEDS[1])
+    draw_us = host_us(lambda: prng.normal(key, PIPE_SHAPE, torch.float32, dev))
+    print(
+        f"pipeline: one in-loop threefry normal of {PIPE_SHAPE} (a step's noise): {draw_us:.1f} us of host time "
+        f"(median of 200 eager draws; {card})"
+    )
+
+    # ---- a.3: Brownian structured noise, img2img at strength 0.6, CFG 3.0 ----
+    gen = Brownian.from_inputs(PIPE_SHAPE, SEEDS[2], BrownianProps(), device=dev)
+    stack_noise(gen, 2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    noises = stack_noise(gen, STEPS)
+    torch.cuda.synchronize()
+    stack_ms = (time.perf_counter() - t0) * 1e3
+    print(
+        f"pipeline: stack_noise(Brownian(depth {gen.depth}), {STEPS}) on the card: {stack_ms:.1f} ms "
+        f"(host clock, synchronized; {tuple(noises.shape)}; {card})"
+    )
+    brown = pipeline(0.3, noise_generator=gen)
+    expect(torch.equal(brown._noises, noises), "pipeline: the cached Brownian noise differs from stack_noise's")
+    _pipeline_request("DiT Brownian", lambda: brown.generate(SEEDS[2]), per_request(STEPS), total)
+    start = min(round(STEPS * (1 - 0.6)), STEPS - 1)
+    expect(start == 10, f"pipeline: img2img at 0.6 enters at {start}")
+    initial = got.to(dev)
+    _pipeline_request(
+        "DiT Brownian img2img 0.6", lambda: brown.generate(SEEDS[2], initial, 0.6), per_request(STEPS - start), total
+    )
+    cfg = pipeline(0.3, uncond_model_fn=uncond.as_sampleable(), guidance_scale=3.0)
+    cfg.generate(97).cpu()
+    _pipeline_request("DiT CFG 3.0", lambda: cfg.generate(SEEDS[3]), per_request(STEPS, 2), total)
+
+    # ---- a.4: latency medians, one configuration after another (the engine first); one traced request ----
+    with ServingEngine(
+        model.as_sampleable(), PIPE_SHAPE[1:], structured.DPM(order=2), schedule, transform, STEPS, buckets=(1,),
+        device=dev,
+    ) as engine:
+        medians = {
+            "ServingEngine, deterministic": _median_ms(lambda: engine.generate(302)),
+            "deterministic": _median_ms(lambda: det.generate(303)),
+            "stochastic in-loop key noise": _median_ms(lambda: sde.generate(300)),
+            "Brownian structured noise (precomputed)": _median_ms(lambda: brown.generate(301)),
+        }
+    for label, (median, every) in medians.items():
+        print(
+            f"pipeline: request latency, {label}: median {median:.2f} ms of {PIPE_REPEATS} "
+            f"({', '.join(f'{v:.2f}' for v in every)}; {card})"
+        )
+    sde_ms = medians["stochastic in-loop key noise"][0]
+    _traced_dispatch(lambda: sde.generate(304).cpu(), "pipeline stochastic", sde_ms / 1e3, card, FLUX_GROUPS)
+
+    # ---- b: the functional RK loop (RKUltra order 4) over the same DiT ----
+    sampler = RKUltra(order=4)
+    rk_steps = sampler.adjust_steps(STEPS)
+    rk_key = prng.PRNGKey(SEEDS[4])
+
+    def rng(step):
+        "Counter-based draws on the card: the initial latent, then one a step."
+        index = 0 if step is None else 1 + round(step.time_from * rk_steps)
+        return prng.normal(prng.fold_in(rk_key, index), PIPE_SHAPE, torch.float32, dev)
+
+    calls: list[int] = []
+    sampler.sample_model(  # the model calls step_tableau makes (terminal stages it skips excluded), on the host
+        torch.zeros(1, dtype=torch.float64), lambda x, t, s, a: calls.append(1) or x * 0.5, transform, schedule,
+        rk_steps,
+    )
+    stages = len(sampler.tableau().stages)
+    print(
+        f"pipeline RKUltra(order=4): {stages}-stage tableau, adjust_steps({STEPS}) = {rk_steps} steps, "
+        f"{len(calls)} model calls ({stages * rk_steps} stages less {stages * rk_steps - len(calls)} skipped)"
+    )
+
+    def rk_run():
+        with torch.inference_mode():
+            return sampler.generate_model(model.as_sampleable(), transform, schedule, rng, rk_steps)
+
+    rk_want = dict(per_request(len(calls)), fused_step_cuda=0)
+    rk_out = _pipeline_request("RKUltra(order=4)", rk_run, rk_want, total).cpu()
+    with plain_kernels[1], plain_kernels[2]:
+        rk_plain = rk_run().cpu()
+    rk_vs_plain = _relative(rk_out, rk_plain)
+    print(f"pipeline RKUltra(order=4): kernels vs plain versions relative max err {rk_vs_plain:.3e} (tolerance 5e-2)")
+    expect(bool(torch.isfinite(rk_plain).all()) and rk_vs_plain <= 5e-2, f"pipeline: RK kernels vs plain {rk_vs_plain}")
+    del model, uncond, det, sde, brown, cfg
+    torch.cuda.empty_cache()
+
+    # ---- c: SDXLStack.pipeline over phase 7's UNet, phase 7's request A ----
+    context, pooled = parts["contexts"][0]
+    sdxl = SDXLStack(parts["unet"]).pipeline(
+        context, pooled, height=1024, width=1024, steps=SDXL_STEPS, guidance_scale=5.0, uncond=parts["uncond"],
+        device=dev,
+    )
+    expect(sdxl.latent_shape == (1, 4, 128, 128), f"pipeline: SDXL latent {sdxl.latent_shape}")
+    sdxl.generate(500).cpu()  # warm-up
+    want = {name: count * SDXL_STEPS for name, count in parts["per_forward"].items()}
+    want["fused_step_cuda"] = SDXL_STEPS
+    t0 = time.perf_counter()
+    latent = _pipeline_request("SDXL", lambda: sdxl.generate(1), want, total).cpu()[0]
+    sdxl_ms = (time.perf_counter() - t0) * 1e3
+    request_a = parts["request_a"]
+    sdxl_equal = torch.equal(latent, request_a)
+    print(
+        f"pipeline SDXL: SDXLStack.pipeline(1024x1024, CFG 5.0).generate(1) vs phase 7's ServingEngine request A "
+        f"(seed 1, the same prompt features): bit-equal {sdxl_equal}, relative max err "
+        f"{_relative(latent, request_a):.3e}; one request {sdxl_ms:.1f} ms ({card})"
+    )
+    expect(sdxl_equal, "pipeline: SDXLStack.pipeline's latent differs from phase 7's request A")
+
+    # ---- d: the noise generators on the card against the CPU ----
+    _noise_on_card_vs_cpu()
+    print(f"pipeline: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3089,12 +3377,13 @@ def main() -> int:
         packed = sdxl_packed_phase(device["card"], sdxl_parts)
         video = video_phase(device["card"])
         sp = sp_phase(device["card"])
+        pipelines = pipeline_phase(device["card"], sdxl_parts)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     # each row's launches: its counts summed over every path's main-path run
-    runs = (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp)
+    runs = (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines)
     for name, row in rows.items():
         row["launches"] = sum(run[name] for run in runs)
     keys = (

@@ -6,13 +6,17 @@ The same layer map as the JAX package, module for module, importing
   common      — value types + polymorphic scalar math (a copy of the JAX
                 package's host layer, kept bit-exact)
   scheduling  — float64 host-side schedule stack
-  sampling    — predictor algebra and the structured solvers
+  sampling    — predictor algebra, the structured solvers, and the
+                functional Runge-Kutta solvers over the tableau catalog
+  noise       — counter-based noise generators on ``prng``'s threefry
   ops         — the device engine: coefficient-table compiler, the fused
                 step (K1), the step loop, fused adaLN (K3, backward K6) and
                 fused-qkv attention (K2; K4 and K5 for training), each
                 kernel hand-written in ``csrc/``
   models      — the DiT as an ``nn.Module``, its EMA shadow, ``.npz``
                 parameter checkpoints
+  pipeline    — ``GenerationPipeline``: construct once, generate per seed
+                (img2img, guidance from ``utils.guidance``, structured noise)
   serving     — the dynamic-batching engine; ``server`` its HTTP front-end
   parallel    — sequence-parallel serving on ``torch.distributed``: meshes,
                 ring attention (kernel B11 a hop), Ulysses, joint streams

@@ -15,9 +15,10 @@ one doubled-batch forward.  With a :class:`~.vae.VAE` in ``vae``,
 :meth:`SDXLStack.decode` turns denoised latents into pixels, so
 ``ServingEngine(stack.as_served(...), conditioned=True,
 postprocess=stack.decode)`` serves requests to images, and
-:meth:`SDXLStack.encode_image` turns pixels into latents.  The text
-encoders, the checkpoint importers and the generation pipeline belong to
-later slices of the port: their entry points raise
+:meth:`SDXLStack.encode_image` turns pixels into latents, and
+:meth:`SDXLStack.pipeline` builds a :class:`~..pipeline.GenerationPipeline`
+over the guided closure.  The text encoders and the checkpoint importers
+belong to later slices of the port: their entry points raise
 :class:`NotImplementedError`.
 """
 
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 from collections.abc import Callable
 from dataclasses import dataclass
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import torch
 
@@ -34,6 +35,12 @@ from .conditioning import doubled_t, guided_mix, per_item
 from .dit import _LATER
 from .unet_cond import CondUNet
 from .vae import VAE
+
+if TYPE_CHECKING:
+    from ..pipeline import GenerationPipeline
+
+_SDXL_VAE_FACTOR = 8
+"The SDXL VAE's downsample factor (``vae/config.json``: four levels)."
 
 
 @dataclass
@@ -54,8 +61,61 @@ class SDXLStack:
     def encode_prompt(self, *args: Any, **kwargs: Any) -> tuple[torch.Tensor, torch.Tensor | None]:
         raise NotImplementedError(f"the CLIP text encoders (text_encoder.py) {_LATER}")
 
-    def pipeline(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(f"the generation pipeline (pipeline.py) {_LATER}")
+    def pipeline(
+        self,
+        context: torch.Tensor,
+        pooled: torch.Tensor | None = None,
+        height: int = 64,
+        width: int = 64,
+        steps: int = 25,
+        time_ids: torch.Tensor | None = None,
+        guidance_scale: float = 1.0,
+        uncond: tuple[torch.Tensor, torch.Tensor | None] | None = None,
+        batch: int = 1,
+        controlnet: Any = None,
+        control_image: torch.Tensor | None = None,
+        control_scale: float = 1.0,
+        **kwargs: Any,
+    ) -> GenerationPipeline:
+        """A :class:`~..pipeline.GenerationPipeline` with the SDXL defaults:
+        epsilon prediction on Karras(Scaled) — the VP regime, not flow —
+        sampled by DPM++2M; ``kwargs`` override them and reach the pipeline
+        (``device=``, ``dtype=``, ``noise_generator=``...).  The latent is
+        ``(batch, channels, height / f, width / f)`` with ``f`` the VAE's
+        downsample factor (8, SDXL's, when the stack holds no VAE).
+        ``time_ids`` default to ``time_ids((height, width), (0, 0), (height,
+        width))`` on the pipeline's device.  ``controlnet`` raises, as in
+        :meth:`model_fn`."""
+        from .. import scheduling
+        from ..pipeline import GenerationPipeline
+        from ..sampling import models, structured
+
+        f = _SDXL_VAE_FACTOR if self.vae is None else 2 ** (self.vae.config.levels - 1)
+        if height % f or width % f:
+            raise ValueError(f"height/width must be multiples of the VAE factor {f}")
+        if self.unet.config.pooled_dim and time_ids is None:
+            time_ids = self.time_ids((height, width), (0, 0), (height, width), device=kwargs.get("device", "cuda"))
+        latent_shape = (batch, self.unet.config.channels, height // f, width // f)
+        defaults: dict[str, Any] = {
+            "sampler": structured.DPM(order=2),
+            "schedule": scheduling.Karras(scheduling.Scaled()),
+            "model_transform": models.NoiseModel(),
+        }
+        return GenerationPipeline(
+            model_fn=self.model_fn(
+                context,
+                pooled,
+                time_ids,
+                guidance_scale,
+                uncond,
+                controlnet=controlnet,
+                control_image=control_image,
+                control_scale=control_scale,
+            ),
+            steps=steps,
+            latent_shape=latent_shape,
+            **{**defaults, **kwargs},
+        )
 
     def _vae(self) -> VAE:
         if self.vae is None:

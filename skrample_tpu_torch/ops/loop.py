@@ -16,6 +16,7 @@ from typing import Any
 
 import torch
 
+from .. import prng
 from ._cuda import resolve_device
 from .compiler import CompiledSampler
 from .fused import fused_step_cuda
@@ -198,17 +199,21 @@ class CompiledDenoiser:
         return_trajectory: bool = False,
         start: int = 0,
         callback: Callable[[torch.Tensor, int], Any] | None = None,
+        key: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """The full denoise loop.
 
-        Per-step noise comes from ``noises`` (precomputed ``(steps, *shape)``)
-        or is drawn i.i.d. normal from ``generator`` each step.  ``start``
-        skips the leading steps (img2img); pass the same value to
-        :func:`~skrample_tpu_torch.ops.compiler.compile_sampler` so the
-        history ramp matches.  ``callback(sample, step_index)`` fires after
-        every step."""
-        if self.requires_noise and noises is None and generator is None:
-            raise ValueError("sampler requires noise: pass generator= or noises=")
+        Per-step noise comes from ``noises`` (precomputed ``(steps, *shape)``),
+        or is drawn i.i.d. normal each step: from ``key`` (a :mod:`..prng`
+        key) as the JAX package's ``run(key=)`` draws it, step ``n`` from
+        ``normal(split(key, steps)[n], x.shape)``, or else from
+        ``generator``.  ``start`` skips the leading steps (img2img); pass the
+        same value to :func:`~skrample_tpu_torch.ops.compiler.compile_sampler`
+        so the history ramp matches.  ``callback(sample, step_index)`` fires
+        after every step."""
+        if self.requires_noise and noises is None and key is None and generator is None:
+            raise ValueError("sampler requires noise: pass key=, generator= or noises=")
+        step_keys = prng.split(key, self.compiled.steps) if self.requires_noise and key is not None else None
         points = self.points.to(sample.device)
         x = sample
         ring = self.init_ring(sample)
@@ -218,6 +223,8 @@ class CompiledDenoiser:
             if self.requires_noise:
                 if noises is not None:
                     z = noises[n]
+                elif step_keys is not None:
+                    z = prng.normal(step_keys[n], tuple(x.shape), x.dtype, x.device)
                 else:
                     z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
             point = points[n]

@@ -1,0 +1,178 @@
+"""A production-shaped generation pipeline: model + sampler + noise in one
+callable.
+
+This is the library's own generation surface: construct once (compiles the
+sampler tables and uploads them, draws any structured per-step noise), then
+call ``generate`` with a seed or a :mod:`.prng` key.  Each request seeds
+itself as the JAX package's pipeline does: ``split(key)`` into an initial
+latent key and an in-loop key, so a seed gives the reference's x0 and, for a
+stochastic sampler, its per-step noise.  The loop is
+:meth:`~.ops.loop.CompiledDenoiser.run`: one model call and one fused step
+(kernel K1 on the card) a step, launched from the host without waiting on
+the device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from . import prng, scheduling
+from .common import Step
+from .noise import TorchNoise
+from .ops._cuda import resolve_device
+from .ops.compiler import compile_sampler
+from .ops.loop import CompiledDenoiser, DeviceModel
+from .sampling import models, rk_solvers, structured
+
+_LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
+
+
+@dataclass
+class GenerationPipeline:
+    """End-to-end latent generation.
+
+    ``model_fn`` is any ``(x, t, sigma, alpha) -> prediction`` closure (its
+    weights already on ``device``).  ``noise_generator`` (optional)
+    precomputes structured per-step noise (Brownian/Colored/...); otherwise
+    stochastic samplers draw i.i.d. normal in-loop from the request key.
+    ``mesh`` (data-parallel placement) belongs to a later slice; ``donate``
+    is accepted for parity with the JAX pipeline and has no effect (the loop
+    allocates each step's latent anew)."""
+
+    model_fn: DeviceModel
+    sampler: structured.StructuredSampler
+    schedule: scheduling.SkrampleSchedule
+    model_transform: models.DiffusionModel
+    steps: int
+    latent_shape: tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    noise_generator: TorchNoise | None = None
+    mesh: Any = None
+    donate: bool = True
+    uncond_model_fn: DeviceModel | None = None
+    guidance_scale: float = 1.0
+    "With ``uncond_model_fn`` set and scale != 1, runs classifier-free guidance."
+    device: str | torch.device = "cuda"
+    "Where the loop runs: the card unless the caller asks for the CPU."
+
+    _denoisers: dict[int, CompiledDenoiser] = field(init=False, default_factory=dict)
+    _noises: torch.Tensor | None = field(init=False, default=None)
+
+    def __post_init__(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"data-parallel generation (mesh=, ROADMAP A5) {_LATER}")
+        self.device = resolve_device(self.device)
+        if self.uncond_model_fn is not None and self.guidance_scale != 1.0:
+            from .utils.guidance import classifier_free
+
+            self.model_fn = classifier_free(self.model_fn, self.uncond_model_fn, self.guidance_scale)
+        self._noises = self.step_noises()
+        self._denoiser(0)  # compile the txt2img tables eagerly
+
+    def _denoiser(self, start: int) -> CompiledDenoiser:
+        """The loop entering at step ``start`` (img2img).
+
+        Compiled tables embed the history ramp, so each distinct entry point
+        has its own tables; they are cached per start index."""
+        cached = self._denoisers.get(start)
+        if cached is None:
+            compiled = compile_sampler(self.sampler, self.schedule, self.model_transform, self.steps, start=start)
+            cached = self._denoisers[start] = CompiledDenoiser.build(compiled, dtype=self.dtype, device=self.device)
+        return cached
+
+    @property
+    def nfe(self) -> int:
+        "Model evaluations per request."
+        return self.steps
+
+    def initial_noise(self, key: torch.Tensor) -> torch.Tensor:
+        return prng.normal(key, tuple(self.latent_shape), self.dtype, self.device)
+
+    def step_noises(self) -> torch.Tensor | None:
+        """Precompute structured per-step noise ``(steps, *latent_shape)`` on
+        the pipeline's device when a generator is configured."""
+        if self.noise_generator is None:
+            return None
+        noises = torch.stack(
+            [self.noise_generator.generate(n, Step.from_int(n, self.steps)) for n in range(self.steps)]
+        )
+        return noises.to(device=self.device, dtype=self.dtype)
+
+    def generate(
+        self,
+        key: int | torch.Tensor,
+        initial: torch.Tensor | None = None,
+        strength: float = 1.0,
+    ) -> torch.Tensor:
+        """One request, from an int seed or a :mod:`.prng` key.
+
+        txt2img: seed from the key and run all steps.  img2img: pass
+        ``initial`` plus ``strength`` in (0, 1] — the trajectory enters at
+        ``round(steps * (1 - strength))`` with ``initial`` noised to that
+        point (and renormalized by the schedule's full-noise magnitude, the
+        same recipe as ``FunctionalSampler.generate_model``)."""
+        if isinstance(key, int):
+            key = prng.PRNGKey(key)
+        k_init, k_steps = prng.split(key)
+        start = 0 if initial is None else min(round(self.steps * (1 - strength)), self.steps - 1)
+
+        if initial is None:
+            x0 = self.initial_noise(k_init)
+        else:
+            entry = self.schedule.ipoint(start / self.steps)
+            seed = self.initial_noise(k_init)
+            full = self.schedule.point_1
+            x0 = entry.add_noise(initial.to(device=self.device, dtype=self.dtype), seed) / full.add_noise(0.0, 1.0)
+
+        with torch.inference_mode():
+            return self._denoiser(start).run(self.model_fn, x0, key=k_steps, noises=self._noises, start=start)
+
+
+@dataclass
+class AdaptivePipeline:
+    """Adaptive-step generation: RKMoire as one device-resident loop.
+
+    The JAX package compiles the error-controlled trajectory into one
+    ``lax.while_loop`` (``ops/adaptive.py``); the port's counterpart comes
+    with the other loops (ROADMAP A2).  Until then, construction raises;
+    ``rk_solvers.RKMoire.sample_model`` runs the same controller on the host."""
+
+    model_fn: DeviceModel
+    sampler: rk_solvers.RKMoire
+    schedule: scheduling.SkrampleSchedule
+    model_transform: models.DiffusionModel
+    steps: int
+    latent_shape: tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self) -> None:
+        raise NotImplementedError(f"the device-resident RKMoire loop (ops/adaptive.py, ROADMAP A2) {_LATER}")
+
+
+def build_pipeline(
+    model_fn: DeviceModel,
+    latent_shape: tuple[int, ...],
+    steps: int = 25,
+    flow: bool = True,
+    stochasticity: float = 0.0,
+    mesh_axes: dict[str, int] | None = None,
+    device: str | torch.device = "cuda",
+) -> GenerationPipeline:
+    "Opinionated defaults: DPM++(2M) over FlowShift(Linear) (flow) or Karras(Scaled)."
+    if mesh_axes:
+        raise NotImplementedError(f"data-parallel generation (mesh_axes=, ROADMAP A5) {_LATER}")
+    return GenerationPipeline(
+        model_fn=model_fn,
+        sampler=structured.DPM(order=2, stochasticity=stochasticity),
+        schedule=(
+            scheduling.FlowShift(scheduling.Linear()) if flow else scheduling.Karras(scheduling.Scaled())
+        ),
+        model_transform=models.FlowModel() if flow else models.NoiseModel(),
+        steps=steps,
+        latent_shape=latent_shape,
+        device=device,
+    )

@@ -1819,3 +1819,72 @@ def test_groupnorm_whole_rows_match_plain(cuda: torch.device, shape, dtype: torc
         want_zero = groupnorm.groupnorm_reference(x, 32, True, 1e-5, torch.zeros_like(scale), bias)
         top = max(want_zero.float().abs().max().item(), 1e-3)
         assert (zero.float() - want_zero.float()).abs().max().item() <= rel * top
+
+
+# ---- the generation pipeline's draws on the card (noise generators, in-loop key noise) ----------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [0, 10])
+def test_denoiser_run_with_key_through_k1_equals_plain(cuda: torch.device, start: int) -> None:
+    """``CompiledDenoiser.run(key=)`` on the card, K1 a step against the plain chain (``kernel="torch"``)
+    from the same key: bit-identical, tolerance 0 (K1 rounds as the chain does, and both draw the same
+    threefry normals on the card)."""
+    from skrample_tpu_torch import prng, scheduling
+    from skrample_tpu_torch.ops import CompiledDenoiser, compile_sampler
+    from skrample_tpu_torch.sampling import models, structured
+
+    compiled = compile_sampler(
+        structured.DPM(order=2, stochasticity=0.3), scheduling.FlowShift(scheduling.Linear()), models.FlowModel(),
+        25, start=start,
+    )
+    x0 = prng.normal(prng.PRNGKey(1), (1, 4, 64, 64), device=cuda)
+
+    def model(x, t, s, a):
+        return x * 0.9 - 0.05 * s
+
+    key = prng.PRNGKey(7)
+    before = fused.fused_step_cuda.launches
+    got = CompiledDenoiser.build(compiled, device=cuda, kernel="cuda").run(model, x0, key=key, start=start)
+    assert fused.fused_step_cuda.launches == before + 25 - start
+    want = CompiledDenoiser.build(compiled, device=cuda, kernel="torch").run(model, x0, key=key, start=start)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_prng_bits_and_uniforms_on_the_card_equal_the_cpu(cuda: torch.device, dtype: torch.dtype) -> None:
+    "Threefry bits and uniforms on the card: equal to the CPU's; normals within 1e-5 (CUDA's erfinv vs the CPU's)."
+    from skrample_tpu_torch import prng
+
+    key = prng.PRNGKey(2024)
+    shape = (1, 4, 64, 64)
+    assert torch.equal(prng.random_bits(key, shape, device=cuda).cpu(), prng.random_bits(key, shape))
+    assert torch.equal(prng.uniform(key, shape, dtype, device=cuda).cpu(), prng.uniform(key, shape, dtype))
+    got = prng.normal(key, shape, dtype, device=cuda).cpu().float()
+    want = prng.normal(key, shape, dtype).float()
+    tol = 1e-5 if dtype == torch.float32 else 0.0  # the half types round both erfinv alike
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["Random", "Offset", "Pyramid", "Brownian", "Colored"])
+def test_noise_generators_on_the_card_match_the_cpu(cuda: torch.device, name: str) -> None:
+    """Each generator at (1, 4, 64, 64), steps 0, 12 and 24 of 25, on the card against the same seed on the
+    CPU: Random, Offset and Brownian (normals and their sums) within 1e-5 absolute; Pyramid (its resizes:
+    cuBLAS products) and Colored (cuFFT against pocketfft) within 1e-4 of the largest value."""
+    from skrample_tpu_torch import noise
+    from skrample_tpu_torch.common import Step
+
+    cls = getattr(noise, name)
+    on_card = cls.from_inputs((1, 4, 64, 64), 5, device=cuda)
+    on_cpu = cls.from_inputs((1, 4, 64, 64), 5, device="cpu")
+    for n in (0, 12, 24):
+        got = on_card.generate(n, Step.from_int(n, 25))
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        want = on_cpu.generate(n, Step.from_int(n, 25))
+        err = (got.cpu() - want).abs().max().item()
+        if name in ("Pyramid", "Colored"):
+            assert err <= 1e-4 * want.abs().max().item(), (n, err)
+        else:
+            assert err <= 1e-5, (n, err)
