@@ -96,7 +96,24 @@ Phases, each failing the run with a non-zero exit:
     phase 7's UNet at 1024x1024 with CFG 5.0, bit for bit phase 7's request
     A; and the noise generators on the card against the CPU (threefry bits
     and uniforms exact, normals 1e-5, Pyramid and Colored 1e-4 relative),
-    with exact launches on every counted request.
+    with exact launches on every counted request;
+13. the diffusers scheduler wrapper, driven as a ``DiffusionPipeline`` drives
+    it (``set_timesteps(n, device=, mu=)``, ``init_noise_sigma``,
+    ``scale_model_input``, the model with CFG, ``step``):
+    ``SkrampleWrapperScheduler.from_diffusers_config`` of SDXL base's scheduler
+    config with DPM(order=2) over phase 7's UNet (1024x1024, CFG 5.0, 25
+    steps) at f32, then bf16 and f16 latents: one K1 launch a step, each run
+    bit for bit the same loop through the wrapper's plain chain; FLUX.1-dev's
+    scheduler config with UniPC(order=3) over phase 3's DiT-512/8 (``mu`` from
+    the token count): K1 against the plain chain and a ``state_dict`` resume,
+    both bit for bit, the result against ``GenerationPipeline``'s, latency of
+    both in turns, the host time of a step of each, a traced wrapper request;
+    ``RKUltraWrapperScheduler(order=4)``; ``rk_sample_loop(RKUltra(order=4))``
+    and ``AdaptivePipeline(RKMoire(order=3))`` over the DiT: exact K1 launches
+    (one a mixing stage and a step, or a trial), K1 against its plain version
+    bit for bit, the kernels against the plain versions and the eager RK loop.
+    Phase 2 holds K1's f16 and f64 instances and its f32-weight mode to the
+    plain chain bit for bit.
 
 Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
@@ -407,6 +424,28 @@ def kernels_phase() -> dict[str, dict]:
     print(f"K1 fused_step_cuda launch floor, f32 rows 1 K 4 at n = 8: {floor_ms * 1e3:.2f} us (card time, CUDA-graph "
           f"replay), against the slice's {rows['fused_step_cuda']['ms'] * 1e3:.2f} us and its bound "
           f"{rows['fused_step_cuda']['bound_ms'] * 1e3:.2f} us")
+    # the diffusers wrapper's instances: f16 and f64 latents, and weights rounded to f32 at bf16 and f16
+    wrapper_cases = [
+        ("f16 rows 1 K 4", torch.float16, w_slice, None),
+        ("f64 rows 1 K 4", torch.float64, w_slice, None),
+        ("f64 rows 3 K 17", torch.float64, np.random.default_rng(1).standard_normal((3, 17)), None),
+        ("bf16 f32-weights rows 3 K 7", torch.bfloat16, np.random.default_rng(2).standard_normal((3, 7)), torch.float32),
+        ("f16 f32-weights rows 1 K 4", torch.float16, w_slice, torch.float32),
+    ]
+    for label, dtype, w, weight_dtype in wrapper_cases:
+        basis = [torch.randn(latent, generator=gen, device=dev, dtype=torch.float64).to(dtype) for _ in range(w.shape[1])]
+        got = fused.fused_step_cuda(w, basis, weight_dtype=weight_dtype)
+        ref = fused.fused_step(w, basis, weight_dtype=weight_dtype)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        expect(bool(torch.isfinite(got).all()) and torch.equal(got, ref), f"K1 {label} is not bit-exact: {err}")
+        k_ms, _ = cuda_ms(lambda w=w, basis=basis, wd=weight_dtype: fused.fused_step_cuda(w, basis, weight_dtype=wd))
+        n_bytes = (len(basis) + w.shape[0]) * basis[0].numel() * basis[0].element_size()
+        print(
+            f"K1 fused_step_cuda {label} {latent}: max_abs_err {err:.3e} (tolerance 0: bit-exact); {k_ms * 1e3:.2f} us "
+            f"(card time, CUDA-graph replay; f32 rows 1 K 4: {rows['fused_step_cuda']['ms'] * 1e3:.2f} us), bound "
+            f"{n_bytes / HBM_BYTES_PER_S * 1e6:.2f} us (bytes); instance {fused.step_instance(*w.shape, dtype)}"
+        )
 
     # ---- K2: fused-qkv attention, bf16 B 4 H 4 N 1024 d 128 ----
     B, N, H, d = 4, 1024, 4, 128
@@ -3350,6 +3389,341 @@ def pipeline_phase(card: str, parts: dict) -> dict[str, int]:
     return total
 
 
+# the scheduler configs a DiffusionPipeline hands the wrapper (the fields it reads), written in code:
+# stabilityai/stable-diffusion-xl-base-1.0 scheduler/scheduler_config.json
+SDXL_SCHEDULER_CONFIG = {
+    "_class_name": "EulerDiscreteScheduler",
+    "beta_end": 0.012,
+    "beta_schedule": "scaled_linear",
+    "beta_start": 0.00085,
+    "clip_sample": False,
+    "num_train_timesteps": 1000,
+    "prediction_type": "epsilon",
+    "steps_offset": 1,
+    "timestep_spacing": "leading",
+    "trained_betas": None,
+    "use_karras_sigmas": False,
+}
+# black-forest-labs/FLUX.1-dev scheduler/scheduler_config.json
+FLUX_SCHEDULER_CONFIG = {
+    "_class_name": "FlowMatchEulerDiscreteScheduler",
+    "base_image_seq_len": 256,
+    "base_shift": 0.5,
+    "max_image_seq_len": 4096,
+    "max_shift": 1.15,
+    "num_train_timesteps": 1000,
+    "shift": 3.0,
+    "use_dynamic_shifting": True,
+}
+
+
+def _calculate_shift(seq_len: int, config: dict) -> float:
+    "diffusers' ``calculate_shift``: the dynamic FlowShift's ``mu``, linear in the latent's token count."
+    m = (config["max_shift"] - config["base_shift"]) / (config["max_image_seq_len"] - config["base_image_seq_len"])
+    return seq_len * m + config["base_shift"] - m * config["base_image_seq_len"]
+
+
+def _scheduler_loop(scheduler, model, latents, first: int = 0, last: int | None = None):
+    """The loop a ``DiffusionPipeline`` runs once ``set_timesteps`` has run, over its timesteps ``first`` to
+    ``last``: ``init_noise_sigma`` (when starting at the first), ``scale_model_input``, the model
+    (classifier-free guidance inside its closure, over the doubled batch), ``step``."""
+    if first == 0:
+        latents = latents * scheduler.init_noise_sigma
+    for t in scheduler.timesteps[first:last]:
+        prediction = model(scheduler.scale_model_input(latents, t), t, None, None)
+        latents = scheduler.step(prediction, t, latents, return_dict=False)[0]
+    return latents
+
+
+def _rk_stage_counts(sampler, schedule, steps: int) -> tuple[int, int, int]:
+    """``rk_sample_loop``'s structure: (stages, stages that mix earlier derivatives, steps on the fused path:
+    all but a final step with a stage at t = 0 or sigma = 0)."""
+    from skrample_tpu_torch.common import Step
+
+    tableau = sampler.tableau()
+    last = Step.from_int(steps - 1, steps)
+    points = schedule.ipoints([last[0] + st.c * (last[1] - last[0]) for st in tableau.stages])
+    fused_steps = steps - any(abs(p.timestep) < 1e-8 or abs(p.sigma) < 1e-8 for p in points)
+    return len(tableau.stages), sum(bool(st.a) for st in tableau.stages), fused_steps
+
+
+def diffusers_phase(card: str, parts: dict) -> dict[str, int]:
+    """Phase 13: the diffusers scheduler wrapper and the RK and adaptive loops on the card.  (a)
+    ``SkrampleWrapperScheduler.from_diffusers_config`` of SDXL base's scheduler config with DPM(order=2) over
+    phase 7's UNet, 1024x1024, CFG 5.0, 25 steps, ``compute_scale=torch.float32``, driven as a
+    ``DiffusionPipeline`` drives it: one K1 launch a step, bit for bit the same loop with K1 swapped for the
+    wrapper's plain chain; (b) the same at ``compute_scale=None`` with bf16, then f16 latents; (c) FLUX.1-dev's
+    scheduler config with UniPC(order=3) over phase 3's DiT-512/8, ``mu`` from the latent's token count: a
+    ``state_dict`` resume bit for bit, the result against ``GenerationPipeline``'s, latency medians of the two
+    and a traced wrapper request; (d) ``RKUltraWrapperScheduler(order=4)`` over the DiT; (e)
+    ``rk_sample_loop(RKUltra(order=4))`` and ``AdaptivePipeline(RKMoire(order=3))`` over the DiT: exact K1
+    launches, against K1's plain version bit for bit, against the plain versions and the eager loop.  Returns
+    the main path's launches (the counted requests)."""
+    import torch
+
+    from skrample_tpu_torch import prng, scheduling
+    from skrample_tpu_torch.diffusers import RKUltraWrapperScheduler, SkrampleWrapperScheduler
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.sdxl import SDXLStack
+    from skrample_tpu_torch.ops import adaln, flash_attention, fused
+    from skrample_tpu_torch.ops.loop import rk_sample_loop
+    from skrample_tpu_torch.pipeline import AdaptivePipeline, GenerationPipeline
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.sampling.rk_solvers import RKMoire, RKUltra
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+
+    def plain_k1(w, basis, weight_dtype=None):
+        return fused.fused_step(w, basis, weight_dtype)
+
+    wrapper_plain = mock.patch("skrample_tpu_torch.diffusers.fused_step_cuda", plain_k1)
+    loop_plain = mock.patch("skrample_tpu_torch.ops.loop.fused_step_cuda", plain_k1)
+
+    # ---- a, b: SDXL base's scheduler config over phase 7's UNet, CFG 5.0 ----
+    context, pooled = parts["contexts"][0]
+    sdxl_model = SDXLStack(parts["unet"]).model_fn(
+        context, pooled, SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev), 5.0, parts["uncond"]
+    )
+    x_sdxl = torch.randn((1, 4, 128, 128), generator=torch.Generator(dev).manual_seed(41), device=dev)
+    sdxl_want = {name: count * SDXL_STEPS for name, count in parts["per_forward"].items()}
+    sdxl_want["fused_step_cuda"] = SDXL_STEPS
+
+    def sdxl_request(dtype: torch.dtype, compute_scale):
+        wrapper = SkrampleWrapperScheduler.from_diffusers_config(
+            SDXL_SCHEDULER_CONFIG, sampler=structured.DPM, sampler_props={"order": 2}, compute_scale=compute_scale
+        )
+        wrapper.set_timesteps(SDXL_STEPS, device=dev)
+        with torch.inference_mode():
+            return _scheduler_loop(wrapper, sdxl_model, x_sdxl.to(dtype))
+
+    probe = SkrampleWrapperScheduler.from_diffusers_config(
+        SDXL_SCHEDULER_CONFIG, sampler=structured.DPM, sampler_props={"order": 2}
+    )
+    print(
+        f"diffusers: SDXL base scheduler config -> {probe.sampler}, {probe.schedule}, {probe.model}; "
+        f"config {dict(probe.config)['_class_name']}, num_train_timesteps {probe.config.num_train_timesteps}"
+    )
+    expect(type(probe.schedule).__name__ == "Scaled" and type(probe.model).__name__ == "NoiseModel",
+           f"diffusers: SDXL config parsed to {probe.schedule}, {probe.model}")
+    for label, dtype, compute_scale in (
+        ("f32 latents, compute_scale=float32", torch.float32, torch.float32),
+        ("bf16 latents, compute_scale=None", torch.bfloat16, None),
+        ("f16 latents, compute_scale=None", torch.float16, None),
+    ):
+        t0 = time.perf_counter()
+        got = _pipeline_request(f"diffusers SDXL {label}", lambda: sdxl_request(dtype, compute_scale), sdxl_want,
+                                total)
+        request_ms = (time.perf_counter() - t0) * 1e3
+        with wrapper_plain:
+            plain = sdxl_request(dtype, compute_scale)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, plain)
+        print(
+            f"diffusers SDXL {label}: DPM(order=2), 25 steps, CFG 5.0 at 1024x1024: {request_ms:.1f} ms; K1 on its "
+            f"{got.dtype} instance ({SDXL_STEPS} launches) vs the wrapper's plain chain: bit-equal {equal}, max abs err "
+            f"{max_err(got, plain):.3e} (tolerance 0); {card}"
+        )
+        expect(got.dtype == dtype and equal, f"diffusers SDXL {label}: K1 differs from the plain chain")
+
+    # ---- c: FLUX.1-dev's scheduler config over phase 3's DiT-512/8 (bf16 latents, f32 steps) ----
+    config = DiTConfig(
+        dim=512, depth=DEPTH, heads=4, patch=2, channels=4, compute_dtype=torch.bfloat16, attention="flash"
+    )
+    model = DiT(config, device=dev).load_jax_params(random_param_tree(config, seed=0)).requires_grad_(False)
+    dit = model.as_sampleable()
+    seq_len = (PIPE_SHAPE[2] // config.patch) * (PIPE_SHAPE[3] // config.patch)
+    mu = _calculate_shift(seq_len, FLUX_SCHEDULER_CONFIG)
+    key = prng.PRNGKey(SEEDS[0])
+    x_dit = prng.normal(prng.split(key)[0], PIPE_SHAPE, torch.float32, dev)  # GenerationPipeline's x0 for the key
+
+    def flux_wrapper() -> SkrampleWrapperScheduler:
+        wrapper = SkrampleWrapperScheduler.from_diffusers_config(
+            FLUX_SCHEDULER_CONFIG, sampler=structured.UniPC, sampler_props={"order": 3}
+        )
+        wrapper.set_timesteps(STEPS, device=dev, mu=mu)
+        return wrapper
+
+    def dit_request(wrapper=None):
+        with torch.inference_mode():
+            return _scheduler_loop(wrapper or flux_wrapper(), dit, x_dit.to(torch.bfloat16))
+
+    dit_want = {"fused_step_cuda": STEPS, "flash_attention_qkv_forward": DEPTH * STEPS,
+                "adaln_forward": (2 * DEPTH + 1) * STEPS}
+    dit_request()  # warm-up
+    shifted = flux_wrapper()
+    print(
+        f"diffusers: FLUX.1-dev scheduler config -> {shifted.sampler}, {shifted.model}; mu {mu:.6f} for "
+        f"{seq_len} tokens -> {shifted.schedule}"
+    )
+    wrapped = _pipeline_request("diffusers DiT UniPC(order=3)", dit_request, dit_want, total)
+    with wrapper_plain:
+        plain = dit_request()
+    expect(torch.equal(wrapped, plain), f"diffusers DiT: K1 differs from the plain chain by {max_err(wrapped, plain)}")
+    half = STEPS // 2
+    first = flux_wrapper()
+    with torch.inference_mode():
+        x_half = _scheduler_loop(first, dit, x_dit.to(torch.bfloat16), last=half)
+        state = first.state_dict()
+        resumed = flux_wrapper()
+        resumed.load_state_dict(state)
+        x_resumed = _scheduler_loop(resumed, dit, x_half, first=half)
+    resume_equal = torch.equal(x_resumed, wrapped)
+    print(
+        f"diffusers DiT: K1 (rows 3, f32) vs the wrapper's plain chain bit-equal True; a state_dict taken after "
+        f"step {half} and loaded into a fresh wrapper finishes bit-equal {resume_equal} (tolerance 0)"
+    )
+    expect(resume_equal, "diffusers DiT: the resumed run differs from the uninterrupted one")
+    pipe = GenerationPipeline(dit, structured.UniPC(order=3), shifted.schedule, models.FlowModel(), STEPS, PIPE_SHAPE,
+                              device=dev)
+    pipe_out = pipe.generate(SEEDS[0])
+    # the wrapper hands the model bf16 latents and rounds x to bf16 after every step (relative 2**-9 at most);
+    # the pipeline keeps x in f32.  Bound: 25 such roundings, added up, of the largest value
+    tol = STEPS * 2.0**-9
+    vs_pipe = _relative(wrapped, pipe_out)
+    print(
+        f"diffusers DiT: the wrapper's request vs GenerationPipeline(UniPC(order=3), the same schedule and x0): "
+        f"relative max err {vs_pipe:.3e} (tolerance {tol:.3e}: {STEPS} bf16 roundings of x, 2**-9 each)"
+    )
+    expect(bool(torch.isfinite(wrapped).all()) and vs_pipe <= tol, f"diffusers DiT: wrapper vs pipeline {vs_pipe}")
+
+    # latency: the two requests in turns (the host's load drifts between calls); then the host time of
+    # one step of each, the wrapper's with its scale_model_input
+    runs = {"GenerationPipeline": lambda: pipe.generate(SEEDS[0]), "wrapper": dit_request}
+    times: dict[str, list[float]] = {label: [] for label in runs}
+    for _ in range(PIPE_REPEATS):
+        for label, run in runs.items():
+            t0 = time.perf_counter()
+            run().cpu()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    medians = {label: statistics.median(every) for label, every in times.items()}
+    for label, every in times.items():
+        print(
+            f"diffusers DiT: request latency, {label} (UniPC(order=3), {STEPS} steps): median {medians[label]:.2f} "
+            f"ms of {PIPE_REPEATS}, in turns with the other ({', '.join(f'{v:.2f}' for v in every)}; {card})"
+        )
+    stepper = flux_wrapper()
+    t_mid = stepper.timesteps[STEPS // 2]
+    x_mid = x_dit.to(torch.bfloat16)
+    with torch.inference_mode():
+        out_mid = dit(x_mid, t_mid, None, None)
+        wrapper_us = host_us(lambda: stepper.step(out_mid, t_mid, x_mid, return_dict=False))
+        scale_us = host_us(lambda: stepper.scale_model_input(x_mid, t_mid))
+        denoiser = pipe._denoiser(0)
+        x32, o32 = x_mid.float(), out_mid.float()
+        ring = denoiser.init_ring(x32)
+        denoiser_us = host_us(lambda: denoiser.step(denoiser.host_weights[STEPS // 2], x32, o32, ring))
+    print(
+        f"diffusers DiT: host time a step (median of 200 eager calls): the wrapper's step() {wrapper_us:.1f} us + "
+        f"scale_model_input() {scale_us:.1f} us (each reads the timestep back) against the pipeline's "
+        f"CompiledDenoiser.step {denoiser_us:.1f} us: the wrapper's cost a step "
+        f"{wrapper_us + scale_us - denoiser_us:.1f} us; its request {medians['wrapper'] - medians['GenerationPipeline']:.2f} "
+        f"ms over the pipeline's by median ({card})"
+    )
+    _traced_dispatch(lambda: dit_request().cpu(), "diffusers DiT wrapper", medians["wrapper"] / 1e3, card,
+                     FLUX_GROUPS, share="K1 fused_step")
+
+    # ---- d: the inside-out RK wrapper (RKUltra order 4) over the DiT: plain torch steps, no K1 ----
+    rk_sampler = RKUltra(order=4)
+    rk_steps = rk_sampler.adjust_steps(STEPS)
+    rk_wrapper = RKUltraWrapperScheduler.from_diffusers_config(FLUX_SCHEDULER_CONFIG, sampler_order=4)
+    rk_wrapper.set_timesteps(rk_steps, device=dev, mu=mu)
+    calls = len(rk_wrapper.timesteps)
+    rk_wrapped = _pipeline_request(
+        "diffusers DiT RKUltraWrapperScheduler(order=4)",
+        lambda: _scheduler_loop(rk_wrapper, dit, x_dit.to(torch.bfloat16)),
+        {"flash_attention_qkv_forward": DEPTH * calls, "adaln_forward": (2 * DEPTH + 1) * calls},
+        total,
+    )
+    print(
+        f"diffusers DiT RKUltraWrapperScheduler(order=4): {rk_steps} steps of {rk_wrapper.order} stages presented as "
+        f"{calls} timesteps, one model call each; finite {bool(torch.isfinite(rk_wrapped).all())}"
+    )
+
+    # ---- e: rk_sample_loop(RKUltra order 4) and AdaptivePipeline(RKMoire order 3) over the DiT ----
+    schedule, transform = scheduling.FlowShift(scheduling.Linear()), models.FlowModel()
+    stages, mixing, fused_steps = _rk_stage_counts(rk_sampler, schedule, rk_steps)
+    model_calls: list[int] = []
+    rk_sampler.sample_model(  # the model calls the loop makes (terminal stages it skips excluded), on the host
+        torch.zeros(1, dtype=torch.float64), lambda x, t, s, a: model_calls.append(1) or x * 0.5, transform, schedule,
+        rk_steps,
+    )
+    x_rk = prng.normal(prng.fold_in(prng.PRNGKey(SEEDS[4]), 0), PIPE_SHAPE, torch.float32, dev)
+
+    def rk_run():
+        with torch.inference_mode():
+            return rk_sample_loop(rk_sampler, schedule, transform, rk_steps, dit, x_rk)
+
+    rk_want = {"fused_step_cuda": fused_steps * (mixing + 1), "flash_attention_qkv_forward": DEPTH * len(model_calls),
+               "adaln_forward": (2 * DEPTH + 1) * len(model_calls)}
+    rk_out = _pipeline_request("rk_sample_loop(RKUltra(order=4))", rk_run, rk_want, total)
+    with loop_plain:
+        rk_k1_plain = rk_run()
+    with (
+        loop_plain,
+        mock.patch.object(flash_attention, "flash_attention_qkv_forward", flash_attention._qkv_reference),
+        mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+    ):
+        rk_plain = rk_run()
+    with torch.inference_mode():
+        eager = rk_sampler.sample_model(x_rk, dit, transform, schedule, rk_steps)
+    vs_plain, vs_eager = _relative(rk_out, rk_plain), _relative(rk_out, eager)
+    print(
+        f"rk_sample_loop(RKUltra(order=4)): {rk_steps} steps of {stages} stages ({mixing} mixing), {fused_steps} on "
+        f"the fused path: K1 {rk_want['fused_step_cuda']} launches; K1 vs its plain version bit-equal "
+        f"{torch.equal(rk_out, rk_k1_plain)} (tolerance 0); K1-K3 vs the plain versions relative max err "
+        f"{vs_plain:.3e} (tolerance 5e-2, bf16); vs phase 12's eager RKUltra loop {vs_eager:.3e} (tolerance 5e-2: "
+        f"the fused steps fold the weights in float64 and round once, the eager loop rounds each product)"
+    )
+    expect(torch.equal(rk_out, rk_k1_plain), "rk_sample_loop: K1 differs from its plain version")
+    expect(bool(torch.isfinite(rk_plain).all()) and vs_plain <= 5e-2, f"rk_sample_loop: kernels vs plain {vs_plain}")
+    expect(vs_eager <= 5e-2, f"rk_sample_loop: vs the eager loop {vs_eager}")
+    rk_ms = _median_ms(rk_run)[0]
+    _traced_dispatch(lambda: rk_run().cpu(), "rk_sample_loop(RKUltra(order=4))", rk_ms / 1e3, card, FLUX_GROUPS,
+                     share="K1 fused_step")
+
+    adaptive = AdaptivePipeline(dit, RKMoire(order=3), schedule, transform, STEPS, PIPE_SHAPE, device=dev)
+    adaptive.generate(SEEDS[5])  # warm-up
+    torch.cuda.synchronize()
+    _reset_counters()
+    out, accepted, trials = adaptive.generate(SEEDS[5])
+    torch.cuda.synchronize()
+    launches = _counters()
+    plan = adaptive.plan
+    calls = trials * plan.stages + plan.stages - len(plan.skip)
+    moire_mixing = sum(plan.has_a)
+    moire_want = {name: 0 for name in launches} | {
+        "fused_step_cuda": (trials + 1) * (moire_mixing + 1),
+        "flash_attention_qkv_forward": DEPTH * calls,
+        "adaln_forward": (2 * DEPTH + 1) * calls,
+    }
+    print(
+        f"AdaptivePipeline(RKMoire(order=3)): {accepted} accepted steps (the final hop among them) in {trials} "
+        f"trials + the final hop, "
+        f"{plan.stages}-stage pair ({moire_mixing} mixing, {len(plan.skip)} skipped at t = 0); launches "
+        f"{{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}"
+    )
+    expect(launches == moire_want, f"AdaptivePipeline: launched {launches}, expected {moire_want}")
+    expect(bool(torch.isfinite(out).all()) and tuple(out.shape) == PIPE_SHAPE, "AdaptivePipeline: bad output")
+    for name, count in launches.items():
+        total[name] += count
+    with loop_plain:
+        plain_out, plain_accepted, plain_trials = adaptive.generate(SEEDS[5])
+    adaptive_equal = torch.equal(out, plain_out) and (accepted, trials) == (plain_accepted, plain_trials)
+    print(f"AdaptivePipeline: K1 vs its plain version: the same trials and bit-equal {adaptive_equal} (tolerance 0)")
+    expect(adaptive_equal, "AdaptivePipeline: K1 differs from its plain version")
+    adaptive_ms, every = _median_ms(lambda: adaptive.generate(SEEDS[5])[0])
+    print(
+        f"AdaptivePipeline: request latency median {adaptive_ms:.2f} ms of {PIPE_REPEATS} "
+        f"({', '.join(f'{v:.2f}' for v in every)}; one error read back a trial; {card})"
+    )
+    del model
+    torch.cuda.empty_cache()
+    print(f"diffusers: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3378,12 +3752,13 @@ def main() -> int:
         video = video_phase(device["card"])
         sp = sp_phase(device["card"])
         pipelines = pipeline_phase(device["card"], sdxl_parts)
+        wrappers = diffusers_phase(device["card"], sdxl_parts)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     # each row's launches: its counts summed over every path's main-path run
-    runs = (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines)
+    runs = (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers)
     for name, row in rows.items():
         row["launches"] = sum(run[name] for run in runs)
     keys = (

@@ -10,13 +10,18 @@ The same layer map as the JAX package, module for module, importing
                 functional Runge-Kutta solvers over the tableau catalog
   noise       — counter-based noise generators on ``prng``'s threefry
   ops         — the device engine: coefficient-table compiler, the fused
-                step (K1), the step loop, fused adaLN (K3, backward K6) and
-                fused-qkv attention (K2; K4 and K5 for training), each
-                kernel hand-written in ``csrc/``
+                step (K1), the step, RK and adaptive loops, fused adaLN (K3,
+                backward K6) and fused-qkv attention (K2; K4 and K5 for
+                training), each kernel hand-written in ``csrc/``
   models      — the DiT as an ``nn.Module``, its EMA shadow, ``.npz``
                 parameter checkpoints
   pipeline    — ``GenerationPipeline``: construct once, generate per seed
-                (img2img, guidance from ``utils.guidance``, structured noise)
+                (img2img, guidance from ``utils.guidance``, structured noise);
+                ``AdaptivePipeline`` (RKMoire)
+  diffusers   — the diffusers scheduler wrapper (``SkrampleWrapperScheduler``
+                and the RK wrappers; config translation in
+                ``diffusers_config``, torch-stream noise in ``torch_noise``,
+                ``skrample.*`` import aliases in ``compat``)
   serving     — the dynamic-batching engine; ``server`` its HTTP front-end
   parallel    — sequence-parallel serving on ``torch.distributed``: meshes,
                 ring attention (kernel B11 a hop), Ulysses, joint streams

@@ -15,7 +15,7 @@
 //   kernel parameter (FusedStepArgs), so there is no stacked copy of the
 //   basis and no per-step host-to-device copy of the weights;
 // * rows and K are template parameters: every (rows, K) that the samplers
-//   emit with K <= 16 (rows 1 and 3, f32 and bf16) has its own instance, so
+//   emit with K <= 16 (rows 1 and 3, f32, bf16 and f16) has its own instance, so
 //   a thread issues its K 16-byte loads back to back before its first
 //   multiply, and reads each basis once for all rows; K 17-32 (high-order
 //   multistep samplers), and rows 2, which no sampler emits, take one
@@ -29,11 +29,18 @@
 //   tail of the stream's previous kernel, and the blocks wait in
 //   `griddepcontrol.wait` for its results before their first load;
 // * the arithmetic repeats the plain chain exactly: every product and every
-//   partial sum is rounded to the tensor's dtype in the same order as
+//   partial sum is computed in PyTorch's op math type (f32, or f64 for f64
+//   latents) and rounded to the tensor's dtype in the same order as
 //   `acc = b[0]*w[0]; acc = acc + b[k]*w[k]` in PyTorch (no FMA
-//   contraction), so the kernel is bit-identical to the plain version.
+//   contraction), so the kernel is bit-identical to the plain version;
+// * f16 latents have the bf16 instances' twins; f64 latents (the diffusers
+//   wrapper's compute_scale=torch.float64) take the run-time-K instance of
+//   each rows count only, with f64 weights (the `StepWeights` union) and an
+//   f64 accumulator.  The host rounds the weights first, to the latent's
+//   dtype or to the caller's choice (the wrapper's f32 at bf16 and f16).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,11 +53,18 @@ constexpr int kMaxThreads = 128;
 
 }  // namespace
 
+// The weights in the instance's arithmetic type: f32 for f32, bf16 and f16
+// latents, f64 for f64 ones.  Must match ops/fused.py:_StepWeights.
+union StepWeights {
+    float f[kMaxRows][kMaxK];
+    double d[kMaxRows][kMaxK];
+};
+
 // Must match skrample_tpu_torch/ops/fused.py:_FusedStepArgs field for field.
 struct FusedStepArgs {
     const void* basis[kMaxK];
     void* out[kMaxRows];
-    float w[kMaxRows][kMaxK];
+    StepWeights w;
     long long n;  // elements per latent
     int K;
     int rows;
@@ -62,34 +76,68 @@ struct FusedStepArgs {
 namespace {
 
 // Element access by raw bits, so a 16-byte vector can be viewed as an array
-// of the element type in a union.
+// of the element type in a union.  `Math` is the type every product and sum
+// is computed in (PyTorch's op math type: float below f64), `round` rounds a
+// Math value to the element type and back.
 template <typename T>
 struct Elem;
 
 template <>
 struct Elem<float> {
     using Bits = float;
+    using Math = float;
     static constexpr int kVec = 4;
-    __device__ static float to_float(Bits v) { return v; }
+    __device__ static float to_math(Bits v) { return v; }
     __device__ static float round(float v) { return v; }
-    __device__ static Bits from_float(float v) { return v; }
+    __device__ static Bits from_math(float v) { return v; }
+    __device__ static float weight(const FusedStepArgs& a, int r, int k) { return a.w.f[r][k]; }
 };
 
 template <>
 struct Elem<__nv_bfloat16> {
     using Bits = unsigned short;
+    using Math = float;
     static constexpr int kVec = 8;
-    __device__ static float to_float(Bits v) { return __bfloat162float(__ushort_as_bfloat16(v)); }
+    __device__ static float to_math(Bits v) { return __bfloat162float(__ushort_as_bfloat16(v)); }
     __device__ static float round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
-    __device__ static Bits from_float(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
+    __device__ static Bits from_math(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
+    __device__ static float weight(const FusedStepArgs& a, int r, int k) { return a.w.f[r][k]; }
 };
+
+template <>
+struct Elem<__half> {
+    using Bits = unsigned short;
+    using Math = float;
+    static constexpr int kVec = 8;
+    __device__ static float to_math(Bits v) { return __half2float(__ushort_as_half(v)); }
+    __device__ static float round(float v) { return __half2float(__float2half_rn(v)); }
+    __device__ static Bits from_math(float v) { return __half_as_ushort(__float2half_rn(v)); }
+    __device__ static float weight(const FusedStepArgs& a, int r, int k) { return a.w.f[r][k]; }
+};
+
+template <>
+struct Elem<double> {
+    using Bits = double;
+    using Math = double;
+    static constexpr int kVec = 2;
+    __device__ static double to_math(Bits v) { return v; }
+    __device__ static double round(double v) { return v; }
+    __device__ static Bits from_math(double v) { return v; }
+    __device__ static double weight(const FusedStepArgs& a, int r, int k) { return a.w.d[r][k]; }
+};
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // One step of the chain for one value: acc = b*w at k == 0, else acc + b*w,
 // each operation rounded to T as the plain PyTorch chain rounds it.
 template <typename T>
-__device__ __forceinline__ float chain(float acc, float b, float w, bool first) {
-    const float prod = Elem<T>::round(__fmul_rn(b, w));
-    return first ? prod : Elem<T>::round(__fadd_rn(acc, prod));
+__device__ __forceinline__ typename Elem<T>::Math chain(typename Elem<T>::Math acc, typename Elem<T>::Math b,
+                                                        typename Elem<T>::Math w, bool first) {
+    const auto prod = Elem<T>::round(mul_rn(b, w));
+    return first ? prod : Elem<T>::round(add_rn(acc, prod));
 }
 
 // K > kUnrolledK: the kMaxK instance, K read from the arguments
@@ -98,6 +146,7 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(const FusedStep
     constexpr bool kRuntimeK = K > kUnrolledK;
     constexpr int V = Elem<T>::kVec;
     using Bits = typename Elem<T>::Bits;
+    using Math = typename Elem<T>::Math;
     union Pack {
         uint4 raw;
         Bits e[V];
@@ -117,16 +166,17 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(const FusedStep
         }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-            float acc[V] = {};
+            Math acc[V] = {};
 #pragma unroll
             for (int k = 0; k < K; ++k) {
                 if (kRuntimeK && k >= a.K) break;
+                const Math w = Elem<T>::weight(a, r, k);
 #pragma unroll
-                for (int e = 0; e < V; ++e) acc[e] = chain<T>(acc[e], Elem<T>::to_float(in[k].e[e]), a.w[r][k], k == 0);
+                for (int e = 0; e < V; ++e) acc[e] = chain<T>(acc[e], Elem<T>::to_math(in[k].e[e]), w, k == 0);
             }
             Pack o;
 #pragma unroll
-            for (int e = 0; e < V; ++e) o.e[e] = Elem<T>::from_float(acc[e]);
+            for (int e = 0; e < V; ++e) o.e[e] = Elem<T>::from_math(acc[e]);
             reinterpret_cast<uint4*>(a.out[r])[v] = o.raw;
         }
     }
@@ -134,20 +184,20 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(const FusedStep
     // scalar remainder: the tail past the last full vector, or everything
     // when some pointer is not 16-byte aligned
     for (long long i = nvec * V + tid; i < a.n; i += stride) {
-        float b[K];
+        Math b[K];
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-            if (!kRuntimeK || k < a.K) b[k] = Elem<T>::to_float(reinterpret_cast<const Bits*>(a.basis[k])[i]);
+            if (!kRuntimeK || k < a.K) b[k] = Elem<T>::to_math(reinterpret_cast<const Bits*>(a.basis[k])[i]);
         }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-            float acc = 0.f;
+            Math acc = 0;
 #pragma unroll
             for (int k = 0; k < K; ++k) {
                 if (kRuntimeK && k >= a.K) break;
-                acc = chain<T>(acc, b[k], a.w[r][k], k == 0);
+                acc = chain<T>(acc, b[k], Elem<T>::weight(a, r, k), k == 0);
             }
-            reinterpret_cast<Bits*>(a.out[r])[i] = Elem<T>::from_float(acc);
+            reinterpret_cast<Bits*>(a.out[r])[i] = Elem<T>::from_math(acc);
         }
     }
 }
@@ -204,6 +254,15 @@ cudaError_t launch(const FusedStepArgs& a, cudaStream_t stream) {
     return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// f64 (the diffusers wrapper's compute_scale=torch.float64): the run-time-K
+// instance of each rows count only
+cudaError_t launch_f64(const FusedStepArgs& a, cudaStream_t stream) {
+    const cudaError_t err = a.rows == 1   ? launch_instance<double, 1, kMaxK>(a, stream)
+                            : a.rows == 2 ? launch_instance<double, 2, kMaxK>(a, stream)
+                                          : launch_instance<double, 3, kMaxK>(a, stream);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int skt_fused_step(const FusedStepArgs* args, int size, int dtype, cudaStream_t stream) {
@@ -214,6 +273,8 @@ extern "C" int skt_fused_step(const FusedStepArgs* args, int size, int dtype, cu
     if (a.n == 0) return (int)cudaGetLastError();
     if (dtype == 0) return (int)launch<float>(a, stream);
     if (dtype == 1) return (int)launch<__nv_bfloat16>(a, stream);
+    if (dtype == 2) return (int)launch<__half>(a, stream);
+    if (dtype == 3) return (int)launch_f64(a, stream);
     return (int)cudaErrorInvalidValue;
 }
 

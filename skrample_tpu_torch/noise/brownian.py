@@ -13,7 +13,8 @@ via :func:`~skrample_tpu_torch.prng.fold_in`.  Consequences:
 
 The node keys and the draws are the JAX package's threefry ones
 (:mod:`..prng`), so a key gives the same tree on the CPU and the card.
-Keys stay on the host; each bridge is one normal draw on ``device``.
+Keys stay on the host; each bridge is one normal draw on ``device`` (CUDA
+unless the caller asks for the CPU, like the noise classes).
 
 Reference behavior being replaced: Beinsezii/skrample
 ``skrample/pytorch/noise.py:210-252`` (tol/pool/cache constants become a
@@ -27,6 +28,7 @@ import math
 import torch
 
 from .. import prng
+from ..ops._cuda import resolve_device
 
 
 def _node_key(key: torch.Tensor, level: int, index: int) -> torch.Tensor:
@@ -87,13 +89,13 @@ def brownian_at(
     depth: int,
     shape: tuple[int, ...],
     dtype: torch.dtype = torch.float32,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """``W(t)`` for ``t`` on the dyadic grid ``k / 2**depth`` (t is rounded).
 
     Walks up to ``depth`` bridge bisections toward ``t``, each one normal
     draw on ``device``.  Keys are pure functions of the node."""
-    device = torch.device(device)
+    device = resolve_device(device)
     t = min(max(t, 0.0), 1.0)
     grid = round(t * (1 << depth))
 
@@ -111,13 +113,13 @@ def brownian_increment(
     depth: int,
     shape: tuple[int, ...],
     dtype: torch.dtype = torch.float32,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """Unit-variance increment ``(W(t1) - W(t0)) / sqrt(dt_grid)``.
 
     Times are snapped to the dyadic grid; intervals narrower than one cell
     are widened to a single cell so generation never degenerates."""
-    device = torch.device(device)
+    device = resolve_device(device)
     scale = 1 << depth
     g0 = round(min(max(t0, 0.0), 1.0) * scale)
     g1 = round(min(max(t1, 0.0), 1.0) * scale)

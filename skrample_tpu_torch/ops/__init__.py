@@ -4,7 +4,11 @@
   combination tracing) to extract per-step scalar coefficient tables.
 * :mod:`.fused` — applies one step's table as a single fused elementwise
   FMA (the plain chain on CPU, kernel K1 on CUDA).
-* :mod:`.loop` — the denoise step loop over a table-compiled sampler.
+* :mod:`.loop` — the denoise loops: the step loop over a table-compiled
+  sampler, the RK tableau loop, the generic fallback and the adaptive loop
+  with its controller on the host.
+* :mod:`.adaptive` — adaptive RK (RKMoire) over precomputed (cursor, size)
+  coefficient tables.
 * :mod:`.adaln` — fused layernorm + adaLN modulation (kernel K3) and its
   backward (K6).
 * :mod:`.flash_attention` — attention off the fused qkv projection (K2),
@@ -28,6 +32,7 @@ Every kernel is written by hand in ``csrc/`` and built on first use
 import time.
 """
 
+from .adaptive import rkmoire_device_loop
 from .compiler import CompiledSampler, NonlinearSamplerError, compile_sampler
 from .flash_attention import (
     flash_attention_forward,
@@ -48,7 +53,7 @@ from .fused_conv import (
     tconv_causal_ref,
 )
 from .groupnorm import groupnorm_cl, groupnorm_eager_bign, groupnorm_forward, groupnorm_reference
-from .loop import CompiledDenoiser
+from .loop import CompiledDenoiser, generic_sample_loop, rk_sample_loop, rkmoire_sample_loop, sample_loop
 from .quant import dense_int8, quantize_activation, quantize_params, quantize_rows, quantize_weight
 from .rope import fused_rope_qk_norm, rope_qk_norm_forward, rope_qk_norm_reference
 
@@ -71,6 +76,7 @@ __all__ = [
     "fused_rope_qk_norm",
     "fused_step",
     "fused_step_cuda",
+    "generic_sample_loop",
     "groupnorm_cl",
     "groupnorm_eager_bign",
     "groupnorm_forward",
@@ -79,8 +85,12 @@ __all__ = [
     "quantize_params",
     "quantize_rows",
     "quantize_weight",
+    "rk_sample_loop",
+    "rkmoire_device_loop",
+    "rkmoire_sample_loop",
     "rope_qk_norm_forward",
     "rope_qk_norm_reference",
+    "sample_loop",
     "tconv_causal_gn_silu",
     "tconv_causal_gn_silu_forward",
     "tconv_causal_ref",

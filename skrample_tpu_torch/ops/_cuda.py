@@ -197,5 +197,5 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-"Element type codes shared with the C entry points."
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.float64: 3}
+"Element type codes shared with the C entry points (float64: K1 only)."

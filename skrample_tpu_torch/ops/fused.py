@@ -22,6 +22,7 @@ import ctypes
 from collections.abc import Sequence
 from typing import Any
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -32,25 +33,39 @@ _MAX_ROWS = 3
 _SMS = 132  # the H100's SMs
 _SM_THREADS = 2048  # threads an SM holds
 _BLOCK_THREADS = (128, 64, 32)  # K1's block widths, widest first (csrc/fused_step.cu kMaxThreads)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
 
 
-def fused_step(weights: Any, basis: Sequence[torch.Tensor] | torch.Tensor) -> torch.Tensor:
+def fused_step(
+    weights: Any, basis: Sequence[torch.Tensor] | torch.Tensor, weight_dtype: torch.dtype | None = None
+) -> torch.Tensor:
     """``(rows, K) @ (K, *latent) -> (rows, *latent)`` — the update FMA.
 
     ``basis`` is ``[x, o, ring..., noise]`` (a sequence, or a tensor stacked
     along axis 0).  Written as the explicit multiply-add chain of the JAX
-    package: weights are rounded to the basis dtype first, and every product
-    and partial sum rounds in that dtype, in this order."""
-    dtype = basis[0].dtype
-    w = torch.as_tensor(weights).to(dtype)
-    rows, K = w.shape
+    package: weights are rounded to ``weight_dtype`` first (the basis dtype
+    unless given), and every product and partial sum rounds in the basis
+    dtype, in this order.  Each weight enters as a Python scalar, which
+    PyTorch converts to the op's math type (f32 below f64): ``weight_dtype``
+    f32 at bf16 or f16 is the chain ``value * float(coeff)`` of the
+    diffusers wrapper."""
+    w = host_rows(weights.cpu() if isinstance(weights, torch.Tensor) else weights, weight_dtype or basis[0].dtype)
     outs = []
-    for r in range(rows):
-        acc = basis[0] * w[r, 0]
-        for k in range(1, K):
-            acc = acc + basis[k] * w[r, k]
+    for row in w:
+        acc = basis[0] * row[0]
+        for k in range(1, len(row)):
+            acc = acc + basis[k] * row[k]
         outs.append(acc)
     return torch.stack(outs)
+
+
+class _StepWeights(ctypes.Union):
+    "K1's weights in its arithmetic type; must match ``StepWeights`` in ``csrc/fused_step.cu``."
+
+    _fields_ = [  # noqa: RUF012 — ctypes layout declaration
+        ("f", (ctypes.c_float * _MAX_K) * _MAX_ROWS),
+        ("d", (ctypes.c_double * _MAX_K) * _MAX_ROWS),
+    ]
 
 
 class _FusedStepArgs(ctypes.Structure):
@@ -59,7 +74,7 @@ class _FusedStepArgs(ctypes.Structure):
     _fields_ = [  # noqa: RUF012 — ctypes layout declaration
         ("basis", ctypes.c_void_p * _MAX_K),
         ("out", ctypes.c_void_p * _MAX_ROWS),
-        ("w", (ctypes.c_float * _MAX_K) * _MAX_ROWS),
+        ("w", _StepWeights),
         ("n", ctypes.c_longlong),
         ("K", ctypes.c_int),
         ("rows", ctypes.c_int),
@@ -69,12 +84,12 @@ class _FusedStepArgs(ctypes.Structure):
     ]
 
 
-def step_instance(rows: int, K: int) -> tuple[int, int]:
+def step_instance(rows: int, K: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """The K1 instance that runs ``rows`` x ``K``: at rows 1 and 3 (what the samplers emit) its own up to
-    K 16; above, and at rows 2, the rows count's K-32 one (K read at run time)."""
+    K 16; above, at rows 2, and for f64 latents at every K, the rows count's K-32 one (K read at run time)."""
     if not 1 <= rows <= _MAX_ROWS or not 1 <= K <= _MAX_K:
         raise ValueError(f"fused_step_cuda: weights {rows}x{K} (rows <= {_MAX_ROWS}, K <= {_MAX_K})")
-    return rows, K if K <= _UNROLLED_K and rows != 2 else _MAX_K
+    return rows, K if K <= _UNROLLED_K and rows != 2 and dtype != torch.float64 else _MAX_K
 
 
 def step_plan(n: int, dtype: torch.dtype, aligned: bool = True) -> tuple[int, int, int]:
@@ -97,30 +112,37 @@ def host_rows(weights: Any, dtype: torch.dtype) -> list[list[float]]:
     """Weights as python floats, rounded to ``dtype`` first (what the plain
     chain multiplies by).  Weights must be host-side: reading a CUDA tensor
     here would stall the host on the device every step."""
-    if isinstance(weights, torch.Tensor) and weights.device.type != "cpu":
-        raise ValueError("fused_step_cuda takes host-side weights (a CPU tensor, numpy array or nested list)")
-    return torch.as_tensor(weights, device="cpu").to(dtype).to(torch.float64).tolist()
+    if isinstance(weights, torch.Tensor):
+        if weights.device.type != "cpu":
+            raise ValueError("fused_step_cuda takes host-side weights (a CPU tensor, numpy array or nested list)")
+    else:  # numpy or nested lists of Python floats: float64, never the default dtype
+        weights = torch.from_numpy(np.asarray(weights, dtype=np.float64))
+    return weights.to(dtype).to(torch.float64).tolist()
 
 
-def fused_step_cuda(weights: Any, basis: Sequence[torch.Tensor] | torch.Tensor) -> torch.Tensor:
+def fused_step_cuda(
+    weights: Any, basis: Sequence[torch.Tensor] | torch.Tensor, weight_dtype: torch.dtype | None = None
+) -> torch.Tensor:
     """Kernel K1: :func:`fused_step` in one launch on CUDA tensors.
 
     On CPU tensors this is :func:`fused_step`.  On CUDA tensors it launches
-    the kernel or raises: f32 or bf16, ``rows`` in 1..3, ``K`` in 1..32,
-    every basis tensor contiguous, on one device, of one dtype and shape.
-    The result is bit-identical to :func:`fused_step` (the kernel rounds
-    each product and sum in the plain chain's order)."""
+    the kernel or raises: f32, bf16, f16 or f64, ``rows`` in 1..3, ``K`` in
+    1..32, every basis tensor contiguous, on one device, of one dtype and
+    shape.  ``weight_dtype`` is the dtype the weights are rounded to first,
+    as in :func:`fused_step`.  The result is bit-identical to
+    :func:`fused_step` (the kernel rounds each product and sum in the plain
+    chain's order, in the same math type)."""
     first = basis[0]
     if first.device.type == "cpu":
-        return fused_step(weights, basis)
+        return fused_step(weights, basis, weight_dtype)
     if first.device.type != "cuda":
         raise ValueError(f"fused_step_cuda: unsupported device {first.device}")
     dtype = first.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_step_cuda: dtype {dtype} unsupported (float32 or bfloat16)")
-    w = host_rows(weights, dtype)
+    if dtype not in _DTYPES:
+        raise ValueError(f"fused_step_cuda: dtype {dtype} unsupported (float32, bfloat16, float16 or float64)")
+    w = host_rows(weights, weight_dtype or dtype)
     rows, K = len(w), len(w[0])
-    step_instance(rows, K)
+    step_instance(rows, K, dtype)
     if len(basis) != K:
         raise ValueError(f"fused_step_cuda: weights {rows}x{K} vs {len(basis)} basis tensors")
     for t in basis:
@@ -129,11 +151,12 @@ def fused_step_cuda(weights: Any, basis: Sequence[torch.Tensor] | torch.Tensor) 
 
     out = torch.empty((rows, *first.shape), dtype=dtype, device=first.device)
     args = _FusedStepArgs()
+    weights_in = args.w.d if dtype == torch.float64 else args.w.f  # the kernel's math type (float below f64)
     pointers = [t.data_ptr() for t in basis] + [out[r].data_ptr() for r in range(rows)]
     for k in range(K):
         args.basis[k] = pointers[k]
         for r in range(rows):
-            args.w[r][k] = w[r][k]
+            weights_in[r][k] = w[r][k]
     for r in range(rows):
         args.out[r] = pointers[K + r]
     args.n = first.numel()

@@ -1,24 +1,43 @@
-"""The denoise step loop and the single-step device API.
+"""The denoise loops and the single-step device API.
 
-:class:`CompiledDenoiser` runs a table-compiled multistep sampler (Euler,
-DPM, Adams, UniP/UniPC, SPC...): per step, one model call and one fused
-multi-FMA (:mod:`.fused`), with every solver scalar precomputed on the host
-in float64 by :mod:`.compiler`.  The JAX package runs the same loop as one
-``lax.scan``; here it is a Python loop over eagerly launched work, which
-never waits on the device (weights stay on the host, nothing is read back).
+Execution strategies, fastest first:
+
+* :class:`CompiledDenoiser` (and :func:`sample_loop`) — table-compiled
+  multistep samplers (Euler, DPM, Adams, UniP/UniPC, SPC...): per step, one
+  model call and one fused multi-FMA (:mod:`.fused`), with every solver
+  scalar precomputed on the host in float64 by :mod:`.compiler`.
+* :func:`rk_sample_loop` — tableau solvers (RKUltra / DynasauRK): per-step
+  stage points and update coefficients precomputed on the host in float64;
+  each stage latent and each step's update is one fused multi-FMA.
+* :func:`generic_sample_loop` — the polymorphic sampler spec run directly;
+  needed only for non-affine samplers like ``SPC(power != 1)``.
+* :func:`rkmoire_sample_loop` — the adaptive embedded pair with its
+  controller on the host and one fused multi-FMA a stage and a trial.
+
+The JAX package runs these as ``lax.scan`` loops; here each is a Python loop
+over eagerly launched work, which never waits on the device (weights stay on
+the host, nothing is read back) except where a controller reads a trial's
+error.  On CUDA tensors every fused multi-FMA is one launch of kernel K1; on
+CPU tensors it is the plain chain.
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from .. import prng
+from ..common import DeltaPoint, Point, Step
+from ..sampling import functional, interface, models, structured
+from ..sampling.rk_solvers import DynasauRK, RKMoire, RKUltra
+from ..scheduling import SkrampleSchedule
 from ._cuda import resolve_device
-from .compiler import CompiledSampler
+from .compiler import CompiledSampler, compile_sampler
 from .fused import fused_step_cuda
 
 type DeviceModel = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -236,3 +255,296 @@ class CompiledDenoiser:
                 trajectory.append(x)
         return torch.stack(trajectory) if return_trajectory else x
 
+
+
+def sample_loop(
+    sampler: structured.StructuredSampler,
+    schedule: SkrampleSchedule,
+    model_transform: models.DiffusionModel,
+    steps: int,
+    model_fn: DeviceModel,
+    sample: torch.Tensor,
+    key: torch.Tensor | None = None,
+    noises: torch.Tensor | None = None,
+    dtype: torch.dtype | None = None,
+    return_trajectory: bool = False,
+    start: int = 0,
+) -> torch.Tensor:
+    "Compile + run a structured sampler through :class:`CompiledDenoiser` (K1 a step on CUDA tensors)."
+    compiled = compile_sampler(sampler, schedule, model_transform, steps, start=start)
+    denoiser = CompiledDenoiser.build(compiled, dtype=dtype or sample.dtype, device=sample.device)
+    return denoiser.run(model_fn, sample, key=key, noises=noises, return_trajectory=return_trajectory, start=start)
+
+
+# --- Runge-Kutta loops ------------------------------------------------------
+
+
+def _wrap_device_model(
+    model_fn: DeviceModel,
+    model_transform: models.DiffusionModel,
+    derivative_transform: models.DiffusionModel | None,
+) -> DeviceModel:
+    if not derivative_transform:
+        return model_fn
+    convert = models.ModelConvert(model_transform, derivative_transform)
+
+    def wrapped(x, t, s, a):
+        return convert.output_to(x, model_fn(x, t, s, a), Point(t, s, a))
+
+    return wrapped
+
+
+def _combine(weights: list[float] | list[list[float]], basis: list[torch.Tensor]) -> torch.Tensor:
+    """``sum_k weights[k] * basis[k]`` as one fused multi-FMA (K1 on CUDA tensors, the plain chain on CPU
+    ones); ``weights`` is one row, or a list of rows for one output each."""
+    rows = weights if isinstance(weights[0], list) else [weights]
+    out = fused_step_cuda(rows, basis)
+    return out if isinstance(weights[0], list) else out[0]
+
+
+def _stage_latent(
+    x: torch.Tensor, derivatives: list[torch.Tensor], a_norm: np.ndarray, gamma: float, delta: float
+) -> torch.Tensor:
+    """A stage's latent ``x * gamma + (sum_j d_j * a_norm[j]) * delta`` with the weights folded on the host in
+    float64: ``x * gamma + sum_j d_j * (a_norm[j] * delta)``."""
+    return _combine([float(gamma), *(float(a_norm[j] * delta) for j in range(len(derivatives)))], [x, *derivatives])
+
+
+def rk_sample_loop(
+    sampler: RKUltra | DynasauRK,
+    schedule: SkrampleSchedule,
+    model_transform: models.DiffusionModel,
+    steps: int,
+    model_fn: DeviceModel,
+    sample: torch.Tensor,
+    key: torch.Tensor | None = None,
+    noises: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Tableau solvers (RKUltra / DynasauRK), one model call a stage.
+
+    Stage structure (counts, which rows exist) must be uniform over the
+    steps; stage points and every gamma/delta/zeta coefficient are
+    precomputed on the host in float64, so DynasauRK's per-step tableaux run
+    the same loop.  Each stage that mixes earlier derivatives forms its
+    latent in one fused multi-FMA, and each step's update in one more.
+    Steps whose stages touch t=0 / sigma=0 (the final step) run through the
+    generic :func:`~skrample_tpu_torch.sampling.functional.step_tableau`,
+    which skips the model call there.  Stochastic samplers take ``noises``
+    ``(steps, *shape)`` or draw step ``n`` from ``normal(split(key,
+    steps)[n])`` (:mod:`..prng`)."""
+    dtype = sample.dtype
+    epsilon = 1e-8
+
+    tableaus = [sampler.tableau(Step.from_int(n, steps)) if isinstance(sampler, DynasauRK) else sampler.tableau()
+                for n in range(steps)]
+    stages = len(tableaus[0].stages)
+    assert all(len(t.stages) == stages for t in tableaus), "stage structure must be uniform"
+
+    transform = sampler.derivative_transform or model_transform
+    wrapped_model = _wrap_device_model(model_fn, model_transform, sampler.derivative_transform)
+
+    # Host-side coefficient extraction, float64 throughout
+    stage_points = np.zeros((steps, stages, 3))
+    stage_gamma = np.zeros((steps, stages))
+    stage_delta = np.zeros((steps, stages))
+    a_norm = np.zeros((steps, stages, stages))  # a-row / fsum(a-row)
+    b_weights = np.zeros((steps, stages))
+    final_gamma = np.zeros(steps)
+    final_delta = np.zeros(steps)
+    final_zeta = np.zeros(steps)
+    scan_mask = np.ones(steps, dtype=bool)
+
+    for n in range(steps):
+        tab = tableaus[n]
+        step = Step.from_int(n, steps)
+        S0, S1, *points = schedule.ipoints([*step, *(step[0] + st.c * (step[1] - step[0]) for st in tab.stages)])
+        delta = DeltaPoint(S0, S1)
+        for i, (point, stage) in enumerate(zip(points, tab.stages, strict=True)):
+            if abs(point.timestep) < epsilon or abs(point.sigma) < epsilon:
+                scan_mask[n] = False  # needs the generic call-skip path
+            stage_points[n, i] = point
+            if stage.a:
+                part = DeltaPoint(S0, point)
+                stage_gamma[n, i] = transform.gamma(part)
+                stage_delta[n, i] = transform.delta(part)
+                a_norm[n, i, : len(stage.a)] = np.asarray(stage.a) / math.fsum(stage.a)
+        b_weights[n] = tab.weights
+        final_gamma[n] = transform.gamma(delta, sampler.stochasticity)
+        final_delta[n] = transform.delta(delta, sampler.stochasticity)
+        final_zeta[n] = transform.zeta(delta, sampler.stochasticity)
+
+    requires_noise = abs(sampler.stochasticity) > 1e-8
+    if requires_noise and noises is None:
+        if key is None:
+            raise ValueError("stochastic sampler: pass key= or noises=")
+        noises = torch.stack([prng.normal(k, tuple(sample.shape), dtype, sample.device) for k in prng.split(key, steps)])
+
+    # Which stages synthesize an intermediate sample (static structure)
+    has_a = [bool(tab.a) for tab in tableaus[0].stages]
+    # The prefix of steps that never touch t=0 runs here; the rest generically.
+    n_scan = int(np.argmin(scan_mask)) if not scan_mask.all() else steps
+    pts = torch.from_numpy(stage_points[:n_scan]).to(dtype).to(sample.device)  # the model's stage points
+
+    for n in range(n_scan):
+        x = sample
+        derivatives: list[torch.Tensor] = []
+        for i in range(stages):
+            latent = _stage_latent(x, derivatives, a_norm[n, i], stage_gamma[n, i], stage_delta[n, i]) if has_a[i] else x
+            derivatives.append(wrapped_model(latent, pts[n, i, 0], pts[n, i, 1], pts[n, i, 2]))
+        row = [float(final_gamma[n]), *(float(b_weights[n, i] * final_delta[n]) for i in range(stages))]
+        basis = [x, *derivatives]
+        if requires_noise:
+            row.append(float(final_zeta[n]))
+            basis.append(noises[n])
+        sample = _combine(row, basis)
+
+    for n in range(n_scan, steps):
+        step = Step.from_int(n, steps)
+        sample = functional.step_tableau(
+            tableaus[n],
+            sample,
+            model_fn,  # step_tableau applies the derivative conversion itself
+            model_transform,
+            schedule,
+            step,
+            sampler.derivative_transform,
+            noises[n] if requires_noise else None,
+            sampler.stochasticity,
+        )[0]
+
+    return sample
+
+
+def generic_sample_loop(
+    sampler: structured.StructuredSampler,
+    schedule: SkrampleSchedule,
+    model_transform: models.DiffusionModel,
+    steps: int,
+    model_fn: DeviceModel,
+    sample: torch.Tensor,
+    noises: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fallback: run the polymorphic sampler spec directly.
+
+    Works for every sampler including non-affine ones; no fused step."""
+    adapter = interface.StructuredFunctionalAdapter(sampler)
+    if noises is not None:
+        counter = iter(range(steps))
+        rng = lambda _step: noises[next(counter)]  # noqa: E731
+    else:
+        rng = None
+    return adapter.sample_model(sample, model_fn, model_transform, schedule, steps, rng=rng)
+
+
+def _relative_error(low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
+    "``mse(low, high) / max(mse(0, high), 1e-16)`` on the device, in the sample's dtype."
+    return torch.mean(torch.square(low - high)) / torch.clamp_min(torch.mean(torch.square(high)), 1e-16)
+
+
+def rkmoire_sample_loop(
+    sampler: RKMoire,
+    schedule: SkrampleSchedule,
+    model_transform: models.DiffusionModel,
+    steps: int,
+    model_fn: DeviceModel,
+    sample: torch.Tensor,
+    include: slice = slice(None),
+) -> torch.Tensor:
+    """Adaptive embedded RK with the step-size controller on the host and the
+    trial steps on the device.
+
+    Reproduces :meth:`~skrample_tpu_torch.sampling.rk_solvers.RKMoire.sample_model`
+    (same controller math, same MSE evaluator — which must be the default for
+    this path): each stage latent is one fused multi-FMA, and each trial's
+    high and low solutions one more (two rows).  The error scalar reads back
+    once a trial — inherent to data-dependent step control."""
+    if sampler.evaluator is not functional.FunctionalAdaptive.mse:
+        # custom evaluators are arbitrary host code: use the eager spec path
+        return sampler.sample_model(sample, model_fn, model_transform, schedule, steps, include)
+
+    dtype = sample.dtype
+    tab = sampler.tableau()
+    stages = len(tab.stages)
+    has_a = [bool(st.a) for st in tab.stages]
+    a_norm = np.zeros((stages, stages))
+    for i, st in enumerate(tab.stages):
+        if st.a:
+            a_norm[i, : len(st.a)] = np.asarray(st.a) / math.fsum(st.a)
+    b_w = np.asarray(tab.weights)
+    e_w = np.asarray(tab.error_weights)
+
+    transform = sampler.derivative_transform or model_transform
+    wrapped_model = _wrap_device_model(model_fn, model_transform, sampler.derivative_transform)
+
+    def eval_step(x, pts, s_g, s_d, f_g, f_d):
+        points = torch.from_numpy(pts).to(dtype).to(x.device)
+        derivatives: list[torch.Tensor] = []
+        for i in range(stages):
+            latent = _stage_latent(x, derivatives, a_norm[i], s_g[i], s_d[i]) if has_a[i] else x
+            derivatives.append(wrapped_model(latent, points[i, 0], points[i, 1], points[i, 2]))
+        high, low = _combine(
+            [[float(f_g), *(float(w * f_d) for w in b_w)], [float(f_g), *(float(w * f_d) for w in e_w)]],
+            [x, *derivatives],
+        )
+        return high, _relative_error(low, high)
+
+    def coefficients(step_from: int, step_to: int):
+        step = Step(step_from / steps, step_to / steps)
+        S0, S1, *points = schedule.ipoints([*step, *(step[0] + st.c * (step[1] - step[0]) for st in tab.stages)])
+        delta = DeltaPoint(S0, S1)
+        pts = np.asarray(points, dtype=np.float64)
+        s_g = np.zeros(stages)
+        s_d = np.zeros(stages)
+        for i, (point, st) in enumerate(zip(points, tab.stages, strict=True)):
+            if st.a:
+                part = DeltaPoint(S0, point)
+                s_g[i] = transform.gamma(part)
+                s_d[i] = transform.delta(part)
+        return pts, s_g, s_d, transform.gamma(delta), transform.delta(delta)
+
+    # --- controller: mirrors RKMoire.sample_model exactly -------------------
+    initial = sampler.initial
+    maximum = sampler.maximum
+    if sampler.rescale_init:
+        initial *= stages / 2
+    if sampler.rescale_max:
+        maximum *= stages / 2
+
+    step_size = max(round(steps * initial), 1)
+    epsilon = 1e-16
+    indices = list(range(steps))[include]
+    step = indices[0]
+
+    while step <= indices[-1]:
+        step_next = min(step + step_size, indices[-1] + 1)
+
+        if step_next < steps:
+            sample_high, err_dev = eval_step(sample, *coefficients(step, step_next))
+
+            sigma0, sigma1, sigma2 = schedule.ipoints_np(
+                [step / steps, step_next / steps, (step_next + step_size) / steps]
+            )[:, 1].tolist()
+            slope = abs(sigma0 - sigma1) / abs(sigma1 - sigma2)
+
+            error = float(err_dev)  # the one host sync per trial step
+            adjustment = (sampler.threshold / max(error, epsilon)) ** sampler.adaption / slope
+            step_size = max(round(min(step_size * adjustment, steps * maximum)), 1)
+
+            if step_next - step > step_size and 1 / max(adjustment, epsilon) > sampler.discard:
+                continue  # retry smaller without accepting
+
+        else:  # final step: generic path handles the t=0 stage skip
+            sample_high = functional.step_tableau(
+                tab.unembed(),
+                sample,
+                model_fn,
+                model_transform,
+                schedule,
+                Step(step / steps, 1),
+                sampler.derivative_transform,
+            )[0]
+
+        sample = sample_high
+        step = step_next
+
+    return sample

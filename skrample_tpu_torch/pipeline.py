@@ -9,7 +9,8 @@ latent key and an in-loop key, so a seed gives the reference's x0 and, for a
 stochastic sampler, its per-step noise.  The loop is
 :meth:`~.ops.loop.CompiledDenoiser.run`: one model call and one fused step
 (kernel K1 on the card) a step, launched from the host without waiting on
-the device.
+the device.  :class:`AdaptivePipeline` runs RKMoire's error-controlled loop
+(:mod:`.ops.adaptive`) the same way, reading one error back a trial step.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from . import prng, scheduling
 from .common import Step
 from .noise import TorchNoise
 from .ops._cuda import resolve_device
+from .ops.adaptive import AdaptivePlan, adaptive_plan, rkmoire_device_loop
 from .ops.compiler import compile_sampler
 from .ops.loop import CompiledDenoiser, DeviceModel
 from .sampling import models, rk_solvers, structured
@@ -133,12 +135,12 @@ class GenerationPipeline:
 
 @dataclass
 class AdaptivePipeline:
-    """Adaptive-step generation: RKMoire as one device-resident loop.
+    """Adaptive-step generation: RKMoire over precomputed (cursor, size)
+    tables (:mod:`.ops.adaptive`).
 
-    The JAX package compiles the error-controlled trajectory into one
-    ``lax.while_loop`` (``ops/adaptive.py``); the port's counterpart comes
-    with the other loops (ROADMAP A2).  Until then, construction raises;
-    ``rk_solvers.RKMoire.sample_model`` runs the same controller on the host."""
+    Construction builds the tables once, on ``device``; each request draws
+    its initial latent from the key and runs the error-controlled trajectory
+    (one read-back of the error a trial step)."""
 
     model_fn: DeviceModel
     sampler: rk_solvers.RKMoire
@@ -148,9 +150,33 @@ class AdaptivePipeline:
     latent_shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
     device: str | torch.device = "cuda"
+    "Where the loop runs: the card unless the caller asks for the CPU."
+
+    plan: AdaptivePlan = field(init=False)
+    "The (cursor, size) tables, built once."
 
     def __post_init__(self) -> None:
-        raise NotImplementedError(f"the device-resident RKMoire loop (ops/adaptive.py, ROADMAP A2) {_LATER}")
+        self.device = resolve_device(self.device)
+        self.plan = adaptive_plan(
+            self.sampler, self.schedule, self.model_transform, self.steps, dtype=self.dtype, device=self.device
+        )
+
+    def generate(self, key: int | torch.Tensor) -> tuple[torch.Tensor, int, int]:
+        "One request, from an int seed or a :mod:`.prng` key; returns (sample, accepted steps, trial steps)."
+        if isinstance(key, int):
+            key = prng.PRNGKey(key)
+        x0 = prng.normal(key, tuple(self.latent_shape), self.dtype, self.device)
+        with torch.inference_mode():
+            return rkmoire_device_loop(  # type: ignore[return-value]
+                self.sampler,
+                self.schedule,
+                self.model_transform,
+                self.steps,
+                self.model_fn,
+                x0,
+                return_counters=True,
+                plan=self.plan,
+            )
 
 
 def build_pipeline(

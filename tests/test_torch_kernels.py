@@ -108,8 +108,88 @@ def test_fused_step_programmatic_launch_in_a_graph(cuda: torch.device) -> None:
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+@pytest.mark.parametrize(("rows", "K"), [(r, k) for r in (1, 2, 3) for k in (*range(1, 17), 17, 30, 32)])
+def test_fused_step_half_and_double_are_bit_exact(cuda: torch.device, dtype: torch.dtype, rows: int, K: int) -> None:
+    """K1's f16 instances (the bf16 ones' twins) and its f64 ones (the run-time-K instance of each rows
+    count, f64 weights and accumulator) against the plain chain, tolerance 0: 4099 elements a latent (16-byte
+    vectors, then a scalar tail), and an unaligned view (the scalar path)."""
+    gen = torch.Generator(cuda).manual_seed(200 * rows + K)
+    w = np.random.default_rng(K).standard_normal((rows, K))
+    basis = [torch.randn(4099, generator=gen, device=cuda, dtype=torch.float64).to(dtype) for _ in range(K)]
+    assert fused.step_instance(rows, K, dtype) == (rows, 32 if dtype == torch.float64 or K > 16 or rows == 2 else K)
+    assert torch.equal(fused.fused_step_cuda(w, basis), fused.fused_step(w, basis))
+    shifted = [torch.randn(4100, generator=gen, device=cuda, dtype=torch.float64).to(dtype)[1:] for _ in range(K)]
+    assert torch.equal(fused.fused_step_cuda(w, shifted), fused.fused_step(w, shifted))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32, torch.float64])
+@pytest.mark.parametrize(("rows", "K"), [(1, 4), (3, 7), (1, 17)])
+def test_fused_step_f32_weights_are_bit_exact(cuda: torch.device, dtype: torch.dtype, rows: int, K: int) -> None:
+    """``weight_dtype=torch.float32`` (the diffusers wrapper's chain: weights rounded to f32, not to the
+    latent's dtype) against the plain chain in the same mode, tolerance 0; at bf16 and f16 it differs from
+    the default rounding."""
+    gen = torch.Generator(cuda).manual_seed(rows * K)
+    w = np.random.default_rng(K + 1).standard_normal((rows, K))
+    basis = [torch.randn((4, 4, 64, 64), generator=gen, device=cuda).to(dtype) for _ in range(K)]
+    got = fused.fused_step_cuda(w, basis, weight_dtype=torch.float32)
+    assert torch.equal(got, fused.fused_step(w, basis, weight_dtype=torch.float32))
+    if dtype in (torch.bfloat16, torch.float16):
+        assert not torch.equal(got, fused.fused_step_cuda(w, basis))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "f64", "bf16", "f16"])
+@pytest.mark.parametrize("name", ["dpm2", "unipc3", "adams3", "dpm2-sde"])
+def test_wrapper_step_on_the_card_equals_the_cpu(cuda: torch.device, name: str, dtype: str) -> None:
+    """``SkrampleWrapperScheduler._compiled_step`` on CUDA tensors (one K1 launch a step, rows 1 or 3) against
+    the same wrapper's plain chain on CPU tensors, driven like a pipeline from the same latent, model
+    outputs and noise: bit for bit at every step, at each dtype the wrapper meets."""
+    from skrample_tpu_torch import diffusers, scheduling
+    from skrample_tpu_torch.sampling import models, structured
+
+    samplers = {
+        "dpm2": structured.DPM(order=2),
+        "unipc3": structured.UniPC(order=3),
+        "adams3": structured.Adams(order=3),
+        "dpm2-sde": structured.DPM(order=2, stochasticity=1.0),
+    }
+    latent_dtype, compute_scale = {
+        "f32": (torch.float32, torch.float32),
+        "f64": (torch.float64, torch.float64),
+        "bf16": (torch.bfloat16, None),
+        "f16": (torch.float16, None),
+    }[dtype]
+    steps = 8
+    rng = np.random.default_rng(3)
+    x0 = torch.from_numpy(rng.standard_normal((1, 4, 32, 32))).to(latent_dtype)
+    noises = [torch.from_numpy(rng.standard_normal((1, 4, 32, 32))) for _ in range(steps)]
+    results = []
+    for device in ("cpu", cuda):
+        wrapper = diffusers.SkrampleWrapperScheduler(
+            samplers[name], scheduling.Karras(scheduling.Scaled()), models.NoiseModel(), compute_scale=compute_scale
+        )
+        wrapper.set_timesteps(steps, device=device)
+        wrapper.get_step_noise = lambda step, sample, *_a, **_k: noises[round(step.position())].to(
+            device=sample.device, dtype=compute_scale or sample.dtype
+        )
+        x, trajectory = x0.to(device), []
+        before = fused.fused_step_cuda.launches
+        for t in wrapper.timesteps:
+            out = (0.8 * x.double() + 0.3 * float(t) / 1000).to(latent_dtype)
+            x = wrapper.step(out, t, x).prev_sample
+            trajectory.append(x.cpu())
+        launches = fused.fused_step_cuda.launches - before
+        assert launches == (steps if device == cuda else 0)
+        results.append(trajectory)
+    for cpu_x, card_x in zip(*results, strict=True):
+        assert torch.equal(card_x, cpu_x)
+
+
+@pytest.mark.gpu
 def test_fused_step_kernel_raises_on_what_it_cannot_take(cuda: torch.device) -> None:
-    x = torch.zeros(16, device=cuda, dtype=torch.float16)
+    x = torch.zeros(16, device=cuda, dtype=torch.int32)
     with pytest.raises(ValueError, match="dtype"):
         fused.fused_step_cuda([[1.0, 1.0]], [x, x])
     y = torch.zeros(4, 4, device=cuda)

@@ -117,22 +117,22 @@ def test_brownian_tree_matches_jax_and_adds_up() -> None:
     depth = 8
     jkey, key = jax.random.PRNGKey(13), prng.PRNGKey(13)
     for t in (0.0, 0.25, 0.3, 0.61, 1.0):
-        _close(tnoise.brownian_at(key, t, depth, SHAPE), jnoise.brownian_at(jkey, t, depth, SHAPE))
+        _close(tnoise.brownian_at(key, t, depth, SHAPE, device="cpu"), jnoise.brownian_at(jkey, t, depth, SHAPE))
     for t0, t1 in ((0.1, 0.35), (0.5, 0.5), (0.99, 1.0), (0.0, 1.0)):
         _close(
-            tnoise.brownian_increment(key, t0, t1, depth, SHAPE),
+            tnoise.brownian_increment(key, t0, t1, depth, SHAPE, device="cpu"),
             jnoise.brownian_increment(jkey, t0, t1, depth, SHAPE),
         )
 
     def w(t: float) -> torch.Tensor:
-        return tnoise.brownian_at(key, t, depth, SHAPE).double()
+        return tnoise.brownian_at(key, t, depth, SHAPE, device="cpu").double()
 
     for a, m, b in ((0.1, 0.3, 0.7), (0.0, 0.5, 1.0), (0.2, 0.21, 0.9)):
         whole = w(b) - w(a)
         assert (whole - ((w(m) - w(a)) + (w(b) - w(m)))).abs().max().item() <= 1e-5
         scale = 2**depth
         g_a, g_b = round(a * scale), round(b * scale)
-        inc = tnoise.brownian_increment(key, a, b, depth, SHAPE).double()
+        inc = tnoise.brownian_increment(key, a, b, depth, SHAPE, device="cpu").double()
         np.testing.assert_allclose(inc.numpy(), (whole / ((g_b - g_a) / scale) ** 0.5).numpy(), rtol=0, atol=1e-5)
 
 

@@ -197,9 +197,14 @@ def test_sdxl_stack_pipeline_matches_jax() -> None:
 
 
 def test_adaptive_pipeline_and_mesh_raise() -> None:
-    "AdaptivePipeline waits for ops/adaptive.py (A2); a mesh for data parallelism (A5); the card default without one."
-    with pytest.raises(NotImplementedError, match="A2"):
-        tpipe.AdaptivePipeline(_analytic, trk.RKMoire(order=3), tsched.Linear(), tmodels.FlowModel(), 4, LATENT)
+    """AdaptivePipeline builds on the CPU when asked (ops/adaptive.py, A2) and gives a finite latent with the
+    accepted and trial counts; a mesh for data parallelism still raises (A5); the card default without one."""
+    adaptive = tpipe.AdaptivePipeline(
+        _analytic, trk.RKMoire(order=3), tsched.Linear(), tmodels.FlowModel(), 4, LATENT, device="cpu"
+    )
+    sample, accepted, trials = adaptive.generate(5)
+    assert tuple(sample.shape) == LATENT and bool(torch.isfinite(sample).all())
+    assert accepted >= 1 and trials >= accepted - 1
     with pytest.raises(NotImplementedError, match="A5"):
         tpipe.GenerationPipeline(
             _analytic, tstruct.DPM(), tsched.Linear(), tmodels.FlowModel(), 4, LATENT, mesh=object(), device="cpu"
@@ -210,3 +215,5 @@ def test_adaptive_pipeline_and_mesh_raise() -> None:
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tpipe.build_pipeline(_analytic, LATENT)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tpipe.AdaptivePipeline(_analytic, trk.RKMoire(order=3), tsched.Linear(), tmodels.FlowModel(), 4, LATENT)
