@@ -113,7 +113,23 @@ Phases, each failing the run with a non-zero exit:
     (one a mixing stage and a step, or a trial), K1 against its plain version
     bit for bit, the kernels against the plain versions and the eager RK loop.
     Phase 2 holds K1's f16 and f64 instances and its f32-weight mode to the
-    plain chain bit for bit.
+    plain chain bit for bit;
+14. A2's second half over phase 3's DiT-512/8: ``ServingEngine(graph=True)``
+    answers phase 3's 6 requests as CUDA-graph replays, bit for bit phase 3's
+    eager results with its launches a replayed dispatch, latency and images
+    per second in turns with the eager engine, a traced request of each;
+    ``GenerationPipeline(graph=True)`` with stochasticity 0.3 bit for bit
+    phase 12's key-drawn request; ``ContinuousServingEngine(slots=4)``, eager
+    and graphed, 1 and 5 ticks a dispatch (4 requests admitted in one tick ==
+    phase 3's bucket of 4, 8 staggered arrivals == each alone, K1 == its
+    plain version, one device-weights K1 launch a tick step), occupancy and
+    latency under the staggered arrivals against the batch engine; and
+    ``training.GraphedTrainStep`` (AdamW ``capturable=True``, EMA from a device
+    step) == the eager ``train_step`` after 5 steps, bit for bit, with phase
+    4's launches a replay, the median of 20 steps and a traced step of each.
+    Phase 2 holds K1's device-weights mode (per-item rows of a table on the
+    card, f32, bf16, f16 and f64 latents, the scalar path) to its plain
+    version bit for bit, with its card time beside the by-value K1's.
 
 Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
@@ -446,6 +462,35 @@ def kernels_phase() -> dict[str, dict]:
             f"(card time, CUDA-graph replay; f32 rows 1 K 4: {rows['fused_step_cuda']['ms'] * 1e3:.2f} us), bound "
             f"{n_bytes / HBM_BYTES_PER_S * 1e6:.2f} us (bytes); instance {fused.step_instance(*w.shape, dtype)}"
         )
+
+    # K1's device-weights mode (the tick's and jitted_step_indexed's): per-item rows [0, 7, 24, 3] of the 25-step
+    # table on the card, the table in f32 whatever the latent's dtype (rounded to it first), a whole-latent item
+    # (an int row and a 0-d index), and items of 105 elements (not a multiple of any vector: the scalar path)
+    table_1x4 = torch.from_numpy(compiled.weights[:, :1, :4].copy()).to(dev, torch.float32)
+    table_3x7 = torch.from_numpy(np.random.default_rng(3).standard_normal((STEPS, 3, 7))).to(dev, torch.float32)
+    index = torch.tensor([0, 7, 24, 3], dtype=torch.int32, device=dev)
+    device_cases = [
+        (f"{name} rows {table.shape[1]} K {table.shape[2]}", dtype, table, shape)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16), ("f16", torch.float16), ("f64", torch.float64))
+        for table, shape in ((table_1x4, latent), (table_3x7, latent))
+    ] + [("bf16 rows 3 K 7, items of 105 (scalar path)", torch.bfloat16, table_3x7, (4, 3, 5, 7))]
+    for label, dtype, table, shape in device_cases:
+        basis = [torch.randn(shape, generator=gen, device=dev, dtype=torch.float64).to(dtype) for _ in range(table.shape[2])]
+        errs = []
+        for idx in (index, 10, torch.tensor(10, dtype=torch.int32, device=dev)):
+            got = fused.fused_step_indexed_cuda(table, idx, basis)
+            ref = fused.fused_step_indexed(table, idx, basis)
+            torch.cuda.synchronize()
+            errs.append(max_err(got, ref))
+            expect(bool(torch.isfinite(got).all()) and torch.equal(got, ref), f"K1 device weights {label}: not bit-exact, {errs[-1]}")
+        line = f"K1 device weights {label} {shape}, per-item rows {index.tolist()} and one whole-latent item: max_abs_err {max(errs):.3e} (tolerance 0: bit-exact)"
+        if label == "f32 rows 1 K 4":
+            dev_ms, dev_eager = cuda_ms(lambda t=table, b=basis: fused.fused_step_indexed_cuda(t, index, b))
+            line += (
+                f"; {dev_ms * 1e3:.2f} us (card time, CUDA-graph replay; {dev_eager * 1e3:.2f} us a call eagerly) against "
+                f"the by-value K1's {rows['fused_step_cuda']['ms'] * 1e3:.2f} us at the same shape"
+            )
+        print(line)
 
     # ---- K2: fused-qkv attention, bf16 B 4 H 4 N 1024 d 128 ----
     B, N, H, d = 4, 1024, 4, 128
@@ -1087,8 +1132,9 @@ def _counters() -> dict[str, int]:
 def _reset_counters() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "routes"):
-            fn.routes = dict.fromkeys(fn.routes, 0)
+        for tally in ("routes", "modes"):  # launches by route (attention, B12, B13) or by mode (K1)
+            if hasattr(fn, tally):
+                setattr(fn, tally, dict.fromkeys(getattr(fn, tally), 0))
 
 
 def _routes() -> dict[str, dict[str, int]]:
@@ -3118,9 +3164,11 @@ PIPE_SHAPE = (1, 4, 64, 64)  # one DiT-512/8 request's latent, with its batch ax
 PIPE_REPEATS = 5  # requests per latency median
 
 
-def _pipeline_request(label: str, run, want: dict[str, int], total: dict[str, int]) -> object:
-    """One main-path request of phase 12: the counters set to 0 just before it, read just after, held to
-    ``want`` exactly and added to ``total``; the output must be finite."""
+def _pipeline_request(
+    label: str, run, want: dict[str, int], total: dict[str, int], phase: str = "pipeline"
+) -> object:
+    """One main-path request of phase 12 (or 14): the counters set to 0 just before it, read just after, held
+    to ``want`` exactly and added to ``total``; the output must be finite."""
     import torch
 
     torch.cuda.synchronize()
@@ -3129,9 +3177,9 @@ def _pipeline_request(label: str, run, want: dict[str, int], total: dict[str, in
     torch.cuda.synchronize()
     launches = _counters()
     want = {name: want.get(name, 0) for name in launches}
-    print(f"pipeline {label}: launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
-    expect(launches == want, f"pipeline {label}: launched {launches}, expected {want}")
-    expect(bool(torch.isfinite(out).all()), f"pipeline {label}: non-finite output")
+    print(f"{phase} {label}: launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+    expect(launches == want, f"{phase} {label}: launched {launches}, expected {want}")
+    expect(bool(torch.isfinite(out).all()), f"{phase} {label}: non-finite output")
     for name, count in launches.items():
         total[name] += count
     return out
@@ -3157,12 +3205,12 @@ def _noise_on_card_vs_cpu() -> None:
 
     dev = torch.device("cuda")
     key = prng.PRNGKey(2024)
-    bits_equal = torch.equal(prng.random_bits(key, PIPE_SHAPE, device=dev).cpu(), prng.random_bits(key, PIPE_SHAPE))
+    bits_equal = torch.equal(prng.random_bits(key, PIPE_SHAPE, device=dev).cpu(), prng.random_bits(key, PIPE_SHAPE, device="cpu"))
     uniforms_equal = all(
-        torch.equal(prng.uniform(key, PIPE_SHAPE, dtype, device=dev).cpu(), prng.uniform(key, PIPE_SHAPE, dtype))
+        torch.equal(prng.uniform(key, PIPE_SHAPE, dtype, device=dev).cpu(), prng.uniform(key, PIPE_SHAPE, dtype, device="cpu"))
         for dtype in (torch.float32, torch.bfloat16, torch.float16)
     )
-    normal_err = max_err(prng.normal(key, PIPE_SHAPE, device=dev).cpu(), prng.normal(key, PIPE_SHAPE))
+    normal_err = max_err(prng.normal(key, PIPE_SHAPE, device=dev).cpu(), prng.normal(key, PIPE_SHAPE, device="cpu"))
     print(
         f"pipeline noise: prng bits equal {bits_equal}, uniforms (f32, bf16, f16) equal {uniforms_equal} (tolerance 0); "
         f"normals max abs err {normal_err:.3e} (tolerance 1e-5: CUDA's erfinv vs the CPU's)"
@@ -3262,6 +3310,7 @@ def pipeline_phase(card: str, parts: dict) -> dict[str, int]:
     sde = pipeline(0.3)
     sde.generate(98).cpu()
     noisy = _pipeline_request("DiT stochastic", lambda: sde.generate(SEEDS[1]), per_request(STEPS), total).cpu()
+    parts["pipeline_stochastic"] = noisy  # phase 14 replays this request as one CUDA graph
     again = sde.generate(SEEDS[1]).cpu()
     expect(torch.equal(noisy, again), "pipeline: the same key gave another image")
     expect(_relative(noisy, got) > 1e-2, "pipeline: stochasticity 0.3 did not move the image")
@@ -3724,6 +3773,335 @@ def diffusers_phase(card: str, parts: dict) -> dict[str, int]:
     return total
 
 
+GRAPH_REPEATS = 5  # requests (or batches) per latency median of phase 14, eager and graphed in turns
+STAGGER_SEEDS = tuple(range(21, 29))  # phase 14's 8 staggered arrivals
+STAGGER_GAP_S = 0.010  # between two arrivals: about two ticks of the eager 4-slot pool
+
+
+def _same(got, want) -> tuple[bool, float]:
+    "Bit-equal, and the largest absolute difference, of two sequences of tensors (compared on the host)."
+    import torch
+
+    pairs = [(a.cpu(), b.cpu()) for a, b in zip(got, want, strict=True)]
+    return all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs), max(max_err(a, b) for a, b in pairs)
+
+
+def _arrivals(engine, seeds, gap_s: float) -> tuple[list, list[float]]:
+    """Submit ``seeds`` one every ``gap_s``; the results, and each request's latency in ms from its submission
+    to the card finishing it.  A future resolves once its work is enqueued, so the worker's done callback
+    records a CUDA event on its stream; the events' times from one recorded on an idle card at the start put
+    the completions on the host clock."""
+    import torch
+
+    done: dict[int, object] = {}
+
+    def finished(i: int) -> None:
+        done[i] = torch.cuda.Event(enable_timing=True)
+        done[i].record()
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    futs, sent = [], []
+    for i, seed in enumerate(seeds):
+        sent.append((time.perf_counter() - t0) * 1e3)
+        fut = engine.submit(seed)
+        fut.add_done_callback(lambda _f, i=i: finished(i))
+        futs.append(fut)
+        time.sleep(gap_s)
+    outs = [f.result() for f in futs]
+    torch.cuda.synchronize()
+    return outs, [start.elapsed_time(done[i]) - sent[i] for i in range(len(seeds))]
+
+
+def graphs_phase(card: str, dit_outputs: dict, parts: dict) -> dict[str, int]:
+    """Phase 14: A2's second half over phase 3's DiT-512/8 (bf16, the same random tree, 25-step DPM++2M over
+    FlowShift(Linear)).  (b) ``ServingEngine(graph=True)``: phase 3's 6 requests (4 together, then 2) as
+    replays of one CUDA graph a bucket, bit for bit phase 3's eager results, with phase 3's launches a
+    replayed dispatch; latency and images per second in turns with the eager engine, a traced request of
+    each; ``GenerationPipeline(stochasticity 0.3, graph=True)`` (``run(key=, graph=True)``) bit for bit phase
+    12's eager key-drawn request.  (c) ``ContinuousServingEngine(slots=4)``, eager and graphed, 1 and 5 ticks
+    a dispatch: 4 requests admitted in one tick == phase 3's bucket of 4; 8 staggered arrivals == each
+    alone in the pool; K1 swapped for its plain version == K1; one K1 launch a tick step, in the
+    device-weights mode; occupancy and latency under the staggered arrivals against the batch engine.  (d)
+    ``GraphedTrainStep`` over phase 4's configuration (batch 4, AdamW ``capturable=True``, EMA): 5 steps ==
+    the eager ``train_step`` with the same optimizer, bit for bit; phase 4's launches a replay; the median of
+    20 steps and a traced step, eager and graphed.  Returns the launches of every counted run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skrample_tpu_torch import scheduling, training
+    from skrample_tpu_torch.continuous import ContinuousServingEngine
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.ema import ema_init
+    from skrample_tpu_torch.ops import fused
+    from skrample_tpu_torch.pipeline import GenerationPipeline
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    config = DiTConfig(
+        dim=512, depth=DEPTH, heads=4, patch=2, channels=4, compute_dtype=torch.bfloat16, attention="flash"
+    )
+    tree = random_param_tree(config, seed=0)
+    model = DiT(config, device=dev).load_jax_params(tree).requires_grad_(False)
+    sampler, schedule, transform = structured.DPM(order=2), scheduling.FlowShift(scheduling.Linear()), models.FlowModel()
+    item = (4, 64, 64)
+
+    def per_steps(steps: int) -> dict[str, int]:
+        "K1 once a step, K2 once a block and K3 2 x depth + 1 times a forward."
+        return {"fused_step_cuda": steps, "flash_attention_qkv_forward": DEPTH * steps, "adaln_forward": (2 * DEPTH + 1) * steps}
+
+    # ---- b: ServingEngine(graph=True), phase 3's 6 requests ----
+    def serving_engine(graph: bool) -> ServingEngine:
+        return ServingEngine(
+            model.as_sampleable(), item, sampler, schedule, transform, STEPS, dtype=torch.float32, buckets=(1, 2, 4),
+            max_delay_ms=50.0, device=dev, graph=graph,
+        )
+
+    def four_then_two(engine: ServingEngine):
+        first = [engine.submit(s) for s in SEEDS[:4]]
+        outs = [f.result() for f in first]
+        second = [engine.submit(s) for s in SEEDS[4:]]
+        return torch.stack(outs + [f.result() for f in second])
+
+    eager, graphed = serving_engine(False), serving_engine(True)
+    with eager, graphed:
+        eager.generate(99).cpu()
+        four_then_two(graphed)  # the first dispatch of buckets 4 and 2: warm-up, capture, replay
+        graphed.generate(99).cpu()  # bucket 1
+        batches_before = graphed.stats.batches
+        served = _pipeline_request(
+            "ServingEngine(graph=True), 6 requests (4 together, then 2)", lambda: four_then_two(graphed),
+            per_steps(2 * STEPS), total, phase="graphs",
+        )
+        modes = dict(fused.fused_step_cuda.modes)
+        dispatches = graphed.stats.batches - batches_before
+        expect(dispatches == 2, f"graphs serving: expected 2 dispatches (4 + 2), got {dispatches}")
+        expect(modes == {"value": 2 * STEPS, "device": 0}, f"graphs serving: K1 by mode {modes}")
+        for key, captured in graphed._graphs.items():
+            per_replay = captured.tally.per_replay()
+            print(f"graphs serving: the graph of (bucket, start, context) {key}: launches a replay {per_replay}")
+            expect(per_replay == per_steps(STEPS), f"graphs serving: graph {key} replays {per_replay}")
+        equal, err = _same(served, [dit_outputs[seed] for seed in SEEDS])
+        print(
+            f"graphs serving: 6 replayed requests vs phase 3's eager ones of the same seeds: bit-equal {equal}, "
+            f"max abs err {err:.3e} (tolerance 0)"
+        )
+        expect(equal, f"graphs serving: the graphed requests differ from phase 3's by {err}")
+
+        eager.max_delay_s = graphed.max_delay_s = 2e-3  # phase 3's latency window
+        solo: dict[str, list[float]] = {"eager": [], "graph": []}
+        four: dict[str, list[float]] = {"eager": [], "graph": []}
+        for i in range(GRAPH_REPEATS):
+            for label, engine in (("eager", eager), ("graph", graphed))[:: 1 if i % 2 else -1]:
+                t0 = time.perf_counter()
+                engine.generate(400 + i).cpu()
+                solo[label].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                for f in [engine.submit(500 + 4 * i + j) for j in range(4)]:
+                    f.result().cpu()
+                four[label].append((time.perf_counter() - t0) * 1e3)
+        medians = {label: statistics.median(solo[label]) for label in solo}
+        for label in ("eager", "graph"):
+            batch = statistics.median(four[label])
+            print(
+                f"graphs serving {label}: request latency, bucket 1: median {medians[label]:.2f} ms of {GRAPH_REPEATS} "
+                f"({', '.join(f'{v:.2f}' for v in solo[label])}); batch of 4: median {batch:.2f} ms, "
+                f"{4e3 / batch:.2f} img/s ({card})"
+            )
+        for label, engine in (("eager", eager), ("graph", graphed)):
+            _traced_dispatch(
+                lambda engine=engine: engine.generate(600).cpu(), f"graphs serving {label}", medians[label] / 1e3,
+                card, FLUX_GROUPS,
+            )
+
+    pipe = GenerationPipeline(
+        model.as_sampleable(), structured.DPM(order=2, stochasticity=0.3), schedule, transform, STEPS, PIPE_SHAPE,
+        device=dev, graph=True,
+    )
+    pipe.generate(98).cpu()  # capture
+    got = _pipeline_request(
+        "GenerationPipeline(stochasticity 0.3, graph=True)", lambda: pipe.generate(SEEDS[1]), per_steps(STEPS),
+        total, phase="graphs",
+    )
+    equal, err = _same([got], [parts["pipeline_stochastic"]])
+    print(
+        f"graphs pipeline: run(key=, graph=True) (every step's noise drawn before the replay) vs phase 12's eager "
+        f"in-loop draws, seed {SEEDS[1]}: bit-equal {equal}, max abs err {err:.3e} (tolerance 0)"
+    )
+    expect(equal, f"graphs pipeline: the graphed key-drawn request differs from phase 12's by {err}")
+    del pipe
+
+    # ---- c: ContinuousServingEngine(slots=4), eager and graphed ----
+    def pool(graph: bool, ticks: int = 1) -> ContinuousServingEngine:
+        return ContinuousServingEngine(
+            model.as_sampleable(), item, sampler, schedule, transform, STEPS, dtype=torch.float32, slots=4,
+            ticks_per_dispatch=ticks, device=dev, graph=graph,
+        )
+
+    def together(engine: ContinuousServingEngine):
+        "SEEDS[:4] admitted in one tick (checked: every dispatch of the run had 4 live slots)."
+        for _attempt in range(3):
+            ticks, fours = engine.stats.ticks, engine.stats.bucket_counts.get(4, 0)
+            outs = torch.stack([f.result() for f in [engine.submit(s) for s in SEEDS[:4]]])
+            if engine.stats.bucket_counts.get(4, 0) - fours == engine.stats.ticks - ticks:
+                return outs
+        raise SmokeFailure("continuous: the 4 requests were never admitted in one tick")
+
+    def counted(label: str, engine: ContinuousServingEngine, run):
+        "A main-path run: K1 once a tick step in the device-weights mode, K2 and K3 a 4-slot forward's."
+        torch.cuda.synchronize()
+        _reset_counters()
+        ticks = engine.stats.ticks
+        out = run(engine)
+        torch.cuda.synchronize()
+        launches = _counters()
+        steps_run = (engine.stats.ticks - ticks) * engine.ticks_per_dispatch
+        want = dict.fromkeys(launches, 0)
+        want.update(per_steps(steps_run))
+        print(f"graphs continuous {label}: {steps_run} tick steps, launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+        expect(launches == want, f"continuous {label}: launched {launches}, expected {want}")
+        expect(fused.fused_step_cuda.modes == {"value": 0, "device": steps_run}, f"continuous {label}: K1 {fused.fused_step_cuda.modes}")
+        for name, count in launches.items():
+            total[name] += count
+        return out
+
+    results: dict[str, object] = {}
+    with pool(False) as engine:
+        results["eager 1 tick"] = counted("eager, 4 admitted in one tick", engine, together)
+        alone = {seed: engine.generate(seed) for seed in STAGGER_SEEDS}  # each alone in the pool
+        with mock.patch("skrample_tpu_torch.ops.loop.fused_step_indexed_cuda", fused.fused_step_indexed):
+            _reset_counters()
+            plain = together(engine)
+            expect(fused.fused_step_cuda.launches == 0, "continuous: the plain K1 run launched K1")
+        engine.stats.active_slot_steps = engine.stats.slot_steps = 0  # occupancy of the staggered run alone
+        stagger, eager_lat = counted(
+            "eager, 8 staggered arrivals", engine, lambda e: _arrivals(e, STAGGER_SEEDS, STAGGER_GAP_S)
+        )
+        occupancy = {"eager": engine.stats.occupancy}
+    equal, err = _same(results["eager 1 tick"], [dit_outputs[seed] for seed in SEEDS[:4]])
+    print(
+        f"graphs continuous: 4 requests admitted in one tick vs phase 3's bucket of 4 (ServingEngine, same seeds): "
+        f"bit-equal {equal}, max abs err {err:.3e} (tolerance 0: the same batch, kernels and chain)"
+    )
+    expect(equal, f"continuous: the pooled requests differ from ServingEngine's bucket of 4 by {err}")
+    equal, err = _same(plain, results["eager 1 tick"])
+    print(f"graphs continuous: K1's device-weights mode vs its plain version, 4 requests: bit-equal {equal}, max abs err {err:.3e} (tolerance 0)")
+    expect(equal, f"continuous: K1 differs from its plain version by {err}")
+    equal, err = _same(stagger, [alone[seed] for seed in STAGGER_SEEDS])
+    print(f"graphs continuous: 8 staggered arrivals vs each alone in the pool: bit-equal {equal}, max abs err {err:.3e} (tolerance 0)")
+    expect(equal, f"continuous: staggered requests differ from their solo runs by {err}")
+
+    latency = {"continuous eager": eager_lat}
+    for graph, ticks in ((False, 5), (True, 1), (True, 5)):
+        label = f"{'graphed' if graph else 'eager'}, {ticks} tick{'s' if ticks > 1 else ''} a dispatch"
+        with pool(graph, ticks) as engine:
+            got = counted(f"{label}, 4 admitted in one tick", engine, together)
+            equal, err = _same(got, results["eager 1 tick"])
+            print(f"graphs continuous {label}: 4 requests vs the eager 1-tick run: bit-equal {equal}, max abs err {err:.3e} (tolerance 0)")
+            expect(equal, f"continuous {label}: differs from the eager 1-tick run by {err}")
+            if graph:
+                per_replay = engine._graph.tally.per_replay()
+                print(f"graphs continuous {label}: launches a replay {per_replay}")
+                expect(per_replay == per_steps(ticks), f"continuous {label}: a replay launches {per_replay}")
+                engine.stats.active_slot_steps = engine.stats.slot_steps = 0
+                got, lat = counted(
+                    f"{label}, 8 staggered arrivals", engine, lambda e: _arrivals(e, STAGGER_SEEDS, STAGGER_GAP_S)
+                )
+                equal, err = _same(got, [alone[seed] for seed in STAGGER_SEEDS])
+                print(f"graphs continuous {label}: 8 staggered arrivals vs each alone: bit-equal {equal}, max abs err {err:.3e} (tolerance 0)")
+                expect(equal, f"continuous {label}: staggered requests differ from their solo runs by {err}")
+                latency[f"continuous {label}"] = lat
+                occupancy[label] = engine.stats.occupancy
+    with serving_engine(True) as batch_engine:
+        batch_engine.max_delay_s = 2e-3
+        four_then_two(batch_engine)  # capture buckets 4 and 2
+        batch_engine.generate(99).cpu()  # and 1
+        _outs, latency["ServingEngine graphed"] = _arrivals(batch_engine, STAGGER_SEEDS, STAGGER_GAP_S)
+        batch_buckets = dict(batch_engine.stats.bucket_counts)
+    for label, values in latency.items():
+        print(
+            f"graphs arrivals every {STAGGER_GAP_S * 1e3:.0f} ms, {label}: request latency median "
+            f"{statistics.median(values):.2f} ms, max {max(values):.2f} ({', '.join(f'{v:.1f}' for v in values)}; {card})"
+        )
+    print(
+        f"graphs continuous: occupancy under the staggered arrivals {', '.join(f'{k} {v:.3f}' for k, v in occupancy.items())}; "
+        f"ServingEngine buckets {batch_buckets}"
+    )
+
+    # ---- d: GraphedTrainStep over phase 4's configuration ----
+    data = training.synthetic_dataset(64, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [training.draw_batch(data, 4, gen) for _ in range(5)]
+    per_train = dict.fromkeys(_wrappers(), 0)
+    per_train.update(
+        adaln_forward=2 * DEPTH + 1, flash_attention_qkv_forward_lse=DEPTH, flash_attention_qkv_backward=DEPTH,
+        adaln_backward=2 * DEPTH + 1,
+    )
+    states = {}
+    for graph in (False, True):
+        net = DiT(config, device=dev).load_jax_params(tree)
+        opt = training.make_optimizer(net, capturable=True)
+        ema = ema_init(net)
+        step = training.GraphedTrainStep(net, opt, ema) if graph else None
+        torch.cuda.synchronize()
+        _reset_counters()
+        losses = [
+            step(*batch).clone() if graph else training.train_step(net, opt, ema, *batch, step=i)
+            for i, batch in enumerate(batches)
+        ]
+        torch.cuda.synchronize()
+        launches = _counters()
+        want = {name: count * len(batches) for name, count in per_train.items()}
+        expect(launches == want, f"graphs train ({'graphed' if graph else 'eager'}): launched {launches}, expected {want}")
+        for name, count in launches.items():
+            total[name] += count
+        if graph:
+            per_replay = step._graph.tally.per_replay()
+            print(f"graphs train: launches a replayed step {per_replay} (phase 4's a step)")
+            expect(per_replay == {k: v for k, v in per_train.items() if v}, f"graphs train: a replay launches {per_replay}")
+        adam = [opt.state[p][name] for p in net.parameters() for name in ("exp_avg", "exp_avg_sq", "step")]
+        states[graph] = (net, opt, ema, step, [torch.stack(losses), *net.parameters(), *adam, *ema.values()])
+    equal, err = _same(states[True][4], states[False][4])
+    print(
+        f"graphs train: 5 steps, GraphedTrainStep vs the eager train_step (AdamW capturable=True, EMA): losses, "
+        f"parameters, AdamW state and EMA bit-equal {equal}, max abs err {err:.3e} (tolerance 0)"
+    )
+    expect(equal, f"graphs train: the graphed steps differ from the eager ones by {err}")
+    medians = {}
+    for graph in (False, True):
+        net, opt, ema, step, _ = states[graph]
+        times = []
+        for i in range(TRAIN_STEPS):
+            batch = batches[i % len(batches)]
+            t0 = time.perf_counter()
+            step(*batch) if graph else training.train_step(net, opt, ema, *batch, step=len(batches) + i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        medians[graph] = statistics.median(times)
+        label = "graphed" if graph else "eager (capturable AdamW)"
+        print(
+            f"graphs train {label}: step time median {medians[graph]:.2f} ms (min {min(times):.2f}, max "
+            f"{max(times):.2f}; {TRAIN_STEPS} steps, batch 4 of 4x64x64, DiT-512/8 bf16; {card})"
+        )
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            for i in range(3):
+                step(*batches[i]) if graph else training.train_step(net, opt, ema, *batches[i], step=100 + i)
+            torch.cuda.synchronize()
+        _kernel_ms, kernel_launches, busy = card_time(prof)
+        busy /= 3
+        print(
+            f"graphs train {label} profile: card busy {busy:.3f} ms of the {medians[graph]:.2f} ms median step: idle "
+            f"{100 * (1 - busy / medians[graph]):.1f}%; {sum(kernel_launches.values()) / 3:g} kernel launches a step ({card})"
+        )
+    print(f"graphs: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3753,12 +4131,15 @@ def main() -> int:
         sp = sp_phase(device["card"])
         pipelines = pipeline_phase(device["card"], sdxl_parts)
         wrappers = diffusers_phase(device["card"], sdxl_parts)
+        graphed = graphs_phase(device["card"], dit_outputs, sdxl_parts)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     # each row's launches: its counts summed over every path's main-path run
-    runs = (serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers)
+    runs = (
+        serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers, graphed
+    )
     for name, row in rows.items():
         row["launches"] = sum(run[name] for run in runs)
     keys = (

@@ -10,7 +10,9 @@ The same layer map as the JAX package, module for module, importing
                 functional Runge-Kutta solvers over the tableau catalog
   noise       — counter-based noise generators on ``prng``'s threefry
   ops         — the device engine: coefficient-table compiler, the fused
-                step (K1), the step, RK and adaptive loops, fused adaLN (K3,
+                step (K1, weights by value or from a device table), the
+                step, RK and adaptive loops, CUDA-graph capture
+                (``ops.graphs``), fused adaLN (K3,
                 backward K6) and fused-qkv attention (K2; K4 and K5 for
                 training), each kernel hand-written in ``csrc/``
   models      — the DiT as an ``nn.Module``, its EMA shadow, ``.npz``
@@ -22,7 +24,8 @@ The same layer map as the JAX package, module for module, importing
                 and the RK wrappers; config translation in
                 ``diffusers_config``, torch-stream noise in ``torch_noise``,
                 ``skrample.*`` import aliases in ``compat``)
-  serving     — the dynamic-batching engine; ``server`` its HTTP front-end
+  serving     — the dynamic-batching engine; ``server`` its HTTP front-end;
+                ``continuous`` the iteration-level (slot pool) engine
   parallel    — sequence-parallel serving on ``torch.distributed``: meshes,
                 ring attention (kernel B11 a hop), Ulysses, joint streams
   training    — flow-matching training of the DiT

@@ -38,6 +38,25 @@
 //   each rows count only, with f64 weights (the `StepWeights` union) and an
 //   f64 accumulator.  The host rounds the weights first, to the latent's
 //   dtype or to the caller's choice (the wrapper's f32 at bf16 and f16).
+//
+// Device-weights mode (`table` set): the port of fused_step_pallas reading
+// its weights from device memory (skrample_tpu/ops/fused.py:46-47, 87), for
+// step_batched, jitted_step_indexed and the continuous engine's tick, where
+// every item of the batch sits at its own step and one CUDA graph must serve
+// every step.  The latent is `n / item` items of `item` elements; item b
+// applies row table[index[b]] of a (T, rows, K) table on the device (or
+// row `row` for every item, or row b).  The index is read after
+// `griddepcontrol.wait`, since the kernel just before may have written it
+// (the tick's n + 1), and clamped to [0, T) as jax's gather clamps.  Each
+// weight is rounded to the latent's dtype first (PyTorch's
+// `table.to(x.dtype)`, through f32 below f64 as PyTorch converts), then
+// widened to the math type: the plain step_batched chain, bit for bit.  A
+// 16-byte vector never straddles two items: the host takes the scalar path
+// unless `item` is a multiple of the vector width.  One instance a rows
+// count and element type, on the run-time-K body (a template flag, not a
+// copy of the body);
+// the table's few hundred bytes stay in L1 and cost a load a weight and a
+// vector.  Rows 1 and 3 only: no sampler emits rows 2.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -71,6 +90,13 @@ struct FusedStepArgs {
     int vec;      // 1 when every pointer is 16-byte aligned
     int threads;  // a block, and
     int blocks;   // the grid (fused.step_plan)
+    // device-weights mode (table != null, `w` unused)
+    const void* table;  // (table_len, rows, K), contiguous, on the device
+    const int* index;   // (n / item,) int32 on the device, item b taking row index[b], or null (`row`)
+    long long item;     // elements an item
+    int table_dtype;    // ops/_cuda.py DTYPE_CODES
+    int table_len;      // T
+    int row;            // with a null index: every item takes this row, or item b takes row b when row < 0
 };
 
 namespace {
@@ -91,6 +117,8 @@ struct Elem<float> {
     __device__ static float round(float v) { return v; }
     __device__ static Bits from_math(float v) { return v; }
     __device__ static float weight(const FusedStepArgs& a, int r, int k) { return a.w.f[r][k]; }
+    __device__ static float from_float(float v) { return v; }
+    __device__ static float from_double(double v) { return __double2float_rn(v); }
 };
 
 template <>
@@ -102,6 +130,8 @@ struct Elem<__nv_bfloat16> {
     __device__ static float round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
     __device__ static Bits from_math(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
     __device__ static float weight(const FusedStepArgs& a, int r, int k) { return a.w.f[r][k]; }
+    __device__ static float from_float(float v) { return round(v); }
+    __device__ static float from_double(double v) { return round(__double2float_rn(v)); }
 };
 
 template <>
@@ -113,6 +143,8 @@ struct Elem<__half> {
     __device__ static float round(float v) { return __half2float(__float2half_rn(v)); }
     __device__ static Bits from_math(float v) { return __half_as_ushort(__float2half_rn(v)); }
     __device__ static float weight(const FusedStepArgs& a, int r, int k) { return a.w.f[r][k]; }
+    __device__ static float from_float(float v) { return round(v); }
+    __device__ static float from_double(double v) { return round(__double2float_rn(v)); }
 };
 
 template <>
@@ -124,6 +156,8 @@ struct Elem<double> {
     __device__ static double round(double v) { return v; }
     __device__ static Bits from_math(double v) { return v; }
     __device__ static double weight(const FusedStepArgs& a, int r, int k) { return a.w.d[r][k]; }
+    __device__ static double from_float(float v) { return (double)v; }
+    __device__ static double from_double(double v) { return v; }
 };
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -140,8 +174,33 @@ __device__ __forceinline__ typename Elem<T>::Math chain(typename Elem<T>::Math a
     return first ? prod : Elem<T>::round(add_rn(acc, prod));
 }
 
-// K > kUnrolledK: the kMaxK instance, K read from the arguments
-template <typename T, int R, int K>
+// Device-weights mode: the offset of item b's row in the table, the index clamped to [0, T)
+__device__ __forceinline__ long long table_row(const FusedStepArgs& a, long long b) {
+    long long r = a.index ? (long long)a.index[b] : (a.row >= 0 ? (long long)a.row : b);
+    r = r < 0 ? 0 : (r >= a.table_len ? (long long)a.table_len - 1 : r);
+    return r * a.rows * a.K;
+}
+
+// Weight (r, k) of the table row at `base`, rounded to T (through f32 below f64, as PyTorch's
+// `.to(dtype)`), then widened to the math type.  Inlined: a call would take the address of the kernel's
+// by-value arguments and copy them to local memory (7.94 us a launch at (4, 4, 64, 64) against 2.16 inlined)
+template <typename T>
+__device__ __forceinline__ typename Elem<T>::Math table_weight(const FusedStepArgs& a, long long base, int r, int k) {
+    const long long i = base + (long long)r * a.K + k;
+    switch (a.table_dtype) {
+        case 0:
+            return Elem<T>::from_float(static_cast<const float*>(a.table)[i]);
+        case 1:
+            return Elem<T>::from_float(__bfloat162float(static_cast<const __nv_bfloat16*>(a.table)[i]));
+        case 2:
+            return Elem<T>::from_float(__half2float(static_cast<const __half*>(a.table)[i]));
+        default:
+            return Elem<T>::from_double(static_cast<const double*>(a.table)[i]);
+    }
+}
+
+// K > kUnrolledK: the kMaxK instance, K read from the arguments.  kTable: the device-weights mode
+template <typename T, int R, int K, bool kTable>
 __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(const FusedStepArgs a) {
     constexpr bool kRuntimeK = K > kUnrolledK;
     constexpr int V = Elem<T>::kVec;
@@ -164,13 +223,20 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(const FusedStep
         for (int k = 0; k < K; ++k) {
             if (!kRuntimeK || k < a.K) in[k].raw = __ldg(reinterpret_cast<const uint4*>(a.basis[k]) + v);
         }
+        long long base = 0;
+        if constexpr (kTable) base = table_row(a, v * V / a.item);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
             Math acc[V] = {};
 #pragma unroll
             for (int k = 0; k < K; ++k) {
                 if (kRuntimeK && k >= a.K) break;
-                const Math w = Elem<T>::weight(a, r, k);
+                Math w;
+                if constexpr (kTable) {
+                    w = table_weight<T>(a, base, r, k);
+                } else {
+                    w = Elem<T>::weight(a, r, k);
+                }
 #pragma unroll
                 for (int e = 0; e < V; ++e) acc[e] = chain<T>(acc[e], Elem<T>::to_math(in[k].e[e]), w, k == 0);
             }
@@ -189,20 +255,28 @@ __global__ void __launch_bounds__(kMaxThreads) fused_step_kernel(const FusedStep
         for (int k = 0; k < K; ++k) {
             if (!kRuntimeK || k < a.K) b[k] = Elem<T>::to_math(reinterpret_cast<const Bits*>(a.basis[k])[i]);
         }
+        long long base = 0;
+        if constexpr (kTable) base = table_row(a, i / a.item);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
             Math acc = 0;
 #pragma unroll
             for (int k = 0; k < K; ++k) {
                 if (kRuntimeK && k >= a.K) break;
-                acc = chain<T>(acc, b[k], Elem<T>::weight(a, r, k), k == 0);
+                Math w;
+                if constexpr (kTable) {
+                    w = table_weight<T>(a, base, r, k);
+                } else {
+                    w = Elem<T>::weight(a, r, k);
+                }
+                acc = chain<T>(acc, b[k], w, k == 0);
             }
             reinterpret_cast<Bits*>(a.out[r])[i] = Elem<T>::from_math(acc);
         }
     }
 }
 
-template <typename T, int R, int K>
+template <typename T, int R, int K, bool kTable = false>
 cudaError_t launch_instance(const FusedStepArgs& a, cudaStream_t stream) {
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -214,7 +288,7 @@ cudaError_t launch_instance(const FusedStepArgs& a, cudaStream_t stream) {
     config.stream = stream;
     config.attrs = attr;
     config.numAttrs = 1;
-    return cudaLaunchKernelEx(&config, fused_step_kernel<T, R, K>, a);
+    return cudaLaunchKernelEx(&config, fused_step_kernel<T, R, K, kTable>, a);
 }
 
 // a rows count's instances: K = 1 .. kUnrolledK, then the kMaxK one
@@ -263,6 +337,14 @@ cudaError_t launch_f64(const FusedStepArgs& a, cudaStream_t stream) {
     return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// the device-weights mode: the run-time-K instance of rows 1 and 3 (what the samplers emit), every element type
+template <typename T>
+cudaError_t launch_table(const FusedStepArgs& a, cudaStream_t stream) {
+    const cudaError_t err =
+        a.rows == 1 ? launch_instance<T, 1, kMaxK, true>(a, stream) : launch_instance<T, 3, kMaxK, true>(a, stream);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int skt_fused_step(const FusedStepArgs* args, int size, int dtype, cudaStream_t stream) {
@@ -270,6 +352,18 @@ extern "C" int skt_fused_step(const FusedStepArgs* args, int size, int dtype, cu
     const FusedStepArgs a = *args;
     if (a.K < 1 || a.K > kMaxK || a.rows < 1 || a.rows > kMaxRows || a.n < 0) return (int)cudaErrorInvalidValue;
     if (a.threads < 32 || a.threads > kMaxThreads || a.threads % 32 || a.blocks < 1) return (int)cudaErrorInvalidValue;
+    if (a.table) {
+        if (a.rows == 2 || a.item < 1 || a.n % a.item || a.table_dtype < 0 || a.table_dtype > 3 || a.table_len < 1) {
+            return (int)cudaErrorInvalidValue;
+        }
+        if (a.vec && a.item % (16 / (dtype == 3 ? 8 : dtype == 0 ? 4 : 2))) return (int)cudaErrorInvalidValue;
+        if (a.n == 0) return (int)cudaGetLastError();
+        if (dtype == 0) return (int)launch_table<float>(a, stream);
+        if (dtype == 1) return (int)launch_table<__nv_bfloat16>(a, stream);
+        if (dtype == 2) return (int)launch_table<__half>(a, stream);
+        if (dtype == 3) return (int)launch_table<double>(a, stream);
+        return (int)cudaErrorInvalidValue;
+    }
     if (a.n == 0) return (int)cudaGetLastError();
     if (dtype == 0) return (int)launch<float>(a, stream);
     if (dtype == 1) return (int)launch<__nv_bfloat16>(a, stream);

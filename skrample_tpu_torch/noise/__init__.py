@@ -213,7 +213,7 @@ class Pyramid(NoiseCommon[PyramidProps]):
             r_key, n_key, key = prng.split(prng.fold_in(key, i), 3)
             # 2x-4x shrink per level, randomized to decorrelate the grids; a
             # host float, sized with Python's int() exactly as the JAX package sizes it
-            r = float(prng.uniform(r_key, ())) * 2 + 2
+            r = float(prng.uniform(r_key, (), device="cpu")) * 2 + 2
             running = [max(1, int(s / (r**i))) if m else s for m, s in zip(mask, running)]
 
             level = prng.normal(n_key, tuple(running), self.dtype, self.device)

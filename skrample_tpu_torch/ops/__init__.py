@@ -3,10 +3,15 @@
 * :mod:`.compiler` — runs a structured sampler *symbolically* (linear
   combination tracing) to extract per-step scalar coefficient tables.
 * :mod:`.fused` — applies one step's table as a single fused elementwise
-  FMA (the plain chain on CPU, kernel K1 on CUDA).
+  FMA (the plain chain on CPU, kernel K1 on CUDA), with weights by value or
+  per item from a table on the device (K1's device-weights mode).
 * :mod:`.loop` — the denoise loops: the step loop over a table-compiled
-  sampler, the RK tableau loop, the generic fallback and the adaptive loop
-  with its controller on the host.
+  sampler (``run(graph=True)``: one CUDA graph), the single-step APIs
+  ``jitted_step``/``jitted_step_indexed`` (K1 on the resident table), the RK
+  tableau loop, the generic fallback and the adaptive loop with its
+  controller on the host.
+* :mod:`.graphs` — CUDA-graph capture over static buffers with the launch
+  counters replayed (the port's ``jax.jit``).
 * :mod:`.adaptive` — adaptive RK (RKMoire) over precomputed (cursor, size)
   coefficient tables.
 * :mod:`.adaln` — fused layernorm + adaLN modulation (kernel K3) and its
@@ -41,7 +46,8 @@ from .flash_attention import (
     flash_attention_pairs,
     flash_attention_pairs_forward,
 )
-from .fused import fused_step, fused_step_cuda
+from .fused import fused_step, fused_step_cuda, fused_step_indexed, fused_step_indexed_cuda
+from .graphs import CapturedGraph, LaunchTally
 from .fused_conv import (
     channel_stats,
     conv3x3_gn_silu,
@@ -58,8 +64,10 @@ from .quant import dense_int8, quantize_activation, quantize_params, quantize_ro
 from .rope import fused_rope_qk_norm, rope_qk_norm_forward, rope_qk_norm_reference
 
 __all__ = [
+    "CapturedGraph",
     "CompiledDenoiser",
     "CompiledSampler",
+    "LaunchTally",
     "NonlinearSamplerError",
     "channel_stats",
     "compile_sampler",
@@ -76,6 +84,8 @@ __all__ = [
     "fused_rope_qk_norm",
     "fused_step",
     "fused_step_cuda",
+    "fused_step_indexed",
+    "fused_step_indexed_cuda",
     "generic_sample_loop",
     "groupnorm_cl",
     "groupnorm_eager_bign",

@@ -14,6 +14,13 @@ weights by value in its launch parameters; the instance for the step's
 programmatic dependent launch (Hopper: its launch overlaps the tail of the
 stream's previous kernel, and its blocks wait for that kernel's results
 before their first load).
+
+:func:`fused_step_indexed_cuda` is K1's device-weights mode, the port of
+``fused_step_pallas`` reading its weights from device memory: the latent is
+split into equal items, and item ``b`` applies row ``table[index[b]]`` of a
+``(T, rows, K)`` table on the device, so the host passes no weights at all
+and one CUDA graph serves every step (:func:`fused_step_indexed` is its
+plain version, the chain of the plain ``step_batched``).
 """
 
 from __future__ import annotations
@@ -81,6 +88,12 @@ class _FusedStepArgs(ctypes.Structure):
         ("vec", ctypes.c_int),
         ("threads", ctypes.c_int),
         ("blocks", ctypes.c_int),
+        ("table", ctypes.c_void_p),
+        ("index", ctypes.c_void_p),
+        ("item", ctypes.c_longlong),
+        ("table_dtype", ctypes.c_int),
+        ("table_len", ctypes.c_int),
+        ("row", ctypes.c_int),
     ]
 
 
@@ -120,6 +133,48 @@ def host_rows(weights: Any, dtype: torch.dtype) -> list[list[float]]:
     return weights.to(dtype).to(torch.float64).tolist()
 
 
+def _check_basis(basis: Sequence[torch.Tensor] | torch.Tensor, K: int, what: str) -> torch.dtype:
+    "The basis a K1 launch takes: K tensors of one supported dtype and shape, contiguous, on one CUDA device."
+    first = basis[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {first.device}")
+    dtype = first.dtype
+    if dtype not in _DTYPES:
+        raise ValueError(f"{what}: dtype {dtype} unsupported (float32, bfloat16, float16 or float64)")
+    if len(basis) != K:
+        raise ValueError(f"{what}: weights of K = {K} vs {len(basis)} basis tensors")
+    for t in basis:
+        if t.device != first.device or t.dtype != dtype or t.shape != first.shape or not t.is_contiguous():
+            raise ValueError(f"{what}: basis tensors must share device, dtype and shape, and be contiguous")
+    return dtype
+
+
+def _launch(args: _FusedStepArgs, basis: Sequence[torch.Tensor] | torch.Tensor, rows: int, what: str,
+            mode: str, item: int | None = None) -> torch.Tensor:
+    "Fill in K1's pointers and grid, launch on the current stream, count the launch by mode."
+    first = basis[0]
+    dtype = first.dtype
+    out = torch.empty((rows, *first.shape), dtype=dtype, device=first.device)
+    pointers = [t.data_ptr() for t in basis] + [out[r].data_ptr() for r in range(rows)]
+    for k, p in enumerate(pointers[: len(basis)]):
+        args.basis[k] = p
+    for r in range(rows):
+        args.out[r] = pointers[len(basis) + r]
+    args.n = first.numel()
+    args.K = len(basis)
+    args.rows = rows
+    vec = 16 // first.element_size()
+    args.vec = int(all(p % 16 == 0 for p in pointers) and (item is None or item % vec == 0))
+    _vec, args.threads, args.blocks = step_plan(args.n, dtype, bool(args.vec))
+    lib = _cuda.library()
+    with torch.cuda.device(first.device):
+        code = lib.skt_fused_step(ctypes.byref(args), ctypes.sizeof(args), _cuda.DTYPE_CODES[dtype], _cuda.stream())
+    _cuda.check(code, what)
+    fused_step_cuda.launches += 1
+    fused_step_cuda.modes[mode] += 1
+    return out
+
+
 def fused_step_cuda(
     weights: Any, basis: Sequence[torch.Tensor] | torch.Tensor, weight_dtype: torch.dtype | None = None
 ) -> torch.Tensor:
@@ -137,39 +192,102 @@ def fused_step_cuda(
         return fused_step(weights, basis, weight_dtype)
     if first.device.type != "cuda":
         raise ValueError(f"fused_step_cuda: unsupported device {first.device}")
-    dtype = first.dtype
-    if dtype not in _DTYPES:
-        raise ValueError(f"fused_step_cuda: dtype {dtype} unsupported (float32, bfloat16, float16 or float64)")
-    w = host_rows(weights, weight_dtype or dtype)
+    w = host_rows(weights, weight_dtype or first.dtype)
     rows, K = len(w), len(w[0])
-    step_instance(rows, K, dtype)
-    if len(basis) != K:
-        raise ValueError(f"fused_step_cuda: weights {rows}x{K} vs {len(basis)} basis tensors")
-    for t in basis:
-        if t.device != first.device or t.dtype != dtype or t.shape != first.shape or not t.is_contiguous():
-            raise ValueError("fused_step_cuda: basis tensors must share device, dtype and shape, and be contiguous")
-
-    out = torch.empty((rows, *first.shape), dtype=dtype, device=first.device)
+    step_instance(rows, K, first.dtype)
+    dtype = _check_basis(basis, K, "fused_step_cuda")
     args = _FusedStepArgs()
     weights_in = args.w.d if dtype == torch.float64 else args.w.f  # the kernel's math type (float below f64)
-    pointers = [t.data_ptr() for t in basis] + [out[r].data_ptr() for r in range(rows)]
-    for k in range(K):
-        args.basis[k] = pointers[k]
-        for r in range(rows):
-            weights_in[r][k] = w[r][k]
     for r in range(rows):
-        args.out[r] = pointers[K + r]
-    args.n = first.numel()
-    args.K = K
-    args.rows = rows
-    args.vec = int(all(p % 16 == 0 for p in pointers))
-    _vec, args.threads, args.blocks = step_plan(args.n, dtype, bool(args.vec))
-    lib = _cuda.library()
-    with torch.cuda.device(first.device):
-        code = lib.skt_fused_step(ctypes.byref(args), ctypes.sizeof(args), _cuda.DTYPE_CODES[dtype], _cuda.stream())
-    _cuda.check(code, "fused_step_cuda")
-    fused_step_cuda.launches += 1
-    return out
+        for k in range(K):
+            weights_in[r][k] = w[r][k]
+    return _launch(args, basis, rows, "fused_step_cuda", "value")
 
 
 fused_step_cuda.launches = 0
+fused_step_cuda.modes = {"value": 0, "device": 0}  # launches by where the weights come from
+
+
+def _item_rows(table: torch.Tensor, index: Any) -> tuple[torch.Tensor, int]:
+    """The table row of each item as a CPU or device index vector, and the number of items: ``index`` an int or
+    0-d tensor (one item, the whole latent), a ``(B,)`` tensor (B items), or None (item b takes row b)."""
+    if index is None:
+        return torch.arange(table.shape[0], device=table.device), table.shape[0]
+    if isinstance(index, torch.Tensor):
+        return index.reshape(-1).to(device=table.device, dtype=torch.int64), index.numel()
+    if not 0 <= int(index) < table.shape[0]:
+        raise ValueError(f"fused_step_indexed: row {int(index)} outside the table's {table.shape[0]}")
+    return torch.tensor([int(index)], device=table.device), 1
+
+
+def fused_step_indexed(
+    table: torch.Tensor, index: Any, basis: Sequence[torch.Tensor] | torch.Tensor
+) -> torch.Tensor:
+    """The plain version of K1's device-weights mode: ``(rows, *latent)``.
+
+    The latent is split into B equal items along its flat order (B the length
+    of ``index``; 1 for an int or a 0-d tensor; ``T`` for None), and item
+    ``b`` applies row ``table[index[b]]`` (index clamped to ``[0, T)``, as
+    jax's gather clamps) of the ``(T, rows, K)`` table.  The chain of the
+    plain ``step_batched``: the rows rounded to the basis dtype, then every
+    product and partial sum rounded in the basis dtype, in this order."""
+    first = basis[0]
+    idx, B = _item_rows(table, index)
+    if not B or first.numel() % B:
+        raise ValueError(f"fused_step_indexed: {first.numel()} elements do not split into {B} items")
+    w = table[idx.clamp(0, table.shape[0] - 1)].to(first.dtype)  # (B, rows, K)
+    flat = [t.reshape(B, -1) for t in basis]
+    outs = []
+    for r in range(w.shape[1]):
+        acc = flat[0] * w[:, r, 0, None]
+        for k in range(1, len(flat)):
+            acc = acc + flat[k] * w[:, r, k, None]
+        outs.append(acc.reshape(first.shape))
+    return torch.stack(outs)
+
+
+def fused_step_indexed_cuda(
+    table: torch.Tensor, index: Any, basis: Sequence[torch.Tensor] | torch.Tensor
+) -> torch.Tensor:
+    """Kernel K1 in its device-weights mode: :func:`fused_step_indexed` in one launch on CUDA tensors.
+
+    On CPU tensors this is :func:`fused_step_indexed`.  On CUDA tensors it
+    launches the kernel or raises: the basis as for :func:`fused_step_cuda`;
+    ``table`` a contiguous ``(T, rows, K)`` tensor of any of the four dtypes
+    on the basis's device; ``index`` a Python int (passed by value), a 0-d or
+    ``(B,)`` int32 tensor on that device (read by the kernel, never by the
+    host), or None.  Nothing is read back, so the call can be captured in a
+    CUDA graph and replayed with a new index written in place.  Bit-identical
+    to :func:`fused_step_indexed`."""
+    first = basis[0]
+    if first.device.type == "cpu":
+        return fused_step_indexed(table, index, basis)
+    what = "fused_step_indexed_cuda"
+    if table.device != first.device or table.ndim != 3 or not table.is_contiguous() or table.dtype not in _DTYPES:
+        raise ValueError(f"{what}: the table must be a contiguous (T, rows, K) tensor of a K1 dtype on {first.device}")
+    T, rows, K = table.shape
+    step_instance(rows, K)
+    if rows == 2:
+        raise ValueError(f"{what}: rows 1 or 3 (what the samplers emit), not 2")
+    _check_basis(basis, K, what)
+    args = _FusedStepArgs()
+    args.table = table.data_ptr()
+    args.table_dtype = _cuda.DTYPE_CODES[table.dtype]
+    args.table_len = T
+    if isinstance(index, torch.Tensor):
+        if index.device != first.device or index.dtype != torch.int32 or not index.is_contiguous() or index.ndim > 1:
+            raise ValueError(f"{what}: the index must be a contiguous 0-d or (B,) int32 tensor on {first.device}")
+        args.index = index.data_ptr()
+        items = index.numel()
+    elif index is None:
+        args.row = -1
+        items = T
+    else:
+        if not 0 <= int(index) < T:
+            raise ValueError(f"fused_step_indexed: row {int(index)} outside the table's {T}")
+        args.row = int(index)
+        items = 1
+    if not items or first.numel() % items:
+        raise ValueError(f"{what}: {first.numel()} elements do not split into {items} items")
+    args.item = first.numel() // items
+    return _launch(args, basis, rows, what, "device", args.item)

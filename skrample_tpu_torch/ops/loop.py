@@ -18,14 +18,18 @@ The JAX package runs these as ``lax.scan`` loops; here each is a Python loop
 over eagerly launched work, which never waits on the device (weights stay on
 the host, nothing is read back) except where a controller reads a trial's
 error.  On CUDA tensors every fused multi-FMA is one launch of kernel K1; on
-CPU tensors it is the plain chain.
+CPU tensors it is the plain chain.  ``CompiledDenoiser.run(graph=True)``
+captures the whole loop as one CUDA graph (:mod:`.graphs`), the counterpart
+of the one ``lax.scan``; ``jitted_step``/``jitted_step_indexed`` are the
+single-step APIs, the second on K1's device-weights mode over the resident
+table.
 """
 
 from __future__ import annotations
 
 import math
 from collections.abc import Callable
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -38,7 +42,8 @@ from ..sampling.rk_solvers import DynasauRK, RKMoire, RKUltra
 from ..scheduling import SkrampleSchedule
 from ._cuda import resolve_device
 from .compiler import CompiledSampler, compile_sampler
-from .fused import fused_step_cuda
+from .fused import fused_step_cuda, fused_step_indexed, fused_step_indexed_cuda
+from .graphs import CapturedGraph, map_tree, require_cuda
 
 type DeviceModel = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 "(sample, timestep, sigma, alpha) -> prediction."
@@ -69,6 +74,8 @@ class CompiledDenoiser:
     kernel: str = "auto"
     """'auto' (kernel K1 on CUDA tensors, the plain chain on CPU ones),
     'torch' (the plain chain everywhere) or 'cuda' (K1)."""
+    _graphs: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    "``run(graph=True)``'s captured loops, by (model, shape, dtype, start, noise, trajectory)."
 
     @classmethod
     def build(
@@ -143,11 +150,6 @@ class CompiledDenoiser:
 
         if self._use_kernel(x):
             outs = fused_step_cuda(step_weights[: self.rows], basis)
-            x_new = outs[0]
-            if self.rows == 1:
-                store_sample, store_pred = x, o
-            else:
-                store_sample, store_pred = outs[1], outs[2]
         else:
             w = torch.as_tensor(step_weights).to(x.dtype)
 
@@ -157,18 +159,8 @@ class CompiledDenoiser:
                     acc = acc + basis[k] * w[r, k]
                 return acc
 
-            x_new = fma(0)
-            if self.rows == 1:
-                store_sample, store_pred = x, o
-            else:
-                store_sample, store_pred = fma(1), fma(2)
-
-        if self.history:
-            slot = [store_sample, store_pred]
-            if self.slots == 3:
-                slot.append(noise if noise is not None else torch.zeros_like(x))
-            ring = (*slot, *ring[: -self.slots])
-        return x_new, ring
+            outs = [fma(r) for r in range(self.rows)]
+        return outs[0], self._roll(x, o, ring, noise, outs)
 
     def step_batched(
         self,
@@ -180,34 +172,133 @@ class CompiledDenoiser:
     ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
         """One update with PER-ITEM weights: ``step_weights`` is
         ``(B, rows, width)`` on the latent's device, each batch row applying
-        its own trajectory position's coefficients.  Always the plain chain,
-        as in the JAX package: K1 shares one weight row across the batch."""
+        its own trajectory position's coefficients.  On CUDA tensors one
+        launch of K1's device-weights mode (item b takes row b); on CPU
+        tensors the plain chain, as in the JAX package."""
+        return self._step_items(step_weights.contiguous(), None, x, o, ring, noise)
+
+    def _step_items(
+        self,
+        table: torch.Tensor,
+        index: Any,
+        x: torch.Tensor,
+        o: torch.Tensor,
+        ring: tuple[torch.Tensor, ...],
+        noise: torch.Tensor | None = None,
+    ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+        """The update with item b at row ``table[index[b]]`` of a device table,
+        gathering nothing: ``index`` a ``(B,)`` int32 device vector (the
+        continuous tick's step indices), an int or a 0-d tensor (one item:
+        ``jitted_step_indexed``), or None (item b at row b)."""
         basis: list[torch.Tensor] = [x, o, *ring]
         if self.requires_noise:
             assert noise is not None, "sampler requires per-step noise"
             basis.append(noise)
+        step = fused_step_indexed_cuda if self._use_kernel(x) else fused_step_indexed
+        outs = step(table, index, basis)
+        return outs[0], self._roll(x, o, ring, noise, outs)
 
-        w = step_weights.to(x.dtype)
-        bshape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    def _roll(
+        self, x: torch.Tensor, o: torch.Tensor, ring: tuple[torch.Tensor, ...], noise: torch.Tensor | None, outs: Any
+    ) -> tuple[torch.Tensor, ...]:
+        "The next ring: this step's stored (sample, prediction[, noise]) in front, the oldest slot dropped."
+        if not self.history:
+            return ring
+        slot = [x, o] if self.rows == 1 else [outs[1], outs[2]]
+        if self.slots == 3:
+            slot.append(noise if noise is not None else torch.zeros_like(x))
+        return (*slot, *ring[: -self.slots])
 
-        def fma(r: int) -> torch.Tensor:
-            acc = basis[0] * w[:, r, 0].reshape(bshape)
-            for k in range(1, len(basis)):
-                acc = acc + basis[k] * w[:, r, k].reshape(bshape)
-            return acc
+    def jitted_step(self) -> Callable:
+        """Single-step callable for wrappers: ``(step_weights, x, o, ring[,
+        noise]) -> (next x, next ring)``, the weights one host-side row
+        (``host_weights[n]``): on CUDA tensors one K1 launch with the weights
+        by value.  The arity follows :attr:`requires_noise`.
 
-        x_new = fma(0)
-        if self.rows == 1:
-            store_sample, store_pred = x, o
-        else:
-            store_sample, store_pred = fma(1), fma(2)
+        The JAX package compiles this once and donates the consumed buffers;
+        PyTorch runs it eagerly, and its caching allocator takes the place of
+        donation: the buffers a caller drops go back to the pool the next
+        step's outputs come from."""
+        if self.requires_noise:
+            return lambda w, x, o, ring, z: self.step(w, x, o, ring, z)
+        return lambda w, x, o, ring: self.step(w, x, o, ring)
 
-        if self.history:
-            slot = [store_sample, store_pred]
-            if self.slots == 3:
-                slot.append(noise if noise is not None else torch.zeros_like(x))
-            ring = (*slot, *ring[: -self.slots])
-        return x_new, ring
+    def jitted_step_indexed(self) -> Callable:
+        """Like :meth:`jitted_step`, but the whole weight table stays resident
+        on the device and the host passes only the step index ``n``:
+        ``(n, x, o, ring[, noise]) -> (next x, next ring)``.
+
+        ``n`` is a Python int (passed by value in the launch) or a 0-d int
+        tensor on the device (read by the kernel, never by the host, so a
+        CUDA graph of the step replays at whatever index was written into
+        it).  On CUDA tensors the step is one launch of K1's device-weights
+        mode on :attr:`weights`: no row lookup and no host-to-device copy."""
+
+        def indexed(n: Any, x: torch.Tensor, o: torch.Tensor, ring: tuple, z: torch.Tensor | None = None) -> tuple:
+            if isinstance(n, torch.Tensor) and n.dtype != torch.int32:
+                n = n.to(torch.int32)
+            return self._step_items(self.weights, n, x, o, ring, z)
+
+        if self.requires_noise:
+            return indexed
+        return lambda n, x, o, ring: indexed(n, x, o, ring)
+
+    def loop_body(self, model_fn: DeviceModel, start: int = 0, return_trajectory: bool = False) -> Callable:
+        """The denoise loop from ``start`` as a plain function ``(x0, noises)
+        -> final latent`` (or the ``(steps - start, *shape)`` trajectory):
+        ``noises`` is the ``(steps, *shape)`` step-noise buffer, or None for a
+        deterministic sampler.  :meth:`run` captures it as one CUDA graph
+        with ``graph=True``; it is also what that graph computes, eagerly."""
+
+        def body(x0: torch.Tensor, noises: torch.Tensor | None) -> torch.Tensor:
+            noise_at = (lambda n: noises[n]) if noises is not None else None
+            return self._loop(model_fn, x0, noise_at, start, None, return_trajectory)
+
+        return body
+
+    def _loop(
+        self,
+        model_fn: DeviceModel,
+        sample: torch.Tensor,
+        noise_at: Callable[[int], torch.Tensor] | None,
+        start: int,
+        callback: Callable[[torch.Tensor, int], Any] | None,
+        return_trajectory: bool,
+    ) -> torch.Tensor:
+        points = self.points.to(sample.device)
+        x = sample
+        ring = self.init_ring(sample)
+        trajectory = []
+        for n in range(start, self.compiled.steps):
+            z = noise_at(n) if self.requires_noise else None
+            point = points[n]
+            o = model_fn(x, point[0], point[1], point[2])
+            x, ring = self.step(self.host_weights[n], x, o, ring, z)
+            if callback is not None:
+                callback(x, n)
+            if return_trajectory:
+                trajectory.append(x)
+        return torch.stack(trajectory) if return_trajectory else x
+
+    def step_noises(
+        self,
+        sample: torch.Tensor,
+        key: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+        start: int = 0,
+    ) -> torch.Tensor:
+        """Every step's noise in one ``(steps, *shape)`` buffer, the values the
+        eager loop draws in turn (rows before ``start`` are zero): step
+        ``n`` from ``normal(split(key, steps)[n], x.shape)``, or from
+        ``generator`` in step order."""
+        noises = torch.zeros((self.compiled.steps, *sample.shape), dtype=sample.dtype, device=sample.device)
+        step_keys = prng.split(key, self.compiled.steps) if key is not None else None
+        for n in range(start, self.compiled.steps):
+            if step_keys is not None:
+                noises[n] = prng.normal(step_keys[n], tuple(sample.shape), sample.dtype, sample.device)
+            else:
+                noises[n] = torch.randn(sample.shape, generator=generator, dtype=sample.dtype, device=sample.device)
+        return noises
 
     def run(
         self,
@@ -219,6 +310,7 @@ class CompiledDenoiser:
         start: int = 0,
         callback: Callable[[torch.Tensor, int], Any] | None = None,
         key: torch.Tensor | None = None,
+        graph: bool = False,
     ) -> torch.Tensor:
         """The full denoise loop.
 
@@ -229,32 +321,42 @@ class CompiledDenoiser:
         ``generator``.  ``start`` skips the leading steps (img2img); pass the
         same value to :func:`~skrample_tpu_torch.ops.compiler.compile_sampler`
         so the history ramp matches.  ``callback(sample, step_index)`` fires
-        after every step."""
+        after every step.
+
+        ``graph=True`` (CUDA tensors only; ValueError elsewhere) runs the loop
+        from ``start`` to the last step as one CUDA graph, captured at the
+        first call for each (model, latent shape, dtype, start, noise,
+        trajectory) and replayed after; the first call runs the loop once more
+        to warm up.  Drawn noise is drawn before the replay, every step's into
+        one buffer (:meth:`step_noises`: the eager loop's values, bit for
+        bit).  A callback runs host code between steps, so it cannot be
+        combined with ``graph=True``."""
         if self.requires_noise and noises is None and key is None and generator is None:
             raise ValueError("sampler requires noise: pass key=, generator= or noises=")
-        step_keys = prng.split(key, self.compiled.steps) if self.requires_noise and key is not None else None
-        points = self.points.to(sample.device)
-        x = sample
-        ring = self.init_ring(sample)
-        trajectory = []
-        for n in range(start, self.compiled.steps):
-            z = None
-            if self.requires_noise:
-                if noises is not None:
-                    z = noises[n]
-                elif step_keys is not None:
-                    z = prng.normal(step_keys[n], tuple(x.shape), x.dtype, x.device)
-                else:
-                    z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
-            point = points[n]
-            o = model_fn(x, point[0], point[1], point[2])
-            x, ring = self.step(self.host_weights[n], x, o, ring, z)
+        if graph:
             if callback is not None:
-                callback(x, n)
-            if return_trajectory:
-                trajectory.append(x)
-        return torch.stack(trajectory) if return_trajectory else x
+                raise ValueError("callback= runs host code between steps: it cannot run inside a CUDA graph")
+            if self.requires_noise and noises is None:
+                noises = self.step_noises(sample, key, generator, start)
+            buffer = noises if self.requires_noise else None
+            require_cuda((sample, buffer), "CompiledDenoiser.run")
+            cache_key = (model_fn, tuple(sample.shape), sample.dtype, start, buffer is not None, return_trajectory)
+            captured = self._graphs.get(cache_key)
+            if captured is None:
+                static = map_tree(torch.clone, (sample, buffer))
+                body = self.loop_body(model_fn, start, return_trajectory)
+                captured = self._graphs[cache_key] = CapturedGraph(body, static, what="CompiledDenoiser.run")
+            return captured(sample, buffer).clone()
+        step_keys = prng.split(key, self.compiled.steps) if self.requires_noise and key is not None else None
 
+        def noise_at(n: int) -> torch.Tensor:
+            if noises is not None:
+                return noises[n]
+            if step_keys is not None:
+                return prng.normal(step_keys[n], tuple(sample.shape), sample.dtype, sample.device)
+            return torch.randn(sample.shape, generator=generator, dtype=sample.dtype, device=sample.device)
+
+        return self._loop(model_fn, sample, noise_at, start, callback, return_trajectory)
 
 
 def sample_loop(

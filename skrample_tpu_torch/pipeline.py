@@ -59,6 +59,9 @@ class GenerationPipeline:
     "With ``uncond_model_fn`` set and scale != 1, runs classifier-free guidance."
     device: str | torch.device = "cuda"
     "Where the loop runs: the card unless the caller asks for the CPU."
+    graph: bool = False
+    """Run each request's loop as one CUDA graph (``CompiledDenoiser.run(graph=True)``; CUDA only): in-loop
+    key noise is drawn for every step before the replay."""
 
     _denoisers: dict[int, CompiledDenoiser] = field(init=False, default_factory=dict)
     _noises: torch.Tensor | None = field(init=False, default=None)
@@ -67,6 +70,8 @@ class GenerationPipeline:
         if self.mesh is not None:
             raise NotImplementedError(f"data-parallel generation (mesh=, ROADMAP A5) {_LATER}")
         self.device = resolve_device(self.device)
+        if self.graph and self.device.type != "cuda":
+            raise ValueError(f"GenerationPipeline: graph=True captures CUDA graphs, not on {self.device}")
         if self.uncond_model_fn is not None and self.guidance_scale != 1.0:
             from .utils.guidance import classifier_free
 
@@ -130,7 +135,9 @@ class GenerationPipeline:
             x0 = entry.add_noise(initial.to(device=self.device, dtype=self.dtype), seed) / full.add_noise(0.0, 1.0)
 
         with torch.inference_mode():
-            return self._denoiser(start).run(self.model_fn, x0, key=k_steps, noises=self._noises, start=start)
+            return self._denoiser(start).run(
+                self.model_fn, x0, key=k_steps, noises=self._noises, start=start, graph=self.graph
+            )
 
 
 @dataclass

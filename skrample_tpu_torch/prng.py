@@ -22,7 +22,9 @@ The bits and the uniforms equal jax's exactly; a normal's erfinv is
 PyTorch's, which agrees with XLA's to a few float32 ulps (exactly, once
 rounded, in bfloat16).  Words are held in int64 tensors masked to 32 bits,
 so the same code runs on the CPU and the card.  A key is a CPU int64
-tensor of shape (2,): it is tiny, and drawing reads it on the host.
+tensor of shape (2,): it is tiny, and drawing reads it on the host.  Draws
+land on the card unless the caller passes ``device="cpu"``, as every entry
+point of the port does.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .ops._cuda import resolve_device
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -79,11 +83,12 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 
 def random_bits(
-    key: torch.Tensor, shape: tuple[int, ...], bit_width: int = 32, device: str | torch.device = "cpu"
+    key: torch.Tensor, shape: tuple[int, ...], bit_width: int = 32, device: str | torch.device = "cuda"
 ) -> torch.Tensor:
     "``jax.random.bits(key, shape)`` at 8, 16 or 32 bits, as int64 values on ``device``."
     if bit_width not in (8, 16, 32):
         raise ValueError(f"bit_width must be 8, 16 or 32, got {bit_width}")
+    device = resolve_device(device)
     count = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     x0, x1 = threefry2x32(key, count >> 32, count & _MASK)
     return ((x0 ^ x1) & ((1 << bit_width) - 1)).reshape(shape)
@@ -99,13 +104,14 @@ def uniform(
     dtype: torch.dtype = torch.float32,
     minval: float = 0.0,
     maxval: float = 1.0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """``jax.random.uniform``: the mantissa of a float in [1, 2) from the top
     random bits, minus 1, scaled to ``[minval, maxval)`` and rounded to
     ``dtype`` where XLA rounds it."""
     if dtype not in _MANTISSA_BITS:
         raise ValueError(f"uniform draws float32, bfloat16 or float16, got {dtype}")
+    device = resolve_device(device)
     nbits = torch.finfo(dtype).bits
     nmant = _MANTISSA_BITS[dtype]
     rng_bits = 8 if nmant < 8 else nbits
@@ -121,9 +127,10 @@ def uniform(
 
 
 def normal(
-    key: torch.Tensor, shape: tuple[int, ...], dtype: torch.dtype = torch.float32, device: str | torch.device = "cpu"
+    key: torch.Tensor, shape: tuple[int, ...], dtype: torch.dtype = torch.float32, device: str | torch.device = "cuda"
 ) -> torch.Tensor:
     "``jax.random.normal``: ``sqrt(2) * erfinv(u)`` of a uniform on ``[nextafter(-1, 0), 1)``, in ``dtype``."
+    device = resolve_device(device)
     lo = -(1.0 - torch.finfo(dtype).eps / 2)  # nextafter(-1, 0) in dtype
     u = uniform(key, shape, dtype, lo, 1.0, device)
     return _float(math.sqrt(2), dtype, device) * torch.special.erfinv(u)

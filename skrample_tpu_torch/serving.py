@@ -30,6 +30,7 @@ import torch
 from . import prng, scheduling
 from .ops import CompiledDenoiser, compile_sampler
 from .ops._cuda import resolve_device
+from .ops.graphs import CapturedGraph, leaves, map_tree
 from .sampling import models, structured
 
 _PAD_SEED = 0
@@ -76,6 +77,7 @@ class ServingEngine:
         conditioned: bool = False,
         mesh: Any | None = None,
         device: str | torch.device = "cuda",
+        graph: bool = False,
     ):
         """``postprocess`` (optional): a batch -> batch function applied to
         every denoised batch before request slices are handed out (e.g. a
@@ -86,10 +88,20 @@ class ServingEngine:
         ``submit(..., context=...)``: each leaf of the contexts is stacked
         across the batch.  Requests without a context group separately.
 
+        ``graph=True`` (CUDA only) runs each dispatch's denoise loop as one
+        CUDA graph, kept per (bucket, start, context shapes) and captured at
+        its first dispatch: x0, the noise buffer and the stacked context are
+        copied into the graph's static buffers before each replay
+        (:meth:`dispatch_body` is what the graph computes).
+
         ``mesh`` (data-parallel serving) belongs to a later slice."""
         if mesh is not None:
             raise NotImplementedError("multi-device serving (mesh=) comes with a later slice of the port")
         self.device = resolve_device(device)
+        if graph and self.device.type != "cuda":
+            raise ValueError(f"ServingEngine: graph=True captures CUDA graphs, not on {self.device}")
+        self.graph = graph
+        self._graphs: dict[tuple, CapturedGraph] = {}
         self.model_fn = model_fn
         self.item_shape = tuple(item_shape)
         self.steps = steps
@@ -188,6 +200,23 @@ class ServingEngine:
             noises = prng.normal(k_loop, (self.steps, *self.item_shape), self.dtype, self.device)
         return x0, noises
 
+    def dispatch_body(self, start: int) -> Callable:
+        """One dispatch's denoise loop from ``start`` as a plain function
+        ``(x0, noises, ctx) -> latents``: ``noises`` the ``(steps, B,
+        *item_shape)`` buffer or None, ``ctx`` the stacked context tree or
+        None.  With ``graph=True`` this is what each bucket's graph captures."""
+        denoiser = self._denoiser_for(start)
+
+        def body(x0: torch.Tensor, noises: torch.Tensor | None, ctx: Any) -> torch.Tensor:
+            model_fn = self.model_fn
+            if ctx is not None:
+                model_fn = lambda x, t, s, a: self.model_fn(x, t, s, a, ctx)  # noqa: E731
+            elif self.conditioned:
+                model_fn = lambda x, t, s, a: self.model_fn(x, t, s, a, None)  # noqa: E731
+            return denoiser.loop_body(model_fn, start)(x0, noises)
+
+        return body
+
     def _collect(self) -> list | None:
         "Block for one request, then sweep up to the largest bucket within the delay."
         first = self._queue.get()
@@ -240,16 +269,22 @@ class ServingEngine:
         if denoiser.requires_noise:
             noises = torch.stack([z for _, z in prepared], dim=1)  # (steps, B, *item)
 
-        model_fn = self.model_fn
+        ctx = None
         if batch[0][3] is not None:
             contexts = [context for *_, context, _ in batch]
             contexts += [contexts[0]] * (bucket - n)
             ctx = _stack_tree(contexts, self.dtype, self.device)
-            model_fn = lambda x, t, s, a: self.model_fn(x, t, s, a, ctx)  # noqa: E731
-        elif self.conditioned:
-            model_fn = lambda x, t, s, a: self.model_fn(x, t, s, a, None)  # noqa: E731
 
-        out = denoiser.run(model_fn, x0, noises=noises, start=start)
+        if self.graph:
+            key = (bucket, start, tuple(tuple(t.shape) for t in leaves(ctx)) if ctx is not None else None)
+            captured = self._graphs.get(key)
+            if captured is None:
+                static = map_tree(torch.clone, (x0, noises, ctx))
+                captured = CapturedGraph(self.dispatch_body(start), static, what="ServingEngine")
+                self._graphs[key] = captured
+            out = captured(x0, noises, ctx).clone()
+        else:
+            out = self.dispatch_body(start)(x0, noises, ctx)
         if self._postprocess is not None:
             out = self._postprocess(out)
 

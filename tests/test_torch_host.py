@@ -129,7 +129,7 @@ def test_port_imports_without_jax() -> None:
         "wanted = ('ops.quant', 'ops.rope', 'models.flux', 'models.conditioning', 'ops.groupnorm', 'models.unet',\n"
         "          'models.unet_cond', 'models.sdxl', 'ops.fused_conv', 'models.vae', 'models.import_weights',\n"
         "          'prng', 'models.video_dit', 'models.video_vae', 'diffusers', 'diffusers_config',\n"
-        "          'torch_noise', 'compat', 'ops.adaptive')\n"
+        "          'torch_noise', 'compat', 'ops.adaptive', 'continuous', 'ops.graphs')\n"
         "assert all('skrample_tpu_torch.' + m in sys.modules for m in wanted)\n"
         "print('clean')\n"
     )

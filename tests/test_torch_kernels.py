@@ -140,6 +140,78 @@ def test_fused_step_f32_weights_are_bit_exact(cuda: torch.device, dtype: torch.d
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16, torch.float64])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize(("rows", "K"), [(1, 4), (3, 7), (3, 20)])
+def test_fused_step_device_weights_are_bit_exact(
+    cuda: torch.device, dtype: torch.dtype, table_dtype: torch.dtype, rows: int, K: int
+) -> None:
+    """K1's device-weights mode against its plain version, tolerance 0: per-item rows ``[0, 7, 24, 3]`` of a
+    25-step table over (4, 4, 64, 64) latents (each table element rounded to the latent's dtype first), an
+    int row and a 0-d index over the whole latent, row b for item b, and an index past the table (clamped)."""
+    gen = torch.Generator(cuda).manual_seed(rows * K)
+    table = torch.from_numpy(np.random.default_rng(K).standard_normal((25, rows, K))).to(cuda, table_dtype)
+    basis = [torch.randn((4, 4, 64, 64), generator=gen, device=cuda, dtype=torch.float64).to(dtype) for _ in range(K)]
+    index = torch.tensor([0, 7, 24, 3], dtype=torch.int32, device=cuda)
+    before = dict(fused.fused_step_cuda.modes)
+    past = torch.tensor([30, -1, 2, 2], dtype=torch.int32, device=cuda)
+    for idx in (index, 11, torch.tensor(11, dtype=torch.int32, device=cuda), past):
+        got = fused.fused_step_indexed_cuda(table, idx, basis)
+        assert torch.equal(got, fused.fused_step_indexed(table, idx, basis))
+    got = fused.fused_step_indexed_cuda(table[:4].contiguous(), None, basis)
+    assert torch.equal(got, fused.fused_step_indexed(table, index.new_tensor([0, 1, 2, 3]), basis))
+    assert fused.fused_step_cuda.modes == {"value": before["value"], "device": before["device"] + 5}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_fused_step_device_weights_scalar_path(cuda: torch.device, dtype: torch.dtype) -> None:
+    """Items of 3 x 5 x 7 = 105 elements (not a multiple of any vector width) take the scalar path: no vector
+    straddles two items, bit-exact all the same; so does an unaligned basis."""
+    gen = torch.Generator(cuda).manual_seed(9)
+    table = torch.from_numpy(np.random.default_rng(9).standard_normal((6, 3, 5))).to(cuda, torch.float32)
+    basis = [torch.randn((4, 3, 5, 7), generator=gen, device=cuda).to(dtype) for _ in range(5)]
+    index = torch.tensor([5, 0, 2, 2], dtype=torch.int32, device=cuda)
+    got = fused.fused_step_indexed_cuda(table, index, basis)
+    assert torch.equal(got, fused.fused_step_indexed(table, index, basis))
+    shifted = [torch.randn(4 * 1001 + 1, generator=gen, device=cuda).to(dtype)[1:] for _ in range(5)]
+    got = fused.fused_step_indexed_cuda(table, index, shifted)
+    assert torch.equal(got, fused.fused_step_indexed(table, index, shifted))
+    with pytest.raises(ValueError, match="rows 1 or 3"):  # no sampler emits rows 2: no instance
+        fused.fused_step_indexed_cuda(table[:, :2].contiguous(), index, basis)
+
+
+@pytest.mark.gpu
+def test_jitted_step_indexed_captured_and_replayed(cuda: torch.device) -> None:
+    """``jitted_step_indexed`` with a 0-d device step index, captured once in a CUDA graph (``ops.graphs``) and
+    replayed at every step with the index written in place, equals the eager by-value step bit for bit; each
+    replay counts one device-mode launch."""
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.ops import compile_sampler, graphs, loop
+    from skrample_tpu_torch.sampling import models, structured
+
+    schedule = scheduling.FlowShift(scheduling.Linear())
+    compiled = compile_sampler(structured.UniPC(order=3), schedule, models.FlowModel(), 8)
+    den = loop.CompiledDenoiser.build(compiled, dtype=torch.float32, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(4)
+    x = torch.randn((2, 4, 32, 32), generator=gen, device=cuda)
+    outs = [torch.randn(x.shape, generator=gen, device=cuda) for _ in range(8)]
+    ring = den.init_ring(x)
+    n = torch.zeros((), dtype=torch.int32, device=cuda)
+    static = (x.clone(), outs[0].clone(), tuple(r.clone() for r in ring), n)
+    graph = graphs.CapturedGraph(lambda xs, o, rs, i: den.jitted_step_indexed()(i, xs, o, rs), static)
+    eager_x, eager_ring = cur_x, cur_ring = x, ring
+    for step in range(8):
+        eager_x, eager_ring = den.step(den.host_weights[step], eager_x, outs[step], eager_ring)
+        launches = fused.fused_step_cuda.modes["device"]
+        n.fill_(step)
+        got_x, got_ring = graph(cur_x, outs[step], cur_ring, n)
+        assert fused.fused_step_cuda.modes["device"] == launches + 1
+        assert torch.equal(got_x, eager_x) and all(torch.equal(a, b) for a, b in zip(got_ring, eager_ring))
+        cur_x, cur_ring = got_x.clone(), tuple(r.clone() for r in got_ring)  # the next replay rewrites the outputs
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "f64", "bf16", "f16"])
 @pytest.mark.parametrize("name", ["dpm2", "unipc3", "adams3", "dpm2-sde"])
 def test_wrapper_step_on_the_card_equals_the_cpu(cuda: torch.device, name: str, dtype: str) -> None:
@@ -1666,9 +1738,9 @@ def test_threefry_draws_on_the_card_equal_the_cpu(cuda: torch.device) -> None:
 
     key = prng.split(prng.PRNGKey(1234))[0]
     for dtype in (torch.float32, torch.bfloat16):
-        assert torch.equal(prng.random_bits(key, (3, 1000), 32, cuda).cpu(), prng.random_bits(key, (3, 1000), 32))
-        assert torch.equal(prng.uniform(key, (3, 1000), dtype, -1.0, 1.0, cuda).cpu(), prng.uniform(key, (3, 1000), dtype, -1.0, 1.0))
-        card, host = prng.normal(key, (3, 1000), dtype, cuda).cpu().float(), prng.normal(key, (3, 1000), dtype).float()
+        assert torch.equal(prng.random_bits(key, (3, 1000), 32, cuda).cpu(), prng.random_bits(key, (3, 1000), 32, "cpu"))
+        assert torch.equal(prng.uniform(key, (3, 1000), dtype, -1.0, 1.0, cuda).cpu(), prng.uniform(key, (3, 1000), dtype, -1.0, 1.0, "cpu"))
+        card, host = prng.normal(key, (3, 1000), dtype, cuda).cpu().float(), prng.normal(key, (3, 1000), dtype, "cpu").float()
         assert (card - host).abs().max().item() <= (1e-5 if dtype == torch.float32 else 2**-7 * host.abs().max().item())
 
 
@@ -1939,10 +2011,10 @@ def test_prng_bits_and_uniforms_on_the_card_equal_the_cpu(cuda: torch.device, dt
 
     key = prng.PRNGKey(2024)
     shape = (1, 4, 64, 64)
-    assert torch.equal(prng.random_bits(key, shape, device=cuda).cpu(), prng.random_bits(key, shape))
-    assert torch.equal(prng.uniform(key, shape, dtype, device=cuda).cpu(), prng.uniform(key, shape, dtype))
+    assert torch.equal(prng.random_bits(key, shape, device=cuda).cpu(), prng.random_bits(key, shape, device="cpu"))
+    assert torch.equal(prng.uniform(key, shape, dtype, device=cuda).cpu(), prng.uniform(key, shape, dtype, device="cpu"))
     got = prng.normal(key, shape, dtype, device=cuda).cpu().float()
-    want = prng.normal(key, shape, dtype).float()
+    want = prng.normal(key, shape, dtype, device="cpu").float()
     tol = 1e-5 if dtype == torch.float32 else 0.0  # the half types round both erfinv alike
     assert (got - want).abs().max().item() <= tol
 

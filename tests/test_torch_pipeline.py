@@ -154,7 +154,7 @@ def test_denoiser_run_with_key_matches_jax() -> None:
         den = CompiledDenoiser.build(compiled, device="cpu")
         got = den.run(linear, torch.from_numpy(x0), key=prng.PRNGKey(21), start=start)
         _close(got, want)
-        noises = torch.stack([prng.normal(k, LATENT) for k in prng.split(prng.PRNGKey(21), STEPS)])
+        noises = torch.stack([prng.normal(k, LATENT, device="cpu") for k in prng.split(prng.PRNGKey(21), STEPS)])
         assert torch.equal(den.run(linear, torch.from_numpy(x0), noises=noises, start=start), got)
     with pytest.raises(ValueError, match="key="):
         den.run(linear, torch.from_numpy(x0))

@@ -53,7 +53,7 @@ def test_prng_key_of_a_64_bit_seed() -> None:
 @pytest.mark.parametrize("width", [8, 16, 32])
 def test_random_bits_equal_jax(seed: int, width: int) -> None:
     "32-bit bits are x0 ^ x1 over the flat counter; 8 and 16 bits are their low bits."
-    got = prng.random_bits(prng.PRNGKey(seed), SHAPE, width).numpy()
+    got = prng.random_bits(prng.PRNGKey(seed), SHAPE, width, device="cpu").numpy()
     dtype = {8: jnp.uint8, 16: jnp.uint16, 32: jnp.uint32}[width]
     want = np.asarray(jax.random.bits(jax.random.PRNGKey(seed), SHAPE, dtype))
     assert np.array_equal(got, want.astype(np.int64))
@@ -66,10 +66,10 @@ def test_uniform_and_normal_equal_jax(seed: int, dtype: str) -> None:
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
     key, jkey = prng.PRNGKey(seed), jax.random.PRNGKey(seed)
     shape = (4, 1000)
-    u = prng.uniform(key, shape, tdt, -0.5, 2.0).float().numpy()
+    u = prng.uniform(key, shape, tdt, -0.5, 2.0, device="cpu").float().numpy()
     ju = np.asarray(jax.random.uniform(jkey, shape, jdt, -0.5, 2.0).astype(jnp.float32))
     assert np.array_equal(u, ju)
-    z = prng.normal(key, shape, tdt).float().numpy()
+    z = prng.normal(key, shape, tdt, device="cpu").float().numpy()
     jz = np.asarray(jax.random.normal(jkey, shape, jdt).astype(jnp.float32))
     if dtype == "bfloat16":
         assert np.array_equal(z, jz)
@@ -81,7 +81,7 @@ def test_uniform_and_normal_equal_jax(seed: int, dtype: str) -> None:
 def test_normal_agrees_over_many_draws() -> None:
     "1e5 float32 normals: max |diff| below 1e-4."
     key, jkey = prng.PRNGKey(17), jax.random.PRNGKey(17)
-    z = prng.normal(key, (100_000,)).numpy()
+    z = prng.normal(key, (100_000,), device="cpu").numpy()
     jz = np.asarray(jax.random.normal(jkey, (100_000,), jnp.float32))
     assert np.abs(z - jz).max() < 1e-4
 
