@@ -149,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -785,8 +786,76 @@ def flux_kernels(gen) -> dict[str, dict]:
                 **timing,
             }
 
-    # ---- K2 at the Flux shape: bf16 qkv (1, 4608, 9216), 24 heads of 128 ----
+    # ---- B7 at head dim 64 (its instance, two rows a warp) and 96 (the run-time-d body): Flux-like bf16 qkv,
+    # 24 heads, the image stream's rows of the joint tables, in place (ROADMAP C13) ----
+    for dh, route, key in ((64, "d64", "rope_qk_norm_forward d64"), (96, "run-time d", "rope_qk_norm_forward d96")):
+        angles = torch.rand((L + N_IMG, dh // 2), generator=gen, device=dev) * 64
+        c, s_ = torch.cos(angles)[L:], torch.sin(angles)[L:]
+        gq = 1 + 0.1 * torch.randn(dh, generator=gen, device=dev)
+        gk = 1 + 0.1 * torch.randn(dh, generator=gen, device=dev)
+        qkv = (torch.randn((1, N_IMG, 3 * H * dh), generator=gen, device=dev) * 2).to(torch.bfloat16)
+        want = rope.rope_qk_norm_reference(qkv, gq, gk, c, s_, H)
+        before = rope.rope_qk_norm_forward.routes[route]
+        inplace = rope.rope_qk_norm_forward(qkv.clone(), gq, gk, c, s_, H, in_place=True)
+        fresh = rope.rope_qk_norm_forward(qkv, gq, gk, c, s_, H)
+        torch.cuda.synchronize()
+        ulps = max(_ulps_bf16(fresh, want), _ulps_bf16(inplace, want))
+        v_same = torch.equal(fresh[..., 2 * H * dh :], qkv[..., 2 * H * dh :]) and torch.equal(inplace, fresh)
+        err = max(max_err(fresh, want), max_err(inplace, want))
+        scale = want.float().abs().max().item()
+        on_route = rope.rope_qk_norm_forward.routes[route] - before
+        # the sum of squares in another order moves rsqrt by an f32 ulp, which a rotation's cancellation can
+        # carry into a few bf16 ulps of a small output: the tolerance is one bf16 ulp of the largest output
+        print(
+            f"B7 rope_qk_norm_forward head dim {dh} ({route}) bf16 {tuple(qkv.shape)}: max_abs_err {err:.3e} "
+            f"(tolerance {2**-7 * scale:.3e}: 2**-7 of the largest output), at most {ulps:g} bf16 ulp of an output; "
+            f"v third bit-equal and in place == fresh: {v_same}; launches on the route {on_route}"
+        )
+        expect(err <= 2**-7 * scale and v_same and on_route == 2, f"B7 at head dim {dh}: {err}, v {v_same}, route {on_route}")
+        qk_bytes = N_IMG * 2 * H * dh * 2
+        b_ms, b_by = bound_ms(2 * qk_bytes + 2 * c.numel() * 4 + 2 * dh * 4, 8 * N_IMG * 2 * H * dh, PEAK_F32_FLOPS)
+        args = (qkv, gq, gk, c, s_, H)
+        timing = {}
+        timed(timing, "ms", lambda args=args: rope.rope_qk_norm_forward(*args, in_place=True))
+        timed(timing, "plain_ms", lambda args=args: rope.rope_qk_norm_reference(*args))
+        print(
+            f"B7 head dim {dh} (card time, CUDA-graph replay): {timing['ms'] * 1e3:.2f} us kernel in place, "
+            f"{timing['plain_ms'] * 1e3:.2f} us plain, bound {b_ms * 1e3:.2f} us ({b_by})"
+        )
+        rows[key] = {
+            "name": key,
+            "route": "cuda",
+            "source": "skrample_tpu_torch/csrc/rope.cu",
+            "replaces": "skrample_tpu/ops/rope.py:94",
+            "max_abs_err": err,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            **timing,
+        }
+        del qkv, want, inplace, fresh
+
+    # ---- the d = 64 flash route of a Flux (C13): B10's body on the chunk(3) views of a joint qkv, 48 heads of 64 ----
     N = L + N_IMG
+    qkv = torch.randn((1, N, 3 * 48 * 64), generator=gen, device=dev).to(torch.bfloat16)
+    views = qkv.chunk(3, dim=-1)
+    before = flash_attention.flash_attention_pairs_forward.launches
+    got = flash_attention.flash_attention_pairs(*views, 48)
+    ref = flash_attention._packed_reference(*views, 48)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    launched = flash_attention.flash_attention_pairs_forward.launches - before
+    flash_ms, _ = cuda_ms(lambda: flash_attention.flash_attention_pairs(*views, 48))
+    plain_ms, _ = cuda_ms(lambda: flash_attention._packed_reference(*views, 48))
+    print(
+        f"Flux d = 64 flash route (flash_attention_pairs on chunk(3) views of {tuple(qkv.shape)}, 48 heads): max_abs_err "
+        f"{err:.3e} against the plain attention (tolerance 5.0e-03), {launched} B10 launch; {flash_ms * 1e3:.2f} us "
+        f"kernel, {plain_ms * 1e3:.2f} us plain (card time, CUDA-graph replay)"
+    )
+    expect(bool(torch.isfinite(got).all()) and err <= 5e-3 and launched == 1, f"the d = 64 Flux route: {err}, {launched}")
+    del qkv, views, got, ref
+
+    # ---- K2 at the Flux shape: bf16 qkv (1, 4608, 9216), 24 heads of 128 ----
     qkv = torch.randn((1, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
     got = flash_attention.flash_attention_qkv_forward(qkv, H)
     ref = flash_attention._qkv_reference(qkv, H)
@@ -4102,6 +4171,620 @@ def graphs_phase(card: str, dit_outputs: dict, parts: dict) -> dict[str, int]:
     return total
 
 
+EXTRA_STEPS = 5  # 15a/15b: steps of the eager and the graphed run held bit for bit
+EXTRA_TIMED = 10  # 15a/15b: steps per step-time median
+RESUME_UNTIL, RESUME_ABORT, RESUME_EVERY = 8, 4, 2  # 15c: the kill-and-resume recipe
+FLUX_TRAIN_STEPS = 3  # 15d
+
+
+def _train_per_step(depth: int = DEPTH) -> dict[str, int]:
+    "Phase 4's launches a DiT training step."
+    per = dict.fromkeys(_wrappers(), 0)
+    per.update(
+        adaln_forward=2 * depth + 1, flash_attention_qkv_forward_lse=depth, flash_attention_qkv_backward=depth,
+        adaln_backward=2 * depth + 1,
+    )
+    return per
+
+
+def _counted_run(label: str, want: dict[str, int], run, total: dict[str, int]):
+    "A main-path run: the counters from 0 just before, read just after, held to ``want`` and added to ``total``."
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_counters()
+    out = run()
+    torch.cuda.synchronize()
+    launches = _counters()
+    print(f"extras {label}: launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+    expect(launches == want, f"extras {label}: launched {launches}, expected {want}")
+    for name, count in launches.items():
+        total[name] += count
+    return out
+
+
+def _median_step_ms(step, n: int = EXTRA_TIMED) -> tuple[float, float, float]:
+    "Median, min and max of ``n`` synchronized steps on the host clock (ms)."
+    import torch
+
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def _optimizer_card_ms(prof, prefix: str) -> float:
+    "The card time of the kernels launched inside the optimizer's own profiler range (``Optimizer.step#...``)."
+    import torch
+
+    return sum(
+        e.device_time_total for e in prof.events()
+        if e.name.startswith(prefix) and e.device_type == torch.autograd.DeviceType.CPU
+    ) / 1e3
+
+
+def _relative_fro_all(a: list, b: list) -> float:
+    "Relative Frobenius distance of two gradient lists taken as one vector."
+    num = sum(float((x.double() - y.double()).square().sum()) for x, y in zip(a, b))
+    den = sum(float(y.double().square().sum()) for y in b)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def extras_phase(card: str) -> dict[str, int]:
+    """Phase 15: the rest of training (ROADMAP A7) and C13's Flux head dims.  (a) ``optim.AdamW8bit`` on phase
+    4's DiT-512/8: eager == graphed over 5 steps bit for bit, its state bytes against AdamW's, step times, peak
+    memory, the optimizer's card time against a graphed step's; (b) LoRA rank 16 on the same DiT: identity at
+    init, eager == graphed, the base untouched, step times; (c) ``prefetch_to_device(EpochLoader)`` on the card
+    == ``batch_at``, then ``python -m skrample_tpu_torch.training --device cuda`` killed and resumed == an
+    uninterrupted run, bit for bit, with AdamW and with ``--opt8 --graph``; (d) a 1.31B Flux-width fine-tune
+    (FLUX.1's widths, 2 double + 4 single blocks, bf16) with ``AdamW8bit(1e-5, cast_updates=False)`` and
+    stochastic rounding: 3 steps, a step against the plain versions, then a ``--lora 16`` step; (e)
+    ``VAE.loss`` (the SDXL VAE, f32, 256x256) and ``VideoVAE.loss`` (phase 10's widths, bf16, 4 frames of
+    128x128), fused decode against the composition; (f) a Flux at head dim 64 (``"flash"``: B10's body, and
+    ``"full"``) and 96 (``"full"``: B7's run-time-d body) against the plain versions.  Returns the launches."""
+    import torch
+
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    total.update({"rope_qk_norm_forward d64": 0, "rope_qk_norm_forward d96": 0})
+    for part in (_opt8_part, _lora_part, _resume_part, _flux_finetune_part, _vae_loss_part, _flux_head_dims_part):
+        t0 = time.perf_counter()
+        part(card, total)
+        torch.cuda.empty_cache()
+        print(f"extras: {part.__name__} took {time.perf_counter() - t0:.1f} s")
+    print(f"extras: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
+def _dit512():
+    import torch
+
+    from skrample_tpu_torch.models.dit import DiTConfig, random_param_tree
+
+    config = DiTConfig(dim=512, depth=DEPTH, heads=4, patch=2, channels=4, compute_dtype=torch.bfloat16, attention="flash")
+    return config, random_param_tree(config, seed=0)
+
+
+def _opt8_part(card: str, total: dict[str, int]) -> None:
+    "15a: AdamW8bit on phase 4's DiT-512/8 (bf16 compute, f32 masters, batch 4)."
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skrample_tpu_torch import training
+    from skrample_tpu_torch.models.dit import DiT
+    from skrample_tpu_torch.models.ema import ema_init
+    from skrample_tpu_torch.models.lora import jax_leaves
+    from skrample_tpu_torch.optim import AdamW8bit, optimizer_state_bytes
+
+    dev = torch.device("cuda")
+    config, tree = _dit512()
+    data = training.synthetic_dataset(64, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batches = [training.draw_batch(data, 4, gen) for _ in range(EXTRA_STEPS)]
+    per = _train_per_step()
+    runs = {}
+    for graph in (False, True):
+        net = DiT(config, device=dev).load_jax_params(tree)
+        opt = AdamW8bit([leaf.tensor for leaf in jax_leaves(net)], lr=1e-4, capturable=True)
+        ema = ema_init(net)
+        step = training.GraphedTrainStep(net, opt, ema) if graph else None
+        label = "graphed" if graph else "eager"
+
+        def run(net=net, opt=opt, ema=ema, step=step):
+            return [
+                step(*b).clone() if step is not None else training.train_step(net, opt, ema, *b, step=i)
+                for i, b in enumerate(batches)
+            ]
+
+        losses = _counted_run(f"15a AdamW8bit {label}, {EXTRA_STEPS} steps", {k: v * EXTRA_STEPS for k, v in per.items()}, run, total)
+        if graph:
+            per_replay = step._graph.tally.per_replay()
+            expect(per_replay == {k: v for k, v in per.items() if v}, f"15a: a replay launches {per_replay}")
+        moments = [t for p in opt._params() for t in opt.state[p].values()] + [opt.state["count"]]
+        runs[graph] = (net, opt, ema, step, [torch.stack(losses), *net.parameters(), *moments, *ema.values()])
+    equal, err = _same(runs[True][4], runs[False][4])
+    print(
+        f"extras 15a: {EXTRA_STEPS} steps, GraphedTrainStep vs train_step with AdamW8bit(capturable=True): losses, "
+        f"parameters, int8 codes, scales, count and EMA bit-equal {equal}, max abs err {err:.3e} (tolerance 0)"
+    )
+    expect(equal, f"15a: the graphed AdamW8bit steps differ from the eager ones by {err}")
+    net, opt, ema, step, _ = runs[False]
+    n_params = sum(p.numel() for p in net.parameters())
+    adamw_net = DiT(config, device=dev).load_jax_params(tree)
+    adamw = training.make_optimizer(adamw_net)
+    training.train_step(adamw_net, adamw, ema_init(adamw_net), *batches[0], step=0)
+    per8 = optimizer_state_bytes(opt.state_dict()) / n_params
+    per32 = optimizer_state_bytes(adamw.state_dict()) / n_params
+    print(
+        f"extras 15a: optimizer state {per8:.4f} bytes a parameter (AdamW8bit) against {per32:.4f} (AdamW), "
+        f"{n_params / 1e6:.2f}M parameters"
+    )
+    expect(per8 < 2.1 and per32 >= 8, f"15a: state bytes {per8} and {per32} a parameter")
+    del adamw_net, adamw
+    medians = {}
+    for graph in (False, True):
+        net, opt, ema, step, _ = runs[graph]
+        torch.cuda.reset_peak_memory_stats()
+        if graph:
+            med, lo, hi = _median_step_ms(lambda i, step=step: step(*batches[i % EXTRA_STEPS]))
+        else:
+            med, lo, hi = _median_step_ms(lambda i, net=net, opt=opt, ema=ema: training.train_step(net, opt, ema, *batches[i % EXTRA_STEPS], step=EXTRA_STEPS + i))
+        medians[graph] = med
+        label = "graphed" if graph else "eager"
+        print(
+            f"extras 15a AdamW8bit {label}: step time median {med:.2f} ms (min {lo:.2f}, max {hi:.2f}; {EXTRA_TIMED} "
+            f"steps, batch 4 of 4x64x64, DiT-512/8 bf16); peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})"
+        )
+    net, opt, ema, step, _ = runs[False]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for i in range(3):
+            training.train_step(net, opt, ema, *batches[i], step=100 + i)
+        torch.cuda.synchronize()
+    opt_ms = _optimizer_card_ms(prof, "Optimizer.step#AdamW8bit") / 3
+    _ms, _launches, eager_busy = card_time(prof)
+    net, opt, ema, step, _ = runs[True]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for i in range(3):
+            step(*batches[i])
+        torch.cuda.synchronize()
+    _ms, _launches, busy = card_time(prof)
+    busy /= 3
+    print(
+        f"extras 15a AdamW8bit: the optimizer's kernels {opt_ms:.3f} ms a step on the card (eager trace, its "
+        f"profiler range), {100 * opt_ms / busy:.1f}% of a graphed step's card busy {busy:.3f} ms (idle "
+        f"{100 * (1 - busy / medians[True]):.1f}% of its {medians[True]:.2f} ms median; eager busy "
+        f"{eager_busy / 3:.3f} ms) ({card})"
+    )
+
+
+def _lora_part(card: str, total: dict[str, int]) -> None:
+    "15b: LoRA rank 16 on phase 4's DiT-512/8, AdamW (capturable) on the adapters."
+    import torch
+
+    from skrample_tpu_torch import prng, training
+    from skrample_tpu_torch.models.dit import DiT
+    from skrample_tpu_torch.models.ema import ema_init
+    from skrample_tpu_torch.models.lora import lora_init, lora_param_count
+
+    dev = torch.device("cuda")
+    config, tree = _dit512()
+    data = training.synthetic_dataset(64, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batches = [training.draw_batch(data, 4, gen) for _ in range(EXTRA_STEPS)]
+    per = _train_per_step()
+    runs = {}
+    for graph in (False, True):
+        base = DiT(config, device=dev).load_jax_params(tree)
+        lora = training.LoRAModel(base, lora_init(prng.PRNGKey(2), base, rank=16))
+        if not graph:
+            x0, noise, sigma = batches[0]
+            with torch.no_grad():
+                same = torch.equal(lora(x0, sigma * 1000.0), base(x0, sigma * 1000.0))
+            n_ad, n_base = lora_param_count(lora.adapters), sum(p.numel() for p in base.parameters())
+            print(f"extras 15b: LoRA rank 16, {n_ad} of {n_base} parameters trained; merged forward == base at init: {same}")
+            expect(same, "15b: the merged model differs from the base at init")
+        opt = training.make_optimizer(lora, capturable=True)
+        ema = ema_init(lora)
+        step = training.GraphedTrainStep(lora, opt, ema) if graph else None
+        label = "graphed" if graph else "eager"
+
+        def run(lora=lora, opt=opt, ema=ema, step=step):
+            return [
+                step(*b).clone() if step is not None else training.train_step(lora, opt, ema, *b, step=i)
+                for i, b in enumerate(batches)
+            ]
+
+        losses = _counted_run(f"15b LoRA {label}, {EXTRA_STEPS} steps", {k: v * EXTRA_STEPS for k, v in per.items()}, run, total)
+        adam = [t for p in lora.parameters() for t in opt.state[p].values()]
+        runs[graph] = (lora, opt, ema, step, base, [torch.stack(losses), *lora.parameters(), *adam, *ema.values()])
+    equal, err = _same(runs[True][5], runs[False][5])
+    print(
+        f"extras 15b: {EXTRA_STEPS} LoRA steps, graphed (the merge captured) vs eager: losses, adapters, AdamW state "
+        f"and EMA bit-equal {equal}, max abs err {err:.3e} (tolerance 0)"
+    )
+    expect(equal, f"15b: the graphed LoRA steps differ from the eager ones by {err}")
+    fresh = DiT(config, device=dev).load_jax_params(tree)
+    for graph in (False, True):
+        base = runs[graph][4]
+        untouched = all(torch.equal(a, b) for a, b in zip(base.parameters(), fresh.parameters()))
+        expect(untouched, f"15b: the frozen base moved ({'graphed' if graph else 'eager'})")
+    print("extras 15b: the frozen base's parameters bit-equal to the loaded tree after the steps (eager and graphed)")
+    for graph in (False, True):
+        lora, opt, ema, step, base, _ = runs[graph]
+        torch.cuda.reset_peak_memory_stats()
+        if graph:
+            med, lo, hi = _median_step_ms(lambda i, step=step: step(*batches[i % EXTRA_STEPS]))
+        else:
+            med, lo, hi = _median_step_ms(lambda i, lora=lora, opt=opt, ema=ema: training.train_step(lora, opt, ema, *batches[i % EXTRA_STEPS], step=EXTRA_STEPS + i))
+        print(
+            f"extras 15b LoRA {'graphed' if graph else 'eager'}: step time median {med:.2f} ms (min {lo:.2f}, max "
+            f"{hi:.2f}); peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})"
+        )
+
+
+def _resume_part(card: str, total: dict[str, int]) -> None:
+    "15c: the loader on the card, then the training CLI killed and resumed against an uninterrupted run."
+    import itertools
+
+    import torch
+
+    from skrample_tpu_torch import prng, training
+    from skrample_tpu_torch.data import EpochLoader, prefetch_to_device
+    from skrample_tpu_torch.models.checkpoint import TrainCheckpointer
+
+    dev = torch.device("cuda")
+    loader = EpochLoader({"x0": training.host_dataset(16)}, 8, prng.PRNGKey(7))
+    got = list(itertools.islice(prefetch_to_device(loader.iter_from(3), device=dev), 12))  # across an epoch's end
+    torch.cuda.synchronize()
+    same = all(b["x0"].is_cuda and torch.equal(b["x0"], loader.batch_at(3 + i)["x0"].to(dev)) for i, b in enumerate(got))
+    print(f"extras 15c: prefetch_to_device(EpochLoader.iter_from(3)) on the card, 12 batches == batch_at(n): {same}")
+    expect(same, "15c: a prefetched batch differs from batch_at")
+    base = [
+        sys.executable, "-m", "skrample_tpu_torch.training", "--device", "cuda", "--dim", "512", "--heads", "4",
+        "--depth", "2", "--host-loader", "--until", str(RESUME_UNTIL), "--save-every", str(RESUME_EVERY),
+    ]
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    modes = {"AdamW": [], "--opt8 --graph": ["--opt8", "--graph"]}
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def start(mode: str, tag: str, *extra: str) -> subprocess.Popen:
+            cmd = [*base, *modes[mode], "--orbax", str(Path(tmp) / f"{mode.replace(' ', '')}-{tag}"), *extra]
+            return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def finish(proc: subprocess.Popen) -> tuple[int, str, str]:
+            try:
+                out, err = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            return proc.returncode, out, err
+
+        t0 = time.perf_counter()
+        first = {(m, tag): start(m, tag, *extra) for m in modes for tag, extra in
+                 (("straight", ()), ("killed", ("--abort-after-step", str(RESUME_ABORT))))}
+        results = {key: finish(proc) for key, proc in first.items()}
+        for mode in modes:
+            rc, out, err = results[(mode, "straight")]
+            expect(rc == 0, f"15c {mode}: the uninterrupted run failed ({rc}): {err[-1500:]}")
+            rc, out, err = results[(mode, "killed")]
+            expect(rc == -9 and f"aborting after step {RESUME_ABORT}" in out, f"15c {mode}: the kill run ended {rc}: {err[-1500:]}")
+        second = {m: start(m, "killed", "--resume") for m in modes}
+        resumed = {m: finish(p) for m, p in second.items()}
+        for mode in modes:
+            rc, out, err = resumed[mode]
+            expect(rc == 0 and "resumed from" in out, f"15c {mode}: the resumed run failed ({rc}): {err[-1500:]}")
+            at = int(out.split("at step")[1].split()[0])
+            a = TrainCheckpointer(Path(tmp) / f"{mode.replace(' ', '')}-straight").restore(RESUME_UNTIL)
+            b = TrainCheckpointer(Path(tmp) / f"{mode.replace(' ', '')}-killed").restore(RESUME_UNTIL)
+            checks = {}
+            for part in ("params", "opt_state", "ema"):
+                flat_a, flat_b = _flat_tensors(a[part]), _flat_tensors(b[part])
+                checks[part] = flat_a.keys() == flat_b.keys() and _same(list(flat_a.values()), list(flat_b.values()))[0]
+            print(
+                f"extras 15c {mode}: killed after step {RESUME_ABORT} (SIGKILL), resumed at step {at} and run to "
+                f"{RESUME_UNTIL}, against an uninterrupted run: bit-equal {checks} (tolerance 0)"
+            )
+            expect(all(checks.values()) and a["step"] == b["step"] == RESUME_UNTIL, f"15c {mode}: resume differs {checks}")
+        print(f"extras 15c: six training processes (DiT-512/2, batch 8 of 4x16x16) in {time.perf_counter() - t0:.1f} s")
+
+
+def _flat_tensors(tree, prefix: str = "") -> dict:
+    import torch
+
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_tensors(v, f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flat_tensors(v, f"{prefix}/{i}"))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix] = tree
+    return out
+
+
+def _flux_loss(model, x0, noise, sigma, ctx, pooled):
+    import torch
+
+    s = sigma[:, None, None, None]
+    pred = model((1 - s) * x0 + s * noise, sigma * 1000.0, ctx, pooled, guidance=3.5)
+    return torch.mean((pred.float() - (noise - x0)) ** 2)
+
+
+def _flux_finetune_part(card: str, total: dict[str, int]) -> None:
+    """15d: scripts/bench_flux_train.py's configuration: FLUX.1's widths (dim 3072, 24 heads of 128, T5 4096,
+    pooled 768) at 2 double + 4 single blocks, bf16 parameters, latent 16x128x128 (4096 image tokens), 512 text
+    tokens, batch 1; AdamW8bit(1e-5, cast_updates=False) with stochastic rounding, then a LoRA rank-16 step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skrample_tpu_torch import prng, training
+    from skrample_tpu_torch.models.flux import Flux, FluxConfig
+    from skrample_tpu_torch.models.lora import jax_leaves, lora_init
+    from skrample_tpu_torch.ops import adaln, flash_attention, rope
+    from skrample_tpu_torch.optim import AdamW8bit, optimizer_state_bytes, stochastic_round_bf16
+
+    dev = torch.device("cuda")
+    config = FluxConfig(
+        dim=3072, heads=24, depth=2, single_depth=4, context_dim=4096, pooled_dim=768, guidance=True,
+        compute_dtype=torch.bfloat16, attention="flash",
+    )
+    gen = torch.Generator(dev).manual_seed(15)
+    model = Flux(config, device=dev, generator=gen, dtype=torch.bfloat16)
+    model.reset_parameters(gen, noise=0.02)
+    n_params = sum(p.numel() for p in model.parameters())
+    leaves = [leaf.tensor for leaf in jax_leaves(model)]
+    print(f"extras 15d: Flux-width fine-tune, {config.depth} double + {config.single_depth} single blocks, {n_params / 1e9:.3f}B parameters (bf16; gains f32)")
+    dgen = torch.Generator(dev).manual_seed(16)
+    batches = [
+        (torch.randn((1, 16, 128, 128), generator=dgen, device=dev), torch.randn((1, 16, 128, 128), generator=dgen, device=dev),
+         torch.rand((1,), generator=dgen, device=dev) * 0.998 + 1e-3)
+        for _ in range(FLUX_TRAIN_STEPS)
+    ]
+    ctx = torch.randn((1, 512, 4096), generator=dgen, device=dev)
+    pooled = torch.randn((1, 768), generator=dgen, device=dev)
+    opt = AdamW8bit(leaves, lr=1e-5, cast_updates=False)
+    per = dict.fromkeys(_wrappers(), 0)
+    blocks = config.depth + config.single_depth
+    per.update(
+        flash_attention_qkv_forward_lse=blocks, flash_attention_qkv_backward=blocks,
+        rope_qk_norm_forward=2 * config.depth + config.single_depth,
+        adaln_forward=4 * config.depth + config.single_depth + 1, adaln_backward=4 * config.depth + config.single_depth + 1,
+    )
+
+    def step(i: int):
+        opt.zero_grad(set_to_none=True)
+        loss = _flux_loss(model, *batches[i % FLUX_TRAIN_STEPS], ctx, pooled)
+        loss.backward()
+        opt.step(key=prng.fold_in(prng.PRNGKey(0), i))
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+
+    def run():
+        out = []
+        for i in range(FLUX_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            out.append(step(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    losses = _counted_run(
+        f"15d Flux-width AdamW8bit + SR, {FLUX_TRAIN_STEPS} steps", {k: v * FLUX_TRAIN_STEPS for k, v in per.items()}, run, total
+    )
+    losses = torch.stack(losses).tolist()
+    peak = torch.cuda.max_memory_allocated()
+    print(
+        f"extras 15d: losses {', '.join(f'{v:.5f}' for v in losses)}; step times {', '.join(f'{t:.1f}' for t in times)} ms "
+        f"(the first with each launcher's setup); peak memory {peak / 2**30:.2f} GiB; optimizer state "
+        f"{optimizer_state_bytes(opt.state_dict()) / n_params:.4f} bytes a parameter ({card})"
+    )
+    expect(all(map(math.isfinite, losses)), f"15d: non-finite loss {losses}")
+    t0 = time.perf_counter()
+    for i, p in enumerate(leaves):
+        if p.dtype == torch.bfloat16:
+            stochastic_round_bf16(prng.fold_in(prng.PRNGKey(1), i), p.float())
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    both = (time.perf_counter() - t0) * 1e3
+    n_sr = sum(p.dtype == torch.bfloat16 for p in leaves)
+    print(f"extras 15d: the stochastic rounding of {n_sr} bf16 leaves: {host:.1f} ms of host time to enqueue, {both:.1f} ms to the card's end")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        step(FLUX_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernel_ms, _launches, busy = card_time(prof)
+    opt_ms = _optimizer_card_ms(prof, "Optimizer.step#AdamW8bit")
+    groups: dict[str, float] = {}
+    for name, ms in kernel_ms.items():
+        groups[_train_group(name)] = groups.get(_train_group(name), 0.0) + ms
+    print(
+        f"extras 15d profile: card busy {busy:.1f} ms of a {wall:.1f} ms traced step (idle {100 * (1 - busy / wall):.1f}%); "
+        f"the optimizer's range {opt_ms:.1f} ms; by group {{{', '.join(f'{k}: {v:.1f}' for k, v in sorted(groups.items(), key=lambda kv: -kv[1]))}}} ms ({card})"
+    )
+    # one step's loss and gradients through the kernels against the plain versions (no update)
+    plain_versions = (
+        (flash_attention, "flash_attention_qkv_forward_lse", flash_attention._qkv_reference_lse),
+        (flash_attention, "flash_attention_qkv_backward", flash_attention._qkv_backward_reference),
+        (adaln, "adaln_forward", adaln.adaln_reference),
+        (adaln, "adaln_backward", adaln.adaln_backward_reference),
+        (rope, "rope_qk_norm_forward", _plain_rope),
+    )
+    del opt
+    grads, step_losses = [], []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        with contextlib.ExitStack() as patches:
+            for module, name, fn in plain_versions if plain else ():
+                patches.enter_context(mock.patch.object(module, name, fn))
+            loss = _flux_loss(model, *batches[0], ctx, pooled)
+            loss.backward()
+        torch.cuda.synchronize()
+        step_losses.append(loss.item())
+        grads.append([p.grad.clone() for p in model.parameters()])
+    loss_rel = abs(step_losses[0] - step_losses[1]) / abs(step_losses[1])
+    grad_rel = [_relative_fro(a, b) for a, b in zip(*grads)]
+    names = [name for name, _ in model.named_parameters()]
+    worst = max(range(len(grad_rel)), key=grad_rel.__getitem__)
+    print(
+        f"extras 15d: kernels vs plain versions, one step: loss {step_losses[0]:.6f} vs {step_losses[1]:.6f}, relative "
+        f"{loss_rel:.3e} (tolerance 1e-2); grads relative Frobenius max {grad_rel[worst]:.3e} ({names[worst]}), median "
+        f"{statistics.median(grad_rel):.3e} over {len(grad_rel)} tensors (tolerance 5e-2, bf16)"
+    )
+    expect(loss_rel <= 1e-2 and max(grad_rel) <= 5e-2, f"15d: kernels vs plain: loss {loss_rel}, {names[worst]} {grad_rel[worst]}")
+    del grads
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    lora = training.LoRAModel(model, lora_init(prng.PRNGKey(2), model, rank=16))
+    adam = training.make_optimizer(lora)
+    torch.cuda.reset_peak_memory_stats()
+    lora_times = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        adam.zero_grad(set_to_none=True)
+        loss = _flux_loss(lora, *batches[i], ctx, pooled)
+        loss.backward()
+        adam.step()
+        torch.cuda.synchronize()
+        lora_times.append((time.perf_counter() - t0) * 1e3)
+        expect(math.isfinite(loss.item()), "15d: non-finite LoRA loss")
+    n_ad = sum(p.numel() for p in lora.parameters())
+    print(
+        f"extras 15d LoRA rank 16 ({n_ad / 1e6:.2f}M adapter parameters, f32 AdamW): step times "
+        f"{', '.join(f'{t:.1f}' for t in lora_times)} ms, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})"
+    )
+
+
+def _vae_loss_part(card: str, total: dict[str, int]) -> None:
+    "15e: VAE.loss (SDXL VAE, f32, one 256x256 image) and VideoVAE.loss (phase 10's widths, bf16, 4x128x128)."
+    import dataclasses
+
+    import torch
+
+    from skrample_tpu_torch import prng
+    from skrample_tpu_torch.models.import_weights import vae_config
+    from skrample_tpu_torch.models.vae import VAE
+    from skrample_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig
+    from skrample_tpu_torch.ops import fused_conv, groupnorm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(17)
+    sdxl = vae_config(SDXL_VAE_CONFIG)
+    image = VAE(sdxl, device=dev, generator=gen)
+    image.reset_parameters(gen, noise=0.02)
+    video_cfg = VideoVAEConfig(base=64, levels=4, temporal_levels=2, blocks_per_level=2, groups=16, fused_decode=True)
+    video = VideoVAE(video_cfg, device=dev, generator=gen)
+    video.reset_parameters(gen, noise=0.02)
+    cases = (
+        ("SDXL VAE f32, (1, 3, 256, 256)", image, sdxl, torch.rand((1, 3, 256, 256), generator=gen, device=dev) * 2 - 1, 1e-3),
+        ("VideoVAE bf16, (1, 3, 4, 128, 128)", video, video_cfg,
+         torch.rand((1, 3, 4, 128, 128), generator=gen, device=dev) * 2 - 1, 5e-2),
+    )
+    for label, vae, config, x, grad_tol in cases:
+        vae.requires_grad_(True)
+        results = {}
+        for fused in (True, False):
+            vae.config = dataclasses.replace(config, fused_decode=fused)
+            vae.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            _reset_counters()
+            loss, parts = vae.loss(x, prng.PRNGKey(3))
+            loss.backward()
+            torch.cuda.synchronize()
+            launches = _counters()
+            routes = dict(fused_conv.conv3x3_gn_silu_forward.routes)
+            for name, count in launches.items():
+                total[name] += count
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad.clone() for p in vae.parameters()]
+            times = []
+            for _ in range(3):
+                vae.zero_grad(set_to_none=True)
+                t0 = time.perf_counter()
+                vae.loss(x, prng.PRNGKey(3))[0].backward()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            results[fused] = (loss.item(), {k: v.item() for k, v in parts.items()}, grads)
+            b12, b13, b8 = (launches["conv3x3_gn_silu_forward"], launches["tconv_causal_gn_silu_forward"], launches["groupnorm_forward"])
+            print(
+                f"extras 15e {label} {'fused' if fused else 'composition'}: loss {loss.item():.6f} (recon "
+                f"{parts['recon'].item():.6f}, kl {parts['kl'].item():.3f}); under training B8 {b8}, B12 {b12} {routes}, "
+                f"B13 {b13}; loss + backward median {statistics.median(times):.1f} ms ({card})"
+            )
+            expect(math.isfinite(loss.item()) and all(bool(torch.isfinite(g).all()) for g in grads), f"15e {label}: not finite")
+            if fused:
+                expect(b12 > 0 and (b13 > 0 or isinstance(vae, VAE)), f"15e {label}: the fused decode launched B12 {b12}, B13 {b13}")
+        vae.config = config
+        (lf, _, gf), (lc, _, gc) = results[True], results[False]
+        loss_rel = abs(lf - lc) / abs(lc)
+        grad_rel = _relative_fro_all(gf, gc)
+        print(
+            f"extras 15e {label}: fused vs composition, loss relative {loss_rel:.3e} (tolerance 1e-3), gradients "
+            f"relative Frobenius {grad_rel:.3e} over all {len(gf)} tensors (tolerance {grad_tol:g})"
+        )
+        expect(loss_rel <= 1e-3 and grad_rel <= grad_tol, f"15e {label}: fused vs composition {loss_rel}, {grad_rel}")
+        vae.requires_grad_(False)
+    del image, video
+
+
+def _flux_head_dims_part(card: str, total: dict[str, int]) -> None:
+    """15f (C13): a Flux at FLUX.1's widths (dim 3072, T5 4096, pooled 768; 1 double + 2 single blocks) with
+    heads of 64 (48 heads; ``"flash"``: B10's body on the qkv's chunk(3) views; and ``"full"``) and of 96 (32
+    heads, ``"full"``; B7's run-time-d body), one 1024x1024 forward each against the plain versions."""
+    import torch
+
+    from skrample_tpu_torch.models.flux import Flux, FluxConfig
+    from skrample_tpu_torch.ops import adaln, flash_attention, rope
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(18)
+    x = torch.randn((1, 16, 128, 128), generator=gen, device=dev)
+    ctx = torch.randn((1, 512, 4096), generator=gen, device=dev)
+    pooled = torch.randn((1, 768), generator=gen, device=dev)
+    t = torch.tensor([600.0], device=dev)
+    for heads, axes, attention, key, route in (
+        (48, (16, 24, 24), "flash", "rope_qk_norm_forward d64", "d64"),
+        (48, (16, 24, 24), "full", "rope_qk_norm_forward d64", "d64"),
+        (32, (16, 40, 40), "full", "rope_qk_norm_forward d96", "run-time d"),
+    ):
+        config = FluxConfig(
+            dim=3072, heads=heads, depth=1, single_depth=2, context_dim=4096, pooled_dim=768, rope_axes=axes,
+            guidance=True, compute_dtype=torch.bfloat16, attention=attention,
+        )
+        model = Flux(config, device=dev, generator=gen, dtype=torch.bfloat16)
+        model.reset_parameters(gen, noise=0.02)
+        model.requires_grad_(False)
+        want = dict.fromkeys(_wrappers(), 0)
+        want.update(
+            adaln_forward=4 * config.depth + config.single_depth + 1,
+            rope_qk_norm_forward=2 * config.depth + config.single_depth,
+            flash_attention_pairs_forward=(config.depth + config.single_depth) if attention == "flash" else 0,
+        )
+        label = f"15f Flux head dim {config.head_dim} attention={attention!r}"
+        with torch.inference_mode():
+            got = _counted_run(label, want, lambda model=model: model(x, t, ctx, pooled, guidance=3.5), total)
+            on_route = rope.rope_qk_norm_forward.routes[route]
+            total[key] += on_route
+            with (
+                mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+                mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+                mock.patch.object(rope, "rope_qk_norm_forward", _plain_rope),
+            ):
+                plain = model(x, t, ctx, pooled, guidance=3.5)
+        rel = max_err(got, plain) / max(plain.abs().max().item(), 1e-12)
+        print(
+            f"extras {label}: B7 {on_route} launches on its {route} route; against the plain versions max abs err "
+            f"relative {rel:.3e} (tolerance 5e-2, bf16)"
+        )
+        expect(bool(torch.isfinite(got).all()) and rel <= 5e-2 and on_route == want["rope_qk_norm_forward"], f"{label}: {rel}, {on_route}")
+        del model
+
+
 def main() -> int:
     try:
         import torch
@@ -4132,16 +4815,18 @@ def main() -> int:
         pipelines = pipeline_phase(device["card"], sdxl_parts)
         wrappers = diffusers_phase(device["card"], sdxl_parts)
         graphed = graphs_phase(device["card"], dit_outputs, sdxl_parts)
+        extras = extras_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
 
     # each row's launches: its counts summed over every path's main-path run
     runs = (
-        serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers, graphed
+        serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers, graphed,
+        extras,
     )
     for name, row in rows.items():
-        row["launches"] = sum(run[name] for run in runs)
+        row["launches"] = sum(run.get(name, 0) for run in runs)
     keys = (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,16 +1,18 @@
-"""Model families ported to PyTorch: the DiT (with its EMA shadow and
-``.npz`` parameter checkpoints for training), the Flux transformer, each
+"""Model families ported to PyTorch: the DiT (with its EMA shadow,
+``.npz`` parameter checkpoints, ``TrainCheckpointer`` training states and
+LoRA adapters for training), the Flux transformer, each
 with its int8 serving model (``quantize_params``), and the conv families:
 the UNet, the conditional UNet (SD1.5 / SDXL), the KL autoencoder (VAE)
 with its diffusers importer, and the SDXL stack (serving to pixels); the
 video family: the factorized spatio-temporal DiT and the causal video VAE."""
 
-from .checkpoint import load_params, save_params
+from .checkpoint import TrainCheckpointer, load_params, save_params
 from .conditioning import doubled_t, guided_mix, per_item
 from .dit import DiT, DiTConfig, random_param_tree
 from .ema import ema_decay_schedule, ema_init, ema_update
 from .flux import Flux, FluxConfig, flux_forward_flops
 from .import_weights import diffusers_vae, vae_config
+from .lora import jax_leaves, lora_init, lora_merge, lora_param_count
 from .sdxl import SDXLStack
 from .unet import UNet, UNetConfig
 from .unet_cond import CondUNet, CondUNetConfig, cond_unet_forward_flops
@@ -26,6 +28,7 @@ __all__ = [
     "Flux",
     "FluxConfig",
     "SDXLStack",
+    "TrainCheckpointer",
     "UNet",
     "UNetConfig",
     "VAE",
@@ -42,7 +45,11 @@ __all__ = [
     "ema_update",
     "flux_forward_flops",
     "guided_mix",
+    "jax_leaves",
     "load_params",
+    "lora_init",
+    "lora_merge",
+    "lora_param_count",
     "per_item",
     "random_param_tree",
     "save_params",

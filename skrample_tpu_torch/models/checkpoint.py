@@ -8,17 +8,26 @@ need ``allow_pickle``).  Leaves are numpy arrays, or tensors that are
 copied to the host.  For a DiT, ``DiT.param_tree()`` gives the tree and
 ``DiT.load_jax_params`` takes it back.
 
-The JAX package's orbax-backed ``TrainCheckpointer`` (optimizer state,
-async saves, resume) is a later slice of the port.
+:class:`TrainCheckpointer` keeps whole training states (parameters,
+optimizer state, EMA shadow, step) for resume, as the JAX package's
+orbax-backed one does, in a format of its own (no orbax): a directory a
+step holding one ``torch.save`` file, read back with
+``torch.load(weights_only=True)``, so nothing but tensors, containers and
+Python numbers, strings and None is ever unpickled.
 """
 
 from __future__ import annotations
 
+import os
 import pathlib
+import shutil
+import threading
 from typing import Any
 
 import numpy as np
 import torch
+
+from ..ops.graphs import map_tree
 
 _NONE_SUFFIX = ".__none__"
 
@@ -72,3 +81,105 @@ def load_params(path: str | pathlib.Path) -> Any:
     "Inverse of :func:`save_params`: the tree of numpy arrays."
     with np.load(path) as data:
         return _unflatten({k: data[k] for k in data.files})
+
+
+_STATE = "state.pt"
+_TMP = ".tmp-"
+
+
+def _like(node: Any, like: Any) -> Any:
+    "``node`` with each tensor on ``like``'s device and dtype where ``like`` has a tensor."
+    if isinstance(like, torch.Tensor):
+        return torch.as_tensor(node).to(device=like.device, dtype=like.dtype)
+    if isinstance(node, dict) and isinstance(like, dict):
+        return {k: _like(v, like[k]) if k in like else v for k, v in node.items()}
+    if isinstance(node, (list, tuple)) and isinstance(like, (list, tuple)) and len(node) == len(like):
+        return type(node)(_like(v, w) for v, w in zip(node, like))
+    return node
+
+
+class TrainCheckpointer:
+    """Training checkpoints with resume, the port's ``TrainCheckpointer`` (no orbax).
+
+    ``state`` is any tree of tensors, dicts, lists, tuples and Python numbers, strings or None;
+    the convention is ``{"params", "opt_state", "ema", "step"}`` (an optimizer's ``state_dict()``
+    fits).  :meth:`save` copies every tensor to the host before it returns, then writes on a
+    background thread (``async_save=False`` writes before returning); a later save, :meth:`wait`
+    and :meth:`close` join it.  A step is committed atomically: written into a temporary directory,
+    then renamed to ``directory/<step>``, so a write torn by a kill is never listed by
+    :meth:`latest_step` and the next checkpointer on the directory removes it.  Only the newest
+    ``max_to_keep`` steps are kept.  :meth:`restore` reads the given (default: latest) step;
+    ``like=`` puts each tensor on the device and dtype of the tensor at the same place in ``like``."""
+
+    def __init__(self, directory: str | pathlib.Path, max_to_keep: int = 3, async_save: bool = True):
+        self.directory = pathlib.Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.max_to_keep, self.async_save = max_to_keep, async_save
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        for torn in self.directory.glob(f"{_TMP}*"):  # a save killed mid-write: never committed
+            shutil.rmtree(torn, ignore_errors=True)
+
+    def save(self, step: int, state: Any) -> None:
+        self.wait()
+        # a host copy of every tensor: the caller may change its tensors once save returns
+        snapshot = map_tree(lambda t: t.detach().to("cpu", copy=True) if isinstance(t, torch.Tensor) else t, state)
+        if self.async_save:
+            self._thread = threading.Thread(target=self._write, args=(int(step), snapshot), daemon=True)
+            self._thread.start()
+        else:
+            self._write(int(step), snapshot)
+
+    def _write(self, step: int, snapshot: Any) -> None:
+        try:
+            tmp = self.directory / f"{_TMP}{step}-{os.getpid()}"
+            shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir()
+            with open(tmp / _STATE, "wb") as f:
+                torch.save(snapshot, f)
+                f.flush()
+                os.fsync(f.fileno())
+            final = self.directory / str(step)
+            if final.exists():
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            for old in self.all_steps()[: -self.max_to_keep] if self.max_to_keep else []:
+                shutil.rmtree(self.directory / str(old), ignore_errors=True)
+        except BaseException as exc:  # raised by the next wait()
+            self._error = exc
+
+    def restore(self, step: int | None = None, like: Any = None) -> Any:
+        "The given (default: latest) step's state; with ``like``, tensors on its devices and dtypes."
+        self.wait()
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint steps in {self.directory}")
+        state = torch.load(self.directory / str(int(step)) / _STATE, map_location="cpu", weights_only=True)
+        return _like(state, like) if like is not None else state
+
+    def all_steps(self) -> list[int]:
+        "The committed steps, oldest first."
+        return sorted(int(p.name) for p in self.directory.iterdir() if p.name.isdigit() and (p / _STATE).is_file())
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def wait(self) -> None:
+        "Join the save in flight; raise what it raised."
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def close(self) -> None:
+        self.wait()
+
+    def __enter__(self) -> TrainCheckpointer:
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self.close()

@@ -15,9 +15,10 @@ parameter (black-forest-labs FLUX.1; diffusers ``FluxTransformer2DModel``):
 * **conditioning** = timestep embedding + (dev only) guidance embedding +
   pooled CLIP projection, each through linear-silu-linear.
 
-Head dim 128 puts the joint attention on the fused-qkv kernel (K2), every
-adaLN on K3, and the qk-norm + RoPE pass on B7 (``ops/rope.py``), which
-rewrites the q/k thirds of each block's qkv projection in place.
+Head dim 128 puts the joint attention on the fused-qkv kernel (K2), head dim
+64 on B10's body over the qkv's ``chunk(3)`` views; every adaLN runs on K3,
+and the qk-norm + RoPE pass on B7 (``ops/rope.py``, any even head dim),
+which rewrites the q/k thirds of each block's qkv projection in place.
 :meth:`Flux.quantize_params` gives the int8 serving model (B6 in front of
 each int8 product).  ``apply`` takes plain ``(B, 16, H, W)`` latents: the
 2x2 packing the diffusers pipeline does on the host is :meth:`Flux.patchify`
@@ -46,13 +47,14 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
-from ..ops.flash_attention import _qkv_reference, flash_attention_qkv
+from ..ops.flash_attention import _qkv_reference, flash_attention_pairs, flash_attention_qkv
 from ..ops.rope import fused_rope_qk_norm
 from .conditioning import per_item
 from .dit import _DOTS_CONTEXT, _LATER, _dense, _int8_copy, _timestep_embedding
 
 _ZERO_INIT = frozenset({"ada", "final_mod", "final_out"})
 _GAINS = ("q_norm", "k_norm")
+_FLASH_HEAD_DIMS = (128, 64)  # K2 on the packed qkv; B10's body on its chunk(3) views
 
 
 @dataclass(frozen=True)
@@ -79,7 +81,7 @@ class FluxConfig:
     theta: int = 10000
     compute_dtype: torch.dtype = torch.bfloat16
     attention: str = "flash"
-    '``"flash"`` (kernel K2; head_dim 128) or ``"full"`` (plain attention).'
+    '``"flash"`` (kernel K2 at head_dim 128, B10 at 64) or ``"full"`` (plain attention, any head_dim).'
     remat: bool | str = False
     """Recompute each block's activations in the backward: ``True`` the
     whole block, ``"dots"`` all but the dense layers' products (as the DiT)."""
@@ -126,9 +128,13 @@ def _prep_qkv(qkv: torch.Tensor, p: nn.Module, cos: torch.Tensor, sin: torch.Ten
 
 
 def _attention(qkv: torch.Tensor, c: FluxConfig) -> torch.Tensor:
-    if c.attention == "flash":
-        return flash_attention_qkv(qkv, c.heads)
-    return _qkv_reference(qkv, c.heads)
+    """``"flash"`` at head dim 128 is K2 on the packed qkv; at 64 it is B10's Hopper body on the ``chunk(3)``
+    views (the plain version's gradient where one is wanted).  ``"full"`` is plain attention."""
+    if c.attention != "flash":
+        return _qkv_reference(qkv, c.heads)
+    if c.head_dim == 64:
+        return flash_attention_pairs(*qkv.chunk(3, dim=-1), c.heads)
+    return flash_attention_qkv(qkv, c.heads)
 
 
 class _Stream(nn.Module):
@@ -225,8 +231,11 @@ class Flux(nn.Module):
             raise ValueError(f"rope_axes {c.rope_axes} must sum to head_dim {c.head_dim}")
         if c.attention not in ("flash", "full"):
             raise ValueError(f"unknown attention kind {c.attention!r}")
-        if c.attention == "flash" and c.head_dim % 128:
-            raise NotImplementedError(f"attention='flash' at head_dim {c.head_dim} (transposed kernel) {_LATER}")
+        if c.attention == "flash" and c.head_dim not in _FLASH_HEAD_DIMS:
+            raise NotImplementedError(
+                f"attention='flash' takes head_dim {' or '.join(map(str, _FLASH_HEAD_DIMS))}, got {c.head_dim}: "
+                "use attention='full'"
+            )
         if c.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {c.remat!r}")
         if mesh is not None:

@@ -37,7 +37,7 @@ from ..ops._cuda import resolve_device
 from ..ops.flash_attention import _packed_reference
 from ..ops.fused_conv import conv3x3_gn_silu, cudnn_tf32
 from ..ops.groupnorm import groupnorm_cl
-from .dit import _dense, _dense_forward, _timestep_embedding
+from .dit import _Dense, _dense, _dense_forward, _timestep_embedding
 
 __all__ = ["UNet", "UNetConfig", "random_param_tree"]
 
@@ -318,7 +318,10 @@ def _conv(p: _Conv, x: torch.Tensor, dtype: torch.dtype, stride: int = 1, pad: s
     w = p.w.to(dtype)
     x = x.to(dtype)
     if k == 1 and stride == 1:
-        return _dense_forward(x, w.reshape(w.shape[0], w.shape[1]), p.b)
+        w2 = w.reshape(w.shape[0], w.shape[1])
+        if torch.is_grad_enabled() and (x.requires_grad or w2.requires_grad or p.b.requires_grad):
+            return _Dense.apply(x, w2, p.b)  # the card's f32-result product has no autograd formula of its own
+        return _dense_forward(x, w2, p.b)
     if dtype != torch.float32 and k == 3 and stride == 1 and pad in ("SAME", 1):
         return conv3x3_gn_silu(x.contiguous(), w.permute(2, 3, 1, 0), p.b, out_stats=False)[0]
     if pad == "SAME":

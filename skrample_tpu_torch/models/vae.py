@@ -39,6 +39,7 @@ from typing import Any
 
 import torch
 
+from .. import prng
 from ..ops._cuda import resolve_device
 from ..ops.flash_attention import attention_reference
 from ..ops.fused_conv import _normalize_silu, channel_stats, conv3x3_gn_silu, finalize_group_stats
@@ -332,8 +333,25 @@ class VAE(_TreeModule):
             h = _conv(dec["out_conv"], h, dtype)
         return h.permute(0, 3, 1, 2).to(z.dtype, memory_format=torch.contiguous_format)
 
-    def loss(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(f"the VAE's training loss (VAE.loss) {_LATER}")
+    # -- training --------------------------------------------------------------
+
+    def loss(self, x: torch.Tensor, key: torch.Tensor, kl_weight: float = 1e-6) -> tuple[torch.Tensor, dict]:
+        """Reconstruction (MSE) + KL-to-standard-normal objective, the JAX package's ``VAE.loss``: the
+        posterior draw ``mean + exp(logvar / 2) * prng.normal(key)`` (``key`` a ``prng`` key), decoded by
+        the path :meth:`decode` takes (the fused decode where :func:`fused_decode_on` says so, its
+        gradient through the kernels' autograd Functions).  Returns ``(loss, {"recon": ..., "kl": ...})``."""
+        return _vae_loss(self, x, key, kl_weight)
+
+
+def _vae_loss(vae: Any, x: torch.Tensor, key: torch.Tensor, kl_weight: float) -> tuple[torch.Tensor, dict]:
+    "The image and video VAEs' loss (channels on axis 1 of the posterior in both)."
+    mean, logvar = vae.posterior(x)
+    z = mean + torch.exp(0.5 * logvar) * prng.normal(key, tuple(mean.shape), torch.float32, mean.device)
+    c = vae.config
+    recon = vae.decode(((z - c.shift_factor) * c.scaling_factor).to(x.dtype))
+    recon_loss = torch.mean((recon.float() - x.float()) ** 2)
+    kl = 0.5 * torch.mean(torch.sum(mean**2 + torch.exp(logvar) - 1.0 - logvar, dim=1))
+    return recon_loss + kl_weight * kl, {"recon": recon_loss, "kl": kl}
 
 
 def random_param_tree(config: VAEConfig, seed: int) -> dict:

@@ -63,7 +63,7 @@ from .unet import (
     _groupnorm,
     _upsample_nearest,
 )
-from .vae import _hwio, fused_decode_on
+from .vae import _hwio, _vae_loss, fused_decode_on
 
 __all__ = ["VideoVAE", "VideoVAEConfig", "fused_convs_per_decode", "random_param_tree", "video_vae_decode_flops"]
 
@@ -171,11 +171,30 @@ def _video_vae_skeleton(c: VideoVAEConfig) -> dict:
     return {"encoder": enc, "decoder": dec}
 
 
+class _MmF32(torch.autograd.Function):
+    """The card's float32-result product of 16-bit operands (``aten.mm.dtype``, which has no autograd
+    formula) with the gradient of the JAX package's ``preferred_element_type=float32`` product: the
+    float32 cotangent against the upcast other operand, rounded to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a2, w)
+        return torch.mm(a2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        a2, w = ctx.saved_tensors
+        ga = g.mm(w.float().t()).to(a2.dtype) if ctx.needs_input_grad[0] else None
+        gw = a2.float().t().mm(g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gw
+
+
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     "``a @ w`` over the last axis with a float32 result: exact products of 16-bit operands, a float32 sum."
     a2 = a.reshape(-1, a.shape[-1])
     if a2.is_cuda and a2.dtype != torch.float32:
-        out = torch.mm(a2, w, out_dtype=torch.float32)
+        wants_grad = torch.is_grad_enabled() and (a2.requires_grad or w.requires_grad)
+        out = _MmF32.apply(a2, w) if wants_grad else torch.mm(a2, w, out_dtype=torch.float32)
     else:
         out = torch.mm(a2.float(), w.float())
     return out.view(*a.shape[:-1], w.shape[-1])
@@ -389,8 +408,13 @@ class VideoVAE(_TreeModule):
             h = self._sconv(dec["out_conv"], self._gn(h, silu=True), dtype)
         return h.permute(0, 4, 1, 2, 3).to(z.dtype, memory_format=torch.contiguous_format)
 
-    def loss(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(f"the video VAE's training loss (VideoVAE.loss) {_LATER}")
+    # -- training --------------------------------------------------------------
+
+    def loss(self, x: torch.Tensor, key: torch.Tensor, kl_weight: float = 1e-6) -> tuple[torch.Tensor, dict]:
+        """Reconstruction (MSE) + KL objective on 5-D clips, the JAX package's ``VideoVAE.loss`` (the image
+        VAE's recipe): the draw ``prng.normal(key)``, the decode :meth:`decode` takes (fused where
+        :func:`fused_decode_on` says so).  Returns ``(loss, {"recon": ..., "kl": ...})``."""
+        return _vae_loss(self, x, key, kl_weight)
 
 
 def random_param_tree(config: VideoVAEConfig, seed: int) -> dict:

@@ -18,7 +18,7 @@ import torch
 
 from . import _cuda
 
-_HEAD_DIM = 128
+_INSTANCES = (128, 64)  # the head dims B7 has an instance for; any other even d takes its run-time-d body
 _DTYPES = (torch.float32, torch.bfloat16)
 _EPS = 1e-6
 
@@ -56,6 +56,11 @@ def rope_qk_norm_reference(
     return h.reshape(B, N, D3)
 
 
+def _route(d: int) -> str:
+    "The launch's route by head dim: its instance, or the run-time-d body."
+    return f"d{d}" if d in _INSTANCES else "run-time d"
+
+
 def rope_qk_norm_forward(
     qkv: torch.Tensor,
     q_gain: torch.Tensor,
@@ -70,11 +75,13 @@ def rope_qk_norm_forward(
 
     On CPU tensors this is the plain version (a new tensor).  On CUDA tensors
     it launches the kernel or raises: qkv float32 or bfloat16, contiguous,
-    head dim 128, any ``B`` and ``N``; the gains (128,) float32 contiguous;
-    the tables (N, 64) float32 rows of unit column stride at any even row
-    stride (a row range of larger tables is taken as a view).  With
-    ``in_place`` the kernel rewrites the q/k thirds of ``qkv`` and returns
-    it; otherwise it writes a new tensor and copies v into it."""
+    any even head dim ``d = D3 // (3 * heads)`` (128 and 64 have their own
+    instances, every other even d the run-time-d body), any ``B`` and ``N``;
+    the gains (d,) float32 contiguous; the tables (N, d/2) float32 rows of
+    unit column stride at any row stride, even at d = 64 and 128 (a row
+    range of larger tables is taken as a view).  With ``in_place`` the kernel rewrites the q/k
+    thirds of ``qkv`` and returns it; otherwise it writes a new tensor and
+    copies v into it.  ``.routes`` counts the launches by head-dim route."""
     if qkv.device.type == "cpu":
         return rope_qk_norm_reference(qkv, q_gain, k_gain, cos, sin, heads, eps)
     name = "rope_qk_norm_forward"
@@ -83,9 +90,9 @@ def rope_qk_norm_forward(
     if qkv.ndim != 3 or qkv.dtype not in _DTYPES:
         raise ValueError(f"{name}: qkv must be (B, N, 3*H*d) float32/bfloat16, got {tuple(qkv.shape)} {qkv.dtype}")
     B, N, D3 = qkv.shape
-    d = _HEAD_DIM
-    if D3 != 3 * heads * d:
-        raise ValueError(f"{name}: packed width {D3} over {heads} heads: head dim must be {d}")
+    d = D3 // (3 * heads)
+    if D3 != 3 * heads * d or d % 2 or d < 2:
+        raise ValueError(f"{name}: packed width {D3} over {heads} heads: the head dim must be a whole even number")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError(f"{name}: qkv must be contiguous and 16-byte aligned")
     for label, g in (("q_gain", q_gain), ("k_gain", k_gain)):
@@ -94,11 +101,14 @@ def rope_qk_norm_forward(
         if g.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must be 16-byte aligned")
     stride = cos.stride(0)
+    paired = d in _INSTANCES  # an instance reads the tables two columns at a time; the run-time-d body one
     for label, t in (("cos", cos), ("sin", sin)):
         if t.shape != (N, d // 2) or t.dtype != torch.float32 or t.device != qkv.device:
             raise ValueError(f"{name}: {label} must be ({N}, {d // 2}) float32 on {qkv.device}, got {tuple(t.shape)}")
-        if t.stride(1) != 1 or t.stride(0) != stride or stride % 2 or t.data_ptr() % 8:
-            raise ValueError(f"{name}: cos and sin must share an even row stride, unit columns, 8-byte alignment")
+        if t.stride(1) != 1 or t.stride(0) != stride or (paired and (stride % 2 or t.data_ptr() % 8)):
+            raise ValueError(
+                f"{name}: cos and sin must share a row stride (even at d 64 and 128, 8-byte aligned) and unit columns"
+            )
     out = qkv if in_place else torch.empty_like(qkv)
     lib = _cuda.library()
     with torch.cuda.device(qkv.device):
@@ -120,10 +130,12 @@ def rope_qk_norm_forward(
         )
     _cuda.check(code, name)
     rope_qk_norm_forward.launches += 1
+    rope_qk_norm_forward.routes[_route(d)] += 1
     return out
 
 
 rope_qk_norm_forward.launches = 0
+rope_qk_norm_forward.routes = {"d128": 0, "d64": 0, "run-time d": 0}
 
 
 class _RopeQKNorm(torch.autograd.Function):

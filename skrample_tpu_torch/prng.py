@@ -94,6 +94,19 @@ def random_bits(
     return ((x0 ^ x1) & ((1 << bit_width) - 1)).reshape(shape)
 
 
+def permutation(key: torch.Tensor, n: int, device: str | torch.device = "cuda") -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (jax 0.9's ``_shuffle``): ``ceil(3 ln(n) / ln(2**32 - 1))``
+    rounds, each ``key, sub = split(key)`` and a stable sort of ``arange(n)`` by 32 random bits of
+    ``sub``.  The bits are non-negative int64, so the sort orders them as uint32."""
+    device = resolve_device(device)
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(2**32 - 1))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[torch.sort(random_bits(sub, (n,), 32, device), stable=True).indices]
+    return x
+
+
 def _float(value: float, dtype: torch.dtype, device: str | torch.device) -> torch.Tensor:
     return torch.tensor(value, dtype=dtype, device=device)
 

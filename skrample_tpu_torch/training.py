@@ -1,7 +1,9 @@
 """Train the DiT with flow matching.
 
     python -m skrample_tpu_torch.training [--steps 100] [--batch 8] [--remat]
-        [--checkpoint dit.npz] [--device cuda|cpu] [--graph]
+        [--checkpoint dit.npz] [--device cuda|cpu] [--graph] [--opt8] [--lora N]
+        [--host-loader] [--orbax DIR [--resume] [--until N] [--save-every N]
+        [--abort-after-step K]]
 
 The port's counterpart of the JAX package's
 ``examples/train_flow_matching.py``: the conditional flow-matching loss
@@ -17,28 +19,59 @@ generator.  Compute is bf16 on CUDA and f32 on the CPU, like the example.
 saves them there at the end, in the JAX package's ``.npz`` format.
 ``--graph`` (CUDA only) runs each step as one CUDA graph
 (:class:`GraphedTrainStep`, the counterpart of the example's jitted step):
-AdamW keeps its step count on the device (``capturable=True``) and the EMA
-decay comes from a device step counter.  The
-example's mesh (``--dp/--tp/--fsdp``), orbax and resume, 8-bit AdamW,
-host-loader and LoRA options are later slices of the port.
+the optimizer keeps its step count on the device (``capturable=True``) and
+the EMA decay comes from a device step counter.
+
+The example's other options:
+
+* ``--host-loader``: the data set stays on the host and
+  ``data.EpochLoader`` (key ``PRNGKey(7)``) with ``data.prefetch_to_device``
+  feeds the card; each step draws what the JAX example draws from
+  ``fold_in(PRNGKey(1), n)`` (``kb, kn, kt = split(key, 3)``: the noise
+  ``normal(kn)``, sigma ``uniform(kt, 1e-3, 1)``) over the set
+  ``normal(PRNGKey(42), (64, 4, size, size))``, through ``prng``: batch ``n``
+  of a resumed run is batch ``n`` of an uninterrupted one;
+* ``--opt8``: ``optim.AdamW8bit`` (int8 moments, ~2 bytes a parameter);
+* ``--lora N``: rank-N adapters (``models.lora``, key ``PRNGKey(2)``) over
+  the frozen base, merged inside the step (:class:`LoRAModel`);
+* ``--orbax DIR``: the full train state (parameters, optimizer state, EMA,
+  step) in a ``models.TrainCheckpointer`` directory, the port's own format
+  (not orbax's); ``--resume`` continues its latest step (an existing
+  checkpoint without ``--resume`` is an error), ``--until N`` trains to
+  global step N, ``--save-every N`` saves every N steps and
+  ``--abort-after-step K`` kills the process with SIGKILL after global step
+  K, a save possibly mid-write (fault injection); these two need
+  ``--host-loader`` and ``--orbax``.  Every option works with ``--graph``: a
+  restore lands before the first call (the capture), the graph's step
+  counter starts at the restored step, and ``--lora`` captures the merge.
+The example's mesh (``--dp/--tp/--fsdp``) is a later slice of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import math
 import os
+import signal
 import sys
 import time
 from collections.abc import Sequence
+from typing import Any
 
 import torch
+from torch import nn
+from torch.func import functional_call
 
-from .models.checkpoint import load_params, save_params
+from . import prng
+from .data import EpochLoader, prefetch_to_device
+from .models.checkpoint import TrainCheckpointer, load_params, save_params
 from .models.dit import DiT, DiTConfig
 from .models.ema import ema_init, ema_update
+from .models.lora import jax_leaves, lora_init, lora_leaves, lora_merge, lora_param_count, lora_to_numpy
 from .ops._cuda import resolve_device
 from .ops.graphs import CapturedGraph
+from .optim import AdamW8bit
 
 DATASET_SIZE = 64
 DATASET_SEED = 42  # the JAX example's PRNGKey(42) for its fixed image set
@@ -52,7 +85,7 @@ def flow_matching_loss(model: DiT, x0: torch.Tensor, noise: torch.Tensor, sigma:
     return torch.mean((pred - (noise - x0)) ** 2)
 
 
-def make_optimizer(model: DiT, capturable: bool = False) -> torch.optim.AdamW:
+def make_optimizer(model: nn.Module, capturable: bool = False) -> torch.optim.AdamW:
     """AdamW as optax's ``adamw(1e-4)``: betas (0.9, 0.999), eps 1e-8 outside
     the square root, decoupled weight decay 1e-4 on every parameter.
     PyTorch's own default decay is 1e-2, so every setting is spelled out.
@@ -150,6 +183,57 @@ def draw_batch(
     return x0, noise, sigma
 
 
+class LoRAModel(nn.Module):
+    """A frozen base model with rank-r adapters merged in at every call: ``forward`` runs the base on
+    ``lora_merge``'s weights through ``functional_call``.  The adapters are this module's parameters
+    (in jax's flatten order of the adapter dict); the base is not a submodule, so ``parameters()``,
+    an EMA shadow and an optimizer see the adapters alone."""
+
+    def __init__(self, base: nn.Module, adapters: dict[str, dict[str, torch.Tensor]], scale: float = 1.0):
+        super().__init__()
+        object.__setattr__(self, "base", base.requires_grad_(False))
+        self.scale = scale
+        self.adapters = {path: {k: nn.Parameter(t.detach()) for k, t in ab.items()} for path, ab in adapters.items()}
+        self.leaves = nn.ParameterList(lora_leaves(self.adapters))
+
+    def forward(self, *args: Any, **kwargs: Any) -> torch.Tensor:
+        "The base model's forward (its arguments as they are) on the merged weights."
+        return functional_call(self.base, lora_merge(self.base, self.adapters, self.scale), args, kwargs)
+
+
+def host_loader_batch(
+    batch: dict[str, torch.Tensor], n: int, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(x0, noise, sigma)`` of global step ``n`` in ``--host-loader`` mode, as the JAX example draws
+    them: ``key = fold_in(PRNGKey(1), n)``, ``kb, kn, kt = split(key, 3)``, the noise
+    ``normal(kn, x0.shape)``, sigma ``uniform(kt, (batch,), 1e-3, 1.0)``; ``x0`` is the loader's."""
+    x0 = batch["x0"]
+    _kb, kn, kt = prng.split(prng.fold_in(prng.PRNGKey(1), n), 3)
+    noise = prng.normal(kn, tuple(x0.shape), torch.float32, device=device)
+    sigma = prng.uniform(kt, (x0.shape[0],), torch.float32, 1e-3, 1.0, device=device)
+    return x0, noise, sigma
+
+
+def host_dataset(size: int) -> torch.Tensor:
+    "``--host-loader``'s set on the host: the JAX example's ``normal(PRNGKey(42), (64, 4, size, size))``."
+    return prng.normal(prng.PRNGKey(DATASET_SEED), (DATASET_SIZE, 4, size, size), torch.float32, device="cpu")
+
+
+def _train_state(trained: nn.Module, opt: torch.optim.Optimizer, ema: dict[str, torch.Tensor], step: int) -> dict:
+    return {"params": dict(trained.named_parameters()), "opt_state": opt.state_dict(), "ema": ema, "step": step}
+
+
+@torch.no_grad()
+def _restore(state: dict, trained: nn.Module, opt: torch.optim.Optimizer, ema: dict[str, torch.Tensor]) -> int:
+    "Copy a saved train state into the live tensors (those a later capture reads); returns its step."
+    for name, p in trained.named_parameters():
+        p.copy_(state["params"][name])
+    opt.load_state_dict(state["opt_state"])
+    for name, t in ema.items():
+        t.copy_(state["ema"][name])
+    return int(state["step"])
+
+
 def main(argv: Sequence[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m skrample_tpu_torch.training", description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=100)
@@ -163,6 +247,24 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("--checkpoint", type=str, default="", help="load from (when it exists) and save to this .npz")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--graph", action="store_true", help="run each step as one CUDA graph (CUDA only)")
+    ap.add_argument(
+        "--orbax", type=str, default="",
+        help="TrainCheckpointer directory for the full train state (params + optimizer state + EMA + step); "
+        "the port's own format, not orbax's",
+    )
+    ap.add_argument("--resume", action="store_true", help="continue the latest step in --orbax (required if it has one)")
+    ap.add_argument("--until", type=int, default=0, help="train until global step N (overrides --steps)")
+    ap.add_argument("--save-every", type=int, default=0, help="save the train state every N steps (needs --host-loader)")
+    ap.add_argument(
+        "--abort-after-step", type=int, default=-1,
+        help="fault injection: SIGKILL this process after global step K (--host-loader, --orbax)",
+    )
+    ap.add_argument("--opt8", action="store_true", help="int8 block-quantized AdamW moments (optim.AdamW8bit)")
+    ap.add_argument(
+        "--host-loader", action="store_true",
+        help="feed a host-resident set through data.EpochLoader + prefetch_to_device with the JAX example's draws",
+    )
+    ap.add_argument("--lora", type=int, default=0, help="train rank-N LoRA adapters over the frozen base")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -180,20 +282,66 @@ def main(argv: Sequence[str] | None = None) -> int:
     if args.checkpoint and os.path.exists(args.checkpoint):
         model.load_jax_params(load_params(args.checkpoint))
         print(f"resumed from {args.checkpoint}")
-    opt = make_optimizer(model, capturable=args.graph)
-    ema = ema_init(model)
-    data = synthetic_dataset(args.size, device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    graphed = GraphedTrainStep(model, opt, ema, ema_decay=args.ema_decay) if args.graph else None
+    trained: nn.Module = model
+    if args.lora:
+        trained = LoRAModel(model, lora_init(prng.PRNGKey(2), model, rank=args.lora))
+        n_base = sum(p.numel() for p in model.parameters())
+        n_ad = lora_param_count(trained.adapters)
+        print(f"LoRA rank {args.lora}: training {n_ad} of {n_base} params ({n_ad / n_base:.2%})")
+    if args.opt8:
+        leaves = list(trained.parameters()) if args.lora else [leaf.tensor for leaf in jax_leaves(model)]
+        opt: torch.optim.Optimizer = AdamW8bit(leaves, lr=1e-4, capturable=args.graph)
+    else:
+        opt = make_optimizer(trained, capturable=args.graph)
+    ema = ema_init(trained)
+
+    start_step = 0
+    ckpt = TrainCheckpointer(args.orbax) if args.orbax else None
+    if ckpt is not None and ckpt.latest_step() is not None:
+        if not args.resume:
+            ap.error(f"{args.orbax} already holds step {ckpt.latest_step()}: pass --resume to continue it")
+        start_step = _restore(ckpt.restore(), trained, opt, ema)
+        print(f"resumed from {args.orbax} at step {start_step}")
+    elif args.resume:
+        print(f"--resume: nothing committed in {args.orbax or '(no --orbax)'}, starting fresh")
+    if args.until:
+        if args.until < start_step:
+            ap.error(f"--until {args.until} is before the restored step {start_step}")
+        args.steps = args.until - start_step
+    if (args.save_every or args.abort_after_step >= 0) and (not args.host_loader or ckpt is None):
+        ap.error("--save-every/--abort-after-step need --host-loader and --orbax (per-step boundaries)")
+    graphed = GraphedTrainStep(trained, opt, ema, step=start_step, ema_decay=args.ema_decay) if args.graph else None
+
+    def step_once(x0: torch.Tensor, noise: torch.Tensor, sigma: torch.Tensor, n: int) -> torch.Tensor:
+        if graphed is not None:
+            return graphed(x0, noise, sigma).clone()
+        return train_step(trained, opt, ema, x0, noise, sigma, n, ema_decay=args.ema_decay)
 
     t0 = time.perf_counter()
     losses = []
-    for step in range(args.steps):
-        x0, noise, sigma = draw_batch(data, args.batch, gen)
-        if graphed is not None:
-            losses.append(graphed(x0, noise, sigma).clone())
-        else:
-            losses.append(train_step(model, opt, ema, x0, noise, sigma, step, ema_decay=args.ema_decay))
+    end = start_step + args.steps
+    if args.host_loader:
+        loader = EpochLoader({"x0": host_dataset(args.size)}, args.batch, prng.PRNGKey(7))
+        # iter_from(start_step): the O(1) resume cursor, batch n of a resumed run is batch n of an uninterrupted one
+        batches = itertools.islice(prefetch_to_device(loader.iter_from(start_step), device=device), args.steps)
+        for n, batch in enumerate(batches, start=start_step):
+            losses.append(step_once(*host_loader_batch(batch, n, device), n))
+            done = n + 1
+            if args.save_every and done % args.save_every == 0 and done != end:
+                ckpt.save(done, _train_state(trained, opt, ema, done))
+            if args.abort_after_step == n:
+                # die like a preemption: join the last boundary save, start one more, SIGKILL with it likely
+                # mid-write (the torn directory is never committed; resume sees the last complete step)
+                ckpt.wait()
+                if not args.save_every or done % args.save_every:
+                    ckpt.save(done, _train_state(trained, opt, ema, done))
+                print(f"aborting after step {n} (fault injection)", flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
+    else:
+        data = synthetic_dataset(args.size, device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        for n in range(start_step, end):
+            losses.append(step_once(*draw_batch(data, args.batch, gen), n))
     values = torch.stack(losses).tolist() if losses else []
     dt = time.perf_counter() - t0
     if values:
@@ -203,8 +351,13 @@ def main(argv: Sequence[str] | None = None) -> int:
             print("non-finite loss", file=sys.stderr)
             return 1
     if args.checkpoint:
-        save_params(args.checkpoint, model.param_tree())
+        save_params(args.checkpoint, lora_to_numpy(trained.adapters) if args.lora else model.param_tree())
         print(f"saved {args.checkpoint}")
+    if ckpt is not None:
+        if args.steps or ckpt.latest_step() != end:
+            ckpt.save(end, _train_state(trained, opt, ema, end))
+        ckpt.close()
+        print(f"saved step {end} -> {args.orbax} (params + optimizer state + EMA)")
     return 0
 
 

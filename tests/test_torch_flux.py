@@ -74,6 +74,23 @@ def test_forward_matches_jax(attention: str, guidance: bool) -> None:
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("attention", ["flash", "full"])
+def test_head_dim_64_forward_matches_jax(attention: str) -> None:
+    """A Flux at head dim 64 (dim 256, 4 heads): the port's flash route (B10's plain version on the
+    qkv's chunk(3) views here) and its full attention against the JAX Flux, which takes its plain
+    attention at this head dim; f32, rtol 1e-4 with an atol of 1e-5 of the largest output."""
+    small = {**SMALL, "heads": 4, "rope_axes": (16, 24, 24)}
+    config = FluxConfig(**small, compute_dtype=torch.float32, attention=attention)
+    tree = random_param_tree(config, 5)
+    port = Flux(config, device="cpu").load_jax_params(tree).requires_grad_(False)
+    ref = jflux.Flux(jflux.FluxConfig(**small, compute_dtype=jnp.float32, attention=attention))
+    arrays = _inputs(6)
+    want = np.asarray(ref.apply(jax.tree.map(jnp.asarray, tree), *(jnp.asarray(a) for a in arrays), guidance=3.5))
+    got = port(*(torch.from_numpy(a) for a in arrays), guidance=3.5).numpy()
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max())
+
+
 def test_rope_tables_match_jax() -> None:
     """(cos, sin) of the joint [text, image] sequence: the same angles, and cos/sin within one f32
     ulp (XLA's and PyTorch's cos and sin round differently); text rows are the identity."""
@@ -238,8 +255,9 @@ def test_flops_and_contracts_match_jax() -> None:
         Flux(FluxConfig(**{**SMALL, "rope_axes": (16, 48, 48)}), device="cpu")
     with pytest.raises(ValueError, match="remat"):
         Flux(FluxConfig(**SMALL, remat="bogus"), device="cpu")
-    with pytest.raises(NotImplementedError, match="head_dim 64"):  # no silent plain attention
-        Flux(FluxConfig(**{**SMALL, "heads": 4, "rope_axes": (16, 24, 24)}), device="cpu")
-    Flux(FluxConfig(**{**SMALL, "heads": 4, "rope_axes": (16, 24, 24)}, attention="full"), device="cpu")
+    Flux(FluxConfig(**{**SMALL, "heads": 4, "rope_axes": (16, 24, 24)}), device="cpu")  # flash at 64: B10's body
+    with pytest.raises(NotImplementedError, match="head_dim 128 or 64, got 32"):  # no silent plain attention
+        Flux(FluxConfig(**{**SMALL, "heads": 8, "rope_axes": (8, 12, 12)}), device="cpu")
+    Flux(FluxConfig(**{**SMALL, "heads": 8, "rope_axes": (8, 12, 12)}, attention="full"), device="cpu")
     with pytest.raises(NotImplementedError, match="later slice"):
         port.param_spec()

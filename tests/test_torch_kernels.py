@@ -765,12 +765,42 @@ def test_fused_rope_launches_the_kernel_at_any_n(cuda: torch.device) -> None:
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(("d", "H", "route"), [(64, 3, "d64"), (64, 24, "d64"), (96, 2, "run-time d"), (40, 3, "run-time d"), (2, 5, "run-time d")])
+def test_rope_kernel_every_head_dim(cuda: torch.device, d: int, H: int, route: str, dtype: torch.dtype) -> None:
+    """B7 at head dims other than 128: the d = 64 instance (two rows a warp; 3 heads make an odd row
+    count, so a warp's second half holds no row at the end) and the run-time-d body (96 = 3 x 32
+    pairs, 40 fewer pairs than lanes, 2 one pair), in place and fresh, against the plain version: bf16
+    within 2**-7 of the largest output (one bf16 ulp at its scale: the sum of squares in another order
+    moves the inverse RMS by an f32 ulp, which a rotation's cancellation can carry into a few ulps of a
+    small output), f32 within 1e-5 of it, as B7's d = 128 test; v untouched; the launch counted on its
+    route."""
+    B, N = 1, 301
+    gen = torch.Generator(cuda).manual_seed(d * H)
+    qkv = (torch.randn((B, N, 3 * H * d), generator=gen, device=cuda) * 2).to(dtype)
+    gq = 1 + 0.2 * torch.randn(d, generator=gen, device=cuda)
+    gk = 1 + 0.2 * torch.randn(d, generator=gen, device=cuda)
+    angles = torch.rand((N + 8, d // 2), generator=gen, device=cuda) * 40
+    cos, sin = torch.cos(angles)[8:], torch.sin(angles)[8:]
+    want = rope.rope_qk_norm_reference(qkv, gq, gk, cos, sin, H)
+    before = dict(rope.rope_qk_norm_forward.routes)
+    fresh = rope.rope_qk_norm_forward(qkv, gq, gk, cos, sin, H)
+    inplace = rope.rope_qk_norm_forward(qkv.clone(), gq, gk, cos, sin, H, in_place=True)
+    assert rope.rope_qk_norm_forward.routes[route] == before[route] + 2
+    assert torch.equal(fresh[..., 2 * H * d :], qkv[..., 2 * H * d :]) and torch.equal(inplace, fresh)
+    tol = (2**-7 if dtype == torch.bfloat16 else 1e-5) * want.float().abs().max().item()
+    assert (fresh.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
 def test_rope_kernel_raises_on_what_it_cannot_take(cuda: torch.device) -> None:
-    qkv = torch.zeros(1, 128, 3 * 2 * 64, device=cuda, dtype=torch.bfloat16)
-    g = torch.ones(64, device=cuda)
-    tab = torch.zeros(128, 32, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    qkv = torch.zeros(1, 128, 3 * 2 * 63, device=cuda, dtype=torch.bfloat16)
+    g = torch.ones(63, device=cuda)
+    tab = torch.zeros(128, 31, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):  # odd
         rope.rope_qk_norm_forward(qkv, g, g, tab, tab, 2)
+    with pytest.raises(ValueError, match="head dim"):  # the width does not split into 4 heads
+        rope.rope_qk_norm_forward(qkv, g, g, tab, tab, 4)
     qkv = torch.zeros(1, 128, 3 * 128, device=cuda, dtype=torch.bfloat16)
     g = torch.ones(128, device=cuda)
     tab = torch.zeros(128, 64, device=cuda)
@@ -854,6 +884,46 @@ def test_flux_forward_through_the_kernels(cuda: torch.device) -> None:
             want = model(x, t, ctx, pooled, guidance=3.5)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attention", ["flash", "full"])
+def test_flux_head_dim_64_through_the_kernels(cuda: torch.device, attention: str) -> None:
+    """A small bf16 Flux at head dim 64 (4 heads, 1 double + 1 single block): B7 on its d = 64
+    instance 3 times; with ``"flash"`` the attention is B10's Hopper body on the qkv's chunk(3)
+    views (2 launches, K2 none), with ``"full"`` plain attention; against the same forward through
+    the plain versions within 3e-2 of its largest value.  A gradient through the flash route runs
+    the plain version's backward."""
+    from unittest import mock
+
+    from skrample_tpu_torch.models.flux import Flux, FluxConfig, random_param_tree
+
+    config = FluxConfig(dim=256, heads=4, rope_axes=(16, 24, 24), depth=1, single_depth=1, context_dim=64,
+                        pooled_dim=32, attention=attention)
+    model = Flux(config, device=cuda, dtype=torch.bfloat16).load_jax_params(random_param_tree(config, 19))
+    gen = torch.Generator(cuda).manual_seed(20)
+    x = torch.randn((2, 16, 32, 32), generator=gen, device=cuda)
+    ctx = torch.randn((2, 128, 64), generator=gen, device=cuda)
+    pooled = torch.randn((2, 32), generator=gen, device=cuda)
+    t = torch.tensor([700.0, 30.0], device=cuda)
+    pairs = flash_attention.flash_attention_pairs_forward
+    with torch.inference_mode():
+        before = (pairs.launches, flash_attention.flash_attention_qkv_forward.launches, rope.rope_qk_norm_forward.routes["d64"])
+        got = model(x, t, ctx, pooled, guidance=3.5)
+        after = (pairs.launches, flash_attention.flash_attention_qkv_forward.launches, rope.rope_qk_norm_forward.routes["d64"])
+        assert [a - b for a, b in zip(after, before)] == [2 if attention == "flash" else 0, 0, 3]
+        with (
+            mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+            mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+            mock.patch.object(rope, "rope_qk_norm_forward", lambda *a, **k: rope.rope_qk_norm_reference(*a[:6])),
+        ):
+            want = model(x, t, ctx, pooled, guidance=3.5)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 3e-2 * want.abs().max().item()
+    if attention == "flash":
+        model.requires_grad_(True)
+        model(x, t, ctx, pooled, guidance=3.5).float().square().mean().backward()
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
 
 # ---- the SDXL slice: B8 GroupNorm and B10 d = 64 attention ---------------------------------
@@ -2040,3 +2110,107 @@ def test_noise_generators_on_the_card_match_the_cpu(cuda: torch.device, name: st
             assert err <= 1e-4 * want.abs().max().item(), (n, err)
         else:
             assert err <= 1e-5, (n, err)
+
+
+# ---- the rest of training: the loader's card path, AdamW8bit under a graph, SR on the card ----------------
+
+
+@pytest.mark.gpu
+def test_prefetch_to_device_on_the_card(cuda: torch.device) -> None:
+    """``prefetch_to_device(EpochLoader)`` on the card: every batch a CUDA tensor equal to ``batch_at(n)``
+    copied over, across an epoch's end, with the consumer's stream made to wait on each copy."""
+    from skrample_tpu_torch import prng
+    from skrample_tpu_torch.data import EpochLoader, prefetch_to_device
+
+    loader = EpochLoader({"x0": torch.randn(40, 4, 8, 8), "i": torch.arange(40)}, 6, prng.PRNGKey(3))
+    it = prefetch_to_device(loader.iter_from(4), depth=3, device=cuda)
+    for n in range(4, 14):
+        batch = next(it)
+        assert batch["x0"].is_cuda and torch.equal(batch["x0"].cpu(), loader.batch_at(n)["x0"])
+        assert torch.equal(batch["i"].cpu(), loader.batch_at(n)["i"])
+
+
+@pytest.mark.gpu
+def test_adamw8bit_graphed_equals_eager_on_the_card(cuda: torch.device) -> None:
+    """``AdamW8bit(capturable=True)``: three steps replayed from one captured ``step()`` equal three eager
+    steps bit for bit (parameters, codes, scales, count), with a quantized and a small leaf."""
+    from skrample_tpu_torch.optim import AdamW8bit
+
+    gen = torch.Generator(cuda).manual_seed(5)
+    init = [torch.randn((70, 90), generator=gen, device=cuda), torch.randn(33, generator=gen, device=cuda)]
+    grads = [[torch.randn(p.shape, generator=gen, device=cuda) * 0.01 for p in init] for _ in range(3)]
+
+    def make():
+        params = [torch.nn.Parameter(p.clone()) for p in init]
+        return params, AdamW8bit(params, lr=lambda c: 1e-3 / c.float(), capturable=True)
+
+    eager, opt = make()
+    for g in grads:
+        for p, gi in zip(eager, g):
+            p.grad = gi.clone()
+        opt.step()
+    graphed, gopt = make()
+    static = [torch.zeros_like(p) for p in init]
+    for p, s in zip(graphed, static):
+        p.grad = s
+    for s, gi in zip(static, grads[0]):
+        s.copy_(gi)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gopt.step()  # the warm-up builds the state: step 1
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gopt.step()
+    for g in grads[1:]:
+        for s, gi in zip(static, g):
+            s.copy_(gi)
+        graph.replay()
+    torch.cuda.synchronize()
+    for p, q in zip(eager, graphed):
+        assert torch.equal(p, q)
+    for p, q in zip(eager, graphed):
+        for name, value in opt.state[p].items():
+            assert torch.equal(value, gopt.state[q][name]), name
+    assert int(gopt.state["count"]) == int(opt.state["count"]) == 3
+
+
+@pytest.mark.gpu
+def test_stochastic_rounding_on_the_card_equals_the_cpu(cuda: torch.device) -> None:
+    "``stochastic_round_bf16`` on a CUDA tensor: the same bfloat16 words as on the CPU (the bits are jax's on both)."
+    from skrample_tpu_torch import prng
+    from skrample_tpu_torch.optim import stochastic_round_bf16
+
+    x = torch.randn((257, 129)) * 3
+    x[0, :3] = torch.tensor([float("inf"), float("nan"), -float("inf")])
+    key = prng.PRNGKey(21)
+    assert torch.equal(stochastic_round_bf16(key, x.to(cuda)).cpu().view(torch.int16), stochastic_round_bf16(key, x).view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_video_vae_loss_trains_in_bf16_on_the_card(cuda: torch.device, fused: bool) -> None:
+    """``VideoVAE.loss`` in bf16 on the card takes a backward through every route a bf16 VAE runs there:
+    the 1x1 skip convs (``_Dense``), the temporal convs' float32-result products (``_MmF32``), B8, B12
+    and (fused) B13 under their autograd Functions.  The loss within 2e-2 and the gradients within 5e-2
+    relative Frobenius of the same model's float32 loss and gradients on the CPU."""
+    import dataclasses
+
+    from skrample_tpu_torch import prng
+    from skrample_tpu_torch.models.video_vae import VideoVAE, VideoVAEConfig, random_param_tree
+
+    config = VideoVAEConfig(base=8, levels=2, temporal_levels=1, blocks_per_level=1, groups=4, fused_decode=fused)
+    tree = random_param_tree(config, 3)
+    x = torch.rand((1, 3, 4, 16, 16), generator=torch.Generator().manual_seed(4)) * 2 - 1
+    results = []
+    for device, dtype in ((cuda, torch.bfloat16), (torch.device("cpu"), torch.float32)):
+        vae = VideoVAE(dataclasses.replace(config, compute_dtype=dtype), device=device).load_jax_params(tree)
+        loss, _ = vae.loss(x.to(device), prng.PRNGKey(5), kl_weight=1e-2)
+        loss.backward()
+        results.append((loss.item(), [p.grad.float().cpu() for p in vae.parameters()]))
+    (card_loss, card_grads), (cpu_loss, cpu_grads) = results
+    assert abs(card_loss - cpu_loss) <= 2e-2 * abs(cpu_loss)
+    num = sum(float((a - b).double().square().sum()) for a, b in zip(card_grads, cpu_grads))
+    den = sum(float(b.double().square().sum()) for b in cpu_grads)
+    assert (num / den) ** 0.5 <= 5e-2

@@ -402,3 +402,79 @@ def test_training_needs_cuda_unless_told_cpu(monkeypatch) -> None:
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         training.main(["--steps", "1"])
+
+
+# ---- the example's other flags: --host-loader, the refusals ---------------------------------
+
+
+def test_host_loader_step_matches_jax() -> None:
+    """Step 0 of ``--host-loader`` mode against the JAX example's host-loader step: the data set
+    ``normal(PRNGKey(42))``, the loader (``PRNGKey(7)``), the step's ``fold_in(PRNGKey(1), n)`` draws,
+    then the step, on the same parameters (a DiT of head dim 64 with plain attention on both sides).
+    The batch is the JAX loader's bit for bit in its indices and within the normals' few ulps in
+    value; loss, parameters and EMA at ``test_train_step_matches_jax``'s tolerances."""
+    from skrample_tpu import data as jdata
+    from skrample_tpu_torch import data as tdata
+    from skrample_tpu_torch import prng
+
+    size, batch = {"dim": 64, "depth": 1, "heads": 1}, 4
+    tree = random_param_tree(DiTConfig(**size), seed=21)
+
+    @jax.jit
+    def draws():  # the JAX example's draws, compiled once
+        _kb, kn, kt = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(1), 0), 3)
+        jset = jax.random.normal(jax.random.PRNGKey(42), (64, 4, 8, 8), jnp.float32)
+        return jset, jax.random.normal(kn, (batch, 4, 8, 8), jnp.float32), jax.random.uniform(kt, (batch,), minval=1e-3, maxval=1.0)
+
+    jset, jnoise, jsigma = draws()
+    jx0 = jdata.EpochLoader({"x0": np.asarray(jset)}, batch, jax.random.PRNGKey(7)).batch_at(0)["x0"]
+    params = jax.tree.map(jnp.asarray, tree)
+    jmodel = jdit.DiT(jdit.DiTConfig(**size, compute_dtype=jnp.float32, attention="full"))
+    jopt = optax.adamw(1e-4)
+    loss, grads = jax.jit(jax.value_and_grad(_jax_loss(jmodel)))(params, jnp.asarray(jx0), jnoise, jsigma)
+    new_params = jax.jit(lambda p, g: optax.apply_updates(p, jopt.update(g, jopt.init(p), p)[0]))(params, grads)
+    new_ema = jax.jit(lambda p, q: jema.ema_update(p, q, decay=0.9999, step=0))(params, new_params)
+
+    host = training.host_dataset(8)
+    np.testing.assert_allclose(host.numpy(), np.asarray(jset), rtol=1e-5, atol=0)
+    first = tdata.EpochLoader({"x0": host}, batch, prng.PRNGKey(7)).batch_at(0)
+    x0, noise, sigma = training.host_loader_batch(first, 0, torch.device("cpu"))
+    np.testing.assert_allclose(x0.numpy(), np.asarray(jx0), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(noise.numpy(), np.asarray(jnoise), rtol=1e-5, atol=0)
+    assert np.array_equal(sigma.numpy(), np.asarray(jsigma))
+    model = DiT(DiTConfig(**size, compute_dtype=torch.float32, attention="full"), device="cpu").load_jax_params(tree)
+    opt = training.make_optimizer(model)
+    ema = tema.ema_init(model)
+    got = training.train_step(model, opt, ema, x0, noise, sigma, step=0)
+    np.testing.assert_allclose(got.item(), float(loss), rtol=1e-4)
+    for mine, want in ((model.param_tree(), new_params), (_as_tree(model.config, ema), new_ema)):
+        leaves = (jax.tree.leaves(t) for t in (mine, want, grads))
+        for path, a, b, g in zip(jax.tree_util.tree_leaves_with_path(want), *leaves):
+            b, g = np.asarray(b), np.asarray(g)
+            steady = np.abs(g) >= 1e-6
+            where = jax.tree_util.keystr(path[0])
+            np.testing.assert_allclose(a[steady], b[steady], rtol=1e-5, atol=1e-7, err_msg=where)
+            assert np.abs(a - b).max() <= 2.1e-4, where
+
+
+@pytest.mark.parametrize(
+    ("argv", "message"),
+    [
+        (["--until", "1"], "already holds step 2: pass --resume"),
+        (["--resume", "--until", "1"], "--until 1 is before the restored step 2"),
+        (["--resume", "--save-every", "1"], "need --host-loader and --orbax"),
+        (["--host-loader", "--abort-after-step", "0", "--no-orbax"], "need --host-loader and --orbax"),
+        (["--graph"], "needs --device cuda"),
+    ],
+)
+def test_training_flags_refuse_as_the_example_does(tmp_path, capsys, argv: list[str], message: str) -> None:
+    """The example's rules: an existing checkpoint without --resume, --until before the restored step,
+    --save-every/--abort-after-step without --host-loader and --orbax, --graph without a card."""
+    base = ["--device", "cpu", "--batch", "2", "--dim", "64", "--heads", "1", "--depth", "1", "--size", "8"]
+    ckpt = ["--orbax", str(tmp_path / "ck")]
+    assert training.main([*base, *ckpt, "--steps", "2"]) == 0
+    if "--no-orbax" in argv:
+        argv, ckpt = [a for a in argv if a != "--no-orbax"], []
+    with pytest.raises(SystemExit):
+        training.main([*base, *ckpt, *argv])
+    assert message in capsys.readouterr().err

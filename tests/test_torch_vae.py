@@ -19,6 +19,7 @@ weights and inputs.
 
 from __future__ import annotations
 
+import functools
 from unittest import mock
 
 import jax
@@ -30,6 +31,7 @@ import torch
 from skrample_tpu.models import import_weights as jiw
 from skrample_tpu.models import sdxl as jsdxl
 from skrample_tpu.models import vae as jvae
+from skrample_tpu_torch import prng
 from skrample_tpu_torch.models import import_weights as tiw
 from skrample_tpu_torch.models import sdxl as tsdxl
 from skrample_tpu_torch.models import vae as tvae
@@ -110,8 +112,58 @@ def test_auto_decode_takes_the_composition_on_the_cpu() -> None:
     port, _, _ = _pair(7, fused="auto")
     with torch.no_grad(), mock.patch.object(tvae, "conv3x3_gn_silu", side_effect=AssertionError("fused on the CPU")):
         assert torch.isfinite(port.decode(torch.zeros((1, 4, 8, 8)))).all()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port.loss(None)
+    # the loss decodes by the same rule: the composition on the CPU
+    with mock.patch.object(tvae, "conv3x3_gn_silu", side_effect=AssertionError("fused on the CPU")):
+        loss, parts = port.loss(torch.zeros(PIXELS), prng.PRNGKey(0))
+    assert torch.isfinite(loss) and set(parts) == {"recon", "kl"}
+
+
+def _grad_tree(port) -> dict:
+    "The parameters' gradients in the JAX tree's layout (``param_tree`` read with each gradient in place of its value)."
+    params = [p for p in port.parameters() if p.grad is not None]
+    saved = [p.data for p in params]
+    for p in params:
+        p.data = p.grad
+    try:
+        return port.param_tree()
+    finally:
+        for p, d in zip(params, saved):
+            p.data = d
+
+
+def _close_tree(got: dict, want, rtol: float, rel_atol: float) -> None:
+    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want), jax.tree.leaves(got)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=rel_atol * np.abs(w).max(), err_msg=jax.tree_util.keystr(path))
+
+
+@functools.cache
+def _jax_vae_loss():
+    "The JAX VAE's loss, its parts and its gradients on one image and key (computed once for both cases)."
+    _, ref, params = _pair(8)
+    x = np.random.default_rng(9).uniform(-1, 1, PIXELS).astype(np.float32)
+    jloss = lambda p: ref.loss(p, jnp.asarray(x), jax.random.PRNGKey(4), kl_weight=1e-2)  # noqa: E731
+    return x, *jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_vae_loss_and_grads_match_jax(fused: bool) -> None:
+    """``VAE.loss`` from a key against the JAX ``VAE.loss`` from the same key, the port through the fused
+    decode (B12's and B8's plain versions under their autograd Functions) and the composition, the
+    JAX side through its composition (its fused decode's custom VJPs differentiate that same
+    composition, and its forward agrees to rtol 1e-4: ``test_decode_matches_jax``): the loss, recon
+    and KL at rtol 1e-4; every parameter's gradient against ``jax.grad`` at rtol 1e-3 with an atol of
+    1e-4 of the leaf's largest (f32 sums in other orders through a backward; the posterior draw's
+    normals a few ulps apart)."""
+    port, _, _ = _pair(8, fused=fused)
+    x, (want, want_parts), want_grads = _jax_vae_loss()
+    port.requires_grad_(True)
+    loss, parts = port.loss(torch.from_numpy(x), prng.PRNGKey(4), kl_weight=1e-2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-4)
+    for k in ("recon", "kl"):
+        np.testing.assert_allclose(parts[k].item(), float(want_parts[k]), rtol=1e-4)
+    _close_tree(_grad_tree(port), want_grads, rtol=1e-3, rel_atol=1e-4)
 
 
 def test_fused_launches_and_flops_follow_the_shapes() -> None:

@@ -196,10 +196,63 @@ def test_video_vae_decode_is_causal(fused: bool) -> None:
     np.testing.assert_allclose(head.numpy(), full[:, :, : port.config.temporal_factor].numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _grad_tree(port) -> dict:
+    "The parameters' gradients in the JAX tree's layout (``param_tree`` read with each gradient in place of its value)."
+    params = [p for p in port.parameters() if p.grad is not None]
+    saved = [p.data for p in params]
+    for p in params:
+        p.data = p.grad
+    try:
+        return port.param_tree()
+    finally:
+        for p, d in zip(params, saved):
+            p.data = d
+
+
+def _close_tree(got: dict, want, rtol: float, rel_atol: float) -> None:
+    for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want), jax.tree.leaves(got)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=rel_atol * np.abs(w).max(), err_msg=jax.tree_util.keystr(path))
+
+
 def test_video_vae_loss_is_a_later_slice() -> None:
-    port, _, _ = _vae_pair(0, False)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        port.loss(torch.zeros(1, 3, 2, 8, 8))
+    """``VideoVAE.loss`` (no longer a later slice) against the JAX ``VideoVAE.loss`` from the same key on
+    a 4-frame 8x8 clip, the port through the composition and the fused decode (B12's and B13's plain
+    versions under their autograd Functions), the JAX side through its composition (what its fused
+    decode's custom VJPs differentiate): the loss, recon and KL at rtol 1e-4, every gradient against
+    ``jax.grad`` at rtol 1e-3 with an atol of 1e-4 of the leaf's largest."""
+    x = np.random.default_rng(11).uniform(-1, 1, (1, 3, 4, 8, 8)).astype(np.float32)
+    _, ref, params = _vae_pair(12, False)
+    jloss = lambda p: ref.loss(p, jnp.asarray(x), jax.random.PRNGKey(5), kl_weight=1e-2)  # noqa: E731
+    (want, want_parts), want_grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
+    for fused in (False, True):
+        port, _, _ = _vae_pair(12, fused)
+        port.requires_grad_(True)
+        loss, parts = port.loss(torch.from_numpy(x), prng.PRNGKey(5), kl_weight=1e-2)
+        loss.backward()
+        np.testing.assert_allclose(loss.item(), float(want), rtol=1e-4)
+        for k in ("recon", "kl"):
+            np.testing.assert_allclose(parts[k].item(), float(want_parts[k]), rtol=1e-4)
+        _close_tree(_grad_tree(port), want_grads, rtol=1e-3, rel_atol=1e-4)
+
+
+@pytest.mark.parametrize("remat", [False, True, "dots"])
+def test_video_dit_grads_match_jax(remat) -> None:
+    """Video training: the mean squared VideoDiT prediction against a target, its value and every
+    parameter's gradient against ``jax.value_and_grad`` of the JAX VideoDiT at the same remat mode
+    (rtol 1e-4; gradients rtol 1e-3 with an atol of 1e-4 of the leaf's largest)."""
+    port, ref, params = _dit_pair(13, remat=remat)
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((1, 16, 2, 8, 8), dtype=np.float32)
+    target = rng.standard_normal(x.shape, dtype=np.float32)
+    t = np.array([420.0], dtype=np.float32)
+    jloss = lambda p: jnp.mean((ref.apply(p, jnp.asarray(x), jnp.asarray(t)) - target) ** 2)  # noqa: E731
+    want, want_grads = jax.jit(jax.value_and_grad(jloss))(params)
+    port.requires_grad_(True)
+    loss = torch.mean((port(torch.from_numpy(x), torch.from_numpy(t)) - torch.from_numpy(target)) ** 2)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-4)
+    _close_tree(_grad_tree(port), want_grads, rtol=1e-3, rel_atol=1e-4)
 
 
 def test_served_video_request_matches_the_jax_engine() -> None:
