@@ -130,6 +130,18 @@ Phases, each failing the run with a non-zero exit:
     Phase 2 holds K1's device-weights mode (per-item rows of a table on the
     card, f32, bf16, f16 and f64 latents, the scalar path) to its plain
     version bit for bit, with its card time beside the by-value K1's.
+15. the rest of training (``AdamW8bit``, LoRA, the loader, kill and resume, the VAE losses) and Flux at
+    head dims 64 and 96;
+16. SD3 at SD3.5-large's widths (MMDiT 38 x 2432, bf16; CLIP-L, CLIP-G and the T5-XXL encoder; the SD3 VAE,
+    f32), random weights drawn on the card: prompts tokenized over synthetic vocabularies and encoded by the
+    three towers, served to 1024x1024 pixels by ``ServingEngine(stack.as_served(4.5, uncond),
+    conditioned=True, postprocess=stack.decode)`` at 10 Euler steps over FlowShift(Linear) (3 requests: 2
+    together, then the first alone, bit for bit its packed twin), exact launches (K3 152, B7 76 and B10 38 a
+    forward, K1 a step, B12 31 and B8 1 a decode), latency and a traced request; one forward against the
+    plain versions; the int8 model (B6 303 a forward, cosine > 0.99); SD3.5-medium's widths (dual attention:
+    B10 37 a forward) against the plain versions; and ROADMAP C6: the one-pass dense product against the two
+    passes, bit for bit, at every dense shape of phases 3, 6, 7 and 16.  Phase 2 holds B10 and B7 (identity
+    tables) to their plain versions at SD3.5-large's joint shape (2, 4429, 38 x 64).
 
 Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
@@ -176,6 +188,9 @@ FLUX_REPEATS = 3  # dispatches per median
 SDXL_STEPS = 25
 SDXL_REPEATS = 3
 VAE_STEPS = 10  # phase 8 cuts phase 7's 25-step schedule: the decode, not the denoise, is what it adds
+SD3_STEPS = 10  # phase 16 cuts SD3's default 28 steps to keep the phase within its time: the family is what it adds
+SD3_GUIDANCE = 4.5  # the SD3.5-large pipeline's default guidance
+SD3_TOKENS = 4096 + 77 + 256  # the joint sequence: 1024x1024 image tokens at patch 2, CLIP's 77, T5's 256
 
 
 class SmokeFailure(RuntimeError):
@@ -564,6 +579,7 @@ def kernels_phase() -> dict[str, dict]:
     rows.update(b9_kernels(gen))
     rows.update(tconv_kernels(gen))
     rows.update(b11_kernels(gen))
+    rows.update(sd3_kernels(gen))
     for row in rows.values():
         library = "n/a" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
         print(
@@ -1642,10 +1658,12 @@ def _group(kernel: str, groups: tuple = FLUX_GROUPS) -> str:
 
 
 def _traced_dispatch(
-    run, label: str, median_s: float, card: str, groups: tuple = FLUX_GROUPS, share: str | None = None
+    run, label: str, median_s: float, card: str, groups: tuple = FLUX_GROUPS, share: str | None = None,
+    record: dict | None = None,
 ) -> dict[str, int]:
     """The card's time by kernel group over one traced dispatch, and its busy share of the median untraced
-    one; ``share`` names a group whose share of the busy time gets a line of its own."""
+    one; ``share`` names a group whose share of the busy time gets a line of its own; ``record`` (a dict)
+    receives the busy ms and the ms by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1658,6 +1676,8 @@ def _traced_dispatch(
     card_launches: dict[str, int] = {}
     names: dict[str, float] = {}
     kernel_ms, kernel_counts, busy = card_time(prof)
+    if record is not None:
+        record.update(busy_ms=busy, kernel_ms=kernel_ms)
     for name, ms in kernel_ms.items():
         group = _group(name, groups)
         card_ms[group] = card_ms.get(group, 0.0) + ms
@@ -3902,7 +3922,7 @@ def graphs_phase(card: str, dit_outputs: dict, parts: dict) -> dict[str, int]:
 
     from skrample_tpu_torch import scheduling, training
     from skrample_tpu_torch.continuous import ContinuousServingEngine
-    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, cast_dense_weights, random_param_tree
     from skrample_tpu_torch.models.ema import ema_init
     from skrample_tpu_torch.ops import fused
     from skrample_tpu_torch.pipeline import GenerationPipeline
@@ -3916,7 +3936,8 @@ def graphs_phase(card: str, dit_outputs: dict, parts: dict) -> dict[str, int]:
         dim=512, depth=DEPTH, heads=4, patch=2, channels=4, compute_dtype=torch.bfloat16, attention="flash"
     )
     tree = random_param_tree(config, seed=0)
-    model = DiT(config, device=dev).load_jax_params(tree).requires_grad_(False)
+    # the dense weights stored in bf16 once (ROADMAP C6), not cast at every call: the same bits as phase 3's
+    model = cast_dense_weights(DiT(config, device=dev).load_jax_params(tree).requires_grad_(False), torch.bfloat16)
     sampler, schedule, transform = structured.DPM(order=2), scheduling.FlowShift(scheduling.Linear()), models.FlowModel()
     item = (4, 64, 64)
 
@@ -3982,10 +4003,12 @@ def graphs_phase(card: str, dit_outputs: dict, parts: dict) -> dict[str, int]:
                 f"({', '.join(f'{v:.2f}' for v in solo[label])}); batch of 4: median {batch:.2f} ms, "
                 f"{4e3 / batch:.2f} img/s ({card})"
             )
+        traced: dict = {"median_ms": medians["graph"]}
+        parts["graphed_dit"] = traced  # phase 16e prints it beside the numbers before ROADMAP C6's repair
         for label, engine in (("eager", eager), ("graph", graphed)):
             _traced_dispatch(
                 lambda engine=engine: engine.generate(600).cpu(), f"graphs serving {label}", medians[label] / 1e3,
-                card, FLUX_GROUPS,
+                card, FLUX_GROUPS, record=traced if label == "graph" else None,
             )
 
     pipe = GenerationPipeline(
@@ -4785,6 +4808,511 @@ def _flux_head_dims_part(card: str, total: dict[str, int]) -> None:
         del model
 
 
+def sd3_kernels(gen) -> dict[str, dict]:
+    """B10 and B7 at SD3.5-large's joint shape under CFG (batch 2): 4096 image + 77 CLIP + 256 T5 = 4429
+    tokens (ragged: not a multiple of 128), 38 heads of 64; B10 on the chunk(3) views of a joint qkv, B7
+    with identity tables (the MMDiT's qk-norm: cos 1, sin 0), in place.  Each against its plain version
+    (5e-2 of its largest value), with times and bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from skrample_tpu_torch.ops import flash_attention, rope
+
+    dev = torch.device("cuda")
+    rows: dict[str, dict] = {}
+    B, N, H, d = 2, SD3_TOKENS, 38, 64
+
+    qkv = torch.randn((B, N, 3 * H * d), generator=gen, device=dev).to(torch.bfloat16)
+    views = qkv.chunk(3, dim=-1)
+    got = flash_attention.flash_attention_pairs_forward(*views, H)
+    ref = flash_attention._packed_reference(*views, H)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    rel = err / ref.abs().max().item()
+    print(
+        f"B10 flash_attention_pairs_forward bf16 chunk(3) views of {tuple(qkv.shape)} (SD3.5-large joint, CFG): "
+        f"max_abs_err {err:.3e}, {rel:.3e} of the largest output (tolerance 5e-2)"
+    )
+    expect(bool(torch.isfinite(got).all()) and rel <= 5e-2, f"B10 at the SD3.5 shape disagrees: {rel}")
+    q, k, v = (t.view(B, N, H, d).transpose(1, 2) for t in views)
+    b_ms, b_by = bound_ms((qkv.numel() + got.numel()) * 2, 4 * B * H * N * N * d, PEAK_BF16_FLOPS)
+    timing: dict = {}
+    timed(timing, "ms", lambda: flash_attention.flash_attention_pairs_forward(*views, H))
+    timed(timing, "plain_ms", lambda: flash_attention._packed_reference(*views, H), iters=3)
+    timed(timing, "library_ms", lambda: F.scaled_dot_product_attention(q, k, v))
+    rows["flash_attention_pairs_forward sd3.5"] = {
+        "name": "flash_attention_pairs_forward sd3.5",
+        "route": "cuda",
+        "source": "skrample_tpu_torch/csrc/flash_attention_sm90.cu",
+        "replaces": "skrample_tpu/ops/flash_attention.py:798",
+        "max_abs_err": err,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        **timing,
+    }
+    del qkv, views, got, ref, q, k, v
+
+    qkv = (torch.randn((B, N, 3 * H * d), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    gq, gk = (1 + 0.1 * torch.randn(d, generator=gen, device=dev) for _ in range(2))
+    cos, sin = torch.ones((N, d // 2), device=dev), torch.zeros((N, d // 2), device=dev)
+    want = rope.rope_qk_norm_reference(qkv, gq, gk, cos, sin, H)
+    inplace = rope.rope_qk_norm_forward(qkv.clone(), gq, gk, cos, sin, H, in_place=True)
+    torch.cuda.synchronize()
+    err = max_err(inplace, want)
+    scale = want.float().abs().max().item()
+    ulps = _ulps_bf16(inplace, want)
+    print(
+        f"B7 rope_qk_norm_forward bf16 {tuple(qkv.shape)} with identity tables (SD3.5-large's qk-norm), in place: "
+        f"max_abs_err {err:.3e}, {err / scale:.3e} of the largest output (tolerance 5e-2), at most {ulps:g} bf16 ulp"
+    )
+    expect(bool(torch.isfinite(inplace).all()) and err <= 5e-2 * scale, f"B7 at the SD3.5 shape disagrees: {err}")
+    qk_bytes = B * N * 2 * H * d * 2
+    b_ms, b_by = bound_ms(2 * qk_bytes + 2 * cos.numel() * 4 + 2 * d * 4, 8 * B * N * 2 * H * d, PEAK_F32_FLOPS)
+    args = (qkv, gq, gk, cos, sin, H)
+    timing = {}
+    timed(timing, "ms", lambda: rope.rope_qk_norm_forward(*args, in_place=True))
+    timed(timing, "plain_ms", lambda: rope.rope_qk_norm_reference(*args))
+    rows["rope_qk_norm_forward sd3.5"] = {
+        "name": "rope_qk_norm_forward sd3.5",
+        "route": "cuda",
+        "source": "skrample_tpu_torch/csrc/rope.cu",
+        "replaces": "skrample_tpu/ops/rope.py:94",
+        "max_abs_err": err,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        **timing,
+    }
+    return rows
+
+
+# stabilityai/stable-diffusion-3.5-large: transformer/config.json (38 layers, 38 heads of 64, joint_attention_dim
+# 4096, pooled_projection_dim 2048, pos_embed_max_size 192, qk_norm rms_norm); stable-diffusion-3.5-medium's: 24
+# layers, 24 heads, dual_attention_layers 0-12, pos_embed_max_size 384.  context_tokens is only the FLOP count's text
+# length under the SD3 wiring: CLIP's 77 + T5's 256.
+SD35_LARGE = {
+    "dim": 2432, "depth": 38, "heads": 38, "patch": 2, "channels": 16, "context_dim": 4096, "context_tokens": 333,
+    "pooled_dim": 2048, "pos_embed_max": 192, "qk_norm": True, "final_txt_pre_only": True,
+}
+SD35_MEDIUM = {
+    **SD35_LARGE, "dim": 1536, "depth": 24, "heads": 24, "pos_embed_max": 384, "dual_attention_layers": tuple(range(13)),
+}
+# text_encoder / text_encoder_2 / text_encoder_3 config.json: CLIP-L, OpenCLIP bigG, the T5-XXL v1.1 encoder
+CLIP_L_CONFIG = {
+    "vocab_size": 49408, "dim": 768, "depth": 12, "heads": 12, "mlp_ratio": 4, "max_tokens": 77, "causal": True,
+    "ln_affine": True, "ln_eps": 1e-5, "act": "quick_gelu", "eos_id": 49407,
+}
+CLIP_G_CONFIG = {**CLIP_L_CONFIG, "dim": 1280, "depth": 32, "heads": 20, "act": "gelu"}
+T5_XXL_CONFIG = {
+    "vocab_size": 32128, "dim": 4096, "head_dim": 64, "heads": 64, "ff_dim": 10240, "depth": 24, "gated": True,
+    "rel_buckets": 32, "rel_max_distance": 128,
+}
+SD3_VAE_CONFIG = {  # vae/config.json: 16 latent channels, no quant convs
+    **SDXL_VAE_CONFIG, "latent_channels": 16, "scaling_factor": 1.5305, "shift_factor": 0.0609, "use_quant_conv": False,
+}
+SD3_PROMPTS = ("a photograph of an astronaut riding a horse on mars", "a watercolor painting of a red fox in the snow")
+SD3_GROUPS = (
+    ("K1 fused_step", ("fused_step_kernel",)),
+    ("B10 flash_pairs", ("flash_strided_sm90_kernel",)),
+    ("K3 adaln", ("adaln_kernel",)),
+    ("B7 rope_qk_norm", ("rope_qk_norm_kernel",)),
+    ("B12 convs", B12_KERNELS),
+    ("B8 groupnorm", B8_KERNELS),
+    ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
+)
+
+
+def _synthetic_tokenizers():
+    """The CLIP BPE and the T5 Unigram tokenizers over vocabularies built here (real vocabularies are
+    checkpoint assets): every byte and the prompts' words as merges, the specials at CLIP's ids 49406/49407;
+    the prompts' words and single letters as scored pieces for T5 (pad 0, eos 1, unk 2)."""
+    from skrample_tpu_torch.models.tokenizers import CLIPBPETokenizer, UnigramTokenizer, _bytes_to_unicode
+
+    words = sorted({w for p in SD3_PROMPTS for w in p.split()})
+    table = _bytes_to_unicode()
+    vocab: dict[str, int] = {}
+    for b in range(256):
+        vocab.setdefault(table[b], len(vocab))
+        vocab.setdefault(table[b] + "</w>", len(vocab))
+    merges: list[tuple[str, str]] = []
+    for word in words:
+        pieces = [*word[:-1], word[-1] + "</w>"]
+        while len(pieces) > 1:
+            pair = (pieces[0], pieces[1])
+            if pair not in merges:
+                merges.append(pair)
+                vocab.setdefault(pair[0] + pair[1], len(vocab))
+            pieces = [pair[0] + pair[1], *pieces[2:]]
+    vocab.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    scored = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0), ("▁", -4.0)]
+    scored += [(f"▁{w}", -2.0 - 0.01 * i) for i, w in enumerate(words)]
+    scored += [(chr(c), -8.0) for c in range(ord("a"), ord("z") + 1)]
+    return CLIPBPETokenizer(vocab, merges), UnigramTokenizer(scored, max_tokens=256)
+
+
+class _DenseShapes:
+    """Records the dense products' shapes while active: ``(rows, d_in, d_out, dtype, route)`` of every
+    ``aten.addmm`` with a 1-D bias and 16-bit operands; route ``"epilogue"`` for the one-pass product
+    (``aten.addmm.default``, ROADMAP C6's route), ``"two-pass"`` for the float32 sum (``aten.addmm.dtype``)."""
+
+    def __init__(self) -> None:
+        self.shapes: set[tuple] = set()
+
+    def __call__(self, run):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        shapes = self.shapes
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func in (torch.ops.aten.addmm.default, torch.ops.aten.addmm.dtype):
+                    bias, x, wt = args[:3]
+                    if bias.dim() == 1 and x.dtype in (torch.bfloat16, torch.float16):
+                        route = "epilogue" if func is torch.ops.aten.addmm.default else "two-pass"
+                        shapes.add((x.shape[0], x.shape[1], wt.shape[1], x.dtype, route))
+                return func(*args, **(kwargs or {}))
+
+        with Mode():
+            return run()
+
+
+def _epilogue_check(shapes: set, graphed: dict | None) -> None:
+    """16e (ROADMAP C6): at every recorded dense shape, ``torch.addmm(b, x, wᵀ)`` with the bias in the compute
+    dtype (cuBLASLt's bias epilogue) against ``_dense_forward``'s two passes on the same random operands,
+    bit for bit; then phase 14's graphed DiT request time and its copy kernels beside those before the repair
+    (PERF.md: 34.83 ms, 24.21 busy, the bf16 copy kernel 6.1 ms)."""
+    import torch
+
+    from skrample_tpu_torch.models.dit import _dense_forward
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(16)
+    unique = sorted({shape[:4] for shape in shapes}, key=str)
+    routes = {route: sorted({s[:4] for s in shapes if s[4] == route}, key=str) for route in ("epilogue", "two-pass")}
+    differ = []
+    for rows, d_in, d_out, dtype in unique:
+        x = torch.randn((rows, d_in), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((d_out, d_in), generator=gen, device=dev) / d_in**0.5).to(dtype)
+        b = (torch.randn(d_out, generator=gen, device=dev) * 0.1).to(dtype)
+        if not torch.equal(torch.addmm(b, x, w.t()), _dense_forward(x, w, b)):
+            differ.append((rows, d_in, d_out, dtype))
+    print(
+        f"sd3 16e: {len(unique)} dense shapes over phases 3, 6, 7 and 16's models; served on the epilogue route "
+        f"{len(routes['epilogue'])}, on the two passes {len(routes['two-pass'])} (float32 biases); the epilogue "
+        f"differs from the two passes at {len(differ)} shapes: {differ}"
+    )
+    print(f"sd3 16e: epilogue-route shapes (rows, d_in, d_out, dtype): {routes['epilogue']}")
+    expect(bool(routes["epilogue"]) and bool(routes["two-pass"]), f"sd3 16e: recorded no shape on a route: {routes}")
+    expect(not differ, f"sd3 16e: the epilogue route differs from the two passes at {differ}")
+    if graphed:
+        copies = {name: ms for name, ms in graphed["kernel_ms"].items() if "copy" in name.lower()}
+        bf16_copy = sum(ms for name, ms in copies.items() if "bfloat16_copy_kernel" in name)
+        print(
+            f"sd3 16e: phase 14's graphed DiT-512/8 request: median {graphed['median_ms']:.2f} ms (before C6: 34.83), "
+            f"card busy {graphed['busy_ms']:.2f} ms (24.21); the bf16 copy kernel {bf16_copy:.3f} ms of it (6.1), every "
+            f"kernel named a copy {sum(copies.values()):.3f} ms in {len(copies)} kernels"
+        )
+
+
+def _record_earlier_shapes(recorder: _DenseShapes, parts: dict) -> None:
+    """16e's shapes of phases 3 and 14 (DiT-512/8 at buckets 1, 2, 4), 6 (FLUX.1-dev's widths, one double and
+    one single block: every dense shape of the 19 + 38, at batch 1 and 2) and 7 (the SDXL UNet's CFG forward at
+    buckets 1 and 2)."""
+    import torch
+
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.flux import Flux, FluxConfig
+    from skrample_tpu_torch.models.sdxl import SDXLStack
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(15)
+    config = DiTConfig(dim=512, depth=DEPTH, heads=4, patch=2, channels=4, compute_dtype=torch.bfloat16, attention="flash")
+    dit = DiT(config, device=dev).load_jax_params(random_param_tree(config, seed=0)).requires_grad_(False)
+    flux_config = FluxConfig(
+        dim=3072, heads=24, depth=1, single_depth=1, context_dim=4096, pooled_dim=768, guidance=True,
+        compute_dtype=torch.bfloat16, attention="flash",
+    )
+    flux = Flux(flux_config, device=dev, generator=gen, dtype=torch.bfloat16).requires_grad_(False)
+    unet_fn = None  # phase 16 run alone has no phase-7 UNet
+    if "unet" in parts:
+        time_ids = SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev)
+        unet_fn = SDXLStack(parts["unet"]).as_served(time_ids, 5.0, parts["uncond"])
+    t = torch.tensor(500.0, device=dev)
+    with torch.inference_mode():
+        for b in (1, 2, 4):
+            recorder(lambda b=b: dit(torch.randn((b, 4, 64, 64), generator=gen, device=dev), t))
+        for b in (1, 2):
+            ctx = torch.randn((b, 512, 4096), generator=gen, device=dev)
+            pooled = torch.randn((b, 768), generator=gen, device=dev)
+            x = torch.randn((b, 16, 128, 128), generator=gen, device=dev)
+            recorder(lambda x=x, ctx=ctx, pooled=pooled: flux(x, t, ctx, pooled, guidance=3.5))
+            if unet_fn is not None:
+                cond = tuple(torch.stack([part] * b) for part in parts["contexts"][0])
+                x = torch.randn((b, 4, 128, 128), generator=gen, device=dev)
+                recorder(lambda x=x, cond=cond: unet_fn(x, t, None, None, cond))
+    torch.cuda.synchronize()
+
+
+def _mmdit_per_forward(config) -> dict[str, int]:
+    """Launches of one MMDiT forward: K3 4 a block (3 for the pre-only last) + 1 a dual attention + the final
+    one (on the card K3 takes the text stream's 333 tokens too); B7 2 a block + 1 a dual attention; B10 1 a
+    block + 1 a dual attention."""
+    dual = len(config.dual_attention_layers)
+    per = dict.fromkeys(_wrappers(), 0)
+    per.update(
+        adaln_forward=4 * config.depth - int(config.final_txt_pre_only) + dual + 1,
+        rope_qk_norm_forward=(2 * config.depth + dual) if config.qk_norm else 0,
+        flash_attention_pairs_forward=config.depth + dual,
+    )
+    return per
+
+
+def _plain_kernels():
+    "The MMDiT's kernels swapped for their plain versions (B10, K3, B7)."
+    from skrample_tpu_torch.ops import adaln, flash_attention, rope
+
+    return (
+        mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+        mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+        mock.patch.object(rope, "rope_qk_norm_forward", _plain_rope),
+    )
+
+
+def sd3_phase(card: str, parts: dict, graphed: dict | None) -> dict[str, int]:
+    """Phase 16: A3 with SD3's text path at SD3.5-large's widths, on random weights drawn on the card.  (a) Prompts
+    tokenized by ``CLIPBPETokenizer``/``UnigramTokenizer`` (synthetic vocabularies), encoded by CLIP-L, CLIP-G and
+    the T5-XXL encoder (``SD3Stack.encode_prompt``), served by ``ServingEngine(stack.as_served(4.5, uncond),
+    conditioned=True, postprocess=stack.decode)`` over the MMDiT (38 blocks of 2432, bf16) and the SD3 VAE (f32):
+    Euler over FlowShift(Linear) at shift 3.0, 10 steps (SD3's 28 cut), 1024x1024; 3 requests (2 together, then
+    the first alone, equal to its packed twin bit for bit), exact launches by kernel and route, finite pixels,
+    the median latency, the card's busy share over a traced request.  (b) One forward through the kernels
+    against the plain versions (5e-2).  (c) The int8 model: one forward, cosine > 0.99 to (b)'s, B6 counted.
+    (d) SD3.5-medium's widths (24 blocks of 1536, dual attention 0-12): one forward against the plain versions,
+    B10 on both attentions.  (e) C6: the epilogue route against the two passes, bit for bit, at every dense shape
+    of phases 3, 6, 7 and 16; phase 14's graphed request beside its numbers before the repair.  Returns the main
+    path's launches."""
+    import gc
+
+    import torch
+
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.import_weights import vae_config
+    from skrample_tpu_torch.models.mmdit import MMDiT, MMDiTConfig, mmdit_forward_flops
+    from skrample_tpu_torch.models.sd3 import SD3Stack
+    from skrample_tpu_torch.models.t5_encoder import T5Encoder, T5EncoderConfig
+    from skrample_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+    from skrample_tpu_torch.models.vae import VAE, fused_convs_per_decode
+    from skrample_tpu_torch.ops import fused_conv, quant, rope
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    recorder = _DenseShapes()
+    _record_earlier_shapes(recorder, parts)
+    parts.clear()  # phase 7's UNet: the SD3.5-large stack needs the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sd3 16e: {len(recorder.shapes)} dense shapes recorded over phases 3, 6 and 7's models; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before the SD3.5 stack")
+
+    # ---- (a) the SD3.5-large stack on the card ----
+    gen = torch.Generator(dev).manual_seed(160)
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    config = MMDiTConfig(**SD35_LARGE, compute_dtype=bf16, attention="flash")
+    mmdit = MMDiT(config, device=dev, generator=gen, dtype=bf16)
+    mmdit.reset_parameters(gen, noise=0.02)  # Flux's recipe: adaLN-zero would make every output exactly 0
+    clip_l = TextEncoder(TextEncoderConfig(**CLIP_L_CONFIG, compute_dtype=bf16), device=dev, generator=gen, dtype=bf16)
+    clip_g = TextEncoder(TextEncoderConfig(**CLIP_G_CONFIG, compute_dtype=bf16), device=dev, generator=gen, dtype=bf16)
+    t5 = T5Encoder(T5EncoderConfig(**T5_XXL_CONFIG, compute_dtype=bf16), device=dev, generator=gen, dtype=bf16)
+    vae_cfg = vae_config(SD3_VAE_CONFIG)
+    vae = VAE(vae_cfg, device=dev, generator=gen)
+    vae.reset_parameters(gen, noise=0.02)
+    for module in (mmdit, clip_l, clip_g, t5, vae):
+        module.requires_grad_(False)
+    stack = SD3Stack(mmdit, vae, clip_l, clip_g, t5, t5_tokens=256)
+    torch.cuda.synchronize()
+    counts = {name: sum(p.numel() for p in m.parameters()) for name, m in
+              (("MMDiT", mmdit), ("CLIP-L", clip_l), ("CLIP-G", clip_g), ("T5-XXL", t5), ("VAE", vae))}
+    print(
+        f"sd3: SD3.5-large widths drawn on the card in {time.perf_counter() - t0:.1f} s: "
+        f"{', '.join(f'{k} {v / 1e9:.3f}B' for k, v in counts.items())} parameters (bf16; the VAE f32); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated"
+    )
+    clip_tok, t5_tok = _synthetic_tokenizers()
+
+    def encode(prompts) -> tuple:
+        "Text to (context, pooled): CLIP-L pads with its EOS, CLIP-G with 0 (SD3's tokenizer_2), T5 to 256 tokens."
+        return stack.encode_prompt(clip_tok(prompts), clip_tok(prompts, pad_id=0), t5_tok(prompts, length=256))
+
+    item_shape = (16, 128, 128)  # 1024x1024 through the VAE's factor 8
+    per_forward = _mmdit_per_forward(config)
+    per_decode = fused_convs_per_decode(vae_cfg)
+    flops = mmdit_forward_flops(config, 1, 128, 128)
+    zgen = torch.Generator(dev).manual_seed(161)
+    with torch.inference_mode():  # warm-up: both buckets' CFG forwards (recorded for 16e), the text towers, decodes
+        uncond = recorder(lambda: encode([""]))
+        warm = recorder(lambda: encode(list(SD3_PROMPTS)))
+        served = stack.as_served(SD3_GUIDANCE, uncond)
+        for b in (1, 2):
+            x = torch.randn((b, *item_shape), generator=zgen, device=dev)
+            recorder(lambda b=b, x=x: served(x, torch.tensor(500.0, device=dev), None, None, (warm[0][:b], warm[1][:b])))
+            stack.decode(x)
+        torch.cuda.synchronize()
+    engine = ServingEngine(
+        served, item_shape=item_shape, sampler=structured.Euler(),
+        schedule=scheduling.FlowShift(scheduling.Linear(), shift=3.0), model_transform=models.FlowModel(),
+        steps=SD3_STEPS, dtype=torch.float32, buckets=(1, 2), conditioned=True, device=dev, postprocess=stack.decode,
+    )
+    with engine:
+        # the main path: text ids to pixels, requests A and B together, then A again alone
+        torch.cuda.reset_peak_memory_stats()
+        batches_before = engine.stats.batches
+        torch.cuda.synchronize()
+        _reset_counters()
+        d64_before = rope.rope_qk_norm_forward.routes["d64"]
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ctx, pooled = encode(list(SD3_PROMPTS))
+        encode_s = time.perf_counter() - t0
+        requests = [(1, (ctx[0], pooled[0])), (2, (ctx[1], pooled[1]))]
+        futs = [engine.submit(seed, context=c) for seed, c in requests]
+        outs = [f.result().cpu() for f in futs]
+        pair_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs.append(engine.generate(requests[0][0], context=requests[0][1]).cpu())
+        solo_s = [time.perf_counter() - t0]
+        torch.cuda.synchronize()
+        launches = _counters()
+        d64 = rope.rope_qk_norm_forward.routes["d64"] - d64_before
+        f32_convs = _routes()["conv3x3_gn_silu_forward"]["f32"]
+        peak = torch.cuda.max_memory_allocated()
+        dispatches = engine.stats.batches - batches_before
+        forwards = SD3_STEPS * dispatches
+        want = {name: n * forwards for name, n in per_forward.items()}
+        want.update(fused_step_cuda=forwards, conv3x3_gn_silu_forward=per_decode * dispatches, groupnorm_forward=dispatches)
+        print(f"sd3 16a: 2 prompts encoded (CLIP-L, CLIP-G, T5-XXL) in {encode_s * 1e3:.1f} ms; 3 requests in "
+              f"{dispatches} dispatches ({engine.stats.bucket_counts}); launches {launches} (expected {want})")
+        print(f"sd3 16a: attention launches by route: {_attention_routes()}; B7 on its d64 route {d64}; B12 on its "
+              f"f32 route {f32_convs}")
+        expect(dispatches == 2 and launches == want, f"sd3 16a: launches {launches}, expected {want}")
+        expect(d64 == want["rope_qk_norm_forward"] and f32_convs == want["conv3x3_gn_silu_forward"],
+               f"sd3 16a: B7 d64 {d64}, B12 f32 {f32_convs}")
+        for o in outs:
+            expect(tuple(o.shape) == (3, 1024, 1024) and bool(torch.isfinite(o).all()), f"sd3 16a: bad pixels {o.shape}")
+        same = torch.equal(outs[2], outs[0])
+        print(
+            f"sd3 16a: pixels (3, 1024, 1024) finite, range [{outs[0].min().item():.3f}, {outs[0].max().item():.3f}]; "
+            f"request A alone == A packed, bit for bit: {same}"
+        )
+        expect(same, f"sd3 16a: packing changes request A's pixels by {_relative(outs[2], outs[0])}")
+        for name, count in launches.items():
+            total[name] += count
+        total["flash_attention_pairs_forward sd3.5"] = launches["flash_attention_pairs_forward"]
+        total["rope_qk_norm_forward sd3.5"] = d64
+        print(f"sd3 16a: after the main path, {_clocks()}")
+
+        for i in range(2):
+            t0 = time.perf_counter()
+            engine.generate(500 + i, context=requests[0][1]).cpu()
+            solo_s.append(time.perf_counter() - t0)
+        solo = statistics.median(solo_s)
+        print(
+            f"sd3 16a: request latency ({SD3_STEPS} CFG steps and the decode; the prompt encoded before), bucket 1: "
+            f"median {solo * 1e3:.1f} ms "
+            f"of {len(solo_s)} ({', '.join(f'{v * 1e3:.1f}' for v in solo_s)}); the pair {pair_s * 1e3:.1f} ms with the "
+            f"encode; {2 * flops * SD3_STEPS / solo / 1e12:.1f} TFLOP/s of MMDiT products; peak {peak / 2**30:.2f} GiB ({card})"
+        )
+        _traced_dispatch(
+            lambda: engine.generate(700, context=requests[0][1]).cpu(), "sd3 bucket 1", solo, card, SD3_GROUPS,
+            share="B10 flash_pairs",
+        )
+    del engine, served, clip_l, clip_g, t5, stack
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) one forward at batch 1 through the kernels, then through the plain versions ----
+    fgen = torch.Generator(dev).manual_seed(162)
+    x = torch.randn((1, *item_shape), generator=fgen, device=dev)
+    args = (x, torch.tensor(500.0, device=dev), ctx[:1], pooled[:1])
+    with torch.inference_mode():
+        _reset_counters()
+        got = mmdit(*args)
+        kernel_counts = _counters()
+        with contextlib.ExitStack() as plain:
+            for patch in _plain_kernels():
+                plain.enter_context(patch)
+            want_out = mmdit(*args)
+        torch.cuda.synchronize()
+    expect(kernel_counts == per_forward, f"sd3 16b: one forward launched {kernel_counts}, expected {per_forward}")
+    expect(_counters() == kernel_counts, f"sd3 16b: the plain forward launched kernels: {_counters()}")
+    vs_plain = _relative(got, want_out)
+    print(f"sd3 16b: SD3.5-large, one forward through the kernels vs the plain versions: relative max err {vs_plain:.3e} "
+          f"(tolerance 5e-2)")
+    expect(bool(torch.isfinite(want_out).all()) and vs_plain <= 5e-2, f"sd3 16b: kernel forward differs by {vs_plain}")
+
+    # ---- (c) the int8 model: one forward, B6 in front of each int8 product ----
+    t0 = time.perf_counter()
+    int8 = mmdit.quantize_params()
+    torch.cuda.synchronize()
+    n_int8 = sum(isinstance(m, quant.Int8Dense) for m in int8.modules())
+    with torch.inference_mode():
+        _reset_counters()
+        q_out = int8(*args)
+        torch.cuda.synchronize()
+        q_counts = _counters()
+    want_q = dict(per_forward, quantize_rows=n_int8)
+    cosine = _cosine(q_out, got)
+    print(f"sd3 16c: int8 SD3.5-large quantized in {time.perf_counter() - t0:.1f} s ({n_int8} int8 layers); one forward "
+          f"launched {q_counts}; cosine to 16b's bf16 output {cosine:.6f} (> 0.99)")
+    expect(n_int8 == 8 * config.depth - 3 + 2 and q_counts == want_q, f"sd3 16c: {n_int8} int8 layers, launches {q_counts}")
+    expect(bool(torch.isfinite(q_out).all()) and cosine > 0.99, f"sd3 16c: cosine {cosine}")
+    for name, count in q_counts.items():
+        total[name] += count
+    del int8, mmdit, q_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) SD3.5-medium's widths: dual attention in blocks 0-12 ----
+    m_config = MMDiTConfig(**SD35_MEDIUM, compute_dtype=bf16, attention="flash")
+    medium = MMDiT(m_config, device=dev, generator=gen, dtype=bf16)
+    medium.reset_parameters(gen, noise=0.02)
+    medium.requires_grad_(False)
+    m_per_forward = _mmdit_per_forward(m_config)
+    with torch.inference_mode():
+        recorder(lambda: medium(torch.cat([x, x]), args[1], torch.cat([ctx[:1], uncond[0]]), torch.cat([pooled[:1], uncond[1]])))
+        _reset_counters()
+        got = medium(*args)
+        m_counts = _counters()
+        with contextlib.ExitStack() as plain:
+            for patch in _plain_kernels():
+                plain.enter_context(patch)
+            want_out = medium(*args)
+        torch.cuda.synchronize()
+    vs_plain = _relative(got, want_out)
+    print(
+        f"sd3 16d: SD3.5-medium widths ({sum(p.numel() for p in medium.parameters()) / 1e9:.3f}B, dual attention in "
+        f"{len(m_config.dual_attention_layers)} blocks): one forward launched {m_counts} (B10 on both attentions: "
+        f"{m_per_forward['flash_attention_pairs_forward']}); against the plain versions relative max err {vs_plain:.3e} "
+        f"(tolerance 5e-2)"
+    )
+    expect(m_counts == m_per_forward, f"sd3 16d: one forward launched {m_counts}, expected {m_per_forward}")
+    expect(bool(torch.isfinite(got).all()) and vs_plain <= 5e-2, f"sd3 16d: kernel forward differs by {vs_plain}")
+    for name, count in m_counts.items():
+        total[name] += count
+    del medium, got, want_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) ROADMAP C6: every recorded dense shape, the epilogue against the two passes ----
+    _epilogue_check(recorder.shapes, graphed)
+    print(f"sd3: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -4816,6 +5344,9 @@ def main() -> int:
         wrappers = diffusers_phase(device["card"], sdxl_parts)
         graphed = graphs_phase(device["card"], dit_outputs, sdxl_parts)
         extras = extras_phase(device["card"])
+        graphed_dit = sdxl_parts.pop("graphed_dit", None)
+        del dit_outputs
+        sd3 = sd3_phase(device["card"], sdxl_parts, graphed_dit)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -4823,7 +5354,7 @@ def main() -> int:
     # each row's launches: its counts summed over every path's main-path run
     runs = (
         serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers, graphed,
-        extras,
+        extras, sd3,
     )
     for name, row in rows.items():
         row["launches"] = sum(run.get(name, 0) for run in runs)

@@ -17,7 +17,7 @@
 // with warp shuffles in f32; no shared memory and no block-wide barrier.
 // Lanes read 4 neighbouring elements each, so a warp covers 128 contiguous
 // elements per load.  The row width is a template parameter (D = 128 * C),
-// instantiated for the widths the JAX package's models use.
+// instantiated for the widths the JAX package's models use (C = 19: SD3.5-large's 2432).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -154,6 +154,7 @@ int launch(const void* x, const void* shift, const void* scale, void* out, int B
         SKT_ADALN_CASE(12)
         SKT_ADALN_CASE(16)
         SKT_ADALN_CASE(18)
+        SKT_ADALN_CASE(19)
         SKT_ADALN_CASE(24)
 #undef SKT_ADALN_CASE
         default:
@@ -514,6 +515,7 @@ int launch_bwd(const void* x, const void* g, const void* scale, void* dx, void* 
         SKT_ADALN_BWD_CASE(12)
         SKT_ADALN_BWD_CASE(16)
         SKT_ADALN_BWD_CASE(18)
+        SKT_ADALN_BWD_CASE(19)
         SKT_ADALN_BWD_CASE(24)
 #undef SKT_ADALN_BWD_CASE
         default:
@@ -528,7 +530,8 @@ int launch_bwd(const void* x, const void* g, const void* scale, void* dx, void* 
 extern "C" int skt_adaln_supports(int D) {
     if (D % 128) return 0;
     switch (D / 128) {
-        case 1: case 2: case 3: case 4: case 5: case 6: case 8: case 9: case 10: case 12: case 16: case 18: case 24:
+        case 1: case 2: case 3: case 4: case 5: case 6: case 8: case 9: case 10: case 12: case 16: case 18: case 19:
+        case 24:
             return 1;
         default:
             return 0;

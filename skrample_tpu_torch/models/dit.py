@@ -2,7 +2,8 @@
 
 The same network as the JAX package's ``models/dit.py``, parameter for
 parameter: master weights in float32, cast to ``compute_dtype`` at every
-matmul with the bias added in float32 before the cast, float32 layer norms
+matmul (or stored in it for serving: :func:`cast_dense_weights`) with the
+bias added in float32 before the one rounding, float32 layer norms
 through the fused adaLN op, and attention straight off the fused qkv
 projection.  :meth:`DiT.load_jax_params` carries a JAX parameter tree
 across, so both packages run the same weights, and :meth:`DiT.param_tree`
@@ -29,7 +30,7 @@ import itertools
 import math
 from collections.abc import Callable
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, TypeVar
 
 import numpy as np
 import torch
@@ -127,17 +128,51 @@ class _Dense(torch.autograd.Function):
         return dx, dw, db
 
 
+_EPILOGUE_DTYPES = (torch.bfloat16, torch.float16)
+
+
 def _dense(layer: nn.Linear | Int8Dense, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The JAX package's ``_dense``: ``x @ w + b`` with ``w`` cast to
     ``dtype``, the product and the bias add in float32, one rounding to
     ``dtype`` (:class:`_Dense`); an int8 layer of a serving model goes
-    through :func:`~skrample_tpu_torch.ops.quant.dense_int8`."""
+    through :func:`~skrample_tpu_torch.ops.quant.dense_int8`.
+
+    Where no gradient is wanted, on the card, a 16-bit product whose weight
+    and bias are in ``x``'s dtype is one ``torch.addmm(b, x, wᵀ)``: cuBLASLt
+    adds the bias to the float32 accumulator and rounds once, the same bits
+    as the two passes of :func:`_dense_forward` without their float32 (R, N)
+    round trip (``chip_smoke.py`` phase 16e holds the two to each other at
+    every served shape).  A float32 bias keeps the two passes: rounding it
+    first would change the sum.  A weight already in ``dtype`` is read as it
+    is (:func:`cast_dense_weights`)."""
     if isinstance(layer, Int8Dense):
         return dense_int8(layer.params(), x, dtype)
-    w = layer.weight.to(dtype)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or layer.bias.requires_grad):
-        return _Dense.apply(x, w, layer.bias)
-    return _dense_forward(x, w, layer.bias)
+    w, b = layer.weight.to(dtype), layer.bias
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        return _Dense.apply(x, w, b)
+    if x.is_cuda and x.dtype in _EPILOGUE_DTYPES and w.dtype == b.dtype == x.dtype:
+        return torch.addmm(b, x.reshape(-1, x.shape[-1]), w.t()).view(*x.shape[:-1], w.shape[0])
+    return _dense_forward(x, w, b)
+
+
+_Module = TypeVar("_Module", bound=nn.Module)
+
+
+@torch.no_grad()
+def cast_dense_weights(model: _Module, dtype: torch.dtype) -> _Module:
+    """Store every ``nn.Linear`` weight of ``model`` in ``dtype``, in place;
+    biases and every other parameter keep their dtype.  A model with float32
+    masters, served in ``dtype``, then reads its weights as they are instead
+    of casting each one at every call, and holds half their memory; the
+    masters are gone, so a gradient step after this updates the ``dtype``
+    weights.  The served bits do not move: the weight is the cast that
+    ``_dense`` made at each call, and float32 biases keep the two passes.
+    ``load_jax_params`` and any other in-place update land in the weights
+    that the forward reads, and so in a CUDA graph captured over it."""
+    for layer in model.modules():
+        if isinstance(layer, nn.Linear) and layer.weight.dtype != dtype:
+            layer.weight = nn.Parameter(layer.weight.to(dtype), requires_grad=layer.weight.requires_grad)
+    return model
 
 
 # the dense layers' products: ``aten.addmm.dtype`` on the card, ``aten.addmm`` on the CPU

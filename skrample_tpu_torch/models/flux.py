@@ -49,6 +49,7 @@ from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import _qkv_reference, flash_attention_pairs, flash_attention_qkv
 from ..ops.rope import fused_rope_qk_norm
+from . import _tree
 from .conditioning import per_item
 from .dit import _DOTS_CONTEXT, _LATER, _dense, _int8_copy, _timestep_embedding
 
@@ -301,44 +302,15 @@ class Flux(nn.Module):
         (``w`` ``(d_in, d_out)``, the transpose of ``nn.Linear``'s; the RMS
         gains as ``q_norm``/``k_norm`` arrays): the inverse of
         :meth:`load_jax_params`."""
-        tree: dict = {}
-        for name, leaf in self._leaves():
-            if isinstance(leaf, nn.Linear):
-                value: Any = {
-                    "w": np.ascontiguousarray(leaf.weight.detach().float().cpu().numpy().T),
-                    "b": leaf.bias.detach().float().cpu().numpy(),
-                }
-            else:
-                value = leaf.detach().float().cpu().numpy()
-            _put(tree, name.split("."), value)
-        return tree
+        return _tree.param_tree(self, _tree_path)
 
-    @torch.no_grad()
     def load_jax_params(self, tree: dict) -> Flux:
         """Fill the module from the JAX package's parameter tree (as
         ``skrample_tpu.models.flux.Flux.init`` lays it out, numpy or jax
         arrays).  Every key must be consumed and every shape must match; an
         int8 tree does not load (load the float tree, then
         :meth:`quantize_params`)."""
-        flat = dict(_flatten(tree))
-        if any(".w_q." in f".{path}." for path in flat):
-            raise NotImplementedError("an int8 tree does not load: load the float tree, then quantize_params()")
-        expected: dict[str, Any] = {}
-        for name, leaf in self._leaves():
-            if isinstance(leaf, nn.Linear):
-                expected[f"{name}.w"] = (leaf.weight, True)
-                expected[f"{name}.b"] = (leaf.bias, False)
-            else:
-                expected[name] = (leaf, False)
-        if set(flat) != set(expected):
-            missing, extra = sorted(set(expected) - set(flat)), sorted(set(flat) - set(expected))
-            raise ValueError(f"Flux param tree: missing {missing[:8]}, unexpected {extra[:8]}")
-        for path, (target, transpose) in expected.items():
-            value = np.array(flat[path], dtype=np.float32)  # a copy: jax hands out read-only buffers
-            shape = tuple(target.shape[::-1]) if transpose else tuple(target.shape)
-            if value.shape != shape:
-                raise ValueError(f"{path}: shape {value.shape} does not fit {shape}")
-            target.copy_(torch.from_numpy(np.ascontiguousarray(value.T if transpose else value)))
+        _tree.load_tree(self, tree, "Flux", _tree_path)
         return self
 
     def quantize_params(self) -> Flux:
@@ -480,32 +452,6 @@ def _tree_path(name: str) -> str:
 
 
 _TREE_NAMES = {"double_blocks": "double", "single_blocks": "single"}
-
-
-def _put(tree: dict, path: list[str], value: Any) -> None:
-    "Set ``value`` at a dotted module path, list indices for the digits (the JAX tree's layout)."
-    node: Any = tree
-    for part, nxt in zip(path, path[1:]):
-        key: Any = int(part) if isinstance(node, list) else part
-        if isinstance(node, list):
-            while len(node) <= key:
-                node.append({})
-        elif key not in node:
-            node[key] = [] if nxt.isdigit() else {}
-        node = node[key]
-    node[path[-1]] = value
-
-
-def _flatten(tree: Any, prefix: str = "") -> Iterator[tuple[str, Any]]:
-    "(dotted path, leaf) over nested dicts and lists."
-    if isinstance(tree, dict):
-        for key, value in tree.items():
-            yield from _flatten(value, f"{prefix}{key}.")
-    elif isinstance(tree, list | tuple):
-        for i, value in enumerate(tree):
-            yield from _flatten(value, f"{prefix}{i}.")
-    else:
-        yield prefix[:-1], tree
 
 
 def random_param_tree(config: FluxConfig, seed: int) -> dict:

@@ -17,9 +17,10 @@ one doubled-batch forward.  With a :class:`~.vae.VAE` in ``vae``,
 postprocess=stack.decode)`` serves requests to images, and
 :meth:`SDXLStack.encode_image` turns pixels into latents, and
 :meth:`SDXLStack.pipeline` builds a :class:`~..pipeline.GenerationPipeline`
-over the guided closure.  The text encoders and the checkpoint importers
-belong to later slices of the port: their entry points raise
-:class:`NotImplementedError`.
+over the guided closure.  :meth:`SDXLStack.encode_prompt` runs the CLIP
+towers (:class:`~.text_encoder.TextEncoder`); the UNet's checkpoint
+importer belongs to a later slice of the port, so
+:meth:`SDXLStack.from_checkpoints` raises :class:`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from ..ops._cuda import resolve_device
 from .conditioning import doubled_t, guided_mix, per_item
 from .dit import _LATER
+from .text_encoder import TextEncoder
 from .unet_cond import CondUNet
 from .vae import VAE
 
@@ -46,20 +48,34 @@ _SDXL_VAE_FACTOR = 8
 @dataclass
 class SDXLStack:
     """A conditional UNet with the SDXL glue and, optionally, the VAE that
-    maps its latents to pixels; ``clip_l`` and ``clip_g`` are accepted for
-    parity with the JAX stack and unused until their slice is ported."""
+    maps its latents to pixels and the CLIP towers that encode prompts
+    (``clip_g=None``: the SD1.5 shape, one tower)."""
 
     unet: CondUNet
     vae: VAE | None = None
-    clip_l: Any = None
-    clip_g: Any = None
+    clip_l: TextEncoder | None = None
+    clip_g: TextEncoder | None = None
 
     @classmethod
     def from_checkpoints(cls, *args: Any, **kwargs: Any) -> SDXLStack:
-        raise NotImplementedError(f"importing SDXL checkpoints (import_weights.py, vae.py, text_encoder.py) {_LATER}")
+        raise NotImplementedError(f"importing SDXL UNet checkpoints (import_weights.py diffusers_unet) {_LATER}")
 
-    def encode_prompt(self, *args: Any, **kwargs: Any) -> tuple[torch.Tensor, torch.Tensor | None]:
-        raise NotImplementedError(f"the CLIP text encoders (text_encoder.py) {_LATER}")
+    def encode_prompt(self, clip_l_ids: Any, clip_g_ids: Any | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """Token ids -> ``(context, pooled)``: both towers' penultimate states
+        concatenated along width and CLIP-G's projected pooling, the
+        published SDXL recipe (one CLIP-G forward gives both).  SD1.5: one
+        tower's penultimate states, ``pooled=None``."""
+        if self.clip_l is None:
+            raise ValueError("this SDXLStack has no CLIP-L tower: build it with SDXLStack(unet, vae, clip_l, clip_g)")
+        feats_l = self.clip_l(clip_l_ids, layer_skip=1)
+        if self.clip_g is None:
+            if clip_g_ids is not None:
+                raise ValueError("this stack has no CLIP-G tower")
+            return feats_l, None
+        if clip_g_ids is None:
+            raise ValueError("SDXL needs both towers' ids")
+        feats_g, pooled = self.clip_g.encode(clip_g_ids, layer_skip=1)
+        return torch.cat([feats_l, feats_g], dim=-1), pooled
 
     def pipeline(
         self,

@@ -208,13 +208,15 @@ class _AdaLN(torch.autograd.Function):
 def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Fused ``modulate(layernorm(x), shift, scale)`` with its gradient.
 
-    The JAX package's dispatch rule, exactly: the kernels where ``D`` is a
-    multiple of 128 and ``N`` divides by one of 256, 128, 64, 32, 16 or 8;
-    the plain composition otherwise.  Where a gradient is wanted the
-    forward is K3 and the backward K6; where none is, the forward is K3 and
-    nothing is saved."""
+    The kernels where ``D`` is a multiple of 128, the plain composition
+    otherwise.  On the CPU also the JAX package's token rule, exactly (``N``
+    divides by one of 256, 128, 64, 32, 16 or 8: its Pallas kernel's
+    tiling); K3 and K6 map rows, not tiles, so on the card any ``N`` takes
+    them (the SD3 text stream's 77 + 256 tokens).  Where a gradient is
+    wanted the forward is K3 and the backward K6; where none is, the forward
+    is K3 and nothing is saved."""
     _B, N, D = x.shape
-    if D % _LANE or all(N % b for b in (256, 128, 64, 32, 16, 8)):
+    if D % _LANE or (not x.is_cuda and all(N % b for b in (256, 128, 64, 32, 16, 8))):
         return adaln_reference(x, shift, scale)
     if torch.is_grad_enabled() and (x.requires_grad or shift.requires_grad or scale.requires_grad):
         return _AdaLN.apply(x, shift, scale)

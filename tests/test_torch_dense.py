@@ -122,3 +122,50 @@ def test_dots_policy_keeps_the_dense_product() -> None:
     assert CheckpointPolicy.MUST_SAVE in seen
     for a, c in zip(*grads):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+def test_serving_dense_on_the_cpu_is_unchanged(storage: torch.dtype) -> None:
+    """Where no gradient is wanted the CPU keeps the two passes (the card's one-pass epilogue is a
+    CUDA route): f32 masters with an f32 bias, and a bf16-built layer, give the bits of
+    ``_dense_forward`` on the weight cast each call."""
+    x, w, b, _ = _inputs(4)
+    layer = _layer(w, b).to(storage).requires_grad_(False)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    got = tdit._dense(layer, tx, torch.bfloat16)
+    assert torch.equal(got, tdit._dense_forward(tx, layer.weight.to(torch.bfloat16), layer.bias))
+
+
+def _small_dit(seed: int) -> tdit.DiT:
+    config = tdit.DiTConfig(dim=64, depth=1, heads=1, compute_dtype=torch.bfloat16)
+    return tdit.DiT(config, device="cpu").load_jax_params(tdit.random_param_tree(config, seed)).requires_grad_(False)
+
+
+def test_cast_dense_weights_serves_the_same_bits() -> None:
+    """``cast_dense_weights`` stores the dense weights in the compute dtype and keeps the f32 biases:
+    the served output is the bits of the f32-master model, which casts each weight at every call."""
+    xs, t = torch.randn((2, 4, 8, 8), generator=torch.Generator().manual_seed(0)), torch.tensor(300.0)
+    masters = _small_dit(0)
+    cast = tdit.cast_dense_weights(_small_dit(0), torch.bfloat16)
+    layers = [m for m in cast.modules() if isinstance(m, torch.nn.Linear)]
+    assert {m.weight.dtype for m in layers} == {torch.bfloat16} and {m.bias.dtype for m in layers} == {torch.float32}
+    assert not any(p.requires_grad for p in cast.parameters())
+    with torch.no_grad():
+        assert torch.equal(cast(xs, t), masters(xs, t))
+    assert all(isinstance(m.weight, torch.nn.Parameter) for m in layers)
+
+
+def test_cast_dense_weights_takes_in_place_updates() -> None:
+    """``load_jax_params`` into a cast model lands in the weights its forward reads: it then serves what a
+    model built from the new tree serves, and ``param_tree`` gives the new tree rounded to bf16."""
+    xs, t = torch.randn((1, 4, 8, 8), generator=torch.Generator().manual_seed(1)), torch.tensor(300.0)
+    model = tdit.cast_dense_weights(_small_dit(0), torch.bfloat16)
+    with torch.no_grad():
+        model(xs, t)
+        model.load_jax_params(_small_dit(1).param_tree())
+        assert torch.equal(model(xs, t), _small_dit(1)(xs, t))
+    tree = _small_dit(1).param_tree()
+    got = model.param_tree()
+    qkv, want = got["blocks"][0]["qkv"], tree["blocks"][0]["qkv"]
+    assert np.array_equal(qkv["w"], torch.from_numpy(want["w"]).to(torch.bfloat16).float().numpy())
+    assert np.array_equal(qkv["b"], want["b"])

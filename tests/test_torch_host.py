@@ -117,19 +117,21 @@ def test_nonlinear_sampler_raises_in_both() -> None:
 
 def test_port_imports_without_jax() -> None:
     """Import the package and every submodule in a fresh interpreter (the package walk reaches the
-    int8, Flux, conv-family, VAE, threefry and video modules too); neither jax nor skrample_tpu may load."""
+    int8, Flux, conv-family, VAE, threefry, video, MMDiT, SD3 and text-tower modules too); neither jax
+    nor skrample_tpu may load, nor ``regex`` (the card's machine has none: the tokenizers use ``re``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import skrample_tpu_torch\n"
         "for info in pkgutil.walk_packages(skrample_tpu_torch.__path__, prefix='skrample_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'skrample_tpu.')) "
-        "or m == 'skrample_tpu')\n"
+        "or m in ('skrample_tpu', 'regex'))\n"
         "assert not bad, bad\n"
         "wanted = ('ops.quant', 'ops.rope', 'models.flux', 'models.conditioning', 'ops.groupnorm', 'models.unet',\n"
         "          'models.unet_cond', 'models.sdxl', 'ops.fused_conv', 'models.vae', 'models.import_weights',\n"
         "          'prng', 'models.video_dit', 'models.video_vae', 'diffusers', 'diffusers_config',\n"
-        "          'torch_noise', 'compat', 'ops.adaptive', 'continuous', 'ops.graphs')\n"
+        "          'torch_noise', 'compat', 'ops.adaptive', 'continuous', 'ops.graphs', 'models.mmdit',\n"
+        "          'models.sd3', 'models.text_encoder', 'models.t5_encoder', 'models.tokenizers')\n"
         "assert all('skrample_tpu_torch.' + m in sys.modules for m in wanted)\n"
         "print('clean')\n"
     )

@@ -2214,3 +2214,154 @@ def test_video_vae_loss_trains_in_bf16_on_the_card(cuda: torch.device, fused: bo
     num = sum(float((a - b).double().square().sum()) for a, b in zip(card_grads, cpu_grads))
     den = sum(float(b.double().square().sum()) for b in cpu_grads)
     assert (num / den) ** 0.5 <= 5e-2
+
+
+# ---- the SD3 slice: B10 and B7 at SD3.5's shapes, C6's one-pass dense, a small MMDiT ----------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [333, 4096])
+def test_adaln_at_the_sd35_width(cuda: torch.device, dtype: torch.dtype, N: int) -> None:
+    """K3 and K6 at SD3.5-large's width, D 2432 (their C = 19 instance), at the text stream's 77 + 256
+    tokens (no multiple of 8: the card takes K3 there, ``adaln_modulate`` counts the launch) and the image
+    stream's 4096: the tolerances of the other K3 and K6 tests against the plain versions."""
+    x, g, scale = _adaln_bwd_inputs(cuda, (2, N, 2432), dtype, N)
+    shift = torch.flip(scale, dims=[1])
+    before = adaln.adaln_forward.launches
+    got = adaln.adaln_modulate(x, shift, scale)
+    assert adaln.adaln_forward.launches == before + 1
+    ref = adaln.adaln_reference(x, shift, scale)
+    rel = 1e-5 if dtype == torch.float32 else 2**-7
+    assert (got.float() - ref.float()).abs().max().item() <= rel * ref.float().abs().max().item()
+    for i, (mine, want) in enumerate(zip(adaln.adaln_backward(x, g, scale), adaln.adaln_backward_reference(x, g, scale))):
+        rel = (1e-4 if dtype == torch.float32 else 2**-7) if i == 0 else 1e-4
+        assert torch.isfinite(mine).all()
+        assert (mine.float() - want.float()).abs().max().item() <= rel * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_pairs_kernel_at_the_sd35_joint_token_count(cuda: torch.device) -> None:
+    """B10 at SD3.5's joint sequence: 4096 image + 77 CLIP + 256 T5 = 4429 tokens (not a multiple of 128:
+    the last tile is ragged), head dim 64, on the chunk(3) views of a joint qkv (4 of SD3.5-large's 38
+    heads), against the plain attention within 5e-3."""
+    gen = torch.Generator(cuda).manual_seed(17)
+    qkv = torch.randn((2, 4429, 3 * 4 * 64), generator=gen, device=cuda).to(torch.bfloat16)
+    views = qkv.chunk(3, dim=-1)
+    before = flash_attention.flash_attention_pairs_forward.launches
+    got = flash_attention.flash_attention_pairs(*views, 4)
+    assert flash_attention.flash_attention_pairs_forward.launches == before + 1
+    want = flash_attention._packed_reference(*views, 4)
+    assert torch.isfinite(got).all() and (got.float() - want.float()).abs().max().item() <= 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_with_identity_tables_is_the_rms_norm(cuda: torch.device, dtype: torch.dtype) -> None:
+    """B7 with cos 1 and sin 0 (the MMDiT's qk-norm) at head dim 64 and a ragged N: the plain RMS norm of
+    q and k (eps 1e-6, the learned gains), v untouched; within one bf16 ulp at the outputs' scale (f32:
+    1e-5 of it): the kernel sums the squares in its own order."""
+    H, N, d = 6, 333, 64
+    gen = torch.Generator(cuda).manual_seed(18)
+    qkv = (torch.randn((2, N, 3 * H * d), generator=gen, device=cuda) * 2).to(dtype)
+    gq, gk = (1 + 0.2 * torch.randn(d, generator=gen, device=cuda) for _ in range(2))
+    cos, sin = torch.ones((N, d // 2), device=cuda), torch.zeros((N, d // 2), device=cuda)
+    got = rope.rope_qk_norm_forward(qkv, gq, gk, cos, sin, H)
+    parts = qkv.view(2, N, 3, H, d).float()
+
+    def rms(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + 1e-6) * g
+
+    want = torch.stack([rms(parts[:, :, 0], gq), rms(parts[:, :, 1], gk), parts[:, :, 2]], dim=2).view(2, N, -1)
+    assert torch.equal(got[..., 2 * H * d :], qkv[..., 2 * H * d :])
+    tol = (2**-7 if dtype == torch.bfloat16 else 1e-5) * want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    ("rows", "d_in", "d_out"),
+    [(2 * 4429, 2432, 3 * 2432), (2 * 4096, 2432, 4 * 2432), (2 * 333, 4 * 2432, 2432), (2, 2432, 6 * 2432), (1024, 512, 1536)],
+)
+def test_dense_epilogue_equals_the_two_passes(cuda: torch.device, rows: int, d_in: int, d_out: int) -> None:
+    """ROADMAP C6: a served bf16 ``_dense`` with a bf16 bias is one ``addmm`` (cuBLASLt's bias epilogue)
+    and gives the bits of the two passes (the float32 sum and bias, then one rounding), at SD3.5-large's
+    qkv, MLP-in, text MLP-out and modulation shapes under CFG, and the DiT-512's qkv."""
+    from skrample_tpu_torch.models.dit import _dense, _dense_forward
+
+    gen = torch.Generator(cuda).manual_seed(rows + d_out)
+    layer = torch.nn.Linear(d_in, d_out, device=cuda, dtype=torch.bfloat16).requires_grad_(False)
+    with torch.no_grad():
+        layer.weight.copy_(torch.randn((d_out, d_in), generator=gen, device=cuda) / d_in**0.5)
+        layer.bias.copy_(torch.randn(d_out, generator=gen, device=cuda) * 0.1)
+    x = torch.randn((rows, d_in), generator=gen, device=cuda).to(torch.bfloat16)
+    assert torch.equal(_dense(layer, x, torch.bfloat16), _dense_forward(x, layer.weight, layer.bias))
+
+
+@pytest.mark.gpu
+def test_mmdit_through_the_kernels(cuda: torch.device) -> None:
+    """A small bf16 MMDiT at SD3.5-medium's structure (4 heads of 64, qk-norm, a dual attention at block
+    0, the pre-only last text stream, the cropped position table, the SD3 wiring): B10 once a joint and
+    once a dual attention (3), B7 once a qkv (5), K3 9 times; against the same forward through the plain
+    versions within 3e-2 of its largest value."""
+    from unittest import mock
+
+    from skrample_tpu_torch.models.mmdit import MMDiT, MMDiTConfig, random_param_tree
+
+    config = MMDiTConfig(dim=256, heads=4, depth=2, channels=16, context_dim=64, pooled_dim=32, pos_embed_max=24,
+                         qk_norm=True, final_txt_pre_only=True, dual_attention_layers=(0,))
+    model = MMDiT(config, device=cuda, dtype=torch.bfloat16).load_jax_params(random_param_tree(config, 21))
+    model.requires_grad_(False)
+    gen = torch.Generator(cuda).manual_seed(22)
+    x = torch.randn((2, 16, 32, 32), generator=gen, device=cuda)
+    ctx = torch.randn((2, 77, 64), generator=gen, device=cuda)
+    pooled = torch.randn((2, 32), generator=gen, device=cuda)
+    t = torch.tensor([700.0, 30.0], device=cuda)
+    counters = (flash_attention.flash_attention_pairs_forward, rope.rope_qk_norm_forward, adaln.adaln_forward)
+    with torch.inference_mode():
+        before = [fn.launches for fn in counters]
+        got = model(x, t, ctx, pooled)
+        assert [fn.launches - b for fn, b in zip(counters, before)] == [3, 5, 9]
+        with (
+            mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+            mock.patch.object(adaln, "adaln_forward", adaln.adaln_reference),
+            mock.patch.object(rope, "rope_qk_norm_forward", lambda *a, **k: rope.rope_qk_norm_reference(*a[:7])),
+        ):
+            want = model(x, t, ctx, pooled)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 3e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+def test_graph_replays_weights_loaded_after_capture(cuda: torch.device) -> None:
+    """A CUDA graph captured over a DiT whose dense weights were stored in bf16 (``cast_dense_weights``)
+    reads those weights: after ``load_jax_params`` of another tree, a replay gives, bit for bit, what an
+    eager engine over a model built from that tree gives."""
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, cast_dense_weights, random_param_tree
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    config = DiTConfig(dim=128, depth=2, heads=1, compute_dtype=torch.bfloat16, attention="flash")
+
+    def built(seed: int) -> DiT:
+        model = DiT(config, device=cuda).load_jax_params(random_param_tree(config, seed)).requires_grad_(False)
+        return cast_dense_weights(model, torch.bfloat16)
+
+    def engine(model: DiT, graph: bool) -> ServingEngine:
+        return ServingEngine(
+            model.as_sampleable(), (4, 16, 16), structured.DPM(order=2), scheduling.FlowShift(scheduling.Linear()),
+            models.FlowModel(), 4, buckets=(1,), device=cuda, graph=graph,
+        )
+
+    model = built(0)
+    with engine(model, True) as graphed:
+        graphed.generate(3)  # warm-up and capture
+        first = graphed.generate(3)
+        model.load_jax_params(random_param_tree(config, 1))
+        replayed = graphed.generate(3)
+        assert len(graphed._graphs) == 1
+    with engine(built(1), False) as eager:
+        want = eager.generate(3)
+    assert not torch.equal(first, replayed)
+    assert torch.equal(replayed, want)

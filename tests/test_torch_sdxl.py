@@ -318,9 +318,10 @@ def test_as_served_equals_as_sampleable() -> None:
         stack.as_served(None)
     with pytest.raises(ValueError, match="uncond"):
         stack.as_served(tid, 5.0)
-    for name in ("from_checkpoints", "encode_prompt"):  # pipeline: tests/test_torch_pipeline.py
-        with pytest.raises(NotImplementedError, match="later slice"):
-            getattr(stack, name)(None) if name != "from_checkpoints" else tsdxl.SDXLStack.from_checkpoints(None)
+    with pytest.raises(NotImplementedError, match="later slice"):  # pipeline: tests/test_torch_pipeline.py
+        tsdxl.SDXLStack.from_checkpoints(None)
+    with pytest.raises(ValueError, match="no CLIP-L"):  # encode_prompt: tests/test_torch_sd3.py
+        stack.encode_prompt(None)
     for name in ("decode", "encode_image"):  # a stack built without a VAE
         with pytest.raises(ValueError, match="no VAE"):
             getattr(stack, name)(x)

@@ -61,7 +61,7 @@ def _kernel_rows(d: int) -> int:
 
 def test_widths_are_the_kernel_instances() -> None:
     "The widths these tests run over are the list of ``skt_adaln_supports``."
-    assert _widths() == [128 * c for c in (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16, 18, 24)]
+    assert _widths() == [128 * c for c in (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16, 18, 19, 24)]
 
 
 @pytest.mark.parametrize("d", _widths())
