@@ -142,6 +142,18 @@ Phases, each failing the run with a non-zero exit:
     B10 37 a forward) against the plain versions; and ROADMAP C6: the one-pass dense product against the two
     passes, bit for bit, at every dense shape of phases 3, 6, 7 and 16.  Phase 2 holds B10 and B7 (identity
     tables) to their plain versions at SD3.5-large's joint shape (2, 4429, 38 x 64).
+17. A8's rest (run before phase 16, which frees phase 7's UNet): (a) a ControlNet at
+    controlnet-canny-sdxl-1.0's widths through ``diffusers_controlnet`` (a synthetic full-width state dict),
+    bf16, drawn random on the card, over phase 7's UNet: ``SDXLStack(unet, vae).pipeline(controlnet=,
+    control_image=)`` at 1024x1024, CFG 5.0, 25 steps (scale 0 bit for bit the request without one; exact
+    launches, B8 67, B10 104, B12 60 and K1 1 a step; pixels; the median of 3, a traced request; one step
+    against the plain versions); (b) the UNet's int8 scopes ``"deep"`` (B6 432 a CFG forward) and ``"all"``
+    (512), cosine > 0.99, their card times beside bf16's; (c) ``FluxStack`` at FLUX.1-dev's widths (CLIP-L,
+    the T5-XXL encoder at 512 tokens, the Flux VAE f32) from text ids to 1024x1024 pixels, served at 10
+    Euler steps over FlowShift(Linear, dynamic_shift(4096)) (A alone == A packed, ``stack.pipeline`` ==
+    the served request, bit for bit); (d) C6 at their dense shapes.  Phase 2 adds B12 at the ControlNet
+    ladder's five stride-1 shapes, and phase 12d redraws one key's normals on each side and under each
+    ATen CPU capability.
 
 Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
@@ -1050,8 +1062,10 @@ def vae_kernels(gen) -> dict[str, dict]:
     residual, at four of the SDXL VAE's fused-decode shapes (the f32 route: 3xTF32 wgmma); bf16 with the norm,
     the affine, a residual and the statistics at (1, 256, 256, 512); the video decode's finest level
     (16 frames of 512x512, 64 -> 64: the norm without affine, a residual, the statistics) and its bare
-    64 -> 3 out_conv; and bare, statistics off, the SDXL UNet's convs at (2, 64, 64, 640), (2, 128, 128,
-    320) and (2, 32, 32, 1280) (the C7 route); every bf16 shape on the wgmma route.  Times, bounds, the
+    64 -> 3 out_conv; bare, statistics off, the SDXL UNet's convs at (2, 64, 64, 640), (2, 128, 128,
+    320) and (2, 32, 32, 1280) (the C7 route), and the ControlNet ladder's five stride-1 convs, (2, 1024,
+    1024, 3) -> 16 on the mma.sync route, then 16 -> 16, (2, 512, 512, 32) -> 32, (2, 256, 256, 96) -> 96
+    and (2, 128, 128, 256) -> 320; every other bf16 shape on the wgmma route.  Times, bounds, the
     plan's shared memory, the wrapper's host time per launch; the library time is ``F.conv2d`` with its
     bias on the input normalized beforehand: the conv alone, not the norm, the residual or the
     statistics."""
@@ -1074,6 +1088,13 @@ def vae_kernels(gen) -> dict[str, dict]:
         ((2, 64, 64, 640), 640, bf16, False, False, False, False),
         ((2, 128, 128, 320), 320, bf16, False, False, False, False),
         ((2, 32, 32, 1280), 1280, bf16, False, False, False, False),
+        # the ControlNet conditioning ladder's stride-1 convs at CFG batch 2 (controlnet-canny-sdxl-1.0's
+        # (16, 32, 96, 256) ladder over a 1024x1024 control image): C = 3 on the mma.sync route, then Co 16
+        ((2, 1024, 1024, 3), 16, bf16, False, False, False, False),
+        ((2, 1024, 1024, 16), 16, bf16, False, False, False, False),
+        ((2, 512, 512, 32), 32, bf16, False, False, False, False),
+        ((2, 256, 256, 96), 96, bf16, False, False, False, False),
+        ((2, 128, 128, 256), 320, bf16, False, False, False, False),
     ]
     for shape, co, dtype, norm, affine, residual, with_stats in cases:
         N, H, W, C = shape
@@ -3284,9 +3305,41 @@ def _median_ms(run, repeats: int = PIPE_REPEATS) -> tuple[float, list[float]]:
     return statistics.median(times), times
 
 
+NOISE_REDRAWS = (200, 50)  # phase 12d's redraws of one key's normals: on the card, on the CPU
+
+
+def _cpu_capability_normals(key_seed: int) -> dict[str, bool]:
+    """Phase 12d's probe of the CPU side: the same key's normals drawn in a fresh process under each ATen CPU
+    capability this host offers, against this process's draw, bit for bit (a CPU kernel whose rounding
+    depends on the host's vector width would move the CPU's normals from host to host)."""
+    import torch
+
+    from skrample_tpu_torch import prng
+
+    want = prng.normal(prng.PRNGKey(key_seed), PIPE_SHAPE, device="cpu")
+    code = (
+        "import sys, torch; sys.path.insert(0, sys.argv[1]); from skrample_tpu_torch import prng; "
+        f"torch.save(prng.normal(prng.PRNGKey({key_seed}), {PIPE_SHAPE}, device='cpu'), sys.argv[2]); "
+        "print(torch.backends.cpu.get_cpu_capability())"
+    )
+    same = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for cap in ("default", "avx2", "avx512"):
+            path = os.path.join(tmp, f"{cap}.pt")
+            run = subprocess.run(
+                [sys.executable, "-c", code, str(ROOT), path], env={**os.environ, "ATEN_CPU_CAPABILITY": cap},
+                capture_output=True, text=True, timeout=120,
+            )
+            expect(run.returncode == 0, f"pipeline noise 12d: the {cap} probe failed: {run.stderr[-400:]}")
+            same[f"{cap} (ran {run.stdout.strip()})"] = torch.equal(torch.load(path), want)
+    return same
+
+
 def _noise_on_card_vs_cpu() -> None:
     """Phase 12d: the noise generators drawn on the card against the same seed drawn on the CPU, at
-    (1, 4, 64, 64) and steps 0, 12 and 24 of 25."""
+    (1, 4, 64, 64) and steps 0, 12 and 24 of 25.  First the same key's normals redrawn on each side and held to
+    that side's first draw, and the CPU's draw under each ATen CPU capability: a card-vs-CPU difference then
+    says which side moved (one earlier run found them 7.451e-5 apart, every other 7.153e-7)."""
     import torch
 
     from skrample_tpu_torch import noise, prng
@@ -3294,12 +3347,30 @@ def _noise_on_card_vs_cpu() -> None:
 
     dev = torch.device("cuda")
     key = prng.PRNGKey(2024)
+    card_first = prng.normal(key, PIPE_SHAPE, device=dev).cpu()
+    cpu_first = prng.normal(key, PIPE_SHAPE, device="cpu")
+    card_moved = [
+        i for i in range(NOISE_REDRAWS[0]) if not torch.equal(prng.normal(key, PIPE_SHAPE, device=dev).cpu(), card_first)
+    ]
+    cpu_moved = [
+        i for i in range(NOISE_REDRAWS[1]) if not torch.equal(prng.normal(key, PIPE_SHAPE, device="cpu"), cpu_first)
+    ]
+    capabilities = _cpu_capability_normals(2024)
+    print(
+        f"pipeline noise 12d: one key's normals redrawn {NOISE_REDRAWS[0]} times on the card and {NOISE_REDRAWS[1]} "
+        f"on the CPU (torch {torch.__version__}, CPU capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, {torch.get_num_threads()} threads): draws that differ from their "
+        f"side's first, card {card_moved}, CPU {cpu_moved}; the CPU's draw under each capability in a fresh process "
+        f"equal to this one: {capabilities}"
+    )
+    expect(not card_moved and not cpu_moved, f"pipeline noise 12d: redraws moved: card {card_moved}, CPU {cpu_moved}")
+    expect(all(capabilities.values()), f"pipeline noise 12d: the CPU's normals follow its capability: {capabilities}")
     bits_equal = torch.equal(prng.random_bits(key, PIPE_SHAPE, device=dev).cpu(), prng.random_bits(key, PIPE_SHAPE, device="cpu"))
     uniforms_equal = all(
         torch.equal(prng.uniform(key, PIPE_SHAPE, dtype, device=dev).cpu(), prng.uniform(key, PIPE_SHAPE, dtype, device="cpu"))
         for dtype in (torch.float32, torch.bfloat16, torch.float16)
     )
-    normal_err = max_err(prng.normal(key, PIPE_SHAPE, device=dev).cpu(), prng.normal(key, PIPE_SHAPE, device="cpu"))
+    normal_err = max_err(card_first, cpu_first)
     print(
         f"pipeline noise: prng bits equal {bits_equal}, uniforms (f32, bf16, f16) equal {uniforms_equal} (tolerance 0); "
         f"normals max abs err {normal_err:.3e} (tolerance 1e-5: CUDA's erfinv vs the CPU's)"
@@ -4977,7 +5048,9 @@ class _DenseShapes:
             return run()
 
 
-def _epilogue_check(shapes: set, graphed: dict | None) -> None:
+def _epilogue_check(
+    shapes: set, graphed: dict | None, label: str = "sd3 16e", over: str = "phases 3, 6, 7 and 16's models"
+) -> None:
     """16e (ROADMAP C6): at every recorded dense shape, ``torch.addmm(b, x, wᵀ)`` with the bias in the compute
     dtype (cuBLASLt's bias epilogue) against ``_dense_forward``'s two passes on the same random operands,
     bit for bit; then phase 14's graphed DiT request time and its copy kernels beside those before the repair
@@ -4998,13 +5071,13 @@ def _epilogue_check(shapes: set, graphed: dict | None) -> None:
         if not torch.equal(torch.addmm(b, x, w.t()), _dense_forward(x, w, b)):
             differ.append((rows, d_in, d_out, dtype))
     print(
-        f"sd3 16e: {len(unique)} dense shapes over phases 3, 6, 7 and 16's models; served on the epilogue route "
+        f"{label}: {len(unique)} dense shapes over {over}; served on the epilogue route "
         f"{len(routes['epilogue'])}, on the two passes {len(routes['two-pass'])} (float32 biases); the epilogue "
         f"differs from the two passes at {len(differ)} shapes: {differ}"
     )
-    print(f"sd3 16e: epilogue-route shapes (rows, d_in, d_out, dtype): {routes['epilogue']}")
-    expect(bool(routes["epilogue"]) and bool(routes["two-pass"]), f"sd3 16e: recorded no shape on a route: {routes}")
-    expect(not differ, f"sd3 16e: the epilogue route differs from the two passes at {differ}")
+    print(f"{label}: epilogue-route shapes (rows, d_in, d_out, dtype): {routes['epilogue']}")
+    expect(bool(routes["epilogue"]) and bool(routes["two-pass"]), f"{label}: recorded no shape on a route: {routes}")
+    expect(not differ, f"{label}: the epilogue route differs from the two passes at {differ}")
     if graphed:
         copies = {name: ms for name, ms in graphed["kernel_ms"].items() if "copy" in name.lower()}
         bf16_copy = sum(ms for name, ms in copies.items() if "bfloat16_copy_kernel" in name)
@@ -5313,6 +5386,475 @@ def sd3_phase(card: str, parts: dict, graphed: dict | None) -> dict[str, int]:
     return total
 
 
+# diffusers/controlnet-canny-sdxl-1.0 config.json (the fields the importer reads): SDXL base's encoder and the
+# published conditioning ladder over a 3-channel control image
+CONTROLNET_SDXL_CONFIG = {
+    "in_channels": 4, "block_out_channels": (320, 640, 1280),
+    "down_block_types": ("DownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D"), "layers_per_block": 2,
+    "transformer_layers_per_block": [1, 2, 10], "attention_head_dim": [5, 10, 20], "cross_attention_dim": 2048,
+    "norm_num_groups": 32, "addition_embed_type": "text_time", "addition_time_embed_dim": 256,
+    "projection_class_embeddings_input_dim": 2816, "flip_sin_to_cos": True, "freq_shift": 0,
+    "conditioning_channels": 3, "conditioning_embedding_out_channels": (16, 32, 96, 256),
+}
+# black-forest-labs/FLUX.1-dev vae/config.json: 16 latent channels, its scale and shift, no quant convs
+FLUX_VAE_CONFIG = {
+    **SDXL_VAE_CONFIG, "latent_channels": 16, "scaling_factor": 0.3611, "shift_factor": 0.1159, "use_quant_conv": False,
+}
+FLUX_STACK_STEPS = 10  # phase 17 cuts FLUX.1-dev's 28 steps to keep the phase within its time: the stack is new
+FLUX_T5_TOKENS = 512  # FLUX.1-dev's max_sequence_length
+TRACE_STEPS = 5  # 17a traces a request cut to 5 of its 25 steps: the profiler takes minutes over a whole one
+
+
+def _sdxl_base(parts: dict) -> tuple:
+    """Phase 7's UNet and prompt features, or, where phase 17 runs alone, the same build: SDXL base bf16 with
+    every leaf random, two prompts' features and the empty prompt's."""
+    import torch
+
+    from skrample_tpu_torch.models.unet_cond import CondUNet, CondUNetConfig
+
+    if "unet" in parts:
+        return parts["unet"], parts["contexts"], parts["uncond"]
+    dev = torch.device("cuda")
+    config = CondUNetConfig(compute_dtype=torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(0)
+    unet = CondUNet(config, device=dev, generator=gen, dtype=torch.bfloat16)
+    unet.reset_parameters(gen, noise=0.02)
+    unet.requires_grad_(False)
+    cgen = torch.Generator(dev).manual_seed(1)
+
+    def features() -> tuple:
+        return (torch.randn((77, config.context_dim), generator=cgen, device=dev),
+                torch.randn((config.pooled_dim,), generator=cgen, device=dev))
+
+    return unet, [features(), features()], features()
+
+
+def _controlnet_part(card: str, parts: dict, recorder, total: dict[str, int]) -> tuple:
+    """17a: ControlNet over SDXL base; returns the UNet, the CFG forward's inputs and its bf16 output for 17b."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from skrample_tpu_torch.models.controlnet import ControlNet
+    from skrample_tpu_torch.models.import_weights import diffusers_controlnet, vae_config
+    from skrample_tpu_torch.models.sdxl import SDXLStack
+    from skrample_tpu_torch.models.vae import VAE, fused_convs_per_decode
+    from skrample_tpu_torch.ops import flash_attention, fused_conv, groupnorm
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    # ---- the importer at full width: a synthetic diffusers-keyed state dict, then a bf16 module on the card ----
+    sys.path.insert(0, str(ROOT / "tests"))
+    from diffusers_state_dicts import unet_state_dict  # the CPU tests' synthetic state dicts, numpy only
+
+    t0 = time.perf_counter()
+    sd = unet_state_dict(CONTROLNET_SDXL_CONFIG, None, controlnet=True)  # zeros: drawn on the card after the import
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cn_config, tree = diffusers_controlnet((sd, CONTROLNET_SDXL_CONFIG))
+    import_s = time.perf_counter() - t0
+    n_keys, n_values = len(sd), sum(a.size for a in sd.values())
+    u = cn_config.unet
+    expect(
+        (u.widths, u.transformer_layers, u.heads, u.context_dim, u.pooled_dim, cn_config.cond_embed_channels)
+        == ((320, 640, 1280), (0, 2, 10), (5, 10, 20), 2048, 1280, (16, 32, 96, 256)),
+        f"controlnet 17a: the imported configuration {cn_config}",
+    )
+    cn_config = dataclasses.replace(cn_config, unet=dataclasses.replace(u, compute_dtype=bf16))
+    gen = torch.Generator(dev).manual_seed(170)
+    t0 = time.perf_counter()
+    cn = ControlNet(cn_config, device=dev, generator=gen, dtype=bf16).load_jax_params(tree)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del sd, tree
+    gc.collect()
+    cn.reset_parameters(gen, noise=0.02)  # random weights: the zero convs would otherwise make every residual 0
+    cn.requires_grad_(False)
+    n_params = sum(p.numel() for p in cn.parameters())
+    print(
+        f"controlnet 17a: diffusers_controlnet at controlnet-canny-sdxl-1.0's widths: {n_keys} state-dict keys, "
+        f"{n_values / 1e9:.3f}B values ({n_values * 4 / 2**30:.2f} GiB f32), made in {made_s:.1f} s, imported in "
+        f"{import_s:.1f} s of host time; loaded into a bf16 ControlNet on the card in {load_s:.1f} s; "
+        f"{n_params / 1e9:.3f}B parameters (the fused projections' zero biases added) drawn on the card (standard "
+        f"init + 0.02 N(0, 1))"
+    )
+
+    unet, contexts, uncond = _sdxl_base(parts)
+    vae_cfg = vae_config(SDXL_VAE_CONFIG)
+    vae = VAE(vae_cfg, device=dev, generator=gen)
+    vae.reset_parameters(gen, noise=0.02)
+    vae.requires_grad_(False)
+    stack = SDXLStack(unet, vae)
+    (ctx, pooled), tid = contexts[0], SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev)
+    igen = torch.Generator(dev).manual_seed(171)
+    image = (torch.rand((1, 3, 1024, 1024), generator=igen, device=dev) > 0.9).float()  # a canny-like edge map
+
+    def pipe(steps: int = SDXL_STEPS, **control):
+        return stack.pipeline(
+            ctx, pooled, height=1024, width=1024, steps=steps, guidance_scale=5.0, uncond=uncond, device=dev,
+            **control,
+        )
+
+    plain_pipe = pipe()
+    cn_pipe = pipe(controlnet=cn, control_image=image, control_scale=1.0)
+    zero_pipe = pipe(controlnet=cn, control_image=image, control_scale=0.0)
+    # per CFG forward: the ControlNet's B8 21 (2 a resnet: 6 down, 2 mid; 5 Transformer2D), B10 34 (2 x 2 + 2 x 10
+    # down, 10 mid), B12 22 (conv_in, 2 a resnet, the ladder's 5 stride-1 convs), beside the UNet's 46, 70 and 38
+    cn_per_forward = {"groupnorm_forward": 21, "flash_attention_pairs_forward": 34, "conv3x3_gn_silu_forward": 22}
+    unet_per_forward = {"groupnorm_forward": 46, "flash_attention_pairs_forward": 70, "conv3x3_gn_silu_forward": 38}
+    per_step = dict.fromkeys(_wrappers(), 0)
+    per_step.update({k: cn_per_forward[k] + unet_per_forward[k] for k in cn_per_forward}, fused_step_cuda=1)
+    per_decode = fused_convs_per_decode(vae_cfg)
+    want = {k: v * SDXL_STEPS for k, v in per_step.items()}
+    want["conv3x3_gn_silu_forward"] += per_decode
+    want["groupnorm_forward"] += 1
+    sgen = torch.Generator(dev).manual_seed(172)
+    x = torch.randn((1, 4, 128, 128), generator=sgen, device=dev)
+    with torch.inference_mode():
+        # warm-up: one guided ControlNet step (its dense shapes recorded for 17d), then the plain request and the
+        # request at scale 0
+        fn = stack.model_fn(ctx, pooled, tid, 5.0, uncond, controlnet=cn, control_image=image)
+        recorder(lambda: fn(x, torch.tensor(500.0, device=dev), None, None))
+        t0 = time.perf_counter()
+        plain = plain_pipe.generate(1)
+        zeroed = zero_pipe.generate(1)
+        torch.cuda.synchronize()
+        pair_s = time.perf_counter() - t0
+        same = torch.equal(zeroed, plain)
+        print(
+            f"controlnet 17a: SDXLStack.pipeline(controlnet=cn, control_scale=0.0).generate(1) vs the same request "
+            f"without a ControlNet (1024x1024, CFG 5.0, {SDXL_STEPS} steps): bit-equal {same}, relative max err "
+            f"{_relative(zeroed, plain):.3e} (the two requests in {pair_s * 1e3:.1f} ms)"
+        )
+        expect(same, f"controlnet 17a: scale 0 moves the latent by {_relative(zeroed, plain)}")
+
+        # ---- the main path: a ControlNet-guided request to pixels, the counters from 0 ----
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        t0 = time.perf_counter()
+        latent = cn_pipe.generate(1)
+        pixels = stack.decode(latent)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"controlnet 17a: launches {launches} (expected {want}: per step {per_step}, a decode B12 {per_decode} "
+              f"f32 and B8 1)")
+        print(f"controlnet 17a: attention launches by route: {_attention_routes()}")
+        expect(launches == want, f"controlnet 17a: launched {launches}, expected {want}")
+        # conv_in of the UNet and of the ControlNet (C = 4) and the ladder's conv_in (C = 3) take the mma.sync kernel
+        routes = _routes()["conv3x3_gn_silu_forward"]
+        want_routes = {"wgmma": 57 * SDXL_STEPS, "mma_sync": 3 * SDXL_STEPS, "f32": per_decode}
+        print(f"controlnet 17a: B12 launches by route {routes} (expected {want_routes})")
+        expect(routes == want_routes, f"controlnet 17a: B12 routes {routes}, expected {want_routes}")
+        for name, count in launches.items():
+            total[name] += count
+        steered = _relative(latent, plain)
+        print(
+            f"controlnet 17a: pixels {tuple(pixels.shape)} finite {bool(torch.isfinite(pixels).all())}, range "
+            f"[{pixels.min().item():.3f}, {pixels.max().item():.3f}]; the control image moves the latent by "
+            f"{steered:.3e} relative; request to pixels {first_s * 1e3:.1f} ms (the first); peak {peak / 2**30:.2f} GiB "
+            f"({card})"
+        )
+        ok = tuple(pixels.shape) == (1, 3, 1024, 1024) and bool(torch.isfinite(pixels).all())
+        expect(ok, "controlnet 17a: bad pixels")
+        expect(steered > 1e-3, f"controlnet 17a: the control image does not move the latent ({steered})")
+        times = []
+        for seed in (2, 3, 4):
+            t0 = time.perf_counter()
+            cn_pipe.generate(seed).cpu()
+            times.append(time.perf_counter() - t0)
+        median = statistics.median(times)
+        print(
+            f"controlnet 17a: request latency (a latent, {SDXL_STEPS} CFG steps of the ControlNet and the UNet), "
+            f"median {median * 1e3:.1f} ms of 3 ({', '.join(f'{v * 1e3:.1f}' for v in times)}); phase 7's request "
+            f"without one: PERF.md ({card})"
+        )
+        # the trace: a request of the same path cut to TRACE_STEPS steps (a whole one took 94 s under the profiler:
+        # 168125 launches); its busy share is read against the same cut request's untraced median
+        short = pipe(TRACE_STEPS, controlnet=cn, control_image=image, control_scale=1.0)
+        short_times = []
+        for seed in (5, 6, 7):
+            t0 = time.perf_counter()
+            short.generate(seed).cpu()
+            short_times.append(time.perf_counter() - t0)
+        _traced_dispatch(
+            lambda: short.generate(8).cpu(), f"controlnet 17a {TRACE_STEPS}-step request", statistics.median(short_times),
+            card, SDXL_GROUPS,
+        )
+
+        # ---- one CFG step through the kernels, then through the plain versions ----
+        args = (
+            torch.cat([x, x]), torch.tensor([500.0, 500.0], device=dev), torch.stack([ctx, uncond[0]]),
+            torch.stack([pooled, uncond[1]]), tid.expand(2, 6),
+        )
+        image2 = image.expand(2, -1, -1, -1)
+        _reset_counters()
+        got = unet(*args, control=cn(*args[:3], image2, *args[3:]))
+        step_counts = _counters()
+        with (
+            mock.patch.object(groupnorm, "groupnorm_forward", groupnorm.groupnorm_reference),
+            mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+            mock.patch.object(fused_conv, "conv3x3_gn_silu_forward", _plain_b12),
+        ):
+            want_out = unet(*args, control=cn(*args[:3], image2, *args[3:]))
+        torch.cuda.synchronize()
+    step_want = dict(per_step, fused_step_cuda=0)
+    expect(step_counts == step_want, f"controlnet 17a: one CFG step launched {step_counts}, expected {step_want}")
+    expect(_counters() == step_counts, f"controlnet 17a: the plain step launched kernels: {_counters()}")
+    vs_plain = _relative(got, want_out)
+    print(
+        f"controlnet 17a: one CFG step (the ControlNet, then the UNet with its residuals) through the kernels vs the "
+        f"plain versions: relative max err {vs_plain:.3e} (tolerance 5e-2)"
+    )
+    expect(bool(torch.isfinite(want_out).all()) and vs_plain <= 5e-2, f"controlnet 17a: kernels vs plain {vs_plain}")
+    return unet, args, got
+
+
+def _int8_scopes_part(card: str, unet, args: tuple, total: dict[str, int]) -> None:
+    """17b: the UNet's int8 scopes, one CFG forward each against bf16's (no ControlNet); then each forward's time
+    in turns (bf16, deep, all, three rounds), CUDA events around an eager forward."""
+    import gc
+
+    import torch
+
+    from skrample_tpu_torch.ops import quant
+
+    models = {"bf16": unet}
+    with torch.inference_mode():
+        bf16_out = unet(*args)
+        for scope, n_want in (("deep", 432), ("all", 512)):
+            t0 = time.perf_counter()
+            int8 = unet.quantize_params(scope)
+            torch.cuda.synchronize()
+            quantize_s = time.perf_counter() - t0
+            n_int8 = sum(isinstance(m, quant.Int8Dense) for m in int8.modules())
+            _reset_counters()
+            out = int8(*args)
+            torch.cuda.synchronize()
+            counts = _counters()
+            want = dict.fromkeys(_wrappers(), 0)
+            want.update(groupnorm_forward=46, flash_attention_pairs_forward=70, conv3x3_gn_silu_forward=38,
+                        quantize_rows=n_int8)
+            cosine = _cosine(out, bf16_out)
+            print(
+                f"int8 17b: quantize_params({scope!r}) in {quantize_s:.1f} s: {n_int8} int8 layers (expected "
+                f"{n_want}); one CFG forward at 1024x1024 launched B6 {counts['quantize_rows']}, cosine to bf16 "
+                f"{cosine:.6f} (> 0.99)"
+            )
+            expect(n_int8 == n_want and counts == want, f"int8 17b {scope}: {n_int8} int8 layers, launches {counts}")
+            expect(bool(torch.isfinite(out).all()) and cosine > 0.99, f"int8 17b {scope}: cosine {cosine}")
+            for name, count in counts.items():
+                total[name] += count
+            models[scope] = int8
+        times: dict[str, list[float]] = {name: [] for name in models}
+        for _ in range(3):
+            for name, model in models.items():
+                times[name].append(_events_ms(lambda m=model: m(*args), 1))
+    print(
+        "int8 17b: one CFG forward of SDXL base at 1024x1024 (CUDA events around an eager forward, in turns; median "
+        "of 3): " + ", ".join(f"{k} {statistics.median(v):.2f} ms ({', '.join(f'{x:.2f}' for x in v)})"
+                              for k, v in times.items()) + f" ({card})"
+    )
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _flux_stack_part(card: str, recorder, total: dict[str, int]) -> None:
+    "17c: FluxStack from text ids to pixels at FLUX.1-dev's widths."
+    import gc
+
+    import torch
+
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.flux import Flux, FluxConfig
+    from skrample_tpu_torch.models.flux_stack import FluxStack, dynamic_shift
+    from skrample_tpu_torch.models.import_weights import vae_config
+    from skrample_tpu_torch.models.t5_encoder import T5Encoder, T5EncoderConfig
+    from skrample_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+    from skrample_tpu_torch.models.vae import VAE, fused_convs_per_decode
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(175)
+    t0 = time.perf_counter()
+    config = FluxConfig(  # phase 6's: FLUX.1-dev transformer/config.json
+        dim=3072, heads=24, depth=19, single_depth=38, context_dim=4096, pooled_dim=768, guidance=True,
+        compute_dtype=bf16, attention="flash",
+    )
+    flux = Flux(config, device=dev, generator=gen, dtype=bf16)
+    flux.reset_parameters(gen, noise=0.02)
+    clip = TextEncoder(TextEncoderConfig(**CLIP_L_CONFIG, compute_dtype=bf16), device=dev, generator=gen, dtype=bf16)
+    with torch.no_grad():  # a CLIP without a projection: its pooled output is the EOS feature itself
+        clip.text_proj.weight.copy_(torch.eye(768, device=dev))
+        clip.text_proj.bias.zero_()
+    t5 = T5Encoder(T5EncoderConfig(**T5_XXL_CONFIG, compute_dtype=bf16), device=dev, generator=gen, dtype=bf16)
+    vae_cfg = vae_config(FLUX_VAE_CONFIG)
+    vae = VAE(vae_cfg, device=dev, generator=gen)
+    vae.reset_parameters(gen, noise=0.02)
+    for module in (flux, clip, t5, vae):
+        module.requires_grad_(False)
+    stack = FluxStack(flux, vae, clip, t5)
+    torch.cuda.synchronize()
+    counts = {name: sum(p.numel() for p in m.parameters()) for name, m in
+              (("Flux", flux), ("CLIP-L", clip), ("T5-XXL", t5), ("VAE", vae))}
+    print(
+        f"flux stack 17c: FLUX.1-dev widths drawn on the card in {time.perf_counter() - t0:.1f} s: "
+        f"{', '.join(f'{k} {v / 1e9:.3f}B' for k, v in counts.items())} parameters (bf16; the VAE f32, shift "
+        f"{vae_cfg.shift_factor}, scale {vae_cfg.scaling_factor}); {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated"
+    )
+    clip_tok, t5_tok = _synthetic_tokenizers()
+
+    def encode(prompts) -> tuple:
+        "Text to (context, pooled): CLIP-L's 77 ids padded with its EOS, T5's 512."
+        return stack.encode_prompt(clip_tok(prompts), t5_tok(prompts, length=FLUX_T5_TOKENS))
+
+    item_shape = (16, 128, 128)  # 1024x1024 through the VAE's factor 8: 4096 image tokens at patch 2
+    shift = dynamic_shift(4096)
+    per_forward = dict.fromkeys(_wrappers(), 0)
+    per_forward.update(  # phase 6's: K2 a block, K3 4 a double block + 1 a single + the final one, B7 2 + 1
+        flash_attention_qkv_forward=config.depth + config.single_depth,
+        adaln_forward=4 * config.depth + config.single_depth + 1,
+        rope_qk_norm_forward=2 * config.depth + config.single_depth,
+    )
+    per_decode = fused_convs_per_decode(vae_cfg)
+    served = stack.as_served(3.5)
+    zgen = torch.Generator(dev).manual_seed(176)
+    with torch.inference_mode():  # warm-up: the towers, both buckets' forwards (recorded for 17d), the decodes
+        warm = recorder(lambda: encode(list(SD3_PROMPTS)))
+        recorder(lambda: encode(list(SD3_PROMPTS[:1])))
+        for b in (1, 2):
+            x = torch.randn((b, *item_shape), generator=zgen, device=dev)
+            recorder(lambda b=b, x=x: served(x, torch.tensor(500.0, device=dev), None, None, (warm[0][:b], warm[1][:b])))
+            stack.decode(x)
+        torch.cuda.synchronize()
+    engine = ServingEngine(
+        served, item_shape=item_shape, sampler=structured.Euler(),
+        schedule=scheduling.FlowShift(scheduling.Linear(), shift=shift), model_transform=models.FlowModel(),
+        steps=FLUX_STACK_STEPS, dtype=torch.float32, buckets=(1, 2), conditioned=True, device=dev,
+        postprocess=stack.decode,
+    )
+    with engine:
+        # the main path: text ids to pixels, requests A and B together, then A again alone
+        torch.cuda.reset_peak_memory_stats()
+        batches_before = engine.stats.batches
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ctx, pooled = encode(list(SD3_PROMPTS))
+            torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        requests = [(1, (ctx[0], pooled[0])), (2, (ctx[1], pooled[1]))]
+        outs = [f.result().cpu() for f in [engine.submit(seed, context=c) for seed, c in requests]]
+        t0 = time.perf_counter()
+        outs.append(engine.generate(requests[0][0], context=requests[0][1]).cpu())
+        solo_s = [time.perf_counter() - t0]
+        torch.cuda.synchronize()
+        launches = _counters()
+        peak = torch.cuda.max_memory_allocated()
+        dispatches = engine.stats.batches - batches_before
+        forwards = FLUX_STACK_STEPS * dispatches
+        want = {name: n * forwards for name, n in per_forward.items()}
+        want.update(fused_step_cuda=forwards, conv3x3_gn_silu_forward=per_decode * dispatches, groupnorm_forward=dispatches)
+        print(
+            f"flux stack 17c: 2 prompts encoded (CLIP-L 77 ids, T5-XXL {FLUX_T5_TOKENS}) in {encode_s * 1e3:.1f} ms; "
+            f"3 requests in {dispatches} dispatches ({engine.stats.bucket_counts}); Euler over FlowShift(Linear, "
+            f"{shift:.4f}), {FLUX_STACK_STEPS} steps; launches {launches} (expected {want})"
+        )
+        print(f"flux stack 17c: attention launches by route: {_attention_routes()}")
+        expect(dispatches == 2 and launches == want, f"flux stack 17c: launches {launches}, expected {want}")
+        expect(_routes()["conv3x3_gn_silu_forward"]["f32"] == want["conv3x3_gn_silu_forward"],
+               f"flux stack 17c: B12 routes {_routes()['conv3x3_gn_silu_forward']}")
+        for o in outs:
+            ok = tuple(o.shape) == (3, 1024, 1024) and bool(torch.isfinite(o).all())
+            expect(ok, f"flux stack 17c: bad pixels {o.shape}")
+        same = torch.equal(outs[2], outs[0])
+        print(
+            f"flux stack 17c: pixels (3, 1024, 1024) finite, range [{outs[0].min().item():.3f}, "
+            f"{outs[0].max().item():.3f}]; request A alone == A packed, bit for bit: {same}"
+        )
+        expect(same, f"flux stack 17c: packing changes request A's pixels by {_relative(outs[2], outs[0])}")
+        for name, count in launches.items():
+            total[name] += count
+
+        with torch.inference_mode():
+            pipe = stack.pipeline(ctx[0], pooled[0], 1024, 1024, steps=FLUX_STACK_STEPS, guidance=3.5, device=dev)
+            expect(pipe.schedule.shift == shift, f"flux stack 17c: the pipeline's shift {pipe.schedule.shift}")
+            piped = stack.decode(pipe.generate(requests[0][0])).cpu()[0]
+        equal = torch.equal(piped, outs[2])
+        print(
+            f"flux stack 17c: stack.pipeline(...).generate(1) decoded vs the served request A alone (seed 1): bit-equal "
+            f"{equal}, relative max err {_relative(piped, outs[2]):.3e}"
+        )
+        expect(equal, f"flux stack 17c: the pipeline differs from the served request by {_relative(piped, outs[2])}")
+
+        for seed in (500, 501):
+            t0 = time.perf_counter()
+            engine.generate(seed, context=requests[0][1]).cpu()
+            solo_s.append(time.perf_counter() - t0)
+        solo = statistics.median(solo_s)
+        print(
+            f"flux stack 17c: request latency to pixels ({FLUX_STACK_STEPS} steps and the decode; the prompt encoded "
+            f"before), bucket 1: median {solo * 1e3:.1f} ms of {len(solo_s)} ({', '.join(f'{v * 1e3:.1f}' for v in solo_s)}); "
+            f"peak {peak / 2**30:.2f} GiB ({card})"
+        )
+        _traced_dispatch(
+            lambda: engine.generate(700, context=requests[0][1]).cpu(), "flux stack 17c bucket 1", solo, card,
+            FLUX_GROUPS[:-1] + (("B12 convs", B12_KERNELS), ("B8 groupnorm", B8_KERNELS)) + FLUX_GROUPS[-1:],
+            share="K2 flash_qkv",
+        )
+    del engine, served, stack, flux, clip, t5, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def controlnet_flux_phase(card: str, parts: dict) -> dict[str, int]:
+    """Phase 17: A8's rest.  (a) ControlNet over SDXL base: the ControlNet imported at controlnet-canny-sdxl-1.0's
+    widths by ``diffusers_controlnet`` from a synthetic state dict, loaded into bf16 on the card and drawn random;
+    ``SDXLStack(unet, vae).pipeline(controlnet=, control_image=)`` at 1024x1024, CFG 5.0, 25 steps, a 1024x1024
+    control image: scale 0 bit for bit the request without one; the scale-1 request to pixels with exact
+    launches by kernel and route (B8 67, B10 104, B12 60 a step, K1 a step), the median of 3, a traced one;
+    one CFG step against the plain versions (5e-2).  (b) The UNet's int8 scopes: ``quantize_params()`` ("deep",
+    B6 432 a CFG forward) and ``("all")`` (B6 512), cosine > 0.99 to bf16, the card time of each forward beside
+    bf16's.  (c) ``FluxStack`` at FLUX.1-dev's widths (the transformer, CLIP-L, the T5-XXL encoder at 512
+    tokens, the Flux VAE f32), random weights drawn on the card, from text ids to 1024x1024 pixels through
+    ``ServingEngine(stack.as_served(3.5), conditioned=True, postprocess=stack.decode)``, Euler over
+    FlowShift(Linear, dynamic_shift(4096)), 10 steps (FLUX.1-dev's 28 cut): 3 requests (2 together, then the
+    first alone, bit for bit its packed twin), ``stack.pipeline`` bit for bit the request alone, exact
+    launches, the median latency, a traced request.  (d) ROADMAP C6 at the dense shapes of (a)-(c): the
+    epilogue route against the two passes, bit for bit.  Returns the main paths' launches."""
+    import gc
+
+    import torch
+
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    recorder = _DenseShapes()
+    unet, args, _ = _controlnet_part(card, parts, recorder, total)
+    print(f"controlnet 17a: took {time.perf_counter() - phase_t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _int8_scopes_part(card, unet, args, total)
+    print(f"int8 17b: took {time.perf_counter() - t0:.1f} s")
+    del unet, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _flux_stack_part(card, recorder, total)
+    print(f"flux stack 17c: took {time.perf_counter() - t0:.1f} s")
+    _epilogue_check(recorder.shapes, None, "controlnet 17d", "phase 17's models (ControlNet, T5-XXL, CLIP-L, Flux)")
+    print(f"controlnet: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -5345,6 +5887,7 @@ def main() -> int:
         graphed = graphs_phase(device["card"], dit_outputs, sdxl_parts)
         extras = extras_phase(device["card"])
         graphed_dit = sdxl_parts.pop("graphed_dit", None)
+        stacks = controlnet_flux_phase(device["card"], sdxl_parts)  # before phase 16, which frees phase 7's UNet
         del dit_outputs
         sd3 = sd3_phase(device["card"], sdxl_parts, graphed_dit)
     except SmokeFailure as err:
@@ -5354,7 +5897,7 @@ def main() -> int:
     # each row's launches: its counts summed over every path's main-path run
     runs = (
         serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers, graphed,
-        extras, sd3,
+        extras, sd3, stacks,
     )
     for name, row in rows.items():
         row["launches"] = sum(run.get(name, 0) for run in runs)

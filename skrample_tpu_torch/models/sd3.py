@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from .conditioning import doubled_t, guided_mix, per_item
-from .import_weights import clip_text_encoder, diffusers_vae, sd3_mmdit, t5_encoder
+from .import_weights import _frozen, clip_text_encoder, diffusers_vae, sd3_mmdit, t5_encoder
 from .mmdit import MMDiT
 from .t5_encoder import T5Encoder
 from .text_encoder import TextEncoder
@@ -84,15 +84,12 @@ class SD3Stack:
             raise ValueError(f"CLIP projection dims sum to {pooled}, transformer expects pooled_dim {m_config.pooled_dim}")
         if t5_config is not None and t5_config.dim != m_config.context_dim:
             raise ValueError(f"T5 width {t5_config.dim} != transformer context_dim {m_config.context_dim}")
-        def frozen(module: Any, tree: dict) -> Any:
-            return module.load_jax_params(tree).requires_grad_(False)
-
         return cls(
-            mmdit=frozen(MMDiT(m_config, device=device), m_tree),
-            vae=frozen(VAE(v_config, device=device), v_tree),
-            clip_l=frozen(TextEncoder(l_config, device=device), l_tree),
-            clip_g=frozen(TextEncoder(g_config, device=device), g_tree),
-            t5=None if t5_config is None else frozen(T5Encoder(t5_config, device=device), t5_tree),
+            mmdit=_frozen(MMDiT(m_config, device=device), m_tree),
+            vae=_frozen(VAE(v_config, device=device), v_tree),
+            clip_l=_frozen(TextEncoder(l_config, device=device), l_tree),
+            clip_g=_frozen(TextEncoder(g_config, device=device), g_tree),
+            t5=None if t5_config is None else _frozen(T5Encoder(t5_config, device=device), t5_tree),
             t5_tokens=t5_tokens,
         )
 

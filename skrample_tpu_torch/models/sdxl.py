@@ -18,9 +18,12 @@ postprocess=stack.decode)`` serves requests to images, and
 :meth:`SDXLStack.encode_image` turns pixels into latents, and
 :meth:`SDXLStack.pipeline` builds a :class:`~..pipeline.GenerationPipeline`
 over the guided closure.  :meth:`SDXLStack.encode_prompt` runs the CLIP
-towers (:class:`~.text_encoder.TextEncoder`); the UNet's checkpoint
-importer belongs to a later slice of the port, so
-:meth:`SDXLStack.from_checkpoints` raises :class:`NotImplementedError`.
+towers (:class:`~.text_encoder.TextEncoder`), and
+:meth:`SDXLStack.from_checkpoints` builds the whole stack from diffusers and
+transformers state dicts.  A :class:`~.controlnet.ControlNet` given to
+:meth:`SDXLStack.model_fn` or :meth:`SDXLStack.pipeline` runs every step on
+the current latents and a pixel-resolution control image, its residuals
+added inside the UNet.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 
 from ..ops._cuda import resolve_device
 from .conditioning import doubled_t, guided_mix, per_item
-from .dit import _LATER
+from .controlnet import ControlNet
+from .import_weights import _frozen, clip_text_encoder, diffusers_unet, diffusers_vae
 from .text_encoder import TextEncoder
 from .unet_cond import CondUNet
 from .vae import VAE
@@ -57,8 +61,35 @@ class SDXLStack:
     clip_g: TextEncoder | None = None
 
     @classmethod
-    def from_checkpoints(cls, *args: Any, **kwargs: Any) -> SDXLStack:
-        raise NotImplementedError(f"importing SDXL UNet checkpoints (import_weights.py diffusers_unet) {_LATER}")
+    def from_checkpoints(
+        cls, unet: Any, vae: Any, clip_l: Any, clip_g: Any | None = None, device: str | torch.device = "cuda"
+    ) -> SDXLStack:
+        """Each argument is a model object (``.state_dict()``/``.config``) or a
+        ``(state_dict, config)`` pair already in memory, as the importers take
+        them; ``clip_g=None`` is the SD1.5 shape (one tower, no added
+        conditioning).  The widths are checked before any module is built;
+        every module is built on ``device`` (the card unless the caller asks
+        for the CPU) in float32, frozen, as :meth:`SD3Stack.from_checkpoints
+        <.sd3.SD3Stack.from_checkpoints>` builds them."""
+        u_config, u_tree = diffusers_unet(unet)
+        v_config, v_tree = diffusers_vae(vae)
+        l_config, l_tree = clip_text_encoder(clip_l)
+        g_config, g_tree = (None, None) if clip_g is None else clip_text_encoder(clip_g)
+
+        if bool(u_config.pooled_dim) != (g_config is not None):
+            raise ValueError("SDXL UNets (pooled_dim > 0) need clip_g; SD1.5 UNets take only clip_l")
+        ctx = l_config.dim + (g_config.dim if g_config else 0)
+        if ctx != u_config.context_dim:
+            raise ValueError(f"text widths sum to {ctx}, UNet expects context_dim {u_config.context_dim}")
+        if g_config is not None and g_config.proj_dim != u_config.pooled_dim:
+            raise ValueError(f"CLIP-G projection width {g_config.proj_dim} != UNet pooled_dim {u_config.pooled_dim}")
+
+        return cls(
+            unet=_frozen(CondUNet(u_config, device=device), u_tree),
+            vae=_frozen(VAE(v_config, device=device), v_tree),
+            clip_l=_frozen(TextEncoder(l_config, device=device), l_tree),
+            clip_g=None if g_config is None else _frozen(TextEncoder(g_config, device=device), g_tree),
+        )
 
     def encode_prompt(self, clip_l_ids: Any, clip_g_ids: Any | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Token ids -> ``(context, pooled)``: both towers' penultimate states
@@ -88,7 +119,7 @@ class SDXLStack:
         guidance_scale: float = 1.0,
         uncond: tuple[torch.Tensor, torch.Tensor | None] | None = None,
         batch: int = 1,
-        controlnet: Any = None,
+        controlnet: ControlNet | None = None,
         control_image: torch.Tensor | None = None,
         control_scale: float = 1.0,
         **kwargs: Any,
@@ -100,8 +131,8 @@ class SDXLStack:
         ``(batch, channels, height / f, width / f)`` with ``f`` the VAE's
         downsample factor (8, SDXL's, when the stack holds no VAE).
         ``time_ids`` default to ``time_ids((height, width), (0, 0), (height,
-        width))`` on the pipeline's device.  ``controlnet`` raises, as in
-        :meth:`model_fn`."""
+        width))`` on the pipeline's device.  ``controlnet``/``control_image``/
+        ``control_scale``: see :meth:`model_fn`."""
         from .. import scheduling
         from ..pipeline import GenerationPipeline
         from ..sampling import models, structured
@@ -164,27 +195,55 @@ class SDXLStack:
         time_ids: torch.Tensor | None = None,
         guidance_scale: float = 1.0,
         uncond: tuple[torch.Tensor, torch.Tensor | None] | None = None,
-        controlnet: Any = None,
+        controlnet: ControlNet | None = None,
         control_image: torch.Tensor | None = None,
         control_scale: float = 1.0,
     ) -> Callable[[torch.Tensor, Any, Any, Any], torch.Tensor]:
         """(x, t, sigma, alpha) -> prediction closure; CFG against the encoded
-        empty prompt ``uncond=(context, pooled)``.  A ControlNet (``controlnet=``)
-        belongs to a later slice."""
-        if controlnet is not None or control_image is not None:
-            raise NotImplementedError(f"ControlNet conditioning (controlnet.py) {_LATER}")
+        empty prompt ``uncond=(context, pooled)``.
+
+        ``controlnet`` (a :class:`~.controlnet.ControlNet` module) with
+        ``control_image`` (pixel resolution, (1 or B, channels, H, W)) runs the
+        ControlNet every step on the current latents, its residuals times
+        ``control_scale``.  Under CFG it runs once on the doubled batch with
+        ``[context, uncond]``, as the UNet does: each branch gets the
+        residuals of its own text."""
+        if (controlnet is None) != (control_image is None):
+            raise ValueError("controlnet= and control_image= go together")
         if guidance_scale != 1.0 and uncond is None:
             raise ValueError("guidance_scale != 1 needs uncond=(context, pooled): the encoded empty prompt")
-        if guidance_scale == 1.0:
-            return self.unet.as_sampleable(context, pooled, time_ids)
-        return self.unet.as_sampleable(
-            context,
-            pooled,
-            time_ids,
-            guidance_scale=guidance_scale,
-            uncond_context=uncond[0],
-            uncond_pooled=uncond[1],
-        )
+        if controlnet is None:
+            if guidance_scale == 1.0:
+                return self.unet.as_sampleable(context, pooled, time_ids)
+            return self.unet.as_sampleable(
+                context,
+                pooled,
+                time_ids,
+                guidance_scale=guidance_scale,
+                uncond_context=uncond[0],
+                uncond_pooled=uncond[1],
+            )
+        sdxl = bool(self.unet.config.pooled_dim)
+
+        def controlled_fn(x: torch.Tensor, t: Any, s: Any, a: Any) -> torch.Tensor:
+            B = x.shape[0]
+            guided = guidance_scale != 1.0
+            if guided:
+                xx, tt = torch.cat([x, x]), doubled_t(t, B)
+                ctx = torch.cat([per_item(context, B, 2), per_item(uncond[0], B, 2)])
+                pool = torch.cat([per_item(pooled, B, 1), per_item(uncond[1], B, 1)]) if sdxl else None
+                tid = torch.cat([per_item(time_ids, B, 1)] * 2) if sdxl else None
+            else:  # both models broadcast a scalar t
+                xx, tt = x, t
+                ctx = per_item(context, B, 2)
+                pool = per_item(pooled, B, 1) if sdxl else None
+                tid = per_item(time_ids, B, 1) if sdxl else None
+            img = per_item(control_image, xx.shape[0], 3)
+            control = controlnet(xx, tt, ctx, img, pool, tid, scale=control_scale)
+            out = self.unet(xx, tt, ctx, pool, tid, control=control)
+            return guided_mix(out[:B], out[B:], guidance_scale) if guided else out
+
+        return controlled_fn
 
     def as_served(
         self,

@@ -24,11 +24,16 @@ dividing 128 is kernel B9 on heads zero-padded to 128, as the JAX package
 pads them for its packed kernel.  Cross-attention (77 text tokens) and
 every other head dim stay plain PyTorch, as the JAX package leaves them to
 einsum outside any Pallas kernel.  :meth:`CondUNet.load_jax_params` carries the JAX package's tree
-across and :meth:`CondUNet.param_tree` back.
+across and :meth:`CondUNet.param_tree` back; :meth:`CondUNet.quantize_params`
+gives the int8 serving model (B6 in front of each int8 product) at the
+``"deep"`` or ``"all"`` scope.  The encoder (resnets, Transformer2D stages,
+conditioning) is shared with :class:`~.controlnet.ControlNet`.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 import math
 from collections.abc import Callable
 from dataclasses import dataclass
@@ -36,6 +41,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..ops._cuda import resolve_device
 from ..ops.flash_attention import (
@@ -45,18 +51,20 @@ from ..ops.flash_attention import (
     pairs_kernel_fits,
 )
 from ..ops.groupnorm import groupnorm_cl
+from ..ops.quant import Int8Dense, quantize_params
 from .conditioning import doubled_t, guided_mix, per_item
 from .dit import _LATER, _dense, _timestep_embedding
 from .unet import (
     _AffineSpec,
     _ConvSpec,
     _DenseSpec,
+    _conv,
+    _map,
     _random_tree,
     _to_channels_last,
     _to_nchw,
     _TreeModule,
     _upsample_nearest,
-    _conv,
 )
 
 __all__ = ["CondUNet", "CondUNetConfig", "attention_route", "random_param_tree"]
@@ -201,41 +209,21 @@ def _cond_unet_skeleton(c: CondUNetConfig) -> dict:
     return tree
 
 
-class CondUNet(_TreeModule):
-    """``CondUNet(config)(x, t, context[, pooled, time_ids, control])``:
-    (B, C, H, W) latents, a (B,) or scalar timestep, (B, L, context_dim) text
-    features [, (B, pooled_dim) pooled text, (B, time_ids) micro-conditioning]
-    -> a prediction of the latents' shape and dtype.
+class _CondEncoder(_TreeModule):
+    """What the conditional UNet and its ControlNet share: the resnets, the
+    Transformer2D stages, the time (and text_time) conditioning and the
+    encoder (conv_in, the down path, the mid block), all read from a tree of
+    :func:`_cond_unet_skeleton`'s leaves at the shape :attr:`_shape`."""
 
-    Built on ``device`` (CUDA unless the caller asks for the CPU) with
-    parameters in ``dtype`` (the norms' affines in float32) and the JAX
-    package's initialisation drawn from ``generator``: zero ``conv2``,
-    ``proj_out`` and ``conv_out``, so a fresh model outputs exactly 0;
-    :meth:`reset_parameters` with ``noise`` draws random weights."""
-
-    def __init__(
-        self,
-        config: CondUNetConfig = CondUNetConfig(),
-        device: str | torch.device = "cuda",
-        generator: torch.Generator | None = None,
-        dtype: torch.dtype = torch.float32,
-    ) -> None:
-        super().__init__()
-        c = config
-        if not (len(c.transformer_layers) == len(c.heads) == c.levels):
-            raise ValueError("widths / transformer_layers / heads must have equal lengths")
-        for w, h, k in zip(c.widths, c.heads, c.transformer_layers):
-            if k and w % h:
-                raise ValueError(f"width {w} not divisible by heads {h}")
-        self.config = c
-        self._build(_cond_unet_skeleton(c), dtype, resolve_device(device))
-        self.reset_parameters(generator)
+    @property
+    def _shape(self) -> CondUNetConfig:
+        return self.config
 
     # -- building blocks ------------------------------------------------------
 
     def _gn(self, x: torch.Tensor, p: Any, silu: bool = False) -> torch.Tensor:
         "Affine GroupNorm (eps 1e-5) + optional SiLU in one B8 pass: f32 statistics and affine, one rounding."
-        return groupnorm_cl(x, self.config.groups, fuse_silu=silu, eps=1e-5, scale=p.g, bias=p.b)
+        return groupnorm_cl(x, self._shape.groups, fuse_silu=silu, eps=1e-5, scale=p.g, bias=p.b)
 
     def _resnet(self, p: dict, x: torch.Tensor, cond: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         h = _conv(p["conv1"], self._gn(x, p["norm1"], silu=True), dtype)
@@ -302,7 +290,7 @@ class CondUNet(_TreeModule):
         dtype: torch.dtype,
     ) -> torch.Tensor:
         "silu(time embedding [+ SDXL text_time added conditioning]): what every resnet's time injection reads."
-        c = self.config
+        c = self._shape
         tree = self.tree
         if (pooled is not None) != bool(c.pooled_dim):
             raise ValueError("pooled= goes with CondUNetConfig(pooled_dim > 0), and is required there")
@@ -321,12 +309,20 @@ class CondUNet(_TreeModule):
         return F.silu(temb)
 
     def _encode(
-        self, h: torch.Tensor, cond: torch.Tensor, context: torch.Tensor, dtype: torch.dtype
+        self,
+        h: torch.Tensor,
+        cond: torch.Tensor,
+        context: torch.Tensor,
+        dtype: torch.dtype,
+        embed: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, list[torch.Tensor]]:
-        "conv_in -> down path -> mid; returns (mid output, skip stack)."
-        c = self.config
+        """conv_in [+ ``embed``, a ControlNet's control embedding, before the
+        first skip] -> down path -> mid; returns (mid output, skip stack)."""
+        c = self._shape
         tree = self.tree
         h = _conv(tree["conv_in"], h, dtype)
+        if embed is not None:
+            h = h + embed
         skips = [h]
         for i, level in enumerate(tree["down"]):
             for res, attn in zip(level["resnets"], level["attns"]):
@@ -343,6 +339,32 @@ class CondUNet(_TreeModule):
             h = self._transformer(mid["attn"], h, context, c.heads[-1], dtype)
         h = self._resnet(mid["res2"], h, cond, dtype)
         return h, skips
+
+
+class CondUNet(_CondEncoder):
+    """``CondUNet(config)(x, t, context[, pooled, time_ids, control])``:
+    (B, C, H, W) latents, a (B,) or scalar timestep, (B, L, context_dim) text
+    features [, (B, pooled_dim) pooled text, (B, time_ids) micro-conditioning]
+    -> a prediction of the latents' shape and dtype.
+
+    Built on ``device`` (CUDA unless the caller asks for the CPU) with
+    parameters in ``dtype`` (the norms' affines in float32) and the JAX
+    package's initialisation drawn from ``generator``: zero ``conv2``,
+    ``proj_out`` and ``conv_out``, so a fresh model outputs exactly 0;
+    :meth:`reset_parameters` with ``noise`` draws random weights."""
+
+    def __init__(
+        self,
+        config: CondUNetConfig = CondUNetConfig(),
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__()
+        _check_shape(config)
+        self.config = config
+        self._build(_cond_unet_skeleton(config), dtype, resolve_device(device))
+        self.reset_parameters(generator)
 
     def forward(
         self,
@@ -390,8 +412,47 @@ class CondUNet(_TreeModule):
 
     apply = forward
 
-    def quantize_params(self, *args: Any, **kwargs: Any) -> CondUNet:
-        raise NotImplementedError(f"the conditional UNet's int8 'deep' serving tree {_LATER}")
+    def quantize_params(self, scope: str = "deep") -> CondUNet:
+        """The int8 serving model, the JAX package's recipe: the dense layers
+        of the chosen Transformer2D stages as per-channel int8 with dynamic
+        per-row activation scales (kernel B6 in front of each product); the
+        convolutions (4-D weights) are untouched and the conditioning
+        pathway (``temb``, ``t_mlp1/2``, ``add_mlp1/2``) stays as it is: its
+        output feeds every resnet's time injection.  Every other parameter is
+        shared with this model.  Serving only: rounding has no gradient.
+
+        * ``"deep"`` (the default): only the stages of at least 4 basic
+          blocks (SDXL base: the 10-deep width-1280 down, mid and up stages,
+          a long conv-free run holding most of the matmul work), the mid
+          stage counted by its own depth; the conv-interleaved shallow stages
+          stay 16-bit;
+        * ``"all"``: every dense layer above the quantizer's size floor;
+        * ``"none"``: this model itself, unquantized."""
+        if scope == "none":
+            return self
+        if scope not in ("deep", "all"):
+            raise ValueError(f"scope must be 'deep', 'all', or 'none', got {scope!r}")
+        c = self.config
+        exclude = frozenset({"temb", "t_mlp1", "t_mlp2", "add_mlp1", "add_mlp2"})
+
+        def entry(leaf: Any) -> dict | None:  # a dense layer as the quantizer's {"w", "b"} entry; convs and norms None
+            return {"w": leaf.weight.detach().t(), "b": leaf.bias.detach()} if isinstance(leaf, nn.Linear) else None
+
+        dense = _map(self.tree, entry)
+        if scope == "all":
+            chosen = dense
+        else:
+            threshold = 4
+            deep = {i for i, depth in enumerate(c.transformer_layers) if depth >= threshold}
+            mid_deep = c.resolved_mid_layers >= threshold
+            chosen = {  # up level j is level len(widths) - 1 - j
+                "down": [{"attns": lvl["attns"] if i in deep else None} for i, lvl in enumerate(dense["down"])],
+                "mid": {"attn": dense["mid"]["attn"] if mid_deep else None},
+                "up": [
+                    {"attns": lvl["attns"] if c.levels - 1 - j in deep else None} for j, lvl in enumerate(dense["up"])
+                ],
+            }
+        return _int8_leaves(self, quantize_params(chosen, exclude=exclude))
 
     def param_spec(self, *args: Any, **kwargs: Any) -> dict:
         raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
@@ -432,6 +493,35 @@ class CondUNet(_TreeModule):
             return guided_mix(both[:B], both[B:], guidance_scale)
 
         return guided_fn
+
+
+def _check_shape(c: CondUNetConfig) -> None:
+    if not (len(c.transformer_layers) == len(c.heads) == c.levels):
+        raise ValueError("widths / transformer_layers / heads must have equal lengths")
+    for w, h, k in zip(c.widths, c.heads, c.transformer_layers):
+        if k and w % h:
+            raise ValueError(f"width {w} not divisible by heads {h}")
+
+
+def _int8_leaves(model: _TreeModule, quantized: dict) -> _TreeModule:
+    """A copy of ``model`` whose dense leaves that ``quantized`` (a
+    :func:`~skrample_tpu_torch.ops.quant.quantize_params` tree at the same
+    paths) holds as ``{"w_q", "b"}`` become :class:`~skrample_tpu_torch.ops.
+    quant.Int8Dense`; every other parameter is shared with ``model``."""
+    shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    clone = copy.deepcopy(model, shared)
+    slot = {id(leaf): key for key, leaf in clone.leaves.items()}
+
+    def swap(node: Any, tree: Any) -> None:
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for key, child in items:
+            if isinstance(child, dict) and "w_q" in child:
+                clone.leaves[slot[id(tree[key])]] = tree[key] = Int8Dense(child)
+            elif isinstance(child, dict | list):
+                swap(child, tree[key])
+
+    swap(quantized, clone.tree)
+    return clone
 
 
 def random_param_tree(config: CondUNetConfig, seed: int) -> dict:

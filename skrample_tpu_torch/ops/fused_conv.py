@@ -200,7 +200,8 @@ def conv3x3_plan(H: int, W: int, C: int, Co: int, dtype: torch.dtype = torch.bfl
     wrapper zero-pads it); bf16 the wgmma route at C % 8 == 0, else mma_sync.  The wgmma route takes the
     most M tiles a warpgroup can hold (4, 2, 1 at a 64-wide warpgroup tile), with the deepest weight ring (4, 3, 2
     stages) whose halo stages fit strips at least min(W, 64) wide, then the widest strips that fit
-    (balanced: every strip but the last as wide, at most 254 + 2 pixels a TMA box row).  More rows a
+    (balanced: every strip but the last as wide, at most 254 + 2 pixels a TMA box row; a balanced width
+    whose halo needs a row more than the widest's and no longer fits takes one strip more).  More rows a
     tile beat more tiles even where an item then fills a third of the card (the card measured (2, 32,
     32, 1280) at 263 us in 128-row tiles, 337 us in 64-row ones), and a wider halo beats a deeper ring
     at C = 64, where the norm's work grows with the halo (the video decode's finest level)."""
@@ -225,13 +226,17 @@ def conv3x3_plan(H: int, W: int, C: int, Co: int, dtype: torch.dtype = torch.bfl
         if not widest:
             continue
         strips = -(-W // widest)
-        strip_w = -(-W // strips)
-        wd = strip_w + 2
-        halo_rows = -(-(bm + 3 * wd + 1) // wd)
+        while True:  # balanced strips are narrower than the widest, and may need one more halo row than it
+            strip_w = -(-W // strips)
+            wd = strip_w + 2
+            halo_rows = -(-(bm + 3 * wd + 1) // wd)
+            smem = _conv3x3_smem(strip_w, halo_rows, bn, wn, b_stages)
+            if halo_rows <= 256 and smem <= _SMEM_LIMIT:
+                break
+            strips += 1
         runs = -(-(H * wd) // bm)
         return Conv3x3Plan(
-            "wgmma", strips * runs, bn, mt, split_n, strip_w, runs, halo_rows, n_tiles, b_stages,
-            _conv3x3_smem(strip_w, halo_rows, bn, wn, b_stages),
+            "wgmma", strips * runs, bn, mt, split_n, strip_w, runs, halo_rows, n_tiles, b_stages, smem
         )
     raise ValueError(f"conv3x3_plan: no wgmma geometry fits ({H}, {W}, {C}) -> {Co}")
 

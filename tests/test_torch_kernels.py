@@ -2365,3 +2365,113 @@ def test_graph_replays_weights_loaded_after_capture(cuda: torch.device) -> None:
         want = eager.generate(3)
     assert not torch.equal(first, replayed)
     assert torch.equal(replayed, want)
+
+
+# ---- the ControlNet and the conditional UNet's int8 scopes ------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    ("H", "C", "co", "route"),
+    [(1024, 3, 16, "mma_sync"), (1024, 16, 16, "wgmma"), (512, 32, 32, "wgmma"), (256, 96, 96, "wgmma"),
+     (128, 256, 320, "wgmma")],
+)
+def test_conv3x3_at_the_controlnet_ladder(cuda: torch.device, H: int, C: int, co: int, route: str) -> None:
+    """B12 bare (no norm, no statistics: ``_conv``'s call) at the ControlNet conditioning ladder's five
+    stride-1 shapes at CFG batch 2: the 3-channel control image at 1024x1024 on the mma.sync route, Co 16
+    at 1024x1024 and the narrow widths on the wgmma route; within 1e-2 of the plain version's largest
+    value, the route counted, the same bits twice, item 1 alone equal to item 1 packed."""
+    assert fused_conv.conv3x3_plan(H, H, C, co).route == route
+    x, w, b, *_ = _b12_inputs(cuda, (2, H, H, C), co, torch.bfloat16, False, False, False, H + C + co)
+    before = fused_conv.conv3x3_gn_silu_forward.routes[route]
+    out, stats = fused_conv.conv3x3_gn_silu_forward(x, w, b, out_stats=False)
+    again, _ = fused_conv.conv3x3_gn_silu_forward(x, w, b, out_stats=False)
+    alone, _ = fused_conv.conv3x3_gn_silu_forward(x[1:], w, b, out_stats=False)
+    assert fused_conv.conv3x3_gn_silu_forward.routes[route] == before + 3
+    want, _ = fused_conv.conv3x3_ref(x, w, b)
+    torch.cuda.synchronize()
+    assert stats is None and out.shape == (2, H, H, co) and torch.isfinite(out).all()
+    assert (out.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+    assert torch.equal(out, again) and torch.equal(alone, out[1:])
+
+
+@pytest.mark.gpu
+def test_controlnet_forward_through_the_kernels(cuda: torch.device) -> None:
+    """A small bf16 ControlNet (widths (64, 128), heads (1, 2): head dim 64, depths (0, 1), ladder (16,
+    32, 64): 4x the latent grid) at batch 2: B8 for every GroupNorm, B10 for every self-attention and B12
+    for every stride-1 3x3 conv of the encoder and the ladder, exactly; its residuals within 5e-2 of the
+    same forward through the plain versions; at scale 0 every residual is exactly 0."""
+    from unittest import mock
+
+    from skrample_tpu_torch.models.controlnet import ControlNet, ControlNetConfig, random_param_tree
+    from skrample_tpu_torch.models.unet_cond import CondUNetConfig
+
+    unet = CondUNetConfig(
+        widths=(64, 128), heads=(1, 2), transformer_layers=(0, 1), layers_per_block=1, context_dim=48, pooled_dim=56
+    )
+    config = ControlNetConfig(unet, cond_embed_channels=(16, 32, 64))
+    model = ControlNet(config, device=cuda, dtype=torch.bfloat16).load_jax_params(random_param_tree(config, 5))
+    gen = torch.Generator(cuda).manual_seed(6)
+    args = (
+        torch.randn((2, 4, 32, 32), generator=gen, device=cuda),
+        torch.tensor([700.0, 30.0], device=cuda),
+        torch.randn((2, 77, 48), generator=gen, device=cuda),
+        torch.randn((2, 3, 128, 128), generator=gen, device=cuda),
+        torch.randn((2, 56), generator=gen, device=cuda),
+        torch.tensor([[256.0, 256.0, 0.0, 0.0, 256.0, 256.0]] * 2, device=cuda),
+    )
+    wrappers = (groupnorm.groupnorm_forward, flash_attention.flash_attention_pairs_forward,
+                fused_conv.conv3x3_gn_silu_forward)
+    with torch.inference_mode():
+        before = [fn.launches for fn in wrappers]
+        down, mid = model(*args)
+        counts = [fn.launches - b for fn, b in zip(wrappers, before)]
+        # GroupNorms: 2 a resnet (2 down, 2 mid), 1 a Transformer2D (1 down, 1 mid); self-attentions: 1 + 1;
+        # stride-1 3x3 convs: conv_in, 2 a resnet, and the ladder's conv_in, two stride-1 blocks and conv_out
+        assert counts == [2 * 4 + 2, 2, 1 + 2 * 4 + 4]
+        zero_down, zero_mid = model(*args, scale=0.0)
+        with (
+            mock.patch.object(groupnorm, "groupnorm_forward", groupnorm.groupnorm_reference),
+            mock.patch.object(flash_attention, "flash_attention_pairs_forward", flash_attention._packed_reference),
+            mock.patch.object(fused_conv, "conv3x3_gn_silu_forward", lambda *a, out_stats=True: (fused_conv.conv3x3_ref(*a)[0], None)),
+        ):
+            want_down, want_mid = model(*args)
+    assert len(down) == 4 and all(torch.count_nonzero(r) == 0 for r in [*zero_down, zero_mid])
+    for got, want in zip([*down, mid], [*want_down, want_mid]):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max().item() <= 5e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scope", ["deep", "all"])
+def test_cond_unet_int8_scopes_launch_b6(cuda: torch.device, scope: str) -> None:
+    """A small bf16 CondUNet whose second level is 4 blocks deep (widths (128, 128), heads (2, 2): head dim
+    64) quantized at ``scope``: B6 once in front of every int8 product of a CFG-batch forward, exactly the
+    int8 layers' count; cosine > 0.99 to the bf16 forward."""
+    from skrample_tpu_torch.models.unet_cond import CondUNet, CondUNetConfig, random_param_tree
+
+    config = CondUNetConfig(
+        widths=(128, 128), heads=(2, 2), transformer_layers=(1, 4), layers_per_block=1, context_dim=128, pooled_dim=56
+    )
+    model = CondUNet(config, device=cuda, dtype=torch.bfloat16).load_jax_params(random_param_tree(config, 8))
+    int8 = model.quantize_params(scope)
+    n_int8 = sum(isinstance(m, quant.Int8Dense) for m in int8.modules())
+    # 7 products a basic block and proj_in/out a stage, over the 4-deep stages (down 1, mid, up 0's two: 16
+    # blocks); "all" adds level 0's three one-block stages
+    assert n_int8 == {"deep": 16 * 7 + 4 * 2, "all": 19 * 7 + 7 * 2}[scope]
+    gen = torch.Generator(cuda).manual_seed(9)
+    args = (
+        torch.randn((2, 4, 32, 32), generator=gen, device=cuda),
+        torch.tensor([500.0, 500.0], device=cuda),
+        torch.randn((2, 77, 128), generator=gen, device=cuda),
+        torch.randn((2, 56), generator=gen, device=cuda),
+        torch.tensor([[256.0, 256.0, 0.0, 0.0, 256.0, 256.0]] * 2, device=cuda),
+    )
+    with torch.inference_mode():
+        want = model(*args)
+        before = quant.quantize_rows.launches
+        got = int8(*args)
+        launched = quant.quantize_rows.launches - before
+    a, b = want.flatten().double(), got.flatten().double()
+    assert launched == n_int8 and torch.isfinite(got).all()
+    assert (a @ b / (a.norm() * b.norm())).item() > 0.99

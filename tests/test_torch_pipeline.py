@@ -192,7 +192,7 @@ def test_sdxl_stack_pipeline_matches_jax() -> None:
     _close(tp.generate(3), jp.generate(jax.random.PRNGKey(3)))
     with pytest.raises(ValueError, match="VAE factor"):
         stack.pipeline(torch.from_numpy(ctx), torch.from_numpy(pooled), height=60, device="cpu")
-    with pytest.raises(NotImplementedError, match="ControlNet"):
+    with pytest.raises(ValueError, match="go together"):  # a ControlNet needs its image: test_torch_controlnet.py
         stack.pipeline(torch.from_numpy(ctx), torch.from_numpy(pooled), controlnet=object(), device="cpu")
 
 

@@ -20,6 +20,7 @@ version; the JAX side's Pallas dispatches take their CPU paths.
 from __future__ import annotations
 
 import importlib
+from types import SimpleNamespace
 from unittest import mock
 
 import jax
@@ -240,8 +241,9 @@ def test_cond_unet_tree_round_trips_and_checks() -> None:
             model(x, t, ctx, pooled)
         with pytest.raises(ValueError, match="pooled"):
             model(x, t, ctx, None, tids)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.quantize_params()
+    assert model.quantize_params("none") is model  # the int8 scopes: tests/test_torch_controlnet.py
+    with pytest.raises(ValueError, match="scope"):
+        model.quantize_params("shallow")
 
 
 def test_forward_flops_match_the_jax_count() -> None:
@@ -318,15 +320,69 @@ def test_as_served_equals_as_sampleable() -> None:
         stack.as_served(None)
     with pytest.raises(ValueError, match="uncond"):
         stack.as_served(tid, 5.0)
-    with pytest.raises(NotImplementedError, match="later slice"):  # pipeline: tests/test_torch_pipeline.py
-        tsdxl.SDXLStack.from_checkpoints(None)
+    with pytest.raises(ValueError, match="need clip_g"):  # the importers: test_from_checkpoints_matches_jax
+        tsdxl.SDXLStack.from_checkpoints(*_sdxl_checkpoints()[:3], device="cpu")
     with pytest.raises(ValueError, match="no CLIP-L"):  # encode_prompt: tests/test_torch_sd3.py
         stack.encode_prompt(None)
     for name in ("decode", "encode_image"):  # a stack built without a VAE
         with pytest.raises(ValueError, match="no VAE"):
             getattr(stack, name)(x)
-    with pytest.raises(NotImplementedError, match="ControlNet"):
-        stack.model_fn(ctx[0], pooled[0], tid, controlnet=object(), control_image=x)
+    with pytest.raises(ValueError, match="go together"):  # the ControlNet: tests/test_torch_controlnet.py
+        stack.model_fn(ctx[0], pooled[0], tid, control_image=x)
+
+
+CLIP_L = {"vocab_size": 300, "hidden_size": 8, "intermediate_size": 32, "num_hidden_layers": 2,
+          "num_attention_heads": 2, "max_position_embeddings": 16, "hidden_act": "quick_gelu",
+          "layer_norm_eps": 1e-5, "eos_token_id": 299}
+CLIP_G = {**CLIP_L, "hidden_size": 16, "intermediate_size": 64, "hidden_act": "gelu", "projection_dim": 16}
+VAE_HF = {
+    "in_channels": 3, "out_channels": 3, "latent_channels": 4, "block_out_channels": (16, 32), "layers_per_block": 1,
+    "norm_num_groups": 8, "scaling_factor": 0.13025, "act_fn": "silu",
+}
+
+
+def _sdxl_checkpoints(unet: dict | None = None, clip_g: dict = CLIP_G) -> tuple:
+    "Synthetic (state dict, config) pairs: the SDXL-shaped UNet (context 8 + 16, pooled 16), VAE, CLIP-L, CLIP-G."
+    from diffusers_state_dicts import unet_state_dict
+    from test_torch_import_weights import SDXL_HF
+    from test_torch_text_encoders import clip_state_dict
+    from test_torch_vae import _diffusers_state_dict
+
+    unet = unet or SDXL_HF
+    return (
+        (unet_state_dict(unet, 20), SimpleNamespace(**unet)),
+        (_diffusers_state_dict(VAE_HF, 21), SimpleNamespace(**VAE_HF)),
+        (clip_state_dict(CLIP_L, 22, projection=False), SimpleNamespace(**CLIP_L)),
+        (clip_state_dict(clip_g, 23), SimpleNamespace(**clip_g)),
+    )
+
+
+def test_from_checkpoints_matches_jax() -> None:
+    """``SDXLStack.from_checkpoints``: the UNet, VAE and both towers' parameters equal the JAX stack's (through
+    the importers), the modules frozen; ``encode_prompt`` rtol 1e-4; the JAX width checks refuse alike."""
+    ckpt = _sdxl_checkpoints()
+    port = tsdxl.SDXLStack.from_checkpoints(*ckpt, device="cpu")
+    ref = jsdxl.SDXLStack.from_checkpoints(*ckpt)
+    for module, tree in ((port.unet, ref.unet_params), (port.vae, ref.vae_params),
+                         (port.clip_l, ref.clip_l_params), (port.clip_g, ref.clip_g_params)):
+        assert not any(p.requires_grad for p in module.parameters())
+        got = module.param_tree()
+        assert jax.tree.structure(got) == jax.tree.structure(jax.tree.map(np.asarray, tree))
+        assert all(np.array_equal(a, np.asarray(b)) for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(tree)))
+    ids = np.random.default_rng(24).integers(0, 298, (2, 16)).astype(np.int32)
+    ids[:, 10:] = 299
+    ctx, pooled = port.encode_prompt(ids, ids)
+    want_ctx, want_pooled = jax.jit(ref.encode_prompt)(jnp.asarray(ids), jnp.asarray(ids))
+    assert ctx.shape == (2, 16, 24) and pooled.shape == (2, 16)
+    for got, want in ((ctx, want_ctx), (pooled, want_pooled)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    wrong_context = _sdxl_checkpoints({**_sdxl_checkpoints()[0][1].__dict__, "cross_attention_dim": 32})
+    wrong_pooled = _sdxl_checkpoints(clip_g={**CLIP_G, "projection_dim": 8})
+    for ckpt, match in ((wrong_context, "context_dim"), (wrong_pooled, "pooled_dim")):
+        for build in (lambda: tsdxl.SDXLStack.from_checkpoints(*ckpt, device="cpu"),
+                      lambda: jsdxl.SDXLStack.from_checkpoints(*ckpt)):
+            with pytest.raises(ValueError, match=match):
+                build()
 
 
 def test_guided_serve_matches_the_jax_engine() -> None:
