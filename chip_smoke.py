@@ -154,6 +154,17 @@ Phases, each failing the run with a non-zero exit:
     the served request, bit for bit); (d) C6 at their dense shapes.  Phase 2 adds B12 at the ControlNet
     ladder's five stride-1 shapes, and phase 12d redraws one key's normals on each side and under each
     ATen CPU capability.
+18. after phase 16, every earlier model freed: (a) the text-to-image trainer
+    (``train_text_to_image``) at SD3.5-medium's widths in the native wiring
+    with a CLIP-L-width encoder: 20 joint steps of batch 4 (64x64 latents),
+    exact launches (K3 110, K6 109, B7 61 and B10 37 a step), the loss
+    falling, one step against the plain versions, a traced step; (b) on a
+    one-rank NCCL group, ``make_mesh(dp=1, sp=1)``: both engines (eager and
+    graphed) and the pipeline over phase 3's DiT-512/8, the
+    sequence-parallel VideoDiT at phase 10's widths and one ``--dp 1`` step
+    of each trainer, each bit for bit its mesh-less twin; the
+    SD3.5-medium-width MMDiT with ``"ring"`` (B11) and ``"ulysses"`` (B9)
+    against ``"flash"``.
 
 Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
@@ -5855,7 +5866,434 @@ def controlnet_flux_phase(card: str, parts: dict) -> dict[str, int]:
     return total
 
 
+# phase 18: the text-to-image trainer at SD3.5-medium's widths (native wiring, the example's) and CLIP-L's
+T2I_MEDIUM = {
+    "patch": 2, "channels": 16, "dim": 1536, "depth": 24, "heads": 24, "context_dim": 768, "context_tokens": 128,
+    "qk_norm": True, "dual_attention_layers": tuple(range(13)),
+}
+T2I_CLIP_L = {"dim": 768, "depth": 12, "heads": 12, "mlp_ratio": 4, "max_tokens": 128, "causal": True}
+T2I_BATCH, T2I_SIZE, T2I_STEPS, T2I_TIMED_FROM = 4, 64, 20, 5  # steps 5-20 give the median
+T2I_GROUPS = (
+    ("K6 adaln_bwd", ("adaln_bwd_kernel", "adaln_bwd_reduce_kernel")),
+    ("K3 adaln", ("adaln_kernel",)),
+    ("B7 rope_qk_norm", ("rope_qk_norm_kernel",)),
+    ("B10 flash_pairs", ("flash_strided_sm90_kernel",)),
+    ("B11 block_stats", ("flash_block_stats_sm90_kernel",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "gemv", "splitk", "nvjet")),
+    ("AdamW", ("multi_tensor_apply",)),
+    ("NCCL", ("nccl",)),
+)
+MESH_REQUESTS = (SEEDS[0], SEEDS[1], SEEDS[2])  # 18b: two together, then one alone
+
+
+def _t2i_per_step(config) -> dict[str, int]:
+    """Launches of one joint step: the MMDiT forward's (K3, B7, B10; the encoder runs none), K6 once for every K3
+    the loss reaches (all but the last block's text-stream MLP modulation, whose output nothing reads); B7's and
+    B10's backwards are their plain versions' gradients."""
+    per = _mmdit_per_forward(config)
+    per["adaln_backward"] = per["adaln_forward"] - 1
+    return per
+
+
+def _t2i_plain_kernels():
+    "The joint step's kernels swapped for their plain versions (K3, K6, B7, B10)."
+    from skrample_tpu_torch.ops import adaln
+
+    return (*_plain_kernels(), mock.patch.object(adaln, "adaln_backward", adaln.adaln_backward_reference))
+
+
+def _t2i_trainer_part(card: str, total: dict[str, int]) -> None:
+    """18a: the trainer at SD3.5-medium's widths in the native wiring with the CLIP-L-width encoder."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from skrample_tpu_torch import prng
+    from skrample_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+    from skrample_tpu_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+    from skrample_tpu_torch.train_text_to_image import (
+        STEP_SEED,
+        hermetic_data,
+        t2i_draws,
+        t2i_loss,
+        t2i_optimizer,
+        t2i_train_step,
+    )
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(180)
+    enc = TextEncoder(TextEncoderConfig(**T2I_CLIP_L, compute_dtype=bf16), device=dev, generator=gen)
+    m_config = MMDiTConfig(**T2I_MEDIUM, compute_dtype=bf16, attention="flash")
+    mmdit = MMDiT(m_config, device=dev, generator=gen)
+    mmdit.reset_parameters(gen, noise=0.02)  # Flux's recipe: adaLN-zero would leave most gradients 0
+    n_params = sum(p.numel() for m in (enc, mmdit) for p in m.parameters())
+    ids, images = hermetic_data(T2I_SIZE, channels=16, device=dev)
+    keys = prng.split(prng.PRNGKey(STEP_SEED), T2I_STEPS)
+    draws = [t2i_draws(key, T2I_BATCH, T2I_SIZE, 0.1, channels=16, device=dev) for key in keys]
+    per_step = _t2i_per_step(m_config)
+    print(
+        f"t2i 18a: MMDiT at SD3.5-medium's widths (native wiring, qk-norm, dual attention in blocks 0-12) + "
+        f"TextEncoder at CLIP-L's widths: {n_params / 1e9:.3f}B parameters (f32 masters, bf16 compute, no remat); batch "
+        f"{T2I_BATCH} of 16x{T2I_SIZE}x{T2I_SIZE} latents, 128 byte ids, CFG dropout 0.1, AdamW 1e-4"
+    )
+
+    # ---- one step's loss and gradients through the kernels against the plain versions (before any update) ----
+    grads, step_losses = [], []
+    params = [p for m in (enc, mmdit) for p in m.parameters()]
+    for plain in (False, True):
+        for p in params:
+            p.grad = None
+        _reset_counters()
+        with contextlib.ExitStack() as patches:
+            for patch in _t2i_plain_kernels() if plain else ():
+                patches.enter_context(patch)
+            loss = t2i_loss(enc, mmdit, ids, images, *draws[0])
+            loss.backward()
+        torch.cuda.synchronize()
+        counts = _counters()
+        want = dict.fromkeys(per_step, 0) if plain else per_step
+        expect(counts == want, f"t2i 18a: the {'plain' if plain else 'kernel'} step launched {counts}, expected {want}")
+        step_losses.append(loss.item())
+        grads.append([None if p.grad is None else p.grad.clone() for p in params])
+    for p in params:
+        p.grad = None
+    names = [f"enc.{n}" for n, _ in enc.named_parameters()] + [f"mmdit.{n}" for n, _ in mmdit.named_parameters()]
+    pairs = [(i, a, b) for i, (a, b) in enumerate(zip(*grads)) if a is not None and b is not None and b.norm() > 0]
+    rel = {i: _relative_fro(a, b) for i, a, b in pairs}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(step_losses[0] - step_losses[1]) / abs(step_losses[1])
+    print(
+        f"t2i 18a: kernels vs plain versions, one step: loss {step_losses[0]:.6f} vs {step_losses[1]:.6f}, relative "
+        f"{loss_rel:.3e} (tolerance 1e-2); grads relative Frobenius max {rel[worst]:.3e} ({names[worst]}), median "
+        f"{statistics.median(rel.values()):.3e} over {len(rel)} nonzero tensors (tolerance 5e-2, bf16)"
+    )
+    expect(loss_rel <= 1e-2, f"t2i 18a: kernel loss differs from plain by {loss_rel}")
+    expect(all(bool(torch.isfinite(a).all()) for _, a, _ in pairs), "t2i 18a: non-finite kernel-path gradient")
+    expect(rel[worst] <= 5e-2, f"t2i 18a: kernel gradient {names[worst]} differs from plain by {rel[worst]}")
+    del grads, pairs
+    gc.collect()
+
+    # ---- the main path: 20 joint steps, counters from 0 ----
+    opt = t2i_optimizer(enc, mmdit)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    times, losses = [], []
+    for step in range(T2I_STEPS):
+        t0 = time.perf_counter()
+        losses.append(t2i_train_step(enc, mmdit, opt, ids, images, draws[step]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: n * T2I_STEPS for name, n in per_step.items()}
+    print(f"t2i 18a: launches over {T2I_STEPS} steps {launches} (a step: {per_step})")
+    expect(launches == want, f"t2i 18a: launched {launches}, expected {want}")
+    for name, count in launches.items():
+        total[name] += count
+    values = torch.stack(losses).tolist()
+    first, last = statistics.fmean(values[:5]), statistics.fmean(values[-5:])
+    timed = times[T2I_TIMED_FROM - 1 :]
+    print(
+        f"t2i 18a: step time median {statistics.median(timed):.2f} ms of steps {T2I_TIMED_FROM}-{T2I_STEPS} (min "
+        f"{min(timed):.2f}, max {max(timed):.2f}; first step {times[0]:.2f}); peak device memory "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); {card}"
+    )
+    print(f"t2i 18a: loss, mean of the first 5 steps {first:.4f} -> mean of the last 5 {last:.4f} ({values})")
+    expect(all(map(math.isfinite, values)), f"t2i 18a: non-finite loss {values}")
+    expect(last < first, f"t2i 18a: the loss did not fall: {first} -> {last}")
+
+    # ---- where a step's card time goes: one traced step ----
+    median_s = statistics.median(timed) / 1e3
+    extra = t2i_draws(prng.fold_in(prng.PRNGKey(STEP_SEED), 99), T2I_BATCH, T2I_SIZE, 0.1, channels=16, device=dev)
+    traced = _traced_dispatch(
+        lambda: t2i_train_step(enc, mmdit, opt, ids, images, extra), "t2i 18a step", median_s, card, T2I_GROUPS
+    )
+    print(f"t2i 18a: {sum(traced.values())} kernel launches a traced step ({card})")
+    del enc, mmdit, opt, losses, draws, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+MESH_ROUNDS = 3  # 18b: rounds of 3 requests, the mesh-less engine and the mesh one in turns
+
+
+def _mesh_engines_part(card: str, mesh, total: dict[str, int]) -> None:
+    """18b: the engines and the pipeline over ``make_mesh(dp=1, sp=1)`` against their mesh-less twins, bit for
+    bit, over phase 3's DiT-512/8; each pair timed in turns (``MESH_ROUNDS`` rounds), the counters read over the
+    mesh engine's first round."""
+    import torch
+
+    from skrample_tpu_torch.continuous import ContinuousServingEngine
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.pipeline import build_pipeline
+    from skrample_tpu_torch.serving import ServingEngine
+
+    dev = torch.device("cuda", 0)
+    config = DiTConfig(dim=512, depth=DEPTH, heads=4, channels=4, compute_dtype=torch.bfloat16, attention="flash")
+    model = DiT(config, device=dev).load_jax_params(random_param_tree(config, seed=0)).requires_grad_(False)
+    item = (4, 64, 64)
+    per_request = dict.fromkeys(_wrappers(), 0)
+    per_request.update(
+        fused_step_cuda=STEPS, flash_attention_qkv_forward=DEPTH * STEPS, adaln_forward=(2 * DEPTH + 1) * STEPS
+    )
+
+    def batched(engine) -> list:  # two requests together, then one alone: two dispatches
+        pair = [engine.submit(s) for s in MESH_REQUESTS[:2]]
+        return [f.result() for f in pair] + [engine.generate(MESH_REQUESTS[2])]
+
+    def pooled(engine) -> list:  # three requests into the 4-slot pool at once
+        return [f.result() for f in [engine.submit(s) for s in MESH_REQUESTS]]
+
+    def in_turns(label: str, engines: dict, run, want: dict | None, requests: int = len(MESH_REQUESTS)) -> None:
+        "Warm both, then rounds in turns: bit-equal outputs, exact launches, and each side's median (ms)."
+        for engine in engines.values():
+            run(engine)  # warm-up: both buckets (the graphs' captures), the groups' first collectives
+        times: dict[bool, list[float]] = {False: [], True: []}
+        outs, counts = {}, {}
+        for _round in range(MESH_ROUNDS):
+            for meshed, engine in engines.items():
+                torch.cuda.synchronize()
+                _reset_counters()
+                t0 = time.perf_counter()
+                got = run(engine)
+                torch.cuda.synchronize()
+                times[meshed].append((time.perf_counter() - t0) * 1e3)
+                launches = _counters()
+                if meshed not in outs:
+                    outs[meshed], counts[meshed] = got, launches
+        same, err = _same(outs[True], outs[False])
+        spread = {k: f"{statistics.median(v):.1f} ms ({min(v):.1f}-{max(v):.1f})" for k, v in times.items()}
+        print(
+            f"t2i 18b: {label}: {requests} request(s), median of {MESH_ROUNDS} rounds in turns {spread[True]} "
+            f"with the mesh, "
+            f"{spread[False]} without ({card}); bit-equal {same} (max abs diff {err:.3e}); launches {counts[True]}"
+        )
+        expect(same, f"t2i 18b: {label} differs from its mesh-less twin by {err}")
+        if want is not None:
+            for meshed in (False, True):
+                got = counts[meshed]
+                expect(got == want, f"t2i 18b: {label} (mesh {meshed}) launched {got}, expected {want}")
+        else:  # the pool's tick count follows the admissions' timing: every kernel of the tick ran
+            ran = all(counts[True][n] > 0 for n in ("fused_step_cuda", "flash_attention_qkv_forward", "adaln_forward"))
+            expect(ran, f"t2i 18b: {label} launched {counts[True]}")
+        for name, count in counts[True].items():
+            total[name] += count
+
+    for graph in (False, True):
+        with contextlib.ExitStack() as stack:
+            engines = {
+                meshed: stack.enter_context(
+                    ServingEngine(
+                        model.as_sampleable(), item_shape=item, steps=STEPS, buckets=(1, 2), max_delay_ms=50.0,
+                        mesh=mesh if meshed else None, device=dev, graph=graph,
+                    )
+                )
+                for meshed in (False, True)
+            }
+            label = f"ServingEngine(mesh=dp 1, {'graphed' if graph else 'eager'}) over DiT-512/8"
+            in_turns(label, engines, batched, {name: n * 2 for name, n in per_request.items()})
+    with contextlib.ExitStack() as stack:
+        engines = {
+            meshed: stack.enter_context(
+                ContinuousServingEngine(
+                    model.as_sampleable(), item_shape=item, steps=STEPS, slots=4, mesh=mesh if meshed else None,
+                    device=dev,
+                )
+            )
+            for meshed in (False, True)
+        }
+        in_turns("ContinuousServingEngine(mesh=dp 1, 4 slots)", engines, pooled, None)
+
+    pipes = {
+        meshed: build_pipeline(model.as_sampleable(), (1, *item), steps=STEPS, mesh_axes={"x": 1} if meshed else None,
+                               device=dev)
+        for meshed in (False, True)
+    }
+    in_turns(
+        "GenerationPipeline(mesh=build_pipeline(mesh_axes={'x': 1}))", pipes, lambda p: [p.generate(MESH_REQUESTS[0])],
+        per_request, requests=1,
+    )
+
+
+def _mesh_models_part(card: str, mesh, total: dict[str, int]) -> None:
+    """18b: the sequence-parallel VideoDiT and MMDiT and one ``--dp 1`` step of each trainer on the one-rank mesh."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from skrample_tpu_torch import prng, training
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.ema import ema_init
+    from skrample_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+    from skrample_tpu_torch.models.video_dit import VideoDiT, VideoDiTConfig
+    from skrample_tpu_torch.train_text_to_image import (
+        build_models,
+        hermetic_data,
+        t2i_draws,
+        t2i_optimizer,
+        t2i_train_step,
+    )
+
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+
+    # ---- the VideoDiT at phase 10's widths, sequence_parallel over the one rank ----
+    gen = torch.Generator(dev).manual_seed(10)
+    v_cfg = VideoDiTConfig(dim=512, depth=8, heads=4, channels=16, compute_dtype=bf16, attention="flash")
+    video = VideoDiT(v_cfg, device=dev, generator=gen)
+    video.reset_parameters(gen, noise=0.02)
+    video_sp = VideoDiT(dataclasses.replace(v_cfg, sequence_parallel=True), mesh=mesh, device=dev)
+    video_sp.load_state_dict(video.state_dict())
+    x = torch.randn((1, 16, 16, 64, 64), generator=gen, device=dev)
+    with torch.inference_mode():
+        want = video(x, 500.0)
+        _reset_counters()
+        got = video_sp(x, 500.0)
+        counts = _counters()
+    same, err = _same([got], [want])
+    print(f"t2i 18b: VideoDiT(sequence_parallel=True) at phase 10's widths, 16 frames of 64x64: bit-equal {same} "
+          f"(max abs diff {err:.3e}) to the mesh-less forward; launches {counts}")
+    expect(same, f"t2i 18b: the sequence-parallel VideoDiT differs by {err}")
+    for name, count in counts.items():
+        total[name] += count
+    del video, video_sp, x, want, got
+
+    # ---- one --dp 1 step of each trainer against the same step without a mesh ----
+    config = DiTConfig(dim=512, depth=DEPTH, heads=4, channels=4, compute_dtype=bf16, attention="flash")
+    tree = random_param_tree(config, seed=0)
+    data = training.synthetic_dataset(64, dev)
+    batch = training.draw_batch(data, 4, torch.Generator(device=dev).manual_seed(1))
+    trained = []
+    for m in (None, mesh):
+        model = DiT(config, device=dev).load_jax_params(tree)
+        opt = training.make_optimizer(model)
+        _reset_counters()
+        loss = training.train_step(model, opt, ema_init(model), *batch, 0, mesh=m)
+        torch.cuda.synchronize()
+        counts = _counters()
+        if m is not None:
+            for name, count in counts.items():
+                total[name] += count
+        trained.append((loss, [p.detach().clone() for p in model.parameters()]))
+    same, err = _same([trained[1][0], *trained[1][1]], [trained[0][0], *trained[0][1]])
+    print(f"t2i 18b: training.train_step(mesh=dp 1) on DiT-512/8: loss and parameters bit-equal {same} (max abs diff "
+          f"{err:.3e}) to the mesh-less step; launches {counts}")
+    expect(same, f"t2i 18b: the dp step of the DiT trainer differs by {err}")
+    t0 = time.perf_counter()
+    rc = training.main(["--dp", "1", "--steps", "3", "--dim", "512", "--depth", "2", "--heads", "4", "--size", "32"])
+    print(f"t2i 18b: python -m skrample_tpu_torch.training --dp 1 inside the one-rank group: exit {rc} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    expect(rc == 0, f"t2i 18b: training.main --dp 1 exited {rc}")
+
+    ids, images = hermetic_data(16, device=dev)
+    draws = t2i_draws(prng.PRNGKey(2), 8, 16, 0.1, device=dev)
+    stepped = []
+    for m in (None, mesh):
+        enc, mm = build_models(128, dev)
+        _reset_counters()
+        loss = t2i_train_step(enc, mm, t2i_optimizer(enc, mm), ids, images, draws, m)
+        torch.cuda.synchronize()
+        counts = _counters()
+        if m is not None:
+            for name, count in counts.items():
+                total[name] += count
+        stepped.append([loss, *(p.detach().clone() for mod in (enc, mm) for p in mod.parameters())])
+    same, err = _same(stepped[1], stepped[0])
+    print(f"t2i 18b: t2i_train_step(mesh=dp 1) at the example's widths (dim 128): loss and parameters bit-equal "
+          f"{same} (max abs diff {err:.3e}) to the mesh-less step; launches {counts}")
+    expect(same, f"t2i 18b: the dp step of the text-to-image trainer differs by {err}")
+    del trained, stepped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the SD3.5-medium-width MMDiT with ring and ulysses against flash: one forward each ----
+    gen = torch.Generator(dev).manual_seed(181)
+    flash_config = MMDiTConfig(**T2I_MEDIUM, compute_dtype=bf16, attention="flash")
+    flash = MMDiT(flash_config, device=dev, generator=gen, dtype=bf16)
+    flash.reset_parameters(gen, noise=0.02)
+    flash.requires_grad_(False)
+    x = torch.randn((2, 16, T2I_SIZE, T2I_SIZE), generator=gen, device=dev)
+    t = torch.tensor([500.0, 20.0], device=dev)
+    ctx = torch.randn((2, 128, T2I_MEDIUM["context_dim"]), generator=gen, device=dev)
+    per_forward = _mmdit_per_forward(flash.config)
+    joint = per_forward.pop("flash_attention_pairs_forward")
+    with torch.inference_mode():
+        want = flash(x, t, ctx)
+        flash_ms = _median_step_ms(lambda _i: flash(x, t, ctx), 5)
+        print(f"t2i 18b: SD3.5-medium-width MMDiT, flash: forward at batch 2 of 16x64x64 median {flash_ms[0]:.2f} ms "
+              f"(min {flash_ms[1]:.2f}, max {flash_ms[2]:.2f}; {card})")
+        for attention, kernel in (("ring", "flash_attention_block_stats"), ("ulysses", "flash_attention_forward")):
+            sp = MMDiT(MMDiTConfig(**T2I_MEDIUM, compute_dtype=bf16, attention=attention), mesh=mesh, device=dev,
+                       generator=gen, dtype=bf16)
+            sp.load_state_dict(flash.state_dict())
+            sp.requires_grad_(False)
+            _reset_counters()
+            got = sp(x, t, ctx)
+            counts = _counters()
+            expected = {**per_forward, kernel: joint, "flash_attention_pairs_forward": 0}
+            median = _median_step_ms(lambda _i: sp(x, t, ctx), 5)
+            rel = _relative(got, want)
+            print(
+                f"t2i 18b: MMDiT attention={attention!r} on the one-rank mesh: one forward launched {counts}; against "
+                f"flash relative max err {rel:.3e} (tolerance 5e-2); median {median[0]:.2f} ms (min {median[1]:.2f}, "
+                f"max {median[2]:.2f}; {card})"
+            )
+            expect(counts == expected, f"t2i 18b: the {attention} MMDiT launched {counts}, expected {expected}")
+            expect(bool(torch.isfinite(got).all()) and rel <= 5e-2, f"t2i 18b: the {attention} MMDiT differs by {rel}")
+            for name, count in counts.items():
+                total[name] += count
+            del sp, got
+    del flash, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def t2i_parallel_phase(card: str) -> dict[str, int]:
+    """Phase 18: (a) the text-to-image trainer (``train_text_to_image.t2i_train_step``) at SD3.5-medium's widths in
+    the native wiring (MMDiT dim 1536, 24 blocks of 24 heads of 64, patch 2, 16 channels, qk-norm, dual attention in
+    blocks 0-12, 128 context tokens of 768, ``"flash"``, bf16 compute, f32 masters) with the TextEncoder at CLIP-L's
+    widths (768, 12 blocks, 12 heads, causal, the byte vocabulary): batch 4 of 64x64 latents, 20 steps of AdamW 1e-4
+    with CFG dropout 0.1; the parameter count, the step time, the peak memory, the loss falling, exact K3/K6/B7/B10
+    launches a step, one step against the plain versions, and one traced step.  (b) On a one-rank NCCL group,
+    ``make_mesh(dp=1, sp=1)``: ``ServingEngine(mesh=)`` (eager and ``graph=True``), ``ContinuousServingEngine(mesh=)``
+    and ``GenerationPipeline(mesh=)`` over phase 3's DiT-512/8, ``VideoDiT(sequence_parallel=True)`` at phase 10's
+    widths, one ``--dp 1`` step of each trainer, each bit for bit its mesh-less twin; and the SD3.5-medium-width
+    MMDiT with ``attention="ring"`` and ``"ulysses"`` against ``"flash"``."""
+    import torch
+    import torch.distributed as dist
+
+    from skrample_tpu_torch.parallel import make_mesh
+
+    phase_t0 = time.perf_counter()
+    print(f"t2i: phase starts with {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card")
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    t0 = time.perf_counter()
+    _t2i_trainer_part(card, total)
+    print(f"t2i 18a: took {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)  # the mesh's communicators take the current device
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_mesh(dp=1, sp=1)
+            _mesh_engines_part(card, mesh, total)
+            _mesh_models_part(card, mesh, total)
+        finally:
+            dist.destroy_process_group()
+    print(f"t2i 18b: took {time.perf_counter() - t0:.1f} s")
+    print(f"t2i: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
 def main() -> int:
+    import gc
+
     try:
         import torch
     except ImportError:
@@ -5890,6 +6328,11 @@ def main() -> int:
         stacks = controlnet_flux_phase(device["card"], sdxl_parts)  # before phase 16, which frees phase 7's UNet
         del dit_outputs
         sd3 = sd3_phase(device["card"], sdxl_parts, graphed_dit)
+        sdxl_parts.clear()  # every earlier phase's models freed before phase 18
+        del graphed_dit
+        gc.collect()
+        torch.cuda.empty_cache()
+        t2i = t2i_parallel_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -5897,7 +6340,7 @@ def main() -> int:
     # each row's launches: its counts summed over every path's main-path run
     runs = (
         serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers, graphed,
-        extras, sd3, stacks,
+        extras, sd3, stacks, t2i,
     )
     for name, row in rows.items():
         row["launches"] = sum(run.get(name, 0) for run in runs)

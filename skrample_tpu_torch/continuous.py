@@ -32,10 +32,23 @@ step-index vector back once a dispatch to detect completions;
 detected up to that many ticks late: a finished slot's latent is frozen by
 the mask).  ``graph=True`` captures the dispatch's ticks as one CUDA graph
 over the state, the counterpart of the JAX engine's jitted scan.
+
+**Data parallelism** (``mesh=``, a mesh with a ``dp`` axis): the slot axis
+is split over ``dp``, each rank holding and ticking its own contiguous
+slots.  The first rank of the mesh admits and releases requests (by
+submission number: every rank submits the same requests) and broadcasts
+each dispatch's admissions over a gloo group; the step-index vector is
+all-gathered over ``dp`` after each dispatch, so every rank retires the
+same slots, and the latents of a dispatch that retires any are gathered
+too.  The ranks agree over that group on each admission's outcome (a
+request that fails on one rank fails on all), and a tick or postprocess
+fault on any rank raises on every rank before the next collective, so the
+engine closes everywhere as it does on one device.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from collections.abc import Callable
@@ -51,6 +64,7 @@ from .ops import CompiledDenoiser, compile_sampler
 from .ops._cuda import resolve_device
 from .ops.graphs import CapturedGraph, leaves, map_tree
 from .sampling import models, structured
+from .serving import Inbox, MeshLink, mesh_axis_size
 
 
 @dataclass
@@ -88,8 +102,8 @@ class ContinuousServingEngine:
 
     txt2img only: a compiled table's order ramp is anchored at its start
     index, so img2img entry points belong to the batch engine (one table
-    per ``start``).  ``mesh`` (data-parallel slots) comes with a later slice
-    of the port.
+    per ``start``).  ``mesh``: the slot axis over its ``dp`` axis (see the
+    module docstring); ``slots`` must divide by ``dp``, as in the JAX package.
 
     ``graph=True`` (CUDA only) captures a dispatch's ``ticks_per_dispatch``
     ticks as one CUDA graph at the first dispatch (whose warm-up pass is that
@@ -117,8 +131,8 @@ class ContinuousServingEngine:
         batch function applied to retired latents before the future
         resolves (e.g. a VAE decode to serve pixels); here it runs per
         retired slot on a ``(1, *item)`` slice, off the tick."""
-        if mesh is not None:
-            raise NotImplementedError("data-parallel continuous serving (mesh=) comes with a later slice of the port")
+        if mesh is not None and slots % mesh_axis_size(mesh, "dp"):
+            raise ValueError(f"slots={slots} not divisible by the mesh's dp={mesh_axis_size(mesh, 'dp')}")
         if conditioned and context_like is None:
             raise ValueError("conditioned=True needs context_like= (one request's context tree)")
         if ticks_per_dispatch < 1:
@@ -134,7 +148,12 @@ class ContinuousServingEngine:
         self.conditioned = conditioned
         self.ticks_per_dispatch = ticks_per_dispatch
         self.graph = graph
+        self.mesh = mesh
         self.stats = ContinuousStats()
+        self._link = MeshLink(mesh) if mesh is not None else None
+        # this rank's slots: all of them, or its contiguous dp chunk
+        self._mine = self._link.chunk(slots) if self._link is not None else slice(0, slots)
+        self._seq = itertools.count()
 
         sampler = sampler if sampler is not None else structured.DPM(order=2)
         schedule = schedule if schedule is not None else scheduling.FlowShift(scheduling.Linear())
@@ -143,7 +162,7 @@ class ContinuousServingEngine:
             compile_sampler(sampler, schedule, transform, steps), dtype=dtype, device=self.device
         )
 
-        B, dev = slots, self.device
+        B, dev = self._mine.stop - self._mine.start, self.device
         with torch.inference_mode():
             self._x = torch.zeros((B, *self.item_shape), dtype=dtype, device=dev)
             self._ring = tuple(torch.zeros_like(self._x) for _ in range(self._denoiser.history * self._denoiser.slots))
@@ -196,7 +215,7 @@ class ContinuousServingEngine:
         with self._lock:
             if self._closed:
                 raise RuntimeError("engine is closed")
-            self._queue.put((key, context, fut))
+            self._queue.put((next(self._seq), key, context, fut))
         return fut
 
     def generate(self, key: torch.Tensor | int, context: Any = None) -> torch.Tensor:
@@ -232,7 +251,7 @@ class ContinuousServingEngine:
         captures."""
         d = self._denoiser
         steps = self.steps
-        bshape = (self.slots,) + (1,) * len(self.item_shape)
+        bshape = (x.shape[0],) + (1,) * len(self.item_shape)
         for _ in range(self.ticks_per_dispatch):
             active = n < steps
             nn = torch.clamp(n, max=steps - 1)
@@ -277,11 +296,15 @@ class ContinuousServingEngine:
     # -- worker side -----------------------------------------------------
 
     def _admit_request(self, slot: int, key: torch.Tensor, context: Any) -> None:
-        "Install one request into slot ``slot``; a context of the wrong structure or shape raises first."
+        """Install one request into (global) slot ``slot``; a context of the wrong structure or shape
+        raises first.  On a mesh, a slot of another rank's chunk installs nothing here."""
         if context is not None:
             ctx_i = map_tree(lambda leaf: torch.as_tensor(leaf, device=self.device).to(self.dtype), context)
             if map_tree(lambda t: tuple(t.shape), ctx_i) != map_tree(lambda t: tuple(t.shape[1:]), self._ctx):
                 raise ValueError("context differs from context_like in structure or shape")
+        if not self._mine.start <= slot < self._mine.stop:
+            return
+        slot -= self._mine.start
         x0, noise = self._prepare(key)
         self._x[slot].copy_(x0)
         for r in self._ring:
@@ -327,67 +350,133 @@ class ContinuousServingEngine:
     def _loop_impl(self, pending: dict[int, Future]) -> None:
         free = list(range(self.slots))
         draining = False
+        follower = self._link is not None and not self._link.is_leader
+        inbox = Inbox(self._queue) if follower else None
         # the step-index vector at the last read-back: admissions reset their
         # slot to 0, so the delta min(n, steps) - min(n_prev, steps) counts
         # exactly the steps that advanced a live trajectory
         n_prev = np.full((self.slots,), self.steps, np.int64)
-        while True:
-            # -- admit into free slots; block only when fully idle
-            while free and not draining:
-                try:
-                    item = self._queue.get_nowait() if pending else self._queue.get()
-                except queue.Empty:
-                    break
-                if item is None:
-                    draining = True
-                    break
-                key, context, fut = item
-                # a cancelled request never occupies a slot; running futures
-                # stay cancellable: mid-flight cancels free the slot below
-                if fut.cancelled():
+        try:
+            while True:
+                tried = []  # this round's admissions: (slot, future, installed here)
+                if follower:
+                    decision = self._link.decide()
+                    if decision is None:
+                        return
+                    admitted, released = decision
+                    for slot in released:
+                        pending.pop(slot).cancel()
+                        free.append(slot)
+                    for seq, slot in admitted:
+                        _seq, key, context, fut = inbox.take(seq)
+                        tried += self._admit_or_fail(slot, key, context, fut, free, pending, n_prev)
+                else:
+                    # -- admit into free slots; block only when fully idle
+                    admitted, released = [], []
+                    # a slot is tried once a round: on a mesh, another rank may hold a request there
+                    # whose install failed here until the agreement below
+                    used: set[int] = set()
+                    while not draining and any(slot not in used for slot in free):
+                        try:
+                            item = self._queue.get_nowait() if pending else self._queue.get()
+                        except queue.Empty:
+                            break
+                        if item is None:
+                            draining = True
+                            break
+                        seq, key, context, fut = item
+                        # a cancelled request never occupies a slot; running futures
+                        # stay cancellable: mid-flight cancels free the slot below
+                        if fut.cancelled():
+                            if self._link is not None:
+                                admitted.append((seq, None))
+                            continue
+                        slot = next(slot for slot in reversed(free) if slot not in used)
+                        used.add(slot)
+                        tried += self._admit_or_fail(slot, key, context, fut, free, pending, n_prev)
+                        if self._link is not None:
+                            admitted.append((seq, slot))
+                    for slot, fut in list(pending.items()):
+                        if fut.cancelled():
+                            # caller gave up: free the slot now; the masked tick keeps
+                            # computing it until reuse, and admission resets it
+                            del pending[slot]
+                            free.append(slot)
+                            released.append(slot)
+                    if not pending and draining:
+                        if self._link is not None:
+                            self._link.decide(None)
+                        return
+                    if self._link is not None:
+                        self._link.decide((admitted, released))
+                if self._link is not None and tried:
+                    # a request that failed to install on any rank fails on every rank
+                    failed = self._link.any_failed([not installed for *_, installed in tried])
+                    for (slot, fut, installed), elsewhere in zip(tried, failed):
+                        if installed and elsewhere:
+                            del pending[slot]
+                            free.append(slot)
+                            fut.set_exception(RuntimeError("the request failed on another rank of the mesh"))
+                if not pending:
                     continue
-                slot = free.pop()
-                try:
-                    self._admit_request(slot, key, context)
-                except Exception as err:  # bad context structure or shape: fail it, keep serving
-                    free.append(slot)
-                    if not fut.done():
-                        fut.set_exception(err)
-                    continue
-                pending[slot] = fut
-                n_prev[slot] = 0
-            if not pending:
-                if draining:
-                    return
-                continue
 
-            # -- one dispatch advances every live slot K steps (faults here and
-            #    at the read-back are contained by the _loop shell)
-            self._tick()
-            self.stats.ticks += 1
-            self.stats.slot_steps += self.slots * self.ticks_per_dispatch
-            self.stats.bucket_counts[len(pending)] = self.stats.bucket_counts.get(len(pending), 0) + 1
+                # -- one dispatch advances every live slot K steps (faults here and
+                #    at the read-back are contained by the _loop shell; on a mesh a
+                #    fault on any rank raises on every rank before the gathers)
+                self._everywhere(self._tick)
+                self.stats.ticks += 1
+                self.stats.slot_steps += self.slots * self.ticks_per_dispatch
+                self.stats.bucket_counts[len(pending)] = self.stats.bucket_counts.get(len(pending), 0) + 1
 
-            # -- retire finished (and mid-flight-cancelled) slots: the one
-            #    read-back of a dispatch, (slots,) int32
-            n_host = self._n.cpu().numpy().astype(np.int64)
-            self.stats.active_slot_steps += int((np.minimum(n_host, self.steps) - np.minimum(n_prev, self.steps)).sum())
-            n_prev = n_host.copy()
-            for slot, fut in list(pending.items()):
-                if fut.cancelled():
-                    # caller gave up: free the slot now; the masked tick keeps
-                    # computing it until reuse, and admission resets it
-                    del pending[slot]
-                    free.append(slot)
-                elif n_host[slot] >= self.steps:
-                    out = self._x[slot].clone()
-                    if self._postprocess is not None:
-                        out = self._postprocess(self._x[slot][None])[0]
+                # -- retire finished slots: the one read-back of a dispatch,
+                #    (slots,) int32 (all-gathered over dp on a mesh)
+                n_dev = self._n if self._link is None else self._link.gather(self._n)
+                n_host = n_dev.cpu().numpy().astype(np.int64)
+                self.stats.active_slot_steps += int(
+                    (np.minimum(n_host, self.steps) - np.minimum(n_prev, self.steps)).sum()
+                )
+                n_prev = n_host.copy()
+                done = [slot for slot in pending if n_host[slot] >= self.steps]
+                x_all = self._x if self._link is None or not done else self._link.gather(self._x)
+                if self._postprocess is not None and done:
+                    outs = self._everywhere(lambda: [self._postprocess(x_all[slot][None])[0] for slot in done])
+                else:
+                    outs = [x_all[slot].clone() for slot in done]
+                for slot, out in zip(done, outs):
+                    fut = pending.pop(slot)
                     try:
                         fut.set_result(out)
                     except Exception:  # cancelled in the race window: drop it
                         pass
-                    del pending[slot]
                     free.append(slot)
                     self.stats.completed += 1
-            self.stats.requests = self.stats.completed + len(pending)
+                self.stats.requests = self.stats.completed + len(pending)
+        finally:
+            if inbox is not None:
+                for *_, fut in inbox.drain():
+                    if not fut.done():
+                        fut.set_exception(RuntimeError("engine closed before this request was admitted"))
+
+    def _everywhere(self, step: Callable[[], Any]) -> Any:
+        "``step()``; on a mesh, raised on every rank if it raised on any (:meth:`.MeshLink.agreed`)."
+        return step() if self._link is None else self._link.agreed(step)
+
+    def _admit_or_fail(
+        self, slot: int | None, key: torch.Tensor, context: Any, fut: Future, free: list, pending: dict, n_prev
+    ) -> list[tuple[int, Future, bool]]:
+        """Admit a request into free slot ``slot`` (None: cancelled on the leader); a bad context or a
+        failed install fails its future and keeps serving.  Every rank admits the same requests into
+        the same slots.  Returns ``[(slot, fut, installed)]``, or ``[]`` for a cancelled request."""
+        if slot is None:
+            fut.cancel()
+            return []
+        try:
+            self._admit_request(slot, key, context)
+        except Exception as err:  # bad context structure or shape: fail it, keep serving
+            if not fut.done():
+                fut.set_exception(err)
+            return [(slot, fut, False)]
+        free.remove(slot)
+        pending[slot] = fut
+        n_prev[slot] = 0
+        return [(slot, fut, True)]

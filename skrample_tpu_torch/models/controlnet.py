@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops._cuda import resolve_device
-from .dit import _LATER
+from .dit import _TP_LATER
 from .unet import _conv, _ConvSpec, _random_tree, _to_channels_last, _to_nchw
 from .unet_cond import CondUNetConfig, _check_shape, _cond_unet_skeleton, _CondEncoder
 
@@ -139,7 +139,7 @@ class ControlNet(_CondEncoder):
     apply = forward
 
     def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
+        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
 
 
 def random_param_tree(config: ControlNetConfig, seed: int) -> dict:

@@ -15,11 +15,12 @@ backward as the JAX package's does.
 :meth:`DiT.quantize_params` gives the int8 serving model (``ops/quant.py``).
 The sequence-parallel attentions (``"ring"``, ``"ulysses"``) run over the
 ``sp`` dim of a :class:`~torch.distributed.device_mesh.DeviceMesh`
-(``parallel/``): each rank holds its token shard of the residual stream.
-Data-parallel meshes, a mesh given to the ``"full"`` or ``"flash"``
-attention, tensor-parallel specs, pipelined apply and a gradient through
-the sequence-parallel attentions belong to later slices of the port and
-raise :class:`NotImplementedError` here.
+(``parallel/``): each rank holds its token shard of the residual stream,
+and on a ``dp`` x ``sp`` mesh its ``dp`` chunk of the batch.  A mesh given
+to the ``"full"`` or ``"flash"`` attention (tensor parallelism, ROADMAP
+A5.3), tensor-parallel specs (A5.3), pipelined apply (A5.4) and a gradient
+through the sequence-parallel attentions (A5.7) belong to later slices of
+the port and raise :class:`NotImplementedError` here.
 """
 
 from __future__ import annotations
@@ -47,11 +48,13 @@ from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import flash_attention, flash_attention_qkv
 from ..ops.quant import Int8Dense, dense_int8, quantize_params
-from ..parallel import batch_axis_of, gather
+from ..parallel import gather
 from ..parallel.ring_attention import axis_group, ring_attention
 from ..parallel.ulysses import ulysses_attention
 
 _LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
+_TP_LATER = "comes with a later slice of the port (ROADMAP.md A5.3)"
+_PIPELINE_LATER = "comes with a later slice of the port (ROADMAP.md A5.4)"
 
 
 @dataclass(frozen=True)
@@ -289,9 +292,13 @@ class DiT(nn.Module):
 
     With ``attention="ring"`` or ``"ulysses"``, ``mesh`` is a
     :class:`~torch.distributed.device_mesh.DeviceMesh` with the config's
-    ``sp_axis`` (and a ``"dp"`` dim of size 1, if any): every rank of the
-    axis calls the forward on the same whole input and gets the whole
-    output, and in between holds only its contiguous range of the tokens.
+    ``sp_axis``: every rank of the axis calls the forward on the same input
+    and gets the same whole output, and in between holds only its contiguous
+    range of the tokens.  On a mesh with a ``"dp"`` dim the input is this
+    rank's ``dp`` chunk of the batch (``parallel.shard_batch``; the batch
+    splits over ``dp`` first, as the JAX package's ``batch_axis_of`` puts it
+    on the batch dim), and the tokens split over this rank's own ``sp``
+    sub-group.
 
     Built on ``device`` (CUDA unless the caller asks for the CPU) with the
     JAX package's initialisation drawn from ``generator`` (a CPU generator;
@@ -315,11 +322,10 @@ class DiT(nn.Module):
                     f"DiTConfig(attention={config.attention!r}) needs DiT(config, mesh=...) with the sp axis"
                 )
             axis_group(mesh, config.sp_axis)  # raises on a mesh without the axis
-            if batch_axis_of(mesh) is not None:
-                raise NotImplementedError(f"a data-parallel mesh (dp > 1) {_LATER}")
         elif mesh is not None:
             raise NotImplementedError(
-                f"DiT(mesh=...) with attention={config.attention!r} (data or tensor parallelism) {_LATER}"
+                f"DiT(mesh=...) with attention={config.attention!r} (tensor parallelism; data parallelism is "
+                f"the caller's: shard the batch, parallel.shard_batch) {_TP_LATER}"
             )
         if config.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {config.remat!r}")
@@ -457,7 +463,7 @@ class DiT(nn.Module):
     apply = forward
 
     def apply_pipelined(self, *args: Any, **kwargs: Any) -> torch.Tensor:
-        raise NotImplementedError(f"pipeline-parallel apply {_LATER}")
+        raise NotImplementedError(f"pipeline-parallel apply {_PIPELINE_LATER}")
 
     def quantize_params(self) -> DiT:
         """The int8 serving model: the block qkv/proj/mlp weights as
@@ -469,7 +475,7 @@ class DiT(nn.Module):
         return _int8_copy(self, frozenset({"ada", "final_mod", "t_mlp1", "t_mlp2"}))
 
     def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
+        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
 
     def as_sampleable(self) -> Callable[[torch.Tensor, Any, Any, Any], torch.Tensor]:
         "Adapter to the sampling closure signature (x, t, sigma, alpha) -> pred."

@@ -51,7 +51,7 @@ from ..ops.flash_attention import _qkv_reference, flash_attention_pairs, flash_a
 from ..ops.rope import fused_rope_qk_norm
 from . import _tree
 from .conditioning import per_item
-from .dit import _DOTS_CONTEXT, _LATER, _dense, _int8_copy, _timestep_embedding
+from .dit import _DOTS_CONTEXT, _TP_LATER, _dense, _int8_copy, _timestep_embedding
 
 _ZERO_INIT = frozenset({"ada", "final_mod", "final_out"})
 _GAINS = ("q_norm", "k_norm")
@@ -240,7 +240,7 @@ class Flux(nn.Module):
         if c.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {c.remat!r}")
         if mesh is not None:
-            raise NotImplementedError(f"tensor-parallel Flux (mesh=) {_LATER}")
+            raise NotImplementedError(f"tensor-parallel Flux (mesh=) {_TP_LATER}")
         self.config = c
         self.x_in = _linear(c.packed_width, c.dim, dtype)
         self.ctx_in = _linear(c.context_dim, c.dim, dtype)
@@ -325,7 +325,7 @@ class Flux(nn.Module):
         return _int8_copy(self, exclude)
 
     def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
+        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
 
     # -- patch packing (the diffusers pipeline's host-side pack) --------------
 

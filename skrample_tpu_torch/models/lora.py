@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from .. import prng
+from ..ops._cuda import resolve_device
 
 __all__ = [
     "JaxLeaf",
@@ -152,9 +153,11 @@ def lora_param_count(adapters: Mapping[str, Mapping[str, torch.Tensor]]) -> int:
 
 
 def lora_from_numpy(
-    adapters: Mapping[str, Mapping[str, Any]], device: str | torch.device = "cpu", dtype: torch.dtype | None = None
+    adapters: Mapping[str, Mapping[str, Any]], device: str | torch.device = "cuda", dtype: torch.dtype | None = None
 ) -> dict[str, dict[str, torch.Tensor]]:
-    "A JAX adapter dict (numpy or jax arrays) as the port's: the same paths and layout, trainable tensors."
+    """A JAX adapter dict (numpy or jax arrays) as the port's: the same paths and layout, trainable tensors
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     out = {}
     for path, ab in adapters.items():
         out[path] = {}

@@ -25,8 +25,20 @@ the context's mean, a learned null context padding or truncating to
 :meth:`MMDiT.load_jax_params` carries the JAX package's tree across and
 :meth:`MMDiT.param_tree` carries it back.  Dense layers live in the
 ``dtype`` the model is built in; RMS gains, ``ctx_null`` and ``pos_embed``
-stay float32.  Sequence parallelism (``"ring"``/``"ulysses"``), tensor
-parallel specs and the pipelined apply belong to a later slice.
+stay float32.
+
+Sequence parallelism (``attention="ring"|"ulysses"``, ``mesh=``) keeps both
+residual streams token-sharded over the mesh's ``sp`` axis from the
+embedding to the final layer, as the JAX package does: each rank holds its
+contiguous range of the image tokens (and their position-table rows) and
+of the text tokens, every dense layer and B7's qk-norm (identity tables of
+its own rows) run on the shard, the joint attention is
+:func:`~skrample_tpu_torch.parallel.joint_sp_attention` over the two
+streams in the ``[image, text]`` order, a dual attention the same scheme
+over the image stream alone, and the final layer's output is all-gathered.
+On a ``dp`` x ``sp`` mesh the input is the rank's ``dp`` chunk of the batch,
+as for the DiT.  Tensor-parallel specs (ROADMAP A5.3) and the pipelined
+apply (A5.4) belong to later slices.
 """
 
 from __future__ import annotations
@@ -46,9 +58,12 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.rope import fused_rope_qk_norm
+from ..parallel import gather, joint_sp_attention
+from ..parallel.ring_attention import axis_group, ring_attention
+from ..parallel.ulysses import ulysses_attention
 from . import _tree
 from .conditioning import doubled_t, guided_mix, per_item
-from .dit import _DOTS_CONTEXT, _LATER, _dense, _int8_copy, _timestep_embedding
+from .dit import _DOTS_CONTEXT, _PIPELINE_LATER, _TP_LATER, _dense, _int8_copy, _timestep_embedding
 from .flux import _FLASH_HEAD_DIMS, _attention, _gain, _gelu, _linear
 
 _ZERO_INIT = frozenset({"ada", "final_mod", "final_out"})
@@ -70,8 +85,10 @@ class MMDiTConfig:
     compute_dtype: torch.dtype = torch.bfloat16
     attention: str = "flash"
     """``"flash"`` (B10 at head dim 64, K2 at 128; other head dims are
-    refused: use ``"full"``) or ``"full"`` (plain attention, any head dim).
-    ``"ring"`` and ``"ulysses"`` come with a later slice."""
+    refused: use ``"full"``), ``"full"`` (plain attention, any head dim), or
+    the sequence-parallel ``"ring"`` (B11 a hop) and ``"ulysses"`` (B9 on
+    each rank's head shard), which need ``MMDiT(config, mesh=...)`` with the
+    ``sp_axis`` and serve (a gradient through them raises)."""
     sp_axis: str = "sp"
     remat: bool | str = False
     "Recompute each block's activations in the backward: ``True`` or ``\"dots\"`` (as the DiT)."
@@ -136,9 +153,10 @@ class _MMStream(nn.Module):
 class _MMBlock(nn.Module):
     "One dual-stream block: per-stream adaLN-zero, one joint attention over [image, text]."
 
-    def __init__(self, c: MMDiTConfig, dtype: torch.dtype, index: int) -> None:
+    def __init__(self, c: MMDiTConfig, dtype: torch.dtype, index: int, mesh: Any = None) -> None:
         super().__init__()
         self.config = c
+        self.mesh = mesh
         self.dual = index in c.dual_attention_layers
         self.txt_pre_only = c.final_txt_pre_only and index == c.depth - 1
         self.img = _MMStream(c, dtype, 9 if self.dual else 6)
@@ -148,6 +166,16 @@ class _MMBlock(nn.Module):
         "The qk RMS norm (kernel B7 with identity tables), in place where no gradient is wanted."
         cos, sin = tables(qkv.shape[1])
         return fused_rope_qk_norm(qkv, q_gain, k_gain, cos, sin, self.config.heads, _QK_EPS)
+
+    def _self_attention(self, qkv: torch.Tensor) -> torch.Tensor:
+        "The dual attention over the image stream: on a mesh, the sequence-parallel scheme over its shards."
+        c = self.config
+        if self.mesh is None:
+            return _attention(qkv, c)
+        B, n, _ = qkv.shape
+        q, k, v = (part.reshape(B, n, c.heads, c.head_dim).transpose(1, 2) for part in qkv.chunk(3, dim=-1))
+        attend = ring_attention if c.attention == "ring" else ulysses_attention
+        return attend(q, k, v, self.mesh, c.sp_axis).transpose(1, 2).reshape(B, n, c.dim)
 
     def forward(
         self, img: torch.Tensor, txt: torch.Tensor, cond: torch.Tensor, tables: Callable
@@ -171,17 +199,21 @@ class _MMBlock(nn.Module):
             qkv2 = dense(self.img.qkv2, adaln_modulate(img, si_a2, ci_a2))
             if c.qk_norm:
                 qkv2 = self._norm(qkv2, self.img.q_norm2, self.img.k_norm2, tables)
-        N = img.shape[1]
-        out = _attention(torch.cat([qkv_img, qkv_txt], dim=1), c)
-        img = img + gi_a[:, None] * dense(self.img.proj, out[:, :N])
+        if self.mesh is not None:
+            out_img, out_txt = joint_sp_attention(qkv_img, qkv_txt, c.heads, self.mesh, c.sp_axis, c.attention)
+        else:
+            N = img.shape[1]
+            out = _attention(torch.cat([qkv_img, qkv_txt], dim=1), c)
+            out_img, out_txt = out[:, :N], out[:, N:]
+        img = img + gi_a[:, None] * dense(self.img.proj, out_img)
         if self.dual:
-            img = img + gi_a2[:, None] * dense(self.img.proj2, _attention(qkv2, c))
+            img = img + gi_a2[:, None] * dense(self.img.proj2, self._self_attention(qkv2))
 
         h = adaln_modulate(img, si_m, ci_m)
         img = img + gi_m[:, None] * dense(self.img.mlp_out, _gelu(dense(self.img.mlp_in, h)))
         if self.txt_pre_only:
             return img, txt
-        txt = txt + gt_a[:, None] * dense(self.txt.proj, out[:, N:])
+        txt = txt + gt_a[:, None] * dense(self.txt.proj, out_txt)
         h = adaln_modulate(txt, st_m, ct_m)
         txt = txt + gt_m[:, None] * dense(self.txt.mlp_out, _gelu(dense(self.txt.mlp_in, h)))
         return img, txt
@@ -210,8 +242,16 @@ class MMDiT(nn.Module):
         c = config
         if c.attention not in ("full", "flash", "ring", "ulysses"):
             raise ValueError(f"unknown attention kind {c.attention!r}")
-        if c.attention in ("ring", "ulysses") or mesh is not None:
-            raise NotImplementedError(f"sequence-parallel MMDiT (attention={c.attention!r}, mesh=) {_LATER}")
+        if c.attention in ("ring", "ulysses"):
+            if mesh is None:
+                raise ValueError(
+                    f"MMDiTConfig(attention={c.attention!r}) needs MMDiT(config, mesh=...) with the sp axis"
+                )
+            axis_group(mesh, c.sp_axis)  # raises on a mesh without the axis
+        elif mesh is not None:
+            raise NotImplementedError(
+                f"MMDiT(mesh=...) with attention={c.attention!r} (tensor parallelism) {_TP_LATER}"
+            )
         if c.attention == "flash" and c.head_dim not in _FLASH_HEAD_DIMS:
             raise NotImplementedError(
                 f"attention='flash' takes head_dim {' or '.join(map(str, _FLASH_HEAD_DIMS))}, got {c.head_dim}: "
@@ -222,6 +262,7 @@ class MMDiT(nn.Module):
         if c.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {c.remat!r}")
         self.config = c
+        self.mesh = mesh
         patch_dim = c.channels * c.patch * c.patch
         self.patch_in = _linear(patch_dim, c.dim, dtype)
         self.ctx_in = _linear(c.context_dim, c.dim, dtype)
@@ -237,7 +278,7 @@ class MMDiT(nn.Module):
             self.pool_mlp = _linear(c.context_dim, c.dim, dtype)
         if c.pos_embed_max:
             self.pos_embed = nn.Parameter(torch.empty(c.pos_embed_max**2, c.dim, device="meta"))
-        self.blocks = nn.ModuleList(_MMBlock(c, dtype, i) for i in range(c.depth))
+        self.blocks = nn.ModuleList(_MMBlock(c, dtype, i, mesh) for i in range(c.depth))
         self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
 
@@ -304,10 +345,10 @@ class MMDiT(nn.Module):
         return _int8_copy(self, exclude)
 
     def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
+        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
 
     def apply_pipelined(self, *args: Any, **kwargs: Any) -> torch.Tensor:
-        raise NotImplementedError(f"pipeline-parallel apply {_LATER}")
+        raise NotImplementedError(f"pipeline-parallel apply {_PIPELINE_LATER}")
 
     # -- layout ----------------------------------------------------------------
 
@@ -366,13 +407,16 @@ class MMDiT(nn.Module):
             t = t.expand(B)
         context = self.embed_context(context, B).to(dtype)
 
-        img = _dense(self.patch_in, self.patchify(x).to(dtype), dtype)
+        patches, ctx_rows = self.patchify(x), context
+        shard = self._shard if self.mesh is not None else lambda a, _stream: a
+        img = _dense(self.patch_in, shard(patches, "a").to(dtype), dtype)
         if c.pos_embed_max:
             gh, gw = H // c.patch, W // c.patch
             table = self.pos_embed.view(c.pos_embed_max, c.pos_embed_max, c.dim)
             top, left = (c.pos_embed_max - gh) // 2, (c.pos_embed_max - gw) // 2
-            img = img + table[top : top + gh, left : left + gw].reshape(gh * gw, c.dim).to(dtype)
-        txt = _dense(self.ctx_in, context, dtype)
+            rows = table[top : top + gh, left : left + gw].reshape(1, gh * gw, c.dim)
+            img = img + shard(rows, "a")[0].to(dtype)
+        txt = _dense(self.ctx_in, shard(ctx_rows, "b"), dtype)
 
         tfeat = _timestep_embedding(t, 256).to(dtype)
         if c.sd3_wiring:  # two linear-silu-linear MLPs summed; every consumer reads silu(t_emb + pooled_emb)
@@ -395,9 +439,20 @@ class MMDiT(nn.Module):
         shift, scale = _dense(self.final_mod, cond, dtype).chunk(2, dim=-1)
         img = adaln_modulate(img, shift, scale)
         out = _dense(self.final_out, img, dtype)
+        if self.mesh is not None:
+            out = gather(self.mesh, out, dim=1, axis=c.sp_axis)
         return self.unpatchify(out, H, W).to(x.dtype)
 
     apply = forward
+
+    def _shard(self, a: torch.Tensor, stream: str) -> torch.Tensor:
+        """This rank's contiguous token range of a ``(B, n, ...)`` stream over the ``sp`` axis; a token
+        count the axis does not divide raises the JAX joint attention's ``ValueError``."""
+        axis = self.config.sp_axis
+        _group, size, rank = axis_group(self.mesh, axis)
+        if a.shape[1] % size:
+            raise ValueError(f"stream {stream} tokens ({a.shape[1]}) must divide the {axis!r} axis size ({size})")
+        return a.chunk(size, dim=1)[rank]
 
     # -- sampling and serving ----------------------------------------------------
 

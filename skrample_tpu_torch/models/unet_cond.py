@@ -53,7 +53,7 @@ from ..ops.flash_attention import (
 from ..ops.groupnorm import groupnorm_cl
 from ..ops.quant import Int8Dense, quantize_params
 from .conditioning import doubled_t, guided_mix, per_item
-from .dit import _LATER, _dense, _timestep_embedding
+from .dit import _TP_LATER, _dense, _timestep_embedding
 from .unet import (
     _AffineSpec,
     _ConvSpec,
@@ -455,7 +455,7 @@ class CondUNet(_CondEncoder):
         return _int8_leaves(self, quantize_params(chosen, exclude=exclude))
 
     def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
+        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
 
     def as_sampleable(
         self,

@@ -23,9 +23,17 @@ the fused adaLN (kernel K3).
 classifier-free guidance as two SEQUENTIAL forwards against the learned
 null context row, the JAX package's default for this family
 (``cfg_batched=True`` doubles the batch instead).
-:meth:`VideoDiT.quantize_params` gives the int8 serving model.  The
-sequence-parallel alternation (``sequence_parallel``, ``mesh=``) belongs
-to a later slice and raises :class:`NotImplementedError`.
+:meth:`VideoDiT.quantize_params` gives the int8 serving model.
+
+``sequence_parallel=True`` with ``mesh=`` is the JAX package's Ulysses-style
+alternation over the mesh's ``sp`` axis: each rank holds a contiguous range
+of the frames (every site of them) for the spatial attention, the MLP and
+the cross-attention; one ``all_to_all_single`` re-buckets the temporal
+branch's qkv so that each rank holds every frame of a range of the sites,
+and one brings its output back.  The last layer's output is all-gathered
+over the frames.  On a ``dp`` x ``sp`` mesh the input is the rank's ``dp``
+chunk of the batch.  Serving only: a gradient through the all-to-alls
+raises.
 """
 
 from __future__ import annotations
@@ -45,8 +53,11 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import _qkv_reference, attention_reference, flash_attention_qkv
+from ..parallel import gather
+from ..parallel.ring_attention import axis_group
+from ..parallel.ulysses import reshard
 from .conditioning import guided_mix, per_item
-from .dit import _DOTS_CONTEXT, _LATER, _dense, _int8_copy, _timestep_embedding
+from .dit import _DOTS_CONTEXT, _TP_LATER, _dense, _int8_copy, _timestep_embedding
 
 __all__ = ["VideoDiT", "VideoDiTConfig", "random_param_tree", "video_dit_forward_flops"]
 
@@ -68,7 +79,8 @@ class VideoDiTConfig:
     adds a gated cross-attention branch per block and a learned null-context
     row for classifier-free guidance."""
     sequence_parallel: bool = False
-    "Ulysses-style sp alternation: a later slice (raises)."
+    """Ulysses-style sp alternation: frames split over the mesh's ``sp_axis`` for the spatial
+    attention, sites for the temporal one (requires ``mesh``; F and N must divide the axis size)."""
     sp_axis: str = "sp"
     remat: bool | str = False
     "Recompute each block's activations in the backward (see ``DiTConfig.remat``)."
@@ -86,9 +98,10 @@ _CROSS_LAYERS = ("q_x", "kv_c", "proj_x")
 class VideoDiTBlock(nn.Module):
     "Spatial + temporal (+ text cross) attention + MLP, each adaLN-zero gated."
 
-    def __init__(self, config: VideoDiTConfig) -> None:
+    def __init__(self, config: VideoDiTConfig, mesh: Any = None) -> None:
         super().__init__()
         c = self.config = config
+        self.mesh = mesh
         branches = 4 if c.context_dim else 3
         shapes = {
             "qkv_s": (c.dim, 3 * c.dim),
@@ -153,8 +166,13 @@ class VideoDiTBlock(nn.Module):
         tokens = tokens + g_sp[:, None] * dense(self.proj_s, out)
 
         # temporal: each site attends across frames, in place on the frame-major layout
-        qkv = dense(self.qkv_t, adaln_modulate(tokens, s_t, c_t))
-        out = self._temporal_attend(qkv.view(B, frames, n, 3 * c.dim)).reshape(B, frames * n, c.dim)
+        qkv = dense(self.qkv_t, adaln_modulate(tokens, s_t, c_t)).view(B, frames, n, 3 * c.dim)
+        if self.mesh is None:
+            out = self._temporal_attend(qkv)
+        else:  # frames -> sites for the temporal attention, and back
+            group, size, _rank = axis_group(self.mesh, c.sp_axis)
+            out = reshard(self._temporal_attend(reshard(qkv, group, size, 2, 1)), group, size, 1, 2)
+        out = out.reshape(B, frames * n, c.dim)
         tokens = tokens + g_t[:, None] * dense(self.proj_t, out)
 
         if context is not None:
@@ -182,13 +200,18 @@ class VideoDiT(nn.Module):
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
-        if config.sequence_parallel or mesh is not None:
-            raise NotImplementedError(f"sequence-parallel video attention (sequence_parallel, mesh=) {_LATER}")
+        if config.sequence_parallel:
+            if mesh is None:
+                raise ValueError("sequence_parallel=True needs VideoDiT(config, mesh=...) with the sp axis")
+            axis_group(mesh, config.sp_axis)  # raises on a mesh without the axis
+        elif mesh is not None:
+            raise NotImplementedError(f"VideoDiT(mesh=...) without sequence_parallel (tensor parallelism) {_TP_LATER}")
         if config.attention not in ("full", "flash"):
             raise ValueError(f"unknown attention kind {config.attention!r}")
         if config.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {config.remat!r}")
         self.config = c = config
+        self.mesh = mesh if config.sequence_parallel else None
         device = resolve_device(device)
         patch_dim = c.channels * c.patch * c.patch
         self.patch_in = nn.Linear(patch_dim, c.dim, device="meta")
@@ -197,7 +220,7 @@ class VideoDiT(nn.Module):
         self.final_mod = nn.Linear(c.dim, 2 * c.dim, device="meta")
         self.final_out = nn.Linear(c.dim, patch_dim, device="meta")
         self.null_ctx = nn.Parameter(torch.empty(1, c.context_dim, device="meta")) if c.context_dim else None
-        self.blocks = nn.ModuleList(VideoDiTBlock(c) for _ in range(c.depth))
+        self.blocks = nn.ModuleList(VideoDiTBlock(c, self.mesh) for _ in range(c.depth))
         self.to_empty(device=device)
         self.reset_parameters(generator)
 
@@ -328,9 +351,19 @@ class VideoDiT(nn.Module):
         elif context is not None:
             raise ValueError("context= needs VideoDiTConfig(context_dim=...)")
 
-        tokens = _dense(self.patch_in, self.patchify(x).to(dtype), dtype)
-        n = tokens.shape[2]
-        tokens = (tokens + self._posemb(frames, n, x.device).to(dtype)).reshape(B, frames * n, c.dim)
+        patches = self.patchify(x)
+        n = patches.shape[2]
+        posemb = self._posemb(frames, n, x.device)
+        if self.mesh is not None:  # this rank's frames
+            _group, size, rank = axis_group(self.mesh, c.sp_axis)
+            if frames % size or n % size:
+                raise ValueError(
+                    f"frames ({frames}) and sites ({n}) must each divide the {c.sp_axis!r} axis size ({size})"
+                )
+            patches, posemb = patches.chunk(size, dim=1)[rank], posemb.chunk(size, dim=0)[rank]
+        whole, frames = frames, patches.shape[1]
+        tokens = _dense(self.patch_in, patches.to(dtype), dtype)
+        tokens = (tokens + posemb.to(dtype)).reshape(B, frames * n, c.dim)
         temb = _timestep_embedding(t, 256)
         temb = F.silu(_dense(self.t_mlp2, F.silu(_dense(self.t_mlp1, temb.to(dtype), dtype)), dtype))
 
@@ -342,8 +375,10 @@ class VideoDiT(nn.Module):
                 tokens = block(tokens, temb, context, frames, n)
 
         shift, scale = _dense(self.final_mod, temb, dtype).chunk(2, dim=-1)
-        out = _dense(self.final_out, adaln_modulate(tokens, shift, scale), dtype)
-        return self.unpatchify(out.reshape(B, frames, n, -1), frames, H, W).to(x.dtype)
+        out = _dense(self.final_out, adaln_modulate(tokens, shift, scale), dtype).reshape(B, frames, n, -1)
+        if self.mesh is not None:
+            out = gather(self.mesh, out, dim=1, axis=c.sp_axis)
+        return self.unpatchify(out, whole, H, W).to(x.dtype)
 
     apply = forward
 
@@ -355,7 +390,7 @@ class VideoDiT(nn.Module):
         return _int8_copy(self, frozenset({"ada", "final_mod", "t_mlp1", "t_mlp2", "patch_in", "final_out"}))
 
     def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_LATER}")
+        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
 
     def _guided(self, x: torch.Tensor, t: Any, ctx: torch.Tensor, scale: float, cfg_batched: bool) -> torch.Tensor:
         "Classifier-free guidance against the learned null row: two forwards in turn, or one doubled batch."

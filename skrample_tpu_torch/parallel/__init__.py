@@ -9,6 +9,15 @@ the body of a JAX ``shard_map`` does, and the collectives are written out
 placements, have no counterpart here: :func:`shard_batch` hands a rank its
 chunk and :func:`gather` puts the chunks back together.
 
+Data parallelism is the caller's: the engines, the pipeline and the
+trainers hand each rank its ``dp`` chunk of the batch and gather the
+outputs (or average the gradients, :func:`average_grads`) over ``dp``; a
+model on a ``dp`` x ``sp`` mesh runs on its rank's chunk, splitting tokens
+over its own ``sp`` sub-group.  A worker thread that runs collectives while
+the caller's thread may run its own takes private groups
+(:func:`line_group`), and a decision made on one rank reaches the others
+through :func:`broadcast_object`.
+
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` with dims named
 ``("dp", "sp", *extra)``, built over a process group the caller has already
 initialised (``torch.distributed.init_process_group``): gloo over a
@@ -26,6 +35,8 @@ which no sharding changes.
 from __future__ import annotations
 
 import math
+from datetime import timedelta
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -37,11 +48,14 @@ from .ring_attention import axis_group, ring_attention
 from .ulysses import ulysses_attention
 
 __all__ = [
+    "average_grads",
     "axis_group",
     "batch_axis_of",
     "batch_keys",
+    "broadcast_object",
     "gather",
     "joint_sp_attention",
+    "line_group",
     "make_mesh",
     "ring_attention",
     "shard_batch",
@@ -103,9 +117,14 @@ def shard_batch(mesh: DeviceMesh, x: torch.Tensor, spatial_axis: int | None = No
     return x
 
 
-def gather(mesh: DeviceMesh, x: torch.Tensor, dim: int, axis: str = "sp") -> torch.Tensor:
-    "Every rank's chunk of ``x`` along ``dim`` over mesh axis ``axis``, concatenated in rank order (all-gather)."
-    group, size, _rank = axis_group(mesh, axis)
+def gather(
+    mesh: DeviceMesh, x: torch.Tensor, dim: int, axis: str = "sp", group: dist.ProcessGroup | None = None
+) -> torch.Tensor:
+    """Every rank's chunk of ``x`` along ``dim`` over mesh axis ``axis``, concatenated in rank order
+    (all-gather); over ``group`` instead of the mesh's own group of the axis where given (a
+    :func:`line_group` of the same ranks)."""
+    own, size, _rank = axis_group(mesh, axis)
+    group = own if group is None else group
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(size)]
     dist.all_gather(parts, x, group=group)
@@ -116,3 +135,82 @@ def batch_keys(key: torch.Tensor, batch: int) -> torch.Tensor:
     """Per-item keys ``fold_in(key, i)``, ``(batch, 2)``: bit for bit the JAX package's
     ``jax.vmap(fold_in)``; an item's stream depends on neither the batch size nor the sharding."""
     return torch.stack([prng.fold_in(key, i) for i in range(batch)])
+
+
+def line_group(
+    mesh: DeviceMesh, axes: tuple[str, ...], backend: str | None = None, timeout: timedelta | None = None
+) -> dist.ProcessGroup:
+    """A new process group over this rank's line of ``mesh`` along ``axes`` (the ranks that differ
+    from it only in those axes, in mesh order): the mesh's own group of one axis, but private to the
+    caller, so a worker thread's collectives never interleave with another thread's on a shared
+    group.  ``dist.new_group`` is collective over the whole world, so every rank builds every line,
+    in the same order, and keeps its own; call it on every rank at once.  ``backend``: ``"gloo"``
+    for host-side control messages beside NCCL data groups (a rank idling in a gloo receive holds no
+    card stream); ``timeout``: how long a receive may wait (an idle engine's follower waits for the
+    next decision)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    for axis in axes:
+        if axis not in names:
+            raise ValueError(f"the mesh has no {axis!r} axis (its axes: {names})")
+    layout = mesh.mesh
+    keep = [i for i, name in enumerate(names) if name not in axes]
+    moved = [names.index(axis) for axis in axes]
+    lines = layout.permute(*keep, *moved).reshape(-1, math.prod(layout.shape[i] for i in moved))
+    me = dist.get_rank()
+    mine = None
+    for line in lines.tolist():
+        group = dist.new_group(line, backend=backend, timeout=timeout)
+        if me in line:
+            mine = group
+    if mine is None:
+        raise ValueError(f"rank {me} is not in the mesh {layout.tolist()}")
+    return mine
+
+
+def broadcast_object(obj: Any, group: dist.ProcessGroup, src: int) -> Any:
+    """``obj`` from global rank ``src`` on every rank of ``group`` (pickled; the others pass None).
+    Tensors inside travel by value through the group's device: send host data (ids, seeds, flags)."""
+    box = [obj if dist.get_rank() == src else None]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+def average_grads(params: list[torch.Tensor], mesh: DeviceMesh, axis: str = "dp") -> None:
+    """Average the gradients of ``params`` over mesh axis ``axis``, in place (a sum all-reduce, then
+    a division by the axis size), so every rank applies the update of the whole batch's mean loss
+    when each computed the mean over its own equal chunk.  The gradients travel in buckets of up to
+    :data:`GRAD_BUCKET_BYTES` (runs of one dtype flattened into one buffer, a larger tensor alone),
+    one all-reduce each: each element is the same sum over the ranks as in a per-tensor all-reduce.
+    Runs its collectives at every axis size, 1 included; a parameter without a gradient gets zeros
+    first (optax updates it with one)."""
+    group, size, _rank = axis_group(mesh, axis)
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    for bucket in _buckets(grads):
+        flat = bucket[0] if len(bucket) == 1 else torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat.div_(size)
+        if len(bucket) > 1:
+            for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+                g.copy_(part.view_as(g))
+
+
+GRAD_BUCKET_BYTES = 25 * 2**20  # DistributedDataParallel's default bucket cap
+
+
+def _buckets(grads: list[torch.Tensor]) -> list[list[torch.Tensor]]:
+    "``grads`` in order, cut into runs of one dtype and device of at most ``GRAD_BUCKET_BYTES``."
+    buckets: list[list[torch.Tensor]] = []
+    room = 0
+    for g in grads:
+        nbytes = g.numel() * g.element_size()
+        last = buckets[-1][-1] if buckets else None
+        if last is None or (last.dtype, last.device) != (g.dtype, g.device) or nbytes > room:
+            buckets.append([])
+            room = GRAD_BUCKET_BYTES
+        buckets[-1].append(g)
+        room -= nbytes
+    return buckets

@@ -18,14 +18,36 @@ on S ranks and returns each rank's results.  A case is a dict with a
   returns its output shard;
 * ``"joint_sp"`` (``qkv_a, qkv_b, heads, scheme``): two packed streams,
   sharded likewise;
-* ``"dit"`` (``config, tree, x, t``) and ``"sample"`` (``config, tree, x0,
-  steps``): a DiT built from ``config`` (a dict of :class:`DiTConfig` fields,
-  ``compute_dtype`` by name) and the JAX-layout ``tree``; every rank returns
-  the whole output;
+* ``"dit"`` (``config, tree, x, t``, optionally ``mesh`` ``[dp, sp]``) and
+  ``"sample"`` (``config, tree, x0, steps``): a DiT built from ``config`` (a
+  dict of :class:`DiTConfig` fields, ``compute_dtype`` by name) and the
+  JAX-layout ``tree``; on a ``dp`` x ``sp`` mesh each rank runs its ``dp``
+  chunk of the batch and the chunks are gathered; every rank returns the
+  whole output;
+* ``"mmdit"`` (``config, tree, x, t, context``) and ``"video"`` (``config,
+  tree, x, t``): a sequence-parallel MMDiT or VideoDiT over the ``(1,
+  S)`` mesh; every rank returns the whole output;
+* ``"serve"`` (``engine`` ``"batch"``/``"continuous"``, ``config, tree,
+  seeds, steps``, ``buckets`` or ``slots``) and ``"pipeline"`` (``config,
+  tree, shape, steps, seed``): data parallelism over a ``(S, 1)`` mesh,
+  requests submitted on each rank at its own pace; every rank returns every
+  request's (or the whole batch's) latent; a ``"serve"`` case with
+  ``fault`` (a rank) makes that rank's model raise at its first call and
+  generates its requests one at a time, each rank returning each request's
+  latent or its error as ``"Type: message"``;
+* ``"train_dit"`` (``config, tree, x0, noise, sigma``) and ``"train_t2i"``
+  (``enc, mmdit`` configs, ``trees``, ``draws``): one data-parallel step at
+  ``dp = S``; every rank returns the loss and its gradients by tree path;
+  ``"train_cli"`` (``argv``): ``training.main(argv + ["--dp", S])`` inside the
+  group; every rank returns its exit code and the last parameter file's
+  tree when ``argv`` names one (rank 0 writes it);
 * ``"raises"`` (``what``): each rank returns the error the named misuse
-  raises, as ``"Type: message"`` (``"heads"``, ``"tokens"``, ``"no_mesh"``:
-  ``ValueError``; ``"dp"``, a ring DiT on a data-parallel mesh,
-  ``"flash_mesh"``, a flash DiT given a mesh, and ``"grad_ring"``,
+  raises, as ``"Type: message"`` (``"heads"``, ``"tokens"``, ``"no_mesh"``,
+  ``"dp"`` (a bucket ``dp`` does not divide), ``"slots"``,
+  ``"stream_tokens"`` (an MMDiT stream ``sp`` does not divide):
+  ``ValueError``; ``"flash_mesh"``, a flash DiT given a mesh, ``"tp"``, a
+  pipeline over a ``tp`` axis, ``"dp_graph"``, ``"dp_orbax"``, the DiT
+  trainer's ``--dp`` with ``--graph`` or ``--orbax``, and ``"grad_ring"``,
   ``"grad_ulysses"``, ``"grad_dit"``, a gradient through the
   sequence-parallel attentions: ``NotImplementedError``).
 
@@ -70,12 +92,165 @@ def _dit(case: dict, mesh: Any, device: Any) -> Any:
     return model.requires_grad_(False)
 
 
-def _run_case(case: dict, mesh: Any, device: Any) -> Any:
-    """One case on this rank: a numpy array (two for ``"joint_sp"``), or for ``"raises"`` a
-    message."""
+def _dtype_fields(config: dict) -> dict:
     import torch
 
-    from . import joint_sp_attention, ring_attention, shard_batch, ulysses_attention
+    return {**config, "compute_dtype": getattr(torch, config.get("compute_dtype", "float32"))}
+
+
+def _stagger(rank: int, index: int) -> None:
+    "Each rank submits at its own pace: rank r waits 4 ms x r before its requests 0 and 2."
+    if index in (0, 2):
+        time.sleep(0.004 * rank)
+
+
+def _serve(case: dict, device: Any) -> list:
+    """A ``"serve"`` case: every request's latent, as every rank's futures hold them."""
+    import torch.distributed as dist
+
+    from .. import scheduling
+    from ..continuous import ContinuousServingEngine
+    from ..sampling import models, structured
+    from ..serving import ServingEngine
+    from . import make_mesh
+
+    model_fn = _dit(case, None, device).as_sampleable()
+    mesh = make_mesh(dp=dist.get_world_size(), sp=1)
+    rank = dist.get_rank()
+    if case.get("fault") == rank:  # this rank's model raises at its first call
+        calls = []
+        inner = model_fn
+
+        def model_fn(*args: Any) -> Any:
+            calls.append(None)
+            if len(calls) == 1:
+                raise RuntimeError("injected fault")
+            return inner(*args)
+
+    common = {
+        "item_shape": tuple(case["item"]),
+        "sampler": structured.DPM(order=2, stochasticity=1.0),
+        "schedule": scheduling.FlowShift(scheduling.Linear()),
+        "model_transform": models.FlowModel(),
+        "steps": case["steps"],
+        "mesh": mesh,
+        "device": device,
+    }
+    if case["engine"] == "batch":
+        engine: Any = ServingEngine(model_fn, buckets=tuple(case["buckets"]), max_delay_ms=20.0, **common)
+    else:
+        engine = ContinuousServingEngine(model_fn, slots=case["slots"], **common)
+    with engine:
+        if "fault" in case:  # one request at a time: the first meets the fault
+            return [_outcome(lambda: engine.generate(seed).float().cpu().numpy()) for seed in case["seeds"]]
+        futures = []
+        for index, seed in enumerate(case["seeds"]):
+            _stagger(rank, index)
+            futures.append(engine.submit(seed))
+        return [f.result().float().cpu().numpy() for f in futures]
+
+
+def _outcome(call: Any) -> Any:
+    "``call()``, or the error it raised as ``\"Type: message\"``."
+    try:
+        return call()
+    except Exception as err:
+        return f"{type(err).__name__}: {err}"
+
+
+def _pipeline(case: dict, device: Any) -> Any:
+    import torch.distributed as dist
+
+    from ..pipeline import GenerationPipeline
+    from .. import scheduling
+    from ..sampling import models, structured
+    from . import make_mesh
+
+    model = _dit(case, None, device)
+    pipe = GenerationPipeline(
+        model.as_sampleable(),
+        structured.DPM(order=2, stochasticity=1.0),
+        scheduling.FlowShift(scheduling.Linear()),
+        models.FlowModel(),
+        case["steps"],
+        tuple(case["shape"]),
+        mesh=make_mesh(dp=dist.get_world_size(), sp=1),
+        device=device,
+    )
+    return pipe.generate(case["seed"]).float().cpu().numpy()
+
+
+def _grads(leaves: Any) -> dict:
+    "``{tree path: gradient in the JAX layout}`` from ``(path, parameter, transposed)`` leaves."
+    import numpy as np
+
+    out = {}
+    for path, param, transposed in leaves:
+        g = np.zeros(tuple(param.shape), np.float32) if param.grad is None else param.grad.float().cpu().numpy()
+        out[path] = np.ascontiguousarray(g.T) if transposed else g
+    return out
+
+
+def _train(case: dict, device: Any) -> list:
+    """A ``"train_dit"`` or ``"train_t2i"`` case at ``dp`` = the world: ``[loss, grads by path]``."""
+    import torch
+    import torch.distributed as dist
+
+    from ..models import _tree
+    from . import make_mesh
+
+    mesh = make_mesh(dp=dist.get_world_size(), sp=1)
+    if case["kind"] == "train_dit":
+        from ..models.ema import ema_init
+        from ..training import make_optimizer, train_step
+
+        model = _dit(case, None, device).requires_grad_(True)
+        opt = make_optimizer(model)
+        x0, noise, sigma = (torch.from_numpy(case[n]).to(device) for n in ("x0", "noise", "sigma"))
+        loss = train_step(model, opt, ema_init(model), x0, noise, sigma, 0, mesh=mesh)
+        leaves = [
+            (f"{name}.{leaf}", getattr(layer, attr), leaf == "w")
+            for name, layer in model._layers()
+            for leaf, attr in (("w", "weight"), ("b", "bias"))
+        ]
+        return [float(loss), _grads(leaves)]
+    from ..models.mmdit import MMDiT, MMDiTConfig
+    from ..models.text_encoder import TextEncoder, TextEncoderConfig
+    from ..train_text_to_image import hermetic_data, t2i_optimizer, t2i_train_step
+
+    enc = TextEncoder(TextEncoderConfig(**_dtype_fields(case["enc"])), device=device)
+    mmdit = MMDiT(MMDiTConfig(**_dtype_fields(case["mmdit"])), device=device)
+    enc.load_jax_params(case["trees"]["enc"])
+    mmdit.load_jax_params(case["trees"]["mmdit"])
+    ids, images = hermetic_data(case["size"], device=device)
+    draws = tuple(torch.from_numpy(a).to(device) for a in case["draws"])
+    loss = t2i_train_step(enc, mmdit, t2i_optimizer(enc, mmdit), ids, images, draws, mesh)
+    grads = _grads(_tree.leaves(enc))
+    return [float(loss), {"enc": grads, "mmdit": _grads(_tree.leaves(mmdit))}]
+
+
+def _train_cli(case: dict) -> list:
+    """A ``"train_cli"`` case: ``[exit code, {path: array}]`` of the DiT trainer's CLI at ``--dp`` = the
+    world, the parameter file read back after every rank has finished."""
+    import torch.distributed as dist
+
+    from ..models.checkpoint import load_params
+    from ..models import _tree
+    from ..training import main
+
+    argv = [*case["argv"], "--dp", str(dist.get_world_size())]
+    rc = main(argv)
+    dist.barrier()
+    path = argv[argv.index("--checkpoint") + 1] if "--checkpoint" in argv else None
+    return [rc, dict(_tree._flatten(load_params(path))) if path else {}]
+
+
+def _run_case(case: dict, mesh: Any, device: Any) -> Any:
+    """One case on this rank: a numpy array (two for ``"joint_sp"``, a list for ``"serve"``, the loss
+    and gradients for a training case), or for ``"raises"`` a message."""
+    import torch
+
+    from . import gather, joint_sp_attention, make_mesh, ring_attention, shard_batch, ulysses_attention
 
     def shard(a: np.ndarray, dim: int) -> torch.Tensor:
         return shard_batch(mesh, torch.from_numpy(np.ascontiguousarray(a)).to(device), spatial_axis=dim)
@@ -96,9 +271,27 @@ def _run_case(case: dict, mesh: Any, device: Any) -> Any:
             oa, ob = joint_sp_attention(qkv_a, qkv_b, case["heads"], mesh, scheme=case["scheme"])
             return [out(oa), out(ob)]
         if kind == "dit":
-            model = _dit(case, mesh, device)
+            dit_mesh = make_mesh(*case["mesh"]) if "mesh" in case else mesh
+            model = _dit(case, dit_mesh, device)
+            x, t = (shard_batch(dit_mesh, torch.from_numpy(case[n]).to(device)) for n in ("x", "t"))
+            y = model(x, t)
+            return out(gather(dit_mesh, y, 0, "dp") if "mesh" in case else y)
+        if kind == "mmdit":
+            from ..models.mmdit import MMDiT, MMDiTConfig
+
+            model = MMDiT(MMDiTConfig(**_dtype_fields(case["config"])), mesh=mesh, device=device)
+            model.load_jax_params(case["tree"])
+            x, t, ctx = (torch.from_numpy(case[n]).to(device) for n in ("x", "t", "context"))
+            return out(model(x, t, ctx))
+        if kind == "video":
+            from ..models.video_dit import VideoDiT, VideoDiTConfig
+
+            config = VideoDiTConfig(**_dtype_fields(case["config"]), sequence_parallel=True)
+            model = VideoDiT(config, mesh=mesh, device=device).load_jax_params(case["tree"])
             x, t = (torch.from_numpy(case[n]).to(device) for n in ("x", "t"))
             return out(model(x, t))
+        if kind == "pipeline":
+            return _pipeline(case, device)
         if kind == "sample":
             from .. import scheduling
             from ..ops import CompiledDenoiser, compile_sampler
@@ -110,6 +303,12 @@ def _run_case(case: dict, mesh: Any, device: Any) -> Any:
             )
             denoiser = CompiledDenoiser.build(compiled, device=device)
             return out(denoiser.run(model.as_sampleable(), torch.from_numpy(case["x0"]).to(device)))
+    if kind == "serve":
+        return _serve(case, device)
+    if kind in ("train_dit", "train_t2i"):
+        return _train(case, device)
+    if kind == "train_cli":
+        return _train_cli(case)
     if kind == "raises":
         return _raises(case["what"], mesh, device)
     raise ValueError(f"unknown case kind {kind!r}")
@@ -132,8 +331,30 @@ def _raises(what: str, mesh: Any, device: Any) -> str:
             DiT(config, mesh=mesh, device=device)(torch.zeros((1, 4, 2 * (size + 1), 2), device=device), 1.0)
         elif what == "no_mesh":
             DiT(DiTConfig(attention="ring"), device=device)
-        elif what == "dp":  # the same ranks laid out as data parallel: a later slice
-            DiT(DiTConfig(attention="ring"), mesh=make_mesh(dp=size, sp=1), device=device)
+        elif what == "dp":  # the same ranks laid out as data parallel, and a bucket of 1
+            from ..serving import ServingEngine
+
+            ServingEngine(lambda x, *_: x, (4, 2, 2), buckets=(1, size), mesh=make_mesh(dp=size, sp=1), device=device)
+        elif what == "slots":
+            from ..continuous import ContinuousServingEngine
+
+            dp_mesh = make_mesh(dp=size, sp=1)
+            ContinuousServingEngine(lambda x, *_: x, (4, 2, 2), slots=size + 1, mesh=dp_mesh, device=device)
+        elif what == "stream_tokens":  # (size + 1) x 1 image patches beside 128 text tokens
+            from ..models.mmdit import MMDiT, MMDiTConfig
+
+            config = MMDiTConfig(
+                dim=32, depth=1, heads=2, context_dim=16, compute_dtype=torch.float32, attention="ring"
+            )
+            MMDiT(config, mesh=mesh, device=device)(torch.zeros((1, 4, 2 * (size + 1), 2), device=device), 1.0)
+        elif what == "tp":
+            from ..pipeline import build_pipeline
+
+            build_pipeline(lambda x, *_: x, (size, 4, 2, 2), mesh_axes={"tp": 1}, device=device)
+        elif what in ("dp_graph", "dp_orbax"):
+            from ..training import main
+
+            main(["--dp", str(size), "--graph" if what == "dp_graph" else "--orbax=unused", "--device", str(device)])
         elif what == "flash_mesh":  # a mesh the attention would not use
             DiT(DiTConfig(attention="flash"), mesh=mesh, device=device)
         elif what in ("grad_ring", "grad_ulysses"):  # the K/V that arrive over the wire carry no graph

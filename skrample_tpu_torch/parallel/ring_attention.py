@@ -37,7 +37,7 @@ def refuse_grad(*tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             "a gradient through sequence-parallel attention comes with a later slice of the port "
-            "(ROADMAP.md queue A); serve under torch.no_grad() or torch.inference_mode()"
+            "(ROADMAP.md A5.7); serve under torch.no_grad() or torch.inference_mode()"
         )
 
 

@@ -45,6 +45,19 @@ def from_heads(x: torch.Tensor, group: dist.ProcessGroup, size: int) -> torch.Te
     return recv.transpose(0, 1).reshape(B, size * Hs, N // size, d)
 
 
+def reshard(x: torch.Tensor, group: dist.ProcessGroup, size: int, scatter_dim: int, gather_dim: int) -> torch.Tensor:
+    """One ``all_to_all_single`` that moves the sharded axis of ``x`` from ``gather_dim`` to
+    ``scatter_dim``: this rank's shard along ``gather_dim`` (every rank's of one size) is cut into
+    ``size`` chunks along ``scatter_dim``, chunk j goes to rank j, and the chunks received are put
+    back along ``gather_dim`` in rank order.  The JAX package's ``with_sharding_constraint`` that
+    flips a sharded axis lowers to this.  Serving only (:func:`~.ring_attention.refuse_grad`)."""
+    refuse_grad(x)
+    send = torch.stack(x.chunk(size, dim=scatter_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=gather_dim)
+
+
 def ulysses_attention(
     q: torch.Tensor,
     k: torch.Tensor,

@@ -9,7 +9,10 @@ latent key and an in-loop key, so a seed gives the reference's x0 and, for a
 stochastic sampler, its per-step noise.  The loop is
 :meth:`~.ops.loop.CompiledDenoiser.run`: one model call and one fused step
 (kernel K1 on the card) a step, launched from the host without waiting on
-the device.  :class:`AdaptivePipeline` runs RKMoire's error-controlled loop
+the device.  On a ``mesh`` with a ``dp`` axis each rank draws the whole
+batch's latent (and step noise) from the key, denoises its ``dp`` chunk,
+and an all-gather over ``dp`` returns the whole batch on every rank, as
+the JAX pipeline's sharded array holds it.  :class:`AdaptivePipeline` runs RKMoire's error-controlled loop
 (:mod:`.ops.adaptive`) the same way, reading one error back a trial step.
 """
 
@@ -27,9 +30,15 @@ from .ops._cuda import resolve_device
 from .ops.adaptive import AdaptivePlan, adaptive_plan, rkmoire_device_loop
 from .ops.compiler import compile_sampler
 from .ops.loop import CompiledDenoiser, DeviceModel
+from .parallel import gather, make_mesh, shard_batch
 from .sampling import models, rk_solvers, structured
 
-_LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
+_TP = "tensor parallelism (a 'tp' mesh axis) comes with a later slice of the port (ROADMAP.md A5.3)"
+
+
+def _refuse_tp(names: Any) -> None:
+    if "tp" in tuple(names or ()):
+        raise NotImplementedError(_TP)
 
 
 @dataclass
@@ -40,9 +49,11 @@ class GenerationPipeline:
     weights already on ``device``).  ``noise_generator`` (optional)
     precomputes structured per-step noise (Brownian/Colored/...); otherwise
     stochastic samplers draw i.i.d. normal in-loop from the request key.
-    ``mesh`` (data-parallel placement) belongs to a later slice; ``donate``
-    is accepted for parity with the JAX pipeline and has no effect (the loop
-    allocates each step's latent anew)."""
+    ``mesh``: a :class:`~torch.distributed.device_mesh.DeviceMesh` with a
+    ``dp`` axis over which ``latent_shape``'s batch (dim 0) is split (see
+    the module docstring); a ``tp`` axis is refused.  ``donate`` is accepted
+    for parity with the JAX pipeline and has no effect (the loop allocates
+    each step's latent anew)."""
 
     model_fn: DeviceModel
     sampler: structured.StructuredSampler
@@ -68,7 +79,7 @@ class GenerationPipeline:
 
     def __post_init__(self) -> None:
         if self.mesh is not None:
-            raise NotImplementedError(f"data-parallel generation (mesh=, ROADMAP A5) {_LATER}")
+            _refuse_tp(self.mesh.mesh_dim_names)
         self.device = resolve_device(self.device)
         if self.graph and self.device.type != "cuda":
             raise ValueError(f"GenerationPipeline: graph=True captures CUDA graphs, not on {self.device}")
@@ -135,9 +146,18 @@ class GenerationPipeline:
             x0 = entry.add_noise(initial.to(device=self.device, dtype=self.dtype), seed) / full.add_noise(0.0, 1.0)
 
         with torch.inference_mode():
-            return self._denoiser(start).run(
-                self.model_fn, x0, key=k_steps, noises=self._noises, start=start, graph=self.graph
-            )
+            denoiser = self._denoiser(start)
+            if self.mesh is None:
+                return denoiser.run(self.model_fn, x0, key=k_steps, noises=self._noises, start=start, graph=self.graph)
+            # this rank's dp chunk of the whole batch's draws: the same numbers as one device's
+            noises = self._noises
+            if denoiser.requires_noise and noises is None:
+                noises = denoiser.step_noises(x0, k_steps, None, start)
+            x0 = shard_batch(self.mesh, x0)
+            if noises is not None:
+                noises = shard_batch(self.mesh, noises.movedim(1, 0)).movedim(0, 1)
+            out = denoiser.run(self.model_fn, x0, noises=noises, start=start, graph=self.graph)
+            return gather(self.mesh, out, 0, "dp")
 
 
 @dataclass
@@ -195,9 +215,13 @@ def build_pipeline(
     mesh_axes: dict[str, int] | None = None,
     device: str | torch.device = "cuda",
 ) -> GenerationPipeline:
-    "Opinionated defaults: DPM++(2M) over FlowShift(Linear) (flow) or Karras(Scaled)."
+    """Opinionated defaults: DPM++(2M) over FlowShift(Linear) (flow) or Karras(Scaled).  A non-empty
+    ``mesh_axes`` builds ``make_mesh(extra_axes=mesh_axes)`` over the initialised process group, the
+    JAX package's recipe (``dp`` takes the ranks the other axes leave)."""
+    mesh = None
     if mesh_axes:
-        raise NotImplementedError(f"data-parallel generation (mesh_axes=, ROADMAP A5) {_LATER}")
+        _refuse_tp(mesh_axes)
+        mesh = make_mesh(extra_axes=mesh_axes)
     return GenerationPipeline(
         model_fn=model_fn,
         sampler=structured.DPM(order=2, stochasticity=stochasticity),
@@ -207,5 +231,6 @@ def build_pipeline(
         model_transform=models.FlowModel() if flow else models.NoiseModel(),
         steps=steps,
         latent_shape=latent_shape,
+        mesh=mesh,
         device=device,
     )

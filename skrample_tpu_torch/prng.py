@@ -147,3 +147,31 @@ def normal(
     lo = -(1.0 - torch.finfo(dtype).eps / 2)  # nextafter(-1, 0) in dtype
     u = uniform(key, shape, dtype, lo, 1.0, device)
     return _float(math.sqrt(2), dtype, device) * torch.special.erfinv(u)
+
+
+def randint(
+    key: torch.Tensor, shape: tuple[int, ...], minval: int, maxval: int, device: str | torch.device = "cuda"
+) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): ``k1, k2 = split(key)``, 32 random
+    bits from each, and ``minval + (hi % span * (2**32 % span) + lo % span) % span`` with ``span =
+    maxval - minval`` (1 where ``maxval <= minval``), every product and sum wrapping at 32 bits as
+    jax's uint32 arithmetic does.  The bounds must lie in int32."""
+    if not (-(2**31) <= minval < 2**31 and -(2**31) <= maxval < 2**31):
+        raise ValueError(f"randint draws int32: bounds [{minval}, {maxval}) out of range")
+    device = resolve_device(device)
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape, 32, device), random_bits(k2, shape, 32, device)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    multiplier = ((2**16 % span) ** 2 & _MASK) % span
+    offset = ((higher % span * multiplier) & _MASK) + lower % span
+    offset = (offset & _MASK) % span
+    value = (offset + minval) & _MASK  # int32's wrap-around, as a uint32 word
+    return (value - ((value >> 31) << 32)).to(torch.int32)
+
+
+def bernoulli(
+    key: torch.Tensor, p: float, shape: tuple[int, ...], device: str | torch.device = "cuda"
+) -> torch.Tensor:
+    "``jax.random.bernoulli(key, p, shape)``: ``uniform(key, shape) < p`` in float32, as booleans."
+    device = resolve_device(device)
+    return uniform(key, shape, torch.float32, device=device) < _float(p, torch.float32, device)

@@ -14,26 +14,130 @@ matmul reduction order the library picks for each batch size).  Padding
 items use a fixed seed.  The draws are the JAX package's, bit for bit
 (:mod:`.prng`): ``PRNGKey(seed)`` split into an initial-latent key and a
 step-noise key, so a seed gives the reference's latent.
+
+**Data parallelism** (``mesh=``, a mesh with a ``dp`` axis): every rank
+runs an engine and submits the same requests in the same order, each at
+its own pace.  The first rank of the mesh batches them and broadcasts each
+dispatch (its requests by submission number, its entry point) over a gloo
+group; each rank draws and denoises its ``dp`` chunk of the bucket and an
+all-gather over ``dp`` hands every rank's futures the whole batch.  Each
+item's draws come from its own seed, so the sharding changes no latent.
+The ranks agree over the gloo group that each rank's chunk succeeded
+before the all-gather: a dispatch that fails on one rank fails its
+requests on every rank, and the engine keeps serving.
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from collections.abc import Callable
 from concurrent.futures import Future
 from dataclasses import dataclass, field
+from datetime import timedelta
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-from . import prng, scheduling
+from . import parallel, prng, scheduling
 from .ops import CompiledDenoiser, compile_sampler
 from .ops._cuda import resolve_device
 from .ops.graphs import CapturedGraph, leaves, map_tree
 from .sampling import models, structured
 
 _PAD_SEED = 0
+_IDLE_TIMEOUT = timedelta(days=1)  # how long a follower may wait for the leader's next decision
+
+
+def mesh_axis_size(mesh: Any, axis: str) -> int:
+    "The size of ``axis`` in ``mesh`` (read before any group is made, so a refusal costs no collective)."
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"the mesh has no {axis!r} axis (its axes: {names})")
+    return mesh.size(names.index(axis))
+
+
+class MeshLink:
+    """What a data-parallel engine's ranks share: a gloo control group over every rank of the mesh,
+    whose first rank (the leader) decides each dispatch and broadcasts it, and a private group over
+    this rank's ``dp`` line for the all-gathers (the worker thread's collectives never meet the
+    caller's on a shared group).  Built on every rank at once: the groups are made collectively."""
+
+    def __init__(self, mesh: Any) -> None:
+        self.mesh = mesh
+        names = tuple(mesh.mesh_dim_names)
+        _group, self.dp, self.index = parallel.axis_group(mesh, "dp")
+        self.control = parallel.line_group(mesh, names, backend="gloo", timeout=_IDLE_TIMEOUT)
+        self.data = parallel.line_group(mesh, ("dp",))
+        self.leader = int(mesh.mesh.flatten()[0])
+        self.is_leader = dist.get_rank() == self.leader
+
+    def decide(self, decision: Any = None) -> Any:
+        "The leader's ``decision`` on every rank (the leader passes it, the others receive it)."
+        return parallel.broadcast_object(decision, self.control, self.leader)
+
+    def any_failed(self, flags: list[bool]) -> list[bool]:
+        "Each of this rank's ``flags`` OR-ed with every other rank's (a max all-reduce on the control group)."
+        both = torch.tensor(flags, dtype=torch.int32)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self.control)
+        return [bool(flag) for flag in both.tolist()]
+
+    def agreed(self, step: Callable[[], Any]) -> Any:
+        """``step()``'s result once it has succeeded on every rank; if it raised on any, it raises on
+        every rank (its own error where it failed, a :class:`RuntimeError` elsewhere), so no rank
+        goes on to a collective that a failed rank would never join.  A fault inside a collective of
+        the model's own (an ``sp`` all-to-all) is not covered: its peers wait in that collective."""
+        out, err = None, None
+        try:
+            out = step()
+        except Exception as caught:
+            err = caught
+        (failed,) = self.any_failed([err is not None])
+        if err is not None:
+            raise err
+        if failed:
+            raise RuntimeError("a dispatch failed on another rank of the mesh")
+        return out
+
+    def chunk(self, count: int) -> slice:
+        "This rank's ``dp`` chunk of ``count`` items (``count`` divides by ``dp``)."
+        per = count // self.dp
+        return slice(self.index * per, (self.index + 1) * per)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        "Every ``dp`` rank's chunk of ``x`` along dim 0, in rank order."
+        return parallel.gather(self.mesh, x, 0, "dp", group=self.data)
+
+
+class Inbox:
+    """A follower's submissions by number: :meth:`take` blocks until the submission the leader named
+    has arrived on this rank's queue (ranks submit the same requests, each at its own pace)."""
+
+    def __init__(self, source: queue.Queue) -> None:
+        self.source = source
+        self.held: dict[int, tuple] = {}
+
+    def take(self, seq: int) -> tuple:
+        while seq not in self.held:
+            item = self.source.get()
+            if item is None:
+                raise RuntimeError(f"engine closed on this rank before its request {seq} arrived")
+            self.held[item[0]] = item
+        return self.held.pop(seq)
+
+    def drain(self) -> list[tuple]:
+        "Everything held or still queued (the engine is stopping)."
+        items = list(self.held.values())
+        self.held.clear()
+        while True:
+            try:
+                item = self.source.get_nowait()
+            except queue.Empty:
+                return items
+            if item is not None:
+                items.append(item)
 
 
 @dataclass
@@ -94,9 +198,17 @@ class ServingEngine:
         copied into the graph's static buffers before each replay
         (:meth:`dispatch_body` is what the graph computes).
 
-        ``mesh`` (data-parallel serving) belongs to a later slice."""
+        ``mesh`` (optional): a :class:`~torch.distributed.device_mesh.DeviceMesh`
+        with a ``dp`` axis over an initialised process group (see the module
+        docstring); every bucket must divide by the ``dp`` size, as in the JAX
+        package.  Model-internal axes belong to ``model_fn``.  With
+        ``graph=True`` the graphs capture each rank's denoise loop and the
+        all-gather stays outside them."""
         if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh=) comes with a later slice of the port")
+            dp = mesh_axis_size(mesh, "dp")
+            bad = [b for b in sorted(buckets) if b % dp]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by the mesh's dp={dp} (static shapes shard evenly)")
         self.device = resolve_device(device)
         if graph and self.device.type != "cuda":
             raise ValueError(f"ServingEngine: graph=True captures CUDA graphs, not on {self.device}")
@@ -109,7 +221,10 @@ class ServingEngine:
         self.buckets = tuple(sorted(buckets))
         self.max_delay_s = max_delay_ms / 1e3
         self.conditioned = conditioned
+        self.mesh = mesh
         self.stats = ServingStats()
+        self._link = MeshLink(mesh) if mesh is not None else None
+        self._seq = itertools.count()
 
         self._postprocess = postprocess
         self._sampler = sampler if sampler is not None else structured.DPM(order=2)
@@ -147,7 +262,7 @@ class ServingEngine:
             raise TypeError(f"seed must be an int, got {type(seed).__name__}")
         start = 0 if initial is None else min(round(self.steps * (1 - strength)), self.steps - 1)
         fut: Future = Future()
-        self._queue.put((seed, initial, start, context, fut))
+        self._queue.put((next(self._seq), seed, initial, start, context, fut))
         return fut
 
     def generate(
@@ -235,34 +350,90 @@ class ServingEngine:
         return batch
 
     def _loop(self) -> None:
+        if self._link is not None and not self._link.is_leader:
+            return self._follow()
         while True:
             batch = self._collect()
             if batch is None:
+                if self._link is not None:
+                    self._link.decide(None)  # the followers stop too
                 return
             # group by (entry point, mode, conditioned): each start index has
             # its own tables, txt2img/img2img seed differently, and context
             # presence changes the model call
             groups: dict[tuple[int, bool, bool], list] = {}
+            dropped = []
             for item in batch:
-                _seed, initial, start, context, fut = item
+                seq, _seed, initial, start, context, fut = item
                 if not fut.set_running_or_notify_cancel():
+                    dropped.append(seq)
                     continue
                 groups.setdefault((start, initial is None, context is None), []).append(item)
+            if self._link is not None and dropped and not groups:
+                self._link.decide((0, [], dropped))
             for (start, *_), group in groups.items():
-                try:
-                    with torch.inference_mode():
-                        self._dispatch(group, start)
-                except Exception as err:  # shape/launch errors: fail the group, keep serving
-                    for *_, fut in group:
-                        if not fut.done():
-                            fut.set_exception(err)
+                if self._link is not None:
+                    self._link.decide((start, [item[0] for item in group], dropped))
+                    dropped = []
+                self._run_group(group, start)
+
+    def _follow(self) -> None:
+        "A follower rank: dispatch what the leader decides, on this rank's own submissions."
+        inbox = Inbox(self._queue)
+        try:
+            while True:
+                decision = self._link.decide()
+                if decision is None:
+                    return
+                start, seqs, dropped = decision
+                for seq in dropped:  # cancelled on the leader: never dispatched on any rank
+                    inbox.take(seq)[-1].cancel()
+                group = [inbox.take(seq) for seq in seqs]
+                for item in group:
+                    item[-1].set_running_or_notify_cancel()  # a cancel here only skips this rank's result
+                if group:
+                    self._run_group(group, start)
+        finally:
+            for *_, fut in inbox.drain():
+                if not fut.done():
+                    fut.set_exception(RuntimeError("engine closed before this request was dispatched"))
+
+    def _run_group(self, group: list, start: int) -> None:
+        try:
+            with torch.inference_mode():
+                self._dispatch(group, start)
+        except Exception as err:  # shape/launch errors: fail the group, keep serving
+            for *_, fut in group:
+                if not fut.done():
+                    fut.set_exception(err)
 
     def _dispatch(self, batch: list, start: int) -> None:
+        """Denoise one group as a bucket: on a mesh, this rank's ``dp`` chunk of it, then, once every
+        rank has its chunk, the all-gather of every chunk over ``dp``; a failure on any rank fails
+        the group on every rank."""
         n = len(batch)
         bucket = next(b for b in self.buckets if b >= n) if n <= self.buckets[-1] else self.buckets[-1]
-        items = [(seed, initial) for seed, initial, *_ in batch]
+        if self._link is None:
+            out = self._denoise(batch, start, bucket, slice(0, bucket))
+        else:  # the gather only once every rank has its chunk
+            out = self._link.agreed(lambda: self._denoise(batch, start, bucket, self._link.chunk(bucket)))
+            out = self._link.gather(out)
+
+        # stats first: a caller woken by its future may read them at once
+        self.stats.requests += n
+        self.stats.batches += 1
+        self.stats.padded_items += bucket - n
+        self.stats.bucket_counts[bucket] = self.stats.bucket_counts.get(bucket, 0) + 1
+        for i, (*_, fut) in enumerate(batch):
+            if not fut.cancelled():
+                fut.set_result(out[i])
+
+    def _denoise(self, batch: list, start: int, bucket: int, mine: slice) -> Any:
+        "The ``mine`` chunk of ``batch`` padded to ``bucket``: drawn, denoised and postprocessed."
+        n = len(batch)
+        items = [(seed, initial) for _seq, seed, initial, *_ in batch]
         items += [(_PAD_SEED, items[0][1])] * (bucket - n)  # pad with deterministic dummies
-        prepared = [self.prepare(seed, initial, start) for seed, initial in items]
+        prepared = [self.prepare(seed, initial, start) for seed, initial in items[mine]]
         x0 = torch.stack([x for x, _ in prepared])
         denoiser = self._denoiser_for(start)
         noises = None
@@ -270,13 +441,13 @@ class ServingEngine:
             noises = torch.stack([z for _, z in prepared], dim=1)  # (steps, B, *item)
 
         ctx = None
-        if batch[0][3] is not None:
+        if batch[0][4] is not None:
             contexts = [context for *_, context, _ in batch]
             contexts += [contexts[0]] * (bucket - n)
-            ctx = _stack_tree(contexts, self.dtype, self.device)
+            ctx = _stack_tree(contexts[mine], self.dtype, self.device)
 
         if self.graph:
-            key = (bucket, start, tuple(tuple(t.shape) for t in leaves(ctx)) if ctx is not None else None)
+            key = (x0.shape[0], start, tuple(tuple(t.shape) for t in leaves(ctx)) if ctx is not None else None)
             captured = self._graphs.get(key)
             if captured is None:
                 static = map_tree(torch.clone, (x0, noises, ctx))
@@ -287,14 +458,7 @@ class ServingEngine:
             out = self.dispatch_body(start)(x0, noises, ctx)
         if self._postprocess is not None:
             out = self._postprocess(out)
-
-        # stats first: a caller woken by its future may read them at once
-        self.stats.requests += n
-        self.stats.batches += 1
-        self.stats.padded_items += bucket - n
-        self.stats.bucket_counts[bucket] = self.stats.bucket_counts.get(bucket, 0) + 1
-        for i, (*_, fut) in enumerate(batch):
-            fut.set_result(out[i])
+        return out
 
 
 def _stack_tree(trees: list, dtype: torch.dtype, device: torch.device) -> Any:

@@ -4,6 +4,7 @@
         [--checkpoint dit.npz] [--device cuda|cpu] [--graph] [--opt8] [--lora N]
         [--host-loader] [--orbax DIR [--resume] [--until N] [--save-every N]
         [--abort-after-step K]]
+    torchrun --nproc-per-node N -m skrample_tpu_torch.training --dp N [...]
 
 The port's counterpart of the JAX package's
 ``examples/train_flow_matching.py``: the conditional flow-matching loss
@@ -44,7 +45,17 @@ The example's other options:
   ``--host-loader`` and ``--orbax``.  Every option works with ``--graph``: a
   restore lands before the first call (the capture), the graph's step
   counter starts at the restored step, and ``--lora`` captures the merge.
-The example's mesh (``--dp/--tp/--fsdp``) is a later slice of the port.
+
+``--dp N`` trains on N data-parallel ranks started by ``torchrun`` (``main``
+initialises the group from its environment, NCCL on cards and gloo on the
+CPU, and refuses a world of another size): every rank draws the whole
+batch (the same generator or loader key on every rank) and takes its
+``dp`` chunk, the gradients are averaged over ``dp`` before the update,
+and the loss printed is the whole batch's mean.  It composes with
+``--opt8``, ``--lora`` and ``--remat``; with ``--graph`` or ``--orbax`` it
+is refused until the sharded train state (FSDP, ROADMAP.md A5.6) brings
+the distributed resume.  The example's ``--tp/--fsdp`` belong to later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -60,10 +71,11 @@ from collections.abc import Sequence
 from typing import Any
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
-from . import prng
+from . import parallel, prng
 from .data import EpochLoader, prefetch_to_device
 from .models.checkpoint import TrainCheckpointer, load_params, save_params
 from .models.dit import DiT, DiTConfig
@@ -105,13 +117,21 @@ def train_step(
     sigma: torch.Tensor,
     step: int,
     ema_decay: float = 0.9999,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """One step: loss and grads, the optimizer's update, then the EMA update
     at step index ``step``.  Returns the loss (detached, on the device: the
-    host does not wait for it)."""
+    host does not wait for it).  With ``mesh`` (a ``dp`` axis) the batch is
+    the whole one: this rank takes its ``dp`` chunk, the gradients are
+    averaged over ``dp`` and the loss returned is the whole batch's mean."""
     opt.zero_grad(set_to_none=True)
+    if mesh is not None:
+        x0, noise, sigma = (parallel.shard_batch(mesh, a) for a in (x0, noise, sigma))
     loss = flow_matching_loss(model, x0, noise, sigma)
     loss.backward()
+    if mesh is not None:
+        parallel.average_grads([p for p in model.parameters() if p.requires_grad], mesh)
+        loss = global_mean(loss.detach(), mesh)
     opt.step()
     ema_update(ema, model, decay=ema_decay, step=step)
     return loss.detach()
@@ -234,6 +254,49 @@ def _restore(state: dict, trained: nn.Module, opt: torch.optim.Optimizer, ema: d
     return int(state["step"])
 
 
+def global_mean(value: torch.Tensor, mesh: Any, axis: str = "dp") -> torch.Tensor:
+    "The mean over mesh axis ``axis`` of each rank's ``value`` (a sum all-reduce of a copy, then a division)."
+    group, size, _rank = parallel.axis_group(mesh, axis)
+    total = value.detach().clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total / size
+
+
+def dist_requested() -> bool:
+    "Started by ``torchrun`` (its environment names a world), or inside an initialised group."
+    return "WORLD_SIZE" in os.environ or dist.is_initialized()
+
+
+def data_parallel_world(dp: int, device: torch.device, ap: argparse.ArgumentParser) -> tuple[Any, torch.device, bool]:
+    """``(mesh, device, owned)`` for ``--dp``: a ``make_mesh(dp=dp, sp=1)`` over the process group,
+    which this call initialises (``owned``) from ``torchrun``'s environment (NCCL with this rank's
+    card, ``LOCAL_RANK``, on CUDA; gloo on the CPU) or, outside ``torchrun`` at ``dp = 1``, as a
+    one-rank group over an in-process store; an initialised group is used as it is.  A world of
+    another size than ``dp`` is refused."""
+    owned = False
+    if not dist.is_initialized():
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(device)
+        options = {"device_id": device} if device.type == "cuda" else {}
+        if "WORLD_SIZE" in os.environ:
+            dist.init_process_group(backend, **options)
+        elif dp == 1:
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1, **options)
+        else:
+            ap.error(f"--dp {dp}: start {dp} ranks with torchrun --nproc-per-node {dp}")
+        owned = True
+    elif device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    if dist.get_world_size() != dp:
+        world = dist.get_world_size()
+        if owned:
+            dist.destroy_process_group()
+        ap.error(f"--dp {dp} needs a world of {dp} ranks, got WORLD_SIZE={world}")
+    return parallel.make_mesh(dp=dp, sp=1), device, owned
+
+
 def main(argv: Sequence[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m skrample_tpu_torch.training", description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=100)
@@ -265,11 +328,30 @@ def main(argv: Sequence[str] | None = None) -> int:
         help="feed a host-resident set through data.EpochLoader + prefetch_to_device with the JAX example's draws",
     )
     ap.add_argument("--lora", type=int, default=0, help="train rank-N LoRA adapters over the frozen base")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks (run under torchrun with as many)")
     args = ap.parse_args(argv)
 
+    if args.dp > 1 and (args.graph or args.orbax):
+        raise NotImplementedError(
+            "--dp > 1 with --graph or --orbax comes with the sharded train state (FSDP, ROADMAP.md A5.6), "
+            "which brings the distributed resume"
+        )
     device = resolve_device(args.device)
     if args.graph and device.type != "cuda":
         ap.error("--graph captures CUDA graphs: it needs --device cuda")
+    mesh, owned = None, False
+    if args.dp > 1 or dist_requested():
+        mesh, device, owned = data_parallel_world(args.dp, device, ap)
+    try:
+        return _train(args, ap, device, mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.device, mesh: Any) -> int:
+    "``main``'s run once the device (and the data-parallel mesh, if any) are set."
+    main_rank = mesh is None or dist.get_rank() == 0
     config = DiTConfig(
         dim=args.dim,
         depth=args.depth,
@@ -315,7 +397,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     def step_once(x0: torch.Tensor, noise: torch.Tensor, sigma: torch.Tensor, n: int) -> torch.Tensor:
         if graphed is not None:
             return graphed(x0, noise, sigma).clone()
-        return train_step(trained, opt, ema, x0, noise, sigma, n, ema_decay=args.ema_decay)
+        return train_step(trained, opt, ema, x0, noise, sigma, n, ema_decay=args.ema_decay, mesh=mesh)
 
     t0 = time.perf_counter()
     losses = []
@@ -344,13 +426,13 @@ def main(argv: Sequence[str] | None = None) -> int:
             losses.append(step_once(*draw_batch(data, args.batch, gen), n))
     values = torch.stack(losses).tolist() if losses else []
     dt = time.perf_counter() - t0
-    if values:
+    if values and main_rank:
         print(f"{args.steps} steps in {dt:.2f}s ({dt / args.steps * 1e3:.2f} ms/step on {device}, first step included)")
         print(f"loss {values[0]:.4f} -> {values[-1]:.4f}")
-        if not all(math.isfinite(v) for v in values):
-            print("non-finite loss", file=sys.stderr)
-            return 1
-    if args.checkpoint:
+    if not all(math.isfinite(v) for v in values):
+        print("non-finite loss", file=sys.stderr)
+        return 1
+    if args.checkpoint and main_rank:  # every rank holds the same parameters
         save_params(args.checkpoint, lora_to_numpy(trained.adapters) if args.lora else model.param_tree())
         print(f"saved {args.checkpoint}")
     if ckpt is not None:

@@ -163,12 +163,24 @@ def test_tree_context_and_a_bad_context_fails_only_its_future() -> None:
 # ---- mechanics -------------------------------------------------------------------------
 
 
+class _StandInMesh:
+    "What an engine reads of a mesh before it makes any group: the axis names and sizes."
+
+    def __init__(self, dp: int) -> None:
+        self.mesh_dim_names, self._sizes = ("dp", "sp"), (dp, 1)
+
+    def size(self, index: int) -> int:
+        return self._sizes[index]
+
+
 def test_refusals() -> None:
-    "img2img, mesh= and graph=True on the CPU are refused; so are a missing context_like and 0 ticks."
+    """img2img, a mesh whose dp does not divide the slots (the JAX package's refusal, read before any
+    group is made: a stand-in mesh serves) and graph=True on the CPU are refused; so are a missing
+    context_like and 0 ticks."""
     with make_engine() as engine, pytest.raises(ValueError, match="img2img"):
         engine.submit(0, initial=torch.zeros(ITEM))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_engine(mesh=object())
+    with pytest.raises(ValueError, match="slots=4 not divisible by the mesh's dp=3"):
+        make_engine(mesh=_StandInMesh(dp=3), slots=4)
     with pytest.raises(ValueError, match="graph=True"):
         make_engine(graph=True)
     with pytest.raises(ValueError, match="context_like"):

@@ -193,14 +193,17 @@ def test_param_tree_round_trips_and_checks() -> None:
 
 
 def test_contracts() -> None:
-    """"flash" takes head dims 64 and 128 and names "full" otherwise; sequence parallelism, tensor-parallel
-    specs and the pipelined apply raise; a fresh model is adaLN-zero (outputs 0) and builds in bf16."""
+    """"flash" takes head dims 64 and 128 and names "full" otherwise; sequence parallelism without a mesh,
+    tensor-parallel specs and the pipelined apply raise; a fresh model is adaLN-zero (outputs 0) and builds
+    in bf16."""
     with pytest.raises(NotImplementedError, match="attention='full'"):
         MMDiT(MMDiTConfig(dim=96, heads=3, depth=1), device="cpu")
     MMDiT(MMDiTConfig(dim=96, heads=3, depth=1, attention="full"), device="cpu")
-    for kind in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for kind in ("ring", "ulysses"):  # without a mesh, the JAX package's ValueError (with one: test_torch_parallel.py)
+        with pytest.raises(ValueError, match=r"needs MMDiT\(config, mesh=\.\.\.\)"):
             MMDiT(MMDiTConfig(dim=128, heads=2, depth=1, attention=kind), device="cpu")
+        with pytest.raises(ValueError, match=r"needs MMDiT\(config, mesh=\.\.\.\)"):
+            jmmdit.MMDiT(jmmdit.MMDiTConfig(dim=128, heads=2, depth=1, attention=kind))
     with pytest.raises(ValueError, match="multiple of 128"):
         MMDiT(MMDiTConfig(dim=128, heads=2, depth=1, context_tokens=77), device="cpu")
     fresh = MMDiT(MMDiTConfig(**SMALL, compute_dtype=torch.float32), device="cpu")

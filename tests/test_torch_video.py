@@ -113,12 +113,15 @@ def test_video_dit_guided_closure_matches_jax(cfg_batched: bool) -> None:
 
 
 def test_video_dit_flops_and_later_slices() -> None:
-    "The FLOP count is the JAX package's; sequence parallelism raises; the int8 model stays close."
+    """The FLOP count is the JAX package's; sequence parallelism without a mesh raises the JAX package's
+    ValueError (with one: tests/test_torch_parallel.py); the int8 model stays close."""
     for cfg in ({}, {"context_dim": 32}):
         want = jvdit.video_dit_forward_flops(jvdit.VideoDiTConfig(**DIT, **cfg), 1, 16, 64, 64, 64)
         assert tvdit.video_dit_forward_flops(tvdit.VideoDiTConfig(**DIT, **cfg), 1, 16, 64, 64, 64) == want
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match=r"needs VideoDiT\(config, mesh=\.\.\.\)"):
         tvdit.VideoDiT(tvdit.VideoDiTConfig(**DIT, sequence_parallel=True), device="cpu")
+    with pytest.raises(ValueError, match="needs VideoDiT"):
+        jvdit.VideoDiT(jvdit.VideoDiTConfig(**DIT, sequence_parallel=True))
     port, _, _ = _dit_pair(4, dim=256, heads=2)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 16, 2, 16, 16), dtype=np.float32))
     full = port(x, 300.0).flatten()
