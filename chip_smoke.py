@@ -165,6 +165,20 @@ Phases, each failing the run with a non-zero exit:
     of each trainer, each bit for bit its mesh-less twin; the
     SD3.5-medium-width MMDiT with ``"ring"`` (B11) and ``"ulysses"`` (B9)
     against ``"flash"``.
+19. tensor parallelism and FSDP: (a) on a one-rank NCCL group,
+    ``make_mesh(dp=1, sp=1, extra_axes={"tp": 1})``: ``ServingEngine(mesh=)``
+    over DiT-512/8, a FLUX.1-dev request (1024x1024, 4 steps) and one int8
+    forward, the SD3.5-medium-width MMDiT's ring at tp 1 x sp 1, one CFG
+    forward of SDXL base's UNet, one ``train_text_to_image --tp 1`` step and
+    three ``GraphedTrainStep(mesh=)`` steps (``--dp 1 --graph``), each bit
+    for bit its mesh-less twin with the same launches; (b) two processes on
+    the card over gloo at tp 2: DiT-512/8's bf16 forward within 5e-2 relative
+    of its unsharded twin and FLUX.1-dev's int8 forward bit for bit the
+    unsharded one, with each rank's peak memory; then two processes on the
+    card over gloo: 3 DiT-512/8 steps at ``--dp 2 --fsdp``
+    against ``--dp 2`` (AdamW and ``--opt8``) bit for bit, each rank's
+    parameter bytes, and phase 15c's ``--dp 2 --fsdp --opt8``
+    kill-and-resume against the uninterrupted run, bit for bit.
 
 Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
@@ -6291,6 +6305,512 @@ def t2i_parallel_phase(card: str) -> dict[str, int]:
     return total
 
 
+TP_FLUX_STEPS = 4  # 19a: a FLUX.1-dev request at 1024x1024 cut to 4 steps (phase 6 serves 28)
+FSDP_STEPS = 3  # 19b: DiT-512/8 steps at --dp 2 with and without --fsdp
+
+
+TWIN_TIMED = 3  # 19a: timed runs of each twin after its counted one (their median)
+TP_WORLD = 2  # 19b: the tensor-parallel world's processes, both on the one card
+GRAPH_STEPS = 3  # 19a: GraphedTrainStep calls a twin (the eager warm-up, then two replays)
+
+
+def _flux_dev_config():
+    "FLUX.1-dev's published widths and depth in bf16 with the flash attention (phases 19a and 19b)."
+    import torch
+
+    from skrample_tpu_torch.models.flux import FluxConfig
+
+    return FluxConfig(
+        dim=3072, heads=24, depth=19, single_depth=38, context_dim=4096, pooled_dim=768, guidance=True,
+        compute_dtype=torch.bfloat16, attention="flash",
+    )
+
+
+def _flux_dev(mesh, dev):
+    """FLUX.1-dev in bf16 on ``mesh`` (None: unsharded), its weights drawn on the card from seed 0 with
+    ``noise=0.02``: under ``tp`` each rank draws every layer whole and keeps its part, so the shards are the
+    unsharded model's."""
+    import torch
+
+    from skrample_tpu_torch.models.flux import Flux
+
+    gen = torch.Generator(dev).manual_seed(0)
+    flux = Flux(_flux_dev_config(), mesh=mesh, device=dev, generator=gen, dtype=torch.bfloat16)
+    flux.reset_parameters(gen, noise=0.02)
+    return flux.requires_grad_(False)
+
+
+def _flux_dev_inputs(dev) -> tuple[tuple, dict]:
+    "One 1024x1024 FLUX.1-dev forward's inputs (4096 image and 512 text tokens), from seed 1 on the card."
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(1)
+    ctx = torch.randn((1, 512, 4096), generator=gen, device=dev)
+    pooled = torch.randn((1, 768), generator=gen, device=dev)
+    x = torch.randn((1, 16, 128, 128), generator=gen, device=dev)
+    return (x, torch.tensor([0.7], device=dev), ctx, pooled), {"guidance": torch.tensor([3.5], device=dev)}
+
+
+def _counted(run) -> tuple[list, dict[str, int], list[float]]:
+    """``run()`` once to warm it, once with the counters from 0, then ``TWIN_TIMED`` times on the host clock
+    ending in a synchronize: (the counted run's outputs, its launches, the timed runs' ms)."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    _reset_counters()
+    got = run()
+    torch.cuda.synchronize()
+    counts = _counters()
+    times = []
+    for _ in range(TWIN_TIMED):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (got if isinstance(got, list) else [got]), counts, times
+
+
+def _twin_check(label: str, results: dict, card: str, total: dict[str, int]) -> None:
+    """19a: the mesh twin's :func:`_counted` result (``True``) equal to the mesh-less one's bit for bit, with the
+    same launches; the mesh twin's counts go to ``total``."""
+    (outs, counts, ms), (twin_outs, twin_counts, twin_ms) = results[True], results[False]
+    same, err = _same(outs, twin_outs)
+    spread = {k: f"{statistics.median(v):.2f} ms ({min(v):.2f}-{max(v):.2f})" for k, v in (("mesh", ms), ("none", twin_ms))}
+    print(
+        f"tp 19a: {label}: bit-equal {same} (max abs diff {err:.3e}) to its mesh-less twin, launches "
+        f"{ {k: v for k, v in counts.items() if v} } (mesh-less: equal {counts == twin_counts}); median of "
+        f"{TWIN_TIMED}: {spread['mesh']} with the mesh, {spread['none']} without ({card})"
+    )
+    expect(same, f"tp 19a: {label} differs from its mesh-less twin by {err}")
+    expect(counts == twin_counts, f"tp 19a: {label} launched {counts}, its twin {twin_counts}")
+    expect(any(counts.values()), f"tp 19a: {label} launched no kernel")
+    for name, count in counts.items():
+        total[name] += count
+
+
+def _twins(label: str, runs: dict, card: str, total: dict[str, int]) -> None:
+    "19a: :func:`_counted` for each twin in ``runs`` (``True``: the mesh one), then :func:`_twin_check`."
+    _twin_check(label, {m: _counted(run) for m, run in runs.items()}, card, total)
+
+
+def _tp_twins_part(card: str, mesh, total: dict[str, int]) -> None:
+    """19a: each path on the one-rank ``(dp 1, sp 1, tp 1)`` NCCL mesh against its mesh-less twin."""
+    import gc
+
+    import torch
+
+    from skrample_tpu_torch import prng, scheduling
+    from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+    from skrample_tpu_torch.models.ema import ema_init
+    from skrample_tpu_torch.models.flux import Flux
+    from skrample_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+    from skrample_tpu_torch.models.sdxl import SDXLStack
+    from skrample_tpu_torch.models.unet_cond import CondUNet, CondUNetConfig
+    from skrample_tpu_torch.parallel import make_mesh
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.serving import ServingEngine
+    from skrample_tpu_torch.train_text_to_image import build_models, hermetic_data, t2i_draws, t2i_optimizer, t2i_train_step
+    from skrample_tpu_torch.training import GraphedTrainStep, draw_batch, make_optimizer, synthetic_dataset
+
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+
+    # ---- DiT-512/8 through ServingEngine(mesh=) ----
+    config = DiTConfig(dim=512, depth=DEPTH, heads=4, channels=4, compute_dtype=bf16, attention="flash")
+    tree = random_param_tree(config, seed=0)
+    dits = {m: DiT(config, mesh=mesh if m else None, device=dev).load_jax_params(tree).requires_grad_(False)
+            for m in (False, True)}
+    with contextlib.ExitStack() as stack:
+        engines = {
+            m: stack.enter_context(ServingEngine(
+                dits[m].as_sampleable(), item_shape=(4, 64, 64), steps=STEPS, buckets=(1, 2), max_delay_ms=50.0,
+                mesh=mesh if m else None, device=dev,
+            ))
+            for m in (False, True)
+        }
+
+        def served(engine) -> list:
+            pair = [engine.submit(s) for s in MESH_REQUESTS[:2]]
+            return [f.result() for f in pair] + [engine.generate(MESH_REQUESTS[2])]
+
+        _twins("ServingEngine(mesh=dp 1 x tp 1) over DiT-512/8, 3 requests", {m: (lambda e=e: served(e)) for m, e in engines.items()},
+               card, total)
+    del dits, engines
+
+    # ---- FLUX.1-dev: one bf16 request, then one int8 forward ----
+    f_config = _flux_dev_config()
+    flux = _flux_dev(None, dev)
+    flux_tp = Flux(f_config, mesh=mesh, device=dev, generator=torch.Generator(dev).manual_seed(1), dtype=bf16)
+    flux_tp.load_state_dict(flux.state_dict())
+    fluxes = {False: flux.requires_grad_(False), True: flux_tp.requires_grad_(False)}
+    cgen = torch.Generator(dev).manual_seed(1)
+    ctx = (torch.randn((512, 4096), generator=cgen, device=dev), torch.randn((768,), generator=cgen, device=dev))
+    with contextlib.ExitStack() as stack:
+        engines = {
+            m: stack.enter_context(ServingEngine(
+                fluxes[m].as_served(guidance=3.5), item_shape=(16, 128, 128), sampler=structured.DPM(order=2),
+                schedule=scheduling.FlowShift(scheduling.Linear()), model_transform=models.FlowModel(),
+                steps=TP_FLUX_STEPS, buckets=(1,), conditioned=True, device=dev,
+            ))
+            for m in (False, True)
+        }
+        _twins(f"FLUX.1-dev (tp 1) bf16 request, 1024x1024 at {TP_FLUX_STEPS} steps",
+               {m: (lambda e=e: e.generate(SEEDS[0], context=ctx)) for m, e in engines.items()}, card, total)
+    del engines, flux, flux_tp
+    args, kwargs = _flux_dev_inputs(dev)
+    results = {}
+    with torch.inference_mode():
+        for m in (False, True):  # one int8 copy at a time, the mesh-less model freed before the mesh one's
+            q = fluxes[m].quantize_params()
+            results[m] = _counted(lambda q=q: q(*args, **kwargs))
+            del q
+            if not m:
+                del fluxes[m]
+                gc.collect()
+                torch.cuda.empty_cache()
+    _twin_check("FLUX.1-dev (tp 1) int8 forward, 4608 tokens", results, card, total)
+    del fluxes, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the SD3.5-medium-width MMDiT at tp x sp ring, against the ring without a tp axis ----
+    gen = torch.Generator(dev).manual_seed(181)
+    ring_cfg = MMDiTConfig(**T2I_MEDIUM, compute_dtype=bf16, attention="ring")
+    mm = {m: MMDiT(ring_cfg, mesh=mesh if m else make_mesh(dp=1, sp=1), device=dev, generator=gen, dtype=bf16)
+          for m in (False, True)}
+    mm[False].reset_parameters(gen, noise=0.02)
+    mm[True].load_state_dict(mm[False].state_dict())
+    x = torch.randn((2, 16, T2I_SIZE, T2I_SIZE), generator=gen, device=dev)
+    tt = torch.tensor([500.0, 20.0], device=dev)
+    mctx = torch.randn((2, 128, T2I_MEDIUM["context_dim"]), generator=gen, device=dev)
+    with torch.inference_mode():
+        _twins("SD3.5-medium-width MMDiT, ring at tp 1 x sp 1 (twin: ring at sp 1, no tp axis)",
+               {m: (lambda model=model.requires_grad_(False): model(x, tt, mctx)) for m, model in mm.items()}, card, total)
+    del mm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one CFG forward of the SDXL CondUNet ----
+    u_cfg = CondUNetConfig(compute_dtype=bf16)
+    gen = torch.Generator(dev).manual_seed(0)
+    unet = CondUNet(u_cfg, device=dev, generator=gen, dtype=bf16)
+    unet.reset_parameters(gen, noise=0.02)
+    unet_tp = CondUNet(u_cfg, device=dev, generator=torch.Generator(dev).manual_seed(1), dtype=bf16, mesh=mesh)
+    unet_tp.load_state_dict(unet.state_dict())
+    cgen = torch.Generator(dev).manual_seed(1)
+    cond, uncond = ((torch.randn((77, u_cfg.context_dim), generator=cgen, device=dev),
+                     torch.randn((u_cfg.pooled_dim,), generator=cgen, device=dev)) for _ in range(2))
+    time_ids = SDXLStack.time_ids((1024, 1024), (0, 0), (1024, 1024), device=dev)
+    x = torch.randn((1, 4, 128, 128), generator=cgen, device=dev)
+    fns = {m: u.requires_grad_(False).as_sampleable(cond[0], cond[1], time_ids, 5.0, uncond[0], uncond[1])
+           for m, u in ((False, unet), (True, unet_tp))}
+    with torch.inference_mode():
+        _twins("SDXL base CondUNet (tp 1), one CFG 5.0 forward at 1024x1024",
+               {m: (lambda fn=fn: fn(x, torch.tensor([500.0], device=dev), None, None)) for m, fn in fns.items()}, card, total)
+    del unet, unet_tp, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one train_text_to_image --tp 1 step ----
+    ids, images = hermetic_data(16, device=dev)
+    draws = t2i_draws(prng.PRNGKey(2), 8, 16, 0.1, device=dev)
+
+    def t2i_step(meshed: bool) -> list:
+        enc, mmd = build_models(128, dev, mesh if meshed else None)
+        loss = t2i_train_step(enc, mmd, t2i_optimizer(enc, mmd), ids, images, draws, mesh if meshed else None)
+        return [loss, *(p.detach().clone() for mod in (enc, mmd) for p in mod.parameters())]
+
+    _twins("train_text_to_image --tp 1: one joint step at the example's widths (dim 128)",
+           {m: (lambda m=m: t2i_step(m)) for m in (False, True)}, card, total)
+
+    # ---- training --dp 1 --graph: GraphedTrainStep(mesh=) captures the step's collectives ----
+    data = synthetic_dataset(64, dev)
+
+    def graphed_steps(meshed: bool) -> list:
+        "DiT-512/8: the eager warm-up step and capture, then two replays; the losses and the parameters."
+        model = DiT(config, mesh=mesh if meshed else None, device=dev).load_jax_params(tree)
+        step = GraphedTrainStep(model, make_optimizer(model, capturable=True), ema_init(model),
+                                mesh=mesh if meshed else None)
+        gen = torch.Generator(dev).manual_seed(7)
+        losses = [step(*draw_batch(data, 4, gen)).clone() for _ in range(GRAPH_STEPS)]
+        return [*losses, *(p.detach().clone() for p in model.parameters())]
+
+    results = {}
+    for m in (False, True):  # one counted run a twin: each builds its model and captures its graph
+        _reset_counters()
+        t0 = time.perf_counter()
+        outs = graphed_steps(m)
+        torch.cuda.synchronize()
+        results[m] = (outs, _counters(), [(time.perf_counter() - t0) * 1e3])
+    _twin_check(f"training --dp 1 --graph: {GRAPH_STEPS} DiT-512/8 steps (batch 4 of 4x64x64; the first eager, "
+                "then the captured graph's replays), parameters and losses", results, card, total)
+
+
+def _tp_world_rank(rank: int, store_path: str, queue) -> None:
+    """19b: one rank of a gloo world of ``TP_WORLD`` processes, all on ``cuda:0``, on a ``(dp 1, sp 1, tp
+    TP_WORLD)`` mesh: DiT-512/8's bf16 forward cut over ``tp`` and its unsharded twin on this rank, then
+    FLUX.1-dev's int8 forward cut over ``tp`` (:func:`_flux_dev`, quantized from the rank's shards, the bf16
+    model freed before the forward).  Puts ``(rank, result)`` on ``queue``: the outputs on the host, each
+    forward's launches, and the peak memory this process allocated from FLUX.1-dev's build to its output;
+    ``(rank, traceback)`` on a failure."""
+    import gc
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from skrample_tpu_torch.models.dit import DiT, DiTConfig, random_param_tree
+        from skrample_tpu_torch.parallel import make_mesh
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        store = dist.FileStore(store_path, TP_WORLD)
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=TP_WORLD, timeout=timedelta(seconds=300))
+        try:
+            mesh = make_mesh(dp=1, sp=1, extra_axes={"tp": TP_WORLD})
+            out: dict = {}
+            config = DiTConfig(dim=512, depth=DEPTH, heads=4, channels=4, compute_dtype=torch.bfloat16,
+                               attention="flash")
+            tree = random_param_tree(config, seed=0)
+            gen = torch.Generator(dev).manual_seed(2)
+            x, t = torch.randn((2, 4, 64, 64), generator=gen, device=dev), torch.tensor([700.0, 30.0], device=dev)
+            with torch.inference_mode():
+                for meshed in (True, False):
+                    model = DiT(config, mesh=mesh if meshed else None, device=dev).load_jax_params(tree)
+                    _reset_counters()
+                    y = model.requires_grad_(False)(x, t)
+                    torch.cuda.synchronize()
+                    out["dit" if meshed else "dit_twin"] = y.float().cpu().numpy()  # numpy: pickled by value
+                    if meshed:
+                        out["dit_counts"] = _counters()
+                    del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            flux = _flux_dev(mesh, dev)
+            out["flux_bf16_bytes"] = sum(p.numel() * p.element_size() for p in flux.parameters())
+            args, kwargs = _flux_dev_inputs(dev)
+            with torch.inference_mode():
+                q = flux.quantize_params()
+                del flux
+                _reset_counters()
+                y = q(*args, **kwargs)
+                torch.cuda.synchronize()
+            out["flux_counts"] = _counters()
+            out["flux"] = y.float().cpu().numpy()
+            out["flux_peak"] = torch.cuda.max_memory_allocated(dev) - base
+            queue.put((rank, out))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+def _tp_world_part(card: str, total: dict[str, int]) -> None:
+    """19b: :func:`_tp_world_rank` on ``TP_WORLD`` spawned processes; then, in this process, FLUX.1-dev's
+    unsharded int8 forward on the same weights and inputs.  Each rank's DiT-512/8 forward within 5e-2 relative
+    max of its unsharded twin (bf16: the row-parallel layers add their float32 partial sums over ``tp``
+    before one rounding, the unsharded ones round one sum), every rank's FLUX.1-dev int8 output equal to the
+    unsharded one bit for bit (int32 sums over ``tp`` are exact), and each rank's peak memory beside the
+    unsharded model's."""
+    import gc
+    import multiprocessing
+    import queue as queues
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    results: dict[int, dict] = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        channel = ctx.Queue()
+        procs = [ctx.Process(target=_tp_world_rank, args=(r, f"{tmp}/store", channel), daemon=True)
+                 for r in range(TP_WORLD)]
+        try:
+            for proc in procs:
+                proc.start()
+            while len(results) < TP_WORLD:
+                try:
+                    rank, got = channel.get(timeout=600)
+                except queues.Empty:
+                    raise SmokeFailure("tp 19b world: no result from a rank within 600 s") from None
+                expect(isinstance(got, dict), f"tp 19b world: rank {rank} failed:\n{got}")
+                results[rank] = {k: torch.from_numpy(v) if hasattr(v, "dtype") else v for k, v in got.items()}
+            for proc in procs:
+                proc.join(timeout=60)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+    world_s = time.perf_counter() - t0
+    expect([p.exitcode for p in procs] == [0] * TP_WORLD, f"tp 19b world: exit codes {[p.exitcode for p in procs]}")
+    for rank, got in results.items():
+        err = _relative(got["dit"], got["dit_twin"])
+        print(
+            f"tp 19b rank {rank}: DiT-512/8 bf16 forward (batch 2 of 4x64x64) at tp {TP_WORLD} (2 heads a rank) vs "
+            f"its unsharded twin: relative max err {err:.3e} (tolerance 5e-2), launches "
+            f"{ {k: v for k, v in got['dit_counts'].items() if v} } ({card})"
+        )
+        finite = bool(torch.isfinite(got["dit"]).all())
+        expect(finite and err <= 5e-2, f"tp 19b rank {rank}: DiT at tp differs by {err} (finite {finite})")
+        expect(got["dit_counts"]["flash_attention_qkv_forward"] > 0, f"tp 19b rank {rank}: the DiT launched no K2")
+        for name in ("dit_counts", "flux_counts"):
+            for k, v in got[name].items():
+                total[k] += v
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    flux = _flux_dev(None, dev)
+    whole_bytes = sum(p.numel() * p.element_size() for p in flux.parameters())
+    args, kwargs = _flux_dev_inputs(dev)
+    with torch.inference_mode():
+        q = flux.quantize_params()
+        del flux
+        _reset_counters()
+        want = q(*args, **kwargs).float().cpu()
+        torch.cuda.synchronize()
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del q
+    gc.collect()
+    torch.cuda.empty_cache()
+    for rank, got in results.items():
+        same, err = _same([got["flux"]], [want])
+        print(
+            f"tp 19b rank {rank}: FLUX.1-dev int8 forward (4608 tokens) at tp {TP_WORLD} (12 heads a rank): bit-equal "
+            f"{same} (max abs diff {err:.3e}) to the unsharded int8 forward; bf16 parameters "
+            f"{got['flux_bf16_bytes'] / 2**30:.2f} GiB a rank against {whole_bytes / 2**30:.2f} unsharded; peak memory "
+            f"from the build to the output {got['flux_peak'] / 2**30:.2f} GiB a rank against "
+            f"{peak / 2**30:.2f} unsharded; launches {_nonzero(got['flux_counts'])} (unsharded "
+            f"{_nonzero(counts)}) ({card})"
+        )
+        expect(same, f"tp 19b rank {rank}: FLUX.1-dev int8 at tp differs from unsharded by {err}")
+        expect(got["flux_counts"]["quantize_rows"] > 0, f"tp 19b rank {rank}: FLUX.1-dev int8 launched no B6")
+    print(f"tp 19b world: {TP_WORLD} processes took {world_s:.1f} s, the unsharded forward "
+          f"{time.perf_counter() - t0 - world_s:.1f} s ({card})")
+
+
+def _nonzero(counts: dict[str, int]) -> dict[str, int]:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _fsdp_runs_part(card: str) -> None:
+    """19b: two processes on the one card over gloo (both on ``cuda:0``): DiT-512/8 at ``--dp 2`` with and without
+    ``--fsdp``, AdamW and ``--opt8``, bit for bit; then phase 15c's DiT-512/2 killed and resumed at ``--dp 2 --fsdp
+    --opt8`` against an uninterrupted run, bit for bit."""
+    import threading
+
+    import torch
+
+    from skrample_tpu_torch.models import _tree
+    from skrample_tpu_torch.models.checkpoint import load_params
+    from skrample_tpu_torch.parallel.dryrun import spawn_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def together(argvs: dict[str, list[str]]) -> dict[str, list]:
+            "Each argv on its own two-rank world, the worlds at once (threads waiting on spawned ranks)."
+            codes: dict[str, list] = {}
+            threads = [threading.Thread(target=lambda k=k, a=a: codes.__setitem__(k, spawn_cli(2, a, tmp, 300)))
+                       for k, a in argvs.items()]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            return codes
+
+        def tree(name: str) -> dict:
+            return dict(_tree._flatten(load_params(f"{tmp}/{name}.npz")))
+
+        base = ["--device", "cuda", "--dp", "2", "--steps", str(FSDP_STEPS), "--dim", "512", "--depth", str(DEPTH),
+                "--heads", "4", "--size", "64", "--batch", "4"]
+        resume = ["--device", "cuda", "--dim", "512", "--heads", "4", "--depth", "2", "--host-loader", "--dp", "2",
+                  "--fsdp", "--opt8", "--until", str(RESUME_UNTIL), "--save-every", str(RESUME_EVERY)]
+        runs = {
+            f"{name}{tag}": [*base, *opt, *extra, "--checkpoint", f"{tmp}/{name}{tag}.npz"]
+            for tag, opt in (("", []), ("8", ["--opt8"])) for name, extra in (("dp", []), ("fsdp", ["--fsdp"]))
+        }
+        runs["straight"] = [*resume, "--orbax", f"{tmp}/straight", "--checkpoint", f"{tmp}/straight.npz"]
+        runs["killed"] = [*resume, "--orbax", f"{tmp}/killed", "--abort-after-step", str(RESUME_ABORT)]
+        t0 = time.perf_counter()
+        codes = together(runs)  # six two-rank worlds at once, twelve processes on the card
+        first_stage = time.perf_counter() - t0
+        for tag, label in (("", "AdamW"), ("8", "--opt8")):
+            expect(codes[f"dp{tag}"] == codes[f"fsdp{tag}"] == [0, 0], f"tp 19b {label}: the runs exited {codes}")
+            a, b = tree(f"dp{tag}"), tree(f"fsdp{tag}")
+            same = a.keys() == b.keys() and all(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for k in a)
+            first = next((k for k in a if not torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k]))), None)
+            whole = sum(v.nbytes for v in a.values())
+            print(
+                f"tp 19b {label}: {FSDP_STEPS} DiT-512/8 steps (batch 4 of 4x64x64, bf16) at --dp 2 --fsdp against "
+                f"--dp 2, two gloo ranks on one card: parameters bit-equal {same} (first differing leaf {first}); "
+                f"the replicated parameters {whole} bytes a rank ({card})"
+            )
+            expect(same, f"tp 19b {label}: --fsdp differs from --dp 2 first at {first}")
+        t0 = time.perf_counter()
+        codes.update(together({"resumed": [*resume, "--orbax", f"{tmp}/killed", "--resume",
+                                           "--checkpoint", f"{tmp}/resumed.npz"]}))
+        print(f"tp 19b: the six first worlds took {first_stage:.1f} s together, the resumed one "
+              f"{time.perf_counter() - t0:.1f} s ({card})")
+        want = {"straight": [0, 0], "killed": [-9, -9], "resumed": [0, 0]}
+        got = {k: codes[k] for k in want}
+        expect(got == want, f"tp 19b resume: the runs exited {got}, expected {want}")
+        a, b = tree("straight"), tree("resumed")
+        same = a.keys() == b.keys() and all(torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for k in a)
+        states = {}
+        for rank in range(2):
+            sa = torch.load(f"{tmp}/straight/{RESUME_UNTIL}/state-{rank}.pt", weights_only=True)
+            sb = torch.load(f"{tmp}/killed/{RESUME_UNTIL}/state-{rank}.pt", weights_only=True)
+            fa, fb = _flat_tensors(sa), _flat_tensors(sb)
+            states[rank] = fa.keys() == fb.keys() and _same(list(fa.values()), list(fb.values()))[0]
+        print(
+            f"tp 19b resume: DiT-512/2 --dp 2 --fsdp --opt8 killed after step {RESUME_ABORT} (SIGKILL on both ranks), "
+            f"resumed to step {RESUME_UNTIL}, against an uninterrupted run: whole parameters bit-equal {same}, each "
+            f"rank's sharded state bit-equal {states} ({card})"
+        )
+        expect(same and all(states.values()), f"tp 19b resume: differs (parameters {same}, states {states})")
+
+
+def tp_fsdp_phase(card: str) -> dict[str, int]:
+    """Phase 19: tensor parallelism and FSDP.  (a) On a one-rank NCCL group, ``make_mesh(dp=1, sp=1,
+    extra_axes={"tp": 1})``: ``ServingEngine(mesh=)`` over DiT-512/8, a FLUX.1-dev bf16 request and one int8
+    forward, the SD3.5-medium-width MMDiT's ring at tp 1 x sp 1, one CFG forward of SDXL base's CondUNet, one
+    ``train_text_to_image --tp 1`` step and three ``--dp 1 --graph`` steps, each bit for bit its mesh-less twin
+    with the same launches.  (b) Two processes on the card over gloo: the tp 2 world (:func:`_tp_world_part`),
+    ``--dp 2 --fsdp`` against ``--dp 2`` (AdamW and ``--opt8``) and the ``--fsdp --opt8`` kill-and-resume."""
+    import torch
+    import torch.distributed as dist
+
+    from skrample_tpu_torch.parallel import make_mesh
+
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=dev)
+        try:
+            _tp_twins_part(card, make_mesh(dp=1, sp=1, extra_axes={"tp": 1}), total)
+        finally:
+            dist.destroy_process_group()
+    print(f"tp 19a: took {time.perf_counter() - phase_t0:.1f} s")
+    t0 = time.perf_counter()
+    _tp_world_part(card, total)
+    _fsdp_runs_part(card)
+    print(f"tp 19b: took {time.perf_counter() - t0:.1f} s")
+    print(f"tp: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import gc
 
@@ -6333,6 +6853,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t2i = t2i_parallel_phase(device["card"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp = tp_fsdp_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -6340,7 +6863,7 @@ def main() -> int:
     # each row's launches: its counts summed over every path's main-path run
     runs = (
         serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers, graphed,
-        extras, sd3, stacks, t2i,
+        extras, sd3, stacks, t2i, tp,
     )
     for name, row in rows.items():
         row["launches"] = sum(run.get(name, 0) for run in runs)

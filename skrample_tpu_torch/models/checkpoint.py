@@ -26,6 +26,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.graphs import map_tree
 
@@ -109,16 +110,40 @@ class TrainCheckpointer:
     then renamed to ``directory/<step>``, so a write torn by a kill is never listed by
     :meth:`latest_step` and the next checkpointer on the directory removes it.  Only the newest
     ``max_to_keep`` steps are kept.  :meth:`restore` reads the given (default: latest) step;
-    ``like=`` puts each tensor on the device and dtype of the tensor at the same place in ``like``."""
+    ``like=`` puts each tensor on the device and dtype of the tensor at the same place in ``like``.
+
+    Under an initialised process group of more than one rank (every rank builds one on the same
+    directory, at once) the checkpointer is sharded: each rank saves and restores its own state (its
+    shards of an FSDP or tensor-parallel train state), ``state-<rank>.pt`` in one step directory; the
+    writer threads meet over a gloo group of their own once every rank has written, and the first
+    rank then commits the step by the rename, so a step whose write was torn on any rank is never
+    listed."""
 
     def __init__(self, directory: str | pathlib.Path, max_to_keep: int = 3, async_save: bool = True):
         self.directory = pathlib.Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
         self.max_to_keep, self.async_save = max_to_keep, async_save
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
-        for torn in self.directory.glob(f"{_TMP}*"):  # a save killed mid-write: never committed
-            shutil.rmtree(torn, ignore_errors=True)
+        self._group = None
+        self._rank = 0
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # the writers' own group: their meetings never interleave with the step's collectives
+            self._group = dist.new_group(backend="gloo")
+            self._rank = dist.get_rank()
+        if self._rank == 0:
+            self.directory.mkdir(parents=True, exist_ok=True)
+            for torn in self.directory.glob(f"{_TMP}*"):  # a save killed mid-write: never committed
+                shutil.rmtree(torn, ignore_errors=True)
+        self._meet()  # no rank writes before the torn saves are gone
+
+    def _meet(self) -> None:
+        "Every rank's checkpointer at this point (sharded only)."
+        if self._group is not None:
+            dist.barrier(group=self._group)
+
+    @property
+    def _state_name(self) -> str:
+        return _STATE if self._group is None else f"state-{self._rank}.pt"
 
     def save(self, step: int, state: Any) -> None:
         self.wait()
@@ -132,19 +157,24 @@ class TrainCheckpointer:
 
     def _write(self, step: int, snapshot: Any) -> None:
         try:
-            tmp = self.directory / f"{_TMP}{step}-{os.getpid()}"
-            shutil.rmtree(tmp, ignore_errors=True)
-            tmp.mkdir()
-            with open(tmp / _STATE, "wb") as f:
+            # one temporary directory a save, shared by the ranks of a sharded checkpointer
+            tmp = self.directory / (f"{_TMP}{step}-{os.getpid()}" if self._group is None else f"{_TMP}{step}-ranks")
+            if self._group is None:
+                shutil.rmtree(tmp, ignore_errors=True)
+            tmp.mkdir(exist_ok=True)
+            with open(tmp / self._state_name, "wb") as f:
                 torch.save(snapshot, f)
                 f.flush()
                 os.fsync(f.fileno())
-            final = self.directory / str(step)
-            if final.exists():
-                shutil.rmtree(final)
-            os.replace(tmp, final)
-            for old in self.all_steps()[: -self.max_to_keep] if self.max_to_keep else []:
-                shutil.rmtree(self.directory / str(old), ignore_errors=True)
+            self._meet()  # every rank has written
+            if self._rank == 0:
+                final = self.directory / str(step)
+                if final.exists():
+                    shutil.rmtree(final)
+                os.replace(tmp, final)
+                for old in self.all_steps()[: -self.max_to_keep] if self.max_to_keep else []:
+                    shutil.rmtree(self.directory / str(old), ignore_errors=True)
+            self._meet()  # committed on every rank
         except BaseException as exc:  # raised by the next wait()
             self._error = exc
 
@@ -155,12 +185,16 @@ class TrainCheckpointer:
             step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoint steps in {self.directory}")
-        state = torch.load(self.directory / str(int(step)) / _STATE, map_location="cpu", weights_only=True)
+        state = torch.load(self.directory / str(int(step)) / self._state_name, map_location="cpu", weights_only=True)
         return _like(state, like) if like is not None else state
 
     def all_steps(self) -> list[int]:
         "The committed steps, oldest first."
-        return sorted(int(p.name) for p in self.directory.iterdir() if p.name.isdigit() and (p / _STATE).is_file())
+        if not self.directory.exists():
+            return []
+        return sorted(
+            int(p.name) for p in self.directory.iterdir() if p.name.isdigit() and (p / self._state_name).is_file()
+        )
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()

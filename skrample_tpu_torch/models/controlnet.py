@@ -23,13 +23,11 @@ padding of 1, cuDNN's exact TF32 route item by item (``unet._conv``).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from ..ops._cuda import resolve_device
-from .dit import _TP_LATER
 from .unet import _conv, _ConvSpec, _random_tree, _to_channels_last, _to_nchw
 from .unet_cond import CondUNetConfig, _check_shape, _cond_unet_skeleton, _CondEncoder
 
@@ -137,9 +135,6 @@ class ControlNet(_CondEncoder):
         return down, _to_nchw(_conv(self.tree["zero_mid"], h, dtype), dtype) * s
 
     apply = forward
-
-    def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
 
 
 def random_param_tree(config: ControlNetConfig, seed: int) -> dict:

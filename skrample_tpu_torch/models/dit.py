@@ -16,11 +16,13 @@ backward as the JAX package's does.
 The sequence-parallel attentions (``"ring"``, ``"ulysses"``) run over the
 ``sp`` dim of a :class:`~torch.distributed.device_mesh.DeviceMesh`
 (``parallel/``): each rank holds its token shard of the residual stream,
-and on a ``dp`` x ``sp`` mesh its ``dp`` chunk of the batch.  A mesh given
-to the ``"full"`` or ``"flash"`` attention (tensor parallelism, ROADMAP
-A5.3), tensor-parallel specs (A5.3), pipelined apply (A5.4) and a gradient
-through the sequence-parallel attentions (A5.7) belong to later slices of
-the port and raise :class:`NotImplementedError` here.
+and on a ``dp`` x ``sp`` mesh its ``dp`` chunk of the batch.  On a mesh
+with a ``tp`` axis each rank keeps its shard of the layers that
+:meth:`DiT.param_spec` splits (``parallel/tensor_parallel.py``) and runs
+``heads / tp`` heads; the mesh may also carry ``sp`` for the ring and
+ulysses attentions.  Pipelined apply (ROADMAP A5.4) and a gradient through
+the sequence-parallel attentions (A5.7) belong to later slices of the port
+and raise :class:`NotImplementedError` here.
 """
 
 from __future__ import annotations
@@ -47,13 +49,12 @@ from torch.utils.checkpoint import (
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import flash_attention, flash_attention_qkv
-from ..ops.quant import Int8Dense, dense_int8, quantize_params
-from ..parallel import gather
+from ..ops.quant import MIN_QUANT_SIZE, Int8Dense, dense_int8
+from ..parallel import gather, tensor_parallel
 from ..parallel.ring_attention import axis_group, ring_attention
 from ..parallel.ulysses import ulysses_attention
 
 _LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
-_TP_LATER = "comes with a later slice of the port (ROADMAP.md A5.3)"
 _PIPELINE_LATER = "comes with a later slice of the port (ROADMAP.md A5.4)"
 
 
@@ -147,7 +148,19 @@ def _dense(layer: nn.Linear | Int8Dense, x: torch.Tensor, dtype: torch.dtype) ->
     round trip (``chip_smoke.py`` phase 16e holds the two to each other at
     every served shape).  A float32 bias keeps the two passes: rounding it
     first would change the sum.  A weight already in ``dtype`` is read as it
-    is (:func:`cast_dense_weights`)."""
+    is (:func:`cast_dense_weights`).
+
+    A layer cut for tensor parallelism (``layer.tp``, ``parallel/tensor_parallel.py``)
+    does its collective: a column-parallel one runs this on its columns, a
+    row-parallel one reduces its float32 partial sums over ``tp`` before the
+    bias."""
+    if getattr(layer, "tp", None) is not None:
+        return tensor_parallel.dense(layer, x, dtype, _dense_local)
+    return _dense_local(layer, x, dtype)
+
+
+def _dense_local(layer: nn.Linear | Int8Dense, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    "The body of :func:`_dense` on the layer's own weights."
     if isinstance(layer, Int8Dense):
         return dense_int8(layer.params(), x, dtype)
     w, b = layer.weight.to(dtype), layer.bias
@@ -193,31 +206,29 @@ def _int8_copy(model: nn.Module, exclude: frozenset[str]) -> nn.Module:
     """The int8 serving copy of ``model``: every ``nn.Linear`` that the JAX
     package's ``quantize_params`` (with ``exclude``) would quantize becomes an
     :class:`~skrample_tpu_torch.ops.quant.Int8Dense`; every other parameter is
-    shared with ``model``, not copied."""
-    tree: dict = {}
+    shared with ``model``, not copied.  A tensor-parallel layer is quantized
+    from its own shard (``tensor_parallel.quantize_weight``), by the whole
+    layer's size rule, and keeps its cut."""
+    swaps: dict[str, Int8Dense] = {}
     for name, layer in model.named_modules():
-        if isinstance(layer, nn.Linear):
-            node = tree
-            for part in name.split("."):
-                node = node.setdefault(part, {})
-            node.update(w=layer.weight.detach().t(), b=layer.bias.detach())
-    quantized = quantize_params(tree, exclude=exclude)
+        if not isinstance(layer, nn.Linear) or exclude.intersection(name.split(".")):
+            continue
+        d_in, d_out = tensor_parallel.whole_features(layer)
+        if d_in * d_out < MIN_QUANT_SIZE:
+            continue
+        swaps[name] = Int8Dense({"w_q": tensor_parallel.quantize_weight(layer), "b": layer.bias.detach()})
+        if getattr(layer, "tp", None) is not None:
+            swaps[name].tp = layer.tp
     shared = {id(t): t for t in itertools.chain(model.parameters(), model.buffers())}
+    # process groups are shared, never copied
+    shared.update({id(m.tp): m.tp for m in model.modules() if getattr(m, "tp", None) is not None})
     mesh = getattr(model, "mesh", None)
     if mesh is not None:
-        shared[id(mesh)] = mesh  # a process group is shared, never copied
+        shared[id(mesh)] = mesh
     clone = copy.deepcopy(model, shared)
-
-    def swap(node: dict, path: str) -> None:
-        if "w_q" in node:
-            parent, _, leaf = path.rpartition(".")
-            setattr(clone.get_submodule(parent), leaf, Int8Dense(node))
-        else:
-            for key, child in node.items():
-                if isinstance(child, dict):
-                    swap(child, f"{path}.{key}" if path else key)
-
-    swap(quantized, "")
+    for name, layer in swaps.items():
+        parent, _, leaf = name.rpartition(".")
+        setattr(clone.get_submodule(parent), leaf, layer)
     return clone
 
 
@@ -322,10 +333,11 @@ class DiT(nn.Module):
                     f"DiTConfig(attention={config.attention!r}) needs DiT(config, mesh=...) with the sp axis"
                 )
             axis_group(mesh, config.sp_axis)  # raises on a mesh without the axis
-        elif mesh is not None:
-            raise NotImplementedError(
-                f"DiT(mesh=...) with attention={config.attention!r} (tensor parallelism; data parallelism is "
-                f"the caller's: shard the batch, parallel.shard_batch) {_TP_LATER}"
+        elif mesh is not None and "tp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError(
+                f"DiT(mesh=...) with attention={config.attention!r} needs a 'tp' mesh axis (tensor parallelism; "
+                "sequence parallelism is attention='ring' or 'ulysses'; data parallelism is the caller's: shard "
+                "the batch, parallel.shard_batch)"
             )
         if config.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {config.remat!r}")
@@ -339,8 +351,18 @@ class DiT(nn.Module):
         self.final_mod = nn.Linear(c.dim, 2 * c.dim, device="meta")
         self.final_out = nn.Linear(c.dim, patch_dim, device="meta")
         self.blocks = nn.ModuleList(DiTBlock(c, mesh) for _ in range(c.depth))
+        if tensor_parallel.tp_size(mesh) > 1:  # each rank holds its shard and runs heads / tp heads
+            local = tensor_parallel.local_config(c, mesh)
+            tensor_parallel.cut_on_meta(tensor_parallel.linears(self), self.param_spec(), mesh, self._tp_segments())
+            for block in self.blocks:
+                block.config = local
         self.to_empty(device=device)
         self.reset_parameters(generator)
+
+    def _tp_segments(self) -> dict[str, tuple[int, ...]]:
+        "The fused qkv's three parts, each split over ``tp`` by heads."
+        d = self.config.dim
+        return {f"blocks.{i}.qkv": (d, d, d) for i in range(self.config.depth)}
 
     def _layers(self) -> list[tuple[str, nn.Linear]]:
         "(name, layer) in the JAX tree's order, block layers as ``blocks.i.name``."
@@ -356,9 +378,9 @@ class DiT(nn.Module):
             generator = torch.Generator().manual_seed(0)
         for name, layer in self._layers():
             zero = name.split(".")[-1] in _ZERO_INIT
-            w = torch.randn(layer.in_features, layer.out_features, generator=generator) / math.sqrt(layer.in_features)
-            layer.weight.copy_(torch.zeros_like(w.T) if zero else w.T)
-            layer.bias.zero_()
+            d_in, d_out = tensor_parallel.whole_features(layer)
+            w = torch.randn(d_in, d_out, generator=generator) / math.sqrt(d_in)
+            tensor_parallel.load_dense(layer, torch.zeros_like(w) if zero else w, torch.zeros(d_out))
 
     def param_tree(self) -> dict:
         """The module's parameters as the JAX package's tree of float32 numpy
@@ -390,6 +412,7 @@ class DiT(nn.Module):
         expected = {"patch_in", "t_mlp1", "t_mlp2", "final_mod", "final_out", "blocks"}
         if set(tree) != expected:
             raise ValueError(f"DiT param tree keys {sorted(tree)} != {sorted(expected)}")
+        tree = tensor_parallel.shard_params(tree, self.param_spec(), self.mesh, self._tp_segments())
         if len(tree["blocks"]) != len(self.blocks):
             raise ValueError(f"param tree has {len(tree['blocks'])} blocks, model depth is {len(self.blocks)}")
         for name, layer in self._layers():
@@ -474,8 +497,23 @@ class DiT(nn.Module):
         shared with this model.  Serving only: rounding has no gradient."""
         return _int8_copy(self, frozenset({"ada", "final_mod", "t_mlp1", "t_mlp2"}))
 
-    def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
+    def param_spec(self, quantized: bool = False) -> dict:
+        """The JAX package's tensor-parallel specs over ``tp`` (megatron layout): qkv and mlp_in
+        column-parallel, proj and mlp_out row-parallel, the rest replicated; with ``quantized`` the
+        int8 tree's (the codes split as the float weight, the per-channel scales with the output
+        dim).  ``tensor_parallel.P`` tuples."""
+        col, row, rep = tensor_parallel.dense_specs(quantized)
+        return {
+            "patch_in": rep,
+            "t_mlp1": rep,
+            "t_mlp2": rep,
+            "final_mod": rep,
+            "final_out": rep,
+            "blocks": [
+                {"qkv": col, "proj": row, "mlp_in": col, "mlp_out": row, "ada": rep}
+                for _ in range(self.config.depth)
+            ],
+        }
 
     def as_sampleable(self) -> Callable[[torch.Tensor, Any, Any, Any], torch.Tensor]:
         "Adapter to the sampling closure signature (x, t, sigma, alpha) -> pred."

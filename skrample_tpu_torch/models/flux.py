@@ -28,7 +28,9 @@ each int8 product).  ``apply`` takes plain ``(B, 16, H, W)`` latents: the
 :meth:`Flux.load_jax_params` carries the JAX package's parameter tree
 across and :meth:`Flux.param_tree` carries it back.  Parameters live in the
 ``dtype`` the model is built in (float32 masters, or bfloat16 serving
-storage); the RMS gains stay float32.
+storage); the RMS gains stay float32.  On a mesh with a ``tp`` axis each
+rank keeps its shard of the layers :meth:`Flux.param_spec` splits
+(``parallel/tensor_parallel.py``) and runs ``heads / tp`` heads.
 """
 
 from __future__ import annotations
@@ -49,9 +51,10 @@ from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import _qkv_reference, flash_attention_pairs, flash_attention_qkv
 from ..ops.rope import fused_rope_qk_norm
+from ..parallel import tensor_parallel
 from . import _tree
 from .conditioning import per_item
-from .dit import _DOTS_CONTEXT, _TP_LATER, _dense, _int8_copy, _timestep_embedding
+from .dit import _DOTS_CONTEXT, _dense, _int8_copy, _timestep_embedding
 
 _ZERO_INIT = frozenset({"ada", "final_mod", "final_out"})
 _GAINS = ("q_norm", "k_norm")
@@ -239,9 +242,10 @@ class Flux(nn.Module):
             )
         if c.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {c.remat!r}")
-        if mesh is not None:
-            raise NotImplementedError(f"tensor-parallel Flux (mesh=) {_TP_LATER}")
+        if mesh is not None and "tp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError("Flux(mesh=...) needs a 'tp' mesh axis (tensor parallelism)")
         self.config = c
+        self.mesh = mesh
         self.x_in = _linear(c.packed_width, c.dim, dtype)
         self.ctx_in = _linear(c.context_dim, c.dim, dtype)
         self.t_mlp = _TwoLayer(256, c.dim, dtype)
@@ -253,8 +257,24 @@ class Flux(nn.Module):
         # the JAX tree's "double"/"single" (nn.Module.double() takes the plain name)
         self.double_blocks = nn.ModuleList(_DoubleBlock(c, dtype) for _ in range(c.depth))
         self.single_blocks = nn.ModuleList(_SingleBlock(c, dtype) for _ in range(c.single_depth))
+        if tensor_parallel.tp_size(mesh) > 1:  # each rank holds its shard and runs heads / tp heads
+            layers = tensor_parallel.linears(self, _tree_path)
+            tensor_parallel.cut_on_meta(layers, self.param_spec(), mesh, self._tp_segments())
+            for block in (*self.double_blocks, *self.single_blocks):
+                block.config = tensor_parallel.local_config(c, mesh)
         self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
+
+    def _tp_segments(self) -> dict[str, tuple[int, ...]]:
+        """The fused qkv's three parts, split by heads, and the single block's ``out`` rows over
+        ``[attention | mlp]``, each part split alike."""
+        c = self.config
+        d = c.dim
+        segments = {f"double.{i}.{s}.qkv": (d, d, d) for i in range(c.depth) for s in ("img", "txt")}
+        for i in range(c.single_depth):
+            segments[f"single.{i}.qkv"] = (d, d, d)
+            segments[f"single.{i}.out"] = (d, c.mlp_ratio * d)
+        return segments
 
     # -- parameters ------------------------------------------------------------
 
@@ -284,15 +304,14 @@ class Flux(nn.Module):
 
         for name, leaf in self._leaves():
             if isinstance(leaf, nn.Linear):
-                d_in, d_out = leaf.in_features, leaf.out_features
+                d_in, d_out = tensor_parallel.whole_features(leaf)
                 zero = name.rpartition(".")[2] in _ZERO_INIT
                 w = torch.zeros(d_in, d_out, device=gen.device) if zero else normal(d_in, d_out) / math.sqrt(d_in)
                 b = torch.zeros(d_out, device=gen.device)
                 if noise:
                     w += noise * normal(d_in, d_out)
                     b += noise * normal(d_out)
-                leaf.weight.copy_(w.T)
-                leaf.bias.copy_(b)
+                tensor_parallel.load_dense(leaf, w, b)
             else:
                 g = torch.ones(leaf.shape, device=gen.device)
                 leaf.copy_(g + noise * normal(*leaf.shape) if noise else g)
@@ -310,6 +329,7 @@ class Flux(nn.Module):
         arrays).  Every key must be consumed and every shape must match; an
         int8 tree does not load (load the float tree, then
         :meth:`quantize_params`)."""
+        tree = tensor_parallel.shard_params(tree, self.param_spec(), self.mesh, self._tp_segments())
         _tree.load_tree(self, tree, "Flux", _tree_path)
         return self
 
@@ -324,8 +344,31 @@ class Flux(nn.Module):
         exclude = frozenset({"ada", "final_mod", "final_out", "t_mlp", "pool_mlp", "guid_mlp", "ctx_in", "x_in"})
         return _int8_copy(self, exclude)
 
-    def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
+    def param_spec(self, quantized: bool = False) -> dict:
+        """The JAX package's megatron specs over ``tp``: each stream's and single block's qkv and
+        mlp_in column-parallel, proj, mlp_out and the single block's out row-parallel, the rest
+        replicated; int8's with ``quantized``."""
+        col, row, rep = tensor_parallel.dense_specs(quantized)
+        P = tensor_parallel.P
+        c = self.config
+        two = {"l1": dict(rep), "l2": dict(rep)}
+        stream = {"ada": dict(rep), "qkv": dict(col), "q_norm": P(), "k_norm": P(), "proj": dict(row),
+                  "mlp_in": dict(col), "mlp_out": dict(row)}
+        single = {"ada": dict(rep), "qkv": dict(col), "q_norm": P(), "k_norm": P(), "mlp_in": dict(col),
+                  "out": dict(row)}
+        spec: dict = {
+            "x_in": rep,
+            "ctx_in": rep,
+            "t_mlp": dict(two),
+            "pool_mlp": dict(two),
+            "final_mod": rep,
+            "final_out": rep,
+            "double": [{"img": dict(stream), "txt": dict(stream)} for _ in range(c.depth)],
+            "single": [dict(single) for _ in range(c.single_depth)],
+        }
+        if c.guidance:
+            spec["guid_mlp"] = dict(two)
+        return spec
 
     # -- patch packing (the diffusers pipeline's host-side pack) --------------
 

@@ -34,6 +34,7 @@ from torch import nn
 
 from .. import prng
 from ..ops._cuda import resolve_device
+from ..parallel.fsdp import part_of
 
 __all__ = [
     "JaxLeaf",
@@ -73,9 +74,9 @@ def jax_leaves(model: nn.Module) -> list[JaxLeaf]:
         raise TypeError(f"{type(model).__name__} names no JAX tree paths (_leaves or _layers)")
     leaves = []
     for path, leaf in items:
-        if isinstance(leaf, nn.Linear):
-            leaves.append((path + ".w", leaf.weight, True))
-            leaves.append((path + ".b", leaf.bias, False))
+        if isinstance(leaf, nn.Linear):  # the parameters themselves: a rank's part where FSDP shards them
+            leaves.append((path + ".w", part_of(leaf, "weight"), True))
+            leaves.append((path + ".b", part_of(leaf, "bias"), False))
         else:
             leaves.append((path, leaf, False))
     keyed = [(_keystr(path), named[id(t)], t, tr) for path, t, tr in leaves]
@@ -100,12 +101,16 @@ def lora_init(
     draws them from the same key (in jax's flatten order, ``key, k_a = split(key)`` a weight; ``a``
     is ``prng.normal(k_a) / sqrt(rank)``, ``b`` zeros).  ``match(path, leaf)`` sees the leaf in
     the JAX layout ``(d_in, d_out)``; the default takes every 2-D ``w`` with both sides at least
-    ``2 * rank``.  The adapters live on ``device`` (the model's by default) with
-    ``requires_grad``."""
+    ``2 * rank``; over a tensor-parallel base, the whole layer's shape.  The adapters live on
+    ``device`` (the model's by default) with ``requires_grad``."""
     pick = match or (lambda p, leaf: _default_match(p, leaf, rank))
     adapters: dict[str, dict[str, torch.Tensor]] = {}
     for leaf in jax_leaves(model):
-        value = leaf.tensor.detach().T if leaf.transposed else leaf.tensor.detach()
+        value = leaf.tensor.detach()
+        shard = getattr(model.get_submodule(leaf.name.rpartition(".")[0]), "tp", None) if leaf.transposed else None
+        if shard is not None:  # a tensor-parallel base: the adapters are the whole layer's, as the JAX tree's
+            value = torch.empty(shard.d_out, shard.d_in, dtype=value.dtype, device="meta")
+        value = value.T if leaf.transposed else value
         if not pick(leaf.path, value):
             continue
         key, k_a = prng.split(key)
@@ -128,7 +133,9 @@ def lora_merge(
     """The merged weights ``{parameter name: W + (scale / rank) * (A @ B)ᵀ}`` at every adapted path,
     for ``torch.func.functional_call(model, merged, args)``.  The delta is computed in the adapters'
     dtype and the sum rounds once into the weight's dtype, as the JAX package's ``lora_merge``.
-    Differentiable in the adapters: call it inside the step."""
+    Differentiable in the adapters: call it inside the step.  Over a tensor-parallel base each rank
+    merges its part of the delta into its shard, so an adapter's gradient there is this rank's part
+    of it (``tensor_parallel.sum_partial_grads`` adds the parts over ``tp``)."""
     merged = {}
     known = {leaf.path: leaf for leaf in jax_leaves(model)}
     for path, ab in adapters.items():
@@ -138,6 +145,9 @@ def lora_merge(
         rank = ab["a"].shape[1]
         delta = (ab["a"] @ ab["b"]) * (scale / rank)
         w = leaf.tensor.detach()
+        shard = getattr(model.get_submodule(leaf.name.rpartition(".")[0]), "tp", None)
+        if shard is not None:  # a tensor-parallel base holds its shard: this rank's part of the delta
+            delta = shard.part_w(delta)
         merged[leaf.name] = (w.to(delta.dtype) + delta.T).to(w.dtype)
     return merged
 

@@ -37,8 +37,10 @@ its own rows) run on the shard, the joint attention is
 streams in the ``[image, text]`` order, a dual attention the same scheme
 over the image stream alone, and the final layer's output is all-gathered.
 On a ``dp`` x ``sp`` mesh the input is the rank's ``dp`` chunk of the batch,
-as for the DiT.  Tensor-parallel specs (ROADMAP A5.3) and the pipelined
-apply (A5.4) belong to later slices.
+as for the DiT.  On a mesh with a ``tp`` axis both streams' layers are cut
+as :meth:`MMDiT.param_spec` splits them (``parallel/tensor_parallel.py``),
+``heads / tp`` heads a rank.  The pipelined apply (ROADMAP A5.4) belongs to
+a later slice.
 """
 
 from __future__ import annotations
@@ -58,12 +60,12 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.rope import fused_rope_qk_norm
-from ..parallel import gather, joint_sp_attention
+from ..parallel import gather, joint_sp_attention, tensor_parallel
 from ..parallel.ring_attention import axis_group, ring_attention
 from ..parallel.ulysses import ulysses_attention
 from . import _tree
 from .conditioning import doubled_t, guided_mix, per_item
-from .dit import _DOTS_CONTEXT, _PIPELINE_LATER, _TP_LATER, _dense, _int8_copy, _timestep_embedding
+from .dit import _DOTS_CONTEXT, _PIPELINE_LATER, _dense, _int8_copy, _timestep_embedding
 from .flux import _FLASH_HEAD_DIMS, _attention, _gain, _gelu, _linear
 
 _ZERO_INIT = frozenset({"ada", "final_mod", "final_out"})
@@ -170,7 +172,7 @@ class _MMBlock(nn.Module):
     def _self_attention(self, qkv: torch.Tensor) -> torch.Tensor:
         "The dual attention over the image stream: on a mesh, the sequence-parallel scheme over its shards."
         c = self.config
-        if self.mesh is None:
+        if c.attention not in ("ring", "ulysses"):
             return _attention(qkv, c)
         B, n, _ = qkv.shape
         q, k, v = (part.reshape(B, n, c.heads, c.head_dim).transpose(1, 2) for part in qkv.chunk(3, dim=-1))
@@ -199,7 +201,7 @@ class _MMBlock(nn.Module):
             qkv2 = dense(self.img.qkv2, adaln_modulate(img, si_a2, ci_a2))
             if c.qk_norm:
                 qkv2 = self._norm(qkv2, self.img.q_norm2, self.img.k_norm2, tables)
-        if self.mesh is not None:
+        if c.attention in ("ring", "ulysses"):
             out_img, out_txt = joint_sp_attention(qkv_img, qkv_txt, c.heads, self.mesh, c.sp_axis, c.attention)
         else:
             N = img.shape[1]
@@ -248,9 +250,10 @@ class MMDiT(nn.Module):
                     f"MMDiTConfig(attention={c.attention!r}) needs MMDiT(config, mesh=...) with the sp axis"
                 )
             axis_group(mesh, c.sp_axis)  # raises on a mesh without the axis
-        elif mesh is not None:
-            raise NotImplementedError(
-                f"MMDiT(mesh=...) with attention={c.attention!r} (tensor parallelism) {_TP_LATER}"
+        elif mesh is not None and "tp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError(
+                f"MMDiT(mesh=...) with attention={c.attention!r} needs a 'tp' mesh axis (tensor parallelism; "
+                "sequence parallelism is attention='ring' or 'ulysses')"
             )
         if c.attention == "flash" and c.head_dim not in _FLASH_HEAD_DIMS:
             raise NotImplementedError(
@@ -279,8 +282,22 @@ class MMDiT(nn.Module):
         if c.pos_embed_max:
             self.pos_embed = nn.Parameter(torch.empty(c.pos_embed_max**2, c.dim, device="meta"))
         self.blocks = nn.ModuleList(_MMBlock(c, dtype, i, mesh) for i in range(c.depth))
+        if tensor_parallel.tp_size(mesh) > 1:  # each rank holds its shard and runs heads / tp heads of both streams
+            tensor_parallel.cut_on_meta(tensor_parallel.linears(self), self.param_spec(), mesh, self._tp_segments())
+            for block in self.blocks:
+                block.config = tensor_parallel.local_config(c, mesh)
         self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
+
+    def _tp_segments(self) -> dict[str, tuple[int, ...]]:
+        "Every fused qkv's three parts (both streams, the dual attention's too), each split by heads."
+        d = self.config.dim
+        return {
+            f"blocks.{i}.{stream}.{name}": (d, d, d)
+            for i in range(self.config.depth)
+            for stream in ("img", "txt")
+            for name in ("qkv", "qkv2")
+        }
 
     # -- parameters ------------------------------------------------------------
 
@@ -301,15 +318,14 @@ class MMDiT(nn.Module):
 
         for name, module in self.named_modules():
             if isinstance(module, nn.Linear):
-                d_in, d_out = module.in_features, module.out_features
+                d_in, d_out = tensor_parallel.whole_features(module)
                 zero = name.rpartition(".")[2] in _ZERO_INIT
                 w = torch.zeros(d_in, d_out, device=gen.device) if zero else normal(d_in, d_out) / math.sqrt(d_in)
                 b = torch.zeros(d_out, device=gen.device)
                 if noise:
                     w += noise * normal(d_in, d_out)
                     b += noise * normal(d_out)
-                module.weight.copy_(w.T)
-                module.bias.copy_(b)
+                tensor_parallel.load_dense(module, w, b)
         for name, param in self.named_parameters():
             leaf = name.rpartition(".")[2]
             if leaf.startswith(("q_norm", "k_norm")):
@@ -331,6 +347,7 @@ class MMDiT(nn.Module):
         ``skrample_tpu.models.mmdit.MMDiT.init`` or ``import_weights.sd3_mmdit``
         lay it out, numpy or jax arrays).  Every key must be consumed and
         every shape must match."""
+        tree = tensor_parallel.shard_params(tree, self.param_spec(), self.mesh, self._tp_segments())
         _tree.load_tree(self, tree, "MMDiT")
         return self
 
@@ -344,8 +361,43 @@ class MMDiT(nn.Module):
         exclude = frozenset({"ada", "final_mod", "t_mlp1", "t_mlp2", "pool_mlp", "pool_mlp1", "pool_mlp2", "ctx_in"})
         return _int8_copy(self, exclude)
 
-    def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
+    def param_spec(self, quantized: bool = False) -> dict:
+        """The JAX package's tensor-parallel specs over ``tp`` for both streams (qkv, qkv2 and mlp_in
+        column-parallel, proj, proj2 and mlp_out row-parallel, the rest replicated; the pre-only text
+        stream keeps its qkv and ada), int8's with ``quantized``."""
+        col, row, rep = tensor_parallel.dense_specs(quantized)
+        P = tensor_parallel.P
+        c = self.config
+        stream = {"qkv": col, "proj": row, "mlp_in": col, "mlp_out": row, "ada": rep}
+        pre_stream: dict = {"qkv": dict(col), "ada": dict(rep)}
+        if c.qk_norm:
+            stream = {**stream, "q_norm": P(), "k_norm": P()}
+            pre_stream = {**pre_stream, "q_norm": P(), "k_norm": P()}
+        dual = {"qkv2": dict(col), "proj2": dict(row)} | ({"q_norm2": P(), "k_norm2": P()} if c.qk_norm else {})
+        spec: dict = {
+            "patch_in": rep,
+            "ctx_in": rep,
+            "t_mlp1": rep,
+            "t_mlp2": rep,
+            "final_mod": rep,
+            "final_out": rep,
+            "blocks": [
+                {
+                    "img": dict(stream) | (dual if i in c.dual_attention_layers else {}),
+                    "txt": dict(pre_stream) if c.final_txt_pre_only and i == c.depth - 1 else dict(stream),
+                }
+                for i in range(c.depth)
+            ],
+        }
+        if c.sd3_wiring:
+            spec["pool_mlp1"] = rep
+            spec["pool_mlp2"] = rep
+        else:
+            spec["ctx_null"] = P()
+            spec["pool_mlp"] = rep
+        if c.pos_embed_max:
+            spec["pos_embed"] = P()
+        return spec
 
     def apply_pipelined(self, *args: Any, **kwargs: Any) -> torch.Tensor:
         raise NotImplementedError(f"pipeline-parallel apply {_PIPELINE_LATER}")
@@ -408,7 +460,8 @@ class MMDiT(nn.Module):
         context = self.embed_context(context, B).to(dtype)
 
         patches, ctx_rows = self.patchify(x), context
-        shard = self._shard if self.mesh is not None else lambda a, _stream: a
+        sequence_parallel = c.attention in ("ring", "ulysses")
+        shard = self._shard if sequence_parallel else lambda a, _stream: a
         img = _dense(self.patch_in, shard(patches, "a").to(dtype), dtype)
         if c.pos_embed_max:
             gh, gw = H // c.patch, W // c.patch
@@ -439,7 +492,7 @@ class MMDiT(nn.Module):
         shift, scale = _dense(self.final_mod, cond, dtype).chunk(2, dim=-1)
         img = adaln_modulate(img, shift, scale)
         out = _dense(self.final_out, img, dtype)
-        if self.mesh is not None:
+        if sequence_parallel:
             out = gather(self.mesh, out, dim=1, axis=c.sp_axis)
         return self.unpatchify(out, H, W).to(x.dtype)
 

@@ -10,11 +10,15 @@ scores: encoder contexts are 77-512 tokens.
 
 :meth:`T5Encoder.load_jax_params` carries the JAX tree across
 (``import_weights.t5_encoder`` builds one from a transformers state dict)
-and :meth:`T5Encoder.param_tree` carries it back.
+and :meth:`T5Encoder.param_tree` carries it back.  On a mesh with a ``tp``
+axis each rank keeps its shard of the projections
+:meth:`T5Encoder.param_spec` splits and its heads' columns of the relative
+bias (``parallel/tensor_parallel.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any
 
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops._cuda import resolve_device
+from ..parallel import tensor_parallel
 from . import _tree
 from .text_encoder import _ids
 
@@ -86,7 +91,10 @@ class _T5Block(nn.Module):
 
 
 def _mm(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    "``x @ w`` in ``dtype`` (the JAX package's ``x @ w.astype(dtype)``)."
+    """``x @ w`` in ``dtype`` (the JAX package's ``x @ w.astype(dtype)``); a tensor-parallel layer's
+    product through ``tensor_parallel.product``."""
+    if getattr(layer, "tp", None) is not None:
+        return tensor_parallel.product(layer, x, dtype)
     return F.linear(x, layer.weight.to(dtype))
 
 
@@ -105,16 +113,35 @@ class T5Encoder(nn.Module):
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
         dtype: torch.dtype = torch.float32,
+        mesh: Any = None,
     ) -> None:
         super().__init__()
         c = config
+        if mesh is not None and "tp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError("T5Encoder(mesh=...) needs a 'tp' mesh axis (tensor parallelism)")
         self.config = c
+        self.mesh = mesh
         self.tok_embed = nn.Parameter(torch.empty(c.vocab_size, c.dim, device="meta", dtype=dtype))
         self.rel_bias = nn.Parameter(torch.empty(c.rel_buckets, c.heads, device="meta"))
         self.blocks = nn.ModuleList(_T5Block(c, dtype) for _ in range(c.depth))
         self.final_ln = nn.Parameter(torch.empty(c.dim, device="meta"))
+        self._local = c  # the heads this rank runs
+        if tensor_parallel.tp_size(mesh) > 1:
+            tensor_parallel.cut_on_meta(tensor_parallel.linears(self), self.param_spec(), mesh)
+            self._local = dataclasses.replace(c, heads=tensor_parallel.local_heads(c.heads, mesh))
         self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
+
+    def param_spec(self) -> dict:
+        """The JAX package's megatron specs over ``tp``: q, k, v and the FF's input projections
+        column-parallel, o and wo row-parallel, the rest replicated (the relative bias whole: each rank
+        reads its heads' columns)."""
+        P = tensor_parallel.P
+        c = self.config
+        ff_cols = {"wi_0": P(None, "tp"), "wi_1": P(None, "tp")} if c.gated else {"wi": P(None, "tp")}
+        block = {"q": P(None, "tp"), "k": P(None, "tp"), "v": P(None, "tp"), "o": P("tp", None),
+                 "ln_attn": P(), "ln_ff": P(), **ff_cols, "wo": P("tp", None)}
+        return {"tok_embed": P(), "rel_bias": P(), "blocks": [dict(block) for _ in range(c.depth)], "final_ln": P()}
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -133,9 +160,9 @@ class T5Encoder(nn.Module):
         self.final_ln.fill_(1.0)
         for block in self.blocks:
             for name, layer in block.named_children():
-                d_in = layer.in_features
+                d_in, d_out = tensor_parallel.whole_features(layer)
                 scale = (c.dim * c.head_dim) ** -0.5 if name == "q" else d_in**-0.5
-                layer.weight.copy_(normal(d_in, layer.out_features).T * scale)
+                tensor_parallel.load_dense(layer, normal(d_in, d_out) * scale)
             block.ln_attn.fill_(1.0)
             block.ln_ff.fill_(1.0)
 
@@ -147,7 +174,7 @@ class T5Encoder(nn.Module):
         """Fill the module from the JAX package's tree (``T5Encoder.init``'s or
         ``import_weights.t5_encoder``'s layout).  Every key must be consumed
         and every shape must match."""
-        _tree.load_tree(self, tree, "T5Encoder")
+        _tree.load_tree(self, tensor_parallel.shard_params(tree, self.param_spec(), self.mesh), "T5Encoder")
         return self
 
     def _rms_norm(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -161,11 +188,13 @@ class T5Encoder(nn.Module):
         pos = np.arange(L)
         buckets = _relative_position_bucket(pos[None, :] - pos[:, None], c.rel_buckets, c.rel_max_distance)
         index = torch.from_numpy(buckets).to(self.rel_bias.device)
-        return self.rel_bias[index].permute(2, 0, 1)[None].float()
+        heads = self._local.heads
+        first = tensor_parallel.axis_rank(self.mesh) * heads  # this rank's heads under tp
+        return self.rel_bias[index][..., first : first + heads].permute(2, 0, 1)[None].float()
 
     def forward(self, ids: Any) -> torch.Tensor:
         "(B, L) ids -> (B, L, dim) float32 sequence features."
-        c = self.config
+        c = self._local
         dtype = c.compute_dtype
         ids = _ids(ids, self.tok_embed.device)
         B, L = ids.shape

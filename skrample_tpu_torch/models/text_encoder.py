@@ -14,7 +14,9 @@ full tower's pooling in one forward: the SD3 and SDXL conditioning recipe.
 
 :meth:`TextEncoder.load_jax_params` carries the JAX package's tree across
 (``import_weights.clip_text_encoder`` builds one from a transformers state
-dict) and :meth:`TextEncoder.param_tree` carries it back.
+dict) and :meth:`TextEncoder.param_tree` carries it back.  On a mesh with
+a ``tp`` axis each rank keeps its shard of the layers
+:meth:`TextEncoder.param_spec` splits (``parallel/tensor_parallel.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops._cuda import resolve_device
+from ..parallel import tensor_parallel
 from . import _tree
 from .dit import _dense, _int8_copy
 from .flux import _linear
@@ -152,11 +155,15 @@ class TextEncoder(nn.Module):
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
         dtype: torch.dtype = torch.float32,
+        mesh: Any = None,
     ) -> None:
         super().__init__()
         c = config
         if c.dim % c.heads:
             raise ValueError("dim must divide by heads")
+        if mesh is not None and "tp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError("TextEncoder(mesh=...) needs a 'tp' mesh axis (tensor parallelism)")
+        self.mesh = mesh
         if c.act not in _ACTIVATIONS:
             raise ValueError(f"unknown act {c.act!r}")
         self.config = c
@@ -166,8 +173,39 @@ class TextEncoder(nn.Module):
         self.text_proj = _linear(c.dim, c.proj_dim or c.dim, dtype)
         if c.ln_affine:
             self.final_ln = _LayerNorm(c.dim)
+        self._local = c  # the heads this rank's attention runs
+        if tensor_parallel.tp_size(mesh) > 1:
+            tensor_parallel.cut_on_meta(tensor_parallel.linears(self), self.param_spec(), mesh, self._tp_segments())
+            self._local = tensor_parallel.local_config(c, mesh)
         self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
+
+    def _tp_segments(self) -> dict[str, tuple[int, ...]]:
+        "The fused qkv's three parts, each split over ``tp`` by heads."
+        d = self.config.dim
+        return {f"blocks.{i}.qkv": (d, d, d) for i in range(self.config.depth)}
+
+    def param_spec(self, quantized: bool = False) -> dict:
+        """The JAX package's tensor-parallel specs over ``tp``: qkv and mlp_in column-parallel, proj
+        and mlp_out row-parallel, the embeddings, layer norms and ``text_proj`` replicated; int8's with
+        ``quantized``."""
+        col, row, rep = tensor_parallel.dense_specs(quantized)
+        P = tensor_parallel.P
+        ln = {"g": P(), "b": P()}
+        affine = self.config.ln_affine
+        spec: dict = {
+            "tok_embed": P(),
+            "pos_embed": P(),
+            "blocks": [
+                {"qkv": dict(col), "proj": dict(row), "mlp_in": dict(col), "mlp_out": dict(row),
+                 **({"ln1": dict(ln), "ln2": dict(ln)} if affine else {})}
+                for _ in range(self.config.depth)
+            ],
+            "text_proj": rep,
+        }
+        if affine:
+            spec["final_ln"] = dict(ln)
+        return spec
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -186,11 +224,10 @@ class TextEncoder(nn.Module):
         self.pos_embed.copy_(normal(*self.pos_embed.shape) * 0.01)
         for name, module in self.named_modules():
             if isinstance(module, nn.Linear):
-                d_in, d_out = module.in_features, module.out_features
+                d_in, d_out = tensor_parallel.whole_features(module)
                 small = name.rpartition(".")[2] in ("proj", "mlp_out")
                 scale = 0.02 / math.sqrt(2 * c.depth) if small else 1 / math.sqrt(d_in)
-                module.weight.copy_(normal(d_in, d_out).T * scale)
-                module.bias.zero_()
+                tensor_parallel.load_dense(module, normal(d_in, d_out) * scale, torch.zeros(d_out))
             elif isinstance(module, _LayerNorm):
                 module.g.fill_(1.0)
                 module.b.zero_()
@@ -203,6 +240,7 @@ class TextEncoder(nn.Module):
         """Fill the module from the JAX package's tree (``TextEncoder.init``'s
         or ``import_weights.clip_text_encoder``'s layout).  Every key must be
         consumed and every shape must match."""
+        tree = tensor_parallel.shard_params(tree, self.param_spec(), self.mesh, self._tp_segments())
         _tree.load_tree(self, tree, "TextEncoder")
         return self
 
@@ -214,7 +252,7 @@ class TextEncoder(nn.Module):
 
     def _attention(self, qkv: torch.Tensor) -> torch.Tensor:
         "Plain attention: float32 scores and softmax (causal mask), probabilities in qkv's dtype."
-        c = self.config
+        c = self._local
         B, L, _ = qkv.shape
         q, k, v = (part.reshape(B, L, c.heads, c.head_dim).transpose(1, 2).float() for part in qkv.chunk(3, dim=-1))
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(c.head_dim)

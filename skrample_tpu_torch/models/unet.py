@@ -37,6 +37,7 @@ from ..ops._cuda import resolve_device
 from ..ops.flash_attention import _packed_reference
 from ..ops.fused_conv import conv3x3_gn_silu, cudnn_tf32
 from ..ops.groupnorm import groupnorm_cl
+from ..parallel import tensor_parallel
 from .dit import _Dense, _dense, _dense_forward, _timestep_embedding
 
 __all__ = ["UNet", "UNetConfig", "random_param_tree"]
@@ -245,10 +246,13 @@ class _TreeModule(nn.Module):
         specs = dict(_walk(self._skeleton))
         for path, leaf in _walk(self.tree):
             arrays = _spec_arrays(specs[path], normal, zeros, ones)
+            if noise:
+                arrays = {key: value + noise * normal(value.shape) for key, value in arrays.items()}
+            if isinstance(leaf, nn.Linear):  # a tensor-parallel layer takes its part
+                tensor_parallel.load_dense(leaf, arrays["w"], arrays["b"])
+                continue
             for key, value in arrays.items():
-                if noise:
-                    value = value + noise * normal(value.shape)
-                _target(leaf, key).copy_(value.T if isinstance(leaf, nn.Linear) and key == "w" else value)
+                _target(leaf, key).copy_(value)
 
     def param_tree(self) -> dict:
         """The parameters as the JAX package's tree of float32 numpy arrays

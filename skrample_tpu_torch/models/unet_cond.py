@@ -27,7 +27,10 @@ einsum outside any Pallas kernel.  :meth:`CondUNet.load_jax_params` carries the 
 across and :meth:`CondUNet.param_tree` back; :meth:`CondUNet.quantize_params`
 gives the int8 serving model (B6 in front of each int8 product) at the
 ``"deep"`` or ``"all"`` scope.  The encoder (resnets, Transformer2D stages,
-conditioning) is shared with :class:`~.controlnet.ControlNet`.
+conditioning) is shared with :class:`~.controlnet.ControlNet`.  On a mesh
+with a ``tp`` axis the Transformer2D stages' layers are cut as
+:meth:`CondUNet.param_spec` splits them (``parallel/tensor_parallel.py``);
+convs, norms and time embeddings stay whole.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ from ..ops.flash_attention import (
 from ..ops.groupnorm import groupnorm_cl
 from ..ops.quant import Int8Dense, quantize_params
 from .conditioning import doubled_t, guided_mix, per_item
-from .dit import _TP_LATER, _dense, _timestep_embedding
+from ..parallel import tensor_parallel
+from .dit import _dense, _timestep_embedding
 from .unet import (
     _AffineSpec,
     _ConvSpec,
@@ -65,6 +69,7 @@ from .unet import (
     _to_nchw,
     _TreeModule,
     _upsample_nearest,
+    _walk,
 )
 
 __all__ = ["CondUNet", "CondUNetConfig", "attention_route", "random_param_tree"]
@@ -262,7 +267,8 @@ class _CondEncoder(_TreeModule):
     def _transformer(
         self, p: dict, x: torch.Tensor, context: torch.Tensor, heads: int, dtype: torch.dtype
     ) -> torch.Tensor:
-        "Transformer2DModel: norm -> tokens -> K basic blocks -> back + residual."
+        "Transformer2DModel: norm -> tokens -> K basic blocks -> back + residual (``heads / tp`` a rank)."
+        heads //= getattr(self, "_tp", 1)
         B, H, W, C = x.shape
         tokens = self._gn(x, p["norm"]).view(B, H * W, C)
         h = _dense(p["proj_in"], tokens.to(dtype), dtype)
@@ -359,12 +365,42 @@ class CondUNet(_CondEncoder):
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
         dtype: torch.dtype = torch.float32,
+        mesh: Any = None,
     ) -> None:
         super().__init__()
         _check_shape(config)
+        if mesh is not None and "tp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError("CondUNet(mesh=...) needs a 'tp' mesh axis (tensor parallelism)")
         self.config = config
-        self._build(_cond_unet_skeleton(config), dtype, resolve_device(device))
+        self.mesh = mesh
+        self._build(_cond_unet_skeleton(config), dtype, torch.device("meta"))
+        self._tp = tensor_parallel.tp_size(mesh)
+        if self._tp > 1:  # the transformer stages' layers cut over tp; convs, norms and embeddings whole
+            for heads, layers in zip(config.heads, config.transformer_layers):
+                if layers:
+                    tensor_parallel.local_heads(heads, mesh)
+            dense = ((path, leaf) for path, leaf in _walk(self.tree) if isinstance(leaf, nn.Linear))
+            tensor_parallel.cut_on_meta(dense, self.param_spec(), mesh, self._tp_segments())
+        self.to_empty(device=resolve_device(device))
         self.reset_parameters(generator)
+
+    def _tp_segments(self) -> dict[str, tuple[int, ...]]:
+        """Each transformer block's fused ``attn1_qkv`` ``[q | k | v]``, cross-attention ``attn2_kv``
+        ``[k | v]`` and GEGLU ``ff_in`` ``[gate | act]``, each part split over ``tp`` alike."""
+        parts = {"attn1_qkv": 3, "attn2_kv": 2, "ff_in": 2}
+        return {
+            path: (spec.d_out // parts[name],) * parts[name]
+            for path, spec in _walk(self._skeleton)
+            if (name := path.rpartition(".")[2]) in parts
+        }
+
+    def load_jax_params(self, tree: dict) -> CondUNet:
+        """Fill the module from the JAX package's parameter tree (see ``_TreeModule.load_jax_params``);
+        under ``tp`` each rank loads its shard of the transformer stages."""
+        if self._tp > 1:
+            tree = tensor_parallel.shard_params(tree, self.param_spec(), self.mesh, self._tp_segments())
+        super().load_jax_params(tree)
+        return self
 
     def forward(
         self,
@@ -432,6 +468,8 @@ class CondUNet(_CondEncoder):
             return self
         if scope not in ("deep", "all"):
             raise ValueError(f"scope must be 'deep', 'all', or 'none', got {scope!r}")
+        if self._tp > 1:
+            raise ValueError("an int8 CondUNet is served unsharded: the JAX package gives it no quantized specs")
         c = self.config
         exclude = frozenset({"temb", "t_mlp1", "t_mlp2", "add_mlp1", "add_mlp2"})
 
@@ -454,8 +492,63 @@ class CondUNet(_CondEncoder):
             }
         return _int8_leaves(self, quantize_params(chosen, exclude=exclude))
 
-    def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
+    def param_spec(self) -> dict:
+        """The JAX package's specs over ``tp``: the transformer stages megatron-style (attn1_qkv,
+        attn2_q, attn2_kv and ff_in column-parallel, attn1_out, attn2_out and ff_out row-parallel);
+        convs, norms, the stages' proj_in/proj_out and the time embeddings replicated."""
+        col, row, rep = tensor_parallel.dense_specs()
+        P = tensor_parallel.P
+        aff = {"g": P(), "b": P()}
+
+        def resnet(has_skip: bool) -> dict:
+            return {"norm1": dict(aff), "conv1": dict(rep), "temb": dict(rep), "norm2": dict(aff),
+                    "conv2": dict(rep), "skip": dict(rep) if has_skip else None}
+
+        def basic() -> dict:
+            return {"ln1": dict(aff), "attn1_qkv": dict(col), "attn1_out": dict(row), "ln2": dict(aff),
+                    "attn2_q": dict(col), "attn2_kv": dict(col), "attn2_out": dict(row), "ln3": dict(aff),
+                    "ff_in": dict(col), "ff_out": dict(row)}
+
+        def transformer(depth: int) -> dict:
+            return {"norm": dict(aff), "proj_in": dict(rep), "blocks": [basic() for _ in range(depth)],
+                    "proj_out": dict(rep)}
+
+        c = self.config
+        spec: dict = {"conv_in": dict(rep), "t_mlp1": dict(rep), "t_mlp2": dict(rep), "norm_out": dict(aff),
+                      "conv_out": dict(rep)}
+        if c.pooled_dim:
+            spec["add_mlp1"] = dict(rep)
+            spec["add_mlp2"] = dict(rep)
+        spec["down"] = [
+            {
+                "resnets": [
+                    resnet(j == 0 and c.widths[max(i - 1, 0)] != c.widths[i]) for j in range(c.layers_per_block)
+                ],
+                "attns": [
+                    transformer(c.transformer_layers[i]) if c.transformer_layers[i] else None
+                    for _ in range(c.layers_per_block)
+                ],
+                "downsample": dict(rep) if i < c.levels - 1 else None,
+            }
+            for i in range(c.levels)
+        ]
+        spec["mid"] = {
+            "res1": resnet(False),
+            "attn": transformer(c.resolved_mid_layers) if c.resolved_mid_layers else None,
+            "res2": resnet(False),
+        }
+        spec["up"] = [
+            {
+                "resnets": [resnet(True) for _ in range(c.layers_per_block + 1)],
+                "attns": [
+                    transformer(c.transformer_layers[i]) if c.transformer_layers[i] else None
+                    for _ in range(c.layers_per_block + 1)
+                ],
+                "upsample": dict(rep) if i > 0 else None,
+            }
+            for i in reversed(range(c.levels))
+        ]
+        return spec
 
     def as_sampleable(
         self,

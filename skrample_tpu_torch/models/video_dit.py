@@ -33,7 +33,9 @@ branch's qkv so that each rank holds every frame of a range of the sites,
 and one brings its output back.  The last layer's output is all-gathered
 over the frames.  On a ``dp`` x ``sp`` mesh the input is the rank's ``dp``
 chunk of the batch.  Serving only: a gradient through the all-to-alls
-raises.
+raises.  Without ``sequence_parallel``, a mesh with a ``tp`` axis cuts the
+layers :meth:`VideoDiT.param_spec` splits (``parallel/tensor_parallel.py``),
+``heads / tp`` heads a rank.
 """
 
 from __future__ import annotations
@@ -53,11 +55,11 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import _qkv_reference, attention_reference, flash_attention_qkv
-from ..parallel import gather
+from ..parallel import gather, tensor_parallel
 from ..parallel.ring_attention import axis_group
 from ..parallel.ulysses import reshard
 from .conditioning import guided_mix, per_item
-from .dit import _DOTS_CONTEXT, _TP_LATER, _dense, _int8_copy, _timestep_embedding
+from .dit import _DOTS_CONTEXT, _dense, _int8_copy, _timestep_embedding
 
 __all__ = ["VideoDiT", "VideoDiTConfig", "random_param_tree", "video_dit_forward_flops"]
 
@@ -167,7 +169,7 @@ class VideoDiTBlock(nn.Module):
 
         # temporal: each site attends across frames, in place on the frame-major layout
         qkv = dense(self.qkv_t, adaln_modulate(tokens, s_t, c_t)).view(B, frames, n, 3 * c.dim)
-        if self.mesh is None:
+        if not c.sequence_parallel:
             out = self._temporal_attend(qkv)
         else:  # frames -> sites for the temporal attention, and back
             group, size, _rank = axis_group(self.mesh, c.sp_axis)
@@ -204,14 +206,16 @@ class VideoDiT(nn.Module):
             if mesh is None:
                 raise ValueError("sequence_parallel=True needs VideoDiT(config, mesh=...) with the sp axis")
             axis_group(mesh, config.sp_axis)  # raises on a mesh without the axis
-        elif mesh is not None:
-            raise NotImplementedError(f"VideoDiT(mesh=...) without sequence_parallel (tensor parallelism) {_TP_LATER}")
+        elif mesh is not None and "tp" not in (mesh.mesh_dim_names or ()):
+            raise ValueError(
+                "VideoDiT(mesh=...) without sequence_parallel needs a 'tp' mesh axis (tensor parallelism)"
+            )
         if config.attention not in ("full", "flash"):
             raise ValueError(f"unknown attention kind {config.attention!r}")
         if config.remat not in (False, True, "dots"):
             raise ValueError(f"remat must be bool or 'dots', got {config.remat!r}")
         self.config = c = config
-        self.mesh = mesh if config.sequence_parallel else None
+        self.mesh = mesh
         device = resolve_device(device)
         patch_dim = c.channels * c.patch * c.patch
         self.patch_in = nn.Linear(patch_dim, c.dim, device="meta")
@@ -221,8 +225,20 @@ class VideoDiT(nn.Module):
         self.final_out = nn.Linear(c.dim, patch_dim, device="meta")
         self.null_ctx = nn.Parameter(torch.empty(1, c.context_dim, device="meta")) if c.context_dim else None
         self.blocks = nn.ModuleList(VideoDiTBlock(c, self.mesh) for _ in range(c.depth))
+        if tensor_parallel.tp_size(mesh) > 1:  # each rank holds its shard and runs heads / tp heads
+            tensor_parallel.cut_on_meta(tensor_parallel.linears(self), self.param_spec(), mesh, self._tp_segments())
+            for block in self.blocks:
+                block.config = tensor_parallel.local_config(c, mesh)
         self.to_empty(device=device)
         self.reset_parameters(generator)
+
+    def _tp_segments(self) -> dict[str, tuple[int, ...]]:
+        "The fused qkv's three parts and the cross-attention's ``[k | v]``, each split over ``tp`` by heads."
+        d = self.config.dim
+        segments = {}
+        for i in range(self.config.depth):
+            segments.update({f"blocks.{i}.qkv_s": (d, d, d), f"blocks.{i}.qkv_t": (d, d, d), f"blocks.{i}.kv_c": (d, d)})
+        return segments
 
     def _layers(self) -> list[tuple[str, nn.Linear]]:
         "(name, layer) in the JAX tree's order, block layers as ``blocks.i.name``."
@@ -247,15 +263,14 @@ class VideoDiT(nn.Module):
             return torch.randn(shape, generator=gen, device=gen.device)
 
         for name, layer in self._layers():
-            d_in, d_out = layer.in_features, layer.out_features
+            d_in, d_out = tensor_parallel.whole_features(layer)
             zero = name.rpartition(".")[2] in _ZERO_INIT
             w = torch.zeros(d_in, d_out, device=gen.device) if zero else normal(d_in, d_out) / math.sqrt(d_in)
             b = torch.zeros(d_out, device=gen.device)
             if noise:
                 w += noise * normal(d_in, d_out)
                 b += noise * normal(d_out)
-            layer.weight.copy_(w.T)
-            layer.bias.copy_(b)
+            tensor_parallel.load_dense(layer, w, b)
         if self.null_ctx is not None:
             row = normal(*self.null_ctx.shape) * 0.02
             self.null_ctx.copy_(row + noise * normal(*row.shape) if noise else row)
@@ -286,6 +301,7 @@ class VideoDiT(nn.Module):
             expected.add("null_ctx")
         if set(tree) != expected:
             raise ValueError(f"VideoDiT param tree keys {sorted(tree)} != {sorted(expected)}")
+        tree = tensor_parallel.shard_params(tree, self.param_spec(), self.mesh, self._tp_segments())
         if len(tree["blocks"]) != len(self.blocks):
             raise ValueError(f"param tree has {len(tree['blocks'])} blocks, model depth is {len(self.blocks)}")
         names = set(_BLOCK_LAYERS + (_CROSS_LAYERS if self.config.context_dim else ()))
@@ -354,7 +370,7 @@ class VideoDiT(nn.Module):
         patches = self.patchify(x)
         n = patches.shape[2]
         posemb = self._posemb(frames, n, x.device)
-        if self.mesh is not None:  # this rank's frames
+        if c.sequence_parallel:  # this rank's frames
             _group, size, rank = axis_group(self.mesh, c.sp_axis)
             if frames % size or n % size:
                 raise ValueError(
@@ -376,7 +392,7 @@ class VideoDiT(nn.Module):
 
         shift, scale = _dense(self.final_mod, temb, dtype).chunk(2, dim=-1)
         out = _dense(self.final_out, adaln_modulate(tokens, shift, scale), dtype).reshape(B, frames, n, -1)
-        if self.mesh is not None:
+        if c.sequence_parallel:
             out = gather(self.mesh, out, dim=1, axis=c.sp_axis)
         return self.unpatchify(out, whole, H, W).to(x.dtype)
 
@@ -389,8 +405,23 @@ class VideoDiT(nn.Module):
         as they are and are shared with this model.  Serving only."""
         return _int8_copy(self, frozenset({"ada", "final_mod", "t_mlp1", "t_mlp2", "patch_in", "final_out"}))
 
-    def param_spec(self, *args: Any, **kwargs: Any) -> dict:
-        raise NotImplementedError(f"tensor-parallel parameter specs {_TP_LATER}")
+    def param_spec(self, quantized: bool = False) -> dict:
+        """The JAX package's megatron specs over ``tp``: the spatial, temporal and cross qkv (q_x, kv_c)
+        and mlp_in column-parallel, their projections and mlp_out row-parallel, the rest replicated;
+        int8's with ``quantized``."""
+        col, row, rep = tensor_parallel.dense_specs(quantized)
+        block = {"qkv_s": col, "proj_s": row, "qkv_t": col, "proj_t": row, "mlp_in": col, "mlp_out": row, "ada": rep}
+        if self.config.context_dim:
+            block.update(q_x=col, kv_c=col, proj_x=row)
+        return {
+            "patch_in": rep,
+            "t_mlp1": rep,
+            "t_mlp2": rep,
+            "final_mod": rep,
+            "final_out": rep,
+            **({"null_ctx": tensor_parallel.P()} if self.config.context_dim else {}),
+            "blocks": [dict(block) for _ in range(self.config.depth)],
+        }
 
     def _guided(self, x: torch.Tensor, t: Any, ctx: torch.Tensor, scale: float, cfg_batched: bool) -> torch.Tensor:
         "Classifier-free guidance against the learned null row: two forwards in turn, or one doubled batch."

@@ -38,14 +38,16 @@ def _div127(m: torch.Tensor) -> torch.Tensor:
     return m / torch.full((), 127.0, dtype=m.dtype, device=m.device)
 
 
-def quantize_weight(w: torch.Tensor) -> dict[str, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, absmax: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
     """Symmetric per-output-channel int8 quantization of a ``(K, N)`` weight.
 
     Returns ``{"q": int8 (K, N), "s": float32 (N,)}`` with ``q * s ~= w``;
     an all-zero column (a zero-initialised layer) gets scale 1.  ``q`` is
-    column-major (the transpose of an ``(N, K)`` contiguous tensor)."""
+    column-major (the transpose of an ``(N, K)`` contiguous tensor).
+    ``absmax``: each column's float32 absmax where ``w`` holds only some of
+    the rows (a row-parallel shard: the max over every rank's)."""
     w = w.float()
-    s = _div127(w.abs().amax(0))
+    s = _div127(w.abs().amax(0) if absmax is None else absmax)
     s = torch.where(s == 0, 1.0, s)
     q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
     return {"q": q.t().contiguous().t(), "s": s}
@@ -119,7 +121,10 @@ def dense_int8(params: dict, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     return y.to(dtype).view(*x.shape[:-1], y.shape[-1])
 
 
-def quantize_params(params: Any, *, min_size: int = 1 << 14, exclude: frozenset[str] = frozenset()) -> Any:
+MIN_QUANT_SIZE = 1 << 14  # a dense weight with fewer elements stays float (quantize_params)
+
+
+def quantize_params(params: Any, *, min_size: int = MIN_QUANT_SIZE, exclude: frozenset[str] = frozenset()) -> Any:
     """Rewrite a tree of dense entries for int8 serving, as the JAX package does.
 
     Every ``{"w", "b"}`` dict whose 2-D weight has at least ``min_size``

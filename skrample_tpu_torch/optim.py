@@ -129,10 +129,13 @@ def adamw8bit_init(
 ) -> AdamW8State:
     """The JAX ``adamw8bit(...).init``: zero codes with unit scales a quantized leaf, zero f32 moments a
     leaf under ``min_quant_size`` elements, and the count 0 (int32, on ``count_device``: the first
-    parameter's device unless given)."""
+    parameter's device unless given).  A rank's part of an FSDP-sharded leaf (``parallel.fsdp``: whole
+    blocks of the flattened leaf, ``fsdp_numel`` its whole size) gets the blocks of its range: the
+    blocks axis of the moments, sharded."""
     moments: list = []
     for p in params:
-        if p.numel() < min_quant_size:
+        # a rank's part of an FSDP-sharded leaf is quantized as the whole leaf is (parallel/fsdp.py)
+        if getattr(p, "fsdp_numel", p.numel()) < min_quant_size:
             z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             moments.append(MomentF32(z, z.clone()))
         else:

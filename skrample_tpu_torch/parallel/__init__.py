@@ -26,7 +26,9 @@ machine with several.  Conventions, as in the JAX package:
 
 * ``"dp"`` — data parallel over the batch dim;
 * ``"sp"`` — sequence parallel over the token axis (or a latent dim);
-* model-internal axes belong to the model.
+* ``"tp"`` — tensor parallel: a model cuts its layers over it
+  (:mod:`.tensor_parallel`); :mod:`.fsdp` shards a trainer's state over
+  ``dp``; :mod:`.faults` aborts the groups of a collective that faulted.
 
 The per-item noise keys (:func:`batch_keys`) are ``fold_in(key, item)``,
 which no sharding changes.
@@ -43,17 +45,21 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import prng
+from .faults import MeshAborted, abort_groups, guarded
 from .joint_sp import joint_sp_attention
 from .ring_attention import axis_group, ring_attention
 from .ulysses import ulysses_attention
 
 __all__ = [
+    "MeshAborted",
+    "abort_groups",
     "average_grads",
     "axis_group",
     "batch_axis_of",
     "batch_keys",
     "broadcast_object",
     "gather",
+    "guarded",
     "joint_sp_attention",
     "line_group",
     "make_mesh",
@@ -125,10 +131,11 @@ def gather(
     :func:`line_group` of the same ranks)."""
     own, size, _rank = axis_group(mesh, axis)
     group = own if group is None else group
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(size)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    with guarded([group]):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
 
 
 def batch_keys(key: torch.Tensor, batch: int) -> torch.Tensor:
@@ -182,10 +189,13 @@ def average_grads(params: list[torch.Tensor], mesh: DeviceMesh, axis: str = "dp"
     :data:`GRAD_BUCKET_BYTES` (runs of one dtype flattened into one buffer, a larger tensor alone),
     one all-reduce each: each element is the same sum over the ranks as in a per-tensor all-reduce.
     Runs its collectives at every axis size, 1 included; a parameter without a gradient gets zeros
-    first (optax updates it with one)."""
+    first (optax updates it with one).  A rank's part of an FSDP-sharded leaf (``fsdp.is_shard``) is
+    skipped: its gradient was reduce-scattered and averaged in the backward."""
     group, size, _rank = axis_group(mesh, axis)
     grads = []
     for p in params:
+        if getattr(p, "fsdp", False):
+            continue
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)

@@ -10,7 +10,8 @@ whether the two sequence-parallel samples equal the flash one (the port's
 counterpart of the JAX package's ``_dryrun_ring_attention``).
 
 :func:`run_sp` is the rank body, and :func:`spawn_sp` runs a list of cases
-on S ranks and returns each rank's results.  A case is a dict with a
+on S ranks and returns each rank's results; :func:`spawn_cli` runs the DiT
+trainer's command line on S gloo ranks and returns their exit codes.  A case is a dict with a
 ``"kind"`` and numpy inputs:
 
 * ``"ring"`` (``q, k, v, block_op``), ``"ulysses"`` (``q, k, v, heads_op``):
@@ -34,13 +35,25 @@ on S ranks and returns each rank's results.  A case is a dict with a
   request's (or the whole batch's) latent; a ``"serve"`` case with
   ``fault`` (a rank) makes that rank's model raise at its first call and
   generates its requests one at a time, each rank returning each request's
-  latent or its error as ``"Type: message"``;
+  latent or its error as ``"Type: message"``; ``"serve_abort"`` (``config, tree, seeds, steps,
+  fault``): a ring DiT over ``(1, S)`` served by a mesh engine, its ring raising inside the first
+  exchange on rank ``fault``; each rank returns its requests' outcomes and the seconds they took
+  to resolve (ROADMAP C15);
+* ``"tp"`` (``model``, ``config, tree``, the ``inputs`` it names, ``mesh`` ``[dp, sp, tp]``, optionally
+  ``quantized`` and ``meshless``; a Flux with ``seed, noise`` in place of ``tree`` draws its weights by
+  its own initialisation): one forward of a model (``"dit"``, ``"mmdit"``, ``"flux"``,
+  ``"video"``, ``"clip"``, ``"t5"``, ``"unet"``) with its layers cut over ``tp``; every rank returns the
+  whole output (with ``meshless``, beside the same model's output without a mesh) and ``"tp_sample"``
+  (``config, tree, x0, context, steps, guidance, mesh``): an MMDiT's CFG sample on a ``dp`` x ``tp``
+  mesh, gathered over ``dp``;
 * ``"train_dit"`` (``config, tree, x0, noise, sigma``) and ``"train_t2i"``
   (``enc, mmdit`` configs, ``trees``, ``draws``): one data-parallel step at
   ``dp = S``; every rank returns the loss and its gradients by tree path;
   ``"train_cli"`` (``argv``): ``training.main(argv + ["--dp", S])`` inside the
   group; every rank returns its exit code and the last parameter file's
   tree when ``argv`` names one (rank 0 writes it);
+* ``"train_fsdp"`` (``config, tree, draws, optimizer, lr, mesh``, ``fsdp``): the DiT's FSDP training steps
+  on a ``dp`` x ``tp`` mesh (``fsdp=False``: the same mesh's replicated steps); every rank returns the losses, the whole parameters and its parameter bytes;
 * ``"raises"`` (``what``): each rank returns the error the named misuse
   raises, as ``"Type: message"`` (``"heads"``, ``"tokens"``, ``"no_mesh"``,
   ``"dp"`` (a bucket ``dp`` does not divide), ``"slots"``,
@@ -87,8 +100,8 @@ def _dit(case: dict, mesh: Any, device: Any) -> Any:
     fields = dict(case["config"])
     fields["compute_dtype"] = getattr(torch, fields.get("compute_dtype", "float32"))
     config = DiTConfig(**fields)
-    use_mesh = mesh if config.attention in ("ring", "ulysses") else None
-    model = DiT(config, mesh=use_mesh, device=device).load_jax_params(case["tree"])
+    sharding = config.attention in ("ring", "ulysses") or "tp" in (getattr(mesh, "mesh_dim_names", None) or ())
+    model = DiT(config, mesh=mesh if sharding else None, device=device).load_jax_params(case["tree"])
     return model.requires_grad_(False)
 
 
@@ -114,8 +127,9 @@ def _serve(case: dict, device: Any) -> list:
     from ..serving import ServingEngine
     from . import make_mesh
 
-    model_fn = _dit(case, None, device).as_sampleable()
-    mesh = make_mesh(dp=dist.get_world_size(), sp=1)
+    tp = case.get("tp", 1)  # a DiT cut over tp under the dp engine: the tp ranks of a dp index see one chunk
+    mesh = make_mesh(dp=dist.get_world_size() // tp, sp=1, extra_axes={"tp": tp} if tp > 1 else None)
+    model_fn = _dit(case, mesh if tp > 1 else None, device).as_sampleable()
     rank = dist.get_rank()
     if case.get("fault") == rank:  # this rank's model raises at its first call
         calls = []
@@ -148,6 +162,179 @@ def _serve(case: dict, device: Any) -> list:
             _stagger(rank, index)
             futures.append(engine.submit(seed))
         return [f.result().float().cpu().numpy() for f in futures]
+
+
+def _serve_abort(case: dict, device: Any) -> list:
+    """A ``"serve_abort"`` case: a ring DiT over ``(1, S)`` behind a ``ServingEngine`` on that mesh, whose
+    ring raises inside its first exchange on rank ``fault`` (the block fold after the hop's sends and
+    receives are posted); every request is submitted at once, one a dispatch.  Returns each
+    request's outcome (``"Type: message"``) and the seconds from the first submission until every
+    future was resolved."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from .. import scheduling
+    from ..ops import flash_attention as fa
+    from ..sampling import models, structured
+    from ..serving import ServingEngine
+    from . import make_mesh
+
+    mesh = make_mesh(dp=1, sp=dist.get_world_size())
+    model = _dit(case, mesh, device)
+    fold = fa.flash_attention_block_stats
+
+    def faulty(*args: Any) -> Any:
+        raise RuntimeError("injected fault inside the ring")
+
+    patch = mock.patch.object(fa, "flash_attention_block_stats", faulty if dist.get_rank() == case["fault"] else fold)
+    engine = ServingEngine(
+        model.as_sampleable(), tuple(case["item"]), sampler=structured.DPM(order=2),
+        schedule=scheduling.FlowShift(scheduling.Linear()), model_transform=models.FlowModel(),
+        steps=case["steps"], buckets=(1,), max_delay_ms=0.0, mesh=mesh, device=device,
+    )
+    with patch, engine:
+        start = time.monotonic()
+        futures = [engine.submit(seed) for seed in case["seeds"]]
+        outcomes = [_outcome(lambda f=f: f.result().float().cpu().numpy()) for f in futures]
+        return [outcomes, time.monotonic() - start]
+
+
+def _tp_model(case: dict, mesh: Any, device: Any) -> Any:
+    """A ``"tp"`` case's model on ``mesh``, its weights from the case's JAX-layout tree (int8 with
+    ``quantized``), and the call that runs it on the case's inputs (this rank's ``dp`` chunk)."""
+    import torch
+
+    from . import shard_batch
+
+    name = case["model"]
+    fields = _dtype_fields(case["config"])
+    args = [torch.from_numpy(np.asarray(case[n])).to(device) for n in case["inputs"]]
+    if mesh is not None:
+        args = [shard_batch(mesh, a) for a in args]
+    elif fields.get("attention") in ("ring", "ulysses"):  # the twin without a mesh: full attention
+        fields["attention"] = "full"
+    if name == "dit":
+        from ..models.dit import DiT, DiTConfig
+
+        model = DiT(DiTConfig(**fields), mesh=mesh, device=device).load_jax_params(case["tree"])
+    elif name == "mmdit":
+        from ..models.mmdit import MMDiT, MMDiTConfig
+
+        model = MMDiT(MMDiTConfig(**fields), mesh=mesh, device=device).load_jax_params(case["tree"])
+    elif name == "flux":
+        from ..models.flux import Flux, FluxConfig
+
+        if "seed" in case:  # each rank draws every layer whole from the seed and keeps its part
+            gen = torch.Generator(device).manual_seed(case["seed"])
+            model = Flux(FluxConfig(**fields), mesh=mesh, device=device, generator=gen)
+            model.reset_parameters(gen, noise=case["noise"])
+        else:
+            model = Flux(FluxConfig(**fields), mesh=mesh, device=device).load_jax_params(case["tree"])
+    elif name == "video":
+        from ..models.video_dit import VideoDiT, VideoDiTConfig
+
+        model = VideoDiT(VideoDiTConfig(**fields), mesh=mesh, device=device).load_jax_params(case["tree"])
+    elif name == "clip":
+        from ..models.text_encoder import TextEncoder, TextEncoderConfig
+
+        model = TextEncoder(TextEncoderConfig(**fields), mesh=mesh, device=device)
+        model.load_jax_params(case["tree"])
+    elif name == "t5":
+        from ..models.t5_encoder import T5Encoder, T5EncoderConfig
+
+        model = T5Encoder(T5EncoderConfig(**fields), mesh=mesh, device=device)
+        model.load_jax_params(case["tree"])
+    elif name == "unet":
+        from ..models.unet_cond import CondUNet, CondUNetConfig
+
+        model = CondUNet(CondUNetConfig(**fields), mesh=mesh, device=device)
+        model.load_jax_params(case["tree"])
+    else:
+        raise ValueError(f"unknown tp model {name!r}")
+    model.requires_grad_(False)
+    if case.get("quantized"):
+        model = model.quantize_params()
+    return model, args
+
+
+def _tp(case: dict, device: Any) -> Any:
+    """A ``"tp"`` case: the model on a ``(dp, sp, tp)`` mesh (``case["mesh"]``), each ``dp`` chunk's
+    output gathered; every rank returns the whole output (with ``"meshless"``, also the same model's
+    output without a mesh on the same rank, for a bit-for-bit comparison)."""
+    import torch
+
+    from . import gather, make_mesh
+
+    dp, sp, tp = case["mesh"]
+    mesh = make_mesh(dp=dp, sp=sp, extra_axes={"tp": tp})
+    model, args = _tp_model(case, mesh, device)
+    with torch.inference_mode():
+        y = model(*args)
+        out = gather(mesh, y, 0, "dp").float().cpu().numpy() if dp > 1 else y.float().cpu().numpy()
+        if not case.get("meshless"):
+            return out
+        single, whole = _tp_model(case, None, device)
+        return [out, single(*whole).float().cpu().numpy()]
+
+
+def _tp_sample(case: dict, device: Any) -> Any:
+    """A ``"tp_sample"`` case: an MMDiT on a ``(dp, sp, tp)`` mesh samples ``steps`` DPM++2M steps with
+    classifier-free guidance (``guidance``) from its ``dp`` chunk of ``x0`` and of the per-item context;
+    every rank returns the whole batch's latent (gathered over ``dp``)."""
+    import torch
+
+    from .. import scheduling
+    from ..models.mmdit import MMDiT, MMDiTConfig
+    from ..ops import CompiledDenoiser, compile_sampler
+    from ..sampling import models, structured
+    from . import gather, make_mesh, shard_batch
+
+    dp, sp, tp = case["mesh"]
+    mesh = make_mesh(dp=dp, sp=sp, extra_axes={"tp": tp})
+    model = MMDiT(MMDiTConfig(**_dtype_fields(case["config"])), mesh=mesh, device=device)
+    model.load_jax_params(case["tree"]).requires_grad_(False)
+    x0, context = (shard_batch(mesh, torch.from_numpy(case[n]).to(device)) for n in ("x0", "context"))
+    compiled = compile_sampler(
+        structured.DPM(order=2), scheduling.FlowShift(scheduling.Linear()), models.FlowModel(), case["steps"]
+    )
+    with torch.inference_mode():
+        out = CompiledDenoiser.build(compiled, device=device).run(model.as_sampleable(context, case["guidance"]), x0)
+        return gather(mesh, out, 0, "dp").float().cpu().numpy()
+
+
+def _train_fsdp(case: dict, device: Any) -> list:
+    """A ``"train_fsdp"`` case: the DiT on a ``(dp, 1, tp)`` mesh, its parameters, moments and EMA sharded
+    over ``dp`` (``training.shard_for_fsdp``: the JAX example's ``min_size=1024`` over the megatron
+    specs), ``len(draws)`` steps of ``optimizer`` (``"adamw"``: AdamW at optax's ``adamw(lr)`` settings;
+    ``"adamw8bit"``) on the given ``(x0, noise, sigma)`` draws; every rank returns the losses, the
+    whole parameter tree by path and its parameter bytes."""
+    import torch
+
+    from ..models import _tree
+    from ..models.dit import DiT, DiTConfig
+    from ..models.ema import ema_init
+    from ..models.lora import jax_leaves
+    from ..optim import AdamW8bit
+    from ..training import shard_for_fsdp, train_step, whole_param_tree
+    from . import fsdp, make_mesh
+
+    dp, _sp, tp = case["mesh"]
+    mesh = make_mesh(dp=dp, sp=1, extra_axes={"tp": tp})
+    model = DiT(DiTConfig(**_dtype_fields(case["config"])), mesh=mesh, device=device).load_jax_params(case["tree"])
+    if case.get("fsdp", True):  # without: the same mesh's replicated run
+        shard_for_fsdp(model, model, mesh)
+    lr = case["lr"]
+    if case["optimizer"] == "adamw8bit":
+        opt: Any = AdamW8bit([leaf.tensor for leaf in jax_leaves(model)], lr=lr)
+    else:
+        opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    ema = ema_init(model)
+    losses = []
+    for step, draw in enumerate(case["draws"]):
+        x0, noise, sigma = (torch.from_numpy(a).to(device) for a in draw)
+        losses.append(float(train_step(model, opt, ema, x0, noise, sigma, step, mesh=mesh)))
+    return [losses, dict(_tree._flatten(whole_param_tree(model, mesh))), fsdp.per_device_bytes(model)]
 
 
 def _outcome(call: Any) -> Any:
@@ -199,12 +386,13 @@ def _train(case: dict, device: Any) -> list:
     from ..models import _tree
     from . import make_mesh
 
-    mesh = make_mesh(dp=dist.get_world_size(), sp=1)
+    tp = case.get("tp", 1)  # the models cut over tp, dp = world / tp
+    mesh = make_mesh(dp=dist.get_world_size() // tp, sp=1, extra_axes={"tp": tp} if tp > 1 else None)
     if case["kind"] == "train_dit":
         from ..models.ema import ema_init
         from ..training import make_optimizer, train_step
 
-        model = _dit(case, None, device).requires_grad_(True)
+        model = _dit(case, mesh if tp > 1 else None, device).requires_grad_(True)
         opt = make_optimizer(model)
         x0, noise, sigma = (torch.from_numpy(case[n]).to(device) for n in ("x0", "noise", "sigma"))
         loss = train_step(model, opt, ema_init(model), x0, noise, sigma, 0, mesh=mesh)
@@ -213,20 +401,35 @@ def _train(case: dict, device: Any) -> list:
             for name, layer in model._layers()
             for leaf, attr in (("w", "weight"), ("b", "bias"))
         ]
-        return [float(loss), _grads(leaves)]
+        return [float(loss), _whole_grads(_grads(leaves), model, mesh)]
     from ..models.mmdit import MMDiT, MMDiTConfig
     from ..models.text_encoder import TextEncoder, TextEncoderConfig
     from ..train_text_to_image import hermetic_data, t2i_optimizer, t2i_train_step
 
-    enc = TextEncoder(TextEncoderConfig(**_dtype_fields(case["enc"])), device=device)
-    mmdit = MMDiT(MMDiTConfig(**_dtype_fields(case["mmdit"])), device=device)
+    cut = mesh if tp > 1 else None
+    enc = TextEncoder(TextEncoderConfig(**_dtype_fields(case["enc"])), device=device, mesh=cut)
+    mmdit = MMDiT(MMDiTConfig(**_dtype_fields(case["mmdit"])), mesh=cut, device=device)
     enc.load_jax_params(case["trees"]["enc"])
     mmdit.load_jax_params(case["trees"]["mmdit"])
     ids, images = hermetic_data(case["size"], device=device)
     draws = tuple(torch.from_numpy(a).to(device) for a in case["draws"])
     loss = t2i_train_step(enc, mmdit, t2i_optimizer(enc, mmdit), ids, images, draws, mesh)
-    grads = _grads(_tree.leaves(enc))
-    return [float(loss), {"enc": grads, "mmdit": _grads(_tree.leaves(mmdit))}]
+    grads = {name: _whole_grads(_grads(_tree.leaves(m)), m, mesh) for name, m in (("enc", enc), ("mmdit", mmdit))}
+    return [float(loss), grads]
+
+
+def _whole_grads(grads: dict, model: Any, mesh: Any) -> dict:
+    "Gradients by tree path, each ``tp``-cut one gathered whole (``tensor_parallel.gather_params``)."
+    from ..models import _tree
+    from . import tensor_parallel
+
+    if tensor_parallel.tp_size(mesh) == 1:
+        return grads
+    tree: dict = {}
+    for path, g in grads.items():
+        _tree._put(tree, path.split("."), g)
+    whole = tensor_parallel.gather_params(tree, model.param_spec(), mesh, model._tp_segments())
+    return dict(_tree._flatten(whole))
 
 
 def _train_cli(case: dict) -> list:
@@ -238,7 +441,8 @@ def _train_cli(case: dict) -> list:
     from ..models import _tree
     from ..training import main
 
-    argv = [*case["argv"], "--dp", str(dist.get_world_size())]
+    tp = case.get("tp", 1)
+    argv = [*case["argv"], "--dp", str(dist.get_world_size() // tp), "--tp", str(tp)]
     rc = main(argv)
     dist.barrier()
     path = argv[argv.index("--checkpoint") + 1] if "--checkpoint" in argv else None
@@ -305,10 +509,18 @@ def _run_case(case: dict, mesh: Any, device: Any) -> Any:
             return out(denoiser.run(model.as_sampleable(), torch.from_numpy(case["x0"]).to(device)))
     if kind == "serve":
         return _serve(case, device)
+    if kind == "serve_abort":
+        return _serve_abort(case, device)
+    if kind == "tp":
+        return _tp(case, device)
+    if kind == "tp_sample":
+        return _tp_sample(case, device)
     if kind in ("train_dit", "train_t2i"):
         return _train(case, device)
     if kind == "train_cli":
         return _train_cli(case)
+    if kind == "train_fsdp":
+        return _train_fsdp(case, device)
     if kind == "raises":
         return _raises(case["what"], mesh, device)
     raise ValueError(f"unknown case kind {kind!r}")
@@ -351,10 +563,31 @@ def _raises(what: str, mesh: Any, device: Any) -> str:
             from ..pipeline import build_pipeline
 
             build_pipeline(lambda x, *_: x, (size, 4, 2, 2), mesh_axes={"tp": 1}, device=device)
-        elif what in ("dp_graph", "dp_orbax"):
+        elif what == "dp_graph":  # --graph captures CUDA graphs: refused on CPU ranks (argparse's exit)
+            import contextlib
+            import io
+
             from ..training import main
 
-            main(["--dp", str(size), "--graph" if what == "dp_graph" else "--orbax=unused", "--device", str(device)])
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                try:
+                    main(["--dp", str(size), "--graph", "--device", str(device)])
+                except SystemExit:
+                    return "SystemExit: " + err.getvalue().strip().splitlines()[-1]
+        elif what == "dp_orbax":  # a sharded train state: every rank's file in the committed step
+            import torch.distributed as dist
+
+            from ..training import main
+
+            with tempfile.TemporaryDirectory() as scratch:
+                box = [scratch]  # the first rank's directory on every rank
+                dist.broadcast_object_list(box, src=0)
+                argv = ["--dp", str(size), "--fsdp", "--steps", "1", "--batch", str(2 * size), "--dim", "32",
+                        "--depth", "1", "--heads", "1", "--size", "8", "--orbax", box[0], "--device", str(device)]
+                if main(argv) != 0 or not os.path.exists(os.path.join(box[0], "1", f"state-{dist.get_rank()}.pt")):
+                    return "no committed sharded step"
+                dist.barrier()
         elif what == "flash_mesh":  # a mesh the attention would not use
             DiT(DiTConfig(attention="flash"), mesh=mesh, device=device)
         elif what in ("grad_ring", "grad_ulysses"):  # the K/V that arrive over the wire carry no graph
@@ -378,8 +611,9 @@ def run_sp(
     device: str,
     cases: list[dict],
     out_queue: Any,
+    timeout_s: float = TIMEOUT_S,
 ) -> None:
-    """One rank: initialise the group over a ``FileStore`` at ``store_path``, build
+    """One rank: initialise the group (``timeout_s`` its timeout) over a ``FileStore`` at ``store_path``, build
     ``make_mesh(dp=1, sp=world)``, run ``cases`` in order, put ``(rank, index, result)`` for each
     on ``out_queue`` (then ``(rank, None, "done")``), and destroy the group.  A failure puts
     ``(rank, None, traceback)`` instead, so the caller never waits out a hang."""
@@ -396,7 +630,7 @@ def run_sp(
         if backend == "nccl":
             torch.cuda.set_device(dev)
         dist.init_process_group(
-            backend, store=store, rank=rank, world_size=world, timeout=timedelta(seconds=TIMEOUT_S), **options
+            backend, store=store, rank=rank, world_size=world, timeout=timedelta(seconds=timeout_s), **options
         )
         try:
             mesh = make_mesh(dp=1, sp=world)
@@ -414,19 +648,27 @@ def run_sp(
 
 
 def spawn_sp(
-    world: int, cases: list[dict], store_dir: str, backend: str = "nccl", device: str = "cuda"
+    world: int,
+    cases: list[dict],
+    store_dir: str,
+    backend: str = "nccl",
+    device: str = "cuda",
+    timeout_s: float = TIMEOUT_S,
 ) -> list[list[Any]]:
-    """Run ``cases`` on ``world`` spawned ranks; returns ``results[rank][case index]``.
+    """Run ``cases`` on ``world`` spawned ranks whose group waits ``timeout_s`` at most for a
+    collective; returns ``results[rank][case index]``.
 
     Raises ``RuntimeError`` with the rank's traceback if a rank fails, or if the ranks do not
-    finish within ``TIMEOUT_S`` plus a minute; every process is stopped before it returns."""
+    finish within ``timeout_s`` plus a minute; every process is stopped before it returns."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     out_queue = ctx.Queue()
     store_path = os.path.join(store_dir, f"store-{os.getpid()}-{world}")
     procs = [
-        ctx.Process(target=run_sp, args=(r, world, store_path, backend, device, cases, out_queue), daemon=True)
+        ctx.Process(
+            target=run_sp, args=(r, world, store_path, backend, device, cases, out_queue, timeout_s), daemon=True
+        )
         for r in range(world)
     ]
     results: list[list[Any]] = [[None] * len(cases) for _ in range(world)]
@@ -434,7 +676,7 @@ def spawn_sp(
         for proc in procs:
             proc.start()
         done = 0
-        deadline = time.monotonic() + TIMEOUT_S + 60
+        deadline = time.monotonic() + timeout_s + 60
         while done < world:
             try:
                 rank, index, value = out_queue.get(timeout=1.0)
@@ -443,7 +685,7 @@ def spawn_sp(
                 if dead:
                     raise RuntimeError(f"ranks {dead} exited without reporting") from None
                 if time.monotonic() > deadline:
-                    raise RuntimeError(f"the {world} ranks did not finish within {TIMEOUT_S + 60} s") from None
+                    raise RuntimeError(f"the {world} ranks did not finish within {timeout_s + 60} s") from None
                 continue
             if index is not None:
                 results[rank][index] = value
@@ -460,6 +702,51 @@ def spawn_sp(
                 proc.kill()
                 proc.join(timeout=10)
     return results
+
+
+def run_cli(rank: int, world: int, store_path: str, argv: list[str], timeout_s: float) -> None:
+    """One rank of :func:`spawn_cli`: initialise a gloo group over a ``FileStore``, run the DiT trainer's
+    ``main(argv)`` inside it on the CPU and exit with its code (a fault-injected SIGKILL ends it first)."""
+    import torch
+    import torch.distributed as dist
+
+    from ..training import main
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store_path, world), rank=rank, world_size=world,
+        timeout=timedelta(seconds=timeout_s),
+    )
+    try:
+        code = main(argv)
+    finally:
+        dist.destroy_process_group()
+    sys.exit(code)
+
+
+def spawn_cli(world: int, argv: list[str], store_dir: str, timeout_s: float = TIMEOUT_S) -> list[int | None]:
+    """``python -m skrample_tpu_torch.training ARGV`` on ``world`` spawned gloo ranks, as ``torchrun``
+    would start it; returns every rank's exit code (``-9`` for a SIGKILL) once all have ended, killing
+    any still running after ``timeout_s`` plus a minute (its code then None)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    store_path = os.path.join(store_dir, f"cli-{os.getpid()}-{time.monotonic_ns()}")
+    procs = [ctx.Process(target=run_cli, args=(r, world, store_path, argv, timeout_s), daemon=True) for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout_s + 60
+    for proc in procs:
+        proc.join(timeout=max(0.0, deadline - time.monotonic()))
+    codes = []
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+            codes.append(None)
+        else:
+            codes.append(proc.exitcode)
+    return codes
 
 
 def sample_cases(dtype: str, seed: int = 0) -> list[dict]:

@@ -18,6 +18,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import flash_attention as fa
+from .faults import guarded
 
 _BLOCK_OPS = ("flash", "einsum")
 
@@ -78,10 +79,19 @@ def ring_attention_local(
     nothing reads, so a one-rank group makes no point-to-point call.  The global key order is
     the rank order of the local blocks; any consistent permutation of the keys gives the same
     softmax attention, which lets callers pack several streams into one local block
-    (``joint_sp.py``)."""
+    (``joint_sp.py``).  A fault on this rank inside the ring aborts ``group`` here
+    (:func:`~.faults.guarded`), so its peers raise within the group's timeout."""
     if block_op not in _BLOCK_OPS:
         raise ValueError(f"unknown block_op {block_op!r}")
     refuse_grad(q_loc, k_loc, v_loc)
+    with guarded([group]):
+        return _ring_body(q_loc, k_loc, v_loc, group, block_op)
+
+
+def _ring_body(
+    q_loc: torch.Tensor, k_loc: torch.Tensor, v_loc: torch.Tensor, group: dist.ProcessGroup, block_op: str
+) -> torch.Tensor:
+    "The ring of :func:`ring_attention_local`, inside its fault guard."
     size = dist.get_world_size(group)
     rank = dist.get_rank(group)
     block_stats = fa.flash_attention_block_stats if block_op == "flash" else fa._block_stats_reference

@@ -17,6 +17,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import flash_attention as fa
+from .faults import guarded
 from .ring_attention import axis_group, refuse_grad
 
 _HEADS_OPS = ("flash", "einsum")
@@ -52,10 +53,11 @@ def reshard(x: torch.Tensor, group: dist.ProcessGroup, size: int, scatter_dim: i
     back along ``gather_dim`` in rank order.  The JAX package's ``with_sharding_constraint`` that
     flips a sharded axis lowers to this.  Serving only (:func:`~.ring_attention.refuse_grad`)."""
     refuse_grad(x)
-    send = torch.stack(x.chunk(size, dim=scatter_dim)).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return torch.cat(recv.unbind(0), dim=gather_dim)
+    with guarded([group]):
+        send = torch.stack(x.chunk(size, dim=scatter_dim)).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        return torch.cat(recv.unbind(0), dim=gather_dim)
 
 
 def ulysses_attention(
@@ -77,6 +79,8 @@ def ulysses_attention(
     group, size, _rank = axis_group(mesh, axis)
     if q.shape[1] % size:
         raise ValueError(f"heads ({q.shape[1]}) must divide the {axis!r} axis size ({size})")
-    q_h, k_h, v_h = (to_heads(t, group, size) for t in (q, k, v))
     attend = fa.flash_attention if heads_op == "flash" else fa.attention_reference
-    return from_heads(attend(q_h, k_h, v_h), group, size)
+    refuse_grad(q, k, v)  # a misuse, not a fault: raised before the collective region
+    with guarded([group]):  # a fault here aborts the group: its peers raise within its timeout
+        q_h, k_h, v_h = (to_heads(t, group, size) for t in (q, k, v))
+        return from_heads(attend(q_h, k_h, v_h), group, size)

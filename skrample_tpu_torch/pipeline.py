@@ -33,14 +33,6 @@ from .ops.loop import CompiledDenoiser, DeviceModel
 from .parallel import gather, make_mesh, shard_batch
 from .sampling import models, rk_solvers, structured
 
-_TP = "tensor parallelism (a 'tp' mesh axis) comes with a later slice of the port (ROADMAP.md A5.3)"
-
-
-def _refuse_tp(names: Any) -> None:
-    if "tp" in tuple(names or ()):
-        raise NotImplementedError(_TP)
-
-
 @dataclass
 class GenerationPipeline:
     """End-to-end latent generation.
@@ -51,7 +43,8 @@ class GenerationPipeline:
     stochastic samplers draw i.i.d. normal in-loop from the request key.
     ``mesh``: a :class:`~torch.distributed.device_mesh.DeviceMesh` with a
     ``dp`` axis over which ``latent_shape``'s batch (dim 0) is split (see
-    the module docstring); a ``tp`` axis is refused.  ``donate`` is accepted
+    the module docstring); the ranks of its other axes (a tensor-parallel
+    model's ``tp``) see the same chunk.  ``donate`` is accepted
     for parity with the JAX pipeline and has no effect (the loop allocates
     each step's latent anew)."""
 
@@ -78,8 +71,6 @@ class GenerationPipeline:
     _noises: torch.Tensor | None = field(init=False, default=None)
 
     def __post_init__(self) -> None:
-        if self.mesh is not None:
-            _refuse_tp(self.mesh.mesh_dim_names)
         self.device = resolve_device(self.device)
         if self.graph and self.device.type != "cuda":
             raise ValueError(f"GenerationPipeline: graph=True captures CUDA graphs, not on {self.device}")
@@ -218,10 +209,7 @@ def build_pipeline(
     """Opinionated defaults: DPM++(2M) over FlowShift(Linear) (flow) or Karras(Scaled).  A non-empty
     ``mesh_axes`` builds ``make_mesh(extra_axes=mesh_axes)`` over the initialised process group, the
     JAX package's recipe (``dp`` takes the ranks the other axes leave)."""
-    mesh = None
-    if mesh_axes:
-        _refuse_tp(mesh_axes)
-        mesh = make_mesh(extra_axes=mesh_axes)
+    mesh = make_mesh(extra_axes=mesh_axes) if mesh_axes else None
     return GenerationPipeline(
         model_fn=model_fn,
         sampler=structured.DPM(order=2, stochasticity=stochasticity),

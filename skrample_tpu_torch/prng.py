@@ -120,8 +120,9 @@ def uniform(
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """``jax.random.uniform``: the mantissa of a float in [1, 2) from the top
-    random bits, minus 1, scaled to ``[minval, maxval)`` and rounded to
-    ``dtype`` where XLA rounds it."""
+    random bits, minus 1, scaled to ``[minval, maxval)``: in a 16-bit
+    ``dtype`` each operation rounded to it, as the JAX source writes it; in
+    float32 with one rounding, as XLA fuses it."""
     if dtype not in _MANTISSA_BITS:
         raise ValueError(f"uniform draws float32, bfloat16 or float16, got {dtype}")
     device = resolve_device(device)
@@ -132,9 +133,9 @@ def uniform(
     one = torch.tensor(1.0, dtype=dtype).view(_INT_VIEW[dtype]).item() & ((1 << nbits) - 1)
     floats = ((bits >> (rng_bits - nmant)) | one).to(_INT_VIEW[dtype]).view(dtype) - _float(1.0, dtype, device)
     lo, hi = _float(minval, dtype, device), _float(maxval, dtype, device)
-    if dtype == torch.bfloat16:  # XLA rounds each bfloat16 operation
+    if dtype != torch.float32:  # the JAX source's 16-bit semantics: each operation rounded to dtype
         return torch.maximum(lo, floats * (hi - lo) + lo)
-    # XLA scales and offsets float32 and float16 with one rounding (the scale itself rounded to dtype)
+    # XLA scales and offsets float32 with one rounding (a fused multiply-add; the scale rounded to dtype)
     scaled = floats.double() * (hi - lo).double() + lo.double()
     return torch.maximum(lo, scaled.to(dtype))
 

@@ -24,7 +24,10 @@ all-gather over ``dp`` hands every rank's futures the whole batch.  Each
 item's draws come from its own seed, so the sharding changes no latent.
 The ranks agree over the gloo group that each rank's chunk succeeded
 before the all-gather: a dispatch that fails on one rank fails its
-requests on every rank, and the engine keeps serving.
+requests on every rank, and the engine keeps serving.  A fault inside a
+collective of the model's own aborts the mesh's process groups
+(``parallel.faults``): every rank's engine then fails every pending request
+and stops.
 """
 
 from __future__ import annotations
@@ -73,6 +76,8 @@ class MeshLink:
         self.data = parallel.line_group(mesh, ("dp",))
         self.leader = int(mesh.mesh.flatten()[0])
         self.is_leader = dist.get_rank() == self.leader
+        self.broken = False
+        "Set on every rank once a model's collective has faulted: the mesh's groups are aborted."
 
     def decide(self, decision: Any = None) -> Any:
         "The leader's ``decision`` on every rank (the leader passes it, the others receive it)."
@@ -88,15 +93,23 @@ class MeshLink:
         """``step()``'s result once it has succeeded on every rank; if it raised on any, it raises on
         every rank (its own error where it failed, a :class:`RuntimeError` elsewhere), so no rank
         goes on to a collective that a failed rank would never join.  A fault inside a collective of
-        the model's own (an ``sp`` all-to-all) is not covered: its peers wait in that collective."""
+        the model's own (ring, ulysses, tp) aborts the mesh's groups on the rank that faulted, and
+        its peers in that collective raise within the group's timeout (``parallel.faults``); every
+        rank then learns of the abort here, sets :attr:`broken` and aborts its own groups of the
+        mesh: the engine fails every pending request."""
         out, err = None, None
         try:
             out = step()
         except Exception as caught:
             err = caught
-        (failed,) = self.any_failed([err is not None])
+        failed, aborted = self.any_failed([err is not None, isinstance(err, parallel.MeshAborted)])
+        if aborted:
+            self.broken = True
+            parallel.abort_groups([*parallel.faults.mesh_groups(self.mesh), self.data])
         if err is not None:
             raise err
+        if aborted:
+            raise parallel.MeshAborted("a collective of the model faulted on another rank of the mesh")
         if failed:
             raise RuntimeError("a dispatch failed on another rank of the mesh")
         return out
@@ -234,6 +247,7 @@ class ServingEngine:
         self._denoiser_for(0)  # compile the txt2img tables eagerly
         self._queue: queue.Queue = queue.Queue()
         self._closed = False
+        self._stopped = False
         self._worker = threading.Thread(target=self._loop, name="skrample-serving", daemon=True)
         self._worker.start()
 
@@ -256,6 +270,8 @@ class ServingEngine:
         batch axis."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        if self._stopped:
+            raise RuntimeError("engine stopped: a collective of the model faulted and the mesh's groups were aborted")
         if context is not None and not self.conditioned:
             raise ValueError("context= needs ServingEngine(conditioned=True) and a 5-arg model_fn")
         if not isinstance(seed, int) or isinstance(seed, bool):
@@ -376,6 +392,8 @@ class ServingEngine:
                     self._link.decide((start, [item[0] for item in group], dropped))
                     dropped = []
                 self._run_group(group, start)
+                if self._link is not None and self._link.broken:
+                    return self._stop([item for g in groups.values() for item in g])
 
     def _follow(self) -> None:
         "A follower rank: dispatch what the leader decides, on this rank's own submissions."
@@ -393,10 +411,30 @@ class ServingEngine:
                     item[-1].set_running_or_notify_cancel()  # a cancel here only skips this rank's result
                 if group:
                     self._run_group(group, start)
+                if self._link.broken:
+                    self._stopped = True
+                    return
         finally:
             for *_, fut in inbox.drain():
                 if not fut.done():
                     fut.set_exception(RuntimeError("engine closed before this request was dispatched"))
+
+    def _stop(self, taken: list) -> None:
+        """The mesh's groups were aborted (:attr:`MeshLink.broken`): fail every request this rank
+        holds, taken or still queued, and stop the worker; :meth:`submit` refuses from now on."""
+        self._stopped = True
+        err = RuntimeError("engine stopped: a collective of the model faulted and the mesh's groups were aborted")
+        pending = [item for item in taken if item is not None]
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                pending.append(item)
+        for *_, fut in pending:
+            if not fut.done():
+                fut.set_exception(err)
 
     def _run_group(self, group: list, start: int) -> None:
         try:

@@ -28,8 +28,11 @@ the CPU, and the attention is ``"flash"`` on the card at head dim 64 or
 the group from its environment and refuses a world of another size): every
 rank draws the whole batch's randoms from the step key and takes its
 chunk, the gradients are averaged over ``dp`` before the update, and the
-loss printed is the whole batch's.  ``--tp`` (tensor parallelism) belongs
-to a later slice of the port.
+loss printed is the whole batch's.  ``--tp M`` cuts both models' layers
+over a ``tp`` axis of M ranks (``parallel/tensor_parallel.py``: each rank
+runs ``heads / M`` heads; ``torchrun`` starts ``dp * tp`` ranks), the
+example's ``(dp, tp)`` mesh: the ``tp`` ranks of a ``dp`` index see the
+same chunk.
 """
 
 from __future__ import annotations
@@ -167,10 +170,11 @@ def t2i_train_step(
     return loss.detach()
 
 
-def build_models(dim: int, device: torch.device) -> tuple[TextEncoder, MMDiT]:
+def build_models(dim: int, device: torch.device, mesh: Any = None) -> tuple[TextEncoder, MMDiT]:
     """The example's pair at width ``dim``: a 2-block encoder (2 heads, 128 tokens) and a 2-block
     MMDiT (2 heads, context width ``dim``), float32 masters, computing in bf16 on the card and f32
-    on the CPU, the MMDiT's attention by the module docstring's rule."""
+    on the CPU, the MMDiT's attention by the module docstring's rule; with ``mesh`` (a ``tp`` axis)
+    both cut over ``tp``."""
     heads = 2
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     attention = "flash" if device.type == "cuda" and dim // heads in (64, 128) else "full"
@@ -178,12 +182,14 @@ def build_models(dim: int, device: torch.device) -> tuple[TextEncoder, MMDiT]:
         TextEncoderConfig(dim=dim, depth=2, heads=heads, max_tokens=TOKENS, compute_dtype=dtype),
         device=device,
         generator=torch.Generator().manual_seed(0),
+        mesh=mesh,
     )
     mmdit = MMDiT(
         MMDiTConfig(
             dim=dim, depth=2, heads=heads, context_dim=dim, context_tokens=TOKENS, compute_dtype=dtype,
             attention=attention,
         ),
+        mesh=mesh,
         device=device,
         generator=torch.Generator().manual_seed(1),
     )
@@ -200,19 +206,17 @@ def main(argv: Sequence[str] | None = None) -> int:
     ap.add_argument("--size", type=int, default=16, help="latent H=W")
     ap.add_argument("--cfg-dropout", type=float, default=0.1)
     ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks (run under torchrun with as many)")
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks: a later slice of the port")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks: both models' layers cut over tp")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError("--tp (tensor parallelism) comes with a later slice of the port (ROADMAP.md A5.3)")
 
     device = resolve_device(args.device)
     mesh, owned = None, False
-    if args.dp > 1 or dist_requested():
-        mesh, device, owned = data_parallel_world(args.dp, device, ap)
+    if args.dp * args.tp > 1 or dist_requested():
+        mesh, device, owned = data_parallel_world(args.dp, device, ap, tp=args.tp)
     main_rank = mesh is None or torch.distributed.get_rank() == 0
     try:
-        enc, mmdit = build_models(args.dim, device)
+        enc, mmdit = build_models(args.dim, device, mesh if args.tp > 1 else None)
         opt = t2i_optimizer(enc, mmdit)
         ids, images = hermetic_data(args.size, device=device)
         keys = prng.split(prng.PRNGKey(STEP_SEED), args.steps)

@@ -4,7 +4,7 @@
         [--checkpoint dit.npz] [--device cuda|cpu] [--graph] [--opt8] [--lora N]
         [--host-loader] [--orbax DIR [--resume] [--until N] [--save-every N]
         [--abort-after-step K]]
-    torchrun --nproc-per-node N -m skrample_tpu_torch.training --dp N [...]
+    torchrun --nproc-per-node N -m skrample_tpu_torch.training --dp D [--tp T] [--fsdp] [...]
 
 The port's counterpart of the JAX package's
 ``examples/train_flow_matching.py``: the conditional flow-matching loss
@@ -51,16 +51,21 @@ initialises the group from its environment, NCCL on cards and gloo on the
 CPU, and refuses a world of another size): every rank draws the whole
 batch (the same generator or loader key on every rank) and takes its
 ``dp`` chunk, the gradients are averaged over ``dp`` before the update,
-and the loss printed is the whole batch's mean.  It composes with
-``--opt8``, ``--lora`` and ``--remat``; with ``--graph`` or ``--orbax`` it
-is refused until the sharded train state (FSDP, ROADMAP.md A5.6) brings
-the distributed resume.  The example's ``--tp/--fsdp`` belong to later
-slices of the port.
+and the loss printed is the whole batch's mean.  ``--tp M`` cuts the DiT's
+layers over a ``tp`` axis of M ranks (``torchrun`` starts ``dp * tp``;
+``parallel/tensor_parallel.py``), and ``--fsdp`` (at ``--dp > 1``) shards
+the parameters, optimizer moments and EMA over ``dp`` as the JAX example
+lays them out (``fsdp_param_specs(..., min_size=1024)`` over the DiT's
+megatron specs; ``parallel/fsdp.py``).  They compose with ``--opt8``,
+``--lora``, ``--remat``, ``--orbax`` (each rank saves and restores its own
+part of the train state, a step committed once every rank has written) and
+``--graph`` (the step's collectives captured: NCCL, a card a rank).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import math
 import os
@@ -77,6 +82,7 @@ from torch.func import functional_call
 
 from . import parallel, prng
 from .data import EpochLoader, prefetch_to_device
+from .models import _tree
 from .models.checkpoint import TrainCheckpointer, load_params, save_params
 from .models.dit import DiT, DiTConfig
 from .models.ema import ema_init, ema_update
@@ -84,6 +90,7 @@ from .models.lora import jax_leaves, lora_init, lora_leaves, lora_merge, lora_pa
 from .ops._cuda import resolve_device
 from .ops.graphs import CapturedGraph
 from .optim import AdamW8bit
+from .parallel import fsdp, tensor_parallel
 
 DATASET_SIZE = 64
 DATASET_SEED = 42  # the JAX example's PRNGKey(42) for its fixed image set
@@ -123,14 +130,20 @@ def train_step(
     at step index ``step``.  Returns the loss (detached, on the device: the
     host does not wait for it).  With ``mesh`` (a ``dp`` axis) the batch is
     the whole one: this rank takes its ``dp`` chunk, the gradients are
-    averaged over ``dp`` and the loss returned is the whole batch's mean."""
+    averaged over ``dp`` and the loss returned is the whole batch's mean.  A model cut over ``tp``
+    runs its collectives itself; FSDP-sharded parameters (``parallel.fsdp``) are gathered in the
+    forward and again for the backward, and their gradients reduce-scattered there."""
     opt.zero_grad(set_to_none=True)
     if mesh is not None:
         x0, noise, sigma = (parallel.shard_batch(mesh, a) for a in (x0, noise, sigma))
-    loss = flow_matching_loss(model, x0, noise, sigma)
+    sharded = any(fsdp.is_shard(p) for p in model.parameters())
+    with fsdp.regather() if sharded else contextlib.nullcontext():
+        loss = flow_matching_loss(model, x0, noise, sigma)
     loss.backward()
     if mesh is not None:
-        parallel.average_grads([p for p in model.parameters() if p.requires_grad], mesh)
+        trained = [p for p in model.parameters() if p.requires_grad]
+        tensor_parallel.sum_partial_grads(trained, mesh)
+        parallel.average_grads(trained, mesh)
         loss = global_mean(loss.detach(), mesh)
     opt.step()
     ema_update(ema, model, decay=ema_decay, step=step)
@@ -150,6 +163,8 @@ class GraphedTrainStep:
     the EMA decay comes from :attr:`step`, a device counter (starting at
     ``step``), by :func:`~skrample_tpu_torch.models.ema.ema_decay_device`.
     The batch is drawn outside the graph (a device generator) and copied in.
+    With ``mesh`` the graph captures the data-parallel step's collectives too
+    (NCCL: a card a rank).
     Returns the loss (the graph's own tensor: read or copy it before the next
     call)."""
 
@@ -160,8 +175,9 @@ class GraphedTrainStep:
         ema: dict[str, torch.Tensor],
         step: int = 0,
         ema_decay: float = 0.9999,
+        mesh: Any = None,
     ):
-        self.model, self.opt, self.ema, self.ema_decay = model, opt, ema, ema_decay
+        self.model, self.opt, self.ema, self.ema_decay, self.mesh = model, opt, ema, ema_decay, mesh
         device = next(model.parameters()).device
         self.step = torch.tensor(step, dtype=torch.int64, device=device)
         self._graph: CapturedGraph | None = None
@@ -170,13 +186,9 @@ class GraphedTrainStep:
         """One step, :func:`train_step` with the EMA step on the device: what the graph captures.  Clearing
         the gradients is host work (it drops them), so under capture the backward allocates them anew in
         the graph's pool."""
-        self.opt.zero_grad(set_to_none=True)
-        loss = flow_matching_loss(self.model, x0, noise, sigma)
-        loss.backward()
-        self.opt.step()
-        ema_update(self.ema, self.model, decay=self.ema_decay, step=self.step)
+        loss = train_step(self.model, self.opt, self.ema, x0, noise, sigma, self.step, self.ema_decay, self.mesh)
         self.step += 1
-        return loss.detach()
+        return loss
 
     def __call__(self, x0: torch.Tensor, noise: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
         if self._graph is None:
@@ -215,10 +227,55 @@ class LoRAModel(nn.Module):
         self.scale = scale
         self.adapters = {path: {k: nn.Parameter(t.detach()) for k, t in ab.items()} for path, ab in adapters.items()}
         self.leaves = nn.ParameterList(lora_leaves(self.adapters))
+        names = {leaf.path: leaf.name for leaf in jax_leaves(base)}
+        for path, ab in self.adapters.items():  # over a cut base layer, each rank's gradient is a part
+            if getattr(base.get_submodule(names[path].rpartition(".")[0]), "tp", None) is not None:
+                for t in ab.values():
+                    t.tp_partial = True
+
+    def current_adapters(self) -> dict[str, dict[str, torch.Tensor]]:
+        """The adapters as the step reads them: each read through :attr:`leaves` (whole where FSDP shards
+        them), in the adapter dict's layout."""
+        order = [(path, k) for path in sorted(self.adapters) for k in sorted(self.adapters[path])]
+        current: dict[str, dict[str, torch.Tensor]] = {}
+        for i, (path, k) in enumerate(order):
+            current.setdefault(path, {})[k] = self.leaves[i]
+        return current
 
     def forward(self, *args: Any, **kwargs: Any) -> torch.Tensor:
         "The base model's forward (its arguments as they are) on the merged weights."
-        return functional_call(self.base, lora_merge(self.base, self.adapters, self.scale), args, kwargs)
+        return functional_call(self.base, lora_merge(self.base, self.current_adapters(), self.scale), args, kwargs)
+
+
+FSDP_MIN_SIZE = 1024  # the JAX example's fsdp_param_specs(..., min_size=1024)
+
+
+def shard_for_fsdp(trained: nn.Module, model: DiT, mesh: Any) -> list[str]:
+    """Shard ``trained``'s parameters over ``dp`` as the JAX example's ``--fsdp`` lays them out
+    (``fsdp_param_specs(params, dp, base_specs=..., min_size=1024)``: the DiT's megatron specs as the
+    base; a LoRA run's adapters on replicated bases); returns the names sharded."""
+    _group, dp, _rank = parallel.axis_group(mesh, "dp")
+    if isinstance(trained, LoRAModel):
+        specs = {name: fsdp.fsdp_leaf_spec(tuple(p.shape), dp, min_size=FSDP_MIN_SIZE)
+                 for name, p in trained.named_parameters()}
+    else:
+        base = model.param_spec()
+        names = {id(p): name for name, p in model.named_parameters()}
+        specs = {
+            names[id(param)]: fsdp.fsdp_leaf_spec(
+                tuple(param.shape[::-1]) if transposed else tuple(param.shape), dp,
+                base=tensor_parallel.spec_at(base, path), min_size=FSDP_MIN_SIZE,
+            )
+            for path, param, transposed in _tree.leaves(model)
+        }
+    return fsdp.shard_module(trained, mesh, specs)
+
+
+def whole_param_tree(model: DiT, mesh: Any) -> dict:
+    """The model's JAX-layout tree, whole: its FSDP parts gathered over ``dp`` (each leaf read through
+    its parametrization) and its ``tp`` shards over ``tp`` (collectives: every rank calls it)."""
+    tree = model.param_tree()
+    return tensor_parallel.gather_params(tree, model.param_spec(), mesh, model._tp_segments())
 
 
 def host_loader_batch(
@@ -267,12 +324,15 @@ def dist_requested() -> bool:
     return "WORLD_SIZE" in os.environ or dist.is_initialized()
 
 
-def data_parallel_world(dp: int, device: torch.device, ap: argparse.ArgumentParser) -> tuple[Any, torch.device, bool]:
-    """``(mesh, device, owned)`` for ``--dp``: a ``make_mesh(dp=dp, sp=1)`` over the process group,
+def data_parallel_world(
+    dp: int, device: torch.device, ap: argparse.ArgumentParser, tp: int = 1
+) -> tuple[Any, torch.device, bool]:
+    """``(mesh, device, owned)`` for ``--dp`` (and ``--tp``): a ``make_mesh(dp=dp, sp=1,
+    extra_axes={"tp": tp})`` over the process group (the ``tp`` axis only where ``tp > 1``),
     which this call initialises (``owned``) from ``torchrun``'s environment (NCCL with this rank's
     card, ``LOCAL_RANK``, on CUDA; gloo on the CPU) or, outside ``torchrun`` at ``dp = 1``, as a
     one-rank group over an in-process store; an initialised group is used as it is.  A world of
-    another size than ``dp`` is refused."""
+    another size than ``dp * tp`` is refused."""
     owned = False
     if not dist.is_initialized():
         backend = "nccl" if device.type == "cuda" else "gloo"
@@ -282,19 +342,19 @@ def data_parallel_world(dp: int, device: torch.device, ap: argparse.ArgumentPars
         options = {"device_id": device} if device.type == "cuda" else {}
         if "WORLD_SIZE" in os.environ:
             dist.init_process_group(backend, **options)
-        elif dp == 1:
+        elif dp * tp == 1:
             dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1, **options)
         else:
-            ap.error(f"--dp {dp}: start {dp} ranks with torchrun --nproc-per-node {dp}")
+            ap.error(f"--dp {dp} --tp {tp}: start {dp * tp} ranks with torchrun --nproc-per-node {dp * tp}")
         owned = True
     elif device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
-    if dist.get_world_size() != dp:
+    if dist.get_world_size() != dp * tp:
         world = dist.get_world_size()
         if owned:
             dist.destroy_process_group()
-        ap.error(f"--dp {dp} needs a world of {dp} ranks, got WORLD_SIZE={world}")
-    return parallel.make_mesh(dp=dp, sp=1), device, owned
+        ap.error(f"--dp {dp} --tp {tp} needs a world of {dp * tp} ranks, got WORLD_SIZE={world}")
+    return parallel.make_mesh(dp=dp, sp=1, extra_axes={"tp": tp} if tp > 1 else None), device, owned
 
 
 def main(argv: Sequence[str] | None = None) -> int:
@@ -329,19 +389,25 @@ def main(argv: Sequence[str] | None = None) -> int:
     )
     ap.add_argument("--lora", type=int, default=0, help="train rank-N LoRA adapters over the frozen base")
     ap.add_argument("--dp", type=int, default=1, help="data-parallel ranks (run under torchrun with as many)")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks: the DiT's layers cut over tp")
+    ap.add_argument(
+        "--fsdp", action="store_true",
+        help="shard the parameters, optimizer moments and EMA over dp (ZeRO-3; needs --dp > 1)",
+    )
     args = ap.parse_args(argv)
 
-    if args.dp > 1 and (args.graph or args.orbax):
-        raise NotImplementedError(
-            "--dp > 1 with --graph or --orbax comes with the sharded train state (FSDP, ROADMAP.md A5.6), "
-            "which brings the distributed resume"
-        )
+    if args.fsdp and args.dp < 2:
+        ap.error("--fsdp shards over the dp axis; pass --dp > 1")
     device = resolve_device(args.device)
     if args.graph and device.type != "cuda":
         ap.error("--graph captures CUDA graphs: it needs --device cuda")
     mesh, owned = None, False
-    if args.dp > 1 or dist_requested():
-        mesh, device, owned = data_parallel_world(args.dp, device, ap)
+    if args.dp * args.tp > 1 or dist_requested():
+        mesh, device, owned = data_parallel_world(args.dp, device, ap, tp=args.tp)
+        if args.graph and dist.get_backend() != "nccl" and args.dp * args.tp > 1:
+            if owned:
+                dist.destroy_process_group()
+            ap.error("--graph with more than one rank captures the collectives: it needs NCCL (a card a rank)")
     try:
         return _train(args, ap, device, mesh)
     finally:
@@ -352,6 +418,7 @@ def main(argv: Sequence[str] | None = None) -> int:
 def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.device, mesh: Any) -> int:
     "``main``'s run once the device (and the data-parallel mesh, if any) are set."
     main_rank = mesh is None or dist.get_rank() == 0
+    tp_mesh = mesh if tensor_parallel.tp_size(mesh) > 1 else None
     config = DiTConfig(
         dim=args.dim,
         depth=args.depth,
@@ -360,7 +427,7 @@ def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.
         attention="flash",
         remat=args.remat,
     )
-    model = DiT(config, device=device)
+    model = DiT(config, mesh=tp_mesh, device=device)
     if args.checkpoint and os.path.exists(args.checkpoint):
         model.load_jax_params(load_params(args.checkpoint))
         print(f"resumed from {args.checkpoint}")
@@ -370,6 +437,9 @@ def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.
         n_base = sum(p.numel() for p in model.parameters())
         n_ad = lora_param_count(trained.adapters)
         print(f"LoRA rank {args.lora}: training {n_ad} of {n_base} params ({n_ad / n_base:.2%})")
+    if args.fsdp:
+        shard_for_fsdp(trained, model, mesh)
+        print(f"FSDP over dp={args.dp}: rank {dist.get_rank()} holds {fsdp.per_device_bytes(trained)} parameter bytes")
     if args.opt8:
         leaves = list(trained.parameters()) if args.lora else [leaf.tensor for leaf in jax_leaves(model)]
         opt: torch.optim.Optimizer = AdamW8bit(leaves, lr=1e-4, capturable=args.graph)
@@ -392,7 +462,9 @@ def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.
         args.steps = args.until - start_step
     if (args.save_every or args.abort_after_step >= 0) and (not args.host_loader or ckpt is None):
         ap.error("--save-every/--abort-after-step need --host-loader and --orbax (per-step boundaries)")
-    graphed = GraphedTrainStep(trained, opt, ema, step=start_step, ema_decay=args.ema_decay) if args.graph else None
+    graphed = None
+    if args.graph:
+        graphed = GraphedTrainStep(trained, opt, ema, step=start_step, ema_decay=args.ema_decay, mesh=mesh)
 
     def step_once(x0: torch.Tensor, noise: torch.Tensor, sigma: torch.Tensor, n: int) -> torch.Tensor:
         if graphed is not None:
@@ -432,9 +504,11 @@ def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.
     if not all(math.isfinite(v) for v in values):
         print("non-finite loss", file=sys.stderr)
         return 1
-    if args.checkpoint and main_rank:  # every rank holds the same parameters
-        save_params(args.checkpoint, lora_to_numpy(trained.adapters) if args.lora else model.param_tree())
-        print(f"saved {args.checkpoint}")
+    if args.checkpoint:  # every rank gathers its shards (collectives), the first writes
+        tree = lora_to_numpy(trained.current_adapters()) if args.lora else whole_param_tree(model, mesh)
+        if main_rank:
+            save_params(args.checkpoint, tree)
+            print(f"saved {args.checkpoint}")
     if ckpt is not None:
         if args.steps or ckpt.latest_step() != end:
             ckpt.save(end, _train_state(trained, opt, ema, end))

@@ -94,7 +94,7 @@ def test_residuals_match_jax(pair) -> None:
 
 def test_tree_and_fresh_model(pair) -> None:
     """The port's tree has the JAX ``init`` tree's structure and shapes and round-trips; a fresh ControlNet's
-    zero convs make every residual exactly 0; tensor-parallel specs belong to a later slice."""
+    zero convs make every residual exactly 0; neither package's ControlNet has tensor-parallel specs."""
     port, ref, params = pair
     init = jax.eval_shape(lambda: ref.init(jax.random.PRNGKey(0)))
     back = port.param_tree()
@@ -105,8 +105,7 @@ def test_tree_and_fresh_model(pair) -> None:
     with torch.no_grad():
         down, mid = fresh(*(torch.from_numpy(a) for a in _inputs(2, B=1)))
     assert all(torch.count_nonzero(r) == 0 for r in [*down, mid])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fresh.param_spec()
+    assert not hasattr(ref, "param_spec") and not hasattr(fresh, "param_spec")  # the JAX ControlNet has no specs
 
 
 def test_controlnet_pipeline_matches_jax() -> None:

@@ -183,6 +183,9 @@ def test_load_jax_params_accepts_a_jax_tree() -> None:
     np.testing.assert_array_equal(model.t_mlp1.bias.detach().numpy(), np.asarray(tree["t_mlp1"]["b"]))
 
 
+_DP_SP = type("DpSpMesh", (), {"mesh_dim_names": ("dp", "sp")})()  # what the DiT reads of a mesh first
+
+
 @pytest.mark.parametrize(
     ("kwargs", "error", "match"),
     [
@@ -191,17 +194,19 @@ def test_load_jax_params_accepts_a_jax_tree() -> None:
         ({"attention": "ulysses"}, ValueError, r"needs DiT\(config, mesh=\.\.\.\)"),
         # remat True and "dots" are ported (tests/test_torch_training.py); other policies raise as in JAX
         ({"remat": "offload"}, ValueError, "remat must be bool or 'dots'"),
-        # a mesh for an attention that is not sequence-parallel: data/tensor parallelism, a later slice
-        ({"attention": "flash", "mesh": object()}, NotImplementedError, r"DiT\(mesh=\.\.\.\) with attention='flash'"),
-        ({"attention": "full", "mesh": object()}, NotImplementedError, r"DiT\(mesh=\.\.\.\) with attention='full'"),
+        # a mesh without a tp axis for an attention that is not sequence-parallel (tensor parallelism:
+        # tests/test_torch_tensor_parallel.py)
+        ({"attention": "flash", "mesh": _DP_SP}, ValueError, r"DiT\(mesh=\.\.\.\) with attention='flash' needs a 'tp'"),
+        ({"attention": "full", "mesh": _DP_SP}, ValueError, r"DiT\(mesh=\.\.\.\) with attention='full' needs a 'tp'"),
     ],
     ids=["ring", "ulysses", "remat", "flash-mesh", "full-mesh"],
 )
 def test_later_slices_raise(kwargs: dict, error: type, match: str) -> None:
     """Configurations the port does not run raise at construction: what the JAX package refuses
     too (a sequence-parallel attention without a mesh, a remat policy it does not know), and a
-    mesh given to the full or flash attention, which the port does not shard yet (refused before
-    the mesh is read, so any object stands for one; a real mesh: tests/test_torch_parallel.py)."""
+    mesh without a ``tp`` axis given to the full or flash attention, which would shard nothing
+    (refused before any group is read, so an object with the mesh's axis names stands for one; a
+    real mesh: tests/test_torch_parallel.py)."""
     fields = {**SMALL, **kwargs}
     mesh = fields.pop("mesh", None)
     with pytest.raises(error, match=match):

@@ -193,8 +193,8 @@ def test_param_tree_round_trips_and_checks() -> None:
 
 
 def test_contracts() -> None:
-    """"flash" takes head dims 64 and 128 and names "full" otherwise; sequence parallelism without a mesh,
-    tensor-parallel specs and the pipelined apply raise; a fresh model is adaLN-zero (outputs 0) and builds
+    """"flash" takes head dims 64 and 128 and names "full" otherwise; sequence parallelism without a mesh
+    and the pipelined apply raise; the tensor-parallel specs are the JAX package's; a fresh model is adaLN-zero (outputs 0) and builds
     in bf16."""
     with pytest.raises(NotImplementedError, match="attention='full'"):
         MMDiT(MMDiTConfig(dim=96, heads=3, depth=1), device="cpu")
@@ -207,9 +207,9 @@ def test_contracts() -> None:
     with pytest.raises(ValueError, match="multiple of 128"):
         MMDiT(MMDiTConfig(dim=128, heads=2, depth=1, context_tokens=77), device="cpu")
     fresh = MMDiT(MMDiTConfig(**SMALL, compute_dtype=torch.float32), device="cpu")
-    for fn in (fresh.param_spec, fresh.apply_pipelined):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            fn()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        fresh.apply_pipelined()
+    assert fresh.param_spec()["blocks"][0]["img"]["qkv"]["w"] == (None, "tp")  # every spec: test_torch_tensor_parallel.py
     x, t, ctx, _ = _inputs("native")
     assert not fresh(_t(x), _t(t), _t(ctx)).any()
     bf16 = MMDiT(MMDiTConfig(**SMALL, **CASES["sd3 qk-norm pos-embed"]), device="cpu", dtype=torch.bfloat16)

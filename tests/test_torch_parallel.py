@@ -34,7 +34,7 @@ from skrample_tpu_torch.models import video_dit as tvdit
 from skrample_tpu_torch.models.dit import DiTConfig, random_param_tree
 from skrample_tpu_torch.ops import flash_attention as tfa
 from skrample_tpu_torch.parallel import batch_keys
-from skrample_tpu_torch.parallel.dryrun import spawn_sp
+from skrample_tpu_torch.parallel.dryrun import spawn_cli, spawn_sp
 
 WORLDS = (2, 4)
 DIT = {"dim": 64, "depth": 2, "heads": 4}  # head dim 16; 16x16 latents at patch 2: 64 tokens
@@ -49,6 +49,27 @@ MMDIT = {
 VIDEO = {"dim": 64, "depth": 1, "heads": 4, "channels": 4, "attention": "full"}  # 4 frames of 16 sites
 T2I_ENC = {"dim": 32, "depth": 1, "heads": 2, "max_tokens": 128}
 T2I_MMDIT = {"dim": 32, "depth": 1, "heads": 2, "context_dim": 32, "context_tokens": 128, "attention": "full"}
+# the tensor-parallel cases: every head count divides 2 and 4; each model's own small test sizes otherwise
+TP_FLUX = {"dim": 256, "heads": 4, "rope_axes": (16, 24, 24), "depth": 1, "single_depth": 1, "context_dim": 32,
+           "pooled_dim": 24, "guidance": False, "attention": "full"}
+TP_CLIP = {"vocab_size": 300, "dim": 64, "depth": 2, "heads": 4, "max_tokens": 16, "ln_affine": True,
+           "act": "quick_gelu", "eos_id": 299, "ln_eps": 1e-5}
+TP_T5 = {"vocab_size": 120, "dim": 64, "head_dim": 16, "heads": 4, "ff_dim": 96, "depth": 2, "rel_buckets": 8,
+         "rel_max_distance": 20}
+TP_UNET = {"widths": (64, 128), "heads": (1, 4), "transformer_layers": (0, 1), "layers_per_block": 1,
+           "context_dim": 48, "pooled_dim": 0}
+TP_VIDEO = {**VIDEO, "context_dim": 24}  # the cross attention's q_x, kv_c and proj_x too
+TP_MMDIT_SAMPLE = {"dim": 128, "depth": 2, "heads": 2, "context_dim": 96, "context_tokens": 128}
+FSDP_DIT = {"patch": 2, "channels": 4, "dim": 128, "depth": 2, "heads": 8}  # tests/test_fsdp.py's model
+FSDP_STEPS = {"adamw": 3, "adamw8bit": 2}  # as tests/test_fsdp.py runs them, batch 8 of 4x8x8, lr 1e-3
+TRAIN_CLI_TP = [  # the DiT trainer's CLI over tp 2: two heads, every option --tp composes with
+    "--device", "cpu", "--steps", "1", "--batch", "4", "--dim", "64", "--depth", "1", "--heads", "2", "--size", "8",
+    "--opt8", "--lora", "2", "--remat",
+]
+RESUME = [  # the DiT trainer's FSDP kill-and-resume, a tiny DiT at dp 2 with 8-bit moments
+    "--device", "cpu", "--batch", "4", "--dim", "64", "--depth", "1", "--heads", "1", "--size", "8",
+    "--dp", "2", "--fsdp", "--opt8", "--host-loader",
+]
 TRAIN_CLI = [  # the DiT trainer's CLI, 1 step of batch 4 with every option --dp composes with
     "--device", "cpu", "--steps", "1", "--batch", "4", "--dim", "64", "--depth", "1", "--heads", "1", "--size", "8",
     "--opt8", "--lora", "2", "--remat",
@@ -58,6 +79,64 @@ TRAIN_CLI = [  # the DiT trainer's CLI, 1 step of batch 4 with every option --dp
 def _jfa():
     "The JAX flash-attention module (``skrample_tpu.ops`` re-exports a function of that name)."
     return importlib.import_module("skrample_tpu.ops.flash_attention")
+
+
+# ---- the float64 oracle's summation bounds of dense gradients ----------------------
+
+
+# float32 roundings a summand may carry in a gradient's per-element bound (dense_grad_sums): the
+# float64 oracle puts the port within 98 eps32 * S of itself and JAX within 772 (XLA's CPU
+# approximations of exp and tanh carry through the backward into sums that cancel)
+K_GRAD = 1024
+
+
+def dense_grad_sums(run) -> dict[int, tuple[torch.Tensor, torch.Tensor]]:
+    """Call ``run()`` (a forward and backward through the port's dense layers, in float64: the
+    oracle) and return, by the ``data_ptr`` of each dense weight, the sums of the magnitudes of the
+    products that its gradients add up: ``(|g|ᵀ |x|, Σ_rows |g|)`` in ``nn.Linear``'s ``(out, in)``
+    layout and the bias's, from the ``x`` and the output gradient ``g`` the layer's backward sees.
+    ``K_GRAD * eps32`` times these is the float32 summation bound of each element of the weight and
+    bias gradients, cancellation included, that a per-element comparison uses in place of a fixed
+    atol."""
+    from unittest import mock
+
+    from skrample_tpu_torch.models import dit as tdit
+
+    sums: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+    backward = tdit._Dense.backward
+
+    def recording(ctx, g):
+        x2, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).abs()
+        terms = (g2.t() @ x2.abs(), g2.sum(0))
+        old = sums.get(w.data_ptr())
+        sums[w.data_ptr()] = terms if old is None else (old[0] + terms[0], old[1] + terms[1])
+        return backward(ctx, g)
+
+    with mock.patch.object(tdit._Dense, "backward", staticmethod(recording)):
+        run()
+    return sums
+
+
+def grad_sums_by_path(module: torch.nn.Module, sums: dict) -> dict[str, np.ndarray]:
+    """``dense_grad_sums``' sums of ``module``'s dense layers by tree path, in the JAX layout
+    (``.w`` as ``(in, out)``, ``.b``), as float64 numpy."""
+    out = {}
+    for name, layer in module.named_modules():
+        if isinstance(layer, torch.nn.Linear) and layer.weight.data_ptr() in sums:
+            w_sum, b_sum = sums[layer.weight.data_ptr()]
+            out[f"{name}.w"] = w_sum.double().numpy().T
+            out[f"{name}.b"] = b_sum.double().numpy()
+    return out
+
+
+def assert_within(actual: np.ndarray, desired: np.ndarray, rtol: float, bound: np.ndarray, what: str) -> None:
+    "``|actual - desired| <= rtol |desired| + bound`` element for element (``bound`` an array)."
+    actual, desired = np.asarray(actual, np.float64), np.asarray(desired, np.float64)
+    assert actual.shape == desired.shape, what
+    excess = np.abs(actual - desired) - rtol * np.abs(desired) - bound
+    bad = int((excess > 0).sum())
+    assert bad == 0, f"{what}: {bad} of {excess.size} elements outside the bound (worst by {excess.max():.3e})"
 
 
 # ---- B11's plain version and the merge, one process ---------------------------------
@@ -175,7 +254,14 @@ def _cases(world: int) -> dict[str, dict]:
     for what in ("heads", "tokens", "no_mesh", "dp", "flash_mesh", "grad_ring", "grad_ulysses", "grad_dit"):
         cases[f"raises-{what}"] = {"kind": "raises", "what": what}
     cases.update(_parallel_cases(world))
+    cases.update(_tp_cases(world))
+    cases.update(_fsdp_cases(world))
     if world == 4:  # a dp x sp mesh needs 4 ranks
+        cases.update(_tp_dp_cases())
+        for attention in ("ring", "ulysses"):  # tp 2 x sp 2: two heads a rank, its tokens' half
+            tp_case = _tp_cases(4)["tp-dit"]
+            config = {**tp_case["config"], "attention": attention}
+            cases[f"tp_sp-{attention}"] = {**tp_case, "config": config, "mesh": [1, 2, 2]}
         for attention in ("ring", "ulysses"):
             config = {**DIT, "compute_dtype": "float32", "attention": attention}
             case = {"kind": "dit", "config": config, "tree": tree, "x": x, "t": t, "mesh": [2, 2]}
@@ -198,6 +284,10 @@ def _parallel_cases(world: int) -> dict[str, dict]:
         case.update(SERVE, config=serve_config, tree=serve_tree)
     for engine in ("batch", "continuous"):  # the last rank's model raises at its first call
         cases[f"serve_fault-{engine}"] = {**cases[f"serve-{engine}"], "fault": world - 1, "seeds": SERVE["seeds"][:2]}
+    for engine in ("batch", "continuous"):  # a DiT cut over tp 2 under the dp engine (dp = world / 2)
+        tp_case = {**cases[f"serve-{engine}"], "tp": 2}
+        tp_case.update(buckets=(world // 2, world)) if engine == "batch" else tp_case.update(slots=world // 2)
+        cases[f"serve_tp-{engine}"] = tp_case
     cases["pipeline"] = {
         "kind": "pipeline", "config": serve_config, "tree": serve_tree, "shape": (4, 4, 8, 8), "steps": 4, "seed": 7
     }
@@ -233,11 +323,117 @@ def _parallel_cases(world: int) -> dict[str, dict]:
             "mmdit": tmmdit.random_param_tree(tmmdit.MMDiTConfig(**T2I_MMDIT), 35),
         },
     }
+    for kind in ("train_dit", "train_t2i"):  # the same steps with the models cut over tp 2
+        cases[f"{kind}_tp"] = {**cases[kind], "tp": 2}
     path = os.path.join(tempfile.gettempdir(), f"dp-cli-{uuid.uuid4().hex}-{world}.npz")
     cases["train_cli"] = {"kind": "train_cli", "argv": [*TRAIN_CLI, "--checkpoint", path]}
+    tp_path = os.path.join(tempfile.gettempdir(), f"tp-cli-{uuid.uuid4().hex}-{world}.npz")
+    cases["train_cli_tp"] = {"kind": "train_cli", "argv": [*TRAIN_CLI_TP, "--checkpoint", tp_path], "tp": 2}
     for what in ("slots", "stream_tokens", "tp", "dp_graph", "dp_orbax"):
         cases[f"raises-{what}"] = {"kind": "raises", "what": what}
     return cases
+
+
+def _tp_cases(world: int) -> dict[str, dict]:
+    """One forward of each model with its layers cut over ``tp`` = the world (``(1, 1, world)``), inputs
+    and weights from numpy seeds that do not depend on ``world``; the int8 DiT, MMDiT and Flux against
+    their own forwards without a mesh (``meshless``), and the int8 Flux once more with its weights drawn
+    by its own initialisation on every rank (each layer drawn whole, each rank's part kept)."""
+    from skrample_tpu_torch.models import flux as tflux
+    from skrample_tpu_torch.models import t5_encoder as tt5
+    from skrample_tpu_torch.models import unet_cond as tuc
+
+    rng = np.random.default_rng(400)
+    t2 = np.array([730.0, 41.5], dtype=np.float32)
+    x = rng.standard_normal((2, 4, 16, 16), dtype=np.float32)
+    mm_ctx = rng.standard_normal((2, 40, MMDIT["context_dim"]), dtype=np.float32)
+    flux_x = rng.standard_normal((2, 16, 8, 8), dtype=np.float32)
+    flux_ctx = rng.standard_normal((2, 12, TP_FLUX["context_dim"]), dtype=np.float32)
+    pooled = rng.standard_normal((2, TP_FLUX["pooled_dim"]), dtype=np.float32)
+    ids = rng.integers(0, TP_CLIP["vocab_size"] - 1, (2, 16)).astype(np.int64)
+    ids[0, 9] = ids[1, 15] = TP_CLIP["eos_id"]
+    unet_ctx = rng.standard_normal((2, 10, TP_UNET["context_dim"]), dtype=np.float32)
+    video_ctx = rng.standard_normal((1, 6, TP_VIDEO["context_dim"]), dtype=np.float32)
+    mesh = [1, 1, world]
+    f32 = {"compute_dtype": "float32"}
+    specs = {
+        "dit": ({**DIT, **f32, "attention": "full"}, random_param_tree(DiTConfig(**DIT), 41), {"x": x, "t": t2}),
+        "mmdit": ({**MMDIT, **f32, "attention": "full"}, tmmdit.random_param_tree(tmmdit.MMDiTConfig(**MMDIT), 42),
+                  {"x": x[:, :, :8, :8], "t": t2, "context": mm_ctx}),
+        "flux": ({**TP_FLUX, **f32}, tflux.random_param_tree(tflux.FluxConfig(**TP_FLUX), 43),
+                 {"x": flux_x, "t": np.array([0.7, 0.2], np.float32), "context": flux_ctx, "pooled": pooled}),
+        "video": ({**TP_VIDEO, **f32}, tvdit.random_param_tree(tvdit.VideoDiTConfig(**TP_VIDEO), 44),
+                  {"x": rng.standard_normal((1, 4, 4, 8, 8), dtype=np.float32), "t": np.array([500.0], np.float32),
+                   "context": video_ctx}),
+        "clip": ({**TP_CLIP, **f32}, ttext.random_param_tree(ttext.TextEncoderConfig(**TP_CLIP), 45), {"ids": ids}),
+        "t5": ({**TP_T5, **f32}, tt5.random_param_tree(tt5.T5EncoderConfig(**TP_T5), 46), {"ids": ids % 120}),
+        "unet": ({**TP_UNET, **f32}, tuc.random_param_tree(tuc.CondUNetConfig(**TP_UNET), 47),
+                 {"x": x, "t": t2, "context": unet_ctx}),
+    }
+    cases = {}
+    for model, (config, tree, inputs) in specs.items():
+        case = {"kind": "tp", "model": model, "config": config, "tree": tree, "inputs": tuple(inputs), "mesh": mesh,
+                **inputs}
+        cases[f"tp-{model}"] = case
+        if model in ("dit", "mmdit", "flux"):  # wide enough for the int8 layers (16384 weights)
+            wide = {"dit": {"dim": 128}, "mmdit": {"dim": 128}, "flux": {}}[model]
+            cfg = {**config, **wide}
+            tree = {"dit": lambda: random_param_tree(DiTConfig(**{**DIT, **wide}), 48),
+                    "mmdit": lambda: tmmdit.random_param_tree(tmmdit.MMDiTConfig(**{**MMDIT, **wide}), 49),
+                    "flux": lambda: tree}[model]()
+            cases[f"tp-{model}_int8"] = {**case, "config": cfg, "tree": tree, "quantized": True, "meshless": True}
+    drawn = {k: v for k, v in cases["tp-flux_int8"].items() if k != "tree"}
+    cases["tp-flux_int8_drawn"] = {**drawn, "seed": 50, "noise": 0.02}  # reset_parameters' cut, not load_jax_params'
+    return cases
+
+
+def _fsdp_cases(world: int) -> dict[str, dict]:
+    """FSDP training of tests/test_fsdp.py's DiT from the JAX package's ``init(PRNGKey(0))`` tree on ``dp`` 2
+    (x ``tp`` 2 on the 4-rank world), with AdamW and ``AdamW8bit``, on numpy draws."""
+    rng = np.random.default_rng(402)
+    draws = [
+        (rng.standard_normal((8, 4, 8, 8), dtype=np.float32), rng.standard_normal((8, 4, 8, 8), dtype=np.float32),
+         rng.uniform(1e-3, 1.0, 8).astype(np.float32))
+        for _ in range(max(FSDP_STEPS.values()))
+    ]
+    cases = {}
+    for opt, steps in FSDP_STEPS.items():
+        case = {
+            "kind": "train_fsdp", "config": {**FSDP_DIT, "compute_dtype": "float32", "attention": "full"},
+            "tree": _jax_init_tree(), "draws": draws[:steps], "optimizer": opt, "lr": 1e-3,
+            "mesh": [2, 1, world // 2], "fsdp": True,
+        }
+        cases[f"fsdp-{opt}"] = case
+        cases[f"fsdp_replicated-{opt}"] = {**case, "fsdp": False}  # the same mesh, nothing sharded over dp
+    return cases
+
+
+@functools.cache
+def _jax_init_tree() -> dict:
+    "The JAX package's ``DiT.init(PRNGKey(0))`` of tests/test_fsdp.py's model, as numpy."
+    import jax
+    import jax.numpy as jnp
+
+    from skrample_tpu.models import dit as jdit
+
+    model = jdit.DiT(jdit.DiTConfig(**FSDP_DIT, compute_dtype=jnp.float32))
+    return jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
+
+
+def _tp_dp_cases() -> dict[str, dict]:
+    """The 4-rank world's ``(2, 1, 2)`` meshes: the ring and ulysses MMDiT's 3-step CFG sample (the JAX
+    package's ``TestComposedAxes::test_mmdit_dp_tp_sp_matches_single`` on a 4-rank world: dp 2 x tp 2)."""
+    rng = np.random.default_rng(401)
+    tree = tmmdit.random_param_tree(tmmdit.MMDiTConfig(**TP_MMDIT_SAMPLE), 50)
+    x0 = rng.standard_normal((4, 4, 16, 16), dtype=np.float32)
+    context = rng.standard_normal((4, 77, TP_MMDIT_SAMPLE["context_dim"]), dtype=np.float32)
+    return {
+        f"tp_dp-{scheme}": {
+            "kind": "tp_sample", "config": {**TP_MMDIT_SAMPLE, "compute_dtype": "float32", "attention": scheme},
+            "tree": tree, "x0": x0, "context": context, "steps": 3, "guidance": 2.0, "mesh": [2, 1, 2],
+        }
+        for scheme in ("ring", "ulysses")
+    }
 
 
 CASE_NAMES = tuple(_cases(2))
@@ -260,12 +456,52 @@ def spawned(tmp_path_factory: pytest.TempPathFactory):
             if _meshless_key(case) is not None:
                 _want(case, max(WORLDS))
 
+    def run_abort(store_dir: str) -> list:
+        return spawn_sp(2, [_abort_case()], store_dir, backend="gloo", device="cpu", timeout_s=ABORT_TIMEOUT_S)
+
+    def run_resume(store_dir: str) -> dict:
+        "The uninterrupted run and the killed one with its resume, 4 steps each, and what they left."
+        uninterrupted = ["--steps", "4", "--orbax", f"{store_dir}/a", "--checkpoint", f"{store_dir}/a.npz"]
+        killed = ["--steps", "4", "--orbax", f"{store_dir}/b", "--abort-after-step", "1"]
+        resumed = ["--until", "4", "--orbax", f"{store_dir}/b", "--resume", "--checkpoint", f"{store_dir}/b.npz"]
+        codes = {name: spawn_cli(2, [*RESUME, *argv], store_dir) for name, argv in
+                 (("a", uninterrupted), ("killed", killed), ("resumed", resumed))}
+        return {"codes": codes, "dir": store_dir}
+
     # made here, before the threads: two threads' first mktemp race to create pytest's base temp dir
-    dirs = {world: str(tmp_path_factory.mktemp(f"sp{world}")) for world in WORLDS}
-    with ThreadPoolExecutor(len(WORLDS) + 1) as pool:
+    dirs = {world: str(tmp_path_factory.mktemp(f"sp{world}")) for world in (*WORLDS, "abort", "resume")}
+    with ThreadPoolExecutor(len(WORLDS) + 3) as pool:
         futures = {world: pool.submit(run, world, dirs[world]) for world in WORLDS}
+        futures["abort"] = pool.submit(run_abort, dirs["abort"])
+        futures["resume"] = pool.submit(run_resume, dirs["resume"])
         made = pool.submit(references)
         yield lambda world: (made.result(), futures[world].result())[1]
+
+
+ABORT_TIMEOUT_S = 5  # the C15 world's group timeout
+
+
+def _abort_case() -> dict:
+    "The C15 case: a ring DiT served on a (1, 2) mesh whose rank 1 faults inside its first ring exchange."
+    config = {**SERVE_DIT, "depth": 2}
+    return {
+        "kind": "serve_abort", "config": {**config, "compute_dtype": "float32", "attention": "ring"},
+        "tree": random_param_tree(DiTConfig(**config), seed=40), "item": (4, 8, 8), "steps": 2,
+        "seeds": (1, 2, 3), "fault": 1,
+    }
+
+
+def test_fault_inside_a_ring_exchange_fails_every_rank(spawned) -> None:
+    """ROADMAP C15: on a 2-rank gloo world with a 5 s group timeout, rank 1's ring raises inside its
+    first exchange.  It aborts the mesh's groups; rank 0, blocked in the ring, raises within the
+    timeout; both engines fail the request (``MeshAborted``) and every pending one, well before
+    the ranks' own deadline, and both processes exit (``spawn_sp`` joins them)."""
+    outs = spawned("abort")
+    for rank, ((outcomes, seconds),) in enumerate(outs):
+        assert outcomes[0].startswith("MeshAborted: a fault inside a collective region aborted"), (rank, outcomes)
+        assert all(isinstance(o, str) and o.startswith("RuntimeError: engine") for o in outcomes[1:]), (rank, outcomes)
+        assert seconds < 3 * ABORT_TIMEOUT_S, (rank, seconds)
+    assert outs[1][0][0][0].endswith("injected fault inside the ring")
 
 
 def _jax_mesh(world: int):
@@ -290,9 +526,15 @@ _MESHLESS: dict[str, object] = {}
 
 def _meshless_key(case: dict) -> str | None:
     "The key of ``case``'s mesh-less reference, one for both worlds and both schemes (None: on a mesh)."
+    kind = case["kind"]
+    if kind == "train_fsdp":
+        return f"fsdp-{case['optimizer']}"
+    if kind == "tp":
+        return None if case.get("meshless") else f"tp-{case['model']}"
+    if kind == "tp_sample":
+        return "tp_sample"
     if "mesh" in case:
         return "dit_dp"
-    kind = case["kind"]
     return kind if kind in ("serve", "train_dit", "train_t2i", "pipeline", "mmdit", "video") else None
 
 
@@ -365,6 +607,47 @@ def _want_meshless(case: dict):
 
     kind = case["kind"]
     params = jax.tree.map(jnp.asarray, case.get("tree", {}))
+    if kind == "tp":  # the JAX model without a mesh (full attention for a sequence-parallel one)
+        fields = dict(case["config"])
+        if fields.get("attention") in ("ring", "ulysses"):
+            fields["attention"] = "full"
+        model = _jax_model(case["model"], fields)
+        return np.asarray(jax.jit(model.apply)(params, *(jnp.asarray(case[n]) for n in case["inputs"])))
+    if kind == "train_fsdp":  # tests/test_fsdp.py's jitted step, without a mesh, on the same draws
+        import optax
+
+        from skrample_tpu import optim as joptim
+
+        model = _jax_dit(case["config"], None)
+        opt = joptim.adamw8bit(case["lr"]) if case["optimizer"] == "adamw8bit" else optax.adamw(case["lr"])
+
+        def loss_fn(p, x0, noise, sigma):
+            s = sigma[:, None, None, None]
+            pred = model.apply(p, (1 - s) * x0 + s * noise, sigma * 1000.0)
+            return jnp.mean((pred - (noise - x0)) ** 2)
+
+        @jax.jit
+        def step(p, state, x0, noise, sigma):
+            loss, grads = jax.value_and_grad(loss_fn)(p, x0, noise, sigma)
+            updates, state = opt.update(grads, state, p)
+            return optax.apply_updates(p, updates), state, loss
+
+        state, losses = opt.init(params), []
+        for draw in case["draws"]:
+            params, state, loss = step(params, state, *map(jnp.asarray, draw))
+            losses.append(float(loss))
+        return [losses, dict(_tree._flatten(jax.tree.map(np.asarray, params)))]
+    if kind == "tp_sample":  # the single-device full-attention MMDiT's CFG sample
+        from skrample_tpu import scheduling
+        from skrample_tpu.ops import CompiledDenoiser, compile_sampler
+        from skrample_tpu.sampling import models, structured
+
+        model = _jax_model("mmdit", {**case["config"], "attention": "full"})
+        compiled = compile_sampler(
+            structured.DPM(order=2), scheduling.FlowShift(scheduling.Linear()), models.FlowModel(), case["steps"]
+        )
+        fn = model.as_sampleable(params, jnp.asarray(case["context"]), guidance_scale=case["guidance"])
+        return np.asarray(CompiledDenoiser.build(compiled, dtype=jnp.float32).run(fn, jnp.asarray(case["x0"])))
     if kind == "dit":  # the full-attention DiT
         model = _jax_dit({**case["config"], "attention": "full"}, None)
         return np.asarray(jax.jit(model.apply)(params, jnp.asarray(case["x"]), jnp.asarray(case["t"])))
@@ -425,6 +708,29 @@ def _want_meshless(case: dict):
     return [float(loss), {sub: dict(_tree._flatten(grads[sub])) for sub in ("enc", "mmdit")}]
 
 
+def _jax_model(name: str, config: dict):
+    "The JAX package's model ``name`` at ``config`` (float32)."
+    import jax.numpy as jnp
+
+    from skrample_tpu.models import dit as jdit
+    from skrample_tpu.models import flux as jflux
+    from skrample_tpu.models import mmdit as jmmdit
+    from skrample_tpu.models import t5_encoder as jt5
+    from skrample_tpu.models import text_encoder as jtext
+    from skrample_tpu.models import unet_cond as juc
+    from skrample_tpu.models import video_dit as jvdit
+
+    fields = {**config, "compute_dtype": jnp.float32}
+    kinds = {
+        "dit": (jdit.DiT, jdit.DiTConfig), "mmdit": (jmmdit.MMDiT, jmmdit.MMDiTConfig),
+        "flux": (jflux.Flux, jflux.FluxConfig), "video": (jvdit.VideoDiT, jvdit.VideoDiTConfig),
+        "clip": (jtext.TextEncoder, jtext.TextEncoderConfig), "t5": (jt5.T5Encoder, jt5.T5EncoderConfig),
+        "unet": (juc.CondUNet, juc.CondUNetConfig),
+    }
+    model, config_type = kinds[name]
+    return model(config_type(**fields))
+
+
 def _joined(kind: str, outs: list) -> np.ndarray | list[np.ndarray]:
     "The ranks' outputs as one global array: token shards concatenated in rank order; whole outputs equal."
     if kind in ("ring", "ulysses"):
@@ -463,8 +769,17 @@ TOLERANCES = {
     "video": (1e-4, 1e-5),
     "serve": (0, 1e-4),  # as "sample": 4 stochastic steps (normals a few ulps apart, tests/test_torch_prng.py)
     "pipeline": (0, 1e-4),
+    "tp_sample": (0, 1e-4),  # as "sample": 3 guided steps
 }
-TRAIN_RTOL = 1e-5  # loss and every gradient: rtol, and atol of rtol x the leaf's largest magnitude
+# a tensor-parallel forward at its model's single-device tolerance (tests/test_torch_{dit,mmdit,video,flux,
+# text_encoders,sdxl}.py: rtol 1e-4, atol a tenth of it or of it times the largest output)
+TP_TOLERANCES = {
+    "dit": TOLERANCES["dit"], "mmdit": TOLERANCES["mmdit"], "video": TOLERANCES["video"], "flux": (1e-4, 1e-5),
+    "clip": (1e-4, 1e-5), "t5": (1e-4, 1e-5), "unet": (1e-4, 1e-5),
+}
+TRAIN_RTOL = 1e-5  # loss and every gradient: rtol, and atol of rtol x the leaf's largest magnitude, except
+# the joint trainer's dense leaves: each element within K_GRAD eps32 * S of the float64 oracle and of
+# JAX (``_t2i_oracle``), where the batch sums of t_mlp1's gradient cancel
 
 
 @pytest.mark.parametrize("name", CASE_NAMES)
@@ -476,13 +791,22 @@ def test_dryrun_case_matches_jax(spawned, world: int, name: str) -> None:
     (native wiring, qk-norm, a dual block) and the sequence-parallel VideoDiT; both engines over
     ``dp`` = the world with requests submitted at each rank's own pace, and the pipeline; one DiT
     and one text-to-image training step at ``dp`` = the world (loss and every gradient, rtol 1e-5);
-    the misuse cases raise the JAX package's ``ValueError`` on every rank (what the port does not
-    serve yet, a mesh for the flash attention, a ``tp`` axis, ``--dp`` with ``--graph`` or
-    ``--orbax``, a gradient through the ring or ulysses attention, ``NotImplementedError``)."""
+    each model's forward cut over ``tp`` = the world (the int8 ones equal to their unsharded forward
+    bit for bit) and FSDP training (``_check_fsdp``); the misuse cases raise the JAX package's
+    ``ValueError`` on every rank (a flash DiT on a mesh without ``tp``, a bucket ``dp`` does not
+    divide, ...), the trainer's ``--graph`` on CPU ranks exits with argparse's error, a pipeline over a
+    ``tp`` axis and ``--dp --fsdp --orbax`` raise nothing, and a gradient through the ring or ulysses
+    attention raises ``NotImplementedError``."""
     case = _cases(world)[name]
     outs = spawned(world)[name]
     if case["kind"] == "train_cli":
         _check_train_cli(case, outs)
+        return
+    if case["kind"] == "train_fsdp":
+        if case["fsdp"]:
+            _check_fsdp(case, world, outs, spawned(world)[f"fsdp_replicated-{case['optimizer']}"])
+        else:
+            _check_fsdp_jax(case, world, outs[0])
         return
     if "fault" in case:
         _check_fault(case, world, outs)
@@ -495,10 +819,11 @@ def test_dryrun_case_matches_jax(spawned, world: int, name: str) -> None:
             "dp": f"ValueError: buckets [1] not divisible by the mesh's dp={world}",
             "slots": f"ValueError: slots={world + 1} not divisible by the mesh's dp={world}",
             "stream_tokens": f"ValueError: stream a tokens ({world + 1}) must divide the 'sp' axis size ({world})",
-            "tp": "NotImplementedError: tensor parallelism (a 'tp' mesh axis) comes with a later slice",
-            "dp_graph": "NotImplementedError: --dp > 1 with --graph or --orbax",
-            "dp_orbax": "NotImplementedError: --dp > 1 with --graph or --orbax",
-            "flash_mesh": "NotImplementedError: DiT(mesh=...) with attention='flash'",
+            "tp": "no error",  # a pipeline over a tp axis: the axis is the model's
+            "dp_graph": "SystemExit: python -m skrample_tpu_torch.training: error: --graph captures CUDA graphs: "
+            "it needs --device cuda",
+            "dp_orbax": "no error",  # --dp with --fsdp and --orbax: every rank's shard in the committed step
+            "flash_mesh": "ValueError: DiT(mesh=...) with attention='flash' needs a 'tp' mesh axis",
             **dict.fromkeys(
                 ("grad_ring", "grad_ulysses", "grad_dit"),
                 "NotImplementedError: a gradient through sequence-parallel attention",
@@ -512,6 +837,10 @@ def test_dryrun_case_matches_jax(spawned, world: int, name: str) -> None:
 def _check(case: dict, world: int, outs: list) -> None:
     "The ranks' joined result of ``case`` against the JAX package's."
     kind = case["kind"]
+    if kind == "tp" and case.get("meshless"):  # int8: the unsharded forward's bits on every rank
+        for sharded, single in outs:
+            assert np.array_equal(sharded, single) and np.abs(single).max() > 0.1
+        return
     got = _joined(kind, outs)
     want = _want(case, world)
     if kind in ("train_dit", "train_t2i"):
@@ -519,15 +848,180 @@ def _check(case: dict, world: int, outs: list) -> None:
         mine = _flat_grads(kind, got)
         theirs = _flat_grads(kind, want)
         assert mine.keys() == theirs.keys()
+        oracle, sums = _t2i_oracle(case) if kind == "train_t2i" else ({}, {})
         for path, g in theirs.items():
+            if path in sums:  # a dense leaf of the joint trainer: the oracle's per-element bound
+                bound = K_GRAD * np.finfo(np.float32).eps * sums[path]
+                assert_within(mine[path], oracle[path], 0, bound, f"{path} against the oracle")
+                assert_within(mine[path], g, TRAIN_RTOL, bound, f"{path} against JAX")
+                continue
             scale = float(np.abs(g).max())
             np.testing.assert_allclose(mine[path], g, rtol=TRAIN_RTOL, atol=TRAIN_RTOL * scale, err_msg=path)
         return
-    rtol, atol = TOLERANCES[kind]
+    rtol, atol = TP_TOLERANCES[case["model"]] if kind == "tp" else TOLERANCES[kind]
     for mine, theirs in zip(got, want) if kind in ("joint_sp", "serve") else [(got, want)]:
         assert mine.shape == theirs.shape
         assert np.abs(theirs).max() > 0.1  # random weights and inputs: the comparison is not vacuous
         np.testing.assert_allclose(mine, theirs, rtol=rtol, atol=atol)
+
+
+def _check_fsdp(case: dict, world: int, outs: list, replicated: list) -> None:
+    """FSDP training as tests/test_fsdp.py holds it (its ``_run`` sharded against replicated): the sharded
+    run against the same mesh's replicated one (``fsdp_replicated-*``) at its tolerances, losses rtol
+    1e-5 and parameters rtol 2e-5 atol 2e-6; every rank holds the same whole parameters after the
+    gather, and under 0.55 of the replicated parameter bytes; then against the JAX package (see
+    ``_check_fsdp_jax``)."""
+    losses, got, held = outs[0]
+    for o in outs[1:]:
+        assert o[0] == losses and all(np.array_equal(o[1][k], v) for k, v in got.items())
+    ref_losses, ref, ref_held = replicated[0]
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    assert got.keys() == ref.keys()
+    for path, value in ref.items():
+        np.testing.assert_allclose(got[path], value, rtol=2e-5, atol=2e-6, err_msg=path)
+    assert held < 0.55 * ref_held, (held, ref_held)
+    _check_fsdp_jax(case, world, outs[0])
+
+
+def _check_fsdp_jax(case: dict, world: int, result: list) -> None:
+    """A training case's losses and parameters against the JAX package's steps without a mesh on the
+    same draws, at tests/test_fsdp.py's tolerances: losses rtol 1e-5, every parameter rtol 2e-5 atol
+    2e-6, plus each element's ``_fsdp_allowance`` (the oracle's bound on how far the two packages'
+    float32 gradient sums may carry it apart); at most 0.5% of the elements take the whole 2.1 lr a
+    step that the bound caps at."""
+    losses, got, _held = result
+    want_losses, want = _want(case, world)
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    assert want.keys() == got.keys()
+    allowance = _fsdp_allowance(case)
+    cap = 2.1 * case["lr"] * len(case["draws"])
+    capped = sum(int((a >= cap).sum()) for a in allowance.values())
+    assert capped <= 0.005 * sum(a.size for a in allowance.values()), capped
+    for path, value in want.items():
+        assert_within(got[path], value, 2e-5, 2e-6 + allowance[path], f"{path} against JAX")
+
+
+def _fsdp_allowance(case: dict) -> dict[str, np.ndarray]:
+    """Per parameter element, how far apart two float32 runs of ``case``'s steps may end beyond
+    rounding the update: the case's steps through the port's DiT and the case's optimizer in float64
+    (the oracle, on its own trajectory), each step's gradient error bound ``E = K_GRAD eps32 S``
+    (``dense_grad_sums``) carried through the optimizer's update to first order, doubled (under
+    AdamW8bit, with a code's step added to a stored moment's error where the code may round the other
+    way, ``_oracle_quantized``).  An element whose gradient at some step lies within ``E`` of zero
+    (S > 0: its sign is rounding) takes the cap instead: 2.1 lr a step, the most an update moves an
+    element.  Made once for both worlds."""
+    key = f"fsdp-{case['optimizer']}"
+    if key not in _ORACLE:
+        from skrample_tpu_torch.models.dit import DiT
+
+        f64 = torch.float64
+        model = DiT(DiTConfig(**{**case["config"], "compute_dtype": f64}), device="cpu").load_jax_params(case["tree"])
+        model.double()
+        layers = [(name, m) for name, m in model.named_modules() if isinstance(m, torch.nn.Linear)]
+        lr, b1, b2, eps, wd, eps32 = case["lr"], 0.9, 0.999, 1e-8, 1e-4, float(np.finfo(np.float32).eps)
+        steps = len(case["draws"])
+        cap = 2.1 * lr * steps
+        eight = case["optimizer"] == "adamw8bit"
+        state: dict[str, dict] = {}
+        allowance: dict[str, np.ndarray] = {}
+        for t, draw in enumerate(case["draws"]):
+            x0, noise, sigma = (torch.from_numpy(a).to(f64) for a in draw)
+            model.zero_grad()
+
+            def loss() -> None:
+                s = sigma[:, None, None, None]
+                pred = model((1 - s) * x0 + s * noise, sigma * 1000.0)
+                torch.mean((pred - (noise - x0)) ** 2).backward()
+
+            sums = grad_sums_by_path(model, dense_grad_sums(loss))
+            c1, c2 = 1 - b1 ** (t + 1), 1 - b2 ** (t + 1)
+            with torch.no_grad():
+                for name, layer in layers:
+                    for leaf, param in (("w", layer.weight), ("b", layer.bias)):
+                        path = f"{name}.{leaf}"
+                        g = param.grad.numpy().T if leaf == "w" else param.grad.numpy()
+                        e = K_GRAD * eps32 * sums[path]
+                        st = state.setdefault(path, dict.fromkeys(("m", "v", "dm", "dv"), np.zeros_like(g)))
+                        m = b1 * st["m"] + (1 - b1) * g
+                        v = b2 * st["v"] + (1 - b2) * g * g
+                        dm = b1 * st["dm"] + (1 - b1) * e  # the first-order errors of m and v
+                        dv = b2 * st["dv"] + (1 - b2) * 2 * np.abs(g) * e
+                        root = np.sqrt(v / c2)
+                        du = dm / c1 / (root + eps) + np.abs(m / c1) * (dv / c2) / (
+                            2 * np.maximum(root, 1e-300) * (root + eps) ** 2
+                        )
+                        upd = (m / c1) / (root + eps)
+                        flip = (sums[path] > 0) & (np.abs(g) <= e)
+                        if eight and g.size >= 4096:  # the state as stored: blocks of int8 codes
+                            m, v, dm, dv = _oracle_quantized(m, v, dm, dv)
+                        state[path] = {"m": m, "v": v, "dm": dm, "dv": dv}
+                        total = allowance.get(path, np.zeros_like(g)) + 2 * lr * du
+                        allowance[path] = np.where(flip | (total >= cap), cap, total)
+                        value = torch.from_numpy(np.ascontiguousarray(upd.T if leaf == "w" else upd))
+                        param.sub_(lr * (value + wd * param))
+        _ORACLE[key] = allowance
+    return _ORACLE[key]
+
+
+def _oracle_quantized(
+    m: np.ndarray, v: np.ndarray, dm: np.ndarray, dv: np.ndarray, block: int = 256
+) -> tuple[np.ndarray, ...]:
+    """AdamW8bit's stored moments of float64 ``m`` and ``v`` (the cube-root and fourth-root codes over
+    blocks of ``block`` elements of the flattened leaf, ``optim.py``'s rule) and their first-order
+    errors: ``dm``, ``dv``, plus one code's step where a code lies within twice its first-order error
+    (from ``dm``, ``dv`` and the block scale's) of a rounding boundary."""
+
+    def blocks(a: np.ndarray) -> np.ndarray:
+        flat = a.reshape(-1)
+        return np.concatenate([flat, np.zeros(-flat.size % block)]).reshape(-1, block)
+
+    def unblock(a: np.ndarray) -> np.ndarray:
+        return a.reshape(-1)[: m.size].reshape(m.shape)
+
+    out = []
+    for x, dx, power in ((m, dm, 3), (v, dv, 4)):
+        xb, dxb = blocks(x), blocks(dx)
+        top = np.abs(xb).argmax(1)[:, None]
+        scale = np.take_along_axis(np.abs(xb), top, 1)
+        dscale = np.take_along_axis(dxb, top, 1)
+        scale = np.where(scale == 0, 1.0, scale)
+        u = 127 * np.sign(xb) * (np.abs(xb) / scale) ** (1 / power)
+        rel = np.divide(dxb, np.abs(xb), out=np.zeros_like(xb), where=xb != 0) + dscale / scale
+        near = np.abs(np.abs(u - np.floor(u)) - 0.5) <= 2 * np.abs(u) / power * rel
+        code = np.abs(np.round(u))
+        step = (((code + 1) / 127) ** power - (code / 127) ** power) * scale
+        out += [unblock(np.sign(xb) * (code / 127) ** power * scale), unblock(dxb + np.where(near, step, 0.0))]
+    return out[0], out[2], out[1], out[3]
+
+
+_ORACLE: dict[str, tuple] = {}
+
+
+def _t2i_oracle(case: dict) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
+    """The joint trainer's loss through the port's code in float64 on the whole batch (the oracle):
+    every gradient by ``enc.``/``mmdit.`` path, and each dense leaf's ``dense_grad_sums`` by path.
+    Made once for both worlds."""
+    if "t2i" not in _ORACLE:
+        from skrample_tpu_torch.models import _tree
+        from skrample_tpu_torch.train_text_to_image import hermetic_data, t2i_loss
+
+        f64 = torch.float64
+        enc = ttext.TextEncoder(ttext.TextEncoderConfig(**{**case["enc"], "compute_dtype": f64}), device="cpu")
+        mm = tmmdit.MMDiT(tmmdit.MMDiTConfig(**{**case["mmdit"], "compute_dtype": f64}), device="cpu")
+        enc.load_jax_params(case["trees"]["enc"]).double()
+        mm.load_jax_params(case["trees"]["mmdit"]).double()
+        ids, images = hermetic_data(case["size"], device="cpu")
+        draws = [torch.from_numpy(a) for a in case["draws"]]
+        draws = [d.to(f64) if d.is_floating_point() else d for d in draws]
+        sums = dense_grad_sums(lambda: t2i_loss(enc, mm, ids, images.to(f64), *draws).backward())
+        grads, bounds = {}, {}
+        for sub, model in (("enc", enc), ("mmdit", mm)):
+            for path, param, transposed in _tree.leaves(model):
+                g = np.zeros(tuple(param.shape)) if param.grad is None else param.grad.numpy()
+                grads[f"{sub}.{path}"] = g.T if transposed else g
+            bounds.update({f"{sub}.{path}": v for path, v in grad_sums_by_path(model, sums).items()})
+        _ORACLE["t2i"] = (grads, bounds)
+    return _ORACLE["t2i"]
 
 
 def _check_fault(case: dict, world: int, outs: list) -> None:
@@ -575,6 +1069,56 @@ def _check_train_cli(case: dict, outs: list) -> None:
     assert got.keys() == want.keys() and got
     for key, value in want.items():
         np.testing.assert_allclose(got[key], value, rtol=1e-5, atol=2.1e-4, err_msg=key)
+
+
+def test_fsdp_kill_and_resume_equals_the_uninterrupted_run(spawned) -> None:
+    """``python -m skrample_tpu_torch.training --dp 2 --fsdp --opt8 --host-loader`` on two gloo ranks: 4
+    steps uninterrupted, against a run SIGKILLed after step 1 (a sharded save likely torn) and resumed
+    from its last committed step to step 4 (the counterpart of tests/test_resume.py:127).  The whole
+    parameters each writes and every rank's sharded train state at step 4 (its parameter parts,
+    8-bit moments, count and EMA) are equal bit for bit."""
+    from skrample_tpu_torch.models import _tree
+    from skrample_tpu_torch.models.checkpoint import load_params
+
+    out = spawned("resume")
+    store = out["dir"]
+    assert out["codes"] == {"a": [0, 0], "killed": [-9, -9], "resumed": [0, 0]}, out["codes"]
+    want, got = (dict(_tree._flatten(load_params(f"{store}/{name}.npz"))) for name in ("a", "b"))
+    assert want.keys() == got.keys() and all(np.array_equal(want[k], got[k]) for k in want)
+    for rank in range(2):
+        a, b = (torch.load(f"{store}/{d}/4/state-{rank}.pt", weights_only=True) for d in ("a", "b"))
+        assert _tree_equal(a, b), rank
+        assert a["step"] == 4 and any(getattr(p, "ndim", 0) == 1 for p in a["params"].values())
+
+
+def _tree_equal(a, b) -> bool:
+    "Two saved train states equal: tensors bit for bit, containers and plain values alike."
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list | tuple):
+        return len(a) == len(b) and all(_tree_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_tp_sp_dit_matches_jax(spawned, attention: str) -> None:
+    """The ring and ulysses DiT on a ``(1, 2, 2)`` mesh of the 4-rank world: its layers cut over ``tp``
+    (two heads a rank), its tokens over ``sp``; the gathered forward against the JAX full-attention DiT
+    at the ``"dit"`` tolerance."""
+    name = f"tp_sp-{attention}"
+    _check(_cases(4)[name], 4, spawned(4)[name])
+
+
+@pytest.mark.parametrize("scheme", ["ring", "ulysses"])
+def test_dp_tp_mmdit_sample_matches_jax(spawned, scheme: str) -> None:
+    """The ring and ulysses MMDiT on a ``(2, 1, 2)`` mesh of the 4-rank world (dp 2 x tp 2): its layers
+    cut over ``tp``, each ``dp`` half of the batch and of the context, a 3-step DPM++2M sample with CFG
+    2.0, gathered, against the JAX package's single-device full-attention sample (tolerance as
+    ``"sample"``)."""
+    name = f"tp_dp-{scheme}"
+    _check(_cases(4)[name], 4, spawned(4)[name])
 
 
 @pytest.mark.parametrize("attention", ["ring", "ulysses"])

@@ -198,8 +198,9 @@ def test_sdxl_stack_pipeline_matches_jax() -> None:
 
 def test_adaptive_pipeline_and_mesh_raise() -> None:
     """AdaptivePipeline builds on the CPU when asked (ops/adaptive.py, A2) and gives a finite latent with the
-    accepted and trial counts; a mesh with a tensor-parallel axis still raises (A5.3; data parallelism:
-    tests/test_torch_parallel.py); the card default without one."""
+    accepted and trial counts; a mesh with a tensor-parallel axis is taken (the model's; data and tensor
+    parallelism: tests/test_torch_parallel.py), and ``mesh_axes`` needs a process group; the card default
+    without one."""
     adaptive = tpipe.AdaptivePipeline(
         _analytic, trk.RKMoire(order=3), tsched.Linear(), tmodels.FlowModel(), 4, LATENT, device="cpu"
     )
@@ -207,11 +208,11 @@ def test_adaptive_pipeline_and_mesh_raise() -> None:
     assert tuple(sample.shape) == LATENT and bool(torch.isfinite(sample).all())
     assert accepted >= 1 and trials >= accepted - 1
     tp_mesh = type("TpMesh", (), {"mesh_dim_names": ("dp", "sp", "tp")})()  # what the pipeline reads of a mesh
-    with pytest.raises(NotImplementedError, match="A5"):
-        tpipe.GenerationPipeline(
-            _analytic, tstruct.DPM(), tsched.Linear(), tmodels.FlowModel(), 4, LATENT, mesh=tp_mesh, device="cpu"
-        )
-    with pytest.raises(NotImplementedError, match="A5"):
+    pipe = tpipe.GenerationPipeline(
+        _analytic, tstruct.DPM(), tsched.Linear(), tmodels.FlowModel(), 4, LATENT, mesh=tp_mesh, device="cpu"
+    )
+    assert pipe.mesh is tp_mesh  # a tp axis is the model's; the pipeline splits dp (tests/test_torch_parallel.py)
+    with pytest.raises(RuntimeError, match="initialised process group"):  # the JAX recipe: make_mesh(extra_axes=)
         tpipe.build_pipeline(_analytic, LATENT, mesh_axes={"tp": 2}, device="cpu")
     assert jrk.RKMoire(order=3) is not None  # the JAX sampler the JAX AdaptivePipeline takes
     if not torch.cuda.is_available():

@@ -59,16 +59,53 @@ def test_random_bits_equal_jax(seed: int, width: int) -> None:
     assert np.array_equal(got, want.astype(np.int64))
 
 
+def _f16_rules(key: torch.Tensor, shape: tuple[int, ...], minval: float, maxval: float) -> dict[str, np.ndarray]:
+    """The two roundings XLA may give ``jax.random.uniform`` in float16, in numpy from the same bits:
+    ``"per-op"``, each operation of the JAX source (``floats * (hi - lo) + lo``) rounded to float16,
+    and ``"one rounding"``, the scale and offset in float64 rounded once (what an XLA that widens
+    float16 to float32 around a fused multiply-add gives).  Which one a host's XLA takes depends on
+    its CPU."""
+    bits = prng.random_bits(key, shape, 16, device="cpu").numpy().astype(np.uint16)
+    floats = ((bits >> 6) | np.uint16(0x3C00)).view(np.float16) - np.float16(1)
+    lo, hi = np.float16(minval), np.float16(maxval)
+    wide = floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
+    return {
+        "per-op": np.maximum(lo, floats * (hi - lo) + lo),
+        "one rounding": np.maximum(lo, wide.astype(np.float16)),
+    }
+
+
+def _check_f16_uniform(got: np.ndarray, want: np.ndarray, rules: dict[str, np.ndarray]) -> str:
+    """The port's float16 uniforms equal the per-op rule bit for bit, JAX's equal one of the two rules
+    bit for bit, and the port equals JAX wherever JAX took the per-op rule; returns the rule JAX took."""
+    assert np.array_equal(got, rules["per-op"])
+    taken = [name for name, value in rules.items() if np.array_equal(want, value)]
+    assert taken, "jax.random.uniform(float16) follows neither rounding rule"
+    if "per-op" in taken:
+        assert np.array_equal(got, want)
+    return taken[0]
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_uniform_and_normal_equal_jax(seed: int, dtype: str) -> None:
-    "Uniforms bit for bit in every dtype; normals 1e-4 in float32 and float16, equal in bfloat16."
+    """Uniforms bit for bit in float32 and bfloat16; in float16 bit for bit the JAX source's per-op
+    rounding, and JAX wherever this host's XLA takes that rule (``_f16_rules``: on a CPU without AVX2
+    it does, with it XLA may round once).  Normals 1e-4 in float32 and float16, equal in bfloat16;
+    in float16 the normal's own uniform follows the per-op rule bit for bit."""
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
     key, jkey = prng.PRNGKey(seed), jax.random.PRNGKey(seed)
     shape = (4, 1000)
-    u = prng.uniform(key, shape, tdt, -0.5, 2.0, device="cpu").float().numpy()
-    ju = np.asarray(jax.random.uniform(jkey, shape, jdt, -0.5, 2.0).astype(jnp.float32))
-    assert np.array_equal(u, ju)
+    u = prng.uniform(key, shape, tdt, -0.5, 2.0, device="cpu")
+    ju = jax.random.uniform(jkey, shape, jdt, -0.5, 2.0)
+    if dtype == "float16":
+        rule = _check_f16_uniform(u.numpy(), np.asarray(ju), _f16_rules(key, shape, -0.5, 2.0))
+        print(f"jax.random.uniform(float16) on this host: {rule}")
+        lo = -(1.0 - float(np.finfo(np.float16).eps) / 2)
+        inner = prng.uniform(key, shape, tdt, lo, 1.0, device="cpu").numpy()
+        assert np.array_equal(inner, _f16_rules(key, shape, lo, 1.0)["per-op"])
+    else:
+        assert np.array_equal(u.float().numpy(), np.asarray(ju.astype(jnp.float32)))
     z = prng.normal(key, shape, tdt, device="cpu").float().numpy()
     jz = np.asarray(jax.random.normal(jkey, shape, jdt).astype(jnp.float32))
     if dtype == "bfloat16":

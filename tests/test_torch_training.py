@@ -465,11 +465,13 @@ def test_host_loader_step_matches_jax() -> None:
         (["--resume", "--save-every", "1"], "need --host-loader and --orbax"),
         (["--host-loader", "--abort-after-step", "0", "--no-orbax"], "need --host-loader and --orbax"),
         (["--graph"], "needs --device cuda"),
+        (["--fsdp"], "--fsdp shards over the dp axis; pass --dp > 1"),
     ],
 )
 def test_training_flags_refuse_as_the_example_does(tmp_path, capsys, argv: list[str], message: str) -> None:
     """The example's rules: an existing checkpoint without --resume, --until before the restored step,
-    --save-every/--abort-after-step without --host-loader and --orbax, --graph without a card."""
+    --save-every/--abort-after-step without --host-loader and --orbax, --graph without a card, --fsdp
+    without --dp > 1."""
     base = ["--device", "cpu", "--batch", "2", "--dim", "64", "--heads", "1", "--depth", "1", "--size", "8"]
     ckpt = ["--orbax", str(tmp_path / "ck")]
     assert training.main([*base, *ckpt, "--steps", "2"]) == 0
