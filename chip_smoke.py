@@ -179,6 +179,17 @@ Phases, each failing the run with a non-zero exit:
     against ``--dp 2`` (AdamW and ``--opt8``) bit for bit, each rank's
     parameter bytes, and phase 15c's ``--dp 2 --fsdp --opt8``
     kill-and-resume against the uninterrupted run, bit for bit.
+20. pipeline stages, the sequence-parallel gradient, experts, utilities:
+    (a) two processes on the card over gloo at pp 2: DiT-512/8's
+    ``apply_pipelined`` at microbatch 1 and 2 against ``apply``, one training
+    step through the stage hops against the unpipelined step (loss and the
+    rank's gradients), the SD3.5-medium-width MMDiT (uniform blocks, depth 4)
+    pipelined against ``apply``; then at sp 2 one ring and one ulysses
+    DiT-512/8 training step against flash; (b) on a one-rank NCCL group the
+    ring and ulysses steps against flash; (c) the MoE FFN at
+    ``scripts/bench_moe.py``'s widths, capacity dispatch at full capacity
+    against dense, and ``utils.trace`` around a DiT-512/8 request, its trace
+    file read back.
 
 Every read of the launch counters holds each K2, K4, K5, B9, B10 and B11
 launch to the route of the Hopper kernels (wgmma: ``csrc/flash_attention_sm90.cu``
@@ -196,6 +207,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -6811,6 +6823,327 @@ def tp_fsdp_phase(card: str) -> dict[str, int]:
     return total
 
 
+# phase 20: the pipeline stages (pp), the gradient through the ring and ulysses, the experts and the utilities
+PP_WORLD = 2  # 20a/20b: the world of pipeline stages (then of sp 2), both processes on the one card
+PP_BATCH = 4  # 20a: DiT-512/8's batch of 4x64x64, streamed in microbatches of 1 and of 2
+PP_SIZE = 64  # 20a-20c: DiT-512/8's latent size
+PP_MMDIT = {**T2I_MEDIUM, "depth": 4, "dual_attention_layers": ()}  # SD3.5-medium's widths, uniform blocks, cut to 4
+MOE_WIDTHS = {"dim": 256, "hidden": 1024, "experts": 8, "tokens": 2048}  # scripts/bench_moe.py's D, H, an E and a T
+TRACE_REQUEST_STEPS = 4  # 20c: the traced DiT-512/8 request's steps
+
+
+def _flow_loss(forward, x0, noise, sigma):
+    "The trainer's flow-matching loss of ``forward(x_t, 1000 sigma)`` (float32)."
+    s = sigma[:, None, None, None]
+    return ((forward((1 - s) * x0 + s * noise, sigma * 1000.0).float() - (noise - x0)) ** 2).mean()
+
+
+def _grad_err(got: dict, want: dict) -> float:
+    "The largest relative max error over the gradients ``got`` holds (by name), each against ``want``'s."
+    return max(_relative(g, want[name]) for name, g in got.items())
+
+
+def _pp_world_rank(rank: int, store_path: str, queue) -> None:
+    """20a and the gloo half of 20b: one rank of a gloo world of ``PP_WORLD`` processes on ``cuda:0``.  On a
+    ``(1, 1, pp PP_WORLD)`` mesh: DiT-512/8's pipelined forward (microbatch 1 and 2) and its ``apply``, one
+    training step's loss and gradients through the stage hops and the same step unpipelined, the uniform
+    SD3.5-medium-width MMDiT's pipelined forward and its ``apply``; then on a ``(1, sp PP_WORLD)`` mesh one
+    ring and one ulysses DiT-512/8 ``training.train_step`` (their shares summed over ``sp`` by the step)
+    beside the flash DiT's loss and gradients.  Puts ``(rank, result)`` on ``queue`` (host numbers and each
+    part's launches), ``(rank, traceback)`` on a failure."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from skrample_tpu_torch.models.dit import DiT
+        from skrample_tpu_torch.models.ema import ema_init
+        from skrample_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+        from skrample_tpu_torch.parallel import make_mesh
+        from skrample_tpu_torch.training import make_optimizer, train_step
+
+        dev, sync = torch.device("cuda", 0), torch.cuda.synchronize
+        torch.cuda.set_device(dev)
+        store = dist.FileStore(store_path, PP_WORLD)
+        dist.init_process_group("gloo", store=store, rank=rank, world_size=PP_WORLD, timeout=timedelta(seconds=300))
+        try:
+            out: dict = {}
+            pp = make_mesh(dp=1, sp=1, extra_axes={"pp": PP_WORLD})
+            config, tree = _dit512()
+            model = DiT(config, device=dev).load_jax_params(tree)
+            gen = torch.Generator(dev).manual_seed(20)
+            x = torch.randn((PP_BATCH, 4, PP_SIZE, PP_SIZE), generator=gen, device=dev)
+            t = torch.linspace(10.0, 900.0, PP_BATCH, device=dev)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                want = model(x, t)
+                for mb in (1, 2):
+                    _reset_counters()
+                    got = model.apply_pipelined(x, t, pp, mb)
+                    sync()
+                    out[f"pp{mb}"] = (_relative(got, want), bool(torch.isfinite(got).all()), _counters())
+            x0, noise = (torch.randn((PP_BATCH, 4, PP_SIZE, PP_SIZE), generator=gen, device=dev) for _ in range(2))
+            sigma = torch.rand((PP_BATCH,), generator=gen, device=dev) * 0.998 + 1e-3
+            _reset_counters()
+            loss = _flow_loss(lambda a, b: model.apply_pipelined(a, b, pp, 2), x0, noise, sigma)
+            loss.backward()
+            sync()
+            counts = _counters()
+            grads = {n: p.grad.float().clone() for n, p in model.named_parameters() if p.grad is not None}
+            model.zero_grad(set_to_none=True)
+            twin = _flow_loss(model, x0, noise, sigma)
+            twin.backward()
+            want_grads = {n: p.grad.float() for n, p in model.named_parameters()}
+            out["train"] = (float(loss.detach()), float(twin.detach()), _grad_err(grads, want_grads), len(grads), counts)
+            del model, grads, want_grads
+            bf16 = torch.bfloat16
+            mm_gen = torch.Generator(dev).manual_seed(201)
+            mm = MMDiT(MMDiTConfig(**PP_MMDIT, compute_dtype=bf16, attention="flash"), device=dev, generator=mm_gen,
+                       dtype=bf16)
+            mm.reset_parameters(mm_gen, noise=0.02)
+            mm.requires_grad_(False)
+            mx = torch.randn((PP_BATCH, PP_MMDIT["channels"], T2I_SIZE, T2I_SIZE), generator=mm_gen, device=dev)
+            ctx = torch.randn((PP_BATCH, PP_MMDIT["context_tokens"], PP_MMDIT["context_dim"]), generator=mm_gen,
+                              device=dev)
+            with torch.inference_mode():
+                want = mm(mx, t, ctx)
+                _reset_counters()
+                got = mm.apply_pipelined(mx, t, pp, 2, context=ctx)
+                sync()
+                out["mmdit"] = (_relative(got, want), bool(torch.isfinite(got).all()), _counters())
+            del mm
+            out["pp_s"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()  # 20b: sp = the world, one ring and one ulysses step beside the flash loss
+            sp = make_mesh(dp=1, sp=PP_WORLD)
+            flash = DiT(config, device=dev).load_jax_params(tree)
+            want_loss = _flow_loss(flash, x0, noise, sigma)
+            want_loss.backward()
+            want_grads = {n: p.grad.float() for n, p in flash.named_parameters()}
+            del flash
+            for attention in ("ring", "ulysses"):
+                model = DiT(dataclasses.replace(config, attention=attention), mesh=sp, device=dev)
+                model.load_jax_params(tree)
+                opt, ema = make_optimizer(model), ema_init(model)
+                _reset_counters()
+                loss = train_step(model, opt, ema, x0, noise, sigma, 0, mesh=sp)
+                sync()
+                got = {n: p.grad.float() for n, p in model.named_parameters()}  # the step leaves its gradients
+                finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in got.values())
+                out[f"sp_{attention}"] = (float(loss.detach()), float(want_loss.detach()), _grad_err(got, want_grads), finite,
+                                          _counters())
+                del model, got
+            out["sp_s"] = time.perf_counter() - t0
+            queue.put((rank, out))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+def _pp_world_part(card: str, total: dict[str, int]) -> None:
+    """20a and 20b's gloo half: :func:`_pp_world_rank` on ``PP_WORLD`` spawned processes, each rank's results
+    checked: the pipelined forwards and the pipelined step within 5e-2 relative max of their twins (bf16: the
+    microbatches' kernels tile other batch sizes), the ring and ulysses steps finite and within 5e-2 of the
+    flash step's loss and gradients."""
+    import multiprocessing
+    import queue as queues
+
+    ctx = multiprocessing.get_context("spawn")
+    results: dict[int, dict] = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        channel = ctx.Queue()
+        procs = [ctx.Process(target=_pp_world_rank, args=(r, f"{tmp}/store", channel), daemon=True)
+                 for r in range(PP_WORLD)]
+        try:
+            for proc in procs:
+                proc.start()
+            while len(results) < PP_WORLD:
+                try:
+                    rank, got = channel.get(timeout=600)
+                except queues.Empty:
+                    raise SmokeFailure("pp 20a world: no result from a rank within 600 s") from None
+                expect(isinstance(got, dict), f"pp 20a world: rank {rank} failed:\n{got}")
+                results[rank] = got
+            for proc in procs:
+                proc.join(timeout=60)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+    expect([p.exitcode for p in procs] == [0] * PP_WORLD, f"pp 20a world: exit codes {[p.exitcode for p in procs]}")
+    for rank, got in sorted(results.items()):
+        for mb in (1, 2):
+            err, finite, counts = got[f"pp{mb}"]
+            print(f"pp 20a rank {rank}: DiT-512/8 apply_pipelined at pp {PP_WORLD}, batch {PP_BATCH} in microbatches of "
+                  f"{mb}, against apply: relative max err {err:.3e} (tolerance 5e-2), launches {_nonzero(counts)} ({card})")
+            expect(finite and err <= 5e-2, f"pp 20a rank {rank}: the pipelined DiT (microbatch {mb}) differs by {err}")
+            expect(counts["flash_attention_qkv_forward"] > 0 and counts["adaln_forward"] > 0,
+                   f"pp 20a rank {rank}: the pipelined DiT launched {counts}")
+        loss, twin, err, held, counts = got["train"]
+        rel = abs(loss - twin) / abs(twin)
+        print(f"pp 20a rank {rank}: one DiT-512/8 training step through the stage hops (microbatch 2): loss {loss:.6f} "
+              f"against the unpipelined {twin:.6f} (relative {rel:.3e}), the {held} gradients this rank holds within "
+              f"{err:.3e} relative max of the unpipelined ones (tolerance 5e-2), launches {_nonzero(counts)} ({card})")
+        expect(rel <= 5e-2 and err <= 5e-2, f"pp 20a rank {rank}: the pipelined step differs (loss {rel}, grads {err})")
+        expect(all(counts[k] > 0 for k in ("flash_attention_qkv_forward_lse", "flash_attention_qkv_backward",
+                                            "adaln_forward", "adaln_backward")),
+               f"pp 20a rank {rank}: the pipelined step launched {counts}")
+        err, finite, counts = got["mmdit"]
+        print(f"pp 20a rank {rank}: the SD3.5-medium-width MMDiT (uniform blocks, depth {PP_MMDIT['depth']}) "
+              f"apply_pipelined at pp {PP_WORLD}, microbatch 2, against apply: relative max err {err:.3e} (tolerance "
+              f"5e-2), launches {_nonzero(counts)} ({card})")
+        expect(finite and err <= 5e-2, f"pp 20a rank {rank}: the pipelined MMDiT differs by {err}")
+        for attention, kernel in (("ring", "flash_attention_block_stats"), ("ulysses", "flash_attention_forward")):
+            loss, want, err, finite, counts = got[f"sp_{attention}"]
+            rel = abs(loss - want) / abs(want)
+            print(f"sp 20b rank {rank}: one DiT-512/8 train_step, attention={attention!r} at sp {PP_WORLD} (gloo): "
+                  f"loss {loss:.6f} against flash {want:.6f} (relative {rel:.3e}), gradients within {err:.3e} relative "
+                  f"max (tolerance 5e-2), finite {finite}, launches {_nonzero(counts)} ({card})")
+            expect(finite and rel <= 5e-2 and err <= 5e-2, f"sp 20b rank {rank}: the {attention} step differs")
+            expect(counts[kernel] > 0, f"sp 20b rank {rank}: the {attention} step launched no {kernel}")
+        for part in ("pp1", "pp2", "mmdit", "train", "sp_ring", "sp_ulysses"):
+            for k, v in got[part][-1].items():
+                total[k] += v
+        print(f"pp 20a rank {rank}: the pipeline parts took {got['pp_s']:.1f} s, the sp 2 steps {got['sp_s']:.1f} s")
+    print(f"pp 20a world: {PP_WORLD} processes took {time.perf_counter() - t0:.1f} s ({card})")
+
+
+def _sp_steps_part(card: str, total: dict[str, int]) -> None:
+    """20b: on a one-rank NCCL group, ``make_mesh(dp=1, sp=1)``: one DiT-512/8 ``training.train_step`` (batch
+    4 of 4x64x64) with ``attention="ring"`` (B11 a hop, its gradient through the plain version) and
+    ``"ulysses"`` (B9), its loss and the gradients it leaves against the flash DiT's loss and gradients (K2
+    with its LSE, K5), within 5e-2 relative max (bf16).  Only the two steps' launches are counted: the
+    flash DiT is their reference."""
+    import torch
+    import torch.distributed as dist
+
+    from skrample_tpu_torch.models.dit import DiT
+    from skrample_tpu_torch.models.ema import ema_init
+    from skrample_tpu_torch.parallel import make_mesh
+    from skrample_tpu_torch.training import make_optimizer, train_step
+
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(f"{tmp}/store", 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_mesh(dp=1, sp=1)
+            config, tree = _dit512()
+            gen = torch.Generator(dev).manual_seed(21)
+            x0, noise = (torch.randn((PP_BATCH, 4, PP_SIZE, PP_SIZE), generator=gen, device=dev) for _ in range(2))
+            sigma = torch.rand((PP_BATCH,), generator=gen, device=dev) * 0.998 + 1e-3
+            flash = DiT(config, device=dev).load_jax_params(tree)
+            want = _flow_loss(flash, x0, noise, sigma)
+            want.backward()
+            want_loss, want_grads = float(want.detach()), {n: p.grad.float() for n, p in flash.named_parameters()}
+            del flash, want
+            for attention, kernel in (("ring", "flash_attention_block_stats"), ("ulysses", "flash_attention_forward")):
+                model = DiT(dataclasses.replace(config, attention=attention), mesh=mesh, device=dev)
+                model.load_jax_params(tree)
+                opt, ema = make_optimizer(model), ema_init(model)
+                _reset_counters()
+                t0 = time.perf_counter()
+                loss = float(train_step(model, opt, ema, x0, noise, sigma, 0, mesh=mesh))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = _counters()
+                grads = {n: p.grad.float() for n, p in model.named_parameters()}  # the step leaves its gradients
+                rel, err = abs(loss - want_loss) / abs(want_loss), _grad_err(grads, want_grads)
+                finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+                print(f"sp 20b: DiT-512/8 train_step attention={attention!r} on the one-rank NCCL mesh: loss "
+                      f"{loss:.6f} against flash {want_loss:.6f} (relative {rel:.3e}), gradients within {err:.3e} "
+                      f"relative max (tolerance 5e-2), the first call {ms:.1f} ms, launches {_nonzero(counts)} ({card})")
+                expect(finite and rel <= 5e-2 and err <= 5e-2, f"sp 20b: the {attention} step differs ({rel}, {err})")
+                expect(counts[kernel] > 0 and counts["adaln_backward"] > 0, f"sp 20b: the {attention} step launched {counts}")
+                for name, v in counts.items():
+                    total[name] += v
+                del model, opt, ema, grads
+        finally:
+            dist.destroy_process_group()
+
+
+def _experts_trace_part(card: str, total: dict[str, int]) -> None:
+    """20c: the MoE FFN at ``scripts/bench_moe.py``'s widths (float32) on the card, dense routing against the
+    capacity dispatch at full capacity by both methods (rtol 1e-4 relative max: sums in another order), each
+    timed; then ``utils.trace`` around one DiT-512/8 request, its TensorBoard trace file read back for the
+    card's kernels."""
+    import torch
+
+    from skrample_tpu_torch import scheduling
+    from skrample_tpu_torch.models.dit import DiT
+    from skrample_tpu_torch.ops import CompiledDenoiser, compile_sampler
+    from skrample_tpu_torch.parallel import experts
+    from skrample_tpu_torch.sampling import models, structured
+    from skrample_tpu_torch.utils import trace
+
+    dev, sync, w = torch.device("cuda", 0), torch.cuda.synchronize, MOE_WIDTHS
+    params = experts.init_moe_ffn(torch.Generator().manual_seed(0), w["dim"], w["hidden"], w["experts"], device=dev)
+    tokens = torch.randn((1, w["tokens"], w["dim"]), generator=torch.Generator(dev).manual_seed(22), device=dev)
+    with torch.inference_mode():
+        dense = experts.moe_ffn(params, tokens)
+        dense_ms = _median_step_ms(lambda _i: experts.moe_ffn(params, tokens), 5)[0]
+        for method in ("gather", "onehot"):
+            def run(_i=0, method=method):
+                return experts.moe_ffn_capacity(params, tokens, capacity=w["tokens"], method=method)
+
+            err = _relative(run(), dense)
+            ms = _median_step_ms(run, 5)[0]
+            print(f"moe 20c: {w['experts']} experts of dim {w['dim']}, hidden {w['hidden']}, {w['tokens']} tokens (f32): "
+                  f"capacity dispatch {method!r} at full capacity against dense routing: relative max err {err:.3e} "
+                  f"(tolerance 1e-4); median {ms:.3f} ms against dense {dense_ms:.3f} ms ({card})")
+            expect(bool(torch.isfinite(dense).all()) and err <= 1e-4, f"moe 20c: {method} differs from dense by {err}")
+    config, tree = _dit512()
+    model = DiT(config, device=dev).load_jax_params(tree).requires_grad_(False)
+    compiled = compile_sampler(structured.DPM(order=2), scheduling.FlowShift(scheduling.Linear()), models.FlowModel(),
+                               TRACE_REQUEST_STEPS)
+    denoiser = CompiledDenoiser.build(compiled, device=dev)
+    x = torch.randn((1, 4, PP_SIZE, PP_SIZE), generator=torch.Generator(dev).manual_seed(23), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        with torch.inference_mode():
+            denoiser.run(model.as_sampleable(), x)  # warm
+            sync()
+            _reset_counters()
+            t0 = time.perf_counter()
+            with trace(f"{tmp}/tb"):
+                out = denoiser.run(model.as_sampleable(), x)
+                sync()
+            seconds = time.perf_counter() - t0
+        counts = _counters()
+        files = list(Path(tmp, "tb").glob("*.pt.trace.json"))
+        expect(len(files) == 1, f"trace 20c: {len(files)} trace files written")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"trace 20c: utils.trace around one {TRACE_REQUEST_STEPS}-step DiT-512/8 request: one TensorBoard trace "
+              f"file of {files[0].stat().st_size / 2**20:.2f} MiB, {len(events)} events of which {kernels} card kernels, "
+              f"{seconds:.2f} s with the profiler; launches {_nonzero(counts)} ({card})")
+        expect(kernels > 0 and bool(torch.isfinite(out).all()), f"trace 20c: {kernels} kernel events in the trace")
+    for name, v in counts.items():
+        total[name] += v
+
+
+def pp_phase(card: str) -> dict[str, int]:
+    """Phase 20: the pipeline stages, the gradient through the ring and ulysses, the experts and the utilities.
+    (a, and b's gloo half) Two gloo processes on the card: :func:`_pp_world_part`.  (b) A one-rank NCCL group:
+    :func:`_sp_steps_part`.  (c) :func:`_experts_trace_part`."""
+    phase_t0 = time.perf_counter()
+    total: dict[str, int] = dict.fromkeys(_wrappers(), 0)
+    _pp_world_part(card, total)
+    t0 = time.perf_counter()
+    _sp_steps_part(card, total)
+    print(f"sp 20b: the one-rank steps took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _experts_trace_part(card, total)
+    print(f"moe 20c: took {time.perf_counter() - t0:.1f} s")
+    print(f"pp: phase took {time.perf_counter() - phase_t0:.1f} s")
+    return total
+
+
 def main() -> int:
     import gc
 
@@ -6856,6 +7189,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tp = tp_fsdp_phase(device["card"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp = pp_phase(device["card"])
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr)
         return 1
@@ -6863,7 +7199,7 @@ def main() -> int:
     # each row's launches: its counts summed over every path's main-path run
     runs = (
         serving, train, dit_int8, flux_bf16, flux_int8, sdxl, vae, dit384, packed, video, sp, pipelines, wrappers, graphed,
-        extras, sd3, stacks, t2i, tp,
+        extras, sd3, stacks, t2i, tp, pp,
     )
     for name, row in rows.items():
         row["launches"] = sum(run.get(name, 0) for run in runs)

@@ -18,6 +18,7 @@ Python numbers, strings and None is ever unpickled.
 
 from __future__ import annotations
 
+import json
 import os
 import pathlib
 import shutil
@@ -86,6 +87,7 @@ def load_params(path: str | pathlib.Path) -> Any:
 
 _STATE = "state.pt"
 _TMP = ".tmp-"
+_LAYOUT = "layout.json"
 
 
 def _like(node: Any, like: Any) -> Any:
@@ -117,7 +119,15 @@ class TrainCheckpointer:
     shards of an FSDP or tensor-parallel train state), ``state-<rank>.pt`` in one step directory; the
     writer threads meet over a gloo group of their own once every rank has written, and the first
     rank then commits the step by the rename, so a step whose write was torn on any rank is never
-    listed."""
+    listed.
+
+    Every committed step records its layout (``layout.json``: the world size that wrote it and
+    whatever the caller's ``save(..., layout=)`` adds, such as the trainer's ``dp``/``tp`` and FSDP
+    specs), and a step is listed by its commit, whatever world wrote it: :meth:`layout` reads the
+    record, :meth:`restore` this rank's own file of a step of this world, :meth:`restore_ranks` every
+    rank's file of a step of any world (for a caller that cuts them for its own layout).  A save
+    never replaces a committed step of another layout, and keeping ``max_to_keep`` steps removes
+    only steps of its own."""
 
     def __init__(self, directory: str | pathlib.Path, max_to_keep: int = 3, async_save: bool = True):
         self.directory = pathlib.Path(directory).absolute()
@@ -145,17 +155,25 @@ class TrainCheckpointer:
     def _state_name(self) -> str:
         return _STATE if self._group is None else f"state-{self._rank}.pt"
 
-    def save(self, step: int, state: Any) -> None:
+    @property
+    def _world(self) -> int:
+        return 1 if self._group is None else dist.get_world_size()
+
+    def save(self, step: int, state: Any, layout: dict | None = None) -> None:
+        """Save ``state`` as step ``step`` (see the class docstring); ``layout``: a JSON-able record of
+        how the state is cut across the ranks, kept with the step (the world size is added)."""
         self.wait()
         # a host copy of every tensor: the caller may change its tensors once save returns
         snapshot = map_tree(lambda t: t.detach().to("cpu", copy=True) if isinstance(t, torch.Tensor) else t, state)
+        record = json.loads(json.dumps({**(layout or {}), "world": self._world}))  # as layout() reads it back
         if self.async_save:
-            self._thread = threading.Thread(target=self._write, args=(int(step), snapshot), daemon=True)
+            self._thread = threading.Thread(target=self._write, args=(int(step), snapshot, record), daemon=True)
             self._thread.start()
         else:
-            self._write(int(step), snapshot)
+            self._write(int(step), snapshot, record)
+            self.wait()  # a failure raises here
 
-    def _write(self, step: int, snapshot: Any) -> None:
+    def _write(self, step: int, snapshot: Any, record: dict) -> None:
         try:
             # one temporary directory a save, shared by the ranks of a sharded checkpointer
             tmp = self.directory / (f"{_TMP}{step}-{os.getpid()}" if self._group is None else f"{_TMP}{step}-ranks")
@@ -167,34 +185,78 @@ class TrainCheckpointer:
                 f.flush()
                 os.fsync(f.fileno())
             self._meet()  # every rank has written
+            failure = None
             if self._rank == 0:
-                final = self.directory / str(step)
-                if final.exists():
-                    shutil.rmtree(final)
-                os.replace(tmp, final)
-                for old in self.all_steps()[: -self.max_to_keep] if self.max_to_keep else []:
-                    shutil.rmtree(self.directory / str(old), ignore_errors=True)
-            self._meet()  # committed on every rank
+                try:
+                    self._commit(tmp, step, record)
+                except Exception as exc:
+                    failure = exc
+            if self._group is not None:  # committed on every rank, or failed on every rank
+                flag = torch.tensor([failure is not None], dtype=torch.int32)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._group)
+                if flag.item() and failure is None:
+                    failure = RuntimeError(f"committing step {step} failed on the first rank")
+            if failure is not None:
+                raise failure
         except BaseException as exc:  # raised by the next wait()
             self._error = exc
 
+    def _commit(self, tmp: pathlib.Path, step: int, record: dict) -> None:
+        """Commit the written ``tmp`` as step ``step`` (the first rank): its layout record, then the rename;
+        a committed step of another layout is never replaced, and only this layout's old steps pruned."""
+        (tmp / _LAYOUT).write_text(json.dumps(record, sort_keys=True))
+        final = self.directory / str(step)
+        if final.exists():
+            if self.layout(step) != record:
+                shutil.rmtree(tmp, ignore_errors=True)
+                raise FileExistsError(
+                    f"step {step} in {self.directory} was committed in another layout ({self.layout(step)}): "
+                    f"not replaced by one of {record}"
+                )
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        own = [s for s in self.all_steps() if self.layout(s) == record]
+        for old in own[: -self.max_to_keep] if self.max_to_keep else []:
+            shutil.rmtree(self.directory / str(old), ignore_errors=True)
+
     def restore(self, step: int | None = None, like: Any = None) -> Any:
-        "The given (default: latest) step's state; with ``like``, tensors on its devices and dtypes."
+        """This rank's state of the given (default: latest) step, which a world of this size committed;
+        with ``like``, tensors on its devices and dtypes."""
         self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoint steps in {self.directory}")
+        world = self.layout(step)["world"]
+        if world != self._world:
+            raise ValueError(
+                f"step {step} in {self.directory} was committed by a world of {world} ranks, this one has "
+                f"{self._world}: read every rank's state with restore_ranks and cut it for this layout"
+            )
         state = torch.load(self.directory / str(int(step)) / self._state_name, map_location="cpu", weights_only=True)
         return _like(state, like) if like is not None else state
 
+    def restore_ranks(self, step: int) -> list[Any]:
+        "Every rank's state of step ``step``, in rank order, whatever world committed it (host tensors)."
+        self.wait()
+        world = self.layout(step)["world"]
+        names = [_STATE] if world == 1 else [f"state-{rank}.pt" for rank in range(world)]
+        return [torch.load(self.directory / str(int(step)) / name, map_location="cpu", weights_only=True)
+                for name in names]
+
+    def layout(self, step: int) -> dict:
+        """Step ``step``'s layout record; a step committed before steps kept one: its world size, from
+        the rank files it holds."""
+        path = self.directory / str(int(step))
+        if (path / _LAYOUT).is_file():
+            return json.loads((path / _LAYOUT).read_text())
+        return {"world": 1 if (path / _STATE).is_file() else len(list(path.glob("state-*.pt")))}
+
     def all_steps(self) -> list[int]:
-        "The committed steps, oldest first."
+        "The committed steps, oldest first, of every layout (a step directory exists once its rename committed it)."
         if not self.directory.exists():
             return []
-        return sorted(
-            int(p.name) for p in self.directory.iterdir() if p.name.isdigit() and (p / self._state_name).is_file()
-        )
+        return sorted(int(p.name) for p in self.directory.iterdir() if p.name.isdigit() and p.is_dir())
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()

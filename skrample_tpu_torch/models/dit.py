@@ -20,9 +20,9 @@ and on a ``dp`` x ``sp`` mesh its ``dp`` chunk of the batch.  On a mesh
 with a ``tp`` axis each rank keeps its shard of the layers that
 :meth:`DiT.param_spec` splits (``parallel/tensor_parallel.py``) and runs
 ``heads / tp`` heads; the mesh may also carry ``sp`` for the ring and
-ulysses attentions.  Pipelined apply (ROADMAP A5.4) and a gradient through
-the sequence-parallel attentions (A5.7) belong to later slices of the port
-and raise :class:`NotImplementedError` here.
+ulysses attentions, whose gradient crosses the ranks as the forward did.
+:meth:`DiT.apply_pipelined` runs the blocks as GPipe stages over a ``pp``
+mesh axis (``parallel/pipeline_stages.py``).
 """
 
 from __future__ import annotations
@@ -51,11 +51,11 @@ from ..ops.adaln import adaln_modulate
 from ..ops.flash_attention import flash_attention, flash_attention_qkv
 from ..ops.quant import MIN_QUANT_SIZE, Int8Dense, dense_int8
 from ..parallel import gather, tensor_parallel
+from ..parallel.pipeline_stages import model_stages, run_stages
 from ..parallel.ring_attention import axis_group, ring_attention
 from ..parallel.ulysses import ulysses_attention
 
 _LATER = "comes with a later slice of the port (ROADMAP.md queue A)"
-_PIPELINE_LATER = "comes with a later slice of the port (ROADMAP.md A5.4)"
 
 
 @dataclass(frozen=True)
@@ -465,9 +465,7 @@ class DiT(nn.Module):
                 raise ValueError(f"tokens ({patches.shape[1]}) must divide the {c.sp_axis!r} axis size ({size})")
             patches = patches.chunk(size, dim=1)[rank]
         tokens = _dense(self.patch_in, patches.to(dtype), dtype)
-        temb = _timestep_embedding(t, 256)
-        temb = _dense(self.t_mlp2, F.silu(_dense(self.t_mlp1, temb.to(dtype), dtype)), dtype)
-        temb = F.silu(temb)
+        temb = self._time_embedding(t)
 
         for block in self.blocks:
             if c.remat and torch.is_grad_enabled():
@@ -485,8 +483,54 @@ class DiT(nn.Module):
 
     apply = forward
 
-    def apply_pipelined(self, *args: Any, **kwargs: Any) -> torch.Tensor:
-        raise NotImplementedError(f"pipeline-parallel apply {_PIPELINE_LATER}")
+    def _time_embedding(self, t: torch.Tensor) -> torch.Tensor:
+        "(B,) timesteps -> silu(t_mlp2(silu(t_mlp1(sinusoidal features))))."
+        dtype = self.config.compute_dtype
+        temb = _timestep_embedding(t, 256)
+        temb = _dense(self.t_mlp2, F.silu(_dense(self.t_mlp1, temb.to(dtype), dtype)), dtype)
+        return F.silu(temb)
+
+    def apply_pipelined(
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor | float,
+        mesh: Any,
+        microbatch: int,
+        axis: str = "pp",
+        batch_axis: str | None = None,
+    ) -> torch.Tensor:
+        """Pipeline-parallel forward, the JAX package's ``apply_pipelined``: the blocks split into
+        ``S = mesh.size(axis)`` consecutive stages, this rank running its own, and the ``(tokens,
+        temb)`` carry streamed through them in microbatches of ``microbatch`` items (GPipe,
+        ``parallel/pipeline_stages.py``): every block reads the conditioning vector, so it rides
+        along.  The patch, time and final layers run on every stage rank, and every stage rank
+        returns the output.  With ``batch_axis`` (pp x dp), ``x`` and ``t`` are this rank's chunk of
+        the batch and ``microbatch`` counts items of the whole one.  Equals :meth:`forward` up to the
+        order of the sums; differentiable (a stage's blocks get their gradient on its rank)."""
+        c = self.config
+        dtype = c.compute_dtype
+        B, _C, H, W = x.shape
+        blocks, mb, group = model_stages(self.blocks, mesh, axis, batch_axis, B, microbatch)
+        t = torch.as_tensor(t, device=x.device)
+        if t.ndim == 0:
+            t = t.expand(B)
+        tokens = _dense(self.patch_in, self.patchify(x).to(dtype), dtype)
+        temb = self._time_embedding(t)
+
+        def stage(_params: list[torch.Tensor], carry: tuple[torch.Tensor, torch.Tensor]) -> tuple:
+            toks, te = carry
+            for block in blocks:
+                toks = block(toks, te)
+            return toks, te
+
+        count = B // mb
+        params = [p for block in blocks for p in block.parameters()]
+        carry = (tokens.reshape(count, mb, *tokens.shape[1:]), temb.reshape(count, mb, -1))
+        toks, _ = run_stages(stage, params, carry, group)
+        tokens = toks.reshape(B, *toks.shape[2:])
+        shift, scale = _dense(self.final_mod, temb, dtype).chunk(2, dim=-1)
+        out = _dense(self.final_out, adaln_modulate(tokens, shift, scale), dtype)
+        return self.unpatchify(out, H, W).to(x.dtype)
 
     def quantize_params(self) -> DiT:
         """The int8 serving model: the block qkv/proj/mlp weights as

@@ -39,8 +39,8 @@ over the image stream alone, and the final layer's output is all-gathered.
 On a ``dp`` x ``sp`` mesh the input is the rank's ``dp`` chunk of the batch,
 as for the DiT.  On a mesh with a ``tp`` axis both streams' layers are cut
 as :meth:`MMDiT.param_spec` splits them (``parallel/tensor_parallel.py``),
-``heads / tp`` heads a rank.  The pipelined apply (ROADMAP A5.4) belongs to
-a later slice.
+``heads / tp`` heads a rank.  :meth:`MMDiT.apply_pipelined` runs uniform
+blocks as GPipe stages over a ``pp`` axis (``parallel/pipeline_stages.py``).
 """
 
 from __future__ import annotations
@@ -61,11 +61,12 @@ from ..ops._cuda import resolve_device
 from ..ops.adaln import adaln_modulate
 from ..ops.rope import fused_rope_qk_norm
 from ..parallel import gather, joint_sp_attention, tensor_parallel
+from ..parallel.pipeline_stages import model_stages, run_stages
 from ..parallel.ring_attention import axis_group, ring_attention
 from ..parallel.ulysses import ulysses_attention
 from . import _tree
 from .conditioning import doubled_t, guided_mix, per_item
-from .dit import _DOTS_CONTEXT, _PIPELINE_LATER, _dense, _int8_copy, _timestep_embedding
+from .dit import _DOTS_CONTEXT, _dense, _int8_copy, _timestep_embedding
 from .flux import _FLASH_HEAD_DIMS, _attention, _gain, _gelu, _linear
 
 _ZERO_INIT = frozenset({"ada", "final_mod", "final_out"})
@@ -399,8 +400,42 @@ class MMDiT(nn.Module):
             spec["pos_embed"] = P()
         return spec
 
-    def apply_pipelined(self, *args: Any, **kwargs: Any) -> torch.Tensor:
-        raise NotImplementedError(f"pipeline-parallel apply {_PIPELINE_LATER}")
+    def apply_pipelined(
+        self,
+        x: torch.Tensor,
+        t: torch.Tensor | float,
+        mesh: Any,
+        microbatch: int,
+        context: torch.Tensor | None = None,
+        pooled: torch.Tensor | None = None,
+        axis: str = "pp",
+        batch_axis: str | None = None,
+    ) -> torch.Tensor:
+        """Pipeline-parallel forward (GPipe over ``axis``; see :meth:`DiT.apply_pipelined
+        <skrample_tpu_torch.models.dit.DiT.apply_pipelined>` for the schedule and ``batch_axis``): the
+        ``(img, txt, cond)`` triple streams through the stages, both residual streams and the
+        conditioning vector every block's modulations read.  Needs uniform blocks, as the JAX package:
+        SD3's ``final_txt_pre_only`` last block and SD3.5-medium's ``dual_attention_layers`` give
+        blocks of other structures."""
+        c = self.config
+        if c.final_txt_pre_only or c.dual_attention_layers:
+            raise ValueError("pipeline parallelism needs uniform blocks (no final_txt_pre_only / dual attention)")
+        B, _C, H, W = x.shape
+        blocks, mb, group = model_stages(self.blocks, mesh, axis, batch_axis, B, microbatch)
+        img, txt, cond = self._prelude(x, t, context, pooled)
+        tables = functools.cache(functools.partial(_identity_tables, d=c.head_dim, device=x.device))
+
+        def stage(_params: list[torch.Tensor], carry: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
+            im, tx, cd = carry
+            for block in blocks:
+                im, tx = block(im, tx, cd, tables)
+            return im, tx, cd
+
+        count = B // mb
+        params = [p for block in blocks for p in block.parameters()]
+        streams = tuple(a.reshape(count, mb, *a.shape[1:]) for a in (img, txt, cond))
+        img_out, _txt, _cond = run_stages(stage, params, streams, group)
+        return self._finalize(img_out.reshape(B, *img_out.shape[2:]), cond, H, W, x.dtype)
 
     # -- layout ----------------------------------------------------------------
 
@@ -450,6 +485,25 @@ class MMDiT(nn.Module):
         pooled: torch.Tensor | None = None,
     ) -> torch.Tensor:
         c = self.config
+        _B, _C, H, W = x.shape
+        img, txt, cond = self._prelude(x, t, context, pooled)
+        tables = functools.cache(functools.partial(_identity_tables, d=c.head_dim, device=x.device))
+        for block in self.blocks:
+            if c.remat and torch.is_grad_enabled():
+                ctx_fn = _DOTS_CONTEXT if c.remat == "dots" else noop_context_fn
+                img, txt = checkpoint(block, img, txt, cond, tables, use_reentrant=False, context_fn=ctx_fn)
+            else:
+                img, txt = block(img, txt, cond, tables)
+        return self._finalize(img, cond, H, W, x.dtype)
+
+    apply = forward
+
+    def _prelude(
+        self, x: torch.Tensor, t: torch.Tensor | float, context: torch.Tensor | None, pooled: torch.Tensor | None
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The image and text streams (this rank's token shards under sequence parallelism) and the
+        conditioning vector, ahead of the blocks."""
+        c = self.config
         dtype = c.compute_dtype
         B, _C, H, W = x.shape
         if (pooled is not None) != c.sd3_wiring:
@@ -480,23 +534,16 @@ class MMDiT(nn.Module):
             temb = _dense(self.t_mlp1, tfeat, dtype)
             pool = _dense(self.pool_mlp, context.mean(dim=1), dtype)
             cond = F.silu(_dense(self.t_mlp2, F.silu(temb + pool), dtype))
+        return img, txt, cond
 
-        tables = functools.cache(functools.partial(_identity_tables, d=c.head_dim, device=x.device))
-        for block in self.blocks:
-            if c.remat and torch.is_grad_enabled():
-                ctx_fn = _DOTS_CONTEXT if c.remat == "dots" else noop_context_fn
-                img, txt = checkpoint(block, img, txt, cond, tables, use_reentrant=False, context_fn=ctx_fn)
-            else:
-                img, txt = block(img, txt, cond, tables)
-
-        shift, scale = _dense(self.final_mod, cond, dtype).chunk(2, dim=-1)
-        img = adaln_modulate(img, shift, scale)
-        out = _dense(self.final_out, img, dtype)
-        if sequence_parallel:
+    def _finalize(self, img: torch.Tensor, cond: torch.Tensor, H: int, W: int, out_dtype: torch.dtype) -> torch.Tensor:
+        "Final modulation, out-projection (the token shards gathered under sequence parallelism), unpatchify."
+        c = self.config
+        shift, scale = _dense(self.final_mod, cond, c.compute_dtype).chunk(2, dim=-1)
+        out = _dense(self.final_out, adaln_modulate(img, shift, scale), c.compute_dtype)
+        if c.attention in ("ring", "ulysses"):
             out = gather(self.mesh, out, dim=1, axis=c.sp_axis)
-        return self.unpatchify(out, H, W).to(x.dtype)
-
-    apply = forward
+        return self.unpatchify(out, H, W).to(out_dtype)
 
     def _shard(self, a: torch.Tensor, stream: str) -> torch.Tensor:
         """This rank's contiguous token range of a ``(B, n, ...)`` stream over the ``sp`` axis; a token

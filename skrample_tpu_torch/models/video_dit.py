@@ -32,8 +32,8 @@ the cross-attention; one ``all_to_all_single`` re-buckets the temporal
 branch's qkv so that each rank holds every frame of a range of the sites,
 and one brings its output back.  The last layer's output is all-gathered
 over the frames.  On a ``dp`` x ``sp`` mesh the input is the rank's ``dp``
-chunk of the batch.  Serving only: a gradient through the all-to-alls
-raises.  Without ``sequence_parallel``, a mesh with a ``tp`` axis cuts the
+chunk of the batch.  The gradient crosses the all-to-alls and the gather
+back as the forward did.  Without ``sequence_parallel``, a mesh with a ``tp`` axis cuts the
 layers :meth:`VideoDiT.param_spec` splits (``parallel/tensor_parallel.py``),
 ``heads / tp`` heads a rank.
 """

@@ -790,6 +790,34 @@ flash_attention_block_stats.launches = 0
 flash_attention_block_stats.routes = {"wgmma": 0}
 
 
+class _BlockStatsBackward(torch.autograd.Function):
+    """B11's forward, the plain version's gradient backward: the JAX package has no backward kernel
+    for ``flash_attention_block_stats`` and differentiates the kernel itself; here the backward
+    recomputes :func:`_block_stats_reference` under autograd and takes the gradient of all three
+    outputs (``softmax_merge`` reads o, m and l).  The kernel is looked up by name when it runs."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        ctx.save_for_backward(q, k, v)
+        o, m, l = globals()["flash_attention_block_stats"](q, k, v)
+        return o, m, l
+
+    @staticmethod
+    def backward(ctx, go: torch.Tensor, gm: torch.Tensor, gl: torch.Tensor):
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = _block_stats_reference(*inputs)
+        return torch.autograd.grad(outs, inputs, (go, gm, gl))
+
+
+def flash_attention_block_stats_grad(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_block_stats` with its gradient: kernel B11 forward, the plain
+    version's gradient backward (ring attention's block op under autograd)."""
+    return _BlockStatsBackward.apply(q, k, v)
+
+
 def softmax_merge(
     state: tuple[torch.Tensor, torch.Tensor, torch.Tensor], block: tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

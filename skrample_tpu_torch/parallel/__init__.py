@@ -28,7 +28,15 @@ machine with several.  Conventions, as in the JAX package:
 * ``"sp"`` — sequence parallel over the token axis (or a latent dim);
 * ``"tp"`` — tensor parallel: a model cuts its layers over it
   (:mod:`.tensor_parallel`); :mod:`.fsdp` shards a trainer's state over
-  ``dp``; :mod:`.faults` aborts the groups of a collective that faulted.
+  ``dp``; :mod:`.faults` aborts the groups of a collective that faulted;
+* ``"pp"`` — pipeline stages (:mod:`.pipeline_stages`: GPipe, activations
+  passed by point-to-point hops);
+* ``"ep"`` — experts of a mixture-of-experts FFN (:mod:`.experts`).
+
+Every collective of these axes carries its gradient: the ring's hops, the
+all-to-alls, the stage hops and :func:`gather` are autograd Functions, and
+the ranks of a sequence-parallel model add their shares of a replicated
+weight's gradient with :func:`sum_grads`.
 
 The per-item noise keys (:func:`batch_keys`) are ``fold_in(key, item)``,
 which no sharding changes.
@@ -45,8 +53,11 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import prng
+from .experts import expert_capacity, init_moe_ffn, moe_ffn, moe_ffn_capacity, moe_ffn_spec
+from ._comm import all_gather
 from .faults import MeshAborted, abort_groups, guarded
 from .joint_sp import joint_sp_attention
+from .pipeline_stages import pipeline_apply, stack_stages
 from .ring_attention import axis_group, ring_attention
 from .ulysses import ulysses_attention
 
@@ -58,13 +69,21 @@ __all__ = [
     "batch_axis_of",
     "batch_keys",
     "broadcast_object",
+    "expert_capacity",
     "gather",
     "guarded",
+    "init_moe_ffn",
     "joint_sp_attention",
     "line_group",
     "make_mesh",
+    "moe_ffn",
+    "moe_ffn_capacity",
+    "moe_ffn_spec",
+    "pipeline_apply",
     "ring_attention",
     "shard_batch",
+    "stack_stages",
+    "sum_grads",
     "ulysses_attention",
 ]
 
@@ -128,14 +147,24 @@ def gather(
 ) -> torch.Tensor:
     """Every rank's chunk of ``x`` along ``dim`` over mesh axis ``axis``, concatenated in rank order
     (all-gather); over ``group`` instead of the mesh's own group of the axis where given (a
-    :func:`line_group` of the same ranks)."""
-    own, size, _rank = axis_group(mesh, axis)
-    group = own if group is None else group
-    with guarded([group]):
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim=dim)
+    :func:`line_group` of the same ranks).  Differentiable: the gradient of the whole is the same on
+    every rank of the axis (each computes the same loss from it, as the one loss of a JAX mesh), so
+    this rank's chunk of it is its input's gradient, with no collective."""
+    own, size, rank = axis_group(mesh, axis)
+    return _Gather.apply(x, own if group is None else group, size, rank, dim)
+
+
+class _Gather(torch.autograd.Function):
+    "The all-gather of :func:`gather`; backward: this rank's chunk of the gradient."
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: dist.ProcessGroup, size: int, rank: int, dim: int) -> torch.Tensor:
+        ctx.size, ctx.rank, ctx.dim = size, rank, dim
+        return all_gather(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor | None, ...]:
+        return g.chunk(ctx.size, dim=ctx.dim)[ctx.rank], None, None, None, None
 
 
 def batch_keys(key: torch.Tensor, batch: int) -> torch.Tensor:
@@ -191,6 +220,17 @@ def average_grads(params: list[torch.Tensor], mesh: DeviceMesh, axis: str = "dp"
     Runs its collectives at every axis size, 1 included; a parameter without a gradient gets zeros
     first (optax updates it with one).  A rank's part of an FSDP-sharded leaf (``fsdp.is_shard``) is
     skipped: its gradient was reduce-scattered and averaged in the backward."""
+    _reduce_grads(params, mesh, axis, mean=True)
+
+
+def sum_grads(params: list[torch.Tensor], mesh: DeviceMesh, axis: str = "sp") -> None:
+    """Sum the gradients of ``params`` over mesh axis ``axis``, in place, as :func:`average_grads`
+    buckets them: a sequence-parallel model's ranks each hold the share of their own tokens in the
+    gradient of a replicated weight, and the whole gradient is their sum."""
+    _reduce_grads(params, mesh, axis, mean=False)
+
+
+def _reduce_grads(params: list[torch.Tensor], mesh: DeviceMesh, axis: str, mean: bool) -> None:
     group, size, _rank = axis_group(mesh, axis)
     grads = []
     for p in params:
@@ -202,7 +242,8 @@ def average_grads(params: list[torch.Tensor], mesh: DeviceMesh, axis: str = "dp"
     for bucket in _buckets(grads):
         flat = bucket[0] if len(bucket) == 1 else torch.cat([g.reshape(-1) for g in bucket])
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat.div_(size)
+        if mean:
+            flat.div_(size)
         if len(bucket) > 1:
             for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
                 g.copy_(part.view_as(g))

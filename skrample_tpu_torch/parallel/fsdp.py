@@ -28,7 +28,7 @@ At run time the port writes the collectives out (:func:`shard_module`):
   divided by ``dp`` (the mean of the ranks' equal chunks, as
   ``parallel.average_grads``): ``reduce_scatter_tensor`` under NCCL; under
   gloo, which has no reduce-scatter, an all-reduce of the whole gradient and
-  the rank's range of the sum (gloo moves host copies of card tensors).  With two ranks a sum is order-free, so the
+  the rank's range of the sum (``_comm``).  With two ranks a sum is order-free, so the
   sharded step's bits are the replicated step's.
 
 :func:`shard_tree` places a tree by its specs (this rank's chunk of each
@@ -44,19 +44,20 @@ from collections.abc import Iterator
 from typing import Any
 
 import torch
-import torch.distributed as dist
 from torch import nn
 from torch.nn.utils import parametrize
 
-from .faults import guarded
+from ._comm import all_gather, reduce_scatter
 from .ring_attention import axis_group
 from .tensor_parallel import P
 
 __all__ = [
     "BLOCK",
+    "cut_part",
     "fsdp_leaf_spec",
     "fsdp_param_specs",
     "is_shard",
+    "join_parts",
     "opt_state_specs",
     "per_device_bytes",
     "regather",
@@ -225,38 +226,11 @@ class _GatherFlat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, part: torch.Tensor, group: Any, size: int, rank: int) -> torch.Tensor:
         ctx.group, ctx.size, ctx.rank = group, size, rank
-        return _all_gather(part, group, size)
+        return all_gather(part, group, size)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor, None, None, None]:
-        return _reduce_scatter(g.contiguous(), ctx.group, ctx.size, ctx.rank), None, None, None
-
-
-def _all_gather(part: torch.Tensor, group: Any, size: int) -> torch.Tensor:
-    "Every rank's flat part, concatenated in rank order (gloo gathers host copies of card tensors)."
-    part = part.contiguous()
-    with guarded([group]):
-        if dist.get_backend(group) == "nccl":
-            whole = part.new_empty(part.numel() * size)
-            dist.all_gather_into_tensor(whole, part, group=group)
-            return whole
-        host = part.cpu()
-        parts = [torch.empty_like(host) for _ in range(size)]
-        dist.all_gather(parts, host, group=group)
-        return torch.cat(parts).to(part.device)
-
-
-def _reduce_scatter(g: torch.Tensor, group: Any, size: int, rank: int) -> torch.Tensor:
-    "This rank's range of the sum over ``dp`` of the flat gradient ``g``, divided by ``dp``."
-    with guarded([group]):
-        if dist.get_backend(group) == "nccl":
-            out = g.new_empty(g.numel() // size)
-            dist.reduce_scatter_tensor(out, g, op=dist.ReduceOp.SUM, group=group)
-        else:  # gloo carries no reduce-scatter: the whole sum (of host copies), then this rank's range of it
-            total = g.cpu().clone()
-            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-            out = total.chunk(size)[rank].clone().to(g.device)
-    return out.div_(size)
+        return reduce_scatter(g.contiguous(), ctx.group, ctx.size, ctx.rank).div_(ctx.size), None, None, None
 
 
 class _Whole(nn.Module):
@@ -287,7 +261,8 @@ def shard_module(module: nn.Module, mesh: Any, specs: dict[str, Any], axis: str 
     """Shard ``module``'s parameters in place over mesh axis ``axis``: each parameter named in ``specs``
     (``{parameter name: its spec}``, :func:`fsdp_leaf_spec`'s) whose spec names ``axis`` and whose
     elements split into runs of whole blocks becomes this rank's part (``parametrizations.<name>
-    .original``, marked :func:`is_shard`, with the leaf's element count as ``fsdp_numel``), read whole
+    .original``, marked :func:`is_shard`, with the leaf's element count and shape as ``fsdp_numel`` and
+    ``fsdp_shape``), read whole
     through a gathering parametrization.  Returns the names sharded; every rank calls it alike."""
     group, size, rank = axis_group(mesh, axis)
     done = []
@@ -299,16 +274,35 @@ def shard_module(module: nn.Module, mesh: Any, specs: dict[str, Any], axis: str 
             continue
         owner_name, _, attr = name.rpartition(".")
         owner = module.get_submodule(owner_name) if owner_name else module
-        numel, grad = param.numel(), param.requires_grad
+        numel, shape, grad = param.numel(), tuple(param.shape), param.requires_grad
         parametrize.register_parametrization(owner, attr, _Whole(param.shape, group, size, rank), unsafe=True)
         part = owner.parametrizations[attr].original
         part.requires_grad_(grad)
-        part.fsdp_numel = numel
+        part.fsdp_numel, part.fsdp_shape = numel, shape
         part.fsdp = True
         if getattr(param, "tp_partial", False):
             part.tp_partial = True
         done.append(name)
     return done
+
+
+def join_parts(parts: list[torch.Tensor], shape: tuple[int, ...], blocked: bool = False) -> torch.Tensor:
+    """The whole of one sharded leaf's tensor from every ``dp`` rank's part, in rank order: the leaf (or a
+    state tensor of its shape, such as an Adam moment) from its flat parts, reshaped to ``shape``; with
+    ``blocked``, the 8-bit moments' codes or scales along their blocks axis.  A 0-d tensor (a count) is
+    the first rank's.  Concatenation: the whole is bit for bit what the ranks held."""
+    if parts[0].ndim == 0:
+        return parts[0]
+    whole = torch.cat(parts)
+    return whole if blocked else whole.reshape(shape)
+
+
+def cut_part(whole: torch.Tensor, size: int, rank: int, blocked: bool = False) -> torch.Tensor:
+    """The inverse of :func:`join_parts`: rank ``rank``'s part of a whole tensor of a leaf sharded over
+    ``size`` ranks (a leaf-shaped one flattened first; ``blocked`` codes or scales by their blocks)."""
+    if whole.ndim == 0:
+        return whole
+    return (whole if blocked else whole.reshape(-1)).chunk(size)[rank].clone()
 
 
 def is_shard(param: torch.Tensor) -> bool:
@@ -338,7 +332,7 @@ def regather() -> Iterator[None]:
         if isinstance(saved, tuple) and len(saved) == 2 and saved[0] == "fsdp-part":
             part, whole = saved[1]
             with torch.no_grad():
-                return _all_gather(part.detach(), whole.group, whole.size).view(whole.shape)
+                return all_gather(part.detach(), whole.group, whole.size).view(whole.shape)
         return saved
 
     _REGATHER[0] += 1

@@ -18,6 +18,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import flash_attention as fa
+from ._comm import p2p
 from .faults import guarded
 
 _BLOCK_OPS = ("flash", "einsum")
@@ -31,15 +32,31 @@ def axis_group(mesh: DeviceMesh, axis: str) -> tuple[dist.ProcessGroup, int, int
     return mesh.get_group(axis), mesh.size(names.index(axis)), mesh.get_local_rank(axis)
 
 
-def refuse_grad(*tensors: torch.Tensor) -> None:
-    """Raise where autograd would record ``tensors``: the blocks that arrive over point-to-point
-    sends and all-to-alls carry no graph, so a gradient through the sequence-parallel attentions
-    would lose every other rank's share without a word."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "a gradient through sequence-parallel attention comes with a later slice of the port "
-            "(ROADMAP.md A5.7); serve under torch.no_grad() or torch.inference_mode()"
-        )
+class _RingHop(torch.autograd.Function):
+    """One hop of the ring with a gradient: this rank's K/V block to the next rank, the previous
+    rank's into fresh tensors; backward sends the received block's gradient back to the rank it came
+    from and receives the gradient of the block this rank sent (the JAX ``ppermute``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, k: torch.Tensor, v: torch.Tensor, group: dist.ProcessGroup, dst: int, src: int):
+        ctx.group, ctx.dst, ctx.src = group, dst, src
+        k_next, v_next = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (k, v))
+        with guarded([group]):
+            p2p(
+                [(k.contiguous(), dst, 0), (v.contiguous(), dst, 1)], [(k_next, src, 0), (v_next, src, 1)], group
+            )()
+        return k_next, v_next
+
+    @staticmethod
+    def backward(ctx, dk_next: torch.Tensor, dv_next: torch.Tensor):
+        dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format) for t in (dk_next, dv_next))
+        with guarded([ctx.group]):
+            p2p(
+                [(dk_next.contiguous(), ctx.src, 0), (dv_next.contiguous(), ctx.src, 1)],
+                [(dk, ctx.dst, 0), (dv, ctx.dst, 1)],
+                ctx.group,
+            )()
+        return dk, dv, None, None, None
 
 
 def ring_attention(
@@ -56,8 +73,8 @@ def ring_attention(
     ``axis``; returns this rank's ``(B, H, N/S, d)`` output shard.  Non-causal (diffusion
     transformers are bidirectional).  ``block_op``: ``"flash"`` attends each block with kernel
     B11 and folds it with ``softmax_merge``; ``"einsum"`` folds B11's plain version, which the
-    flash path is held against.  Serving only: a gradient through it raises (see
-    :func:`refuse_grad`)."""
+    flash path is held against.  Differentiable: the K/V hops carry their gradient back round the
+    ring (:class:`_RingHop`), B11's through its plain version."""
     if block_op not in _BLOCK_OPS:
         raise ValueError(f"unknown block_op {block_op!r}")
     group, _size, _rank = axis_group(mesh, axis)
@@ -83,7 +100,6 @@ def ring_attention_local(
     (:func:`~.faults.guarded`), so its peers raise within the group's timeout."""
     if block_op not in _BLOCK_OPS:
         raise ValueError(f"unknown block_op {block_op!r}")
-    refuse_grad(q_loc, k_loc, v_loc)
     with guarded([group]):
         return _ring_body(q_loc, k_loc, v_loc, group, block_op)
 
@@ -94,10 +110,25 @@ def _ring_body(
     "The ring of :func:`ring_attention_local`, inside its fault guard."
     size = dist.get_world_size(group)
     rank = dist.get_rank(group)
-    block_stats = fa.flash_attention_block_stats if block_op == "flash" else fa._block_stats_reference
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q_loc, k_loc, v_loc))
+    if block_op == "einsum":
+        block_stats = fa._block_stats_reference
+    else:
+        block_stats = fa.flash_attention_block_stats_grad if grad else fa.flash_attention_block_stats
     peak = torch.full(q_loc.shape[:-1], -math.inf, dtype=torch.float32, device=q_loc.device)
     total = torch.zeros(q_loc.shape[:-1], dtype=torch.float32, device=q_loc.device)
     acc = torch.zeros(q_loc.shape, dtype=torch.float32, device=q_loc.device)
+    state = (acc, peak, total)
+    dst = dist.get_global_rank(group, (rank + 1) % size)
+    src = dist.get_global_rank(group, (rank - 1) % size)
+
+    if grad:  # each hop a step of the graph: fresh blocks, the exchange done before the fold
+        k_blk, v_blk = k_loc, v_loc
+        for hop in range(size):
+            if hop:
+                k_blk, v_blk = _RingHop.apply(k_blk, v_blk, group, dst, src)
+            state = fa.softmax_merge(state, block_stats(q_loc, k_blk, v_blk))
+        return (state[0] / state[2][..., None]).to(q_loc.dtype)
 
     k_blk, v_blk = k_loc, v_loc
     if size > 1:
@@ -105,25 +136,15 @@ def _ring_body(
         # the caller's tensors (a later hop receives into the first block's buffer)
         k_blk, v_blk = (t.clone(memory_format=torch.contiguous_format) for t in (k_loc, v_loc))
         k_next, v_next = torch.empty_like(k_blk), torch.empty_like(v_blk)
-        dst = dist.get_global_rank(group, (rank + 1) % size)
-        src = dist.get_global_rank(group, (rank - 1) % size)
 
     for hop in range(size):
-        requests = []
-        if hop < size - 1:
-            requests = dist.batch_isend_irecv(
-                [
-                    dist.P2POp(dist.isend, k_blk, dst, group, tag=0),
-                    dist.P2POp(dist.isend, v_blk, dst, group, tag=1),
-                    dist.P2POp(dist.irecv, k_next, src, group, tag=0),
-                    dist.P2POp(dist.irecv, v_next, src, group, tag=1),
-                ]
-            )
-        acc, peak, total = fa.softmax_merge((acc, peak, total), block_stats(q_loc, k_blk, v_blk))
-        for request in requests:
-            request.wait()
-        if requests:
+        wait = None
+        if hop < size - 1:  # the next hop's exchange, posted before this block is folded
+            wait = p2p([(k_blk, dst, 0), (v_blk, dst, 1)], [(k_next, src, 0), (v_next, src, 1)], group)
+        state = fa.softmax_merge(state, block_stats(q_loc, k_blk, v_blk))
+        if wait is not None:
+            wait()
             k_blk, k_next = k_next, k_blk
             v_blk, v_next = v_next, v_blk
 
-    return (acc / total[..., None]).to(q_loc.dtype)
+    return (state[0] / state[2][..., None]).to(q_loc.dtype)

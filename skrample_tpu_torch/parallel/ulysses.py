@@ -17,23 +17,37 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops import flash_attention as fa
+from ._comm import all_to_all
 from .faults import guarded
-from .ring_attention import axis_group, refuse_grad
+from .ring_attention import axis_group
 
 _HEADS_OPS = ("flash", "einsum")
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of a contiguous ``(S, ...)`` buffer whose slot j goes to rank j (and the
+    slot received from rank j lands at j), with its gradient: the same exchange of the gradient's
+    slots is the inverse (the JAX ``all_to_all``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, send: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+        ctx.group = group
+        return all_to_all(send, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> tuple[torch.Tensor, None]:
+        return all_to_all(g.contiguous(), ctx.group), None
 
 
 def to_heads(x: torch.Tensor, group: dist.ProcessGroup, size: int) -> torch.Tensor:
     """``(B, H, n, d)`` token shard -> ``(B, H/S, S*n, d)`` head shard over the whole sequence:
     the JAX package's ``all_to_all(split_axis=1, concat_axis=2, tiled=True)``, as one
     ``all_to_all_single`` on a contiguous ``(S, B, H/S, n, d)`` buffer whose slot j goes to rank
-    j; the slots received are the tokens of each source rank, in rank order.  Serving only: a
-    gradient through it raises (:func:`~.ring_attention.refuse_grad`)."""
-    refuse_grad(x)
+    j; the slots received are the tokens of each source rank, in rank order.  Differentiable
+    (:class:`_AllToAll`)."""
     B, H, n, d = x.shape
     send = x.reshape(B, size, H // size, n, d).transpose(0, 1).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    recv = _AllToAll.apply(send, group)
     return recv.permute(1, 2, 0, 3, 4).reshape(B, H // size, size * n, d)
 
 
@@ -41,8 +55,7 @@ def from_heads(x: torch.Tensor, group: dist.ProcessGroup, size: int) -> torch.Te
     "The inverse of :func:`to_heads`: ``(B, H/S, S*n, d)`` -> ``(B, H, n, d)`` (scatter tokens, gather heads)."
     B, Hs, N, d = x.shape
     send = x.reshape(B, Hs, size, N // size, d).permute(2, 0, 1, 3, 4).contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    recv = _AllToAll.apply(send, group)
     return recv.transpose(0, 1).reshape(B, size * Hs, N // size, d)
 
 
@@ -51,13 +64,9 @@ def reshard(x: torch.Tensor, group: dist.ProcessGroup, size: int, scatter_dim: i
     ``scatter_dim``: this rank's shard along ``gather_dim`` (every rank's of one size) is cut into
     ``size`` chunks along ``scatter_dim``, chunk j goes to rank j, and the chunks received are put
     back along ``gather_dim`` in rank order.  The JAX package's ``with_sharding_constraint`` that
-    flips a sharded axis lowers to this.  Serving only (:func:`~.ring_attention.refuse_grad`)."""
-    refuse_grad(x)
-    with guarded([group]):
-        send = torch.stack(x.chunk(size, dim=scatter_dim)).contiguous()
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=group)
-        return torch.cat(recv.unbind(0), dim=gather_dim)
+    flips a sharded axis lowers to this.  Differentiable (:class:`_AllToAll`)."""
+    send = torch.stack(x.chunk(size, dim=scatter_dim)).contiguous()
+    return torch.cat(_AllToAll.apply(send, group).unbind(0), dim=gather_dim)
 
 
 def ulysses_attention(
@@ -80,7 +89,6 @@ def ulysses_attention(
     if q.shape[1] % size:
         raise ValueError(f"heads ({q.shape[1]}) must divide the {axis!r} axis size ({size})")
     attend = fa.flash_attention if heads_op == "flash" else fa.attention_reference
-    refuse_grad(q, k, v)  # a misuse, not a fault: raised before the collective region
     with guarded([group]):  # a fault here aborts the group: its peers raise within its timeout
         q_h, k_h, v_h = (to_heads(t, group, size) for t in (q, k, v))
         return from_heads(attend(q_h, k_h, v_h), group, size)

@@ -59,7 +59,13 @@ lays them out (``fsdp_param_specs(..., min_size=1024)`` over the DiT's
 megatron specs; ``parallel/fsdp.py``).  They compose with ``--opt8``,
 ``--lora``, ``--remat``, ``--orbax`` (each rank saves and restores its own
 part of the train state, a step committed once every rank has written) and
-``--graph`` (the step's collectives captured: NCCL, a card a rank).
+``--graph`` (the step's collectives captured: NCCL, a card a rank).  A
+committed step records its layout (:func:`train_layout`: ``dp``, ``tp``,
+the FSDP parts, the optimizer's order), and ``--resume`` continues a step
+of another ``--dp``/``--fsdp`` layout too: every rank's file is read, each
+sharded leaf joined whole and cut for this run (:func:`relayout_state`, bit
+for bit).  A change of ``--tp`` is refused.  A save never replaces a step
+of another layout.
 """
 
 from __future__ import annotations
@@ -89,7 +95,7 @@ from .models.ema import ema_init, ema_update
 from .models.lora import jax_leaves, lora_init, lora_leaves, lora_merge, lora_param_count, lora_to_numpy
 from .ops._cuda import resolve_device
 from .ops.graphs import CapturedGraph
-from .optim import AdamW8bit
+from .optim import AdamW8bit, Moment8
 from .parallel import fsdp, tensor_parallel
 
 DATASET_SIZE = 64
@@ -130,7 +136,8 @@ def train_step(
     at step index ``step``.  Returns the loss (detached, on the device: the
     host does not wait for it).  With ``mesh`` (a ``dp`` axis) the batch is
     the whole one: this rank takes its ``dp`` chunk, the gradients are
-    averaged over ``dp`` and the loss returned is the whole batch's mean.  A model cut over ``tp``
+    averaged over ``dp`` and the loss returned is the whole batch's mean; a sequence-parallel model's
+    gradients are summed over ``sp`` first.  A model cut over ``tp``
     runs its collectives itself; FSDP-sharded parameters (``parallel.fsdp``) are gathered in the
     forward and again for the backward, and their gradients reduce-scattered there."""
     opt.zero_grad(set_to_none=True)
@@ -143,6 +150,8 @@ def train_step(
     if mesh is not None:
         trained = [p for p in model.parameters() if p.requires_grad]
         tensor_parallel.sum_partial_grads(trained, mesh)
+        if parallel.batch_axis_of(mesh, "sp") is not None:  # a sequence-parallel model: each rank's tokens' share
+            parallel.sum_grads(trained, mesh, "sp")
         parallel.average_grads(trained, mesh)
         loss = global_mean(loss.detach(), mesh)
     opt.step()
@@ -300,6 +309,93 @@ def _train_state(trained: nn.Module, opt: torch.optim.Optimizer, ema: dict[str, 
     return {"params": dict(trained.named_parameters()), "opt_state": opt.state_dict(), "ema": ema, "step": step}
 
 
+_PART = ".parametrizations."
+
+
+def _whole_name(name: str) -> str:
+    "A parameter's name with an FSDP part's ``parametrizations.<leaf>.original`` read as the leaf's own."
+    return name.replace(_PART, ".").removesuffix(".original") if _PART in name else name
+
+
+def train_layout(trained: nn.Module, opt: torch.optim.Optimizer, mesh: Any) -> dict:
+    """How this rank's train state is cut, as the checkpoint records it: ``dp`` and ``tp``, the FSDP
+    parts (``{whole parameter name: whole shape}``) and the optimizer's parameters in its order."""
+    names = {id(p): name for name, p in trained.named_parameters()}
+    return {
+        "dp": parallel.axis_group(mesh, "dp")[1] if mesh is not None else 1,
+        "tp": tensor_parallel.tp_size(mesh),
+        "fsdp": {
+            _whole_name(n): [int(d) for d in p.fsdp_shape] for n, p in trained.named_parameters() if fsdp.is_shard(p)
+        },
+        "order": [_whole_name(names[id(p)]) for group in opt.param_groups for p in group["params"]],
+    }
+
+
+def relayout_state(
+    states: list[dict], saved: dict, live: dict, trained: nn.Module, opt: torch.optim.Optimizer, mesh: Any
+) -> dict:
+    """This rank's train state in the ``live`` layout from every rank's state of a step committed in the
+    ``saved`` one (:func:`train_layout` both): each FSDP-sharded leaf (its parameter, EMA and optimizer
+    state) joined whole from the ``dp`` ranks' parts in rank order, then cut for this rank's ``dp``
+    index where the live layout shards it, each optimizer entry moved to its parameter's live index.
+    ``tp`` stays: each rank reads the ranks of its own ``tp`` index.  Concatenations and slices only,
+    so the state restored is bit for bit the one the ranks held."""
+    if saved["tp"] != live["tp"]:
+        raise ValueError(f"a train state committed at --tp {saved['tp']} resumes only at that --tp, not {live['tp']}")
+    if sorted(saved["order"]) != sorted(live["order"]):
+        raise ValueError("the committed train state holds other parameters than this run's model")
+    tp, (dp, index) = live["tp"], (parallel.axis_group(mesh, "dp")[1:] if mesh is not None else (1, 0))
+    tp_index = tensor_parallel.axis_rank(mesh) if tp > 1 else 0
+    ranks = [states[d * tp + tp_index] for d in range(saved["dp"])]  # the saved mesh's (dp, 1, tp) order
+
+    def convert(name: str, parts: list[Any], field: str = "") -> Any:
+        """One leaf's tensor (or a plain value: the first rank's) from the saved ranks' parts; ``field``:
+        the optimizer state's entry (the 8-bit moments' are kept by blocks)."""
+        if not isinstance(parts[0], torch.Tensor):
+            return parts[0]
+        blocked = field in Moment8._fields
+        whole = fsdp.join_parts(parts, tuple(saved["fsdp"][name]), blocked) if name in saved["fsdp"] else parts[0]
+        return fsdp.cut_part(whole, dp, index, blocked) if name in live["fsdp"] else whole
+
+    def by_name(key: str) -> dict[str, torch.Tensor]:
+        return {_whole_name(n): [r[key][n] for r in ranks] for n in ranks[0][key]}
+
+    params, ema = by_name("params"), by_name("ema")
+    live_names = {_whole_name(n): n for n, _p in trained.named_parameters()}
+    saved_opt = [r["opt_state"]["state"] for r in ranks]
+    opt_state: dict = {}
+    for key, value in saved_opt[0].items():
+        if not isinstance(key, int):  # shared entries (AdamW8bit's count)
+            opt_state[key] = value
+            continue
+        name = saved["order"][key]
+        opt_state[live["order"].index(name)] = {
+            field: convert(name, [s[key][field] for s in saved_opt], field) for field in value
+        }
+    return {
+        "params": {live_names[n]: convert(n, parts) for n, parts in params.items()},
+        "ema": {live_names[n]: convert(n, parts) for n, parts in ema.items()},
+        "opt_state": {"state": opt_state, "param_groups": opt.state_dict()["param_groups"]},
+        "step": ranks[0]["step"],
+    }
+
+
+def restore_train_state(
+    ckpt: TrainCheckpointer, layout: dict, trained: nn.Module, opt: torch.optim.Optimizer, mesh: Any
+) -> dict:
+    """The latest committed step's train state for this rank in ``layout`` (:func:`train_layout`): its
+    own file where the step was committed in this layout, else every rank's file cut for it
+    (:func:`relayout_state`)."""
+    step = ckpt.latest_step()
+    saved = ckpt.layout(step)
+    world = dist.get_world_size() if mesh is not None else 1
+    if saved["world"] == world and ("order" not in saved or saved == {**layout, "world": world}):
+        return ckpt.restore(step)
+    if "order" not in saved:
+        raise ValueError(f"step {step} in {ckpt.directory} records no train layout: only its own world resumes it")
+    return relayout_state(ckpt.restore_ranks(step), saved, layout, trained, opt, mesh)
+
+
 @torch.no_grad()
 def _restore(state: dict, trained: nn.Module, opt: torch.optim.Optimizer, ema: dict[str, torch.Tensor]) -> int:
     "Copy a saved train state into the live tensors (those a later capture reads); returns its step."
@@ -357,7 +453,8 @@ def data_parallel_world(
     return parallel.make_mesh(dp=dp, sp=1, extra_axes={"tp": tp} if tp > 1 else None), device, owned
 
 
-def main(argv: Sequence[str] | None = None) -> int:
+def parser() -> argparse.ArgumentParser:
+    "The trainer's command line."
     ap = argparse.ArgumentParser(prog="python -m skrample_tpu_torch.training", description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -394,8 +491,12 @@ def main(argv: Sequence[str] | None = None) -> int:
         "--fsdp", action="store_true",
         help="shard the parameters, optimizer moments and EMA over dp (ZeRO-3; needs --dp > 1)",
     )
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv: Sequence[str] | None = None) -> int:
+    ap = parser()
+    args = ap.parse_args(argv)
     if args.fsdp and args.dp < 2:
         ap.error("--fsdp shards over the dp axis; pass --dp > 1")
     device = resolve_device(args.device)
@@ -415,9 +516,12 @@ def main(argv: Sequence[str] | None = None) -> int:
             dist.destroy_process_group()
 
 
-def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.device, mesh: Any) -> int:
-    "``main``'s run once the device (and the data-parallel mesh, if any) are set."
-    main_rank = mesh is None or dist.get_rank() == 0
+def build_trainer(
+    args: argparse.Namespace, device: torch.device, mesh: Any
+) -> tuple[DiT, nn.Module, torch.optim.Optimizer, dict[str, torch.Tensor]]:
+    """``(model, trained, optimizer, EMA)`` as ``main``'s options set them up: the DiT (cut over ``tp``,
+    loaded from ``--checkpoint``), its LoRA wrapper with ``--lora``, sharded over ``dp`` with
+    ``--fsdp``, and AdamW or ``--opt8``'s AdamW8bit over what is trained."""
     tp_mesh = mesh if tensor_parallel.tp_size(mesh) > 1 else None
     config = DiTConfig(
         dim=args.dim,
@@ -445,14 +549,20 @@ def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.
         opt: torch.optim.Optimizer = AdamW8bit(leaves, lr=1e-4, capturable=args.graph)
     else:
         opt = make_optimizer(trained, capturable=args.graph)
-    ema = ema_init(trained)
+    return model, trained, opt, ema_init(trained)
 
+
+def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.device, mesh: Any) -> int:
+    "``main``'s run once the device (and the data-parallel mesh, if any) are set."
+    main_rank = mesh is None or dist.get_rank() == 0
+    model, trained, opt, ema = build_trainer(args, device, mesh)
     start_step = 0
     ckpt = TrainCheckpointer(args.orbax) if args.orbax else None
+    layout = train_layout(trained, opt, mesh)
     if ckpt is not None and ckpt.latest_step() is not None:
         if not args.resume:
             ap.error(f"{args.orbax} already holds step {ckpt.latest_step()}: pass --resume to continue it")
-        start_step = _restore(ckpt.restore(), trained, opt, ema)
+        start_step = _restore(restore_train_state(ckpt, layout, trained, opt, mesh), trained, opt, ema)
         print(f"resumed from {args.orbax} at step {start_step}")
     elif args.resume:
         print(f"--resume: nothing committed in {args.orbax or '(no --orbax)'}, starting fresh")
@@ -482,13 +592,13 @@ def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.
             losses.append(step_once(*host_loader_batch(batch, n, device), n))
             done = n + 1
             if args.save_every and done % args.save_every == 0 and done != end:
-                ckpt.save(done, _train_state(trained, opt, ema, done))
+                ckpt.save(done, _train_state(trained, opt, ema, done), layout)
             if args.abort_after_step == n:
                 # die like a preemption: join the last boundary save, start one more, SIGKILL with it likely
                 # mid-write (the torn directory is never committed; resume sees the last complete step)
                 ckpt.wait()
                 if not args.save_every or done % args.save_every:
-                    ckpt.save(done, _train_state(trained, opt, ema, done))
+                    ckpt.save(done, _train_state(trained, opt, ema, done), layout)
                 print(f"aborting after step {n} (fault injection)", flush=True)
                 os.kill(os.getpid(), signal.SIGKILL)
     else:
@@ -511,7 +621,7 @@ def _train(args: argparse.Namespace, ap: argparse.ArgumentParser, device: torch.
             print(f"saved {args.checkpoint}")
     if ckpt is not None:
         if args.steps or ckpt.latest_step() != end:
-            ckpt.save(end, _train_state(trained, opt, ema, end))
+            ckpt.save(end, _train_state(trained, opt, ema, end), layout)
         ckpt.close()
         print(f"saved step {end} -> {args.orbax} (params + optimizer state + EMA)")
     return 0

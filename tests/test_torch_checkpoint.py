@@ -74,6 +74,32 @@ def test_save_restore_retention_and_torn_writes(tmp_path: Path) -> None:
         TrainCheckpointer(tmp_path / "empty").restore()
 
 
+def test_steps_of_every_layout_are_listed_and_never_replaced(tmp_path: Path) -> None:
+    """ROADMAP C17: a committed step records its layout and is listed whatever layout wrote it; a save at the
+    number of a step of another layout fails and leaves that step as it was, and keeping ``max_to_keep``
+    steps removes only steps of the saver's own layout.  A step directory of two rank files without a
+    record (the format before layouts) reads as a world of 2: its own-file restore refuses in one rank,
+    ``restore_ranks`` reads both files."""
+    state = {"params": {"w": torch.arange(4.0)}, "step": 4}
+    with TrainCheckpointer(tmp_path, max_to_keep=1, async_save=False) as ckpt:
+        ckpt.save(4, state, layout={"dp": 2})
+        with pytest.raises(FileExistsError, match="another layout"):
+            ckpt.save(4, {**state, "step": 5}, layout={"dp": 1})
+        assert ckpt.layout(4) == {"dp": 2, "world": 1} and ckpt.restore(4)["step"] == 4
+        for step in (5, 6):
+            ckpt.save(step, state, layout={"dp": 1})
+        assert ckpt.all_steps() == [4, 6] and ckpt.latest_step() == 6
+    old = tmp_path / "8"
+    old.mkdir()
+    for rank in range(2):
+        torch.save({"params": {"w": torch.full((2,), float(rank))}, "step": 8}, old / f"state-{rank}.pt")
+    ckpt = TrainCheckpointer(tmp_path)
+    assert ckpt.latest_step() == 8 and ckpt.layout(8) == {"world": 2}
+    with pytest.raises(ValueError, match="a world of 2 ranks"):
+        ckpt.restore(8)
+    assert [float(r["params"]["w"][0]) for r in ckpt.restore_ranks(8)] == [0.0, 1.0]
+
+
 @pytest.mark.parametrize("extra", [[], ["--opt8", "--lora", "4"]], ids=["adamw", "opt8-lora"])
 def test_sigkill_mid_epoch_resume_is_bit_exact(tmp_path: Path, capsys, extra: list[str]) -> None:
     """Uninterrupted to step 6 against: SIGKILLed after step 3 (a subprocess: the step-4 save

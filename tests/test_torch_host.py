@@ -118,7 +118,8 @@ def test_nonlinear_sampler_raises_in_both() -> None:
 def test_port_imports_without_jax() -> None:
     """Import the package and every submodule in a fresh interpreter (the package walk reaches the
     int8, Flux, conv-family, VAE, threefry, video, MMDiT, SD3 and text-tower modules, tensor
-    parallelism, FSDP and the collectives' fault guard too); neither jax
+    parallelism, FSDP, the collectives' fault guard and their host staging, the pipeline stages, the experts and the
+    utilities too); neither jax
     nor skrample_tpu may load, nor ``regex`` (the card's machine has none: the tokenizers use ``re``)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -134,7 +135,8 @@ def test_port_imports_without_jax() -> None:
         "          'torch_noise', 'compat', 'ops.adaptive', 'continuous', 'ops.graphs', 'models.mmdit',\n"
         "          'models.sd3', 'models.text_encoder', 'models.t5_encoder', 'models.tokenizers',\n"
         "          'train_text_to_image', 'training', 'serving', 'pipeline', 'parallel',\n"
-        "          'parallel.tensor_parallel', 'parallel.fsdp', 'parallel.faults')\n"
+        "          'parallel.tensor_parallel', 'parallel.fsdp', 'parallel.faults', 'parallel._comm',\n"
+        "          'parallel.pipeline_stages', 'parallel.experts', 'utils.quality', 'utils.observability', 'utils.tableau_search')\n"
         "assert all('skrample_tpu_torch.' + m in sys.modules for m in wanted)\n"
         "print('clean')\n"
     )

@@ -194,7 +194,7 @@ def test_param_tree_round_trips_and_checks() -> None:
 
 def test_contracts() -> None:
     """"flash" takes head dims 64 and 128 and names "full" otherwise; sequence parallelism without a mesh
-    and the pipelined apply raise; the tensor-parallel specs are the JAX package's; a fresh model is adaLN-zero (outputs 0) and builds
+    and the pipelined apply over blocks of two structures raise, as in the JAX package; the tensor-parallel specs are the JAX package's; a fresh model is adaLN-zero (outputs 0) and builds
     in bf16."""
     with pytest.raises(NotImplementedError, match="attention='full'"):
         MMDiT(MMDiTConfig(dim=96, heads=3, depth=1), device="cpu")
@@ -207,11 +207,15 @@ def test_contracts() -> None:
     with pytest.raises(ValueError, match="multiple of 128"):
         MMDiT(MMDiTConfig(dim=128, heads=2, depth=1, context_tokens=77), device="cpu")
     fresh = MMDiT(MMDiTConfig(**SMALL, compute_dtype=torch.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fresh.apply_pipelined()
     assert fresh.param_spec()["blocks"][0]["img"]["qkv"]["w"] == (None, "tp")  # every spec: test_torch_tensor_parallel.py
     x, t, ctx, _ = _inputs("native")
     assert not fresh(_t(x), _t(t), _t(ctx)).any()
+    # SMALL's dual attention and txt-pre-only last block cannot stack as stages: the JAX package's refusal,
+    # before any mesh is read (the pipelined apply itself: test_torch_parallel.py)
+    with pytest.raises(ValueError, match="uniform blocks"):
+        fresh.apply_pipelined(_t(x), _t(t), None, microbatch=1)
+    with pytest.raises(ValueError, match="uniform blocks"):
+        jmmdit.MMDiT(jmmdit.MMDiTConfig(**SMALL)).apply_pipelined({}, x, t, None, microbatch=1)
     bf16 = MMDiT(MMDiTConfig(**SMALL, **CASES["sd3 qk-norm pos-embed"]), device="cpu", dtype=torch.bfloat16)
     assert bf16.blocks[0].img.qkv.weight.dtype == torch.bfloat16 and bf16.blocks[0].img.q_norm.dtype == torch.float32
     assert bf16.pos_embed.dtype == torch.float32

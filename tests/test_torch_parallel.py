@@ -19,6 +19,7 @@ import functools
 import importlib
 import math
 import os
+import shutil
 import tempfile
 import uuid
 from concurrent.futures import ThreadPoolExecutor
@@ -66,10 +67,11 @@ TRAIN_CLI_TP = [  # the DiT trainer's CLI over tp 2: two heads, every option --t
     "--device", "cpu", "--steps", "1", "--batch", "4", "--dim", "64", "--depth", "1", "--heads", "2", "--size", "8",
     "--opt8", "--lora", "2", "--remat",
 ]
-RESUME = [  # the DiT trainer's FSDP kill-and-resume, a tiny DiT at dp 2 with 8-bit moments
-    "--device", "cpu", "--batch", "4", "--dim", "64", "--depth", "1", "--heads", "1", "--size", "8",
-    "--dp", "2", "--fsdp", "--opt8", "--host-loader",
-]
+TINY_TRAIN = ["--device", "cpu", "--batch", "4", "--dim", "64", "--depth", "1", "--heads", "1", "--size", "8", "--host-loader"]
+RESUME = [*TINY_TRAIN, "--dp", "2", "--fsdp", "--opt8"]  # the DiT trainer's FSDP kill-and-resume, 8-bit moments
+# C17: a dp 1 train state (2 steps) of each optimizer that each world resumes at dp = the world with --fsdp
+LAYOUT_ARGV = {"adamw": TINY_TRAIN, "opt8": [*TINY_TRAIN, "--opt8"]}
+LAYOUT_DIRS = {opt: os.path.join(tempfile.gettempdir(), f"layout-{uuid.uuid4().hex}-{opt}") for opt in LAYOUT_ARGV}
 TRAIN_CLI = [  # the DiT trainer's CLI, 1 step of batch 4 with every option --dp composes with
     "--device", "cpu", "--steps", "1", "--batch", "4", "--dim", "64", "--depth", "1", "--heads", "1", "--size", "8",
     "--opt8", "--lora", "2", "--remat",
@@ -251,11 +253,13 @@ def _cases(world: int) -> dict[str, dict]:
         config = {**DIT, "compute_dtype": "float32", "attention": attention}
         cases[f"dit-{attention}"] = {"kind": "dit", "config": config, "tree": tree, "x": x, "t": t}
         cases[f"sample-{attention}"] = {"kind": "sample", "config": config, "tree": tree, "x0": x, "steps": 8}
-    for what in ("heads", "tokens", "no_mesh", "dp", "flash_mesh", "grad_ring", "grad_ulysses", "grad_dit"):
+    for what in ("heads", "tokens", "no_mesh", "dp", "flash_mesh"):
         cases[f"raises-{what}"] = {"kind": "raises", "what": what}
     cases.update(_parallel_cases(world))
     cases.update(_tp_cases(world))
     cases.update(_fsdp_cases(world))
+    cases.update(_pipeline_cases(world))
+    cases.update(_grad_cases(world))
     if world == 4:  # a dp x sp mesh needs 4 ranks
         cases.update(_tp_dp_cases())
         for attention in ("ring", "ulysses"):  # tp 2 x sp 2: two heads a rank, its tokens' half
@@ -331,6 +335,8 @@ def _parallel_cases(world: int) -> dict[str, dict]:
     cases["train_cli_tp"] = {"kind": "train_cli", "argv": [*TRAIN_CLI_TP, "--checkpoint", tp_path], "tp": 2}
     for what in ("slots", "stream_tokens", "tp", "dp_graph", "dp_orbax"):
         cases[f"raises-{what}"] = {"kind": "raises", "what": what}
+    for opt, directory in LAYOUT_DIRS.items():
+        cases[f"resume_layout-{opt}"] = {"kind": "resume_layout", "argv": LAYOUT_ARGV[opt], "dir": directory}
     return cases
 
 
@@ -436,28 +442,146 @@ def _tp_dp_cases() -> dict[str, dict]:
     }
 
 
+PIPE_DIM = 16
+PIPE_COUNTS = {2: (1, 5), 4: (6, 1)}  # tests/test_parallel.py:128's (stages, count) pairs at stages = the world
+GRAD_DIT = {"dim": 64, "depth": 4, "heads": 4}  # tests/test_parallel.py:159's DiT; 16x16 latents: 64 tokens
+GRAD_MMDIT = {**MMDIT, "depth": 1}  # one dual block: the joint attention and the image stream's own, over sp
+PP_MMDIT = {"dim": 64, "depth": 4, "heads": 4, "context_dim": 32, "context_tokens": 128, "attention": "full"}
+MOE_EXPERTS = 4  # tests/test_parallel.py:439's capacity cases: 4 experts of dim 16, hidden 32, 2 x 24 tokens, capacity 8
+
+
+def _pipeline_cases(world: int) -> dict[str, dict]:
+    """The pipeline over ``pp`` = the world: the dense-tanh stages of tests/test_parallel.py:128 at two
+    microbatch counts, the pytree carry (:215), the gradients through the stage hops (:696); on the
+    4-rank world the pp 2 x dp 2 training step (:733) and the pipelined DiT at pp 2 x dp 2 (:772).  The
+    pipelined DiT (:159) and MMDiT (:180) at pp = the world.  Stage inputs depend on the world."""
+    rng = np.random.default_rng(500 + world)
+    S, dim = world, PIPE_DIM
+
+    def normal(*shape: int, scale: float = 1.0) -> np.ndarray:
+        return (rng.standard_normal(shape, dtype=np.float32) * scale).astype(np.float32)
+
+    cases: dict[str, dict] = {}  # each pipe case's JAX reference is its own ("ref")
+    for tag, count in zip("ab", PIPE_COUNTS[world]):
+        cases[f"pipe-forward_{tag}"] = {"kind": "pipe", "mode": "forward", "mesh": [1, S], "w": normal(S, dim, dim, scale=0.3),
+                                        "b": normal(S, dim, scale=0.1), "mbs": normal(count, 2, dim)}
+    cases["pipe-carry"] = {"kind": "pipe", "mode": "carry", "mesh": [1, S], "blocks": [normal(dim, dim, scale=0.3) for _ in range(S)],
+                           "xs": normal(3, 2, dim), "conds": normal(3, 2, dim, scale=0.1)}
+    cases["pipe-grad"] = {"kind": "pipe", "mode": "grad", "mesh": [1, S], "w": normal(S, dim, dim, scale=0.3),
+                          "b": normal(S, dim, scale=0.1), "mbs": normal(4, 2, dim), "target": np.ones((4, 2, dim), np.float32)}
+    if world == 4:
+        cases["pipe-train"] = {"kind": "pipe", "mode": "train", "mesh": [2, 2], "w": normal(2, dim, dim, scale=0.3),
+                               "b": normal(2, dim, scale=0.1), "mbs": normal(3, 4, dim), "target": normal(3, 4, dim)}
+    for name, case in cases.items():
+        case["ref"] = f"{name}-{world}"
+    dit = _grad_inputs()["dit"]
+    cases["pp_dit"] = {"kind": "pp_dit", **dit, "microbatch": 4 // world, "mesh": [1, S]}
+    if world == 4:
+        cases["pp_dit-dp"] = {"kind": "pp_dit", **dit, "microbatch": 2, "mesh": [2, 2]}
+    mm_rng = np.random.default_rng(501)
+    cases["pp_mmdit"] = {
+        "kind": "pp_mmdit", "config": {**PP_MMDIT, "compute_dtype": "float32"},
+        "tree": tmmdit.random_param_tree(tmmdit.MMDiTConfig(**PP_MMDIT), 52), "microbatch": 2, "mesh": [1, S],
+        "x": mm_rng.standard_normal((4, 4, 8, 8), dtype=np.float32), "t": np.linspace(10.0, 900.0, 4, dtype=np.float32),
+        "context": mm_rng.standard_normal((4, 128, 32), dtype=np.float32),
+    }
+    return cases
+
+
+@functools.cache
+def _grad_inputs() -> dict[str, dict]:
+    "The gradient cases' inputs and weights, the same for both worlds (every token count divides 2 and 4)."
+    rng = np.random.default_rng(600)
+    f32 = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
+    attention = {"q": f32(2, 4, 64, 16), "k": f32(2, 4, 64, 16), "v": f32(2, 4, 64, 16), "w": f32(2, 4, 64, 16)}
+    joint = {"qkv_a": f32(2, 48, 192), "qkv_b": f32(2, 16, 192), "w_a": f32(2, 48, 64), "w_b": f32(2, 16, 64), "heads": 4}
+    reshard = {"x": f32(2, 8, 8), "w": f32(2, 8, 8)}
+    # the sp DiT takes the trainer's step: x, t and target are its x_t, 1000 sigma and noise - x0 (float32)
+    x0, sigma, noise = f32(4, 4, 16, 16), np.linspace(0.01, 0.9, 4, dtype=np.float32), f32(4, 4, 16, 16)
+    s = sigma[:, None, None, None]
+    return {
+        "attention": attention, "joint": joint, "reshard": reshard,
+        "dit": {"config": {**GRAD_DIT, "compute_dtype": "float32"}, "tree": random_param_tree(DiTConfig(**GRAD_DIT), 60),
+                "x0": x0, "noise": noise, "sigma": sigma, "x": (1 - s) * x0 + s * noise, "t": sigma * np.float32(1000.0),
+                "target": noise - x0},
+        "mmdit": {"config": {**GRAD_MMDIT, "compute_dtype": "float32"},
+                  "tree": tmmdit.random_param_tree(tmmdit.MMDiTConfig(**GRAD_MMDIT), 61),
+                  "x": f32(2, 4, 8, 8), "t": np.array([730.0, 41.5], np.float32), "context": f32(2, 40, 32),
+                  "target": f32(2, 4, 8, 8)},
+        "moe": {"tokens": f32(2, 24, 16)},
+    }
+
+
+def _grad_cases(world: int) -> dict[str, dict]:
+    """The gradients through the sequence-parallel collectives (the ring with either block op, ulysses with
+    either head op, ``reshard``, the joint attention with either scheme, the ring and ulysses DiT and
+    MMDiT, and the pipelined DiT at pp = the world), and the MoE FFN over ``ep`` = the world."""
+    inputs = _grad_inputs()
+    cases: dict[str, dict] = {}
+    for op in ("flash", "einsum"):
+        cases[f"grad-ring_{op}"] = {"kind": "grad", "op": "ring", "block_op": op, **inputs["attention"]}
+        cases[f"grad-ulysses_{op}"] = {"kind": "grad", "op": "ulysses", "heads_op": op, **inputs["attention"]}
+    for scheme in ("ring", "ulysses"):
+        cases[f"grad-joint_{scheme}"] = {"kind": "grad", "op": "joint_sp", "scheme": scheme, **inputs["joint"]}
+    cases["grad-reshard"] = {"kind": "grad", "op": "reshard", **inputs["reshard"]}
+    for model in ("dit", "mmdit"):
+        for attention in ("ring", "ulysses"):
+            case = inputs[model]
+            cases[f"grad_{model}-{attention}"] = {
+                "kind": "grad_model", "model": model, **case, "config": {**case["config"], "attention": attention}
+            }
+    if world == 4:  # the trainer's step at dp 2 x sp 2: the gradients summed over sp, then averaged over dp
+        cases["grad_dit-dp_ring"] = {**cases["grad_dit-ring"], "mesh": [2, 2]}
+    cases["grad_dit-pp"] = {"kind": "grad_model", "model": "dit", **inputs["dit"], "pp": world, "microbatch": 4 // world}
+    params = _jax_moe_params()
+    for method, capacity in (("dense", None), ("gather", 8), ("onehot", 8)):
+        cases[f"moe-{method}"] = {"kind": "moe", "method": method, "capacity": capacity, "params": params,
+                                  **inputs["moe"]}
+    return cases
+
+
+@functools.cache
+def _jax_moe_params() -> dict[str, np.ndarray]:
+    "The JAX package's ``init_moe_ffn(PRNGKey(11), dim=16, hidden=32, experts=4)``, as numpy."
+    import jax
+
+    from skrample_tpu.parallel import init_moe_ffn as jinit
+
+    return {k: np.asarray(v) for k, v in jinit(jax.random.PRNGKey(11), dim=16, hidden=32, experts=MOE_EXPERTS).items()}
+
+
 CASE_NAMES = tuple(_cases(2))
 
 
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory: pytest.TempPathFactory):
     """``spawned(world)``: every rank's result of every case, by case name.  Both worlds start at
-    once, in two threads of this process (2 + 4 single-threaded ranks), and are each run once; a
-    third thread makes the JAX package's mesh-less references meanwhile (``_want``), and
-    ``spawned`` returns once they are made too."""
+    once, in two threads of this process (2 + 4 single-threaded ranks), and are each run once;
+    two more threads make the JAX package's mesh-less references meanwhile (``_want``: the
+    pipeline, gradient and expert kinds in one, the rest in the other: XLA compiles without the
+    interpreter lock), and ``spawned`` returns once they are made too.  The C15 world starts when
+    the 2-rank world has ended; the resume worlds run beside them."""
 
     def run(world: int, store_dir: str) -> dict[str, list]:
         cases = _cases(world)
         per_rank = spawn_sp(world, list(cases.values()), store_dir, backend="gloo", device="cpu")
         return {name: [per_rank[r][i] for r in range(world)] for i, name in enumerate(cases)}
 
-    def references() -> None:
-        for case in _cases(max(WORLDS)).values():
-            if _meshless_key(case) is not None:
-                _want(case, max(WORLDS))
+    def references(slice_kinds: bool) -> None:
+        "The mesh-less references of one half of the cases: the pipeline, gradient and expert kinds, or the rest."
+        for world in reversed(WORLDS):
+            for case in _cases(world).values():
+                if _meshless_key(case) is not None and (case["kind"] in SLICE_TOLERANCES) == slice_kinds:
+                    _want(case, world)
 
     def run_abort(store_dir: str) -> list:
         return spawn_sp(2, [_abort_case()], store_dir, backend="gloo", device="cpu", timeout_s=ABORT_TIMEOUT_S)
+
+    def run_then_abort(world: int, store_dir: str) -> dict[str, list]:
+        "The 2-rank world, then the C15 world: it starts once the 2 ranks have ended (less contention)."
+        out = run(world, store_dir)
+        futures["abort"] = pool.submit(run_abort, dirs["abort"])
+        return out
 
     def run_resume(store_dir: str) -> dict:
         "The uninterrupted run and the killed one with its resume, 4 steps each, and what they left."
@@ -468,14 +592,26 @@ def spawned(tmp_path_factory: pytest.TempPathFactory):
                  (("a", uninterrupted), ("killed", killed), ("resumed", resumed))}
         return {"codes": codes, "dir": store_dir}
 
+    def run_resume_adamw(store_dir: str) -> list:
+        "C17: a --dp 2 --fsdp AdamW train state, 2 steps (the 8-bit one is ``run_resume``'s ``a``)."
+        return spawn_cli(2, [*TINY_TRAIN, "--dp", "2", "--fsdp", "--steps", "2", "--orbax", f"{store_dir}/c"], store_dir)
+
     # made here, before the threads: two threads' first mktemp race to create pytest's base temp dir
     dirs = {world: str(tmp_path_factory.mktemp(f"sp{world}")) for world in (*WORLDS, "abort", "resume")}
-    with ThreadPoolExecutor(len(WORLDS) + 3) as pool:
-        futures = {world: pool.submit(run, world, dirs[world]) for world in WORLDS}
-        futures["abort"] = pool.submit(run_abort, dirs["abort"])
+    from skrample_tpu_torch import training
+
+    for opt, directory in LAYOUT_DIRS.items():  # C17's dp 1 states, which the worlds resume at dp = the world
+        assert training.main([*LAYOUT_ARGV[opt], "--steps", "2", "--orbax", directory]) == 0
+    with ThreadPoolExecutor(len(WORLDS) + 5) as pool:
+        futures: dict = {}  # filled before the 2-rank world ends and adds the C15 world's
+        for world in WORLDS:
+            futures[world] = pool.submit(run_then_abort if world == 2 else run, world, dirs[world])
         futures["resume"] = pool.submit(run_resume, dirs["resume"])
-        made = pool.submit(references)
-        yield lambda world: (made.result(), futures[world].result())[1]
+        futures["resume_adamw"] = pool.submit(run_resume_adamw, dirs["resume"])
+        made = [pool.submit(references, half) for half in (False, True)]  # two threads: XLA compiles off the GIL
+        yield lambda world: ([m.result() for m in made], futures[2].result(), futures[world].result())[2]
+    for directory in LAYOUT_DIRS.values():
+        shutil.rmtree(directory, ignore_errors=True)
 
 
 ABORT_TIMEOUT_S = 5  # the C15 world's group timeout
@@ -494,13 +630,16 @@ def _abort_case() -> dict:
 def test_fault_inside_a_ring_exchange_fails_every_rank(spawned) -> None:
     """ROADMAP C15: on a 2-rank gloo world with a 5 s group timeout, rank 1's ring raises inside its
     first exchange.  It aborts the mesh's groups; rank 0, blocked in the ring, raises within the
-    timeout; both engines fail the request (``MeshAborted``) and every pending one, well before
-    the ranks' own deadline, and both processes exit (``spawn_sp`` joins them)."""
+    timeout; both engines fail the request (``MeshAborted``) and every pending one within 3 timeouts
+    of the fault's injection (the clock starts there: the ranks' start on a loaded host is not
+    recovery), and both processes exit (``spawn_sp`` joins them)."""
     outs = spawned("abort")
-    for rank, ((outcomes, seconds),) in enumerate(outs):
+    injected = [at for ((_outcomes, at, _resolved),) in outs if at is not None]
+    assert len(injected) == 1, outs  # rank 1's ring, once
+    for rank, ((outcomes, _at, resolved),) in enumerate(outs):
         assert outcomes[0].startswith("MeshAborted: a fault inside a collective region aborted"), (rank, outcomes)
         assert all(isinstance(o, str) and o.startswith("RuntimeError: engine") for o in outcomes[1:]), (rank, outcomes)
-        assert seconds < 3 * ABORT_TIMEOUT_S, (rank, seconds)
+        assert resolved - injected[0] < 3 * ABORT_TIMEOUT_S, (rank, resolved - injected[0])
     assert outs[1][0][0][0].endswith("injected fault inside the ring")
 
 
@@ -527,6 +666,12 @@ _MESHLESS: dict[str, object] = {}
 def _meshless_key(case: dict) -> str | None:
     "The key of ``case``'s mesh-less reference, one for both worlds and both schemes (None: on a mesh)."
     kind = case["kind"]
+    if "ref" in case:
+        return case["ref"]
+    if kind in ("grad", "grad_model", "moe"):  # one reference for both worlds, and every scheme
+        return f"{kind}-{case.get('op') or case.get('model') or case['method']}"
+    if kind in ("pp_dit", "pp_mmdit"):
+        return "grad_model-dit" if kind == "pp_dit" else kind
     if kind == "train_fsdp":
         return f"fsdp-{case['optimizer']}"
     if kind == "tp":
@@ -606,6 +751,8 @@ def _want_meshless(case: dict):
     from skrample_tpu_torch.models import _tree
 
     kind = case["kind"]
+    if kind in ("pipe", "grad", "grad_model", "moe", "pp_dit", "pp_mmdit"):
+        return _want_slice(case)
     params = jax.tree.map(jnp.asarray, case.get("tree", {}))
     if kind == "tp":  # the JAX model without a mesh (full attention for a sequence-parallel one)
         fields = dict(case["config"])
@@ -706,6 +853,99 @@ def _want_meshless(case: dict):
     loss, grads = jax.jit(jax.value_and_grad(t2i_loss))(params, *(jnp.asarray(d) for d in case["draws"]))
     grads = jax.tree.map(np.asarray, grads)
     return [float(loss), {sub: dict(_tree._flatten(grads[sub])) for sub in ("enc", "mmdit")}]
+
+
+def _want_slice(case: dict):
+    """The JAX package's result of a pipeline, gradient or expert case, without a mesh, where its own
+    tests hold the two equal: the pipeline the stages run in sequence (tests/test_parallel.py:128, 180,
+    696, 733), the pipelined DiT and MMDiT their ``apply`` (:159, :180, :772), the ring and ulysses
+    attentions and models the full-attention ones (their forwards as in ``_want``; their gradients are
+    ``jax.vjp`` and ``jax.value_and_grad`` of those forwards), ``reshard`` the identity on the whole array
+    (a resharding), and the ep-sharded MoE FFN the unsharded one (:248, :475)."""
+    import jax
+    import jax.numpy as jnp
+
+    from skrample_tpu.ops.flash_attention import attention_reference
+    from skrample_tpu_torch.models import _tree
+
+    kind = case["kind"]
+    arr = lambda name: jnp.asarray(case[name])  # noqa: E731
+    if kind == "pipe":
+        if case["mode"] == "carry":
+            def carried(xs, conds):
+                out = xs
+                for w in case["blocks"]:
+                    out = jnp.tanh(out @ jnp.asarray(w) + conds)
+                return out, conds
+
+            @jax.jit
+            def carried_vjp(xs, conds):
+                (out, cond_out), vjp = jax.vjp(carried, xs, conds)
+                return out, cond_out, *vjp((jnp.ones_like(out), 2 * jnp.ones_like(cond_out)))
+
+            return [np.asarray(a) for a in carried_vjp(arr("xs"), arr("conds"))]
+
+        def sequential(p, x):
+            for stage in range(p["w"].shape[0]):
+                x = jnp.tanh(x @ p["w"][stage] + p["b"][stage])
+            return x
+
+        params = {"w": arr("w"), "b": arr("b")}
+        if case["mode"] == "forward":
+            return [np.asarray(jax.jit(sequential)(params, arr("mbs")))]
+        loss_fn = lambda p, x, target: jnp.mean((sequential(p, x) - target) ** 2)  # noqa: E731
+        loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params, arr("mbs"), arr("target"))
+        return [float(loss), np.asarray(grads["w"]), np.asarray(grads["b"])]
+    if kind == "grad" and case["op"] == "reshard":
+        out, vjp = jax.vjp(lambda x: x, arr("x"))
+        return [[np.asarray(out)], [np.asarray(vjp(arr("w"))[0])]]
+    if kind == "grad" and case["op"] == "joint_sp":
+        heads = case["heads"]
+
+        def joint(a, b):
+            split = lambda t: [p.reshape(*t.shape[:2], heads, -1).transpose(0, 2, 1, 3) for p in jnp.split(t, 3, -1)]  # noqa: E731
+            o = attention_reference(*(jnp.concatenate([x, y], axis=2) for x, y in zip(split(a), split(b))))
+            o = o.transpose(0, 2, 1, 3).reshape(a.shape[0], -1, a.shape[-1] // 3)
+            return o[:, : a.shape[1]], o[:, a.shape[1]:]
+
+        @jax.jit
+        def joint_vjp(a, b, w_a, w_b):
+            outs, vjp = jax.vjp(joint, a, b)
+            return outs, vjp((w_a, w_b))
+
+        outs, grads = joint_vjp(arr("qkv_a"), arr("qkv_b"), arr("w_a"), arr("w_b"))
+        return [[np.asarray(o) for o in outs], [np.asarray(g) for g in grads]]
+    if kind == "grad":
+        @jax.jit
+        def attention_vjp(q, k, v, w):
+            out, vjp = jax.vjp(attention_reference, q, k, v)
+            return out, vjp(w)
+
+        out, grads = attention_vjp(arr("q"), arr("k"), arr("v"), arr("w"))
+        return [[np.asarray(out)], [np.asarray(g) for g in grads]]
+    if kind == "moe":
+        from skrample_tpu.parallel import moe_ffn as jmoe
+        from skrample_tpu.parallel import moe_ffn_capacity as jmoe_capacity
+
+        params = jax.tree.map(jnp.asarray, case["params"])
+        if case["method"] == "dense":
+            return np.asarray(jax.jit(jmoe)(params, arr("tokens")))
+        capacity = functools.partial(jmoe_capacity, capacity=case["capacity"], method=case["method"])
+        return np.asarray(jax.jit(capacity)(params, arr("tokens")))
+    params = jax.tree.map(jnp.asarray, case["tree"])
+    fields = {**case["config"], "attention": "full"}
+    if kind == "pp_mmdit":
+        model = _jax_model("mmdit", fields)
+        return np.asarray(jax.jit(model.apply)(params, arr("x"), arr("t"), arr("context")))
+    model = _jax_model(case.get("model", "dit"), fields)
+    extra = (arr("context"),) if "context" in case else ()
+
+    def loss_fn(p):
+        out = model.apply(p, arr("x"), arr("t"), *extra)
+        return jnp.mean((out - arr("target")) ** 2), out
+
+    (loss, out), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    return [float(loss), dict(_tree._flatten(jax.tree.map(np.asarray, grads))), np.asarray(out)]
 
 
 def _jax_model(name: str, config: dict):
@@ -811,6 +1051,12 @@ def test_dryrun_case_matches_jax(spawned, world: int, name: str) -> None:
     if "fault" in case:
         _check_fault(case, world, outs)
         return
+    if case["kind"] == "resume_layout":
+        _check_resume_layout(case, outs)
+        return
+    if case["kind"] in SLICE_TOLERANCES:
+        _check_slice(case, world, outs)
+        return
     if case["kind"] == "raises":
         expected = {
             "heads": f"ValueError: heads ({world + 1}) must divide the 'sp' axis size ({world})",
@@ -824,10 +1070,6 @@ def test_dryrun_case_matches_jax(spawned, world: int, name: str) -> None:
             "it needs --device cuda",
             "dp_orbax": "no error",  # --dp with --fsdp and --orbax: every rank's shard in the committed step
             "flash_mesh": "ValueError: DiT(mesh=...) with attention='flash' needs a 'tp' mesh axis",
-            **dict.fromkeys(
-                ("grad_ring", "grad_ulysses", "grad_dit"),
-                "NotImplementedError: a gradient through sequence-parallel attention",
-            ),
         }[case["what"]]
         assert all(message.startswith(expected) for message in outs), outs
         return
@@ -863,6 +1105,85 @@ def _check(case: dict, world: int, outs: list) -> None:
         assert mine.shape == theirs.shape
         assert np.abs(theirs).max() > 0.1  # random weights and inputs: the comparison is not vacuous
         np.testing.assert_allclose(mine, theirs, rtol=rtol, atol=atol)
+
+
+# rtol / atol of the pipeline, gradient and expert cases: the JAX package's own tests' for the pipeline
+# (tests/test_parallel.py: forward 1e-5 / 1e-6, gradients 1e-5 / 1e-7 with the loss at 1e-6, the pipelined
+# models 1e-5 / 1e-5 and 2e-5 at pp x dp) and the experts (1e-5 / 1e-6); the gradients through the
+# sequence-parallel collectives as the forwards' ("ring" above), and the models' as the dp training step's
+# (TRAIN_RTOL, atol TRAIN_RTOL x the leaf's largest magnitude)
+SLICE_TOLERANCES = {
+    "pipe": (1e-5, 1e-6), "pp_dit": (1e-5, 1e-5), "pp_mmdit": (1e-5, 1e-5), "grad": TOLERANCES["ring"],
+    "grad_model": (TRAIN_RTOL, None), "moe": (1e-5, 1e-6),
+}
+
+
+def _check_slice(case: dict, world: int, outs: list) -> None:
+    """A pipeline, gradient or expert case's ranks against the JAX package's result (``_want_slice``)."""
+    kind = case["kind"]
+    want = _want(case, world)
+    rtol, atol = SLICE_TOLERANCES[kind]
+    if kind == "pipe":
+        for o in outs[1:]:  # the stage ranks return the same outputs (broadcast) and whole gradients
+            assert all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(o, outs[0]))
+        got = outs[0]
+        if case["mode"] in ("grad", "train"):
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+            for mine, theirs in zip(got[1:], want[1:]):
+                np.testing.assert_allclose(mine, theirs, rtol=1e-5, atol=1e-7)
+            return
+        for mine, theirs in zip(got, want):
+            np.testing.assert_allclose(mine, theirs, rtol=rtol, atol=atol)
+        return
+    if kind in ("pp_dit", "pp_mmdit"):
+        for o in outs[1:]:
+            assert np.array_equal(o, outs[0])
+        theirs = want[2] if kind == "pp_dit" else want
+        if case["mesh"][0] > 1:
+            rtol = 2e-5  # tests/test_parallel.py:772's pp x dp tolerance
+        assert np.abs(theirs).max() > 0.1
+        np.testing.assert_allclose(outs[0], theirs, rtol=rtol, atol=atol)
+        return
+    if kind == "moe":
+        for sharded, single in outs:  # ep-sharded == single on every rank, bit for bit
+            assert np.array_equal(sharded, single)
+            np.testing.assert_allclose(single, want, rtol=rtol, atol=atol)
+        assert np.abs(want).max() > 0.1
+        return
+    if kind == "grad":
+        dims = {"reshard": (2, 1), "joint_sp": (1, 1)}.get(case["op"], (2, 2))  # outputs', inputs' token dims
+        got_out = [np.concatenate([o[0][i] for o in outs], axis=dims[0]) for i in range(len(want[0]))]
+        got_grad = [np.concatenate([o[1][i] for o in outs], axis=dims[1]) for i in range(len(want[1]))]
+        for mine, theirs in zip(got_out + got_grad, want[0] + want[1]):
+            assert mine.shape == theirs.shape and np.abs(theirs).max() > 0.1
+            if case["op"] == "reshard":  # data movement: exact
+                assert np.array_equal(mine, theirs)
+            else:
+                np.testing.assert_allclose(mine, theirs, rtol=rtol, atol=atol)
+        return
+    loss, grads = outs[0]  # grad_model: the summed gradients are the same on every rank
+    for o in outs[1:]:
+        assert o[0] == loss and all(np.array_equal(g, grads[k]) for k, g in o[1].items())
+    np.testing.assert_allclose(loss, want[0], rtol=rtol)
+    assert grads.keys() == want[1].keys()
+    for path, g in want[1].items():
+        np.testing.assert_allclose(grads[path], g, rtol=rtol, atol=rtol * float(np.abs(g).max()), err_msg=path)
+
+
+@pytest.mark.parametrize("name", ["pipe-train", "pp_dit-dp"])
+def test_pp_dp_matches_jax(spawned, name: str) -> None:
+    """On a ``(dp 2, pp 2)`` mesh of the 4-rank world: a training step through the stage hops (each ``dp``
+    index runs its own pipeline on its items, the gradients averaged over ``dp``; tests/test_parallel.py:733)
+    and the pipelined DiT (:772), against the JAX package's sequential stages and its ``apply``."""
+    _check_slice(_cases(4)[name], 4, spawned(4)[name])
+
+
+def test_dp_sp_train_step_matches_jax(spawned) -> None:
+    """``training.train_step`` of a ring DiT on a ``(dp 2, sp 2)`` mesh of the 4-rank world: each ``dp``
+    index takes its half of the batch over its own ``sp`` pair, and the step sums the gradients over ``sp``,
+    then averages them over ``dp``.  Its loss and gradients against ``jax.value_and_grad`` of the JAX
+    full-attention DiT's loss on the whole batch (``SLICE_TOLERANCES["grad_model"]``)."""
+    _check_slice(_cases(4)["grad_dit-dp_ring"], 4, spawned(4)["grad_dit-dp_ring"])
 
 
 def _check_fsdp(case: dict, world: int, outs: list, replicated: list) -> None:
@@ -1089,6 +1410,116 @@ def test_fsdp_kill_and_resume_equals_the_uninterrupted_run(spawned) -> None:
         a, b = (torch.load(f"{store}/{d}/4/state-{rank}.pt", weights_only=True) for d in ("a", "b"))
         assert _tree_equal(a, b), rank
         assert a["step"] == 4 and any(getattr(p, "ndim", 0) == 1 for p in a["params"].values())
+
+
+def _whole(parts: list[np.ndarray], like: np.ndarray) -> np.ndarray:
+    """One tensor of a train state from the ``dp`` ranks' values, shaped as ``like`` holds it whole: a
+    replicated value (every rank's alike) as it is, an FSDP part's (flat parts, or the 8-bit moments'
+    blocks) concatenated in rank order."""
+    if parts[0].shape == like.shape:
+        assert all(np.array_equal(p, parts[0]) for p in parts)
+        return parts[0]
+    return np.concatenate(parts).reshape(like.shape)
+
+
+def _assert_state_is_joined(whole: dict, ranks: list[dict]) -> None:
+    """``whole`` (a one-rank train state: ``params``, ``ema``, ``opt`` by parameter name) is bit for bit
+    the ``dp`` ranks' states (each by the names and optimizer order of its ``layout``) joined."""
+    strip = lambda n: n.replace(".parametrizations.", ".").removesuffix(".original")  # noqa: E731
+    for key in ("params", "ema"):
+        names = {strip(n): n for n in ranks[0][key]}
+        assert names.keys() == whole[key].keys(), key
+        for name, value in whole[key].items():
+            assert np.array_equal(value, _whole([r[key][names[name]] for r in ranks], value)), (key, name)
+    for name, fields in whole["opt"].items():
+        index = ranks[0]["layout"]["order"].index(name)
+        for field, value in fields.items():
+            parts = [np.asarray(r["opt"][index][field]) for r in ranks]
+            assert np.array_equal(_whole(parts, np.asarray(value)), np.asarray(value)), (name, field)
+    assert whole["count"] == ranks[0]["count"]
+
+
+def _one_rank_state(argv: list[str], directory: str) -> dict:
+    """The DiT trainer set up by ``argv`` in this process at dp 1, restored from the latest step in
+    ``directory`` as ``main`` restores it: its parameters, EMA and optimizer state by parameter name,
+    and AdamW8bit's count (None under AdamW), as numpy."""
+    from skrample_tpu_torch import training
+    from skrample_tpu_torch.models.checkpoint import TrainCheckpointer
+
+    args = training.parser().parse_args(argv)
+    _model, trained, opt, ema = training.build_trainer(args, torch.device("cpu"), None)
+    layout = training.train_layout(trained, opt, None)
+    training._restore(training.restore_train_state(TrainCheckpointer(directory), layout, trained, opt, None), trained, opt, ema)
+    state = opt.state_dict()["state"]
+    return {
+        "params": {n: p.detach().numpy() for n, p in trained.named_parameters()},
+        "ema": {n: t.numpy() for n, t in ema.items()},
+        "opt": {layout["order"][i]: {f: t.numpy() for f, t in v.items()} for i, v in state.items() if isinstance(i, int)},
+        "count": int(state["count"]) if "count" in state else None,
+    }
+
+
+def _rank_states(directory: str, step: int) -> list[dict]:
+    "Every rank's saved train state of ``step`` as numpy, with the step's layout record."
+    from skrample_tpu_torch.models.checkpoint import TrainCheckpointer
+
+    ckpt = TrainCheckpointer(directory)
+    layout = ckpt.layout(step)
+    out = []
+    for saved in ckpt.restore_ranks(step):
+        state = saved["opt_state"]["state"]
+        out.append({
+            "params": {n: t.numpy() for n, t in saved["params"].items()}, "ema": {n: t.numpy() for n, t in saved["ema"].items()},
+            "opt": {i: {f: t.numpy() for f, t in v.items()} for i, v in state.items() if isinstance(i, int)},
+            "count": int(state["count"]) if "count" in state else None, "layout": layout,
+        })
+    return out
+
+
+@pytest.mark.parametrize("opt", ["adamw", "opt8"])
+def test_fsdp_state_resumes_in_one_rank(spawned, tmp_path, opt: str) -> None:
+    """ROADMAP C17: a train state committed by ``--dp 2 --fsdp`` (AdamW, 2 steps; ``--opt8``, 4 steps)
+    resumes in one rank: the parameters, EMA and optimizer state restored (AdamW's moments, or
+    AdamW8bit's codes, scales and count) are bit for bit the two ranks' parts joined.  A run without
+    ``--resume`` over that step refuses, as the JAX example does; a resumed run's save at ``--dp 1``
+    leaves the ``--dp 2`` step in place."""
+    from skrample_tpu_torch import training
+    from skrample_tpu_torch.models.checkpoint import TrainCheckpointer
+
+    out = spawned("resume")
+    source, step = (f"{out['dir']}/a", 4) if opt == "opt8" else (f"{out['dir']}/c", 2)
+    if opt == "adamw":
+        assert spawned("resume_adamw") == [0, 0]
+    directory = str(tmp_path / "ck")
+    shutil.copytree(source, directory)
+    argv = LAYOUT_ARGV[opt]
+    _assert_state_is_joined(_one_rank_state(argv, directory), _rank_states(directory, step))
+    with pytest.raises(SystemExit):  # argparse's error: a committed step and no --resume
+        training.main([*argv, "--steps", "1", "--orbax", directory])
+    assert training.main([*argv, "--until", str(step + 1), "--resume", "--orbax", directory]) == 0
+    ckpt = TrainCheckpointer(directory)
+    assert ckpt.all_steps() == [step, step + 1]
+    assert ckpt.layout(step)["world"] == 2 and ckpt.layout(step + 1)["world"] == 1
+
+
+def _check_resume_layout(case: dict, outs: list) -> None:
+    """ROADMAP C17, the reverse of ``test_fsdp_state_resumes_in_one_rank``: a train state committed in one
+    rank (2 steps, AdamW or ``--opt8``) resumes at ``--dp`` = the world with ``--fsdp``: the ranks'
+    restored parts, joined, are the one-rank state bit for bit (each rank's part its chunk of it)."""
+    from skrample_tpu_torch.models.checkpoint import TrainCheckpointer
+
+    assert all(r["step"] == 2 for r in outs)
+    ckpt = TrainCheckpointer(case["dir"])
+    saved, order = ckpt.restore(2), ckpt.layout(2)["order"]
+    state = saved["opt_state"]["state"]
+    whole = {
+        "params": {n: t.numpy() for n, t in saved["params"].items()}, "ema": {n: t.numpy() for n, t in saved["ema"].items()},
+        "opt": {order[i]: {f: t.numpy() for f, t in v.items()} for i, v in state.items() if isinstance(i, int)},
+        "count": int(state["count"]) if "count" in state else None,
+    }
+    for r in outs:
+        r["count"] = int(r["opt"]["count"]) if "count" in r["opt"] else None
+    _assert_state_is_joined(whole, outs)
 
 
 def _tree_equal(a, b) -> bool:
